@@ -1,0 +1,444 @@
+"""Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (an H100: the kernels are built for sm_90a) and nvcc;
+exits non-zero without them.  Phases, each raising on failure:
+
+1. device: the card's name and power limit, torch and CUDA versions;
+2. build: every kernel under ``paddle_tpu_torch/ops/csrc/`` compiled with
+   nvcc from the checkout, with the build seconds and ptxas's report;
+3. parity: each kernel against its plain PyTorch version on the card, in
+   f32 and bf16, at Llama-2-7B serving shapes and at the GQA attention of
+   Llama-2-70B, with the kernel's, plain version's and library call's times
+   and the least time the card could take for the same bytes and operations;
+4. end to end: Llama-2-7B at full width and depth, bf16 weights from a
+   seeded generator, through ``Predictor.generate_batch`` on ragged prompts
+   and ``generate`` on an unpadded batch; launch counts are reset before
+   and read after each path and must match the kernels' share of the path;
+   prefill and first-step logits agree with the same model run with the
+   four kernel flags off (at full width and 2 layers within 2e-2; at full
+   depth, no further from an f32 reference than the plain bf16 path is);
+   tokens/s of prefill and decode; device time by kernel and the device's
+   idle share from ``torch.profiler``.
+
+The last lines are the ``kernels`` JSON line, the card line, and
+``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
+non-zero before the last line.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
+F32_FLOPS = 67e12              # f32 outside the tensor cores
+TOL = {"float32": dict(rtol=2e-5, atol=1e-6),       # tests/op_test.py f32 row
+       "float32_attn": dict(rtol=1e-4, atol=1e-5),  # f32 row, loosened for
+                                                    # the attention reductions
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}      # op_test.py bf16 row
+LOGITS_REL_TOL = 2e-2          # bf16 relative L2 error, kernel vs plain logits
+DEPTH_REL_MARGIN = 1.2         # full depth: kernel error to f32 <= 1.2x plain's
+PROMPT_LENS = (37, 100, 250, 511)
+MAX_NEW = 32
+BATCH = 8
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound_ms(nbytes: float, ops: float, peak_ops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_ms(torch, fn, iters: int = 20, repeats: int = 5) -> float:
+    """Median over ``repeats`` of the mean device time of ``iters`` calls
+    between CUDA events, after a warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[repeats // 2]
+
+
+def check_close(torch, name, got, want, tol) -> float:
+    err = (got.float() - want.float()).abs()
+    err = float(err[torch.isfinite(err)].max()) if err.numel() else 0.0
+    torch.testing.assert_close(got.float(), want.float(), **tol, msg=lambda m: f"{name}: {m}")
+    return err
+
+
+def phase_device(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(f"card: {smi}")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
+        f"{sys.version.split()[0]}, device 0: {torch.cuda.get_device_name(0)}")
+    return smi
+
+
+def phase_build():
+    from paddle_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    logs = _build.build()
+    log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'nothing (current)'}")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+
+def pad_lens_of_main_path():
+    """generate_batch's left padding for PROMPT_LENS: one bucket of 512
+    rows, filled up to BATCH with copies of the first row."""
+    pads = [512 - n for n in PROMPT_LENS]
+    return pads + [pads[0]] * (BATCH - len(pads))
+
+
+def phase_parity(torch):
+    from paddle_tpu_torch.models.llama import _rope_tables
+    from paddle_tpu_torch.ops.decode_attention import (decode_attention,
+                                                       decode_attention_plain)
+    from paddle_tpu_torch.ops.flash_attention import (flash_attention_fwd,
+                                                      flash_attention_plain)
+    from paddle_tpu_torch.ops.fused_norm import fused_rms_norm, rms_norm_plain
+    from paddle_tpu_torch.ops.rope import fused_rope, rope_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    pads = torch.tensor(pad_lens_of_main_path(), dtype=torch.int32, device=dev)
+    s, h, d, hidden = 512, 32, 128, 4096
+    rows = {}
+
+    # B1 rms_norm at the prefill rows of the main path
+    for dtype in (torch.float32, torch.bfloat16):
+        x = randn(BATCH * s, hidden, dtype=dtype)
+        w = (1 + 0.1 * randn(hidden, dtype=torch.float32)).to(dtype)
+        (out, rstd), (pout, prstd) = fused_rms_norm(x, w, 1e-5), rms_norm_plain(x, w, 1e-5)
+        tol = TOL[str(dtype).split(".")[1]]
+        err = check_close(torch, "rms_norm", out, pout, tol)
+        check_close(torch, "rms_norm rstd", rstd, prstd, TOL["float32"])
+        log(f"parity rms_norm {dtype} x{list(x.shape)}: max_abs_err {err:.3g}")
+    es = x.element_size()
+    b_ms, b_by = bound_ms(2 * x.numel() * es + w.numel() * es + x.shape[0] * 4,
+                          4 * x.numel(), F32_FLOPS)
+    rows["rms_norm"] = dict(
+        max_abs_err=err, ms=time_ms(torch, lambda: fused_rms_norm(x, w, 1e-5)),
+        plain_ms=time_ms(torch, lambda: rms_norm_plain(x, w, 1e-5)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: torch.nn.functional.rms_norm(
+            x, (hidden,), w, 1e-5)))
+
+    # B2 rope with the main path's per-row offsets
+    cos, sin = (t.to(dev) for t in _rope_tables(d, 4096, 10000.0))
+    pos_ids = (torch.arange(s, device=dev, dtype=torch.int32)[None, :]
+               - pads[:, None]).contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k = randn(BATCH, s, h, d, dtype=dtype), randn(BATCH, s, h, d, dtype=dtype)
+        (oq, ok), (pq, pk) = fused_rope(q, k, cos, sin, pos_ids), rope_plain(q, k, cos, sin, pos_ids)
+        tol = TOL[str(dtype).split(".")[1]]
+        err = max(check_close(torch, "rope q", oq, pq, tol),
+                  check_close(torch, "rope k", ok, pk, tol))
+        log(f"parity rope {dtype} q{list(q.shape)}: max_abs_err {err:.3g}")
+    rows_used = int(pos_ids.clamp(min=0).unique().numel())
+    b_ms, b_by = bound_ms(2 * (q.numel() + k.numel()) * q.element_size()
+                          + pos_ids.numel() * 4 + 2 * rows_used * d * 4,
+                          3 * (q.numel() + k.numel()), F32_FLOPS)
+    rows["rope"] = dict(
+        max_abs_err=err, ms=time_ms(torch, lambda: fused_rope(q, k, cos, sin, pos_ids)),
+        plain_ms=time_ms(torch, lambda: rope_plain(q, k, cos, sin, pos_ids)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    # B3 flash attention: varlen (main path), unpadded causal, 70B GQA
+    cases = [("varlen 7B", BATCH, s, h, h, d, pads), ("causal 7B", BATCH, s, h, h, d, None),
+             ("varlen 70B GQA", 2, s, 64, 8, d, pads[:2]),
+             ("causal 70B GQA", 2, s, 64, 8, d, None),
+             # ragged query tiles and head_dims off the 16-column fragments
+             ("varlen d72 s300", 2, 300, 4, 2, 72, (pads[2:4] // 4).contiguous()),
+             ("causal d256 s200", 1, 200, 2, 1, 256, None)]
+    for label, b, sq, hq, hkv, hd, pl in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn(b, sq, hq, hd, dtype=dtype)
+            k, v = randn(b, sq, hkv, hd, dtype=dtype), randn(b, sq, hkv, hd, dtype=dtype)
+            (out, lse), (pout, plse) = (flash_attention_fwd(q, k, v, True, pl),
+                                        flash_attention_plain(q, k, v, True, pl))
+            tol = TOL["float32_attn" if dtype == torch.float32 else "bfloat16"]
+            err = check_close(torch, f"flash {label}", out, pout, tol)
+            check_close(torch, f"flash lse {label}", lse, plse, TOL["float32_attn"])
+            log(f"parity flash {label} {dtype} q{list(q.shape)} kv{hkv}: max_abs_err {err:.3g}")
+            if label == "varlen 7B" and dtype == torch.bfloat16:
+                main = (q, k, v, err)
+    q, k, v, err = main
+    n_valid = s - pads.long()
+    pairs = int((n_valid * (n_valid + 1) // 2).sum())
+    b_ms, b_by = bound_ms(4 * q.numel() * q.element_size() + BATCH * h * s * 4,
+                          4 * d * h * pairs, BF16_FLOPS)
+    keep = (torch.ones(s, s, dtype=torch.bool, device=dev).tril()[None, None]
+            & (torch.arange(s, device=dev) >= pads[:, None, None, None]))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rows["flash_attention"] = dict(
+        max_abs_err=err, ms=time_ms(torch, lambda: flash_attention_fwd(q, k, v, True, pads)),
+        plain_ms=time_ms(torch, lambda: flash_attention_plain(q, k, v, True, pads)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=keep)))
+
+    # B6 decode attention: main path mid-decode, pad >= pos rows, 70B GQA
+    C = 544
+    cases = [("7B", BATCH, h, h, 512 + MAX_NEW // 2, pads),
+             ("7B pad>=pos", BATCH, h, h, 300, pads),
+             ("70B GQA", BATCH, 64, 8, 512 + MAX_NEW // 2, pads)]
+    for label, b, hq, hkv, pos, pl in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn(b, 1, hq, d, dtype=dtype)
+            kn, vn = randn(b, 1, hkv, d, dtype=dtype), randn(b, 1, hkv, d, dtype=dtype)
+            ck, cv = randn(b, C, hkv, d, dtype=dtype), randn(b, C, hkv, d, dtype=dtype)
+            kk, kvv, pk, pv = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+            out = decode_attention(q, kn, vn, kk, kvv, pos, pl)[0]
+            pout = decode_attention_plain(q, kn, vn, pk, pv, pos, pl)
+            tol = TOL["float32_attn" if dtype == torch.float32 else "bfloat16"]
+            err = check_close(torch, f"decode {label}", out, pout, tol)
+            if not (torch.equal(kk, pk) and torch.equal(kvv, pv)
+                    and torch.equal(kk[:, pos], kn[:, 0]) and torch.equal(kvv[:, pos], vn[:, 0])
+                    and torch.equal(kk[:, :pos], ck[:, :pos]) and torch.equal(kk[:, pos + 1:], ck[:, pos + 1:])
+                    and torch.equal(kvv[:, :pos], cv[:, :pos]) and torch.equal(kvv[:, pos + 1:], cv[:, pos + 1:])):
+                raise AssertionError(f"decode {label} {dtype}: in-place append wrote "
+                                     f"other than row {pos}, or the wrong values")
+            log(f"parity decode {label} {dtype} q{list(q.shape)} cache{list(ck.shape)} "
+                f"pos {pos}: max_abs_err {err:.3g}, append exact")
+            if label == "7B" and dtype == torch.bfloat16:
+                main = (q, kn, vn, kk, kvv, pos, err)
+    q, kn, vn, kk, kvv, pos, err = main
+    cols = int(((pos - pads.long()).clamp(min=0) + 1).sum())  # + the new token
+    es = q.element_size()
+    b_ms, b_by = bound_ms(2 * (cols - BATCH) * h * d * es + 2 * q.numel() * es
+                          + 4 * kn.numel() * es, 4 * h * d * cols, BF16_FLOPS)
+    keep = (torch.arange(pos + 1, device=dev) >= pads[:, None, None, None]) | \
+        (torch.arange(pos + 1, device=dev) == pos)
+    qt, kt, vt = q.transpose(1, 2), kk[:, :pos + 1].transpose(1, 2), kvv[:, :pos + 1].transpose(1, 2)
+    rows["decode_attention"] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: decode_attention(q, kn, vn, kk, kvv, pos, pads)),
+        plain_ms=time_ms(torch, lambda: decode_attention_plain(q, kn, vn, kk, kvv, pos, pads)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=keep)))
+    for name, r in rows.items():
+        log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
+def phase_e2e(torch, card):
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.inference import Predictor
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    dev = torch.device("cuda")
+    cfg = llama2_7b()
+    L, T = cfg.num_hidden_layers, MAX_NEW
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0).eval()
+    torch.cuda.synchronize()
+    log(f"e2e: llama2_7b {model.num_params() / 1e9:.2f} B params bf16 on {card}, "
+        f"made in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in PROMPT_LENS]
+    ids_b = rng.integers(1, cfg.vocab_size, (BATCH, 512)).astype(np.int32)
+    want = {"rms_norm": (2 * L + 1) * T, "rope": L * T, "flash_attention": L,
+            "decode_attention": L * (T - 1)}
+    pred = Predictor.from_model(model)
+
+    def counted(label, fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t
+        counts = dict(LAUNCHES)
+        log(f"e2e {label}: {took:.2f} s, launches {counts}")
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts}, one generate call "
+                                 f"of {L} layers and {T} tokens launches {want}")
+        return result, counts
+
+    # (a) the serving entry point on ragged prompts (one bucket of 512)
+    outs, launches = counted("generate_batch", lambda: pred.generate_batch(
+        prompts, max_batch=BATCH, max_new_tokens=T))
+    for (ids, scores), n in zip(outs, PROMPT_LENS):
+        if ids.shape != (T,) or not np.isfinite(scores).all() or (scores > 0).any() \
+                or ids.min() < 0 or ids.max() >= cfg.vocab_size:
+            raise AssertionError(f"generate_batch prompt of {n}: bad output {ids} {scores}")
+    # (b) generate on an unpadded batch
+    (ids, scores), _ = counted("generate", lambda: model.generate(ids_b, max_new_tokens=T))
+    if tuple(ids.shape) != (BATCH, T) or not torch.isfinite(scores).all():
+        raise AssertionError("generate: bad output")
+
+    # kernels against the plain versions end to end: prefill and first-step
+    # logits with the four kernel flags off, and the greedy tokens
+    off = dict(use_fused_rms_norm=False, use_fused_rope=False,
+               use_flash_attention=False, use_decode_attention=False)
+    pads = torch.tensor(pad_lens_of_main_path(), dtype=torch.int32, device=dev)
+    rows_a = np.stack([np.concatenate([np.zeros(512 - len(p), np.int32), p])
+                       for p in prompts + [prompts[0]] * (BATCH - len(prompts))])
+    inputs = (("generate_batch", rows_a, pads), ("generate", ids_b, None))
+
+    def first_logits(m, rows, pad_lens, tok=None, flags=None):
+        rows = torch.as_tensor(rows, device=dev).long()
+        caches = m.new_kv_cache(rows.shape[0], 512 + T)
+        with torch.inference_mode(), ptt.flag_guard(**(flags or {})):
+            logits, _ = m(rows, kv_cache=caches, position_offset=0, pad_lens=pad_lens)
+            last = logits[:, -1].float()
+            tok = last.argmax(-1) if tok is None else tok
+            step, _ = m(tok[:, None], kv_cache=caches, position_offset=512,
+                        pad_lens=pad_lens)
+        return last, step[:, -1].float(), tok
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    # (i) at full width and 2 layers, where bf16 rounding has not yet been
+    # amplified by depth: kernels within LOGITS_REL_TOL of the plain path
+    shallow = LlamaForCausalLM(llama2_7b(num_hidden_layers=2), device=dev,
+                               dtype=torch.bfloat16, seed=0).eval()
+    for label, rows, pl in inputs:
+        on = first_logits(shallow, rows, pl)
+        plain = first_logits(shallow, rows, pl, on[2], off)
+        for what, i in (("prefill", 0), ("first step", 1)):
+            r = rel(on[i], plain[i])
+            log(f"e2e logits 2-layer {label} {what}: relative error kernels vs plain {r:.4g}")
+            if not r <= LOGITS_REL_TOL:
+                raise AssertionError(f"{label} {what} logits: relative error {r} "
+                                     f"> {LOGITS_REL_TOL}")
+    del shallow
+    # (ii) at full depth, two bf16 paths drift apart as rounding differences
+    # grow layer by layer; the kernel path must stay as close to an f32
+    # reference (the same weights, plain path) as the plain bf16 path is
+    ref = copy.deepcopy(model).float()
+    for label, rows, pl in inputs:
+        on = first_logits(model, rows, pl)
+        plain = first_logits(model, rows, pl, on[2], off)
+        f32 = first_logits(ref, rows, pl, on[2], off)
+        for what, i in (("prefill", 0), ("first step", 1)):
+            rk, rp, rkp = rel(on[i], f32[i]), rel(plain[i], f32[i]), rel(on[i], plain[i])
+            log(f"e2e logits {L}-layer {label} {what}: relative error to f32 kernels "
+                f"{rk:.4g}, plain {rp:.4g}; kernels vs plain {rkp:.4g}")
+            if not rk <= DEPTH_REL_MARGIN * rp:
+                raise AssertionError(f"{label} {what}: kernels {rk} from the f32 "
+                                     f"reference, plain bf16 path {rp}")
+    del ref
+    torch.cuda.empty_cache()
+    with ptt.flag_guard(**off):
+        plain_outs = pred.generate_batch(prompts, max_batch=BATCH, max_new_tokens=T)
+    same = np.mean([np.mean(a[0] == p[0]) for a, p in zip(outs, plain_outs)])
+    log(f"e2e greedy tokens identical to the plain path: {same:.4f} of {len(prompts) * T}")
+
+    # throughput of generate on the unpadded batch (warm)
+    def timed(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.generate(ids_b, max_new_tokens=n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    t1 = min(timed(1) for _ in range(2))
+    tn = min(timed(T) for _ in range(2))
+    log(f"e2e throughput on {card}: prefill {BATCH * 512 / t1:.1f} tokens/s "
+        f"({t1 * 1e3:.1f} ms for {BATCH}x512), decode {BATCH * (T - 1) / (tn - t1):.1f} "
+        f"tokens/s ({(tn - t1) / (T - 1) * 1e3:.2f} ms a step at batch {BATCH})")
+    phase_profile(torch, lambda n: model.generate(ids_b, max_new_tokens=n), T)
+    return launches
+
+
+def phase_profile(torch, generate, T):
+    """Where the time goes: device time by kernel, and the device's idle
+    share, for prefill (a 1-token generate) and per decode step (the
+    difference to a T-token one), from ``torch.profiler`` on the card.  The
+    profiler's own host cost inflates the wall times and so the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = {}
+    for n in (1, T):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            generate(n)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        kernels = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA}
+        runs[n] = (wall, kernels)
+    (w1, k1), (wn, kn) = runs[1], runs[T]
+    step = {name: (kn[name] - k1.get(name, 0.0)) / (T - 1) for name in kn}
+    for label, wall, busy in (("prefill", w1, k1), ("decode step", (wn - w1) / (T - 1), step)):
+        total = sum(busy.values())
+        top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+        log(f"profile {label}: wall {wall:.2f} ms (profiled), device busy {total:.2f} ms, "
+            f"idle share {1 - total / wall:.3f}; top kernels (ms): "
+            + "; ".join(f"{name[:48]} {ms:.3f}" for name, ms in top))
+
+
+SOURCES = {
+    "rms_norm": ("paddle_tpu_torch/ops/csrc/rms_norm.cu", "paddle_tpu/ops/pallas/fused_norm.py:88"),
+    "rope": ("paddle_tpu_torch/ops/csrc/rope.cu", "paddle_tpu/ops/pallas/rope.py:47"),
+    "flash_attention": ("paddle_tpu_torch/ops/csrc/flash_attention.cu",
+                        "paddle_tpu/ops/pallas/flash_attention.py:181"),
+    "decode_attention": ("paddle_tpu_torch/ops/csrc/decode_attention.cu",
+                         "paddle_tpu/ops/pallas/decode_attention.py:172"),
+}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = phase_device(torch)
+    phase_build()
+    rows = phase_parity(torch)
+    launches = phase_e2e(torch, card)
+    kernels = []
+    for name, (src, replaces) in SOURCES.items():
+        if launches[name] == 0:
+            raise AssertionError(f"{name}: never launched on the main path")
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+                            launches=launches[name], **rows[name]))
+    print(json.dumps({"kernels": kernels}))
+    print(f"card (name, power limit): {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

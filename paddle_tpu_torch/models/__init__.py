@@ -1,0 +1,4 @@
+"""Model families of the port."""
+
+from .llama import (LlamaConfig, LlamaForCausalLM, LlamaModel,  # noqa: F401
+                    llama2_7b, llama2_13b, llama2_70b, llama_tiny)

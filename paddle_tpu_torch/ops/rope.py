@@ -1,0 +1,78 @@
+"""Rotary position embedding forward: the hand kernel B2 (``csrc/rope.cu``)
+and its plain PyTorch twin.
+
+Replaces the reference's ``ops/pallas/rope.py`` forward (``fused_rope`` →
+``_rope_raw`` → ``_rope_kernel``).  Unlike the TPU kernel, which takes
+tables already sliced to the sequence, both versions take each token's
+position ``pos_ids [b, s]`` and the full ``[max_pos, d]`` tables, so one
+function serves prefill, decode steps and left-padded rows.  The backward
+(the same rotation with -sin) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import LAUNCHES, _build
+
+__all__ = ["rope_plain", "fused_rope"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_longlong,) + (ctypes.c_int,) * 5
+
+
+def _rotate_half(v: torch.Tensor) -> torch.Tensor:
+    half = v.shape[-1] // 2
+    return torch.cat([-v[..., half:], v[..., :half]], dim=-1)
+
+
+def rope_plain(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor, pos_ids: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q [b, s, hq, d], k [b, s, hk, d], cos/sin [max_pos, d], pos_ids
+    [b, s] (clipped into the table) → rotated (q, k), in f32, cast back."""
+    p = pos_ids.long().clamp(0, cos.shape[0] - 1)
+    c = cos.float()[p][:, :, None, :]
+    s = sin.float()[p][:, :, None, :]
+    qf, kf = q.float(), k.float()
+    return ((qf * c + _rotate_half(qf) * s).to(q.dtype),
+            (kf * c + _rotate_half(kf) * s).to(k.dtype))
+
+
+def fused_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor, pos_ids: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    if not q.is_cuda:
+        return rope_plain(q, k, cos, sin, pos_ids)
+    b, s, hq, d = q.shape
+    if q.dtype not in _DTYPES or k.dtype != q.dtype:
+        raise TypeError(f"rope kernel takes f32 or bf16 q and k of one dtype, "
+                        f"got {q.dtype} and {k.dtype}")
+    if k.dim() != 4 or k.shape[:2] != (b, s) or k.shape[3] != d or d % 2:
+        raise ValueError(f"rope kernel: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} must be [b, s, h, d], d even")
+    if cos.dtype != torch.float32 or sin.dtype != torch.float32 or \
+            cos.shape != sin.shape or cos.dim() != 2 or cos.shape[1] != d:
+        raise ValueError(f"rope kernel: cos/sin must be f32 [max_pos, {d}]")
+    if pos_ids.dtype != torch.int32 or pos_ids.shape != (b, s):
+        raise ValueError(f"rope kernel: pos_ids must be int32 [{b}, {s}]")
+    tensors = (q, k, cos, sin, pos_ids)
+    if any(t.device != q.device for t in tensors) or \
+            not all(t.is_contiguous() for t in tensors):
+        raise ValueError("rope kernel takes contiguous tensors on one device")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
+        raise NotImplementedError(
+            "the rope backward is not ported yet; run the forward under "
+            "torch.no_grad()")
+    q_out, k_out = torch.empty_like(q), torch.empty_like(k)
+    _build.launch("rope", "ptt_rope_fwd", _ARGTYPES, q.device,
+                  _build.ptr(q), _build.ptr(k), _build.ptr(pos_ids),
+                  _build.ptr(cos), _build.ptr(sin), _build.ptr(q_out),
+                  _build.ptr(k_out), b * s, hq, k.shape[2], d, cos.shape[0],
+                  _DTYPES[q.dtype])
+    LAUNCHES["rope"] += 1
+    return q_out, k_out
