@@ -20,7 +20,22 @@ exits non-zero without them.  Phases, each raising on failure:
    four kernel flags off (at full width and 2 layers within 2e-2; at full
    depth, no further from an f32 reference than the plain bf16 path is);
    tokens/s of prefill and decode; device time by kernel and the device's
-   idle share from ``torch.profiler``.
+   idle share from ``torch.profiler``;
+5. backward parity (run after 3): each backward kernel (RMSNorm, RoPE by
+   -theta, flash dq and dk/dv) against its plain backward, in f32 and
+   bf16, at the training shapes (x [8192, 4096]; q, k [4, 2048, 32, 128]),
+   at Llama-2-70B's GQA attention and at off-size attention shapes, timed
+   as in 3 (the library call is the backward of ``F.rms_norm`` and of
+   SDPA);
+6. training (after 4, with the serving model freed): Llama-2-7B width,
+   AMP O2 bf16, ``AdamW(1e-4)`` with ``ClipGradByGlobalNorm(1.0)``; at 2
+   layers the kernels' loss and grads agree with the plain path's (2e-2,
+   unless the plain grad is the farther from an f32 reference); at 8
+   layers every kernel grad is no further from the f32 reference than
+   1.2x the plain bf16 grad; then ``TrainStep`` at 8 layers on one 4 x
+   2048 batch, 3 warm-up and 10 counted steps: finite, falling losses,
+   each kernel launched as often as the path needs, tokens/s, MFU, peak
+   memory and a profile of one step.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
@@ -38,15 +53,24 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 F32_FLOPS = 67e12              # f32 outside the tensor cores
+F32_EPS = 2.0 ** -23
 TOL = {"float32": dict(rtol=2e-5, atol=1e-6),       # tests/op_test.py f32 row
        "float32_attn": dict(rtol=1e-4, atol=1e-5),  # f32 row, loosened for
                                                     # the attention reductions
+       # dK and dV sum over every query row of the head group (8 x 2048
+       # terms at 70B GQA) in another order than the plain einsums
+       "float32_attn_bwd": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}      # op_test.py bf16 row
 LOGITS_REL_TOL = 2e-2          # bf16 relative L2 error, kernel vs plain logits
 DEPTH_REL_MARGIN = 1.2         # full depth: kernel error to f32 <= 1.2x plain's
 PROMPT_LENS = (37, 100, 250, 511)
 MAX_NEW = 32
 BATCH = 8
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048   # the training step's batch (bench.py's)
+TRAIN_LAYERS = 8                   # Llama-2-7B width; depth cut for memory
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+OFF_FLAGS = dict(use_fused_rms_norm=False, use_fused_rope=False,
+                 use_flash_attention=False, use_decode_attention=False)
 
 
 def log(msg: str) -> None:
@@ -82,6 +106,24 @@ def check_close(torch, name, got, want, tol) -> float:
     err = float(err[torch.isfinite(err)].max()) if err.numel() else 0.0
     torch.testing.assert_close(got.float(), want.float(), **tol, msg=lambda m: f"{name}: {m}")
     return err
+
+
+def check_sum_close(torch, name, got, want, abs_terms) -> float:
+    """``got`` against ``want`` where each element is a sum whose terms'
+    absolute values sum to ``abs_terms``: in f32 the order of a long sum
+    moves it by up to a few f32 epsilons of ``abs_terms``, so the bound is
+    the f32 row plus 8 eps times ``abs_terms``; in bf16 the bf16 row."""
+    if got.dtype == torch.float32:
+        tol = TOL["float32"]
+        bound = tol["atol"] + tol["rtol"] * want.abs() + 8 * F32_EPS * abs_terms
+        err = (got - want).abs()
+        if not bool((err <= bound).all()):
+            worst = int((err - bound).argmax())
+            raise AssertionError(f"{name}: element {worst} differs by "
+                                 f"{float(err.flatten()[worst]):.3g}, bound "
+                                 f"{float(bound.flatten()[worst]):.3g}")
+        return float(err.max())
+    return check_close(torch, name, got, want, TOL["bfloat16"])
 
 
 def phase_device(torch):
@@ -250,6 +292,123 @@ def phase_parity(torch):
     return rows
 
 
+def phase_bwd_parity(torch):
+    """Each backward kernel against its plain backward on the card, in f32
+    and bf16, at the training path's shapes (Llama-2-7B width, batch 4 x
+    2048), at Llama-2-70B's GQA attention and at off-size attention shapes;
+    then times in bf16 at the main shape."""
+    from paddle_tpu_torch.models.llama import _rope_tables
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_bwd_plain, flash_attention_fwd)
+    from paddle_tpu_torch.ops.fused_norm import (fused_rms_norm, fused_rms_norm_bwd,
+                                                 rms_norm_bwd_plain)
+    from paddle_tpu_torch.ops.rope import fused_rope_bwd, rope_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def backward_ms(outs, ins, grads):
+        return time_ms(torch, lambda: torch.autograd.grad(outs, ins, grads,
+                                                          retain_graph=True),
+                       iters=5, repeats=3)
+
+    b, s, h, d, hidden = TRAIN_BATCH, TRAIN_SEQ, 32, 128, 4096
+    rows = {}
+
+    # B1b rms_norm backward at the training rows
+    for dtype in (torch.float32, torch.bfloat16):
+        x = randn(b * s, hidden, dtype=dtype)
+        w = (1 + 0.1 * randn(hidden, dtype=torch.float32)).to(dtype)
+        dy = randn(b * s, hidden, dtype=dtype)
+        _, rstd = fused_rms_norm(x, w, 1e-5)
+        (dx, dw), (pdx, pdw) = fused_rms_norm_bwd(x, w, rstd, dy), rms_norm_bwd_plain(x, w, rstd, dy)
+        tol = TOL[str(dtype).split(".")[1]]
+        # dw sums dy * x^ over all rows: bounded by the sum of |terms|
+        terms = (dy.float() * x.float() * rstd).abs().sum(0)
+        err = max(check_close(torch, "rms_norm_bwd dx", dx, pdx, tol),
+                  check_sum_close(torch, "rms_norm_bwd dw", dw, pdw, terms))
+        log(f"parity rms_norm_bwd {dtype} x{list(x.shape)}: max_abs_err {err:.3g}")
+    es = x.element_size()
+    b_ms, b_by = bound_ms(3 * x.numel() * es + 2 * w.numel() * es + x.shape[0] * 4,
+                          8 * x.numel(), F32_FLOPS)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    lib_out = torch.nn.functional.rms_norm(xr, (hidden,), wr, 1e-5)
+    rows["rms_norm_bwd"] = dict(
+        max_abs_err=err, ms=time_ms(torch, lambda: fused_rms_norm_bwd(x, w, rstd, dy)),
+        plain_ms=time_ms(torch, lambda: rms_norm_bwd_plain(x, w, rstd, dy)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=backward_ms(lib_out, (xr, wr), dy))
+    del x, dy, dx, pdx, xr, lib_out
+
+    # B2 backward: the rope kernel rotating by -theta
+    cos, sin = (t.to(dev) for t in _rope_tables(d, 4096, 10000.0))
+    pos_ids = torch.arange(s, device=dev, dtype=torch.int32)[None, :].expand(b, s).contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        gq, gk = randn(b, s, h, d, dtype=dtype), randn(b, s, h, d, dtype=dtype)
+        (oq, ok), (pq, pk) = (fused_rope_bwd(gq, gk, cos, sin, pos_ids),
+                              rope_plain(gq, gk, cos, sin, pos_ids, sin_sign=-1.0))
+        tol = TOL[str(dtype).split(".")[1]]
+        err = max(check_close(torch, "rope_bwd dq", oq, pq, tol),
+                  check_close(torch, "rope_bwd dk", ok, pk, tol))
+        log(f"parity rope_bwd {dtype} q{list(gq.shape)}: max_abs_err {err:.3g}")
+    b_ms, b_by = bound_ms(2 * (gq.numel() + gk.numel()) * gq.element_size()
+                          + pos_ids.numel() * 4 + 2 * s * d * 4,
+                          3 * (gq.numel() + gk.numel()), F32_FLOPS)
+    rows["rope_bwd"] = dict(
+        max_abs_err=err, ms=time_ms(torch, lambda: fused_rope_bwd(gq, gk, cos, sin, pos_ids)),
+        plain_ms=time_ms(torch, lambda: rope_plain(gq, gk, cos, sin, pos_ids, sin_sign=-1.0)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del gq, gk, oq, ok, pq, pk
+
+    # B3b / B3c: the training shape, 70B GQA (B3c's group sum), off-size shapes
+    cases = [("causal 7B", b, s, h, h, d), ("causal 70B GQA", 1, s, 64, 8, d),
+             ("causal d72 s300", 2, 300, 4, 2, 72), ("causal d256 s200", 1, 200, 2, 1, 256)]
+    for label, bb, sq, hq, hkv, hd in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn(bb, sq, hq, hd, dtype=dtype)
+            k, v = randn(bb, sq, hkv, hd, dtype=dtype), randn(bb, sq, hkv, hd, dtype=dtype)
+            out, lse = flash_attention_fwd(q, k, v, True)
+            do = randn(bb, sq, hq, hd, dtype=dtype)
+            got = flash_attention_bwd(q, k, v, out, lse, do, True)
+            want = flash_attention_bwd_plain(q, k, v, out, lse, do, True)
+            tol = TOL["float32_attn_bwd" if dtype == torch.float32 else "bfloat16"]
+            errs = [check_close(torch, f"flash bwd {label} {n}", g, w_, tol)
+                    for n, g, w_ in zip(("dq", "dk", "dv"), got, want)]
+            log(f"parity flash bwd {label} {dtype} q{list(q.shape)} kv{hkv}: max_abs_err "
+                f"dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g}")
+            if label == "causal 7B" and dtype == torch.bfloat16:
+                main = (q, k, v, out, lse, do, errs)
+            del q, k, v, out, lse, do, got, want
+    q, k, v, out, lse, do, errs = main
+    pairs = b * h * s * (s + 1) // 2
+    es = q.element_size()
+    io = q.numel() * es
+    dq_bytes = 5 * io + 2 * b * h * s * 4   # q k v out dout in, dq out; lse in, delta out
+    dkv_bytes = 6 * io + 2 * b * h * s * 4  # q k v dout lse delta in, dk dv out
+    _, delta = flash_attention_bwd_dq(q, k, v, out, lse, do, True)
+    plain = time_ms(torch, lambda: flash_attention_bwd_plain(q, k, v, out, lse, do, True),
+                    iters=3, repeats=3)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    lib_out = sdpa(qt, kt, vt, is_causal=True)
+    library = backward_ms(lib_out, (qt, kt, vt), do.transpose(1, 2))
+    for name, nbytes, products, err, fn in (
+            ("flash_attention_bwd_dq", dq_bytes, 3, errs[0],
+             lambda: flash_attention_bwd_dq(q, k, v, out, lse, do, True)),
+            ("flash_attention_bwd_dkv", dkv_bytes, 4, max(errs[1:]),
+             lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, True))):
+        b_ms, b_by = bound_ms(nbytes, products * 2 * d * pairs, BF16_FLOPS)
+        rows[name] = dict(max_abs_err=err, ms=time_ms(torch, fn, iters=5, repeats=3),
+                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=library)
+    for name, r in rows.items():
+        log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
 def phase_e2e(torch, card):
     import numpy as np
 
@@ -270,7 +429,8 @@ def phase_e2e(torch, card):
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in PROMPT_LENS]
     ids_b = rng.integers(1, cfg.vocab_size, (BATCH, 512)).astype(np.int32)
     want = {"rms_norm": (2 * L + 1) * T, "rope": L * T, "flash_attention": L,
-            "decode_attention": L * (T - 1)}
+            "decode_attention": L * (T - 1), "rms_norm_bwd": 0, "rope_bwd": 0,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
     pred = Predictor.from_model(model)
 
     def counted(label, fn):
@@ -372,7 +532,182 @@ def phase_e2e(torch, card):
         f"({t1 * 1e3:.1f} ms for {BATCH}x512), decode {BATCH * (T - 1) / (tn - t1):.1f} "
         f"tokens/s ({(tn - t1) / (T - 1) * 1e3:.2f} ms a step at batch {BATCH})")
     phase_profile(torch, lambda n: model.generate(ids_b, max_new_tokens=n), T)
+    del model, pred, outs, plain_outs
     return launches
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def loss_and_grads(torch, model, ids, labels, flags=None, grad_dtype=None):
+    """One loss and backward; the loss and every parameter's gradient (a
+    copy, in ``grad_dtype`` if given)."""
+    import paddle_tpu_torch as ptt
+
+    model.zero_grad(set_to_none=True)
+    with ptt.flag_guard(**(flags or {})):
+        loss = model(ids, labels=labels)[0].float()
+        loss.backward()
+    grads = {n: p.grad.to(grad_dtype or p.grad.dtype, copy=True)
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+def phase_train(torch, card):
+    """The training step at Llama-2-7B width: AMP O2 bf16, AdamW(1e-4) with
+    ClipGradByGlobalNorm(1.0), through TrainStep, labels rolled as in
+    bench.py.  Gates: at 2 layers the kernels' loss and grads agree with the
+    plain path's; at 8 layers the kernels' grads are no further from an f32
+    reference than the plain bf16 path's; ten 8-layer steps at 4 x 2048 on
+    one batch give finite, falling losses and launch each kernel as often as
+    the path needs.  Then tokens/s, MFU, peak memory and a profile."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    ids_np = rng.integers(0, 32000, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    ids = torch.as_tensor(ids_np, device=dev)
+    labels = torch.as_tensor(np.roll(ids_np, -1, axis=1), device=dev)
+    gate_shallow(torch, ids[:1], labels[:1])
+    gate_deep(torch, ids[:1], labels[:1])
+    torch.cuda.empty_cache()
+    return train_steps(torch, card, ids, labels)
+
+
+def bf16_model(torch, layers: int):
+    """Llama-2-7B width at ``layers`` layers, seeded, cast by AMP O2."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+
+    model = LlamaForCausalLM(llama2_7b(num_hidden_layers=layers), device="cuda", seed=0)
+    return ptt.amp.decorate(model, level="O2", dtype="bfloat16")
+
+
+def grads_against_f32(torch, layers, gate_ids, gate_labels):
+    """The kernels' and the plain path's loss and grads of one bf16 model,
+    and those of an f32 copy of its weights on the plain path."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+
+    model = bf16_model(torch, layers)
+    kern = loss_and_grads(torch, model, gate_ids, gate_labels)
+    plain = loss_and_grads(torch, model, gate_ids, gate_labels, OFF_FLAGS)
+    ref = LlamaForCausalLM(llama2_7b(num_hidden_layers=layers), device="cuda", seed=1)
+    ref.load_state_dict(model.state_dict())
+    del model
+    f32 = loss_and_grads(torch, ref, gate_ids, gate_labels, OFF_FLAGS)
+    return kern, plain, f32
+
+
+def gate_shallow(torch, gate_ids, gate_labels):
+    """At 2 layers, where bf16 rounding has not yet been amplified by
+    depth: the kernels' loss within LOGITS_REL_TOL of the plain path's, and
+    every grad too, unless the plain grad is the farther of the two from
+    the f32 reference (both bf16 paths sit about 2-3e-2 from it at 7B
+    width, so two correct paths can part by more than the bar)."""
+    (lk, gk), (lp, gp), (lf, gf) = grads_against_f32(torch, 2, gate_ids, gate_labels)
+    r_loss = abs(float(lk) - float(lp)) / abs(float(lp))
+    rows = sorted(((rel_l2(gk[n], gp[n]), rel_l2(gk[n], gf[n]), rel_l2(gp[n], gf[n]), n)
+                   for n in gf), reverse=True)
+    log(f"train 2-layer 1x{TRAIN_SEQ}: loss kernels {float(lk):.5f} plain {float(lp):.5f} "
+        f"f32 {float(lf):.5f} (kernels vs plain {r_loss:.3g}); grad relative L2, "
+        f"worst three kernels vs plain (kernels to f32, plain to f32): "
+        + "; ".join(f"{n} {kp:.4g} ({kf:.4g}, {pf:.4g})" for kp, kf, pf, n in rows[:3]))
+    bad = [r for r in rows if r[0] > LOGITS_REL_TOL and r[1] > r[2]]
+    if r_loss > LOGITS_REL_TOL or bad:
+        raise AssertionError(f"2-layer gate: loss {r_loss}; grads {bad}")
+
+
+def gate_deep(torch, gate_ids, gate_labels):
+    """At 8 layers, two bf16 paths drift apart as rounding differences grow
+    layer by layer: each kernel grad must be no further from an f32
+    reference of the same weights (plain path) than the plain bf16 grad."""
+    L = TRAIN_LAYERS
+    (lk, gk), (lp, gp), (lf, gf) = grads_against_f32(torch, L, gate_ids, gate_labels)
+    ratios = sorted(((rel_l2(gk[n], gf[n]) / rel_l2(gp[n], gf[n]), n) for n in gf),
+                    reverse=True)
+    log(f"train {L}-layer 1x{TRAIN_SEQ}: loss kernels {float(lk):.5f} plain "
+        f"{float(lp):.5f} f32 {float(lf):.5f}; grad relative L2 to f32, kernels / "
+        f"plain, worst three: " + "; ".join(f"{n} {r:.3f}" for r, n in ratios[:3]))
+    if not ratios[0][0] <= DEPTH_REL_MARGIN:
+        raise AssertionError(f"{L}-layer gate: {ratios[0][1]} kernel grad is "
+                             f"{ratios[0][0]:.3f}x the plain path's distance from f32")
+
+
+def train_steps(torch, card, ids, labels):
+    """TRAIN_WARMUP then TRAIN_STEPS TrainSteps at 8 layers on one batch;
+    returns the launch counts of the TRAIN_STEPS steps."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from paddle_tpu_torch.optimizer import AdamW
+
+    L = TRAIN_LAYERS
+    model = LlamaForCausalLM(llama2_7b(num_hidden_layers=L), device="cuda", seed=0)
+    n_params = model.num_params()
+    opt = AdamW(1e-4, parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = ptt.amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    step = TrainStep(model, lambda m, x, y: m(x, labels=y)[0], opt)
+    losses = [float(step(ids, labels)) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = [step(ids, labels) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    losses += [float(x) for x in out]
+    log(f"train losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"training: losses not finite and falling: {losses}")
+    per_step = {"rms_norm": 2 * L + 1, "rope": L, "flash_attention": L,
+                "decode_attention": 0, "rms_norm_bwd": 2 * L + 1, "rope_bwd": L,
+                "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L}
+    want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    log(f"train launches in {TRAIN_STEPS} steps: {launches}")
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, {TRAIN_STEPS} steps of "
+                             f"{L} layers launch {want}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n_params * tokens + L * 7 * TRAIN_BATCH * 32 * TRAIN_SEQ ** 2 * 128
+    step_s = took / TRAIN_STEPS
+    log(f"train throughput on {card}: {tokens / step_s:.1f} tokens/s, "
+        f"{step_s * 1e3:.1f} ms a step ({n_params / 1e9:.3f} B params, {L} layers, "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ}), MFU {flops / step_s / BF16_FLOPS:.4f} of "
+        f"{flops / 1e12:.2f} TFLOP a step at 989 TFLOP/s; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    profile_step(torch, lambda: step(ids, labels))
+    return launches
+
+
+def profile_step(torch, fn):
+    """Device time by kernel and the device's idle share over one call of
+    ``fn``, from ``torch.profiler`` (whose own host cost inflates the wall
+    time and so the idle share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    busy = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+    total = sum(busy.values())
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
+    log(f"profile train step: wall {wall:.2f} ms (profiled), device busy {total:.2f} ms, "
+        f"idle share {1 - total / wall:.3f}; top kernels (ms): "
+        + "; ".join(f"{name[:48]} {ms:.3f}" for name, ms in top))
 
 
 def phase_profile(torch, generate, T):
@@ -403,13 +738,21 @@ def phase_profile(torch, generate, T):
             + "; ".join(f"{name[:48]} {ms:.3f}" for name, ms in top))
 
 
-SOURCES = {
-    "rms_norm": ("paddle_tpu_torch/ops/csrc/rms_norm.cu", "paddle_tpu/ops/pallas/fused_norm.py:88"),
-    "rope": ("paddle_tpu_torch/ops/csrc/rope.cu", "paddle_tpu/ops/pallas/rope.py:47"),
+SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is counted on)
+    "rms_norm": ("paddle_tpu_torch/ops/csrc/rms_norm.cu",
+                 "paddle_tpu/ops/pallas/fused_norm.py:88", "serve"),
+    "rope": ("paddle_tpu_torch/ops/csrc/rope.cu", "paddle_tpu/ops/pallas/rope.py:47", "serve"),
     "flash_attention": ("paddle_tpu_torch/ops/csrc/flash_attention.cu",
-                        "paddle_tpu/ops/pallas/flash_attention.py:181"),
+                        "paddle_tpu/ops/pallas/flash_attention.py:181", "serve"),
     "decode_attention": ("paddle_tpu_torch/ops/csrc/decode_attention.cu",
-                         "paddle_tpu/ops/pallas/decode_attention.py:172"),
+                         "paddle_tpu/ops/pallas/decode_attention.py:172", "serve"),
+    "rms_norm_bwd": ("paddle_tpu_torch/ops/csrc/rms_norm.cu",
+                     "paddle_tpu/ops/pallas/fused_norm.py:112", "train"),
+    "rope_bwd": ("paddle_tpu_torch/ops/csrc/rope.cu", "paddle_tpu/ops/pallas/rope.py:81", "train"),
+    "flash_attention_bwd_dq": ("paddle_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+                               "paddle_tpu/ops/pallas/flash_attention.py:315", "train"),
+    "flash_attention_bwd_dkv": ("paddle_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+                                "paddle_tpu/ops/pallas/flash_attention.py:350", "train"),
 }
 
 
@@ -425,13 +768,18 @@ def main() -> int:
     card = phase_device(torch)
     phase_build()
     rows = phase_parity(torch)
-    launches = phase_e2e(torch, card)
+    rows.update(phase_bwd_parity(torch))
+    torch.cuda.empty_cache()
+    launches = {"serve": phase_e2e(torch, card)}
+    torch.cuda.empty_cache()
+    launches["train"] = phase_train(torch, card)
     kernels = []
-    for name, (src, replaces) in SOURCES.items():
-        if launches[name] == 0:
-            raise AssertionError(f"{name}: never launched on the main path")
+    for name, (src, replaces, path) in SOURCES.items():
+        n = launches[path][name]
+        if n == 0:
+            raise AssertionError(f"{name}: never launched on the {path} path")
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                            launches=launches[name], **rows[name]))
+                            launches=n, **rows[name]))
     print(json.dumps({"kernels": kernels}))
     print(f"card (name, power limit): {card}")
     print(json.dumps({"ok": True, "device": {

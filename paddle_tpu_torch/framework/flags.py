@@ -1,4 +1,4 @@
-"""Runtime flags read by the port's serving path.
+"""Runtime flags read by the port's serving and training paths.
 
 A copy of the registry in the reference package (``framework/flags.py``),
 with the same flag names, so that ``set_flags`` calls written for the JAX
@@ -107,6 +107,10 @@ define_flag("use_decode_attention", True,
 define_flag("use_fused_swiglu", False,
             "The fused SwiGLU kernel (B4) is not ported yet: setting this "
             "flag makes swiglu raise instead of running the plain silu*u.")
+define_flag("use_fused_adamw", False,
+            "The fused AdamW kernel (B5) is not ported yet: setting this "
+            "flag makes Adam/AdamW updates raise instead of running the "
+            "plain update.")
 define_flag("flash_block_q", 512,
             "Reference name only: the TPU's flash query tile. Not measured "
             "on the H100 and not read by the port.")

@@ -1,5 +1,5 @@
-"""The Llama family for serving (port of the reference's
-``models/llama.py``, without MoE, recompute and the training loss).
+"""The Llama family for serving and training (port of the reference's
+``models/llama.py``, without MoE and the chunked fused loss).
 
 Parameter names and layouts are those of the JAX model (paddle ``[in, out]``
 Linear weights), so its ``state_dict`` loads through
@@ -18,11 +18,12 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..distributed.fleet_utils import recompute
 from ..generation import GenerationMixin, cached_attention
 from ..nn import Embedding, Linear, RMSNorm
 from ..nn import functional as F
-from ..ops import use_kernel
-from ..ops.rope import fused_rope, rope_plain
+from ..ops import use_function, use_kernel
+from ..ops.rope import RopeFunction, fused_rope, rope_plain
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
            "llama2_7b", "llama2_13b", "llama2_70b", "apply_rotary_pos_emb"]
@@ -43,7 +44,10 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     initializer_range: float = 0.02
+    recompute: bool = False  # rematerialize each decoder layer in backward
     moe_num_experts: int = 0  # MoE is not ported: > 0 raises
+    # > 0: the chunked fused linear + cross entropy loss, not ported: raises
+    fused_ce_chunk: int = 0
 
     @property
     def head_dim(self) -> int:
@@ -111,6 +115,8 @@ def apply_rotary_pos_emb(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
                                              dtype=torch.int32)[None, :]
     pos_ids = (pos_ids.expand(b, s) if pad_lens is None
                else pos_ids - pad_lens.to(torch.int32)[:, None]).contiguous()
+    if use_function("use_fused_rope", q, k):
+        return RopeFunction.apply(q, k, cos, sin, pos_ids)
     if use_kernel("use_fused_rope", q):
         return fused_rope(q, k, cos, sin, pos_ids)
     return rope_plain(q, k, cos, sin, pos_ids)
@@ -225,7 +231,10 @@ class LlamaModel(nn.Module):
                 new_caches.append(nc)
             return self.norm(x), new_caches
         for layer in self.layers:
-            x = layer(x, cos, sin, attn_mask, position_offset)
+            if self.config.recompute:
+                x = recompute(layer, x, cos, sin, attn_mask, position_offset)
+            else:
+                x = layer(x, cos, sin, attn_mask, position_offset)
         return self.norm(x)
 
 
@@ -251,15 +260,24 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
 
     def forward(self, input_ids, labels=None, attn_mask=None, kv_cache=None,
                 position_offset: int = 0, pad_lens=None):
-        if labels is not None:
-            raise NotImplementedError(
-                "the training loss is not ported yet (ROADMAP queue A, train "
-                "step); call the model without labels for logits")
+        """Logits; with ``labels`` [b, s] (next-token ids, -100 ignored),
+        ``(loss, logits)`` with the mean cross entropy in f32; with
+        ``kv_cache``, ``(logits, kv_cache)``."""
         if kv_cache is not None:  # decode path: (logits, kv_cache)
             hidden, new_cache = self.llama(input_ids, attn_mask, position_offset,
                                            kv_cache=kv_cache, pad_lens=pad_lens)
             return self._logits(hidden), new_cache
-        return self._logits(self.llama(input_ids, attn_mask))
+        if labels is not None and self.config.fused_ce_chunk > 0:
+            raise NotImplementedError(
+                "fused_ce_chunk > 0: the chunked fused linear + cross entropy "
+                "training loss (F.fused_linear_cross_entropy) is not ported "
+                "yet (ROADMAP queue A); set fused_ce_chunk=0")
+        logits = self._logits(self.llama(input_ids, attn_mask))
+        if labels is None:
+            return logits
+        loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
+                               torch.as_tensor(labels, device=logits.device).reshape(-1))
+        return loss, logits
 
     def _logits(self, hidden):
         if self.lm_head is not None:

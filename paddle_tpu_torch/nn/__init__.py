@@ -1,4 +1,5 @@
-"""Layers and functional operators of the port."""
+"""Layers, functional operators and gradient clipping of the port."""
 
 from . import functional  # noqa: F401
+from .clip import ClipGradByGlobalNorm  # noqa: F401
 from .layers import Embedding, Linear, RMSNorm  # noqa: F401

@@ -1,10 +1,12 @@
-"""RMSNorm forward: the hand kernel B1 (``csrc/rms_norm.cu``) and its plain
-PyTorch twin.
+"""RMSNorm: the hand kernels B1 (forward) and B1b (backward) in
+``csrc/rms_norm.cu``, their plain PyTorch twins, and the autograd Function
+that pairs them.
 
-Replaces the reference's ``ops/pallas/fused_norm.py`` forward
-(``fused_rms_norm`` → ``_rms_fwd`` → ``_fwd_kernel``).  The backward kernel
-(B1b) is not ported yet; the kernel wrapper refuses inputs that need a
-gradient.
+Replaces the reference's ``ops/pallas/fused_norm.py`` (``fused_rms_norm``:
+``_rms_fwd`` → ``_fwd_kernel``, ``_rms_bwd`` → ``_bwd_kernel``).  The
+kernel wrappers take no part in autograd: under grad they refuse inputs
+that need a gradient, and :class:`RMSNormFunction` (what
+``nn.functional.rms_norm`` calls when grad is on) wraps them.
 """
 
 from __future__ import annotations
@@ -16,11 +18,14 @@ import torch
 
 from . import LAUNCHES, _build
 
-__all__ = ["rms_norm_plain", "fused_rms_norm"]
+__all__ = ["rms_norm_plain", "rms_norm_bwd_plain", "fused_rms_norm",
+           "fused_rms_norm_bwd", "RMSNormFunction"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int)
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_longlong,) + (ctypes.c_int,) * 3
+_BWD_BLOCKS_PER_SM = 4  # row runs per SM, each with one f32 dw partial row
 
 
 def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -32,11 +37,23 @@ def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor,
     return (xf * rstd * weight.float()).to(x.dtype), rstd
 
 
-def fused_rms_norm(x: torch.Tensor, weight: torch.Tensor,
-                   eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    if not x.is_cuda:
-        return rms_norm_plain(x, weight, eps)
+def rms_norm_bwd_plain(x: torch.Tensor, weight: torch.Tensor, rstd: torch.Tensor,
+                       dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward step by step, as the TPU kernel computes it, in f32:
+    x^ = x·rstd, dx = rstd·(dy·w − x^·mean(dy·w·x^)) in x's dtype, and
+    dw = Σ_rows dy·x^ in w's dtype.  rstd [..., 1] as the forward returns
+    it."""
+    h = x.shape[-1]
+    xhat = x.float() * rstd.float()
+    dyf = dy.float()
+    dyw = dyf * weight.float()
+    m = (dyw * xhat).sum(-1, keepdim=True) / h
+    dx = rstd * (dyw - xhat * m)
+    dw = (dyf * xhat).reshape(-1, h).sum(0)
+    return dx.to(x.dtype), dw.to(weight.dtype)
+
+
+def _check(x: torch.Tensor, weight: torch.Tensor) -> None:
     h = x.shape[-1]
     if x.dtype not in _DTYPES or weight.dtype != x.dtype:
         raise TypeError(f"rms_norm kernel takes f32 or bf16 x and a weight of "
@@ -46,10 +63,23 @@ def fused_rms_norm(x: torch.Tensor, weight: torch.Tensor,
                          f"got {tuple(weight.shape)} on {weight.device}")
     if not (x.is_contiguous() and weight.is_contiguous()):
         raise ValueError("rms_norm kernel takes contiguous x and weight")
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
-        raise NotImplementedError(
-            "the rms_norm backward kernel (B1b) is not ported yet; run the "
-            "forward under torch.no_grad()")
+
+
+def _refuse_grad(*tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "the rms_norm kernel wrappers do not record gradients; call "
+            "nn.functional.rms_norm (RMSNormFunction) for the autograd pair")
+
+
+def fused_rms_norm(x: torch.Tensor, weight: torch.Tensor,
+                   eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1: the kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if not x.is_cuda:
+        return rms_norm_plain(x, weight, eps)
+    _check(x, weight)
+    _refuse_grad(x, weight)
+    h = x.shape[-1]
     out = torch.empty_like(x)
     rstd = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
     _build.launch("rms_norm", "ptt_rms_norm_fwd", _ARGTYPES, x.device,
@@ -58,3 +88,54 @@ def fused_rms_norm(x: torch.Tensor, weight: torch.Tensor,
                   _DTYPES[x.dtype])
     LAUNCHES["rms_norm"] += 1
     return out, rstd
+
+
+def fused_rms_norm_bwd(x: torch.Tensor, weight: torch.Tensor, rstd: torch.Tensor,
+                       dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1b: (dx, dw) by the kernel on CUDA tensors, by the plain version on
+    CPU tensors.  The kernel writes one f32 dw partial row per block into a
+    scratch tensor allocated here and sums them in a second pass."""
+    if not x.is_cuda:
+        return rms_norm_bwd_plain(x, weight, rstd, dy)
+    _check(x, weight)
+    _refuse_grad(x, weight, dy)
+    h = x.shape[-1]
+    n = x.numel() // h
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous():
+        raise ValueError(f"rms_norm bwd kernel: dy must be a contiguous "
+                         f"{x.dtype} tensor of x's shape {tuple(x.shape)}")
+    if rstd.dtype != torch.float32 or rstd.numel() != n or \
+            rstd.device != x.device or not rstd.is_contiguous():
+        raise ValueError(f"rms_norm bwd kernel: rstd must be {n} contiguous "
+                         f"f32 values on {x.device}")
+    dx = torch.empty_like(x)
+    if n == 0:
+        return dx, torch.zeros_like(weight)
+    dw = torch.empty_like(weight)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    blocks = min(n, _BWD_BLOCKS_PER_SM * sms)
+    part = torch.empty((blocks, h), dtype=torch.float32, device=x.device)
+    _build.launch("rms_norm", "ptt_rms_norm_bwd", _BWD_ARGTYPES, x.device,
+                  _build.ptr(x), _build.ptr(weight), _build.ptr(rstd),
+                  _build.ptr(dy), _build.ptr(dx), _build.ptr(dw),
+                  _build.ptr(part), n, h, blocks, _DTYPES[x.dtype])
+    LAUNCHES["rms_norm_bwd"] += 1
+    return dx, dw
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """RMSNorm with its backward: B1 and B1b on CUDA tensors, the plain
+    pair on CPU tensors.  Saves (x, w, rstd)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, weight: torch.Tensor, eps: float):
+        out, rstd = fused_rms_norm(x, weight, eps)
+        ctx.save_for_backward(x, weight, rstd)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        x, weight, rstd = ctx.saved_tensors
+        dx, dw = fused_rms_norm_bwd(x, weight, rstd, dy.contiguous())
+        return dx, dw, None

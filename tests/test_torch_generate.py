@@ -212,10 +212,13 @@ class TestRefusals:
             tiny[1].generate(_ids(13, (1, 4)), max_new_tokens=2, num_beams=2)
 
     def test_moe_and_labels_not_ported(self, tiny):
+        """MoE is not ported; of the labels path, only the chunked fused
+        loss (``fused_ce_chunk > 0``) is not."""
         with pytest.raises(NotImplementedError, match="MoE"):
             LlamaForCausalLM(llama_tiny(moe_num_experts=4), device="cpu")
         with pytest.raises(NotImplementedError, match="training loss"):
-            tiny[1](torch.ones(1, 2, dtype=torch.long), labels=torch.ones(1, 2))
+            LlamaForCausalLM(llama_tiny(fused_ce_chunk=4), device="cpu")(
+                torch.ones(1, 2, dtype=torch.long), labels=torch.ones(1, 2))
 
     def test_bad_attention_mask(self, tiny):
         with pytest.raises(ValueError, match="LEFT-padded"):
