@@ -27,15 +27,27 @@ exits non-zero without them.  Phases, each raising on failure:
    at Llama-2-70B's GQA attention and at off-size attention shapes, timed
    as in 3 (the library call is the backward of ``F.rms_norm`` and of
    SDPA);
-6. training (after 4, with the serving model freed): Llama-2-7B width,
-   AMP O2 bf16, ``AdamW(1e-4)`` with ``ClipGradByGlobalNorm(1.0)``; at 2
-   layers the kernels' loss and grads agree with the plain path's (2e-2,
-   unless the plain grad is the farther from an f32 reference); at 8
-   layers every kernel grad is no further from the f32 reference than
-   1.2x the plain bf16 grad; then ``TrainStep`` at 8 layers on one 4 x
-   2048 batch, 3 warm-up and 10 counted steps: finite, falling losses,
-   each kernel launched as often as the path needs, tokens/s, MFU, peak
-   memory and a profile of one step.
+6. fused parity (run after 5): B4 (SwiGLU fwd and bwd), B5 (AdamW) and
+   B11/B11b (residual add + LayerNorm fwd and bwd) against their plain
+   twins, in f32 and bf16, at the training shapes (Llama-2-7B's MLP and
+   GPT-3 1.3B's hidden at 4 x 2048, bf16 x with f32 LayerNorm weights as
+   AMP O2 gives them, B5 over the 8-layer Llama's parameters) and at off
+   sizes, timed as in 3 (the library call of B5 is ``torch._fused_adamw_``);
+7. Llama training (after 4, with the serving model freed): Llama-2-7B
+   width, AMP O2 bf16, ``AdamW(1e-4)`` with ``ClipGradByGlobalNorm(1.0)``,
+   ``use_fused_swiglu`` and ``use_fused_adamw`` on; at 2 layers the
+   kernels' loss and grads agree with the plain path's (2e-2, unless the
+   plain grad is the farther from an f32 reference); at 8 layers every
+   kernel grad is no further from the f32 reference than 1.2x the plain
+   bf16 grad; then ``TrainStep`` at 8 layers on one 4 x 2048 batch, 3
+   warm-up and 10 counted steps: finite, falling losses, each kernel
+   launched as often as the path needs, tokens/s, MFU, peak memory and a
+   profile of one step; then the same steps with the two fused flags off;
+8. GPT training: GPT-3 1.3B at full width and depth, as 7 with
+   ``use_fused_layernorm`` and ``use_fused_adamw`` on (then off), the
+   gates at 2 and 24 layers;
+9. GPT generate: greedy ``generate`` on GPT-3 1.3B bf16, batch 8, prompt
+   128, 8 new tokens, with its flash and decode launches counted.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
@@ -69,8 +81,12 @@ BATCH = 8
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048   # the training step's batch (bench.py's)
 TRAIN_LAYERS = 8                   # Llama-2-7B width; depth cut for memory
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+GPT_GEN_PROMPT, GPT_GEN_NEW = 128, 8  # GPT-3 1.3B's short generate check
 OFF_FLAGS = dict(use_fused_rms_norm=False, use_fused_rope=False,
-                 use_flash_attention=False, use_decode_attention=False)
+                 use_flash_attention=False, use_decode_attention=False,
+                 use_fused_swiglu=False, use_fused_adamw=False, use_fused_layernorm=False)
+LLAMA_ON = dict(use_fused_swiglu=True, use_fused_adamw=True)   # and the default kernels
+GPT_ON = dict(use_fused_layernorm=True, use_fused_adamw=True)
 
 
 def log(msg: str) -> None:
@@ -409,6 +425,148 @@ def phase_bwd_parity(torch):
     return rows
 
 
+def phase_fused_parity(torch):
+    """B4 (SwiGLU fwd and bwd), B5 (AdamW) and B11/B11b (residual add +
+    LayerNorm fwd and bwd) against their plain twins on the card, in f32
+    and bf16, at the training path's shapes (Llama-2-7B's MLP at 4 x 2048;
+    GPT-3 1.3B's hidden at 4 x 2048, bf16 x with f32 w as AMP O2 gives it)
+    and at off sizes (H = 1000 and 1001, a flat AdamW length not a
+    multiple of 8); then times in the main path's dtypes.  B5 is timed as
+    one optimizer sweep over every parameter of the 8-layer Llama-2-7B
+    training model, one launch a tensor, as a step runs it."""
+    from paddle_tpu_torch.ops.fused_ln_swiglu import (
+        adamw_plain, adamw_scalars, add_layer_norm_bwd_plain, add_layer_norm_plain,
+        fused_adamw, fused_add_layer_norm, fused_add_layer_norm_bwd, fused_swiglu,
+        fused_swiglu_bwd, swiglu_bwd_plain, swiglu_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def tol(dtype):
+        return TOL[str(dtype).split(".")[1]]
+
+    rows = {}
+    b, s, inter, hidden = TRAIN_BATCH, TRAIN_SEQ, 11008, 2048
+
+    # B4 SwiGLU: Llama-2-7B's MLP at the training batch, and off sizes
+    for shape in ((b, s, inter), (37, 1000), (37, 1001)):
+        for dtype in (f32, bf16):
+            g, u, dy = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+            err = check_close(torch, "swiglu", fused_swiglu(g, u), swiglu_plain(g, u), tol(dtype))
+            errb = max(check_close(torch, f"swiglu_bwd {n}", k, p, tol(dtype)) for n, k, p in
+                       zip(("dg", "du"), fused_swiglu_bwd(g, u, dy), swiglu_bwd_plain(g, u, dy)))
+            log(f"parity swiglu {dtype} {list(shape)}: max_abs_err fwd {err:.3g} bwd {errb:.3g}")
+            if shape[-1] == inter and dtype == bf16:
+                main = (g, u, dy, err, errb)
+            del g, u, dy
+    g, u, dy, err, errb = main
+    n, es = g.numel(), g.element_size()
+    for name, nbytes, ops, e, fn, plain in (
+            ("swiglu", 3 * n * es, 6 * n, err, lambda: fused_swiglu(g, u),
+             lambda: swiglu_plain(g, u)),
+            ("swiglu_bwd", 5 * n * es, 12 * n, errb, lambda: fused_swiglu_bwd(g, u, dy),
+             lambda: swiglu_bwd_plain(g, u, dy))):
+        b_ms, b_by = bound_ms(nbytes, ops, F32_FLOPS)
+        rows[name] = dict(max_abs_err=e, ms=time_ms(torch, fn), plain_ms=time_ms(torch, plain),
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del g, u, dy, main
+
+    # B5 AdamW: a 7B MLP weight (f32 master, and bf16 p and g), an off-size
+    # flat length, decay on and off, step 7
+    args = (7, 0.9, 0.999, 1e-8, 0.1)
+    sc = adamw_scalars(1e-3, 7, 0.9, 0.999)
+    for shape, dtype, decay in (((hidden * 2, inter), f32, True), ((hidden * 2, inter), bf16, True),
+                                ((1_000_003,), f32, False), ((1_000_003,), bf16, True)):
+        p, g = randn(*shape, dtype=dtype), (0.1 * randn(*shape)).to(dtype)
+        m, v = 0.01 * randn(*shape), (0.01 * randn(*shape)).abs()
+        want = adamw_plain(p, g, m, v, sc[0], sc[1], sc[2], 0.9, 0.999, 1e-8, 0.1, decay)
+        got = fused_adamw(p, g, m, v, 1e-3, *args, decay)
+        err = max(check_close(torch, f"adamw {nm}", k, w, tol(k.dtype))
+                  for nm, k, w in zip("pmv", got, want))
+        log(f"parity adamw {dtype} {list(shape)} decay {decay}: max_abs_err {err:.3g}")
+        if dtype == f32 and decay:
+            main_err = err
+        del p, g, m, v, want, got
+    ps = [p.detach() for p in make_llama(TRAIN_LAYERS).parameters()]
+    gs = [0.1 * randn(*p.shape) for p in ps]
+    ms = [torch.zeros_like(p) for p in ps]
+    vs = [torch.zeros_like(p) for p in ps]
+    n = sum(p.numel() for p in ps)
+    b_ms, b_by = bound_ms(28 * n, 16 * n, F32_FLOPS)
+    steps = [torch.tensor(7.0, device=dev) for _ in ps]
+
+    def sweep():
+        for p, g, m, v in zip(ps, gs, ms, vs):
+            fused_adamw(p, g, m, v, 1e-3, *args, True)
+
+    def plain_sweep():
+        for p, g, m, v in zip(ps, gs, ms, vs):
+            adamw_plain(p, g, m, v, sc[0], sc[1], sc[2], 0.9, 0.999, 1e-8, 0.1, True)
+
+    rows["adamw"] = dict(
+        max_abs_err=main_err, ms=time_ms(torch, sweep, iters=3, repeats=3),
+        plain_ms=time_ms(torch, plain_sweep, iters=1, repeats=3),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: torch._fused_adamw_(
+            ps, gs, ms, vs, [], steps, lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=0.1,
+            eps=1e-8, amsgrad=False, maximize=False), iters=3, repeats=3))
+    log(f"adamw sweep: {len(ps)} tensors, {n / 1e9:.3f} B f32 parameters")
+    del ps, gs, ms, vs, steps
+    torch.cuda.empty_cache()
+
+    # B11 / B11b: GPT-3 1.3B's hidden at the training batch, and off sizes
+    for shape in ((b * s, hidden), (64, 1000), (64, 1001)):
+        for dtype, wdtype in ((f32, f32), (bf16, bf16), (bf16, f32)):
+            h = shape[-1]
+            x, r = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+            w, bias = (1 + 0.1 * randn(h)).to(wdtype), (0.1 * randn(h)).to(wdtype)
+            got, want = fused_add_layer_norm(x, r, w, bias), add_layer_norm_plain(x, r, w, bias)
+            err = max(check_close(torch, "add_layer_norm out", got[0], want[0], tol(dtype)),
+                      check_close(torch, "add_layer_norm sum", got[1], want[1], tol(dtype)))
+            for nm, k, p in zip(("mu", "rstd"), got[2:], want[2:]):
+                check_close(torch, f"add_layer_norm {nm}", k.flatten(), p.flatten(),
+                            TOL["float32"])
+            sm, mu, rstd = got[1:]
+            dy, dpre = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+            kb = fused_add_layer_norm_bwd(sm, w, mu, rstd, dy, dpre)
+            pb = add_layer_norm_bwd_plain(sm, w, mu, rstd, dy, dpre)
+            xhat = (sm.float() - mu) * rstd
+            errb = max(check_close(torch, "add_layer_norm_bwd dx", kb[0], pb[0], tol(dtype)),
+                       check_sum_close(torch, "add_layer_norm_bwd dw", kb[1], pb[1],
+                                       (dy.float() * xhat).abs().sum(0)),
+                       check_sum_close(torch, "add_layer_norm_bwd db", kb[2], pb[2],
+                                       dy.float().abs().sum(0)))
+            nodp = fused_add_layer_norm_bwd(sm, w, mu, rstd, dy, None)
+            check_close(torch, "add_layer_norm_bwd dx, no dpre", nodp[0],
+                        add_layer_norm_bwd_plain(sm, w, mu, rstd, dy, None)[0], tol(dtype))
+            log(f"parity add_layer_norm x {dtype} w {wdtype} {list(shape)}: max_abs_err "
+                f"fwd {err:.3g} bwd {errb:.3g}")
+            if h == hidden and wdtype == f32 and dtype == bf16:
+                main = (x, r, w, bias, sm, mu, rstd, dy, dpre, err, errb)
+            del x, r, dy, dpre, got, want, kb, pb, nodp, xhat
+    x, r, w, bias, sm, mu, rstd, dy, dpre, err, errb = main
+    n, es, rws = x.numel(), x.element_size(), x.shape[0]
+    wb = 2 * w.numel() * w.element_size()
+    for name, nbytes, ops, e, fn, plain in (
+            ("add_layer_norm", 4 * n * es + wb + 2 * rws * 4, 8 * n, err,
+             lambda: fused_add_layer_norm(x, r, w, bias),
+             lambda: add_layer_norm_plain(x, r, w, bias)),
+            ("add_layer_norm_bwd", 4 * n * es + 3 * wb // 2 + 2 * rws * 4, 12 * n, errb,
+             lambda: fused_add_layer_norm_bwd(sm, w, mu, rstd, dy, dpre),
+             lambda: add_layer_norm_bwd_plain(sm, w, mu, rstd, dy, dpre))):
+        b_ms, b_by = bound_ms(nbytes, ops, F32_FLOPS)
+        rows[name] = dict(max_abs_err=e, ms=time_ms(torch, fn), plain_ms=time_ms(torch, plain),
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    for name, r_ in rows.items():
+        log(f"time {name}: kernel {r_['ms']:.4f} ms, plain {r_['plain_ms']:.4f} ms, "
+            f"library {r_['library_ms']}, bound {r_['bound_ms']:.4f} ms ({r_['bound_by']})")
+    return rows
+
+
 def phase_e2e(torch, card):
     import numpy as np
 
@@ -428,9 +586,9 @@ def phase_e2e(torch, card):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in PROMPT_LENS]
     ids_b = rng.integers(1, cfg.vocab_size, (BATCH, 512)).astype(np.int32)
-    want = {"rms_norm": (2 * L + 1) * T, "rope": L * T, "flash_attention": L,
-            "decode_attention": L * (T - 1), "rms_norm_bwd": 0, "rope_bwd": 0,
-            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(rms_norm=(2 * L + 1) * T, rope=L * T, flash_attention=L,
+                decode_attention=L * (T - 1))
     pred = Predictor.from_model(model)
 
     def counted(label, fn):
@@ -559,136 +717,223 @@ def loss_and_grads(torch, model, ids, labels, flags=None, grad_dtype=None):
 def phase_train(torch, card):
     """The training step at Llama-2-7B width: AMP O2 bf16, AdamW(1e-4) with
     ClipGradByGlobalNorm(1.0), through TrainStep, labels rolled as in
-    bench.py.  Gates: at 2 layers the kernels' loss and grads agree with the
-    plain path's; at 8 layers the kernels' grads are no further from an f32
-    reference than the plain bf16 path's; ten 8-layer steps at 4 x 2048 on
-    one batch give finite, falling losses and launch each kernel as often as
-    the path needs.  Then tokens/s, MFU, peak memory and a profile."""
+    bench.py, with ``use_fused_swiglu`` and ``use_fused_adamw`` on.  Gates:
+    at 2 layers the kernels' loss and grads agree with the plain path's; at
+    8 layers the kernels' grads are no further from an f32 reference than
+    the plain bf16 path's; ten 8-layer steps at 4 x 2048 on one batch give
+    finite, falling losses and launch each kernel as often as the path
+    needs.  Then tokens/s, MFU, peak memory and a profile; then the same
+    steps with the two fused flags off, timed for comparison."""
+    ids, labels = train_batch(torch, 32000)
+    gate_shallow(torch, make_llama, LLAMA_ON, ids[:1], labels[:1])
+    gate_deep(torch, make_llama, TRAIN_LAYERS, LLAMA_ON, ids[:1], labels[:1])
+    torch.cuda.empty_cache()
+    launches = train_steps(torch, card, make_llama, TRAIN_LAYERS, LLAMA_ON, ids, labels)
+    torch.cuda.empty_cache()
+    train_steps(torch, card, make_llama, TRAIN_LAYERS,
+                dict(use_fused_swiglu=False, use_fused_adamw=False), ids, labels)
+    return launches
+
+
+def phase_gpt_train(torch, card):
+    """The training step of GPT-3 1.3B at full width and depth, as the
+    Llama one, with ``use_fused_layernorm`` and ``use_fused_adamw`` on:
+    the 2-layer and 24-layer gates, then 3 warm-up and 10 counted steps;
+    then the same steps with the two fused flags off, timed for
+    comparison."""
+    from paddle_tpu_torch.models import gpt3_1p3b
+
+    L = gpt3_1p3b().num_hidden_layers
+    ids, labels = train_batch(torch, gpt3_1p3b().vocab_size)
+    gate_shallow(torch, make_gpt, GPT_ON, ids[:1], labels[:1])
+    gate_deep(torch, make_gpt, L, GPT_ON, ids[:1], labels[:1])
+    torch.cuda.empty_cache()
+    launches = train_steps(torch, card, make_gpt, L, GPT_ON, ids, labels)
+    torch.cuda.empty_cache()
+    train_steps(torch, card, make_gpt, L, dict(use_fused_layernorm=False, use_fused_adamw=False),
+                ids, labels)
+    return launches
+
+
+def phase_gpt_generate(torch, card):
+    """Greedy ``generate`` on GPT-3 1.3B bf16 (batch 8, prompt 128, 8 new
+    tokens): the prefill's flash and each decode step's B6 launches, a
+    well-formed result, and the share of tokens the plain path agrees on."""
     import numpy as np
 
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    ids_np = rng.integers(0, 32000, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
-    ids = torch.as_tensor(ids_np, device=dev)
-    labels = torch.as_tensor(np.roll(ids_np, -1, axis=1), device=dev)
-    gate_shallow(torch, ids[:1], labels[:1])
-    gate_deep(torch, ids[:1], labels[:1])
-    torch.cuda.empty_cache()
-    return train_steps(torch, card, ids, labels)
-
-
-def bf16_model(torch, layers: int):
-    """Llama-2-7B width at ``layers`` layers, seeded, cast by AMP O2."""
     import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    cfg = gpt3_1p3b()
+    L, T = cfg.num_hidden_layers, GPT_GEN_NEW
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=0).eval()
+    ids = np.random.default_rng(2).integers(0, cfg.vocab_size, (BATCH, GPT_GEN_PROMPT))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t = time.perf_counter()
+    out, scores = model.generate(ids.astype(np.int32), max_new_tokens=T)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t
+    launches = dict(LAUNCHES)
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(flash_attention=L, decode_attention=L * (T - 1))
+    log(f"gpt generate {BATCH}x{GPT_GEN_PROMPT} + {T} on {card}: {took:.2f} s, "
+        f"launches {launches}")
+    if launches != want:
+        raise AssertionError(f"gpt generate launches {launches}, want {want}")
+    if tuple(out.shape) != (BATCH, T) or not torch.isfinite(scores).all() \
+            or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"gpt generate: bad output {out} {scores}")
+    with ptt.flag_guard(**OFF_FLAGS):
+        plain, _ = model.generate(ids.astype(np.int32), max_new_tokens=T)
+    log(f"gpt generate greedy tokens identical to the plain path: "
+        f"{float((out == plain).float().mean()):.4f} of {BATCH * T}")
+    del model
+
+
+def train_batch(torch, vocab):
+    """One TRAIN_BATCH x TRAIN_SEQ batch from a seed, labels rolled by one."""
+    import numpy as np
+
+    ids_np = np.random.default_rng(0).integers(0, vocab, (TRAIN_BATCH, TRAIN_SEQ))
+    ids_np = ids_np.astype(np.int32)
+    return (torch.as_tensor(ids_np, device="cuda"),
+            torch.as_tensor(np.roll(ids_np, -1, axis=1), device="cuda"))
+
+
+def make_llama(layers: int, seed: int = 0):
     from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
 
-    model = LlamaForCausalLM(llama2_7b(num_hidden_layers=layers), device="cuda", seed=0)
-    return ptt.amp.decorate(model, level="O2", dtype="bfloat16")
+    return LlamaForCausalLM(llama2_7b(num_hidden_layers=layers), device="cuda", seed=seed)
 
 
-def grads_against_f32(torch, layers, gate_ids, gate_labels):
-    """The kernels' and the plain path's loss and grads of one bf16 model,
-    and those of an f32 copy of its weights on the plain path."""
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+def make_gpt(layers: int, seed: int = 0):
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
 
-    model = bf16_model(torch, layers)
-    kern = loss_and_grads(torch, model, gate_ids, gate_labels)
+    return GPTForCausalLM(gpt3_1p3b(num_hidden_layers=layers), device="cuda", seed=seed)
+
+
+def grads_against_f32(torch, make, layers, on, gate_ids, gate_labels):
+    """The kernels' (flags ``on``) and the plain path's loss and grads of
+    one O2 bf16 model, and those of an f32 copy of its weights on the plain
+    path."""
+    import paddle_tpu_torch as ptt
+
+    model = ptt.amp.decorate(make(layers), level="O2", dtype="bfloat16")
+    kern = loss_and_grads(torch, model, gate_ids, gate_labels, on)
     plain = loss_and_grads(torch, model, gate_ids, gate_labels, OFF_FLAGS)
-    ref = LlamaForCausalLM(llama2_7b(num_hidden_layers=layers), device="cuda", seed=1)
+    ref = make(layers, seed=1)
     ref.load_state_dict(model.state_dict())
     del model
     f32 = loss_and_grads(torch, ref, gate_ids, gate_labels, OFF_FLAGS)
     return kern, plain, f32
 
 
-def gate_shallow(torch, gate_ids, gate_labels):
+def gate_shallow(torch, make, on, gate_ids, gate_labels):
     """At 2 layers, where bf16 rounding has not yet been amplified by
     depth: the kernels' loss within LOGITS_REL_TOL of the plain path's, and
     every grad too, unless the plain grad is the farther of the two from
     the f32 reference (both bf16 paths sit about 2-3e-2 from it at 7B
     width, so two correct paths can part by more than the bar)."""
-    (lk, gk), (lp, gp), (lf, gf) = grads_against_f32(torch, 2, gate_ids, gate_labels)
+    (lk, gk), (lp, gp), (lf, gf) = grads_against_f32(torch, make, 2, on, gate_ids,
+                                                     gate_labels)
     r_loss = abs(float(lk) - float(lp)) / abs(float(lp))
     rows = sorted(((rel_l2(gk[n], gp[n]), rel_l2(gk[n], gf[n]), rel_l2(gp[n], gf[n]), n)
                    for n in gf), reverse=True)
-    log(f"train 2-layer 1x{TRAIN_SEQ}: loss kernels {float(lk):.5f} plain {float(lp):.5f} "
-        f"f32 {float(lf):.5f} (kernels vs plain {r_loss:.3g}); grad relative L2, "
-        f"worst three kernels vs plain (kernels to f32, plain to f32): "
+    log(f"train {make.__name__[5:]} 2-layer 1x{TRAIN_SEQ}: loss kernels {float(lk):.5f} "
+        f"plain {float(lp):.5f} f32 {float(lf):.5f} (kernels vs plain {r_loss:.3g}); grad "
+        f"relative L2, worst three kernels vs plain (kernels to f32, plain to f32): "
         + "; ".join(f"{n} {kp:.4g} ({kf:.4g}, {pf:.4g})" for kp, kf, pf, n in rows[:3]))
     bad = [r for r in rows if r[0] > LOGITS_REL_TOL and r[1] > r[2]]
     if r_loss > LOGITS_REL_TOL or bad:
         raise AssertionError(f"2-layer gate: loss {r_loss}; grads {bad}")
 
 
-def gate_deep(torch, gate_ids, gate_labels):
-    """At 8 layers, two bf16 paths drift apart as rounding differences grow
+def gate_deep(torch, make, layers, on, gate_ids, gate_labels):
+    """At depth, two bf16 paths drift apart as rounding differences grow
     layer by layer: each kernel grad must be no further from an f32
-    reference of the same weights (plain path) than the plain bf16 grad."""
-    L = TRAIN_LAYERS
-    (lk, gk), (lp, gp), (lf, gf) = grads_against_f32(torch, L, gate_ids, gate_labels)
+    reference of the same weights (plain path) than DEPTH_REL_MARGIN times
+    the plain bf16 grad."""
+    (lk, gk), (lp, gp), (lf, gf) = grads_against_f32(torch, make, layers, on, gate_ids,
+                                                     gate_labels)
     ratios = sorted(((rel_l2(gk[n], gf[n]) / rel_l2(gp[n], gf[n]), n) for n in gf),
                     reverse=True)
-    log(f"train {L}-layer 1x{TRAIN_SEQ}: loss kernels {float(lk):.5f} plain "
-        f"{float(lp):.5f} f32 {float(lf):.5f}; grad relative L2 to f32, kernels / "
-        f"plain, worst three: " + "; ".join(f"{n} {r:.3f}" for r, n in ratios[:3]))
+    log(f"train {make.__name__[5:]} {layers}-layer 1x{TRAIN_SEQ}: loss kernels "
+        f"{float(lk):.5f} plain {float(lp):.5f} f32 {float(lf):.5f}; grad relative L2 to "
+        f"f32, kernels / plain, worst three: "
+        + "; ".join(f"{n} {r:.3f}" for r, n in ratios[:3]))
     if not ratios[0][0] <= DEPTH_REL_MARGIN:
-        raise AssertionError(f"{L}-layer gate: {ratios[0][1]} kernel grad is "
+        raise AssertionError(f"{layers}-layer gate: {ratios[0][1]} kernel grad is "
                              f"{ratios[0][0]:.3f}x the plain path's distance from f32")
 
 
-def train_steps(torch, card, ids, labels):
-    """TRAIN_WARMUP then TRAIN_STEPS TrainSteps at 8 layers on one batch;
-    returns the launch counts of the TRAIN_STEPS steps."""
+def train_steps(torch, card, make, layers, flags, ids, labels):
+    """TRAIN_WARMUP then TRAIN_STEPS TrainSteps of ``make(layers)`` under
+    AMP O2 with ``flags`` on one batch; checks the launches of the counted
+    steps against what the model's path needs and returns them."""
     import numpy as np
 
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
     from paddle_tpu_torch.optimizer import AdamW
 
-    L = TRAIN_LAYERS
-    model = LlamaForCausalLM(llama2_7b(num_hidden_layers=L), device="cuda", seed=0)
-    n_params = model.num_params()
+    model = make(layers)
+    cfg, label = model.config, f"{make.__name__[5:]} {flags}"
+    n_params, n_tensors = model.num_params(), len(list(model.parameters()))
     opt = AdamW(1e-4, parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(1.0))
     model, opt = ptt.amp.decorate(model, opt, level="O2", dtype="bfloat16")
     step = TrainStep(model, lambda m, x, y: m(x, labels=y)[0], opt)
-    losses = [float(step(ids, labels)) for _ in range(TRAIN_WARMUP)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    out = [step(ids, labels) for _ in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    took = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    losses += [float(x) for x in out]
-    log(f"train losses: {' '.join(f'{x:.4f}' for x in losses)}")
-    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"training: losses not finite and falling: {losses}")
-    per_step = {"rms_norm": 2 * L + 1, "rope": L, "flash_attention": L,
-                "decode_attention": 0, "rms_norm_bwd": 2 * L + 1, "rope_bwd": L,
-                "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L}
-    want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
-    log(f"train launches in {TRAIN_STEPS} steps: {launches}")
-    if launches != want:
-        raise AssertionError(f"training launches {launches}, {TRAIN_STEPS} steps of "
-                             f"{L} layers launch {want}")
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = 6 * n_params * tokens + L * 7 * TRAIN_BATCH * 32 * TRAIN_SEQ ** 2 * 128
-    step_s = took / TRAIN_STEPS
-    log(f"train throughput on {card}: {tokens / step_s:.1f} tokens/s, "
-        f"{step_s * 1e3:.1f} ms a step ({n_params / 1e9:.3f} B params, {L} layers, "
-        f"{TRAIN_BATCH}x{TRAIN_SEQ}), MFU {flops / step_s / BF16_FLOPS:.4f} of "
-        f"{flops / 1e12:.2f} TFLOP a step at 989 TFLOP/s; peak memory "
-        f"{peak / 2**30:.2f} GiB")
-    profile_step(torch, lambda: step(ids, labels))
+    with ptt.flag_guard(**flags):
+        losses = [float(step(ids, labels)) for _ in range(TRAIN_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = [step(ids, labels) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        losses += [float(x) for x in out]
+        log(f"train {label} losses: {' '.join(f'{x:.4f}' for x in losses)}")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"training {label}: losses not finite and falling: {losses}")
+        L = layers
+        on = {k: bool(ptt.get_flags(k)[k])
+              for k in ("use_fused_swiglu", "use_fused_adamw", "use_fused_layernorm")}
+        per_step = dict.fromkeys(LAUNCHES, 0)
+        per_step.update(flash_attention=L, flash_attention_bwd_dq=L, flash_attention_bwd_dkv=L,
+                        adamw=n_tensors if on["use_fused_adamw"] else 0)
+        if make is make_llama:
+            per_step.update(rms_norm=2 * L + 1, rope=L, rms_norm_bwd=2 * L + 1, rope_bwd=L,
+                            swiglu=L if on["use_fused_swiglu"] else 0,
+                            swiglu_bwd=L if on["use_fused_swiglu"] else 0)
+        else:
+            per_step.update(add_layer_norm=L if on["use_fused_layernorm"] else 0,
+                            add_layer_norm_bwd=L if on["use_fused_layernorm"] else 0)
+        want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+        log(f"train {label} launches in {TRAIN_STEPS} steps: {launches}")
+        if launches != want:
+            raise AssertionError(f"training {label}: launches {launches}, {TRAIN_STEPS} "
+                                 f"steps of {L} layers launch {want}")
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        flops = 6 * n_params * tokens + L * 7 * TRAIN_BATCH * cfg.num_attention_heads \
+            * TRAIN_SEQ ** 2 * cfg.head_dim
+        step_s = took / TRAIN_STEPS
+        log(f"train {label} throughput on {card}: {tokens / step_s:.1f} tokens/s, "
+            f"{step_s * 1e3:.1f} ms a step ({n_params / 1e9:.3f} B params in {n_tensors} "
+            f"tensors, {L} layers, {TRAIN_BATCH}x{TRAIN_SEQ}), MFU "
+            f"{flops / step_s / BF16_FLOPS:.4f} of {flops / 1e12:.2f} TFLOP a step at 989 "
+            f"TFLOP/s; peak memory {peak / 2**30:.2f} GiB")
+        profile_step(torch, f"train step {label}", lambda: step(ids, labels))
+    del model, opt, step
     return launches
 
 
-def profile_step(torch, fn):
+def profile_step(torch, label, fn):
     """Device time by kernel and the device's idle share over one call of
     ``fn``, from ``torch.profiler`` (whose own host cost inflates the wall
     time and so the idle share)."""
@@ -705,7 +950,7 @@ def profile_step(torch, fn):
             if e.device_type == DeviceType.CUDA}
     total = sum(busy.values())
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
-    log(f"profile train step: wall {wall:.2f} ms (profiled), device busy {total:.2f} ms, "
+    log(f"profile {label}: wall {wall:.2f} ms (profiled), device busy {total:.2f} ms, "
         f"idle share {1 - total / wall:.3f}; top kernels (ms): "
         + "; ".join(f"{name[:48]} {ms:.3f}" for name, ms in top))
 
@@ -753,6 +998,16 @@ SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is count
                                "paddle_tpu/ops/pallas/flash_attention.py:315", "train"),
     "flash_attention_bwd_dkv": ("paddle_tpu_torch/ops/csrc/flash_attention_bwd.cu",
                                 "paddle_tpu/ops/pallas/flash_attention.py:350", "train"),
+    "swiglu": ("paddle_tpu_torch/ops/csrc/fused_ln_swiglu.cu",
+               "paddle_tpu/ops/pallas/fused_ln_swiglu.py:193", "train"),
+    "swiglu_bwd": ("paddle_tpu_torch/ops/csrc/fused_ln_swiglu.cu",
+                   "paddle_tpu/ops/pallas/fused_ln_swiglu.py:193", "train"),
+    "adamw": ("paddle_tpu_torch/ops/csrc/fused_ln_swiglu.cu",
+              "paddle_tpu/ops/pallas/fused_ln_swiglu.py:280", "train"),
+    "add_layer_norm": ("paddle_tpu_torch/ops/csrc/fused_ln_swiglu.cu",
+                       "paddle_tpu/ops/pallas/fused_ln_swiglu.py:92", "gpt_train"),
+    "add_layer_norm_bwd": ("paddle_tpu_torch/ops/csrc/fused_ln_swiglu.cu",
+                           "paddle_tpu/ops/pallas/fused_ln_swiglu.py:124", "gpt_train"),
 }
 
 
@@ -770,9 +1025,15 @@ def main() -> int:
     rows = phase_parity(torch)
     rows.update(phase_bwd_parity(torch))
     torch.cuda.empty_cache()
+    rows.update(phase_fused_parity(torch))
+    torch.cuda.empty_cache()
     launches = {"serve": phase_e2e(torch, card)}
     torch.cuda.empty_cache()
     launches["train"] = phase_train(torch, card)
+    torch.cuda.empty_cache()
+    launches["gpt_train"] = phase_gpt_train(torch, card)
+    torch.cuda.empty_cache()
+    phase_gpt_generate(torch, card)
     kernels = []
     for name, (src, replaces, path) in SOURCES.items():
         n = launches[path][name]

@@ -3,8 +3,8 @@
 
 O2 is pure half precision: every floating-point parameter is cast to the
 half dtype in place (the Parameter objects stay, so optimizer lists stay
-valid), except those of LayerNorm, BatchNorm and GroupNorm layers.  As in
-the reference, RMSNorm weights are cast too.  Buffers keep their dtype
+valid), except those of LayerNorm (the port's and torch's), BatchNorm
+and GroupNorm layers.  As in the reference, RMSNorm weights are cast too.  Buffers keep their dtype
 (the f32 rope tables).  Floating-point inputs of the model's forward are
 cast to the half dtype as they enter, or the first op's type promotion
 would run the model in f32.  The optimizers get f32 master weights
@@ -17,10 +17,12 @@ from typing import Any
 import torch
 from torch import nn
 
+from ..nn.layers import LayerNorm
+
 __all__ = ["decorate"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
-_KEEP_F32 = (nn.LayerNorm, nn.modules.batchnorm._BatchNorm, nn.GroupNorm)
+_KEEP_F32 = (LayerNorm, nn.LayerNorm, nn.modules.batchnorm._BatchNorm, nn.GroupNorm)
 
 
 def _cast(value: Any, dtype: torch.dtype) -> Any:

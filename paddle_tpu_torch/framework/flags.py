@@ -105,12 +105,22 @@ define_flag("use_decode_attention", True,
             "Single-token cached attention, with its in-place cache append, "
             "runs the hand decode kernel on a CUDA tensor.")
 define_flag("use_fused_swiglu", False,
-            "The fused SwiGLU kernel (B4) is not ported yet: setting this "
-            "flag makes swiglu raise instead of running the plain silu*u.")
+            "Two-argument swiglu runs the hand fused SwiGLU kernels (B4, "
+            "forward and backward) on CUDA tensors, and their f32 plain twins "
+            "on CPU tensors. Default off, as in the reference: not yet set "
+            "from an H100 measurement (PERF.md has the step with the flag "
+            "on and off).")
 define_flag("use_fused_adamw", False,
-            "The fused AdamW kernel (B5) is not ported yet: setting this "
-            "flag makes Adam/AdamW updates raise instead of running the "
-            "plain update.")
+            "Adam/AdamW updates run the hand one-sweep AdamW kernel (B5), in "
+            "place, on CUDA tensors, and its f32 plain twin on CPU tensors. "
+            "Default off, as in the reference: not yet set from an H100 "
+            "measurement (PERF.md has the step with the flag on and off).")
+define_flag("use_fused_layernorm", False,
+            "incubate.nn.functional.fused_layer_norm with a residual and a "
+            "bias runs the hand residual-add + LayerNorm kernels (B11, B11b) "
+            "on CUDA tensors, and their f32 plain twins on CPU tensors. "
+            "Default off, as in the reference: not yet set from an H100 "
+            "measurement (PERF.md).")
 define_flag("flash_block_q", 512,
             "Reference name only: the TPU's flash query tile. Not measured "
             "on the H100 and not read by the port.")

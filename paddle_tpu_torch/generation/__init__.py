@@ -94,7 +94,9 @@ class GenerationMixin:
         dtype of the first floating parameter, on the model's device."""
         cfg = self.config
         p = next(p for p in self.parameters() if p.is_floating_point())
-        shape = (batch, capacity, cfg.num_key_value_heads, cfg.head_dim)
+        # a family without grouped heads (GPT) caches every attention head
+        kv = getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
+        shape = (batch, capacity, kv, cfg.head_dim)
         return [(torch.zeros(shape, dtype=p.dtype, device=p.device),
                  torch.zeros(shape, dtype=p.dtype, device=p.device))
                 for _ in range(cfg.num_hidden_layers)]

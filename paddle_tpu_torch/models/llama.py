@@ -128,10 +128,10 @@ class LlamaAttention(nn.Module):
         self.config = config
         h, kv, d = config.num_attention_heads, config.num_key_value_heads, config.head_dim
         hs = config.hidden_size
-        self.q_proj = Linear(hs, h * d, **init)
-        self.k_proj = Linear(hs, kv * d, **init)
-        self.v_proj = Linear(hs, kv * d, **init)
-        self.o_proj = Linear(h * d, hs, **init)
+        self.q_proj = Linear(hs, h * d, bias_attr=False, **init)
+        self.k_proj = Linear(hs, kv * d, bias_attr=False, **init)
+        self.v_proj = Linear(hs, kv * d, bias_attr=False, **init)
+        self.o_proj = Linear(h * d, hs, bias_attr=False, **init)
 
     def forward(self, x, cos, sin, attn_mask=None, position_offset: int = 0,
                 kv_cache=None, pad_lens=None):
@@ -162,9 +162,9 @@ class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, **init):
         super().__init__()
         hs, inter = config.hidden_size, config.intermediate_size
-        self.gate_proj = Linear(hs, inter, **init)
-        self.up_proj = Linear(hs, inter, **init)
-        self.down_proj = Linear(inter, hs, **init)
+        self.gate_proj = Linear(hs, inter, bias_attr=False, **init)
+        self.up_proj = Linear(hs, inter, bias_attr=False, **init)
+        self.down_proj = Linear(inter, hs, bias_attr=False, **init)
 
     def forward(self, x):
         return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
@@ -255,8 +255,8 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         init = dict(std=config.initializer_range, device=device, dtype=dtype,
                     generator=torch.Generator(device=device).manual_seed(seed))
         self.llama = LlamaModel(config, **init)
-        self.lm_head = None if config.tie_word_embeddings else \
-            Linear(config.hidden_size, config.vocab_size, **init)
+        self.lm_head = None if config.tie_word_embeddings else Linear(
+            config.hidden_size, config.vocab_size, bias_attr=False, **init)
 
     def forward(self, input_ids, labels=None, attn_mask=None, kv_cache=None,
                 position_offset: int = 0, pad_lens=None):

@@ -2,4 +2,4 @@
 
 from . import functional  # noqa: F401
 from .clip import ClipGradByGlobalNorm  # noqa: F401
-from .layers import Embedding, Linear, RMSNorm  # noqa: F401
+from .layers import Dropout, Embedding, LayerNorm, Linear, RMSNorm  # noqa: F401

@@ -1,9 +1,9 @@
 """The functional operators of the serving and training paths (port of the
 reference's ``nn/functional/__init__.py``: ``linear``, ``embedding``,
-``rms_norm``, ``swiglu``, ``scaled_dot_product_attention``,
-``cross_entropy``).
+``rms_norm``, ``layer_norm``, ``gelu``, ``swiglu``, ``dropout``,
+``scaled_dot_product_attention``, ``cross_entropy``).
 
-``rms_norm`` and ``scaled_dot_product_attention`` reach the hand kernels
+``rms_norm``, ``swiglu`` and ``scaled_dot_product_attention`` reach the hand kernels
 through the dispatch seam: without grad, :func:`~paddle_tpu_torch.ops.use_kernel`
 picks the forward kernel; with grad, :func:`~paddle_tpu_torch.ops.use_function`
 picks the op's autograd Function (forward and backward kernels on the
@@ -21,15 +21,18 @@ from ..framework.flags import get_flags
 from ..ops import use_function, use_kernel
 from ..ops.attention import sdpa_reference
 from ..ops.flash_attention import FlashAttentionFunction, flash_attention_fwd
+from ..ops.fused_ln_swiglu import SwiGLUFunction, fused_swiglu
 from ..ops.fused_norm import RMSNormFunction, fused_rms_norm, rms_norm_plain
 
-__all__ = ["linear", "embedding", "rms_norm", "swiglu",
-           "scaled_dot_product_attention", "cross_entropy"]
+__all__ = ["linear", "embedding", "rms_norm", "layer_norm", "gelu", "swiglu",
+           "dropout", "scaled_dot_product_attention", "cross_entropy"]
 
 
-def linear(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """x [..., in] @ weight [in, out]: paddle's layout."""
-    return torch.matmul(x, weight)
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x [..., in] @ weight [in, out] (paddle's layout), + bias [out]."""
+    out = torch.matmul(x, weight)
+    return out if bias is None else out + bias
 
 
 def embedding(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -48,23 +51,74 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return rms_norm_plain(x, weight, epsilon)[0]
 
 
-def swiglu(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """silu(x) * y."""
-    if get_flags("use_fused_swiglu")["use_fused_swiglu"]:
-        raise NotImplementedError(
-            "use_fused_swiglu: the fused SwiGLU kernel (ROADMAP B4) is not "
-            "ported yet; leave the flag off to run silu(x) * y")
+def layer_norm(x: torch.Tensor, normalized_shape, weight: Optional[torch.Tensor] = None,
+               bias: Optional[torch.Tensor] = None, epsilon: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the trailing ``normalized_shape`` axes in f32 (the
+    variance as mean((x − mean)²)), times ``weight`` and plus ``bias`` in
+    f32, cast to x's dtype; ``weight`` and ``bias`` may be f32 while x is
+    bf16 (AMP O2 keeps LayerNorm parameters in f32)."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    dims = tuple(range(-len(tuple(normalized_shape)), 0))
+    xf = x.float()
+    mean = xf.mean(dims, keepdim=True)
+    var = (xf - mean).square().mean(dims, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
+def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
+    """GELU: exact (erf) by default, the tanh form with ``approximate``."""
+    return torch.nn.functional.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def swiglu(x: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """silu(x) * y; with one argument, x's last axis is split in halves
+    (gate, up).  With ``use_fused_swiglu`` on and two arguments of one
+    shape, the fused SwiGLU (B4: f32 inside, out in x's dtype); otherwise
+    silu(x) * y in the working dtype."""
+    if y is None:
+        half = x.shape[-1] // 2
+        return torch.nn.functional.silu(x[..., :half]) * x[..., half:]
+    if x.shape == y.shape and get_flags("use_fused_swiglu")["use_fused_swiglu"]:
+        if use_function("use_fused_swiglu", x, y):
+            return SwiGLUFunction.apply(x, y)
+        return fused_swiglu(x, y)
     return torch.nn.functional.silu(x) * y
+
+
+def _no_dropout(p: float, training: bool, what: str) -> None:
+    if training and p > 0.0:
+        raise NotImplementedError(
+            f"{what} with p = {p} in training: dropout needs a counter-based "
+            f"generator (Philox) the port does not have yet (ROADMAP queue "
+            f"A); use p = 0 or eval mode")
+
+
+def dropout(x: torch.Tensor, p: float = 0.5, training: bool = True,
+            mode: str = "upscale_in_train") -> torch.Tensor:
+    """Identity at p = 0 or outside training (times 1 − p for
+    ``downscale_in_infer`` in eval); p > 0 in training raises."""
+    _no_dropout(p, training, "dropout")
+    if not training and mode == "downscale_in_infer":
+        return x * (1.0 - p)
+    return x
 
 
 def scaled_dot_product_attention(query: torch.Tensor, key: torch.Tensor,
                                  value: torch.Tensor,
                                  attn_mask: Optional[torch.Tensor] = None,
-                                 is_causal: bool = False) -> torch.Tensor:
+                                 dropout_p: float = 0.0, is_causal: bool = False,
+                                 training: bool = True) -> torch.Tensor:
     """Attention in the [batch, seq, heads, head_dim] layout.  Without an
     additive mask this is the flash function (hand kernels on the card);
     with one it is the composite ``sdpa_reference``, whose masked form has
-    no kernel yet."""
+    no kernel yet.  A non-zero ``dropout_p`` in training raises."""
+    _no_dropout(dropout_p, training, "attention dropout")
     if attn_mask is None:
         if use_function("use_flash_attention", query, key, value):
             return FlashAttentionFunction.apply(query, key, value, is_causal)

@@ -1,11 +1,12 @@
-"""Layers of the serving path as ``torch.nn.Module``s (port of the
-reference's ``nn/layer/common.py`` ``Linear``/``Embedding`` and
-``nn/layer/norm.py`` ``RMSNorm``).
+"""Layers of the serving and training paths as ``torch.nn.Module``s (port
+of the reference's ``nn/layer/common.py`` ``Linear``/``Embedding``/
+``Dropout`` and ``nn/layer/norm.py`` ``RMSNorm``/``LayerNorm``).
 
 ``Linear.weight`` keeps paddle's ``[in, out]`` layout and computes
-``x @ W``, so weights cross between the two packages without transposes.
-Weights are drawn from N(0, ``std``) with the caller's ``torch.Generator``
-(the initializer every Llama layer of the reference uses).
+``x @ W + b``, so weights cross between the two packages without
+transposes.  Weights are drawn from N(0, ``std``) with the caller's
+``torch.Generator`` (the initializer every Llama and GPT layer of the
+reference uses); biases start at zero, norm weights at one.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from torch import nn
 
 from . import functional as F
 
-__all__ = ["Linear", "Embedding", "RMSNorm"]
+__all__ = ["Linear", "Embedding", "RMSNorm", "LayerNorm", "Dropout"]
 
 
 def _normal(shape, std, generator, device, dtype) -> nn.Parameter:
@@ -27,19 +28,22 @@ def _normal(shape, std, generator, device, dtype) -> nn.Parameter:
 
 
 class Linear(nn.Module):
-    """y = x @ W, W of shape [in_features, out_features] (no bias: the
-    Llama projections have none)."""
+    """y = x @ W + b, W of shape [in_features, out_features] and b [out]
+    (zeros).  ``bias_attr=False`` leaves the bias out, as paddle's does
+    (the Llama projections have none)."""
 
-    def __init__(self, in_features: int, out_features: int, *, std: float = 0.02,
-                 generator: Optional[torch.Generator] = None, device=None,
-                 dtype=torch.float32):
+    def __init__(self, in_features: int, out_features: int, bias_attr=None, *,
+                 std: float = 0.02, generator: Optional[torch.Generator] = None,
+                 device=None, dtype=torch.float32):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
         self.weight = _normal((in_features, out_features), std, generator,
                               device, dtype)
+        self.bias = None if bias_attr is False else nn.Parameter(
+            torch.zeros(out_features, device=device, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight)
+        return F.linear(x, self.weight, self.bias)
 
     def extra_repr(self) -> str:
         return f"in_features={self.in_features}, out_features={self.out_features}"
@@ -72,3 +76,38 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.rms_norm(x, self.weight, self._epsilon)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis (``F.layer_norm``: f32 inside), weight
+    ones and bias zeros.  AMP O2 keeps its parameters in f32."""
+
+    def __init__(self, normalized_shape: int, epsilon: float = 1e-5, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self._normalized_shape = (int(normalized_shape),)
+        self._epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(normalized_shape, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(normalized_shape, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self._normalized_shape, self.weight, self.bias,
+                            self._epsilon)
+
+    def extra_repr(self) -> str:
+        return f"normalized_shape={list(self._normalized_shape)}, epsilon={self._epsilon}"
+
+
+class Dropout(nn.Module):
+    """``F.dropout`` in the module's training mode: identity at p = 0 or in
+    eval mode; p > 0 in training raises (no Philox generator yet)."""
+
+    def __init__(self, p: float = 0.5, mode: str = "upscale_in_train"):
+        super().__init__()
+        self.p, self.mode = p, mode
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.dropout(x, self.p, training=self.training, mode=self.mode)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"

@@ -36,6 +36,16 @@ __device__ __forceinline__ void load_f32(const T* p, float (&out)[N]) {
   for (int i = 0; i < N; ++i) out[i] = to_f32(x.v[i]);
 }
 
+// N f32 registers rounded to T and stored at p (aligned to N elements) in
+// one vector store
+template <typename T, int N>
+__device__ __forceinline__ void store_f32(T* p, const float (&in)[N]) {
+  Vec<T, N> x;
+#pragma unroll
+  for (int i = 0; i < N; ++i) x.v[i] = from_f32<T>(in[i]);
+  *reinterpret_cast<Vec<T, N>*>(p) = x;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -1,0 +1,470 @@
+// B4: fused SwiGLU forward and backward; B5: the one-sweep AdamW update;
+// B11 and B11b: residual add + LayerNorm forward and backward.
+//
+// Replaces paddle_tpu/ops/pallas/fused_ln_swiglu.py, whole:
+//   B11  fused_add_layer_norm -> _ln_fwd -> _ln_fwd_kernel (pallas_call :92)
+//   B11b _ln_bwd -> _ln_bwd_kernel (pallas_call :124)
+//   B4   fused_swiglu -> _swiglu_fwd / _swiglu_bwd -> _elementwise_call
+//        (pallas_call :193, run with _swiglu_fwd_kernel and _swiglu_bwd_kernel)
+//   B5   fused_adamw -> _adamw_kernel (pallas_call :280)
+//
+// All four are bound by bytes on the H100: each element is read once and
+// written once for a handful of f32 operations, far below the ~20 f32
+// operations per byte where the card's arithmetic would become the limit.
+// So the designs only keep every byte to one trip through device memory
+// and keep the loads wide:
+//
+// - B4 and B5 are grid-stride elementwise sweeps with 16-byte vector loads
+//   (8 bf16 or 4 f32 values a thread) when every pointer is 16-byte
+//   aligned, and a scalar tail for the last n % N elements.  The TPU
+//   kernels' (8, 128) row blocks do not carry over: the data is flat.
+// - B5 updates p, m and v in place (the TPU kernel returns new arrays), so
+//   a step moves 28 bytes an f32 parameter and allocates nothing.  lr,
+//   1 - beta1^t and 1 - beta2^t arrive as f32 arguments computed in f32 by
+//   the wrapper, as the TPU wrapper computes them (fused_ln_swiglu.py:273-276).
+// - B11 takes one block of 256 threads per row.  Each thread keeps the f32
+//   sums of its own columns in shared memory (the same columns in every
+//   pass, so no barrier is needed for them), so the variance is taken in
+//   two passes, mean((s - mu)^2) as the TPU kernel does, without a second
+//   read of x and r from device memory.  The weight and bias may be f32
+//   while x is bf16 (AMP O2 keeps LayerNorm parameters in f32).
+// - B11b: the TPU kernel carries dw and db in VMEM across a sequential
+//   grid; blocks on the card run in parallel and in no order.  As in B1b
+//   (rms_norm.cu), each block takes a contiguous run of rows and sums its
+//   dw and db in f32 in shared memory (each thread owns its columns: no
+//   atomics), writes one f32 partial row of each, and a second kernel sums
+//   the partial rows in block order: deterministic.  x^ is recomputed from
+//   the stored, rounded sum with the forward's f32 mu and rstd, as
+//   _ln_bwd_kernel does.
+#include <algorithm>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+int grid_for(long long work) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long blocks = (work + kThreads - 1) / kThreads;
+  return static_cast<int>(std::max(1LL, std::min(blocks, static_cast<long long>(sms) * 16)));
+}
+
+__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
+
+// Sum over the block into part[32]; each call site passes its own part
+// array of 33 floats, so calls follow each other without a barrier.
+__device__ __forceinline__ float block_sum_in(float v, float* part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = ptt::warp_sum(v);
+  if (lane == 0) part[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = ptt::warp_sum(lane < (kThreads >> 5) ? part[lane] : 0.f);
+    if (lane == 0) part[32] = v;
+  }
+  __syncthreads();
+  return part[32];
+}
+
+// ---------------------------------------------------------------------------
+// B4: SwiGLU.  fwd: out = silu(g) * u.  bwd: dg = dy*u*(sig + silu*(1 - sig)),
+// du = dy*silu.  f32 inside, every output in g's dtype.
+// ---------------------------------------------------------------------------
+template <int N>
+__device__ __forceinline__ void swiglu_fwd_vals(const float (&g)[N], const float (&u)[N],
+                                                float (&o)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) o[k] = g[k] * sigmoid(g[k]) * u[k];
+}
+
+template <int N>
+__device__ __forceinline__ void swiglu_bwd_vals(const float (&g)[N], const float (&u)[N],
+                                                const float (&dy)[N], float (&dg)[N],
+                                                float (&du)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const float sig = sigmoid(g[k]);
+    const float silu = g[k] * sig;
+    dg[k] = dy[k] * u[k] * (sig + silu * (1.f - sig));
+    du[k] = dy[k] * silu;
+  }
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+swiglu_fwd_kernel(const T* __restrict__ g, const T* __restrict__ u, T* __restrict__ out,
+                  long long n) {
+  const long long nvec = n / N;
+  const long long first = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = first; i < nvec; i += stride) {
+    float gv[N], uv[N], ov[N];
+    ptt::load_f32<T, N>(g + i * N, gv);
+    ptt::load_f32<T, N>(u + i * N, uv);
+    swiglu_fwd_vals<N>(gv, uv, ov);
+    ptt::store_f32<T, N>(out + i * N, ov);
+  }
+  const long long j = nvec * N + first;  // the tail: fewer than N elements
+  if (j < n) {
+    float gv[1] = {ptt::to_f32(g[j])}, uv[1] = {ptt::to_f32(u[j])}, ov[1];
+    swiglu_fwd_vals<1>(gv, uv, ov);
+    out[j] = ptt::from_f32<T>(ov[0]);
+  }
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+swiglu_bwd_kernel(const T* __restrict__ g, const T* __restrict__ u, const T* __restrict__ dy,
+                  T* __restrict__ dg, T* __restrict__ du, long long n) {
+  const long long nvec = n / N;
+  const long long first = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = first; i < nvec; i += stride) {
+    float gv[N], uv[N], dyv[N], dgv[N], duv[N];
+    ptt::load_f32<T, N>(g + i * N, gv);
+    ptt::load_f32<T, N>(u + i * N, uv);
+    ptt::load_f32<T, N>(dy + i * N, dyv);
+    swiglu_bwd_vals<N>(gv, uv, dyv, dgv, duv);
+    ptt::store_f32<T, N>(dg + i * N, dgv);
+    ptt::store_f32<T, N>(du + i * N, duv);
+  }
+  const long long j = nvec * N + first;
+  if (j < n) {
+    float gv[1] = {ptt::to_f32(g[j])}, uv[1] = {ptt::to_f32(u[j])},
+          dyv[1] = {ptt::to_f32(dy[j])}, dgv[1], duv[1];
+    swiglu_bwd_vals<1>(gv, uv, dyv, dgv, duv);
+    dg[j] = ptt::from_f32<T>(dgv[0]);
+    du[j] = ptt::from_f32<T>(duv[0]);
+  }
+}
+
+template <typename T>
+int launch_swiglu(const void* g, const void* u, const void* dy, void* out, void* du,
+                  long long n, cudaStream_t s) {
+  constexpr int N = 16 / sizeof(T);
+  const bool vec = aligned16(g) && aligned16(u) && aligned16(out) &&
+                   (dy == nullptr || (aligned16(dy) && aligned16(du)));
+  const int grid = grid_for(vec ? (n + N - 1) / N : n);
+  if (dy == nullptr) {
+    auto k = vec ? &swiglu_fwd_kernel<T, N> : &swiglu_fwd_kernel<T, 1>;
+    k<<<grid, kThreads, 0, s>>>(static_cast<const T*>(g), static_cast<const T*>(u),
+                                static_cast<T*>(out), n);
+  } else {
+    auto k = vec ? &swiglu_bwd_kernel<T, N> : &swiglu_bwd_kernel<T, 1>;
+    k<<<grid, kThreads, 0, s>>>(static_cast<const T*>(g), static_cast<const T*>(u),
+                                static_cast<const T*>(dy), static_cast<T*>(out),
+                                static_cast<T*>(du), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// B5: decoupled AdamW, in place.  p and g of one dtype (the f32 master and
+// its f32 gradient on the training path), m and v in f32.
+// ---------------------------------------------------------------------------
+struct AdamArgs {
+  float lr, bc1, bc2, b1, omb1, b2, omb2, eps, lr_wd;
+  int decay;
+};
+
+__device__ __forceinline__ void adamw_val(float& p, float g, float& m, float& v,
+                                          const AdamArgs& a) {
+  m = a.b1 * m + a.omb1 * g;
+  v = a.b2 * v + a.omb2 * (g * g);
+  const float update = (m / a.bc1) / (sqrtf(v / a.bc2) + a.eps);
+  const float old = p;
+  p = old - a.lr * update;
+  if (a.decay) p = p - a.lr_wd * old;
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+adamw_kernel(T* __restrict__ p, const T* __restrict__ g, float* __restrict__ m,
+             float* __restrict__ v, long long n, AdamArgs a) {
+  const long long nvec = n / N;
+  const long long first = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = first; i < nvec; i += stride) {
+    float pv[N], gv[N], mv[N], vv[N];
+    ptt::load_f32<T, N>(p + i * N, pv);
+    ptt::load_f32<T, N>(g + i * N, gv);
+    ptt::load_f32<float, N>(m + i * N, mv);
+    ptt::load_f32<float, N>(v + i * N, vv);
+#pragma unroll
+    for (int k = 0; k < N; ++k) adamw_val(pv[k], gv[k], mv[k], vv[k], a);
+    ptt::store_f32<T, N>(p + i * N, pv);
+    ptt::store_f32<float, N>(m + i * N, mv);
+    ptt::store_f32<float, N>(v + i * N, vv);
+  }
+  const long long j = nvec * N + first;
+  if (j < n) {
+    float pv = ptt::to_f32(p[j]), mv = m[j], vv = v[j];
+    adamw_val(pv, ptt::to_f32(g[j]), mv, vv, a);
+    p[j] = ptt::from_f32<T>(pv);
+    m[j] = mv;
+    v[j] = vv;
+  }
+}
+
+template <typename T>
+int launch_adamw(void* p, const void* g, void* m, void* v, long long n, const AdamArgs& a,
+                 cudaStream_t s) {
+  constexpr int N = 4;  // 16 bytes of m and v; 8 or 16 bytes of p and g
+  const bool vec = aligned16(p) && aligned16(g) && aligned16(m) && aligned16(v);
+  auto k = vec ? &adamw_kernel<T, N> : &adamw_kernel<T, 1>;
+  k<<<grid_for(vec ? (n + N - 1) / N : n), kThreads, 0, s>>>(
+      static_cast<T*>(p), static_cast<const T*>(g), static_cast<float*>(m),
+      static_cast<float*>(v), n, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// B11: s = x + r in f32; out = (s - mu) * rstd * w + b in x's dtype; s in
+// x's dtype; mu and rstd [n] in f32.  One block a row.
+// ---------------------------------------------------------------------------
+template <typename T, typename W, int N>
+__global__ void __launch_bounds__(kThreads)
+add_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ r, const W* __restrict__ w,
+                  const W* __restrict__ b, T* __restrict__ out, T* __restrict__ sum,
+                  float* __restrict__ mu, float* __restrict__ rstd, int h, float eps) {
+  extern __shared__ float srow[];  // [h]: the f32 sum, each thread its own columns
+  __shared__ float part[2][33];
+  const long long off = static_cast<long long>(blockIdx.x) * h;
+  float loc = 0.f;
+  for (int c = threadIdx.x * N; c < h; c += kThreads * N) {
+    float xv[N], rv[N], sv[N];
+    ptt::load_f32<T, N>(x + off + c, xv);
+    ptt::load_f32<T, N>(r + off + c, rv);
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      sv[k] = xv[k] + rv[k];
+      srow[c + k] = sv[k];
+      loc += sv[k];
+    }
+    ptt::store_f32<T, N>(sum + off + c, sv);
+  }
+  const float mean = block_sum_in(loc, part[0]) / static_cast<float>(h);
+  float sq = 0.f;
+  for (int c = threadIdx.x * N; c < h; c += kThreads * N) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float d = srow[c + k] - mean;
+      sq += d * d;
+    }
+  }
+  const float var = block_sum_in(sq, part[1]) / static_cast<float>(h);
+  const float rs = rsqrtf(var + eps);
+  if (threadIdx.x == 0) {
+    mu[blockIdx.x] = mean;
+    rstd[blockIdx.x] = rs;
+  }
+  for (int c = threadIdx.x * N; c < h; c += kThreads * N) {
+    float ov[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      ov[k] = (srow[c + k] - mean) * rs * ptt::to_f32(w[c + k]) + ptt::to_f32(b[c + k]);
+    ptt::store_f32<T, N>(out + off + c, ov);
+  }
+}
+
+template <typename T, typename W>
+int launch_add_ln_fwd(const void* x, const void* r, const void* w, const void* b, void* out,
+                      void* sum, void* mu, void* rstd, long long n, int h, float eps,
+                      cudaStream_t s) {
+  constexpr int N = 16 / sizeof(T);
+  const bool vec = h % N == 0 && aligned16(x) && aligned16(r) && aligned16(out) &&
+                   aligned16(sum);
+  auto k = vec ? &add_ln_fwd_kernel<T, W, N> : &add_ln_fwd_kernel<T, W, 1>;
+  const size_t smem = static_cast<size_t>(h) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  k<<<static_cast<unsigned>(n), kThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(r), static_cast<const W*>(w),
+      static_cast<const W*>(b), static_cast<T*>(out), static_cast<T*>(sum),
+      static_cast<float*>(mu), static_cast<float*>(rstd), h, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// B11b: x^ = (s - mu) * rstd, dyw = dy * w, c1 = mean(dyw), c2 = mean(dyw * x^),
+// dx = rstd * (dyw - c1 - x^ * c2) + dpre (dpre may be NULL: zero);
+// dw = sum over rows of dy * x^, db = sum over rows of dy, in w's dtype.
+// ---------------------------------------------------------------------------
+template <typename T, typename W>
+__global__ void __launch_bounds__(kThreads)
+add_ln_bwd_kernel(const T* __restrict__ s, const W* __restrict__ w,
+                  const float* __restrict__ mu, const float* __restrict__ rstd,
+                  const T* __restrict__ dy, const T* __restrict__ dpre, T* __restrict__ dx,
+                  float* __restrict__ part_out, long long n, int h, long long rows_per_block) {
+  extern __shared__ float acc[];  // [2h]: this block's dw, then its db, f32
+  __shared__ float red[2][2][kThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int c = threadIdx.x; c < 2 * h; c += kThreads) acc[c] = 0.f;
+  __syncthreads();  // acc[h + c] may be another thread's to zero
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long r1 = min(n, r0 + rows_per_block);
+  int parity = 0;
+  for (long long row = r0; row < r1; ++row) {
+    const long long off = row * h;
+    const float m = mu[row], rs = rstd[row];
+    float l1 = 0.f, l2 = 0.f;
+    for (int c = threadIdx.x; c < h; c += kThreads) {
+      const float xhat = (ptt::to_f32(s[off + c]) - m) * rs;
+      const float dyv = ptt::to_f32(dy[off + c]);
+      const float dyw = dyv * ptt::to_f32(w[c]);
+      l1 += dyw;
+      l2 += dyw * xhat;
+      acc[c] += dyv * xhat;
+      acc[h + c] += dyv;
+    }
+    l1 = ptt::warp_sum(l1);
+    l2 = ptt::warp_sum(l2);
+    if (lane == 0) {
+      red[parity][0][warp] = l1;
+      red[parity][1][warp] = l2;
+    }
+    __syncthreads();
+    float t1 = 0.f, t2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < kThreads / 32; ++i) {
+      t1 += red[parity][0][i];
+      t2 += red[parity][1][i];
+    }
+    parity ^= 1;
+    const float c1 = t1 / static_cast<float>(h), c2 = t2 / static_cast<float>(h);
+    for (int c = threadIdx.x; c < h; c += kThreads) {
+      const float xhat = (ptt::to_f32(s[off + c]) - m) * rs;
+      const float dyw = ptt::to_f32(dy[off + c]) * ptt::to_f32(w[c]);
+      float d = rs * (dyw - c1 - xhat * c2);
+      if (dpre != nullptr) d += ptt::to_f32(dpre[off + c]);
+      dx[off + c] = ptt::from_f32<T>(d);
+    }
+  }
+  __syncthreads();  // a block may get no row; the copy-out reads all of acc
+  float* out = part_out + static_cast<long long>(blockIdx.x) * 2 * h;
+  for (int c = threadIdx.x; c < 2 * h; c += kThreads) out[c] = acc[c];
+}
+
+// dw[c], db[c]: the partial rows' column c summed in block order
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+add_ln_dwdb_reduce_kernel(const float* __restrict__ part, W* __restrict__ dw,
+                          W* __restrict__ db, int blocks, int h) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= h) return;
+  float sw = 0.f, sb = 0.f;
+  for (int i = 0; i < blocks; ++i) {
+    sw += part[static_cast<long long>(i) * 2 * h + c];
+    sb += part[static_cast<long long>(i) * 2 * h + h + c];
+  }
+  dw[c] = ptt::from_f32<W>(sw);
+  db[c] = ptt::from_f32<W>(sb);
+}
+
+template <typename T, typename W>
+int launch_add_ln_bwd(const void* sum, const void* w, const void* mu, const void* rstd,
+                      const void* dy, const void* dpre, void* dx, void* dw, void* db,
+                      void* part, long long n, int h, int blocks, cudaStream_t s) {
+  const size_t smem = 2 * static_cast<size_t>(h) * sizeof(float);
+  auto k = &add_ln_bwd_kernel<T, W>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const long long per = (n + blocks - 1) / blocks;
+  k<<<blocks, kThreads, smem, s>>>(
+      static_cast<const T*>(sum), static_cast<const W*>(w), static_cast<const float*>(mu),
+      static_cast<const float*>(rstd), static_cast<const T*>(dy),
+      static_cast<const T*>(dpre), static_cast<T*>(dx), static_cast<float*>(part), n, h,
+      per);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  add_ln_dwdb_reduce_kernel<W><<<(h + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      static_cast<const float*>(part), static_cast<W*>(dw), static_cast<W*>(db), blocks, h);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// g, u, out: n contiguous elements of one dtype (0 = f32, 1 = bf16).
+extern "C" int ptt_swiglu_fwd(const void* g, const void* u, void* out, long long n, int dtype,
+                              void* stream) {
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == ptt::kBF16) return launch_swiglu<__nv_bfloat16>(g, u, nullptr, out, nullptr, n, s);
+  return launch_swiglu<float>(g, u, nullptr, out, nullptr, n, s);
+}
+
+// g, u, dy, dg, du: n contiguous elements of one dtype.
+extern "C" int ptt_swiglu_bwd(const void* g, const void* u, const void* dy, void* dg, void* du,
+                              long long n, int dtype, void* stream) {
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == ptt::kBF16) return launch_swiglu<__nv_bfloat16>(g, u, dy, dg, du, n, s);
+  return launch_swiglu<float>(g, u, dy, dg, du, n, s);
+}
+
+// p, g: n contiguous elements of one dtype (the update's); m, v: n f32,
+// all updated in place.  omb1 = 1 - beta1 and omb2 = 1 - beta2 as the
+// caller rounds them; lr_wd = lr * weight_decay in f32.
+extern "C" int ptt_adamw(void* p, const void* g, void* m, void* v, long long n, float lr,
+                         float bc1, float bc2, float b1, float omb1, float b2, float omb2,
+                         float eps, float lr_wd, int decay, int dtype, void* stream) {
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const AdamArgs a{lr, bc1, bc2, b1, omb1, b2, omb2, eps, lr_wd, decay};
+  if (dtype == ptt::kBF16) return launch_adamw<__nv_bfloat16>(p, g, m, v, n, a, s);
+  return launch_adamw<float>(p, g, m, v, n, a, s);
+}
+
+// x, r, out, sum [n, h] of dtype; w, b [h] of w_dtype; mu, rstd [n] f32.
+extern "C" int ptt_add_layer_norm_fwd(const void* x, const void* r, const void* w,
+                                      const void* b, void* out, void* sum, void* mu,
+                                      void* rstd, long long n, int h, float eps, int dtype,
+                                      int w_dtype, void* stream) {
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == ptt::kBF16) {
+    if (w_dtype == ptt::kBF16)
+      return launch_add_ln_fwd<__nv_bfloat16, __nv_bfloat16>(x, r, w, b, out, sum, mu, rstd,
+                                                             n, h, eps, s);
+    return launch_add_ln_fwd<__nv_bfloat16, float>(x, r, w, b, out, sum, mu, rstd, n, h,
+                                                   eps, s);
+  }
+  if (w_dtype == ptt::kBF16)
+    return launch_add_ln_fwd<float, __nv_bfloat16>(x, r, w, b, out, sum, mu, rstd, n, h,
+                                                   eps, s);
+  return launch_add_ln_fwd<float, float>(x, r, w, b, out, sum, mu, rstd, n, h, eps, s);
+}
+
+// sum, dy, dpre (or NULL), dx [n, h] of dtype; w, dw, db [h] of w_dtype;
+// mu, rstd [n] f32; part [blocks, 2, h] f32 scratch, blocks in [1, n].
+extern "C" int ptt_add_layer_norm_bwd(const void* sum, const void* w, const void* mu,
+                                      const void* rstd, const void* dy, const void* dpre,
+                                      void* dx, void* dw, void* db, void* part, long long n,
+                                      int h, int blocks, int dtype, int w_dtype,
+                                      void* stream) {
+  if (n == 0 || blocks < 1) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == ptt::kBF16) {
+    if (w_dtype == ptt::kBF16)
+      return launch_add_ln_bwd<__nv_bfloat16, __nv_bfloat16>(sum, w, mu, rstd, dy, dpre, dx,
+                                                             dw, db, part, n, h, blocks, s);
+    return launch_add_ln_bwd<__nv_bfloat16, float>(sum, w, mu, rstd, dy, dpre, dx, dw, db,
+                                                   part, n, h, blocks, s);
+  }
+  if (w_dtype == ptt::kBF16)
+    return launch_add_ln_bwd<float, __nv_bfloat16>(sum, w, mu, rstd, dy, dpre, dx, dw, db,
+                                                   part, n, h, blocks, s);
+  return launch_add_ln_bwd<float, float>(sum, w, mu, rstd, dy, dpre, dx, dw, db, part, n, h,
+                                         blocks, s);
+}

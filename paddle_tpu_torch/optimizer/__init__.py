@@ -13,8 +13,11 @@ and the parameter receives the master cast back.
 Parameters are named as in the reference, ``param.name`` or
 ``param_<i>``; ``parameters`` may also be ``(name, param)`` pairs (as
 ``model.named_parameters()`` yields), which name them.  The update rules
-keep the reference's arithmetic order; the fused AdamW kernel (B5) is not
-ported, and its flag raises.
+keep the reference's arithmetic order.  With ``use_fused_adamw`` on, Adam
+and AdamW run the one-sweep AdamW (B5: the hand kernel on CUDA tensors,
+its plain twin on CPU ones), which updates the master weight (or the f32
+parameter) and both moments IN PLACE; so, as with ``torch.optim``, a
+``state_dict`` holds live tensors: save or clone it before the next step.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..framework.flags import get_flags
+from ..ops.fused_ln_swiglu import fused_adamw
 from . import lr as lr_module
 from .lr import LRScheduler
 
@@ -189,14 +193,19 @@ class Adam(Optimizer):
         return bool(self._weight_decay)
 
     def _update_rule(self, p, g, state, lr, param):
-        if get_flags("use_fused_adamw")["use_fused_adamw"]:
-            raise NotImplementedError(
-                "use_fused_adamw: the fused AdamW kernel (ROADMAP B5) is not "
-                "ported yet; leave the flag off to run the plain update")
         if not self._decoupled() and self._weight_decay:
             g = g + self._weight_decay * p
         t = state["@t"] + 1
         b1, b2 = self._beta1, self._beta2
+        if get_flags("use_fused_adamw")["use_fused_adamw"]:
+            # one sweep, p, m and v in place (the reference returns new
+            # arrays): three f32 copies of every parameter fewer a step;
+            # lr and the bias corrections in f32, as the reference's kernel
+            decay = self._decoupled() and self._should_decay(param)
+            m, v = state["moment1"].float(), state["moment2"].float()
+            fused_adamw(p, g, m, v, lr, t, b1, b2, self._epsilon,
+                        self._weight_decay, decay)
+            return p, {"moment1": m, "moment2": v, "@t": t}
         m = b1 * state["moment1"] + (1 - b1) * g
         v = b2 * state["moment2"] + (1 - b2) * g.square()
         mhat = m / (1 - b1 ** t)

@@ -244,13 +244,6 @@ class TestSeamAndBuild:
         fused_rms_norm(x, torch.ones(8))
         assert LAUNCHES == before
 
-    def test_fused_swiglu_flag_raises_until_ported(self):
-        x = torch.ones(2, 8)
-        torch.testing.assert_close(F.swiglu(x, x), torch.nn.functional.silu(x) * x)
-        with ptt.flag_guard(use_fused_swiglu=True):
-            with pytest.raises(NotImplementedError, match="B4"):
-                F.swiglu(x, x)
-
     def test_flags_keep_reference_names(self):
         names = ["use_fused_rms_norm", "use_fused_rope", "use_flash_attention",
                  "use_decode_attention", "use_fused_swiglu", "flash_block_q",

@@ -412,21 +412,6 @@ class TestRefusals:
         with pytest.raises(NotImplementedError, match="fused_ce_chunk"):
             tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
 
-    def test_use_fused_adamw_raises(self):
-        w = torch.nn.Parameter(torch.ones(3))
-        opt = AdamW(0.1, parameters=[w])
-        w.sum().backward()
-        with ptt.flag_guard(use_fused_adamw=True):
-            with pytest.raises(NotImplementedError, match="B5"):
-                opt.step()
-
-    def test_use_fused_swiglu_raises_in_training(self):
-        tm = LlamaForCausalLM(llama_tiny(num_hidden_layers=1), device="cpu")
-        ids, labels = _batch(81)
-        with ptt.flag_guard(use_fused_swiglu=True):
-            with pytest.raises(NotImplementedError, match="B4"):
-                tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
-
     @pytest.mark.parametrize("arg", ["health_guard", "persistent_cache", "snapshotter"])
     def test_train_step_guards_raise(self, arg):
         with pytest.raises(NotImplementedError, match=arg):
