@@ -20,7 +20,15 @@ exits non-zero without them.  Phases, each raising on failure:
    four kernel flags off (at full width and 2 layers within 2e-2; at full
    depth, no further from an f32 reference than the plain bf16 path is);
    tokens/s of prefill and decode; device time by kernel and the device's
-   idle share from ``torch.profiler``;
+   idle share from ``torch.profiler``; then, on the same model, the
+   ``ServingEngine`` with bf16, int8 and fp8 KV pages in lockstep on 8
+   ragged prompts (the gates are in ``phase_engine``), and B8/B9 run on
+   the engines' own int8/fp8 pages;
+3b. quantized decode parity (run after 3): B8 (int8 cache) and B9 (e4m3
+   cache) against their plain twins, q in f32 and bf16, at Llama-2-7B's
+   4096 context (batch 8, pos 4000), Llama-2-70B's GQA and off sizes, the
+   appended rows and scales bit-equal; their entry points' own decode
+   loop, counted; times beside B6 on a bf16 cache of the same shape;
 5. backward parity (run after 3): each backward kernel (RMSNorm, RoPE by
    -theta, flash dq and dk/dv) against its plain backward, in f32 and
    bf16, at the training shapes (x [8192, 4096]; q, k [4, 2048, 32, 128]),
@@ -65,6 +73,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 F32_FLOPS = 67e12              # f32 outside the tensor cores
+INT8_OPS = 1979e12             # dense int8 (and fp8) tensor-core peak
 F32_EPS = 2.0 ** -23
 TOL = {"float32": dict(rtol=2e-5, atol=1e-6),       # tests/op_test.py f32 row
        "float32_attn": dict(rtol=1e-4, atol=1e-5),  # f32 row, loosened for
@@ -306,6 +315,148 @@ def phase_parity(torch):
         log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
+
+
+QUANT_B, QUANT_C, QUANT_POS, QUANT_STEPS = 8, 4096, 4000, 32  # B8/B9 main path
+FP8_SCALE = 0.5                # B9's static scale in the parity cases
+
+
+def quant_caches(torch, gen, b, C, kv, d, kv_scale):
+    """Quantized caches from seeded f32 rows: int8 [b, C, kv, d] with f32
+    scale planes [b, kv, C], and e4m3 [b, C, kv, d] under ``kv_scale``."""
+    from paddle_tpu_torch.serving.kv_quant import quantize_kv, quantize_kv_fp8
+
+    out = []
+    for _ in range(2):
+        x = torch.randn(b, C, kv, d, generator=gen, device=gen.device)
+        qx, sx = quantize_kv(x)
+        out.append((qx, sx.transpose(1, 2).contiguous(), quantize_kv_fp8(2 * x, kv_scale)))
+        del x
+    (ck, ks, fk), (cv, vs, fv) = out
+    return ck, cv, ks, vs, fk, fv
+
+
+def quant_case(torch, label, q, kn, vn, ck, cv, ks, vs, fk, fv, pos, pads, kv_scale):
+    """B8 and B9 against their plain twins on copies of the same caches:
+    ``out`` within the dtype's tolerance, the row written at ``pos`` (int8
+    values and scales, e4m3 bytes) bit-equal to the twin's, and every other
+    row and scale untouched.  Returns the worst out error."""
+    from paddle_tpu_torch.ops.decode_attention import (
+        decode_attention_fp8, decode_attention_fp8_plain, decode_attention_int8,
+        decode_attention_int8_plain)
+
+    tol = TOL["float32_attn" if q.dtype == torch.float32 else "bfloat16"]
+    k8 = [t.clone() for t in (ck, cv, ks, vs)]
+    p8 = [t.clone() for t in (ck, cv, ks, vs)]
+    got = decode_attention_int8(q, kn, vn, *k8, pos, pads)
+    want = decode_attention_int8_plain(q, kn, vn, *p8, pos, pads)
+    err = check_close(torch, f"decode_int8 {label}", got[0], want[0], tol)
+    k9 = [fk.clone(), fv.clone()]
+    p9 = [fk.clone(), fv.clone()]
+    got9 = decode_attention_fp8(q, kn, vn, *k9, pos, pads, kv_scale=kv_scale)
+    want9 = decode_attention_fp8_plain(q, kn, vn, *p9, pos, pads, kv_scale=kv_scale)
+    err = max(err, check_close(torch, f"decode_fp8 {label}", got9[0], want9[0], tol))
+    for name, k, p, orig, col in (
+            ("int8 k", k8[0], p8[0], ck, 1), ("int8 v", k8[1], p8[1], cv, 1),
+            ("k scale", k8[2], p8[2], ks, 2), ("v scale", k8[3], p8[3], vs, 2),
+            ("fp8 k", k9[0], p9[0], fk, 1), ("fp8 v", k9[1], p9[1], fv, 1)):
+        kb, pb, ob = (t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+                      for t in (k, p, orig))
+        rest = [i for i in range(orig.shape[col]) if i != pos]
+        if not torch.equal(kb, pb) or not torch.equal(kb.index_select(col, torch.tensor(
+                rest, device=kb.device)), ob.index_select(col, torch.tensor(rest, device=kb.device))):
+            raise AssertionError(f"decode quantized {label} {q.dtype}: {name} differs from "
+                                 f"the plain twin's at pos {pos}, or another entry changed")
+    log(f"parity decode_int8/fp8 {label} {q.dtype} q{list(q.shape)} cache{list(ck.shape)} "
+        f"pos {pos}: max_abs_err {err:.3g}, appended rows and scales bit-equal")
+    return err
+
+
+def phase_quant_parity(torch):
+    """B8 and B9 against their plain twins on the card, q in f32 and bf16:
+    (a) Llama-2-7B at its 4096 context, batch 8, pos 4000; (b) Llama-2-70B's
+    GQA (64 heads, 8 kv heads); (c) off sizes: C = 1000, d = 64 and 256,
+    pos = 0, ragged pad_lens with a row whose pad >= pos, a non-power-of-two
+    fp8 scale and new tokens that saturate e4m3.  Then the entry points'
+    own path: QUANT_STEPS decode steps of B8 and of B9 at shape (a),
+    counted; then times at (a) in bf16 beside B6 on a bf16 cache of the
+    same shape.  Returns (rows, launches)."""
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from paddle_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_fp8, decode_attention_fp8_plain,
+        decode_attention_int8, decode_attention_int8_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def pads_of(*p):
+        return torch.tensor(p, dtype=torch.int32, device=dev)
+
+    b, C, d = QUANT_B, QUANT_C, 128
+    cases = [  # label, b, h, kv, d, C, pos, pads, kv_scale, new-token amplitude
+        ("7B", b, 32, 32, d, C, QUANT_POS, None, FP8_SCALE, 1.0),
+        ("70B GQA", b, 64, 8, d, C, QUANT_POS, pads_of(*range(0, 800, 100)), FP8_SCALE, 1.0),
+        ("C1000 d64 g6", 4, 12, 2, 64, 1000, 700, pads_of(0, 5, 333, 800), 0.37, 300.0),
+        ("C1000 d256", 3, 4, 4, 256, 1000, 999, pads_of(0, 17, 999), FP8_SCALE, 1.0),
+        ("C1000 d64 pos0", 2, 8, 4, 64, 1000, 0, pads_of(0, 3), 0.37, 1.0)]
+    for label, bb, h, kv, hd, cl, pos, pl, kvs, amp in cases:
+        caches = quant_caches(torch, gen, bb, cl, kv, hd, kvs)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn(bb, 1, h, hd, dtype=dtype)
+            kn, vn = (amp * randn(bb, 1, kv, hd, dtype=torch.float32)).to(dtype), \
+                randn(bb, 1, kv, hd, dtype=dtype)
+            err = quant_case(torch, label, q, kn, vn, *caches, pos, pl, kvs)
+            if label == "7B" and dtype == torch.bfloat16:
+                main_err = err
+        del caches
+
+    # the entry points' own path: decode steps at (a), launches counted
+    h = kv = 32
+    ck, cv, ks, vs, fk, fv = quant_caches(torch, gen, b, C, kv, d, FP8_SCALE)
+    steps = [(randn(b, 1, h, d, dtype=torch.bfloat16), randn(b, 1, kv, d, dtype=torch.bfloat16),
+              randn(b, 1, kv, d, dtype=torch.bfloat16)) for _ in range(QUANT_STEPS)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs = []
+    for i, (q, kn, vn) in enumerate(steps):
+        outs.append(decode_attention_int8(q, kn, vn, ck, cv, ks, vs, QUANT_POS + i)[0])
+        outs.append(decode_attention_fp8(q, kn, vn, fk, fv, QUANT_POS + i,
+                                         kv_scale=FP8_SCALE)[0])
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(decode_attention_int8=QUANT_STEPS, decode_attention_fp8=QUANT_STEPS)
+    log(f"quantized decode path, {QUANT_STEPS} steps from pos {QUANT_POS}: launches {launches}")
+    if launches != want or not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError(f"quantized decode path: launches {launches} (want {want}) "
+                             f"or non-finite outputs")
+
+    q, kn, vn = steps[0]
+    pos, es = QUANT_POS, q.element_size()
+    io = 2 * q.numel() * es + 2 * kn.numel() * es   # q in, out; k_new, v_new in
+    ops = 4 * b * h * d * (pos + 1)
+    rows = {}
+    ck16, cv16 = randn(b, C, kv, d, dtype=torch.bfloat16), randn(b, C, kv, d, dtype=torch.bfloat16)
+    b6_ms = time_ms(torch, lambda: decode_attention(q, kn, vn, ck16, cv16, pos))
+    del ck16, cv16
+    for name, nbytes, fn, plain in (
+            ("decode_attention_int8", io + 2 * b * kv * (pos * d + 4 * pos + d + 4),
+             lambda: decode_attention_int8(q, kn, vn, ck, cv, ks, vs, pos),
+             lambda: decode_attention_int8_plain(q, kn, vn, ck, cv, ks, vs, pos)),
+            ("decode_attention_fp8", io + 2 * b * kv * (pos * d + d),
+             lambda: decode_attention_fp8(q, kn, vn, fk, fv, pos, kv_scale=FP8_SCALE),
+             lambda: decode_attention_fp8_plain(q, kn, vn, fk, fv, pos, kv_scale=FP8_SCALE))):
+        b_ms, b_by = bound_ms(nbytes, ops, INT8_OPS)
+        rows[name] = dict(max_abs_err=main_err, ms=time_ms(torch, fn),
+                          plain_ms=time_ms(torch, plain, iters=5, repeats=3),
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log(f"time {name}: kernel {rows[name]['ms']:.4f} ms, plain {rows[name]['plain_ms']:.4f} "
+            f"ms, library None, bound {b_ms:.4f} ms ({b_by}); B6 on a bf16 cache of the same "
+            f"shape {b6_ms:.4f} ms")
+    return rows, launches
 
 
 def phase_bwd_parity(torch):
@@ -690,8 +841,279 @@ def phase_e2e(torch, card):
         f"({t1 * 1e3:.1f} ms for {BATCH}x512), decode {BATCH * (T - 1) / (tn - t1):.1f} "
         f"tokens/s ({(tn - t1) / (T - 1) * 1e3:.2f} ms a step at batch {BATCH})")
     phase_profile(torch, lambda n: model.generate(ids_b, max_new_tokens=n), T)
-    del model, pred, outs, plain_outs
+    del pred, outs, plain_outs
+    torch.cuda.empty_cache()
+    phase_engine(torch, card, model)
+    del model
     return launches
+
+
+ENGINE_PROMPT_LENS = (37, 64, 100, 150, 250, 333, 420, 511)
+ENGINE_KW = dict(max_batch=BATCH, page_tokens=16, max_pages_per_seq=64, num_pages=8 * 64 + 1)
+QUANT_LOGITS_TOL = 0.08    # int8 vs bf16 decode logits at 2 layers, of max |logit|
+ENGINE_PROFILE_STEP, ENGINE_SNAP_STEP = 8, 16
+ENGINE_PREFILL_LEN = 512       # the prompt whose prefill is timed
+
+
+def engine_lockstep(torch, engines, prompts, T, profile_at=None, on_step=None):
+    """Serve ``prompts`` with ``T`` new tokens each on every engine of
+    ``engines`` ({kv_dtype: engine}), one ``step()`` of each in turn, so
+    that row i of every engine serves prompt i.  After each step, wherever
+    a quantized engine's row decoded from the same stream as the bf16
+    engine's row (every token so far equal), the two decode logits are
+    compared: max |difference| over max(max |bf16 logit|, 1).  Returns the
+    requests, the worst such ratio and the count of row-steps compared
+    for each quantized kind, each engine's step seconds and launches."""
+    import numpy as np
+
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    for e in engines.values():
+        for p in prompts:
+            e.submit(p, max_new_tokens=T)
+    kinds = [k for k in engines if k != "bf16"]
+    launches = {k: dict.fromkeys(LAUNCHES, 0) for k in engines}
+    step_s = {k: [] for k in engines}
+    worst, compared = dict.fromkeys(kinds, 0.0), dict.fromkeys(kinds, 0)
+    reqs = rows = None
+    n = 0
+    while any(e._queue or e._active for e in engines.values()):
+        n += 1
+        for k, e in engines.items():
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t = time.perf_counter()
+            if n == profile_at:
+                profile_step(torch, f"engine {k} decode step (batch {len(prompts)})", e.step)
+            else:
+                e.step()
+            torch.cuda.synchronize()
+            step_s[k].append(time.perf_counter() - t)
+            for name, c in LAUNCHES.items():
+                launches[k][name] += c
+        if reqs is None:   # all admitted at the first step, one row each
+            reqs = {k: sorted(e._active.values(), key=lambda r: r.rid)
+                    for k, e in engines.items()}
+            rows = {k: [r.row for r in rs] for k, rs in reqs.items()}
+        ref = engines["bf16"].last_decode_logits
+        for k in kinds:
+            got = engines[k].last_decode_logits
+            for i, (rb, rq) in enumerate(zip(reqs["bf16"], reqs[k])):
+                # row i decoded at this step iff it produced its token n + 1
+                if len(rq.generated) == n + 1 and rb.generated[:-1] == rq.generated[:-1]:
+                    a, b = ref[rows["bf16"][i], 0], got[rows[k][i], 0]
+                    worst[k] = max(worst[k], float(np.abs(a - b).max() / max(np.abs(a).max(), 1.0)))
+                    compared[k] += 1
+        if on_step is not None:
+            on_step(n, reqs)
+    return reqs, worst, compared, step_s, launches
+
+
+def engine_gate_shallow(torch, model, prompts):
+    """At ``model``'s width and 2 layers: the bf16 engine's prefill
+    (first-token) logits against the first logits of ``generate``'s path
+    for the same prompt, within LOGITS_REL_TOL; then the bf16, int8 and
+    fp8 engines in lockstep, the int8 decode logits within
+    QUANT_LOGITS_TOL of max |logit| of the bf16 engine's wherever the
+    streams agree (the reference's harness tolerance, which it applies to
+    int8 pages at 2 layers); fp8's distance is printed (the reference has
+    no fp8 tolerance)."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+
+    p0 = next(model.parameters())
+    shallow = LlamaForCausalLM(dataclasses.replace(model.config, num_hidden_layers=2),
+                               device=p0.device, dtype=p0.dtype, seed=0).eval()
+    eng = ServingEngine(shallow, **ENGINE_KW)
+    worst = 0.0
+    for i, p in enumerate(prompts):
+        eng.pool.alloc(i, eng.pool.pages_for(len(p) + 1))
+        got = torch.from_numpy(eng._prefill_chunks(p, eng._padded_table(i)[None]))
+        eng.pool.free(i)
+        with torch.inference_mode():
+            ids = torch.as_tensor(p[None], device=p0.device).long()
+            want, _ = shallow(ids, kv_cache=shallow.new_kv_cache(1, len(p)), position_offset=0)
+        worst = max(worst, rel_l2(got, want[0, -1].cpu()))
+    log(f"engine 2-layer bf16 prefill logits vs generate's first logits, {len(prompts)} "
+        f"prompts: worst relative L2 {worst:.4g}")
+    if not worst <= LOGITS_REL_TOL:
+        raise AssertionError(f"engine prefill logits: relative error {worst} > {LOGITS_REL_TOL}")
+    del eng
+    engines = {k: ServingEngine(shallow, kv_dtype=k, **ENGINE_KW) for k in ("bf16", "int8", "fp8")}
+    _, qworst, compared, _, _ = engine_lockstep(torch, engines, prompts, MAX_NEW)
+    log(f"engine 2-layer int8/fp8 decode logits vs bf16 where the streams agree: int8 "
+        f"{qworst['int8']:.4g} ({compared['int8']} row-steps), fp8 {qworst['fp8']:.4g} "
+        f"({compared['fp8']} row-steps) of max |logit|; int8 tol {QUANT_LOGITS_TOL}")
+    if compared["int8"] == 0 or not qworst["int8"] < QUANT_LOGITS_TOL:
+        raise AssertionError(f"2-layer int8 engine logits: worst {qworst['int8']} over "
+                             f"{compared['int8']} row-steps")
+
+
+def engine_layer0_pages(torch, engines, reqs):
+    """Layer 0's keys and values depend only on each slot's token and
+    position, not on the KV dtype: over the prompt and the generated tokens
+    both streams share, the int8 and fp8 engines' layer-0 pages must be the
+    bf16 engine's quantized, bit for bit (values and int8 scales).  Returns
+    the number of token slots checked."""
+    from paddle_tpu_torch.serving.kv_quant import quantize_kv, quantize_kv_fp8
+
+    checked = 0
+    for i, rb in enumerate(reqs["bf16"]):
+        tb = engines["bf16"].pool.table(rb.rid)
+        for k in ("int8", "fp8"):
+            rq, e = reqs[k][i], engines[k]
+            shared = next((j for j, (a, b) in enumerate(zip(rb.generated, rq.generated))
+                           if a != b), len(rb.generated))
+            # slot len(prompt) + j holds generated token j once it is decoded
+            n_tok = len(rb.prompt) + min(shared, len(rb.generated) - 1)
+            tq = e.pool.table(rq.rid)
+            for key in ("k", "v"):
+                ref = engines["bf16"]._arenas[key][0][tb].reshape(-1, *e._arena_shape[2:])[:n_tok]
+                got = e._arenas[key][0][tq].reshape(-1, *e._arena_shape[2:])[:n_tok]
+                if k == "int8":
+                    want_q, want_s = quantize_kv(ref)
+                    got_s = e._arenas[key + "s"][0][tq].reshape(-1, e._arena_shape[2])[:n_tok]
+                    ok = torch.equal(got, want_q) and torch.equal(got_s, want_s)
+                else:
+                    ok = torch.equal(got.view(torch.uint8), quantize_kv_fp8(
+                        ref, e._fp8_scale).view(torch.uint8))
+                if not ok:
+                    raise AssertionError(f"engine {k}: layer-0 {key} pages of request {i} are "
+                                         f"not the bf16 engine's quantized")
+            checked += n_tok
+    return checked
+
+
+def engine_arena_case(torch, engines, reqs, layer):
+    """The quantized engines' own pages as B8/B9 caches: one request's
+    pages of ``layer``, gathered into contiguous [1, C, kv, d] caches (int8
+    scales transposed to [1, kv, C]); the new token is the row before
+    ``pos`` dequantized, q is seeded."""
+    from paddle_tpu_torch.serving.kv_quant import dequantize_kv
+
+    r8, r9 = reqs["int8"], reqs["fp8"]
+    t8 = engines["int8"].pool.table(r8.rid)
+    t9 = engines["fp8"].pool.table(r9.rid)
+    ar8, ar9 = engines["int8"]._arenas, engines["fp8"]._arenas
+    N, P, kv, d = ar8["k"][layer].shape
+    C = len(t8) * P
+    pos = min(r8.pos, C - 1)
+    dev = ar8["k"][layer].device
+
+    def rows(arena, table):
+        return arena[layer][torch.tensor(table, device=dev)].reshape(1, C, *arena[layer].shape[2:])
+
+    ck, cv, fk, fv = rows(ar8["k"], t8), rows(ar8["v"], t8), rows(ar9["k"], t9), rows(ar9["v"], t9)
+    ks, vs = (rows(ar8[n], t8).transpose(1, 2).contiguous() for n in ("ks", "vs"))
+    kn = dequantize_kv(ck[:, pos - 1:pos], ks[:, :, pos - 1].unsqueeze(1)).to(torch.bfloat16)
+    vn = dequantize_kv(cv[:, pos - 1:pos], vs[:, :, pos - 1].unsqueeze(1)).to(torch.bfloat16)
+    h = engines["int8"].model.config.num_attention_heads
+    q = torch.randn(1, 1, h, d, generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev).to(torch.bfloat16)
+    quant_case(torch, f"engine pages layer {layer}", q, kn, vn, ck, cv, ks, vs, fk, fv, pos,
+               None, engines["fp8"]._fp8_scale)
+
+
+def phase_engine(torch, card, model):
+    """The port's ServingEngine on Llama-2-7B at full width and depth:
+    bf16, int8 and fp8 pages, each engine serving the same 8 ragged prompts
+    with MAX_NEW new tokens, stepped in lockstep.  Gates: at 2 layers (see
+    ``engine_gate_shallow``) the prefill logits against generate's and the
+    int8 decode logits against the bf16 engine's; at full depth, the int8
+    and fp8 layer-0 pages bit-equal to the bf16 engine's quantized, finite
+    logits (the engine raises otherwise), no leaked page after run(), int8
+    and fp8 pages exactly half the bytes of bf16 pages, the RMSNorm and
+    rope kernels launched 2L+1 and L times for every prefill chunk and
+    decode step and no decode kernel (as in the reference, the paged
+    attention is plain).  The full-depth int8/fp8 logit distances to bf16
+    are printed, not gated: on random weights they grow with depth as the
+    bf16 paths' own distances do (phase 4).  Then B8/B9 on the engines'
+    own pages, and the prefill, decode and memory numbers."""
+    import numpy as np
+
+    from paddle_tpu_torch.ops import LAUNCHES
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = model.config
+    L, T, P = cfg.num_hidden_layers, MAX_NEW, ENGINE_KW["page_tokens"]
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in ENGINE_PROMPT_LENS]
+    engine_gate_shallow(torch, model, prompts)
+    torch.cuda.empty_cache()
+
+    kinds = ("bf16", "int8", "fp8")
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    engines = {k: ServingEngine(model, kv_dtype=k, **ENGINE_KW) for k in kinds}
+    arena_mem = torch.cuda.memory_allocated() - base_mem
+    layer0 = []
+
+    def on_step(n, reqs):
+        if n == ENGINE_SNAP_STEP:
+            layer0.append(engine_layer0_pages(torch, engines, reqs))
+            engine_arena_case(torch, engines, {k: reqs[k][-1] for k in kinds}, L - 1)
+
+    reqs, worst, compared, step_s, launches = engine_lockstep(
+        torch, engines, prompts, T, profile_at=ENGINE_PROFILE_STEP, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated()
+    outs = {k: e.run() for k, e in engines.items()}   # drained: returns, leak-checked
+    for k, e in engines.items():
+        e.pool.check_leaks()
+        for r in reqs[k]:
+            o = outs[k][r.rid]
+            if o.shape != (T,) or o.min() < 0 or o.max() >= cfg.vocab_size:
+                raise AssertionError(f"engine {k}: bad output for rid {r.rid}: {o}")
+    log(f"engine layer-0 int8/fp8 pages bit-equal to the bf16 engine's quantized: "
+        f"{layer0[0]} token slots checked")
+    log(f"engine {L}-layer int8/fp8 decode logits vs bf16 where the streams agree: int8 "
+        f"{worst['int8']:.4g} ({compared['int8']} row-steps), fp8 {worst['fp8']:.4g} "
+        f"({compared['fp8']} row-steps) of max |logit|")
+    same = {k: float(np.mean([np.mean(outs[k][rq.rid] == outs["bf16"][rb.rid])
+                              for rq, rb in zip(reqs[k], reqs["bf16"])])) for k in ("int8", "fp8")}
+    log(f"engine greedy tokens identical to the bf16 engine's: int8 {same['int8']:.4f}, "
+        f"fp8 {same['fp8']:.4f} of {BATCH * T}")
+
+    bf_page = engines["bf16"].pool.bytes_per_page
+    for k in ("int8", "fp8"):
+        if engines[k].pool.bytes_per_page * 2 != bf_page:
+            raise AssertionError(f"{k} page {engines[k].pool.bytes_per_page} B is not half "
+                                 f"of bf16's {bf_page} B")
+    chunks = sum(-(-n_ // P) for n_ in ENGINE_PROMPT_LENS)
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(rms_norm=(2 * L + 1) * (chunks + T - 1), rope=L * (chunks + T - 1))
+    for k in kinds:
+        if launches[k] != want:
+            raise AssertionError(f"engine {k}: launches {launches[k]}, {chunks} prefill chunks "
+                                 f"and {T - 1} decode steps of {L} layers launch {want}")
+    log(f"engine launches per run ({chunks} prefill chunks, {T - 1} decode steps), each "
+        f"dtype: rms_norm {want['rms_norm']}, rope {want['rope']}, no decode kernel")
+
+    p512 = rng.integers(1, cfg.vocab_size, ENGINE_PREFILL_LEN).astype(np.int32)
+    for k, e in engines.items():
+        e.pool.alloc("p512", e.pool.pages_for(ENGINE_PREFILL_LEN + 1))
+        table = e._padded_table("p512")[None]
+        ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            e._prefill_chunks(p512, table)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        e.pool.free("p512")
+        decode = [x for i, x in enumerate(step_s[k][1:], 2) if i != ENGINE_PROFILE_STEP]
+        log(f"engine {k} on {card}: prefill of a {ENGINE_PREFILL_LEN}-token prompt "
+            f"{min(ms):.1f} ms ({ENGINE_PREFILL_LEN / min(ms) * 1e3:.1f} tokens/s); decode step "
+            f"{np.mean(decode) * 1e3:.2f} ms at batch {BATCH}; {BATCH * T / sum(step_s[k]):.1f} "
+            f"tokens/s over the run ({sum(step_s[k]):.2f} s, {len(step_s[k])} steps, the first "
+            f"with the {BATCH} prefills {step_s[k][0] * 1e3:.1f} ms); pool "
+            f"{e.pool.bytes_per_token():.0f} B a token ({e.pool.bytes_per_page} B a page + "
+            f"{e.pool.scale_bytes_per_page} B of scales), arenas "
+            f"{(e._arena_bytes + e._scale_bytes) / 2**30:.3f} GiB")
+    log(f"engine memory: three engines' arenas {arena_mem / 2**30:.3f} GiB; peak "
+        f"{peak / 2**30:.2f} GiB with the model during the run")
+    del engines
 
 
 def rel_l2(a, b) -> float:
@@ -1008,6 +1430,10 @@ SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is count
                        "paddle_tpu/ops/pallas/fused_ln_swiglu.py:92", "gpt_train"),
     "add_layer_norm_bwd": ("paddle_tpu_torch/ops/csrc/fused_ln_swiglu.cu",
                            "paddle_tpu/ops/pallas/fused_ln_swiglu.py:124", "gpt_train"),
+    "decode_attention_int8": ("paddle_tpu_torch/ops/csrc/decode_attention.cu",
+                              "paddle_tpu/ops/pallas/decode_attention.py:399", "quant"),
+    "decode_attention_fp8": ("paddle_tpu_torch/ops/csrc/decode_attention.cu",
+                             "paddle_tpu/ops/pallas/decode_attention.py:627", "quant"),
 }
 
 
@@ -1023,11 +1449,14 @@ def main() -> int:
     card = phase_device(torch)
     phase_build()
     rows = phase_parity(torch)
+    quant_rows, quant_launches = phase_quant_parity(torch)
+    rows.update(quant_rows)
+    torch.cuda.empty_cache()
     rows.update(phase_bwd_parity(torch))
     torch.cuda.empty_cache()
     rows.update(phase_fused_parity(torch))
     torch.cuda.empty_cache()
-    launches = {"serve": phase_e2e(torch, card)}
+    launches = {"serve": phase_e2e(torch, card), "quant": quant_launches}
     torch.cuda.empty_cache()
     launches["train"] = phase_train(torch, card)
     torch.cuda.empty_cache()

@@ -88,18 +88,23 @@ class GenerationMixin:
     (int32, prompt not included) and the f32 log-probability of each chosen
     token, on the model's device."""
 
+    def _kv_cache_spec(self) -> Tuple[int, int, int]:
+        """(num_layers, kv_heads, head_dim) of the model's KV cache; a
+        family without grouped heads (GPT) caches every attention head."""
+        cfg = self.config
+        kv = getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
+        return cfg.num_hidden_layers, kv, cfg.head_dim
+
     def new_kv_cache(self, batch: int, capacity: int
                      ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """Zeroed per-layer (k, v) caches [batch, capacity, kv, d] in the
         dtype of the first floating parameter, on the model's device."""
-        cfg = self.config
+        layers, kv, d = self._kv_cache_spec()
         p = next(p for p in self.parameters() if p.is_floating_point())
-        # a family without grouped heads (GPT) caches every attention head
-        kv = getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
-        shape = (batch, capacity, kv, cfg.head_dim)
+        shape = (batch, capacity, kv, d)
         return [(torch.zeros(shape, dtype=p.dtype, device=p.device),
                  torch.zeros(shape, dtype=p.dtype, device=p.device))
-                for _ in range(cfg.num_hidden_layers)]
+                for _ in range(layers)]
 
     @torch.inference_mode()
     def generate(self, input_ids, max_new_tokens: int = 64,

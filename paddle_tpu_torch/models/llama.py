@@ -26,7 +26,8 @@ from ..ops import use_function, use_kernel
 from ..ops.rope import RopeFunction, fused_rope, rope_plain
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
-           "llama2_7b", "llama2_13b", "llama2_70b", "apply_rotary_pos_emb"]
+           "llama2_7b", "llama2_13b", "llama2_70b", "apply_rotary_pos_emb",
+           "apply_rotary_at_positions"]
 
 KVCache = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -115,6 +116,17 @@ def apply_rotary_pos_emb(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
                                              dtype=torch.int32)[None, :]
     pos_ids = (pos_ids.expand(b, s) if pad_lens is None
                else pos_ids - pad_lens.to(torch.int32)[:, None]).contiguous()
+    return apply_rotary_at_positions(q, k, cos, sin, pos_ids)
+
+
+def apply_rotary_at_positions(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+                              sin: torch.Tensor, pos_ids: torch.Tensor):
+    """Rotate q [b, s, h, d] and k at per-row positions ``pos_ids`` [b, s]
+    int32 (clipped into the [max_pos, d] f32 tables), in f32: the
+    counterpart of the reference's ``rotate_half_apply`` over gathered
+    cos/sin rows, which its serving engine applies at each row's own
+    positions.  Goes through the rope kernel (B2) on the card when
+    ``use_fused_rope`` is on, as every other rope of the port does."""
     if use_function("use_fused_rope", q, k):
         return RopeFunction.apply(q, k, cos, sin, pos_ids)
     if use_kernel("use_fused_rope", q):

@@ -1,9 +1,10 @@
-// Shared helpers of the port's Hopper kernels: element conversion through
-// the bf16 intrinsics, warp and block sums, and the error-string export that
+// Shared helpers of the port's Hopper kernels: element conversion (bf16,
+// int8 and e4m3 to f32), warp and block sums, and the error-string export that
 // every kernel library carries for its ctypes wrapper.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -15,6 +16,8 @@ enum DType : int { kF32 = 0, kBF16 = 1 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
