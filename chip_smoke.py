@@ -23,7 +23,13 @@ exits non-zero without them.  Phases, each raising on failure:
    idle share from ``torch.profiler``; then, on the same model, the
    ``ServingEngine`` with bf16, int8 and fp8 KV pages in lockstep on 8
    ragged prompts (the gates are in ``phase_engine``), and B8/B9 run on
-   the engines' own int8/fp8 pages;
+   the engines' own int8/fp8 pages; then the context-parallel prefill
+   (``ServingEngine(cp=2)`` and ``cp=4``, bf16, int8 and fp8 pages) on one
+   prompt of 4000 tokens against the chunked engine: at 2 layers the
+   first-token logits within 2e-2, exact launches and no page outside the
+   prompt's table written; at full depth exact launches, the logits'
+   distance, both engines' tokens and the two prefill times
+   (``phase_engine_cp``);
 3b. quantized decode parity (run after 3): B8 (int8 cache) and B9 (e4m3
    cache) against their plain twins, q in f32 and bf16, at Llama-2-7B's
    4096 context (batch 8, pos 4000), Llama-2-70B's GQA and off sizes, the
@@ -35,6 +41,15 @@ exits non-zero without them.  Phases, each raising on failure:
    at Llama-2-70B's GQA attention and at off-size attention shapes, timed
    as in 3 (the library call is the backward of ``F.rms_norm`` and of
    SDPA);
+5b. ring parity (run after 5): B10, the ring of context parallelism, with
+   its members on the one card: the kernel ring (B3 and the merge kernel a
+   hop forward, B3b/B3c backward) against the same ring over the plain
+   twins and against one B3 (B3b/B3c) call over the whole sequence, in f32
+   and bf16, causal and not, forward and the three grads, at Llama-2-7B's
+   attention width over 16384 tokens (cp 4), Llama-2-70B's GQA over 8192
+   (cp 2) and a batch of 2 (cp 2); each ring's launches exact; times of the
+   ring forward and backward beside SDPA over the whole sequence, and of
+   one merge;
 6. fused parity (run after 5): B4 (SwiGLU fwd and bwd), B5 (AdamW) and
    B11/B11b (residual add + LayerNorm fwd and bwd) against their plain
    twins, in f32 and bf16, at the training shapes (Llama-2-7B's MLP and
@@ -127,6 +142,7 @@ def time_ms(torch, fn, iters: int = 20, repeats: int = 5) -> float:
 
 
 def check_close(torch, name, got, want, tol) -> float:
+    got, want = got.detach(), want.detach()
     err = (got.float() - want.float()).abs()
     err = float(err[torch.isfinite(err)].max()) if err.numel() else 0.0
     torch.testing.assert_close(got.float(), want.float(), **tol, msg=lambda m: f"{name}: {m}")
@@ -576,6 +592,207 @@ def phase_bwd_parity(torch):
     return rows
 
 
+RING_CASES = (  # label, b, s, q heads, kv heads, head_dim, ring members (cp)
+    ("7B cp4", 1, 16384, 32, 32, 128, 4),       # Llama-2-7B attention width
+    ("70B GQA cp2", 1, 8192, 64, 8, 128, 2),    # Llama-2-70B's GQA
+    ("b2 cp2", 2, 2048, 32, 8, 128, 2),         # b = 2: strided chunks, copied
+)
+
+
+def ring_launches(n, causal, bwd=False):
+    """Exact launches of one ring over ``n`` members: a flash kernel (and a
+    merge) per hop that is not skipped."""
+    hops = n * (n + 1) // 2 if causal else n * n
+    if bwd:
+        return dict(flash_attention_bwd_dq=hops, flash_attention_bwd_dkv=hops)
+    return dict(flash_attention=hops, ring_merge=hops)
+
+
+def ring_fwd(torch, q, k, v, mesh, causal):
+    """The ring through its entry point, ``context_parallel.ring_attention``
+    over ``mesh``'s sep ring, on leaf copies of q, k, v that want grads:
+    (leaves, out, lse), the lse [b, hq, s] from the chunks the ring's
+    autograd Function saved for its backward."""
+    from paddle_tpu_torch.distributed.meta_parallel import ring_attention
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = ring_attention(*leaves, mesh=mesh, causal=causal)
+    n = mesh.shape["sep"]
+    return leaves, out, torch.cat(out.grad_fn.saved_tensors[4 * n:], dim=2)
+
+
+def phase_ring_parity(torch):
+    """B10 on the card, its ``n`` ring members on the one card, through
+    ``context_parallel.ring_attention`` and autograd as a user calls it: the
+    kernel ring (B3 and the merge kernel per hop forward, B3b/B3c per hop
+    backward) against the same ring over the plain twins, and against one
+    call of B3 (B3b/B3c) over the whole sequence, in f32 and bf16, causal
+    and not, forward and the three grads, at Llama-2-7B's attention width
+    (cp 4), Llama-2-70B's GQA (cp 2) and a b = 2 case.  Each ring's launches
+    and chunk copies are counted exactly.  Then times at the 7B cp 4 shape
+    in bf16 (causal): the ring forward (no grad, as the CP prefill runs it)
+    and backward against the plain ring, the bound and SDPA over the whole
+    sequence, and one merge at the ring's chunk shape."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed.meta_parallel import ring_attention
+    from paddle_tpu_torch.distributed.topology import build_mesh
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from paddle_tpu_torch.ops.ring_flash import COPIES, ring_merge, ring_merge_plain
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    plain = dict(use_flash_attention=False)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def counted(want, fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        got = {k: c for k, c in LAUNCHES.items() if c}
+        if got != want:
+            raise AssertionError(f"ring launches {got}, want {want}")
+        return result
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    for label, b, s, hq, hkv, d, n in RING_CASES:
+        mesh = build_mesh(sep=n, devices=[dev] * n)
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            for causal in (True, False):
+                q = randn(b, s, hq, d, dtype=dtype)
+                k, v = randn(b, s, hkv, d, dtype=dtype), randn(b, s, hkv, d, dtype=dtype)
+                do = randn(b, s, hq, d, dtype=dtype)
+                copies = dict(COPIES)
+                leaves, out, lse = counted(ring_launches(n, causal),
+                                           lambda: ring_fwd(torch, q, k, v, mesh, causal))
+                grads = counted(ring_launches(n, causal, bwd=True),
+                                lambda: torch.autograd.grad(out, leaves, do))
+                # b > 1: q, k, v and the output gradient are split by copies
+                want_copies = 4 * n if b > 1 else 0
+                if COPIES["chunk"] - copies["chunk"] != want_copies or COPIES["peer"] != copies["peer"]:
+                    raise AssertionError(f"ring {label}: {COPIES} after {copies}, want "
+                                         f"{want_copies} chunk copies and no peer copy")
+                with ptt.flag_guard(**plain):
+                    p_leaves, p_out, p_lse = counted(
+                        {}, lambda: ring_fwd(torch, q, k, v, mesh, causal))
+                    p_grads = counted({}, lambda: torch.autograd.grad(p_out, p_leaves, do))
+                del p_leaves
+                tol = TOL["float32_attn" if f32 else "bfloat16"]
+                btol = TOL["float32_attn_bwd" if f32 else "bfloat16"]
+                err = check_close(torch, f"ring {label} out", out, p_out, tol)
+                check_close(torch, f"ring {label} lse", lse, p_lse, TOL["float32_attn"])
+                gerr = [check_close(torch, f"ring {label} d{x}", g, pg, btol)
+                        for x, g, pg in zip("qkv", grads, p_grads)]
+                del p_out, p_lse, p_grads
+                # the ring against one flash call over the whole sequence
+                w_out, w_lse = flash_attention_fwd(q, k, v, causal)
+                w_grads = flash_attention_bwd(q, k, v, w_out, w_lse, do, causal)
+                check_close(torch, f"ring {label} lse vs B3", lse, w_lse, TOL["float32_attn"])
+                if f32:
+                    check_close(torch, f"ring {label} vs B3", out, w_out, tol)
+                    for x, g, wg in zip("qkv", grads, w_grads):
+                        check_close(torch, f"ring {label} d{x} vs B3b/B3c", g, wg, btol)
+                    whole = "f32 within the parity rows"
+                else:
+                    dists = [rel(out, w_out)] + [rel(g, wg) for g, wg in zip(grads, w_grads)]
+                    if not max(dists) <= LOGITS_REL_TOL:
+                        raise AssertionError(f"ring {label} bf16 vs whole-sequence kernels: "
+                                             f"relative L2 out, dq, dk, dv {dists}")
+                    whole = "relative L2 out/dq/dk/dv " + " ".join(f"{x:.3g}" for x in dists)
+                log(f"parity ring {label} {dtype} {'causal' if causal else 'full'} "
+                    f"q{list(q.shape)} kv{hkv}: max_abs_err vs plain ring out {err:.3g} dq "
+                    f"{gerr[0]:.3g} dk {gerr[1]:.3g} dv {gerr[2]:.3g}; vs whole-sequence "
+                    f"B3/B3b/B3c: {whole}")
+                if label == "7B cp4" and dtype == torch.bfloat16 and causal:
+                    main = (q, k, v, do, err, gerr)
+                del q, k, v, do, leaves, out, lse, w_out, w_lse, w_grads, grads
+                torch.cuda.empty_cache()
+
+    # times at the 7B cp 4 shape, bf16, causal
+    q, k, v, do, err, gerr = main
+    b, s, hq, d = q.shape
+    n = 4
+    mesh = build_mesh(sep=n, devices=[dev] * n)
+
+    def forward():
+        with torch.no_grad():
+            return ring_attention(q, k, v, mesh=mesh, causal=True)
+
+    leaves, out, _ = ring_fwd(torch, q, k, v, mesh, True)
+    pairs = b * hq * s * (s + 1) // 2
+    io = q.numel() * q.element_size()
+    rows = {}
+    # forward: q, k, v read, out written, lse; 2 products (QK^T, PV) a pair
+    b_ms, b_by = bound_ms(4 * io + b * hq * s * 4, 4 * d * pairs, BF16_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    with ptt.flag_guard(**plain):
+        plain_fwd = time_ms(torch, forward, iters=2, repeats=3)
+        p_leaves, p_out, _ = ring_fwd(torch, q, k, v, mesh, True)
+        plain_bwd = time_ms(torch, lambda: torch.autograd.grad(p_out, p_leaves, do,
+                                                               retain_graph=True),
+                            iters=1, repeats=3)
+        del p_leaves, p_out
+    lib_out = sdpa(qt, kt, vt, is_causal=True)
+    rows["ring_flash_attention"] = dict(
+        max_abs_err=max(err, *gerr), ms=time_ms(torch, forward, iters=5, repeats=3),
+        plain_ms=plain_fwd, bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True), iters=5, repeats=3),
+        bwd_ms=time_ms(torch, lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                       iters=2, repeats=3),
+        bwd_plain_ms=plain_bwd,
+        # backward: q, k, v, out, dout read, dq, dk, dv written, lse; 5
+        # products a pair (S recomputed, dP, dV, dQ, dK)
+        bwd_bound_ms=bound_ms(8 * io + b * hq * s * 4, 5 * 2 * d * pairs, BF16_FLOPS)[0],
+        bwd_library_ms=time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), iters=2, repeats=3))
+    log(f"time ring_flash_attention {list(q.shape)} bf16 causal cp {n}: forward kernel ring "
+        f"{rows['ring_flash_attention']['ms']:.4f} ms, plain ring {plain_fwd:.4f} ms, SDPA whole "
+        f"sequence {rows['ring_flash_attention']['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}); backward kernel ring {rows['ring_flash_attention']['bwd_ms']:.4f} ms, plain "
+        f"ring {plain_bwd:.4f} ms, SDPA backward "
+        f"{rows['ring_flash_attention']['bwd_library_ms']:.4f} ms, bound "
+        f"{rows['ring_flash_attention']['bwd_bound_ms']:.4f} ms; whole-sequence B3 "
+        f"{time_ms(torch, lambda: flash_attention_fwd(q, k, v, True), iters=5, repeats=3):.4f} ms")
+    del lib_out, qt, kt, vt, leaves, out
+
+    # one merge at the ring's chunk shape: running o f32, o_i bf16 as B3 gives it
+    c = s // n
+    o0 = randn(b, c, hq, d, dtype=torch.float32)
+    l0 = randn(b, hq, c, dtype=torch.float32)
+    o_i = randn(b, c, hq, d, dtype=torch.bfloat16)
+    l_i = randn(b, hq, c, dtype=torch.float32)
+    l0[0, 0, :7] = float("-inf")          # rows with no live key yet
+    l_i[0, 1, :5] = float("-inf")
+    l0[0, 2, :3] = l_i[0, 2, :3] = float("-inf")
+    merrs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        oi = o_i.to(dtype)
+        got = ring_merge(o0.clone(), l0.clone(), oi, l_i)
+        want = ring_merge_plain(o0.clone(), l0.clone(), oi, l_i)
+        merrs.append(check_close(torch, "ring_merge o", got[0], want[0], TOL["float32"]))
+        check_close(torch, "ring_merge lse", got[1], want[1], TOL["float32"])
+        if not torch.equal(got[1].isneginf(), want[1].isneginf()):
+            raise AssertionError("ring_merge: rows with lse -inf differ from the plain twin")
+        log(f"parity ring_merge o_i {dtype} o{list(o0.shape)}: max_abs_err {merrs[-1]:.3g}")
+    ob, lb = o0.clone(), l0.clone()
+    nbytes = 2 * o0.numel() * 4 + o_i.numel() * 2 + 3 * l0.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, 6 * o0.numel(), F32_FLOPS)
+    rows["ring_merge"] = dict(
+        max_abs_err=max(merrs), ms=time_ms(torch, lambda: ring_merge(ob, lb, o_i, l_i)),
+        plain_ms=time_ms(torch, lambda: ring_merge_plain(ob, lb, o_i, l_i)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"time ring_merge o{list(o0.shape)} o_i bf16: kernel {rows['ring_merge']['ms']:.4f} ms, "
+        f"plain {rows['ring_merge']['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return rows
+
+
 def phase_fused_parity(torch):
     """B4 (SwiGLU fwd and bwd), B5 (AdamW) and B11/B11b (residual add +
     LayerNorm fwd and bwd) against their plain twins on the card, in f32
@@ -844,8 +1061,10 @@ def phase_e2e(torch, card):
     del pred, outs, plain_outs
     torch.cuda.empty_cache()
     phase_engine(torch, card, model)
+    torch.cuda.empty_cache()
+    cp_path = phase_engine_cp(torch, card, model)
     del model
-    return launches
+    return launches, cp_path
 
 
 ENGINE_PROMPT_LENS = (37, 64, 100, 150, 250, 333, 420, 511)
@@ -1114,6 +1333,154 @@ def phase_engine(torch, card, model):
     log(f"engine memory: three engines' arenas {arena_mem / 2**30:.3f} GiB; peak "
         f"{peak / 2**30:.2f} GiB with the model during the run")
     del engines
+
+
+CP_PROMPT_LEN, CP_NEW = 4000, 8      # one long prompt (max_position 4096)
+CP_DEGREES = (2, 4)
+CP_ENGINE_KW = dict(max_batch=1, page_tokens=16, max_pages_per_seq=256, num_pages=256 + 1)
+CP_GATE_PAGES = (100, 2 * 256 + 1)   # 2-layer gate: pages taken first, pool size
+
+
+def cp_launches(L, cp, steps=0):
+    """Exact launches of one CP prefill of an L-layer Llama over ``cp`` ring
+    members (B3 and a merge per hop that is not skipped) and of ``steps``
+    decode steps after it (RMSNorm and rope only: the paged decode is plain)."""
+    hops = cp * (cp + 1) // 2
+    return dict(rms_norm=(2 * L + 1) * (1 + steps), rope=L * (1 + steps),
+                flash_attention=L * hops, ring_merge=L * hops)
+
+
+def counted_launches(torch, fn):
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, {k: c for k, c in LAUNCHES.items() if c}
+
+
+def engine_cp_gate_shallow(torch, model, prompt):
+    """At ``model``'s width and 2 layers, for bf16, int8 and fp8 pages and
+    cp 2 and 4: the CP prefill's first-token logits within LOGITS_REL_TOL
+    (relative L2) of the chunked engine's on the same prompt, its launches
+    exact, and every page outside the prompt's table and the trash page
+    untouched (another request's pages are taken first, so untouched pages
+    lie on both sides of the table)."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.serving import TRASH_PAGE, ServingEngine
+
+    p0 = next(model.parameters())
+    shallow = LlamaForCausalLM(dataclasses.replace(model.config, num_hidden_layers=2),
+                               device=p0.device, dtype=p0.dtype, seed=0).eval()
+    kw = dict(CP_ENGINE_KW, num_pages=CP_GATE_PAGES[1])
+    for kind in ("bf16", "int8", "fp8"):
+        ref = ServingEngine(shallow, kv_dtype=kind, **kw)
+        ref.pool.alloc("g", ref.pool.pages_for(len(prompt) + 1))
+        want = torch.from_numpy(ref._prefill_chunks(prompt, ref._padded_table("g")[None]))
+        del ref
+        for cp in CP_DEGREES:
+            e = ServingEngine(shallow, cp=cp, kv_dtype=kind, **kw)
+            e.pool.alloc("other", CP_GATE_PAGES[0])
+            table = e.pool.alloc("g", e.pool.pages_for(len(prompt) + 1))
+            got, counts = counted_launches(torch, lambda: e._cp_prefill_run(prompt, table))
+            if counts != cp_launches(2, cp):
+                raise AssertionError(f"CP prefill {kind} cp {cp} at 2 layers: launches "
+                                     f"{counts}, want {cp_launches(2, cp)}")
+            r = rel_l2(torch.from_numpy(got), want)
+            if not r <= LOGITS_REL_TOL:
+                raise AssertionError(f"CP prefill {kind} cp {cp} at 2 layers: first-token "
+                                     f"logits {r} from the chunked engine's")
+            others = torch.ones(e.num_pages, dtype=torch.bool, device=p0.device)
+            others[table + [TRASH_PAGE]] = False
+            for key, arenas in e._arenas.items():
+                for li, a in enumerate(arenas):
+                    if a[others].view(torch.uint8).any():
+                        raise AssertionError(f"CP prefill {kind} cp {cp}: {key}[{li}] wrote "
+                                             f"a page outside the prompt's table")
+            log(f"engine CP 2-layer {kind} cp {cp}: first-token logits vs chunked relative "
+                f"L2 {r:.4g}; launches {counts}; {int(others.sum())} pages outside the "
+                f"table untouched")
+            del e
+    del shallow
+    torch.cuda.empty_cache()
+
+
+def cp_instrument(torch, e):
+    """Record (path, logits, ms) of each prefill ``e`` runs."""
+    rec = []
+    for name in ("_prefill_chunks", "_cp_prefill_run"):
+        def timed(*a, _fn=getattr(e, name), _name=name):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*a)
+            torch.cuda.synchronize()
+            rec.append((_name, out, (time.perf_counter() - t) * 1e3))
+            return out
+        setattr(e, name, timed)
+    return rec
+
+
+def phase_engine_cp(torch, card, model):
+    """The context-parallel prefill (``ServingEngine(cp=n)``, B10 under the
+    ring attention) on Llama-2-7B at full width and depth, the ring members
+    on the one card: one prompt of CP_PROMPT_LEN tokens and CP_NEW new
+    tokens, with bf16, int8 and fp8 pages, on the chunked engine (cp 1) and
+    on cp 2 and cp 4.  Gates at 2 layers in ``engine_cp_gate_shallow``; at
+    full depth each engine's launches are exact and its tokens in range,
+    and the first-token logits' distance to the chunked engine's, both
+    engines' tokens and the prefill times are printed, and one cp 4 bf16
+    prefill is profiled.  Returns the launches of the cp 4 bf16 engine's
+    run, the path's counted run."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = model.config
+    L, P = cfg.num_hidden_layers, CP_ENGINE_KW["page_tokens"]
+    prompt = np.random.default_rng(6).integers(1, cfg.vocab_size, CP_PROMPT_LEN).astype(np.int32)
+    engine_cp_gate_shallow(torch, model, prompt)
+    n_chunks = -(-CP_PROMPT_LEN // P)
+    path = None
+    for kind in ("bf16", "int8", "fp8"):
+        res = {}
+        for cp in (1, *CP_DEGREES):
+            e = ServingEngine(model, cp=cp, kv_dtype=kind, **CP_ENGINE_KW)
+            rec = cp_instrument(torch, e)
+            rid = e.submit(prompt, max_new_tokens=CP_NEW)
+            outs, counts = counted_launches(torch, e.run)
+            want = cp_launches(L, cp, CP_NEW - 1) if cp > 1 else dict(
+                rms_norm=(2 * L + 1) * (n_chunks + CP_NEW - 1), rope=L * (n_chunks + CP_NEW - 1))
+            if counts != want:
+                raise AssertionError(f"engine CP {kind} cp {cp}: launches {counts}, want {want}")
+            toks = outs[rid]
+            if toks.shape != (CP_NEW,) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+                raise AssertionError(f"engine CP {kind} cp {cp}: bad output {toks}")
+            if cp > 1:
+                if e.cp_prefills != 1:
+                    raise AssertionError(f"engine CP {kind} cp {cp}: the ring did not prefill")
+                table = e.pool.alloc("again", e.pool.pages_for(CP_PROMPT_LEN + 1))
+                e._cp_prefill_run(prompt, table)        # a second, warm prefill
+                if kind == "bf16" and cp == max(CP_DEGREES):
+                    path = counts
+                    profile_step(torch, f"engine CP prefill {kind} cp {cp}, {CP_PROMPT_LEN} "
+                                 f"tokens", lambda: e._cp_prefill_run(prompt, table))
+                e.pool.free("again")
+            res[cp] = (toks, rec[0][1], min(ms for _, _, ms in rec[:2]))
+            del e
+            torch.cuda.empty_cache()
+        toks1, logits1, ms1 = res[1]
+        for cp in CP_DEGREES:
+            toks, logits, ms = res[cp]
+            log(f"engine CP {L}-layer {kind} cp {cp} on {card}: prefill of a "
+                f"{CP_PROMPT_LEN}-token prompt {ms:.1f} ms (best of 2), chunked {ms1:.1f} ms "
+                f"({n_chunks} chunks of {P}), {ms1 / ms:.1f}x; first-token logits vs chunked "
+                f"relative L2 {rel_l2(torch.from_numpy(logits), torch.from_numpy(logits1)):.4g}; "
+                f"tokens {toks.tolist()} vs chunked {toks1.tolist()} "
+                f"({int((toks == toks1).sum())} of {CP_NEW} equal)")
+    return path
 
 
 def rel_l2(a, b) -> float:
@@ -1434,7 +1801,16 @@ SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is count
                               "paddle_tpu/ops/pallas/decode_attention.py:399", "quant"),
     "decode_attention_fp8": ("paddle_tpu_torch/ops/csrc/decode_attention.cu",
                              "paddle_tpu/ops/pallas/decode_attention.py:627", "quant"),
+    "ring_flash_attention": ("paddle_tpu_torch/ops/csrc/ring_flash.cu",
+                             "paddle_tpu/ops/pallas/ring_flash.py:159", "cp"),
+    "ring_merge": ("paddle_tpu_torch/ops/csrc/ring_flash.cu",
+                   "paddle_tpu/ops/pallas/ring_flash.py:159", "cp"),
 }
+
+# B10 has no kernel of its own: its launches are the B3 launches of its hops
+# on the CP path (every B3 launch there is a ring hop, each followed by one
+# merge; ``cp_launches`` holds the two counts equal)
+HOPS_OF = {"ring_flash_attention": "flash_attention"}
 
 
 def main() -> int:
@@ -1454,9 +1830,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows.update(phase_bwd_parity(torch))
     torch.cuda.empty_cache()
+    rows.update(phase_ring_parity(torch))
+    torch.cuda.empty_cache()
     rows.update(phase_fused_parity(torch))
     torch.cuda.empty_cache()
-    launches = {"serve": phase_e2e(torch, card), "quant": quant_launches}
+    serve, cp = phase_e2e(torch, card)
+    launches = {"serve": serve, "quant": quant_launches, "cp": cp}
     torch.cuda.empty_cache()
     launches["train"] = phase_train(torch, card)
     torch.cuda.empty_cache()
@@ -1465,7 +1844,7 @@ def main() -> int:
     phase_gpt_generate(torch, card)
     kernels = []
     for name, (src, replaces, path) in SOURCES.items():
-        n = launches[path][name]
+        n = launches[path][HOPS_OF.get(name, name)]
         if n == 0:
             raise AssertionError(f"{name}: never launched on the {path} path")
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,

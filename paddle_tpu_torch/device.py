@@ -9,11 +9,11 @@ CPU quietly, so a missing card cannot pass for a slow one.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 
-__all__ = ["set_device", "get_device", "resolve_device"]
+__all__ = ["set_device", "get_device", "resolve_device", "devices"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -46,3 +46,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "device is available. To run on the CPU, ask for it: "
             "paddle_tpu_torch.set_device('cpu'), or pass device='cpu'.")
     return dev
+
+
+def devices(kind: Optional[str] = None) -> List[torch.device]:
+    """The devices of ``kind`` (``"cuda"`` or ``"cpu"``) this process sees,
+    the counterpart of ``jax.devices()``: every visible card, each with its
+    index, or the one CPU.  Without ``kind``, the default device's type;
+    asking for cards where there are none raises."""
+    kind = kind or resolve_device().type
+    if kind == "cpu":
+        return [torch.device("cpu")]
+    resolve_device(kind)
+    return [torch.device(kind, i) for i in range(torch.cuda.device_count())]

@@ -32,7 +32,8 @@ LAUNCHES: Dict[str, int] = {"rms_norm": 0, "rope": 0, "flash_attention": 0,
                             "flash_attention_bwd_dkv": 0, "swiglu": 0,
                             "swiglu_bwd": 0, "adamw": 0, "add_layer_norm": 0,
                             "add_layer_norm_bwd": 0,
-                            "decode_attention_int8": 0, "decode_attention_fp8": 0}
+                            "decode_attention_int8": 0, "decode_attention_fp8": 0,
+                            "ring_merge": 0}
 
 
 def reset_launch_counts() -> None:

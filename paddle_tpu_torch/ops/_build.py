@@ -31,7 +31,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "launch", "ptr"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
 SOURCES = ("rms_norm", "rope", "flash_attention", "decode_attention",
-           "flash_attention_bwd", "fused_ln_swiglu")
+           "flash_attention_bwd", "fused_ln_swiglu", "ring_flash")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -15,6 +15,15 @@
 - **Prefill**: prompts stream through in ``page_tokens``-sized chunks,
   each filling one page; junk tail slots of the last chunk are overwritten
   by the first decode steps before the position mask exposes them.
+- **Context-parallel prefill** (``cp`` > 1, ``PADDLE_TPU_SERVE_CP``): a
+  prompt of at least ``cp`` page-chunks prefills in ONE forward over the
+  whole prompt, zero-padded to a multiple of ``cp`` chunks, whose attention
+  is ``ring_attention`` over a ``sep`` ring of ``cp`` members (B10); its
+  k/v land in the pages where the chunked path would put them, pad chunks
+  in the trash page.  The reference needs one device per ring member (XLA's
+  SPMD); one process drives the port's ring, so member i sits on visible
+  card ``i mod n_cards`` (``cp_devices``), and several members may share
+  one card.  The projections and the MLP run on the model's card.
 - **Paged attention** is what the reference computes: scatter this step's
   k/v (quantized on the scatter for int8/fp8 pages), gather ``arena[tables]``
   (dequantized at the gather), then a grouped einsum with f32 accumulation
@@ -29,8 +38,8 @@
   milestones in :class:`~.metrics.SLOMeter`.
 
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: speculative decoding (A2), tensor- and context-parallel serving
-(``tp``/``cp`` > 1, A6), the host-RAM offload tier, the prefix cache, the
+item: speculative decoding (A2), tensor-parallel decode (``tp`` > 1, A6),
+the host-RAM offload tier, the prefix cache, the
 journal and crash recovery (``journal``, ``journal_ship``, ``recover``),
 disaggregated prefill (``submit_prefilled``, ``prefill_export``, A8) and
 the decode-loop watchdog (A7).  The reference's chaos seams
@@ -45,7 +54,8 @@ Env knobs: ``PADDLE_TPU_SERVE_MAX_BATCH`` (rows, default 4),
 (consecutive absorbed step failures, default 8),
 ``PADDLE_TPU_SERVE_DEFER_LOOKAHEAD`` / ``_DEFER_MAX`` (long-prompt
 deferral window / starvation cap), ``PADDLE_TPU_KV_DTYPE`` and
-``PADDLE_TPU_KV_FP8_SCALE`` (pages).
+``PADDLE_TPU_KV_FP8_SCALE`` (pages), ``PADDLE_TPU_SERVE_CP`` (ring members
+of the context-parallel prefill, default 1).
 """
 
 from __future__ import annotations
@@ -60,6 +70,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..device import devices
+from ..distributed.meta_parallel.context_parallel import ring_attention
+from ..distributed.topology import build_mesh
 from ..models.llama import apply_rotary_at_positions
 from .admission import AdmissionController, Deadline, Overloaded, _env_float, _env_int
 from .kv_pool import PagedKVPool, PoolExhausted, TRASH_PAGE, default_page_tokens
@@ -137,7 +150,10 @@ class ServingEngine:
     ``lint``: the reference's donation lint inspects its compiled XLA
     decode program, which the port does not have (its arenas are updated
     in place by eager steps): only ``None`` and ``False`` are accepted.
-    ``speculative``, ``tp``/``cp`` > 1, ``offload``, ``prefix_cache``,
+    ``cp`` > 1: prompts of at least ``cp`` page-chunks prefill in one
+    forward with ring attention over ``cp`` members (module docstring);
+    ``cp`` with ``tp`` > 1 raises ``ValueError``, as in the reference.
+    ``speculative``, ``tp`` > 1, ``offload``, ``prefix_cache``,
     ``journal`` and ``journal_ship`` raise ``NotImplementedError``, also
     when their environment variables turn them on."""
 
@@ -160,10 +176,15 @@ class ServingEngine:
         if speculative or (speculative is None
                            and _env_int("PADDLE_TPU_SPEC_K", 0) > 0):
             raise _not_ported("speculative decoding", "A2")
-        if int(tp if tp is not None else _env_int("PADDLE_TPU_SERVE_TP", 1)) > 1:
+        tp = int(tp if tp is not None else _env_int("PADDLE_TPU_SERVE_TP", 1))
+        self.cp = int(cp if cp is not None else _env_int("PADDLE_TPU_SERVE_CP", 1))
+        if self.cp > 1 and tp > 1:
+            raise ValueError(
+                f"PADDLE_TPU_SERVE_CP={self.cp} cannot combine with "
+                f"PADDLE_TPU_SERVE_TP={tp}: the serving mesh is one axis "
+                f"(shard prompts OR heads, not both yet)")
+        if tp > 1:
             raise _not_ported("tensor-parallel decode (tp > 1)", "A6")
-        if int(cp if cp is not None else _env_int("PADDLE_TPU_SERVE_CP", 1)) > 1:
-            raise _not_ported("context-parallel prefill (cp > 1)", "A6")
         if offload or (offload is None
                        and os.environ.get("PADDLE_TPU_KV_OFFLOAD", "0") == "1"):
             raise _not_ported("the host-RAM KV offload tier (offload=)", "A1")
@@ -198,6 +219,15 @@ class ServingEngine:
 
         param = next(p for p in model.parameters() if p.is_floating_point())
         self._cdt, self.device = param.dtype, param.device
+        # the ring members of the CP prefill, round-robin over the visible
+        # devices of the model's type (a departure from the reference,
+        # which needs cp devices: one process drives this ring)
+        cards = devices(self.device.type) if self.cp > 1 else [self.device]
+        self.cp_devices = [cards[i % len(cards)] for i in range(self.cp)]
+        self._mesh = build_mesh(sep=self.cp, devices=self.cp_devices) \
+            if self.cp > 1 else None
+        self.cp_prefills = 0                     # prompts the ring prefilled
+        self.cp_fallbacks: Dict[str, int] = {}   # gate reason -> count
         n_layers, kv_heads, head_dim = model._kv_cache_spec()
         self._arena_shape = (N, P, kv_heads, head_dim)
         self.kv_dtype = kv_cache_dtype(kv_dtype)
@@ -574,11 +604,79 @@ class ServingEngine:
         return logits[0, 0].float().cpu().numpy()
 
     def _prefill(self, r: Request) -> None:
-        logits = self._prefill_chunks(r.prompt, self._padded_table(r.rid)[None])
+        if self._cp_accepts(len(r.prompt)):
+            logits = self._cp_prefill_run(r.prompt, self.pool.table(r.rid))
+        else:
+            logits = self._prefill_chunks(r.prompt, self._padded_table(r.rid)[None])
         tok = int(np.argmax(logits))
         r.generated.append(tok)
         self.meter.first_token(r.rid)
         self._deliver(r, tok)
+
+    # -- context-parallel prefill ---------------------------------------------
+    def _cp_accepts(self, n_prompt: int) -> bool:
+        """Gate of the CP prefill.  A prompt of fewer page-chunks than ring
+        members takes the chunked path (reason ``short_prompt``, counted in
+        ``cp_fallbacks``): some members would hold only padding.  The
+        reference's ``prefix_cached`` and ``kv_import`` reasons cannot arise
+        (the prefix cache and page import are not ported)."""
+        if self.cp <= 1:
+            return False
+        if -(-n_prompt // self.page_tokens) < self.cp:
+            self.cp_fallbacks["short_prompt"] = self.cp_fallbacks.get("short_prompt", 0) + 1
+            return False
+        return True
+
+    def _cp_prefill_run(self, prompt, pages) -> np.ndarray:
+        """Prefill ``prompt`` over its allocated ``pages`` in one forward:
+        the chunk count pads up to a multiple of ``cp`` so the ring divides
+        evenly, and pad chunks carry token 0 into the trash page.  Returns
+        the last prompt token's logits [V] on the host, in f32."""
+        P = self.page_tokens
+        n_chunks = -(-len(prompt) // P)
+        nc_pad = -(-n_chunks // self.cp) * self.cp
+        tokens = np.zeros((1, nc_pad * P), np.int64)
+        tokens[0, :len(prompt)] = prompt
+        table = np.full((nc_pad,), TRASH_PAGE, np.int64)
+        table[:n_chunks] = pages[:n_chunks]
+        logits = self._cp_forward(self._tensor(tokens), self._tensor(table), len(prompt) - 1)
+        self.cp_prefills += 1
+        return logits[0, 0].float().cpu().numpy()
+
+    @torch.inference_mode()
+    def _cp_forward(self, tokens, table, take: int):
+        """The CP prefill's forward: ``tokens`` [1, s] at positions
+        ``0 .. s-1``, their k/v into the pages of ``table`` [s / P],
+        attention by the ring, and only row ``take`` of the hidden state
+        through the lm head.  Returns logits [1, 1, V]."""
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        page, slot = table[pos // self.page_tokens], pos % self.page_tokens
+        return self._layers(tokens, pos[None].to(torch.int32), take,
+                            lambda q, k, v, li: self._ring_attention(q, k, v, li, page, slot))
+
+    def _ring_attention(self, q, k, v, li, page, slot):
+        """Scatter the whole prompt's k/v [1, s, kv, d] into layer ``li``'s
+        pages at (``page``, ``slot``) and attend causally over the ring.
+        int8 and fp8 pages are quantized, then dequantized BEFORE the ring:
+        the chunked path reads even its own chunk's k/v back from the
+        pages, so the ring must attend over the same rounded values to stay
+        token-exact."""
+        ar = self._arenas
+        if self.kv_dtype == "int8":
+            (kq, ksc), (vq, vsc) = quantize_kv(k), quantize_kv(v)
+            ar["k"][li][page, slot], ar["v"][li][page, slot] = kq[0], vq[0]
+            ar["ks"][li][page, slot], ar["vs"][li][page, slot] = ksc[0], vsc[0]
+            k, v = dequantize_kv(kq, ksc).to(self._cdt), dequantize_kv(vq, vsc).to(self._cdt)
+        elif self.kv_dtype == "fp8":
+            kq = quantize_kv_fp8(k, self._fp8_scale)
+            vq = quantize_kv_fp8(v, self._fp8_scale)
+            ar["k"][li][page, slot], ar["v"][li][page, slot] = kq[0], vq[0]
+            k = dequantize_kv_fp8(kq, self._fp8_scale).to(self._cdt)
+            v = dequantize_kv_fp8(vq, self._fp8_scale).to(self._cdt)
+        else:
+            k, v = k.to(self._cdt), v.to(self._cdt)
+            ar["k"][li][page, slot], ar["v"][li][page, slot] = k[0], v[0]
+        return ring_attention(q, k, v, mesh=self._mesh, causal=True)
 
     def _decode_step(self) -> None:
         """One serial decode step (S = 1) over every active row; idle rows
@@ -716,20 +814,29 @@ class ServingEngine:
 
     @torch.inference_mode()
     def _forward(self, tokens, positions, tables, n_tok, take=None):
-        """The transformer step shared by prefill and decode: ``tokens``
-        [R, s] (decode: s = 1; prefill: R = 1, s = page_tokens) at
-        ``positions`` [R] (each row's first token), ``n_tok`` [R] valid
-        tokens per row (idle rows 0: their writes go to the trash page).  Returns logits [R, s, V], or with ``take`` those
-        of position ``take`` only, [R, 1, V]."""
+        """The transformer step shared by chunked prefill and decode:
+        ``tokens`` [R, s] (decode: s = 1; prefill: R = 1, s = page_tokens)
+        at ``positions`` [R] (each row's first token), ``n_tok`` [R] valid
+        tokens per row (idle rows 0: their writes go to the trash page).
+        Returns logits [R, s, V], or with ``take`` those of position
+        ``take`` only, [R, 1, V]."""
+        s = tokens.shape[1]
+        pos_ids = (positions[:, None] + torch.arange(s, device=tokens.device)
+                   ).to(torch.int32)
+        page, slot, visible = self._slots(tables, positions, n_tok, s)
+        return self._layers(tokens, pos_ids, take, lambda q, k, v, li: self._paged_attention(
+            q, k, v, li, tables, page, slot, visible))
+
+    def _layers(self, tokens, pos_ids, take, attend):
+        """Embedding, the decoder layers with ``attend(q, k, v, layer)`` as
+        their attention (q, k rotated at ``pos_ids`` [R, s]), the final
+        norm, and the logits of every position or of ``take`` only."""
         model = self.model
         base = model.llama
         R, s = tokens.shape
         cfg = model.config
         h, kvh, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         cos, sin = base.rope_cos.float(), base.rope_sin.float()
-        pos_ids = (positions[:, None] + torch.arange(s, device=tokens.device)
-                   ).to(torch.int32)
-        page, slot, visible = self._slots(tables, positions, n_tok, s)
         x = base.embed_tokens(tokens)
         for li, layer in enumerate(base.layers):
             attn = layer.self_attn
@@ -738,7 +845,7 @@ class ServingEngine:
             k = attn.k_proj(xin).view(R, s, kvh, d)
             v = attn.v_proj(xin).view(R, s, kvh, d)
             q, k = apply_rotary_at_positions(q, k, cos, sin, pos_ids)
-            out = self._paged_attention(q, k, v, li, tables, page, slot, visible)
+            out = attend(q, k, v, li)
             x = x + attn.o_proj(out.reshape(R, s, h * d))
             x = x + layer.mlp(layer.post_attention_layernorm(x))
         hidden = base.norm(x)

@@ -574,4 +574,4 @@ class TestBindings:
                           .replace(" *", "*").strip() for p in proto.group(1).split(",")]
                 assert [ctype[p] for p in params] == [*getattr(mod, types), ctypes.c_void_p], sym
                 seen += 1
-        assert seen >= 13
+        assert seen >= 14

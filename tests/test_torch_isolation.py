@@ -40,7 +40,9 @@ def test_no_jax_or_reference_import(path):
 def test_fresh_import_loads_no_jax():
     code = ("import sys; import paddle_tpu_torch, paddle_tpu_torch.models, "
             "paddle_tpu_torch.generation, paddle_tpu_torch.inference, "
-            "paddle_tpu_torch.convert, paddle_tpu_torch.ops._build; "
+            "paddle_tpu_torch.convert, paddle_tpu_torch.ops._build, "
+            "paddle_tpu_torch.serving, paddle_tpu_torch.ops.sharded, "
+            "paddle_tpu_torch.distributed.meta_parallel; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

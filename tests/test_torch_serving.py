@@ -450,9 +450,11 @@ class TestEngine:
                 eng.step()
 
     @pytest.mark.parametrize("kw, item", [
-        (dict(speculative=3), "A2"), (dict(tp=2), "A6"), (dict(cp=2), "A6"),
+        (dict(speculative=3), "A2"), (dict(tp=2), "A6"),
         (dict(offload=True), "offload"), (dict(prefix_cache=True), "prefix cache"),
-        (dict(journal="journal_dir"), "journal"), (dict(journal_ship=print), "journal")])
+        (dict(journal="journal_dir"), "journal"), (dict(journal_ship=print), "journal")],
+        ids=["kw0-A2", "kw1-A6", "kw3-offload", "kw4-prefix cache", "kw5-journal",
+             "kw6-journal"])
     def test_unported_options_raise(self, pair, kw, item):
         with pytest.raises(NotImplementedError, match=item):
             ServingEngine(pair[1], **ENGINE, **kw)
