@@ -37,10 +37,13 @@ exits non-zero without them.  Phases, each raising on failure:
    loop, counted; times beside B6 on a bf16 cache of the same shape;
 5. backward parity (run after 3): each backward kernel (RMSNorm, RoPE by
    -theta, flash dq and dk/dv) against its plain backward, in f32 and
-   bf16, at the training shapes (x [8192, 4096]; q, k [4, 2048, 32, 128]),
-   at Llama-2-70B's GQA attention and at off-size attention shapes, timed
-   as in 3 (the library call is the backward of ``F.rms_norm`` and of
-   SDPA);
+   bf16, at the training shapes (x [8192, 4096]; q, k [4, 2048, 32, 128]
+   and GPT-3 1.3B's [4, 2048, 16, 128]), at Llama-2-70B's GQA attention,
+   at the ring's hop shapes ([1, 4096, 32, 128], causal and not) and at
+   off-size attention shapes (d 64, 72, 256), each flash case launched
+   twice with bit-equal grads; timed as in 3 (the library call is the
+   backward of ``F.rms_norm`` and of SDPA), flash dq and dk/dv also at
+   GPT-3 1.3B's and the hop shapes;
 5b. ring parity (run after 5): B10, the ring of context parallelism, with
    its members on the one card: the kernel ring (B3 and the merge kernel a
    hop forward, B3b/B3c backward) against the same ring over the plain
@@ -80,7 +83,9 @@ non-zero before the last line.
 from __future__ import annotations
 
 import copy
+import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -178,15 +183,25 @@ def phase_device(torch):
 
 
 def phase_build():
+    from pathlib import Path
+
     from paddle_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     logs = _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'nothing (current)'}")
+    # ptxas names each kernel by its mangled symbol; cu++filt, beside nvcc, reads it
+    cu_filt = str(Path(_build._nvcc()).resolve().with_name("cu++filt"))
     for name, text in logs.items():
+        entries = re.findall(r"Compiling entry function '(\w+)'", text)
+        readable = subprocess.run([cu_filt, "-p", *entries], capture_output=True, text=True,
+                                  check=True).stdout.splitlines() if entries else []
+        kernels, kernel = iter(readable), "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = next(kernels)
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name} {kernel}: {line.strip()}")
 
 
 def pad_lens_of_main_path():
@@ -478,8 +493,11 @@ def phase_quant_parity(torch):
 def phase_bwd_parity(torch):
     """Each backward kernel against its plain backward on the card, in f32
     and bf16, at the training path's shapes (Llama-2-7B width, batch 4 x
-    2048), at Llama-2-70B's GQA attention and at off-size attention shapes;
-    then times in bf16 at the main shape."""
+    2048; GPT-3 1.3B's 16 heads), at Llama-2-70B's GQA attention, at the
+    ring's hop shapes (4096 rows, causal and not) and at off-size attention
+    shapes (d 64, 72, 256); B3b/B3c launched twice must give the same bits.
+    Then times in bf16 at the main shape, and B3b/B3c's at GPT-3 1.3B's
+    shape and the hop shapes (the ``shapes`` entry of their rows)."""
     from paddle_tpu_torch.models.llama import _rope_tables
     from paddle_tpu_torch.ops.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_dkv, flash_attention_bwd_dq,
@@ -547,45 +565,80 @@ def phase_bwd_parity(torch):
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del gq, gk, oq, ok, pq, pk
 
-    # B3b / B3c: the training shape, 70B GQA (B3c's group sum), off-size shapes
-    cases = [("causal 7B", b, s, h, h, d), ("causal 70B GQA", 1, s, 64, 8, d),
-             ("causal d72 s300", 2, 300, 4, 2, 72), ("causal d256 s200", 1, 200, 2, 1, 256)]
-    for label, bb, sq, hq, hkv, hd in cases:
+    # B3b / B3c: the training shape, 70B GQA (B3c's group sum), off-size
+    # shapes (d 72 and 256), GPT-3 1.3B's shape, the ring's two hop shapes
+    # at cp 4 (a "diag" hop is causal, a "full" one is not) and a ragged d 64
+    # GQA case; two launches of the kernels must agree bit for bit
+    cases = [("causal 7B", b, s, h, h, d, True), ("causal 70B GQA", 1, s, 64, 8, d, True),
+             ("causal d72 s300", 2, 300, 4, 2, 72, True),
+             ("causal d256 s200", 1, 200, 2, 1, 256, True),
+             ("causal GPT-3 1.3B", b, s, 16, 16, d, True),
+             ("ring hop diag", 1, 4096, h, h, d, True),
+             ("ring hop full", 1, 4096, h, h, d, False),
+             ("causal d64 s1000 GQA", 2, 1000, 8, 2, 64, True)]
+    timed = {}  # bf16 inputs of the shapes timed below
+    for label, bb, sq, hq, hkv, hd, causal in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q = randn(bb, sq, hq, hd, dtype=dtype)
             k, v = randn(bb, sq, hkv, hd, dtype=dtype), randn(bb, sq, hkv, hd, dtype=dtype)
-            out, lse = flash_attention_fwd(q, k, v, True)
+            out, lse = flash_attention_fwd(q, k, v, causal)
             do = randn(bb, sq, hq, hd, dtype=dtype)
-            got = flash_attention_bwd(q, k, v, out, lse, do, True)
-            want = flash_attention_bwd_plain(q, k, v, out, lse, do, True)
+            got = flash_attention_bwd(q, k, v, out, lse, do, causal)
+            again = flash_attention_bwd(q, k, v, out, lse, do, causal)
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"flash bwd {label} {dtype}: two launches differ")
+            want = flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
             tol = TOL["float32_attn_bwd" if dtype == torch.float32 else "bfloat16"]
             errs = [check_close(torch, f"flash bwd {label} {n}", g, w_, tol)
                     for n, g, w_ in zip(("dq", "dk", "dv"), got, want)]
-            log(f"parity flash bwd {label} {dtype} q{list(q.shape)} kv{hkv}: max_abs_err "
-                f"dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g}")
-            if label == "causal 7B" and dtype == torch.bfloat16:
-                main = (q, k, v, out, lse, do, errs)
-            del q, k, v, out, lse, do, got, want
-    q, k, v, out, lse, do, errs = main
-    pairs = b * h * s * (s + 1) // 2
-    es = q.element_size()
-    io = q.numel() * es
-    dq_bytes = 5 * io + 2 * b * h * s * 4   # q k v out dout in, dq out; lse in, delta out
-    dkv_bytes = 6 * io + 2 * b * h * s * 4  # q k v dout lse delta in, dk dv out
-    _, delta = flash_attention_bwd_dq(q, k, v, out, lse, do, True)
+            log(f"parity flash bwd {label} {dtype} q{list(q.shape)} kv{hkv}"
+                f"{'' if causal else ' full'}: max_abs_err dq {errs[0]:.3g} dk {errs[1]:.3g} "
+                f"dv {errs[2]:.3g}; two launches bit-equal")
+            if dtype == torch.bfloat16 and label in ("causal 7B", "causal GPT-3 1.3B",
+                                                     "ring hop diag", "ring hop full"):
+                timed[label] = (q, k, v, out, lse, do, causal, errs)
+            del q, k, v, out, lse, do, got, again, want
+            torch.cuda.empty_cache()
+
+    def bounds(q, causal):
+        """(bound ms, bound by) of B3b and of B3c on q's shape."""
+        bb, sq, hq, hd = q.shape
+        pairs = bb * hq * sq * (sq + 1) // 2 if causal else bb * hq * sq * sq
+        io, lse_bytes = q.numel() * q.element_size(), bb * hq * sq * 4
+        # B3b: q k v out dout in, dq out, lse in, delta out; 3 products a pair.
+        # B3c: q k v dout lse delta in, dk dv out; 4 products a pair.
+        return [bound_ms(nbytes, products * 2 * hd * pairs, BF16_FLOPS)
+                for nbytes, products in ((5 * io + 2 * lse_bytes, 3),
+                                         (6 * io + 2 * lse_bytes, 4))]
+
+    def kernel_fns(q, k, v, out, lse, do, causal):
+        _, delta = flash_attention_bwd_dq(q, k, v, out, lse, do, causal)
+        return (lambda: flash_attention_bwd_dq(q, k, v, out, lse, do, causal),
+                lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal))
+
+    names = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    q, k, v, out, lse, do, _, errs = timed.pop("causal 7B")
     plain = time_ms(torch, lambda: flash_attention_bwd_plain(q, k, v, out, lse, do, True),
                     iters=3, repeats=3)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     lib_out = sdpa(qt, kt, vt, is_causal=True)
     library = backward_ms(lib_out, (qt, kt, vt), do.transpose(1, 2))
-    for name, nbytes, products, err, fn in (
-            ("flash_attention_bwd_dq", dq_bytes, 3, errs[0],
-             lambda: flash_attention_bwd_dq(q, k, v, out, lse, do, True)),
-            ("flash_attention_bwd_dkv", dkv_bytes, 4, max(errs[1:]),
-             lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, True))):
-        b_ms, b_by = bound_ms(nbytes, products * 2 * d * pairs, BF16_FLOPS)
+    del lib_out, qt, kt, vt
+    for name, (b_ms, b_by), err, fn in zip(names, bounds(q, True), (errs[0], max(errs[1:])),
+                                            kernel_fns(q, k, v, out, lse, do, True)):
         rows[name] = dict(max_abs_err=err, ms=time_ms(torch, fn, iters=5, repeats=3),
-                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=library)
+                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=library,
+                          shapes={})
+    # the same kernels at GPT-3 1.3B's training shape and the ring's hop shapes
+    for label, (q, k, v, out, lse, do, causal, _) in timed.items():
+        shape = f"{list(q.shape)} {'causal' if causal else 'full'}"
+        for name, (b_ms, b_by), fn in zip(names, bounds(q, causal),
+                                          kernel_fns(q, k, v, out, lse, do, causal)):
+            ms = time_ms(torch, fn, iters=5, repeats=3)
+            rows[name]["shapes"][shape] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
+            log(f"time {name} {label} {shape} bf16: kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by})")
+    del timed, q, k, v, out, lse, do
     for name, r in rows.items():
         log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
@@ -1669,6 +1722,7 @@ def train_steps(torch, card, make, layers, flags, ids, labels):
     from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
     from paddle_tpu_torch.optimizer import AdamW
 
+    gc.collect()  # an earlier phase's models in reference cycles would count in the peak
     model = make(layers)
     cfg, label = model.config, f"{make.__name__[5:]} {flags}"
     n_params, n_tensors = model.num_params(), len(list(model.parameters()))

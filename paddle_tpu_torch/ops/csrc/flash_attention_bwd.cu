@@ -7,46 +7,78 @@
 // the forward's f32 logsumexp, p = exp(s * scale - lse); with
 // delta = rowsum(dO * O) in f32 and dp = dO V^T,
 // ds = p * (dp - delta) * scale; dQ = ds K, dK = ds^T Q, dV = p^T dO, each
-// accumulated in f32 and cast to the input dtype last.  Causal masking is
-// bottom-right aligned (query row i sees keys <= i + sk - sq), and tiles
-// wholly above the diagonal are skipped, as _causal_live does.  A row whose
-// lse is -inf (no valid key) has p = 0.
+// accumulated in f32 and cast to the input dtype last; P and dS are rounded
+// to bf16 before their products, as the TPU kernel does (p.astype(do.dtype)
+// :292, ds.astype(k.dtype) :255, :298).  Causal masking is bottom-right
+// aligned (query row i sees keys <= i + sk - sq), and tiles wholly above
+// the diagonal are skipped, as _causal_live does.  A row whose lse is -inf
+// (no valid key) has p = 0.
 //
-// The split needs no atomics: the dq kernel is one block per (query tile,
-// q head, batch row) and loops over key tiles; it computes delta for its
-// rows first and exports it (delta_out, as _bwd_dq_kernel does at
+// Why the split and not atomics: the dq kernel is one block per (query
+// tile, q head, batch row) and loops over key tiles; it computes delta for
+// its rows first and exports it (delta_out, as _bwd_dq_kernel does at
 // flash_attention.py:228-234).  The dkv kernel is one block per (key tile,
 // kv head, batch row) and loops over the rep = hq / hkv query heads of its
 // GQA group and over their query tiles, so the group sum of dK and dV stays
-// inside one block (the TPU grid's (rep, nq) axes at :352).  The TPU's
-// sequential grid axes become these loops; the accumulators that lived in
-// VMEM scratch live in shared memory in f32.
+// inside one block (the TPU grid's (rep, nq) axes at :352).  Every sum runs
+// in one block in a fixed order, so two launches give the same bits.  One
+// fused pass with dQ summed by atomics would do 5 products instead of 7,
+// at the cost of that reproducibility.
 //
-// Bound on the H100: at the training shapes (s 2048, d 128) the tensor
-// cores.  dQ recomputes S and dP and does one more product (three products
-// of the causal [s, s] by d work), dKV recomputes S and dP and does two (four
-// products).  bf16 runs on the tensor cores through WMMA 16x16x16
-// fragments with f32 accumulation; P and dS are rounded to bf16 before
-// their products, as the TPU kernel does (p.astype(do.dtype) :292,
-// ds.astype(k.dtype) :255, :298).  Four warps each own 16 query rows of a
-// 64-row tile for S and dP, which go through shared memory in f32 (a WMMA
-// fragment's element layout is opaque, so the per-row softmax needs them
-// there).  The accumulators stay in registers as WMMA fragments: dQ's 16
-// rows of a warp, and dK/dV cut into 16x16 output tiles dealt round-robin
-// to the warps; B3c reuses one bf16 tile for P and then dS.  That keeps a
-// block at about 113 KB of shared memory at d <= 128, so two blocks share
-// an SM (a first version with the accumulators in shared memory took
-// 150-190 KB, one block an SM, and 1.6-1.7x the time).  The tiles exceed
-// 48 KB, so they are requested as dynamic shared memory; for d > 128 the
-// key tile is 32 rows instead of 64 to stay inside the SM's 227 KB.  f32
-// inputs run SIMT kernels (no tensor-core path keeps full f32): eight
+// Bound on the H100: the tensor cores.  B3b recomputes S and dP and does
+// dQ (three products of the causal [s, s] by d work), B3c recomputes S and
+// dP and does dV and dK (four): at the training shape [4, 2048, 32, 128]
+// causal 0.2086 and 0.2781 ms at 989 TFLOP/s, together 0.487 ms.  The
+// whole function needs 5 products (SDPA's fused backward: 0.906 ms on this
+// card), the yardstick, not the bound of this split.
+//
+// bf16 with head_dim <= 128 (bwd_dq_wg, bwd_dkv_wg; the head dim padded
+// with zero columns to DP = 64 or 128): each warpgroup of 128 threads owns
+// 64 rows of the block's resident operand, and every product is a Hopper
+// wgmma (m64nNk16, f32 accumulators in registers; wgmma.cuh).
+//   * S and dP never leave registers.  B3b: S = Q K^T and dP = dO V^T are
+//     wgmma with Q/dO (resident) and K/V (streamed) from shared memory,
+//     both K-major; p and ds are computed in the accumulators, whose
+//     (row, column) each thread knows from the wgmma layout, with its rows'
+//     lse and delta in registers; ds, rounded to bf16x2, is already the
+//     register A operand of dQ += dS K, whose B is the K tile read through
+//     the transpose bit.  B3c computes S^T = K Q^T and dP^T = V dO^T (K/V
+//     resident), so P^T and dS^T are born as the A operands of
+//     dV += P^T dO and dK += dS^T Q; a column's lse and delta come from
+//     shared memory beside its Q tile.  No S, dP or P tile exists in shared
+//     memory, and no f32 -> bf16 pass over dS.  exp(s * scale - lse) is
+//     ex2.approx of the same argument in base 2.
+//   * Loads are asynchronous: the streamed tiles (K, V in B3b; Q, dO and
+//     their lse, delta rows in B3c) come through a ring of kStages = 2
+//     shared-memory stages by cp.async 16-byte copies with zero fill for
+//     ragged rows and the DP - d columns, written in the 128-byte-swizzled
+//     layout the wgmma descriptors name.  The next tile lands while the
+//     current one is multiplied; one block barrier per tile frees its stage,
+//     and the wgmma fence/commit/wait discipline orders the products (exp(S)
+//     runs while dP's wgmma is in flight).
+//   * Only tiles the causal mask leaves live are visited, and only a tile
+//     that crosses the diagonal or the ragged edge masks per element.
+// Tile sizes: one warpgroup a block in both kernels, 64 rows of the
+// resident operand against 64-row streamed tiles, 97-98 KB of shared
+// memory, so two blocks fit an SM; ptxas reports no spill (chip_smoke.py
+// prints its report).  Rejected: two warpgroups a block (128 resident rows
+// sharing each streamed tile, one block an SM); in chip_smoke.py's timing
+// on an H100, B3c at two warpgroups took 0.7313-0.7456 ms at the training
+// shape, at one 0.6889-0.6944 ms, in separate runs.  Not taken, for
+// reasons rather than a committed timing: a third stage (B3b's 129 KB
+// would fit one block an SM, not two), and Q held in registers as S's A
+// operand in B3b (32 more registers a thread for an operand that its
+// shared-memory descriptor already serves).
+//
+// bf16 with 128 < d <= 256 keeps the WMMA kernels (bwd_dq_tc, bwd_dkv_tc):
+// 16x16x16 fragments, 32-key tiles, S and dP through shared memory in f32.
+// f32 inputs run SIMT kernels (no tensor-core path keeps full f32): eight
 // threads share a row, each holding an eighth of its vectors in registers,
-// and stream the other operand through shared memory.  mma.sync or wgmma
-// fragments with a known layout, which would keep S and dP in registers,
-// and TMA are later work.
+// and stream the other operand through shared memory.
 #include <mma.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -243,7 +275,7 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // Dynamic shared memory above 48 KB must be requested; the largest carveout
-// lets two ~113 KB blocks share an SM.
+// lets two ~100 KB blocks share an SM.
 template <typename K>
 cudaError_t set_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -302,7 +334,7 @@ int dispatch_f32(const void* q, const void* k, const void* v, const void* o,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16, 128 < head_dim <= 256: WMMA fragments (launch_tc<32>)
 // ---------------------------------------------------------------------------
 namespace wm = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
@@ -317,8 +349,8 @@ __host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_
 // Shared-memory layout for head_dim d padded to dp (a multiple of 16) and a
 // key tile of bk rows: the K, V, Q and dO tiles in bf16, S and dP in f32,
 // and one bf16 tile X for the products' left operand (dS in the dq kernel;
-// P, then dS, in the dkv kernel).  The accumulators live in registers, so
-// at d <= 128 a block takes under 113 KB and two blocks share an SM.  Row
+// P, then dS, in the dkv kernel).  The accumulators live in registers; at
+// d <= 256 with 32-key tiles a block stays inside the SM's 227 KB.  Row
 // strides are padded off a multiple of 128 bytes against bank conflicts;
 // every region starts on a 128-byte boundary and every fragment on a
 // 32-byte one, as WMMA loads require.  K and V are adjacent, so the dq
@@ -552,7 +584,7 @@ bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
            const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
            int sq, int sk, int hq, int hkv, int d, float scale, int causal) {
   // output tiles of a warp per accumulator: (BK/16)(dp/16)/4 <= 8 for
-  // BK 64 with dp <= 128 and for BK 32 with dp <= 256
+  // BK 32 with dp <= 256
   constexpr int kTiles = 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const TcLayout L = tc_layout(d, BK, true);
@@ -631,6 +663,370 @@ bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16, head_dim <= 128: wgmma, S and dP in registers, cp.async tile ring
+// ---------------------------------------------------------------------------
+namespace hw = ptt::sm90;
+constexpr float kLog2e = 1.4426950408889634f;
+// One warpgroup of 128 threads a block; its accumulators' 64 rows (wgmma's
+// m) are the block's resident tile, and the streamed tiles are 64 rows too
+constexpr int kWgThreads = 128;
+constexpr int kBR = 64;      // rows of a resident or a streamed tile
+constexpr int kStages = 2;   // depth of the ring of streamed tiles
+
+// 2^x by the SFU alone (ex2.approx.ftz: about 2 ulp, results below 2^-126
+// flushed to 0); exp2f wraps the same instruction in a subnormal-safe scaling
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// lse in the exp2 domain; +inf for a row that sees no key, so that p = 0
+__device__ __forceinline__ float lse_log2(float lse) {
+  return lse == -INFINITY ? INFINITY : lse * kLog2e;
+}
+
+// the 1024-byte-aligned start of dynamic shared memory (tiles are SW128)
+__device__ __forceinline__ bf16* smem_base(unsigned char* raw) {
+  return reinterpret_cast<bf16*>(raw + ((1024 - (hw::smem_u32(raw) & 1023)) & 1023));
+}
+
+// rows r and r + 8 of an m64nN accumulator, columns [0, d), rounded to bf16
+// and stored at dst + row * stride; rows >= rows_valid are not stored
+template <int R>
+__device__ __forceinline__ void store_acc(const float (&acc)[R], bf16* dst, int64_t stride,
+                                          int r, int rows_valid, int d, int quad) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (r + 8 * i >= rows_valid) continue;
+    bf16* row = dst + (r + 8 * i) * stride;
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j) {
+      const int c = 8 * j + 2 * quad;
+      if (c < d)
+        *reinterpret_cast<__nv_bfloat162*>(row + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+// B3b: one block per (tile of 64 query rows, q head, batch row).  Q and dO
+// stay in shared memory; K and V stream through a ring of kStages stages.
+template <int DP>
+__global__ void __launch_bounds__(kWgThreads, 2)
+bwd_dq_wg(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+          const bf16* __restrict__ o, const bf16* __restrict__ dout,
+          const float* __restrict__ lse, bf16* __restrict__ dq,
+          float* __restrict__ delta_out, int sq, int sk, int hq, int hkv, int d,
+          float scale, int causal) {
+  constexpr int kBQ = kBR, kBK = kBR, kThreads = kWgThreads;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Qs = smem_base(smem_raw);  // [kBQ][DP] SW128
+  bf16* dOs = Qs + kBQ * DP;       // [kBQ][DP]
+  bf16* KVs = dOs + kBQ * DP;      // stage st: K at KVs + 2 st kBK DP, V after it
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int quad = lane & 3;
+  // the last query tiles see the most keys: launched first, they leave the
+  // light ones for the end of the grid
+  const int b = blockIdx.z, h = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int hk = h / (hq / hkv);
+  const int offset = sk - sq;
+  const int64_t q_stride = static_cast<int64_t>(hq) * d;
+  const int64_t kv_stride = static_cast<int64_t>(hkv) * d;
+  const int64_t q_base = static_cast<int64_t>(b) * sq * q_stride + static_cast<int64_t>(h) * d;
+  const int64_t kv_base = static_cast<int64_t>(b) * sk * kv_stride + static_cast<int64_t>(hk) * d;
+
+  const int last_row = min(q0 + kBQ, sq) - 1;
+  const int k_end = causal ? min(sk, last_row + offset + 1) : sk;
+  const int n_tiles = k_end > 0 ? (k_end + kBK - 1) / kBK : 0;
+  auto load_kv = [&](int it) {
+    bf16* Kt = KVs + 2 * (it % kStages) * kBK * DP;
+    const int64_t at = kv_base + static_cast<int64_t>(it) * kBK * kv_stride;
+    hw::load_tile_sw128<kBK, DP, kThreads>(Kt, k + at, kv_stride, sk - it * kBK, d, tid);
+    hw::load_tile_sw128<kBK, DP, kThreads>(Kt + kBK * DP, v + at, kv_stride, sk - it * kBK, d,
+                                           tid);
+  };
+  hw::load_tile_sw128<kBQ, DP, kThreads>(Qs, q + q_base + q0 * q_stride, q_stride, sq - q0, d,
+                                         tid);
+  hw::load_tile_sw128<kBQ, DP, kThreads>(dOs, dout + q_base + q0 * q_stride, q_stride, sq - q0,
+                                         d, tid);
+  for (int t = 0; t < kStages - 1; ++t) {  // Q and dO land with tile 0
+    if (t < n_tiles) load_kv(t);
+    hw::cp_async_commit();
+  }
+
+  // this thread's accumulator rows: r_lo and r_lo + 8 of the block's tile.
+  // delta = rowsum(dO O) from global memory while the tiles land, the four
+  // lanes of a row taking every fourth 8-column chunk
+  const int r_lo = warp * 16 + (lane >> 2);
+  float delta_r[2], lse_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r_lo + 8 * i;
+    float acc = 0.f;
+    if (row < sq) {
+      const bf16* orow = o + q_base + row * q_stride;
+      const bf16* drow = dout + q_base + row * q_stride;
+      for (int c = quad * 8; c < d; c += 32) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+        const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]), df = __bfloat1622float2(d2[e]);
+          acc = fmaf(df.x, of.x, acc);
+          acc = fmaf(df.y, of.y, acc);
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    delta_r[i] = acc;
+    const int64_t lrow = (static_cast<int64_t>(b) * hq + h) * sq + row;
+    lse_r[i] = row < sq ? lse_log2(lse[lrow]) : INFINITY;
+    if (row < sq && quad == 0) delta_out[lrow] = acc;
+  }
+
+  float dq_acc[DP / 2];
+#pragma unroll
+  for (int x = 0; x < DP / 2; ++x) dq_acc[x] = 0.f;
+  const float sl2 = scale * kLog2e;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = it * kBK;
+    const bf16* Kt = KVs + 2 * (it % kStages) * kBK * DP;
+    const bf16* Vt = Kt + kBK * DP;
+    hw::cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile it has landed; tile it - 1's stage is free
+    if (it + kStages - 1 < n_tiles) load_kv(it + kStages - 1);
+    hw::cp_async_commit();
+    if (causal && t0 > q0 + kBQ - 1 + offset) continue;
+
+    float s[32], dp[32];  // S = Q K^T and dP = dO V^T, [64 rows][64 keys]
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      hw::wgmma_ss_m64n64(s, hw::desc_kmajor(Qs, kBQ, kk), hw::desc_kmajor(Kt, kBK, kk), kk);
+    hw::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      hw::wgmma_ss_m64n64(dp, hw::desc_kmajor(dOs, kBQ, kk), hw::desc_kmajor(Vt, kBK, kk), kk);
+    hw::wgmma_commit();
+    hw::wgmma_wait<1>();  // S is done; p is computed while dP runs
+    hw::fence_regs(s);
+
+    // p over s, then ds = p (dp - delta) scale; only a tile that crosses
+    // the diagonal or the last key masks per element
+    const bool edge = (causal && t0 + kBK - 1 > q0 + offset) || t0 + kBK > sk;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int lim = min(sk, causal ? q0 + r_lo + 8 * i + offset + 1 : sk) - t0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 4 * j + 2 * i + e;
+          const float p = exp2_approx(fmaf(s[x], sl2, -lse_r[i]));
+          s[x] = edge && 8 * j + 2 * quad + e >= lim ? 0.f : p;
+        }
+    }
+    hw::wgmma_wait<0>();
+    hw::fence_regs(dp);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) s[x] = s[x] * (dp[x] - delta_r[(x >> 1) & 1]) * scale;
+    uint32_t a[4][4];  // dS in bf16 as the A operand
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hw::acc_to_a(s, kk, a[kk]);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)  // dQ += dS K
+      hw::wgmma_rs_tb<DP>(dq_acc, a[kk], hw::desc_mnmajor(Kt, kBK, kk), 1);
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(dq_acc);
+    hw::fence_regs(a);
+  }
+  hw::cp_async_wait<0>();
+  store_acc(dq_acc, dq + q_base, q_stride, q0 + r_lo, sq, d, quad);
+}
+
+// B3c: one block per (tile of 64 keys, kv head, batch row).  K and V stay in
+// shared memory; the group's Q and dO tiles (64 rows) with their lse and
+// delta stream through a ring of kStages stages.  S^T = K Q^T and
+// dP^T = V dO^T leave P^T and dS^T in registers in the A layout of
+// dV += P^T dO and dK += dS^T Q.
+template <int DP>
+__global__ void __launch_bounds__(kWgThreads, 2)
+bwd_dkv_wg(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+           const bf16* __restrict__ dout, const float* __restrict__ lse,
+           const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+           int sq, int sk, int hq, int hkv, int d, float scale, int causal) {
+  constexpr int kBK = kBR, kBQ = kBR, kThreads = kWgThreads;
+  static_assert(kThreads >= 2 * kBQ, "one thread a row for lse and delta");
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Ks = smem_base(smem_raw);  // [kBK][DP] SW128
+  bf16* Vs = Ks + kBK * DP;
+  bf16* QDs = Vs + kBK * DP;       // stage st: Q at QDs + 2 st kBQ DP, dO after it
+  float* LDs = reinterpret_cast<float*>(QDs + 2 * kStages * kBQ * DP);  // stage st: lse, delta
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int quad = lane & 3;
+  const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * kBK;
+  const int rep = hq / hkv;
+  const int offset = sk - sq;
+  const int64_t q_stride = static_cast<int64_t>(hq) * d;
+  const int64_t kv_stride = static_cast<int64_t>(hkv) * d;
+  const int64_t kv_base = static_cast<int64_t>(b) * sk * kv_stride + static_cast<int64_t>(hk) * d;
+
+  // the first query row that sees key k0 is k0 - offset; tiles run over the
+  // group's rep heads, n_qt tiles each
+  const int q_begin = causal ? max(0, k0 - offset) : 0;
+  const int n_qt = q_begin < sq ? (sq - q_begin + kBQ - 1) / kBQ : 0;
+  const int n_tiles = rep * n_qt;
+  auto load_q = [&](int it) {
+    const int r = it / n_qt, t0 = q_begin + (it - r * n_qt) * kBQ;
+    const int h = hk * rep + r;
+    const int64_t at = static_cast<int64_t>(b) * sq * q_stride + static_cast<int64_t>(h) * d +
+                       t0 * q_stride;
+    bf16* Qt = QDs + 2 * (it % kStages) * kBQ * DP;
+    hw::load_tile_sw128<kBQ, DP, kThreads>(Qt, q + at, q_stride, sq - t0, d, tid);
+    hw::load_tile_sw128<kBQ, DP, kThreads>(Qt + kBQ * DP, dout + at, q_stride, sq - t0, d, tid);
+    if (tid < 2 * kBQ) {
+      const int i = tid % kBQ;
+      const bool valid = t0 + i < sq;
+      const int64_t l = (static_cast<int64_t>(b) * hq + h) * sq + t0 + i;
+      hw::cp_async4(hw::smem_u32(LDs + 2 * (it % kStages) * kBQ + tid),
+                    valid ? (tid < kBQ ? lse : delta) + l : lse, valid);
+    }
+  };
+  hw::load_tile_sw128<kBK, DP, kThreads>(Ks, k + kv_base + k0 * kv_stride, kv_stride, sk - k0, d,
+                                         tid);
+  hw::load_tile_sw128<kBK, DP, kThreads>(Vs, v + kv_base + k0 * kv_stride, kv_stride, sk - k0, d,
+                                         tid);
+  for (int t = 0; t < kStages - 1; ++t) {  // K and V land with tile 0
+    if (t < n_tiles) load_q(t);
+    hw::cp_async_commit();
+  }
+
+  float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+  for (int x = 0; x < DP / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
+  const float sl2 = scale * kLog2e;
+  const int r_lo = warp * 16 + (lane >> 2);  // this thread's keys: r_lo, r_lo + 8 past k0
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = q_begin + (it % n_qt) * kBQ;
+    const bf16* Qt = QDs + 2 * (it % kStages) * kBQ * DP;
+    const bf16* dOt = Qt + kBQ * DP;
+    const float* ls = LDs + 2 * (it % kStages) * kBQ;
+    const float* dls = ls + kBQ;
+    hw::cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile it has landed; tile it - 1's stage is free
+    if (it + kStages - 1 < n_tiles) load_q(it + kStages - 1);
+    hw::cp_async_commit();
+    if (causal && k0 > t0 + kBQ - 1 + offset) continue;
+
+    float s[32], dp[32];  // S^T = K Q^T and dP^T = V dO^T, [64 keys][64 rows]
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      hw::wgmma_ss_m64n64(s, hw::desc_kmajor(Ks, kBK, kk), hw::desc_kmajor(Qt, kBQ, kk), kk);
+    hw::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      hw::wgmma_ss_m64n64(dp, hw::desc_kmajor(Vs, kBK, kk), hw::desc_kmajor(dOt, kBQ, kk), kk);
+    hw::wgmma_commit();
+    hw::wgmma_wait<1>();  // S^T is done; p^T is computed while dP^T runs
+    hw::fence_regs(s);
+
+    // p^T over s, then ds^T over dp; a column is a query row with its own
+    // lse and delta.  Only a tile that crosses the diagonal or the last row
+    // masks per element.
+    const bool edge = (causal && k0 + kBK - 1 > t0 + offset) || t0 + kBQ > sq;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * quad;
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float lc = lse_log2(e ? l2.y : l2.x);
+        // keys of this column that its row sees: key <= t0 + c + e + offset
+        const int lim = t0 + c + e < sq ? (causal ? t0 + c + e + offset + 1 : sk) : -1;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int x = 4 * j + 2 * i + e;
+          const float p = exp2_approx(fmaf(s[x], sl2, -lc));
+          s[x] = edge && k0 + r_lo + 8 * i >= lim ? 0.f : p;
+        }
+      }
+    }
+    hw::wgmma_wait<0>();
+    hw::fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dls + 8 * j + 2 * quad);
+#pragma unroll
+      for (int x = 4 * j; x < 4 * j + 4; ++x)
+        dp[x] = s[x] * (dp[x] - (x & 1 ? d2.y : d2.x)) * scale;
+    }
+    uint32_t pa[4][4], da[4][4];  // P^T and dS^T in bf16 as A operands
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hw::acc_to_a(s, kk, pa[kk]);
+      hw::acc_to_a(dp, kk, da[kk]);
+    }
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk)  // dV += P^T dO
+      hw::wgmma_rs_tb<DP>(dv_acc, pa[kk], hw::desc_mnmajor(dOt, kBQ, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk)  // dK += dS^T Q
+      hw::wgmma_rs_tb<DP>(dk_acc, da[kk], hw::desc_mnmajor(Qt, kBQ, kk), 1);
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(dk_acc);
+    hw::fence_regs(dv_acc);
+    hw::fence_regs(pa);
+    hw::fence_regs(da);
+  }
+  hw::cp_async_wait<0>();
+  store_acc(dk_acc, dk + kv_base, kv_stride, k0 + r_lo, sk, d, quad);
+  store_acc(dv_acc, dv + kv_base, kv_stride, k0 + r_lo, sk, d, quad);
+}
+
+template <int DP>
+int launch_wg(const void* q, const void* k, const void* v, const void* o, const void* dout,
+              const void* lse, void* dq, void* dk, void* dv, void* delta, int b, int sq,
+              int sk, int hq, int hkv, int d, float scale, int causal, bool dq_pass,
+              cudaStream_t s) {
+  constexpr size_t kTile = kBR * DP * sizeof(bf16);  // bytes of one tile
+  if (dq_pass) {
+    // Q, dO and the stages of K, V; 1024 bytes of alignment slack
+    const size_t smem = (2 + 2 * kStages) * kTile + 1024;
+    auto kernel = bwd_dq_wg<DP>;
+    cudaError_t e = set_smem(kernel, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<dim3((sq + kBR - 1) / kBR, hq, b), kWgThreads, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<bf16*>(dq), static_cast<float*>(delta),
+        sq, sk, hq, hkv, d, scale, causal);
+  } else {
+    // K, V, the stages of Q, dO and their lse, delta rows
+    const size_t smem = (2 + 2 * kStages) * kTile + 2 * kStages * kBR * sizeof(float) + 1024;
+    auto kernel = bwd_dkv_wg<DP>;
+    cudaError_t e = set_smem(kernel, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<dim3((sk + kBR - 1) / kBR, hkv, b), kWgThreads, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+        sq, sk, hq, hkv, d, scale, causal);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int BK>
 int launch_tc(const void* q, const void* k, const void* v, const void* o, const void* dout,
               const void* lse, void* dq, void* dk, void* dv, void* delta, int b, int sq,
@@ -668,9 +1064,12 @@ int dispatch(const void* q, const void* k, const void* v, const void* o, const v
   if (dtype != ptt::kBF16)
     return dispatch_f32(q, k, v, o, dout, lse, dq, dk, dv, delta, b, sq, sk, hq, hkv, d,
                         scale, causal, dq_pass, s);
-  if (d <= 128)
-    return launch_tc<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, b, sq, sk, hq, hkv, d,
+  if (d <= 64)
+    return launch_wg<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, b, sq, sk, hq, hkv, d,
                          scale, causal, dq_pass, s);
+  if (d <= 128)
+    return launch_wg<128>(q, k, v, o, dout, lse, dq, dk, dv, delta, b, sq, sk, hq, hkv, d,
+                          scale, causal, dq_pass, s);
   return launch_tc<32>(q, k, v, o, dout, lse, dq, dk, dv, delta, b, sq, sk, hq, hkv, d,
                        scale, causal, dq_pass, s);
 }
