@@ -7,11 +7,18 @@ exits non-zero without them.  Phases, each raising on failure:
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: every kernel under ``paddle_tpu_torch/ops/csrc/`` compiled with
-   nvcc from the checkout, with the build seconds and ptxas's report;
+   nvcc from the checkout, with the build seconds and ptxas's report (a
+   wgmma kernel that spills fails);
 3. parity: each kernel against its plain PyTorch version on the card, in
    f32 and bf16, at Llama-2-7B serving shapes and at the GQA attention of
    Llama-2-70B, with the kernel's, plain version's and library call's times
    and the least time the card could take for the same bytes and operations;
+   the flash forward (B3) also at the training shapes (Llama-2-7B and
+   GPT-3 1.3B at 4 x 2048), the ring's and the CP prefill's hop shapes
+   (4096 and 1008 rows, causal and not), sq < sk, head_dim 64 and pads over
+   whole 64-row tiles (exact zeros, lse -inf), each case launched twice with
+   bit-equal out and lse, and timed beside SDPA at those shapes and over
+   16384 tokens (``flash_fwd_times``);
 4. end to end: Llama-2-7B at full width and depth, bf16 weights from a
    seeded generator, through ``Predictor.generate_batch`` on ragged prompts
    and ``generate`` on an unpadded batch; launch counts are reset before
@@ -202,6 +209,9 @@ def phase_build():
                 kernel = next(kernels)
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas {name} {kernel}: {line.strip()}")
+                # the wgmma kernels keep their accumulators in registers
+                if "_wg<" in kernel and re.search(r"[1-9]\d* bytes spill", line):
+                    raise AssertionError(f"ptxas: {kernel} spills: {line.strip()}")
 
 
 def pad_lens_of_main_path():
@@ -209,6 +219,38 @@ def pad_lens_of_main_path():
     rows, filled up to BATCH with copies of the first row."""
     pads = [512 - n for n in PROMPT_LENS]
     return pads + [pads[0]] * (BATCH - len(pads))
+
+
+FLASH_FWD_SHAPES = (  # B3 on the other main paths: label, b, s, heads, causal
+    ("Llama train", TRAIN_BATCH, TRAIN_SEQ, 32, True),
+    ("GPT-3 1.3B train", TRAIN_BATCH, TRAIN_SEQ, 16, True),
+    ("ring hop diag", 1, 4096, 32, True), ("ring hop full", 1, 4096, 32, False),
+    ("CP hop diag", 1, 1008, 32, True), ("CP hop full", 1, 1008, 32, False),
+    ("whole sequence", 1, 16384, 32, True))
+
+
+def flash_fwd_times(torch, gen):
+    """B3 in bf16 (head_dim 128) at FLASH_FWD_SHAPES: {shape: kernel ms,
+    bound, SDPA ms}, each printed."""
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {}
+    for label, b, s, h, causal in FLASH_FWD_SHAPES:
+        q, k, v = (torch.randn(b, s, h, 128, generator=gen, device=gen.device)
+                   .to(torch.bfloat16) for _ in range(3))
+        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+        # q, k, v read, out written, lse; 2 products (Q K^T, P V) a pair
+        b_ms, b_by = bound_ms(4 * q.numel() * 2 + b * h * s * 4, 4 * 128 * pairs, BF16_FLOPS)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal), iters=10, repeats=3)
+        lib = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal), iters=10, repeats=3)
+        shape = f"{[b, s, h, 128]} {'causal' if causal else 'full'}"
+        times[shape] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        log(f"time flash_attention {label} {shape} bf16: kernel {ms:.4f} ms, SDPA {lib:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x the bound")
+        del q, k, v, qt, kt, vt
+    return times
 
 
 def phase_parity(torch):
@@ -270,25 +312,53 @@ def phase_parity(torch):
         plain_ms=time_ms(torch, lambda: rope_plain(q, k, cos, sin, pos_ids)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
-    # B3 flash attention: varlen (main path), unpadded causal, 70B GQA
-    cases = [("varlen 7B", BATCH, s, h, h, d, pads), ("causal 7B", BATCH, s, h, h, d, None),
-             ("varlen 70B GQA", 2, s, 64, 8, d, pads[:2]),
-             ("causal 70B GQA", 2, s, 64, 8, d, None),
-             # ragged query tiles and head_dims off the 16-column fragments
-             ("varlen d72 s300", 2, 300, 4, 2, 72, (pads[2:4] // 4).contiguous()),
-             ("causal d256 s200", 1, 200, 2, 1, 256, None)]
-    for label, b, sq, hq, hkv, hd, pl in cases:
+    # B3 flash attention: varlen (main path), unpadded causal, 70B GQA,
+    # off sizes; then the shapes of the other main paths (training, the
+    # ring's hops at cp 4 over 16384 tokens, the CP prefill's 1008-row hops),
+    # sq < sk, head_dim 64 and pads over whole 64-row tiles.  Each case is
+    # launched twice and must give the same bits; every row inside its pad
+    # has exact zeros and lse -inf.
+    cases = [  # label, b, sq, sk, hq, hkv, head_dim, causal, pad_lens
+        ("varlen 7B", BATCH, s, s, h, h, d, True, pads),
+        ("causal 7B", BATCH, s, s, h, h, d, True, None),
+        ("varlen 70B GQA", 2, s, s, 64, 8, d, True, pads[:2]),
+        ("causal 70B GQA", 2, s, s, 64, 8, d, True, None),
+        # ragged query tiles and head_dims off the 16-column fragments
+        ("varlen d72 s300", 2, 300, 300, 4, 2, 72, True, (pads[2:4] // 4).contiguous()),
+        ("causal d256 s200", 1, 200, 200, 2, 1, 256, True, None),
+        ("causal Llama train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, h, h, d, True, None),
+        ("causal GPT-3 1.3B train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16, d, True, None),
+        ("ring hop diag", 1, 4096, 4096, h, h, d, True, None),
+        ("ring hop full", 1, 4096, 4096, h, h, d, False, None),
+        ("CP hop diag", 1, 1008, 1008, h, h, d, True, None),
+        ("CP hop full", 1, 1008, 1008, h, h, d, False, None),
+        ("causal sq<sk GQA", 2, 200, 520, 8, 2, d, True, None),
+        ("causal d64 s1000 GQA", 2, 1000, 1000, 8, 2, 64, True, None),
+        ("varlen d64 s384 GQA", 3, 384, 384, 8, 2, 64, True,
+         torch.tensor([0, 130, 300], dtype=torch.int32, device=dev))]
+    for label, b, sq, sk, hq, hkv, hd, causal, pl in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q = randn(b, sq, hq, hd, dtype=dtype)
-            k, v = randn(b, sq, hkv, hd, dtype=dtype), randn(b, sq, hkv, hd, dtype=dtype)
-            (out, lse), (pout, plse) = (flash_attention_fwd(q, k, v, True, pl),
-                                        flash_attention_plain(q, k, v, True, pl))
+            k, v = randn(b, sk, hkv, hd, dtype=dtype), randn(b, sk, hkv, hd, dtype=dtype)
+            (out, lse), (out2, lse2) = (flash_attention_fwd(q, k, v, causal, pl),
+                                        flash_attention_fwd(q, k, v, causal, pl))
+            if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+                raise AssertionError(f"flash {label} {dtype}: two launches differ")
+            pout, plse = flash_attention_plain(q, k, v, causal, pl)
             tol = TOL["float32_attn" if dtype == torch.float32 else "bfloat16"]
             err = check_close(torch, f"flash {label}", out, pout, tol)
             check_close(torch, f"flash lse {label}", lse, plse, TOL["float32_attn"])
-            log(f"parity flash {label} {dtype} q{list(q.shape)} kv{hkv}: max_abs_err {err:.3g}")
+            for r, n in enumerate([] if pl is None else pl.tolist()):
+                if out[r, :n].any() or not bool(lse[r, :, :n].isneginf().all()) \
+                        or not bool(lse[r, :, n:].isfinite().all()):
+                    raise AssertionError(f"flash {label} {dtype}: batch row {r}'s {n} padded "
+                                         f"rows are not exact zeros with lse -inf")
+            log(f"parity flash {label} {dtype} q{list(q.shape)} k{list(k.shape)}"
+                f"{'' if causal else ' full'}: max_abs_err {err:.3g}; two launches bit-equal")
             if label == "varlen 7B" and dtype == torch.bfloat16:
                 main = (q, k, v, err)
+            del q, k, v, out, lse, out2, lse2, pout, plse
+        torch.cuda.empty_cache()
     q, k, v, err = main
     n_valid = s - pads.long()
     pairs = int((n_valid * (n_valid + 1) // 2).sum())
@@ -301,7 +371,8 @@ def phase_parity(torch):
         max_abs_err=err, ms=time_ms(torch, lambda: flash_attention_fwd(q, k, v, True, pads)),
         plain_ms=time_ms(torch, lambda: flash_attention_plain(q, k, v, True, pads)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=keep)))
+        library_ms=time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=keep)),
+        shapes=flash_fwd_times(torch, gen))
 
     # B6 decode attention: main path mid-decode, pad >= pos rows, 70B GQA
     C = 544

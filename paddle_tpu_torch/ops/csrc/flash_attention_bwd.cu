@@ -78,7 +78,7 @@
 #include <mma.h>
 
 #include "common.cuh"
-#include "wgmma.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
@@ -274,17 +274,7 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Dynamic shared memory above 48 KB must be requested; the largest carveout
-// lets two ~100 KB blocks share an SM.
-template <typename K>
-cudaError_t set_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              static_cast<int>(cudaSharedmemCarveoutMaxShared));
-}
+using ptt::sm90::set_smem;  // the largest carveout: two ~100 KB blocks an SM
 
 template <int DPT>
 int launch_f32(const void* q, const void* k, const void* v, const void* o,
@@ -667,49 +657,11 @@ bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
 // bf16, head_dim <= 128: wgmma, S and dP in registers, cp.async tile ring
 // ---------------------------------------------------------------------------
 namespace hw = ptt::sm90;
-constexpr float kLog2e = 1.4426950408889634f;
 // One warpgroup of 128 threads a block; its accumulators' 64 rows (wgmma's
 // m) are the block's resident tile, and the streamed tiles are 64 rows too
 constexpr int kWgThreads = 128;
 constexpr int kBR = 64;      // rows of a resident or a streamed tile
 constexpr int kStages = 2;   // depth of the ring of streamed tiles
-
-// 2^x by the SFU alone (ex2.approx.ftz: about 2 ulp, results below 2^-126
-// flushed to 0); exp2f wraps the same instruction in a subnormal-safe scaling
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// lse in the exp2 domain; +inf for a row that sees no key, so that p = 0
-__device__ __forceinline__ float lse_log2(float lse) {
-  return lse == -INFINITY ? INFINITY : lse * kLog2e;
-}
-
-// the 1024-byte-aligned start of dynamic shared memory (tiles are SW128)
-__device__ __forceinline__ bf16* smem_base(unsigned char* raw) {
-  return reinterpret_cast<bf16*>(raw + ((1024 - (hw::smem_u32(raw) & 1023)) & 1023));
-}
-
-// rows r and r + 8 of an m64nN accumulator, columns [0, d), rounded to bf16
-// and stored at dst + row * stride; rows >= rows_valid are not stored
-template <int R>
-__device__ __forceinline__ void store_acc(const float (&acc)[R], bf16* dst, int64_t stride,
-                                          int r, int rows_valid, int d, int quad) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (r + 8 * i >= rows_valid) continue;
-    bf16* row = dst + (r + 8 * i) * stride;
-#pragma unroll
-    for (int j = 0; j < R / 4; ++j) {
-      const int c = 8 * j + 2 * quad;
-      if (c < d)
-        *reinterpret_cast<__nv_bfloat162*>(row + c) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
-    }
-  }
-}
 
 // B3b: one block per (tile of 64 query rows, q head, batch row).  Q and dO
 // stay in shared memory; K and V stream through a ring of kStages stages.
@@ -722,7 +674,7 @@ bwd_dq_wg(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
           float scale, int causal) {
   constexpr int kBQ = kBR, kBK = kBR, kThreads = kWgThreads;
   extern __shared__ unsigned char smem_raw[];
-  bf16* Qs = smem_base(smem_raw);  // [kBQ][DP] SW128
+  bf16* Qs = hw::smem_base(smem_raw);  // [kBQ][DP] SW128
   bf16* dOs = Qs + kBQ * DP;       // [kBQ][DP]
   bf16* KVs = dOs + kBQ * DP;      // stage st: K at KVs + 2 st kBK DP, V after it
 
@@ -786,14 +738,14 @@ bwd_dq_wg(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     delta_r[i] = acc;
     const int64_t lrow = (static_cast<int64_t>(b) * hq + h) * sq + row;
-    lse_r[i] = row < sq ? lse_log2(lse[lrow]) : INFINITY;
+    lse_r[i] = row < sq ? hw::lse_log2(lse[lrow]) : INFINITY;
     if (row < sq && quad == 0) delta_out[lrow] = acc;
   }
 
   float dq_acc[DP / 2];
 #pragma unroll
   for (int x = 0; x < DP / 2; ++x) dq_acc[x] = 0.f;
-  const float sl2 = scale * kLog2e;
+  const float sl2 = scale * hw::kLog2e;
   for (int it = 0; it < n_tiles; ++it) {
     const int t0 = it * kBK;
     const bf16* Kt = KVs + 2 * (it % kStages) * kBK * DP;
@@ -828,7 +780,7 @@ bwd_dq_wg(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int x = 4 * j + 2 * i + e;
-          const float p = exp2_approx(fmaf(s[x], sl2, -lse_r[i]));
+          const float p = hw::exp2_approx(fmaf(s[x], sl2, -lse_r[i]));
           s[x] = edge && 8 * j + 2 * quad + e >= lim ? 0.f : p;
         }
     }
@@ -849,7 +801,7 @@ bwd_dq_wg(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     hw::fence_regs(a);
   }
   hw::cp_async_wait<0>();
-  store_acc(dq_acc, dq + q_base, q_stride, q0 + r_lo, sq, d, quad);
+  hw::store_acc(dq_acc, dq + q_base, q_stride, q0 + r_lo, sq, d, quad);
 }
 
 // B3c: one block per (tile of 64 keys, kv head, batch row).  K and V stay in
@@ -866,7 +818,7 @@ bwd_dkv_wg(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   constexpr int kBK = kBR, kBQ = kBR, kThreads = kWgThreads;
   static_assert(kThreads >= 2 * kBQ, "one thread a row for lse and delta");
   extern __shared__ unsigned char smem_raw[];
-  bf16* Ks = smem_base(smem_raw);  // [kBK][DP] SW128
+  bf16* Ks = hw::smem_base(smem_raw);  // [kBK][DP] SW128
   bf16* Vs = Ks + kBK * DP;
   bf16* QDs = Vs + kBK * DP;       // stage st: Q at QDs + 2 st kBQ DP, dO after it
   float* LDs = reinterpret_cast<float*>(QDs + 2 * kStages * kBQ * DP);  // stage st: lse, delta
@@ -913,7 +865,7 @@ bwd_dkv_wg(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   float dk_acc[DP / 2], dv_acc[DP / 2];
 #pragma unroll
   for (int x = 0; x < DP / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
-  const float sl2 = scale * kLog2e;
+  const float sl2 = scale * hw::kLog2e;
   const int r_lo = warp * 16 + (lane >> 2);  // this thread's keys: r_lo, r_lo + 8 past k0
   for (int it = 0; it < n_tiles; ++it) {
     const int t0 = q_begin + (it % n_qt) * kBQ;
@@ -950,13 +902,13 @@ bwd_dkv_wg(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
       const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float lc = lse_log2(e ? l2.y : l2.x);
+        const float lc = hw::lse_log2(e ? l2.y : l2.x);
         // keys of this column that its row sees: key <= t0 + c + e + offset
         const int lim = t0 + c + e < sq ? (causal ? t0 + c + e + offset + 1 : sk) : -1;
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int x = 4 * j + 2 * i + e;
-          const float p = exp2_approx(fmaf(s[x], sl2, -lc));
+          const float p = hw::exp2_approx(fmaf(s[x], sl2, -lc));
           s[x] = edge && k0 + r_lo + 8 * i >= lim ? 0.f : p;
         }
       }
@@ -991,8 +943,8 @@ bwd_dkv_wg(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
     hw::fence_regs(da);
   }
   hw::cp_async_wait<0>();
-  store_acc(dk_acc, dk + kv_base, kv_stride, k0 + r_lo, sk, d, quad);
-  store_acc(dv_acc, dv + kv_base, kv_stride, k0 + r_lo, sk, d, quad);
+  hw::store_acc(dk_acc, dk + kv_base, kv_stride, k0 + r_lo, sk, d, quad);
+  hw::store_acc(dv_acc, dv + kv_base, kv_stride, k0 + r_lo, sk, d, quad);
 }
 
 template <int DP>

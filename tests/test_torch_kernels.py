@@ -26,6 +26,8 @@ from paddle_tpu.ops.pallas import decode_attention as jax_decode
 from paddle_tpu.ops.pallas import flash_attention_varlen as jax_flash_varlen
 from paddle_tpu.ops.pallas import fused_rope as jax_rope
 from paddle_tpu.ops.pallas.flash_attention import _flash_fwd as jax_flash_fwd
+from paddle_tpu.ops.pallas.flash_attention import _fwd as jax_flash_internal_fwd
+from paddle_tpu.ops.pallas.flash_attention import _to_internal as jax_to_internal
 from paddle_tpu.ops.pallas.fused_norm import _rms_fwd as jax_rms_fwd
 
 import paddle_tpu_torch as ptt
@@ -149,6 +151,48 @@ class TestFlashAttention:
         _close(got, out, ATTN)
         assert not got[1, :11].any() and torch.isfinite(got).all()
         assert torch.isneginf(lse[1, :, :11]).all() and torch.isfinite(lse[1, :, 11:]).all()
+
+    # the head dims the wgmma forward compiles (DP 64 and 128), at tiles of
+    # 64 rows as the card's kernel takes them
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_gqa_4_to_1_matches_pallas(self, d):
+        q, k, v = _np(24, 2, 128, 8, d), _np(25, 2, 128, 2, d), _np(26, 2, 128, 2, d)
+        out, (_, _, _, _, lse) = jax_flash_fwd(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None, True, 64, 64, True)
+        got, got_lse = flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                           torch.from_numpy(v), True)
+        _close(got, out, ATTN)
+        _close(got_lse, np.asarray(lse)[..., 0], ATTN)
+
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_causal_sq_below_sk_matches_pallas(self, d):
+        """offset = sk - sq = 128: query row i sees keys <= i + 128."""
+        q, k, v = _np(27, 1, 64, 4, d), _np(28, 1, 192, 2, d), _np(29, 1, 192, 2, d)
+        out, (_, _, _, _, lse) = jax_flash_fwd(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None, True, 64, 64, True)
+        got, got_lse = flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                           torch.from_numpy(v), True)
+        _close(got, out, ATTN)
+        _close(got_lse, np.asarray(lse)[..., 0], ATTN)
+
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_varlen_pad_over_a_whole_block_matches_pallas(self, d):
+        """Row 1's pad (100) covers the first 64-row query block and more:
+        its padded rows are exact zeros with lse -inf, as in the Pallas
+        kernel."""
+        b, s, hq, hkv = 2, 192, 4, 2
+        q, k, v = _np(30, b, s, hq, d), _np(31, b, s, hkv, d), _np(32, b, s, hkv, d)
+        pads = np.asarray([0, 100], np.int32)
+        out, lse = jax_flash_internal_fwd(
+            *(jax_to_internal(jnp.asarray(x)) for x in (q, k, v)), scale=1.0 / np.sqrt(d),
+            causal=True, block_q=64, block_k=64, interpret=True, pad_lens=jnp.asarray(pads))
+        got, got_lse = flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                           torch.from_numpy(v), True, torch.from_numpy(pads))
+        _close(got, np.asarray(out).transpose(0, 2, 1, 3), ATTN)
+        _close(got_lse, np.asarray(lse)[..., 0], ATTN)
+        assert not got[1, :100].any() and torch.isfinite(got).all()
+        assert torch.isneginf(got_lse[1, :, :100]).all()
+        assert torch.isfinite(got_lse[1, :, 100:]).all() and torch.isfinite(got_lse[0]).all()
 
     def test_sdpa_reference_matches_jax(self):
         q, k, v = _np(17, 2, 8, 4, 16), _np(18, 2, 8, 2, 16), _np(19, 2, 8, 2, 16)
