@@ -50,7 +50,8 @@ exits non-zero without them.  Phases, each raising on failure:
    off-size attention shapes (d 64, 72, 256), each flash case launched
    twice with bit-equal grads; timed as in 3 (the library call is the
    backward of ``F.rms_norm`` and of SDPA), flash dq and dk/dv also at
-   GPT-3 1.3B's and the hop shapes;
+   GPT-3 1.3B's and the hop shapes; RMSNorm's also at off sizes (odd h,
+   1 and 3 rows, rows of several segments), launched twice bit-equal;
 5b. ring parity (run after 5): B10, the ring of context parallelism, with
    its members on the one card: the kernel ring (B3 and the merge kernel a
    hop forward, B3b/B3c backward) against the same ring over the plain
@@ -65,7 +66,11 @@ exits non-zero without them.  Phases, each raising on failure:
    twins, in f32 and bf16, at the training shapes (Llama-2-7B's MLP and
    GPT-3 1.3B's hidden at 4 x 2048, bf16 x with f32 LayerNorm weights as
    AMP O2 gives them, B5 over the 8-layer Llama's parameters) and at off
-   sizes, timed as in 3 (the library call of B5 is ``torch._fused_adamw_``);
+   sizes (B11b also at 1 and 3 rows, rows of several segments and h 40000,
+   launched twice bit-equal), timed as in 3 (the library call of B5 is
+   ``torch._fused_adamw_``, of B11b ``native_layer_norm_backward``); then
+   B1b's and B11b's device time a call by kernel from ``torch.profiler``
+   beside their library calls' (``norm_bwd_times``);
 7. Llama training (after 4, with the serving model freed): Llama-2-7B
    width, AMP O2 bf16, ``AdamW(1e-4)`` with ``ClipGradByGlobalNorm(1.0)``,
    ``use_fused_swiglu`` and ``use_fused_adamw`` on; at 2 layers the
@@ -151,6 +156,32 @@ def time_ms(torch, fn, iters: int = 20, repeats: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return sorted(times)[repeats // 2]
+
+
+def device_ms(torch, fn, iters: int = 20):
+    """Device time per call of ``fn``: every CUDA kernel that ``iters``
+    calls launch, from ``torch.profiler``, summed and divided by ``iters``
+    (the host's share of a call left out).  Returns (ms, {kernel: ms})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by = {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA}
+    if not by:
+        raise AssertionError("torch.profiler recorded no device time")
+    return sum(by.values()), by
+
+
+def split_line(by) -> str:
+    return "; ".join(f"{name[:56]} {ms:.4f}" for name, ms in
+                     sorted(by.items(), key=lambda kv: -kv[1]))
 
 
 def check_close(torch, name, got, want, tol) -> float:
@@ -555,10 +586,124 @@ def phase_quant_parity(torch):
         rows[name] = dict(max_abs_err=main_err, ms=time_ms(torch, fn),
                           plain_ms=time_ms(torch, plain, iters=5, repeats=3),
                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        dev_ms, split = device_ms(torch, fn)
         log(f"time {name}: kernel {rows[name]['ms']:.4f} ms, plain {rows[name]['plain_ms']:.4f} "
             f"ms, library None, bound {b_ms:.4f} ms ({b_by}); B6 on a bf16 cache of the same "
-            f"shape {b6_ms:.4f} ms")
+            f"shape {b6_ms:.4f} ms; device {dev_ms:.4f} ms ({split_line(split)}), "
+            f"{b_ms / dev_ms:.3f} of the bound")
     return rows, launches
+
+
+def library_ln_bwd(torch, s, w, b, mu, rstd, dy):
+    """The library's LayerNorm backward: dx, dw and db in one call, without
+    the residual's + dpre (one tensor fewer to read).  aten on the card
+    takes no f32 weight with bf16 x ("expected scalar type BFloat16"), so
+    w and b come in x's dtype."""
+    return torch.ops.aten.native_layer_norm_backward(
+        dy, s, [s.shape[-1]], mu, rstd, w, b, [True, True, True])
+
+
+def norm_bwd_times(torch):
+    """B1b at [8192, 4096] bf16 and B11b at [8192, 2048] (bf16 x, f32 w,
+    dpre given) beside the library's one call on the same inputs
+    (``F.rms_norm``'s backward; ``native_layer_norm_backward`` with bf16 w):
+    device time a call from ``torch.profiler``, each kernel of the call
+    named, and the wrapper's time by CUDA events; printed, and returned as
+    {kernel: (device ms, event ms, library device ms)}.  Callable alone
+    after ``phase_build``."""
+    from paddle_tpu_torch.ops.fused_ln_swiglu import fused_add_layer_norm_bwd
+    from paddle_tpu_torch.ops.fused_norm import fused_rms_norm_bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n = TRAIN_BATCH * TRAIN_SEQ
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    x, dy = randn(n, 4096), randn(n, 4096)
+    w, rstd = 1 + 0.1 * randn(4096), randn(n, 1, dtype=torch.float32).abs()
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    lib_out = torch.nn.functional.rms_norm(xr, (4096,), wr, 1e-5)
+    s, dy2, dpre = randn(n, 2048), randn(n, 2048), randn(n, 2048)
+    w2, b2 = 1 + 0.1 * randn(2048, dtype=torch.float32), 0.1 * randn(2048, dtype=torch.float32)
+    mu = randn(n, 1, dtype=torch.float32)
+    wl, bl = w2.to(s.dtype), b2.to(s.dtype)
+    times = {}
+    for name, fn, lib_name, lib in (
+            ("rms_norm_bwd", lambda: fused_rms_norm_bwd(x, w, rstd, dy), "F.rms_norm bwd",
+             lambda: torch.autograd.grad(lib_out, (xr, wr), dy, retain_graph=True)),
+            ("add_layer_norm_bwd", lambda: fused_add_layer_norm_bwd(s, w2, mu, rstd, dy2, dpre),
+             "native_layer_norm_backward (bf16 w, no dpre)",
+             lambda: library_ln_bwd(torch, s, wl, bl, mu, rstd, dy2))):
+        dev, split = device_ms(torch, fn)
+        lib_dev, lib_split = device_ms(torch, lib)
+        times[name] = (dev, time_ms(torch, fn), lib_dev)
+        log(f"device {name} bf16: kernel {dev:.4f} ms ({split_line(split)}), events "
+            f"{times[name][1]:.4f} ms; {lib_name} {lib_dev:.4f} ms ({split_line(lib_split)})")
+    return times
+
+
+# B1b's cases: the Llama training rows, then h not a multiple of 8
+# (single-element slots), fewer rows than the persistent grid, rows wider
+# than one 8192-column segment
+RMS_BWD_SHAPES = ((TRAIN_BATCH * TRAIN_SEQ, 4096), (64, 1000), (64, 1001), (1, 4096),
+                  (3, 4096), (32, 12288), (16, 20001))
+# B11/B11b's: GPT-3 1.3B's rows, then the same kinds of off size and h
+# above the 29056 columns that a shared-memory row allowed
+ADD_LN_SHAPES = ((TRAIN_BATCH * TRAIN_SEQ, 2048), (64, 1000), (64, 1001), (1, 2048),
+                 (3, 2048), (32, 12289), (16, 40000))
+
+
+def phase_rms_norm_bwd(torch):
+    """B1b against its plain backward on the card, in f32 and bf16, at the
+    Llama training rows (x [8192, 4096]) and at off sizes; each case
+    launched twice must give the same bits.  Then its time beside the plain
+    twin and ``F.rms_norm``'s backward, by CUDA events around the wrapper
+    (``norm_bwd_times`` takes the device time)."""
+    from paddle_tpu_torch.ops.fused_norm import (fused_rms_norm, fused_rms_norm_bwd,
+                                                 rms_norm_bwd_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    b, s, hidden = TRAIN_BATCH, TRAIN_SEQ, 4096
+    rows = {}
+    for shape in RMS_BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn(*shape, dtype=dtype)
+            w = (1 + 0.1 * randn(shape[-1], dtype=torch.float32)).to(dtype)
+            dy = randn(*shape, dtype=dtype)
+            _, rstd = fused_rms_norm(x, w, 1e-5)
+            (dx, dw), (pdx, pdw) = (fused_rms_norm_bwd(x, w, rstd, dy),
+                                    rms_norm_bwd_plain(x, w, rstd, dy))
+            again = fused_rms_norm_bwd(x, w, rstd, dy)
+            if not (torch.equal(dx, again[0]) and torch.equal(dw, again[1])):
+                raise AssertionError(f"rms_norm_bwd {dtype} {list(shape)}: two launches differ")
+            tol = TOL[str(dtype).split(".")[1]]
+            # dw sums dy * x^ over all rows: bounded by the sum of |terms|
+            terms = (dy.float() * x.float() * rstd).abs().sum(0)
+            err = max(check_close(torch, "rms_norm_bwd dx", dx, pdx, tol),
+                      check_sum_close(torch, "rms_norm_bwd dw", dw, pdw, terms))
+            log(f"parity rms_norm_bwd {dtype} x{list(x.shape)}: max_abs_err {err:.3g}; "
+                f"two launches bit-equal")
+            if shape[0] == b * s and dtype == torch.bfloat16:
+                main = (x, w, rstd, dy, err)
+            del x, w, rstd, dy, dx, dw, pdx, pdw, again
+    x, w, rstd, dy, err = main
+    es = x.element_size()
+    b_ms, b_by = bound_ms(3 * x.numel() * es + 2 * w.numel() * es + x.shape[0] * 4,
+                          8 * x.numel(), F32_FLOPS)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    lib_out = torch.nn.functional.rms_norm(xr, (hidden,), wr, 1e-5)
+    rows["rms_norm_bwd"] = dict(
+        max_abs_err=err, ms=time_ms(torch, lambda: fused_rms_norm_bwd(x, w, rstd, dy)),
+        plain_ms=time_ms(torch, lambda: rms_norm_bwd_plain(x, w, rstd, dy)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (xr, wr), dy, retain_graph=True), iters=5, repeats=3))
+    return rows
 
 
 def phase_bwd_parity(torch):
@@ -573,8 +718,6 @@ def phase_bwd_parity(torch):
     from paddle_tpu_torch.ops.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_dkv, flash_attention_bwd_dq,
         flash_attention_bwd_plain, flash_attention_fwd)
-    from paddle_tpu_torch.ops.fused_norm import (fused_rms_norm, fused_rms_norm_bwd,
-                                                 rms_norm_bwd_plain)
     from paddle_tpu_torch.ops.rope import fused_rope_bwd, rope_plain
 
     dev = torch.device("cuda")
@@ -589,32 +732,8 @@ def phase_bwd_parity(torch):
                                                           retain_graph=True),
                        iters=5, repeats=3)
 
-    b, s, h, d, hidden = TRAIN_BATCH, TRAIN_SEQ, 32, 128, 4096
-    rows = {}
-
-    # B1b rms_norm backward at the training rows
-    for dtype in (torch.float32, torch.bfloat16):
-        x = randn(b * s, hidden, dtype=dtype)
-        w = (1 + 0.1 * randn(hidden, dtype=torch.float32)).to(dtype)
-        dy = randn(b * s, hidden, dtype=dtype)
-        _, rstd = fused_rms_norm(x, w, 1e-5)
-        (dx, dw), (pdx, pdw) = fused_rms_norm_bwd(x, w, rstd, dy), rms_norm_bwd_plain(x, w, rstd, dy)
-        tol = TOL[str(dtype).split(".")[1]]
-        # dw sums dy * x^ over all rows: bounded by the sum of |terms|
-        terms = (dy.float() * x.float() * rstd).abs().sum(0)
-        err = max(check_close(torch, "rms_norm_bwd dx", dx, pdx, tol),
-                  check_sum_close(torch, "rms_norm_bwd dw", dw, pdw, terms))
-        log(f"parity rms_norm_bwd {dtype} x{list(x.shape)}: max_abs_err {err:.3g}")
-    es = x.element_size()
-    b_ms, b_by = bound_ms(3 * x.numel() * es + 2 * w.numel() * es + x.shape[0] * 4,
-                          8 * x.numel(), F32_FLOPS)
-    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
-    lib_out = torch.nn.functional.rms_norm(xr, (hidden,), wr, 1e-5)
-    rows["rms_norm_bwd"] = dict(
-        max_abs_err=err, ms=time_ms(torch, lambda: fused_rms_norm_bwd(x, w, rstd, dy)),
-        plain_ms=time_ms(torch, lambda: rms_norm_bwd_plain(x, w, rstd, dy)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=backward_ms(lib_out, (xr, wr), dy))
-    del x, dy, dx, pdx, xr, lib_out
+    b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, 32, 128
+    rows = phase_rms_norm_bwd(torch)
 
     # B2 backward: the rope kernel rotating by -theta
     cos, sin = (t.to(dev) for t in _rope_tables(d, 4096, 10000.0))
@@ -917,6 +1036,85 @@ def phase_ring_parity(torch):
     return rows
 
 
+def phase_add_layer_norm(torch):
+    """B11 and B11b against their plain twins on the card: x in f32 and
+    bf16, w in f32 (AMP O2's LayerNorm) and bf16, at GPT-3 1.3B's hidden at
+    the training batch (x [8192, 2048]) and at off sizes; B11b with dpre
+    and without, each case launched twice with the same bits.  Then times
+    in the main path's dtypes (bf16 x, f32 w), B11b's beside
+    ``native_layer_norm_backward`` (``norm_bwd_times`` takes the device
+    time)."""
+    from paddle_tpu_torch.ops.fused_ln_swiglu import (
+        add_layer_norm_bwd_plain, add_layer_norm_plain, fused_add_layer_norm,
+        fused_add_layer_norm_bwd)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def tol(dtype):
+        return TOL[str(dtype).split(".")[1]]
+
+    rows = {}
+    b, s, hidden = TRAIN_BATCH, TRAIN_SEQ, 2048
+    for shape in ADD_LN_SHAPES:
+        for dtype, wdtype in ((f32, f32), (bf16, bf16), (bf16, f32)):
+            h = shape[-1]
+            x, r = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+            w, bias = (1 + 0.1 * randn(h)).to(wdtype), (0.1 * randn(h)).to(wdtype)
+            got, want = fused_add_layer_norm(x, r, w, bias), add_layer_norm_plain(x, r, w, bias)
+            err = max(check_close(torch, "add_layer_norm out", got[0], want[0], tol(dtype)),
+                      check_close(torch, "add_layer_norm sum", got[1], want[1], tol(dtype)))
+            for nm, k, p in zip(("mu", "rstd"), got[2:], want[2:]):
+                check_close(torch, f"add_layer_norm {nm}", k.flatten(), p.flatten(),
+                            TOL["float32"])
+            sm, mu, rstd = got[1:]
+            dy, dpre = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+            kb = fused_add_layer_norm_bwd(sm, w, mu, rstd, dy, dpre)
+            pb = add_layer_norm_bwd_plain(sm, w, mu, rstd, dy, dpre)
+            again = fused_add_layer_norm_bwd(sm, w, mu, rstd, dy, dpre)
+            if not all(torch.equal(k, a) for k, a in zip(kb, again)):
+                raise AssertionError(f"add_layer_norm_bwd x {dtype} w {wdtype} {list(shape)}: "
+                                     f"two launches differ")
+            xhat = (sm.float() - mu) * rstd
+            errb = max(check_close(torch, "add_layer_norm_bwd dx", kb[0], pb[0], tol(dtype)),
+                       check_sum_close(torch, "add_layer_norm_bwd dw", kb[1], pb[1],
+                                       (dy.float() * xhat).abs().sum(0)),
+                       check_sum_close(torch, "add_layer_norm_bwd db", kb[2], pb[2],
+                                       dy.float().abs().sum(0)))
+            nodp = fused_add_layer_norm_bwd(sm, w, mu, rstd, dy, None)
+            check_close(torch, "add_layer_norm_bwd dx, no dpre", nodp[0],
+                        add_layer_norm_bwd_plain(sm, w, mu, rstd, dy, None)[0], tol(dtype))
+            # dw and db do not read dpre: the same bits without it
+            if not (torch.equal(nodp[1], kb[1]) and torch.equal(nodp[2], kb[2])):
+                raise AssertionError(f"add_layer_norm_bwd {list(shape)}: dw, db move with dpre")
+            log(f"parity add_layer_norm x {dtype} w {wdtype} {list(shape)}: max_abs_err "
+                f"fwd {err:.3g} bwd {errb:.3g}; two launches bit-equal")
+            if shape[0] == b * s and wdtype == f32 and dtype == bf16:
+                main = (x, r, w, bias, sm, mu, rstd, dy, dpre, err, errb)
+            del x, r, dy, dpre, got, want, kb, pb, nodp, xhat, again
+    x, r, w, bias, sm, mu, rstd, dy, dpre, err, errb = main
+    n, es, rws = x.numel(), x.element_size(), x.shape[0]
+    wb = 2 * w.numel() * w.element_size()
+    for name, nbytes, ops, e, fn, plain in (
+            ("add_layer_norm", 4 * n * es + wb + 2 * rws * 4, 8 * n, err,
+             lambda: fused_add_layer_norm(x, r, w, bias),
+             lambda: add_layer_norm_plain(x, r, w, bias)),
+            ("add_layer_norm_bwd", 4 * n * es + 3 * wb // 2 + 2 * rws * 4, 12 * n, errb,
+             lambda: fused_add_layer_norm_bwd(sm, w, mu, rstd, dy, dpre),
+             lambda: add_layer_norm_bwd_plain(sm, w, mu, rstd, dy, dpre))):
+        b_ms, b_by = bound_ms(nbytes, ops, F32_FLOPS)
+        rows[name] = dict(max_abs_err=e, ms=time_ms(torch, fn), plain_ms=time_ms(torch, plain),
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    wl, bl = w.to(sm.dtype), bias.to(sm.dtype)
+    rows["add_layer_norm_bwd"]["library_ms"] = time_ms(
+        torch, lambda: library_ln_bwd(torch, sm, wl, bl, mu, rstd, dy))
+    return rows
+
+
 def phase_fused_parity(torch):
     """B4 (SwiGLU fwd and bwd), B5 (AdamW) and B11/B11b (residual add +
     LayerNorm fwd and bwd) against their plain twins on the card, in f32
@@ -925,11 +1123,11 @@ def phase_fused_parity(torch):
     and at off sizes (H = 1000 and 1001, a flat AdamW length not a
     multiple of 8); then times in the main path's dtypes.  B5 is timed as
     one optimizer sweep over every parameter of the 8-layer Llama-2-7B
-    training model, one launch a tensor, as a step runs it."""
+    training model, one launch a tensor, as a step runs it.  B11/B11b run
+    in ``phase_add_layer_norm``."""
     from paddle_tpu_torch.ops.fused_ln_swiglu import (
-        adamw_plain, adamw_scalars, add_layer_norm_bwd_plain, add_layer_norm_plain,
-        fused_adamw, fused_add_layer_norm, fused_add_layer_norm_bwd, fused_swiglu,
-        fused_swiglu_bwd, swiglu_bwd_plain, swiglu_plain)
+        adamw_plain, adamw_scalars, fused_adamw, fused_swiglu, fused_swiglu_bwd,
+        swiglu_bwd_plain, swiglu_plain)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -1010,49 +1208,7 @@ def phase_fused_parity(torch):
     del ps, gs, ms, vs, steps
     torch.cuda.empty_cache()
 
-    # B11 / B11b: GPT-3 1.3B's hidden at the training batch, and off sizes
-    for shape in ((b * s, hidden), (64, 1000), (64, 1001)):
-        for dtype, wdtype in ((f32, f32), (bf16, bf16), (bf16, f32)):
-            h = shape[-1]
-            x, r = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
-            w, bias = (1 + 0.1 * randn(h)).to(wdtype), (0.1 * randn(h)).to(wdtype)
-            got, want = fused_add_layer_norm(x, r, w, bias), add_layer_norm_plain(x, r, w, bias)
-            err = max(check_close(torch, "add_layer_norm out", got[0], want[0], tol(dtype)),
-                      check_close(torch, "add_layer_norm sum", got[1], want[1], tol(dtype)))
-            for nm, k, p in zip(("mu", "rstd"), got[2:], want[2:]):
-                check_close(torch, f"add_layer_norm {nm}", k.flatten(), p.flatten(),
-                            TOL["float32"])
-            sm, mu, rstd = got[1:]
-            dy, dpre = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
-            kb = fused_add_layer_norm_bwd(sm, w, mu, rstd, dy, dpre)
-            pb = add_layer_norm_bwd_plain(sm, w, mu, rstd, dy, dpre)
-            xhat = (sm.float() - mu) * rstd
-            errb = max(check_close(torch, "add_layer_norm_bwd dx", kb[0], pb[0], tol(dtype)),
-                       check_sum_close(torch, "add_layer_norm_bwd dw", kb[1], pb[1],
-                                       (dy.float() * xhat).abs().sum(0)),
-                       check_sum_close(torch, "add_layer_norm_bwd db", kb[2], pb[2],
-                                       dy.float().abs().sum(0)))
-            nodp = fused_add_layer_norm_bwd(sm, w, mu, rstd, dy, None)
-            check_close(torch, "add_layer_norm_bwd dx, no dpre", nodp[0],
-                        add_layer_norm_bwd_plain(sm, w, mu, rstd, dy, None)[0], tol(dtype))
-            log(f"parity add_layer_norm x {dtype} w {wdtype} {list(shape)}: max_abs_err "
-                f"fwd {err:.3g} bwd {errb:.3g}")
-            if h == hidden and wdtype == f32 and dtype == bf16:
-                main = (x, r, w, bias, sm, mu, rstd, dy, dpre, err, errb)
-            del x, r, dy, dpre, got, want, kb, pb, nodp, xhat
-    x, r, w, bias, sm, mu, rstd, dy, dpre, err, errb = main
-    n, es, rws = x.numel(), x.element_size(), x.shape[0]
-    wb = 2 * w.numel() * w.element_size()
-    for name, nbytes, ops, e, fn, plain in (
-            ("add_layer_norm", 4 * n * es + wb + 2 * rws * 4, 8 * n, err,
-             lambda: fused_add_layer_norm(x, r, w, bias),
-             lambda: add_layer_norm_plain(x, r, w, bias)),
-            ("add_layer_norm_bwd", 4 * n * es + 3 * wb // 2 + 2 * rws * 4, 12 * n, errb,
-             lambda: fused_add_layer_norm_bwd(sm, w, mu, rstd, dy, dpre),
-             lambda: add_layer_norm_bwd_plain(sm, w, mu, rstd, dy, dpre))):
-        b_ms, b_by = bound_ms(nbytes, ops, F32_FLOPS)
-        rows[name] = dict(max_abs_err=e, ms=time_ms(torch, fn), plain_ms=time_ms(torch, plain),
-                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    rows.update(phase_add_layer_norm(torch))
     for name, r_ in rows.items():
         log(f"time {name}: kernel {r_['ms']:.4f} ms, plain {r_['plain_ms']:.4f} ms, "
             f"library {r_['library_ms']}, bound {r_['bound_ms']:.4f} ms ({r_['bound_by']})")
@@ -1958,6 +2114,7 @@ def main() -> int:
     rows.update(phase_ring_parity(torch))
     torch.cuda.empty_cache()
     rows.update(phase_fused_parity(torch))
+    norm_bwd_times(torch)
     torch.cuda.empty_cache()
     serve, cp = phase_e2e(torch, card)
     launches = {"serve": serve, "quant": quant_launches, "cp": cp}

@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Sequence
 
 import torch
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "launch", "ptr"]
+__all__ = ["SOURCES", "BUILD_DIR", "build", "launch", "ptr", "sm_count"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
@@ -38,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, ctypes._CFuncPtr] = {}
+_sms: Dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -101,6 +102,15 @@ def _library(name: str) -> ctypes.CDLL:
 def ptr(t: torch.Tensor | None) -> int | None:
     """A tensor's device address for a ``void*`` argument (None → NULL)."""
     return None if t is None else t.data_ptr()
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of ``device``'s card, read once a card
+    (a launcher sizes a persistent grid by it)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
 
 
 def launch(source: str, symbol: str, argtypes: Sequence, device: torch.device,

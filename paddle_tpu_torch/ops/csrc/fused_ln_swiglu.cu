@@ -29,13 +29,18 @@
 //   read of x and r from device memory.  The weight and bias may be f32
 //   while x is bf16 (AMP O2 keeps LayerNorm parameters in f32).
 // - B11b: the TPU kernel carries dw and db in VMEM across a sequential
-//   grid; blocks on the card run in parallel and in no order.  As in B1b
-//   (rms_norm.cu), each block takes a contiguous run of rows and sums its
-//   dw and db in f32 in shared memory (each thread owns its columns: no
-//   atomics), writes one f32 partial row of each, and a second kernel sums
-//   the partial rows in block order: deterministic.  x^ is recomputed from
-//   the stored, rounded sum with the forward's f32 mu and rstd, as
-//   _ln_bwd_kernel does.
+//   grid; blocks on the card run in parallel and in no order.  As B1b
+//   (rms_norm.cu; the layout in common.cuh): a persistent grid of a few
+//   blocks an SM, one row a block at a time; each thread holds its columns
+//   of s, dy and dpre in registers (16-byte loads), so the row is read from
+//   device memory once, issues the next row's loads before this row's two
+//   sums (one barrier a row), and accumulates dw and db in f32 registers;
+//   one f32 partial row of each a block, summed per column by
+//   norm_bwd_col_sum_kernel over 256 blocks in a fixed order: two launches
+//   give the same bits.  x^ is recomputed from the stored, rounded sum with
+//   the forward's f32 mu and rstd, as _ln_bwd_kernel does.  No shared-memory
+//   row, so no cap on h: rows wider than one segment take their two sums
+//   from a pre-pass.
 #include <algorithm>
 
 #include "common.cuh"
@@ -44,7 +49,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+using ptt::aligned16;
 
 int grid_for(long long work) {
   int dev = 0, sms = 132;
@@ -298,99 +303,184 @@ int launch_add_ln_fwd(const void* x, const void* r, const void* w, const void* b
 // dx = rstd * (dyw - c1 - x^ * c2) + dpre (dpre may be NULL: zero);
 // dw = sum over rows of dy * x^, db = sum over rows of dy, in w's dtype.
 // ---------------------------------------------------------------------------
-template <typename T, typename W>
-__global__ void __launch_bounds__(kThreads)
+// s, dy and dpre of one row: the thread's slots k, N elements each (only
+// slots with ok[k] set are read; dpre only when given)
+template <typename T, int N, int V>
+struct LnRow {
+  ptt::Vec<T, N> s[V], dy[V], dpre[V];
+  float mu, rstd;
+};
+
+template <typename T, int N, int V>
+__device__ __forceinline__ void load_ln_row(LnRow<T, N, V>& r, const T* __restrict__ s,
+                                            const T* __restrict__ dy,
+                                            const T* __restrict__ dpre,
+                                            const float* __restrict__ mu,
+                                            const float* __restrict__ rstd, long long row,
+                                            int h, const int (&col)[V], const bool (&ok)[V]) {
+  const long long off = row * h;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    if (!ok[k]) continue;
+    r.s[k] = *reinterpret_cast<const ptt::Vec<T, N>*>(s + off + col[k]);
+    r.dy[k] = *reinterpret_cast<const ptt::Vec<T, N>*>(dy + off + col[k]);
+    if (dpre != nullptr) r.dpre[k] = *reinterpret_cast<const ptt::Vec<T, N>*>(dpre + off + col[k]);
+  }
+  r.mu = mu[row];
+  r.rstd = rstd[row];
+}
+
+// columns a thread owns: 8, half of B1b's.  At 16, s, dy and dpre of two
+// rows, w, dw and db filled the 128 registers and spilled, and a
+// 2048-column row took 4 warps: 0.0985 ms of device time a call at
+// [8192, 2048] against 0.0592 at 8 (NVIDIA H100 80GB HBM3, 700 W, two
+// blocks an SM).  Rows wider than 4096 columns take the pre-pass.
+constexpr int kLnBwdElems = ptt::kNormBwdElems / 2;
+
+// B11b, one segment of every row of this block (the layout in common.cuh):
+// dx of the row and this block's f32 partial rows of dw and db, [2][h] at
+// part + blockIdx.x * 2h.  row_sums [n][2] holds each row's sums of dy*w and
+// dy*w*x^ when the row has more than one segment, else NULL.
+template <typename T, typename W, int N>
+__global__ void __launch_bounds__(ptt::kNormBwdMaxThreads)
 add_ln_bwd_kernel(const T* __restrict__ s, const W* __restrict__ w,
                   const float* __restrict__ mu, const float* __restrict__ rstd,
                   const T* __restrict__ dy, const T* __restrict__ dpre, T* __restrict__ dx,
-                  float* __restrict__ part_out, long long n, int h, long long rows_per_block) {
-  extern __shared__ float acc[];  // [2h]: this block's dw, then its db, f32
-  __shared__ float red[2][2][kThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int c = threadIdx.x; c < 2 * h; c += kThreads) acc[c] = 0.f;
-  __syncthreads();  // acc[h + c] may be another thread's to zero
-  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
-  const long long r1 = min(n, r0 + rows_per_block);
-  int parity = 0;
-  for (long long row = r0; row < r1; ++row) {
-    const long long off = row * h;
-    const float m = mu[row], rs = rstd[row];
-    float l1 = 0.f, l2 = 0.f;
-    for (int c = threadIdx.x; c < h; c += kThreads) {
-      const float xhat = (ptt::to_f32(s[off + c]) - m) * rs;
-      const float dyv = ptt::to_f32(dy[off + c]);
-      const float dyw = dyv * ptt::to_f32(w[c]);
-      l1 += dyw;
-      l2 += dyw * xhat;
-      acc[c] += dyv * xhat;
-      acc[h + c] += dyv;
-    }
-    l1 = ptt::warp_sum(l1);
-    l2 = ptt::warp_sum(l2);
-    if (lane == 0) {
-      red[parity][0][warp] = l1;
-      red[parity][1][warp] = l2;
-    }
-    __syncthreads();
-    float t1 = 0.f, t2 = 0.f;
+                  float* __restrict__ part, const float* __restrict__ row_sums, long long n,
+                  int h) {
+  constexpr int V = kLnBwdElems / N;
+  __shared__ float red[2][2][32];
+  int col[V];
+  bool ok[V];
+  float wv[V][N], dw[V][N], db[V][N];
+  const int first = blockIdx.y * blockDim.x * V + threadIdx.x;  // this thread's first slot
 #pragma unroll
-    for (int i = 0; i < kThreads / 32; ++i) {
-      t1 += red[parity][0][i];
-      t2 += red[parity][1][i];
-    }
-    parity ^= 1;
-    const float c1 = t1 / static_cast<float>(h), c2 = t2 / static_cast<float>(h);
-    for (int c = threadIdx.x; c < h; c += kThreads) {
-      const float xhat = (ptt::to_f32(s[off + c]) - m) * rs;
-      const float dyw = ptt::to_f32(dy[off + c]) * ptt::to_f32(w[c]);
-      float d = rs * (dyw - c1 - xhat * c2);
-      if (dpre != nullptr) d += ptt::to_f32(dpre[off + c]);
-      dx[off + c] = ptt::from_f32<T>(d);
+  for (int k = 0; k < V; ++k) {
+    col[k] = (first + k * blockDim.x) * N;
+    ok[k] = col[k] < h;
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      wv[k][e] = ok[k] ? ptt::to_f32(w[col[k] + e]) : 0.f;
+      dw[k][e] = 0.f;
+      db[k][e] = 0.f;
     }
   }
-  __syncthreads();  // a block may get no row; the copy-out reads all of acc
-  float* out = part_out + static_cast<long long>(blockIdx.x) * 2 * h;
-  for (int c = threadIdx.x; c < 2 * h; c += kThreads) out[c] = acc[c];
+  const float inv_h = 1.f / static_cast<float>(h);
+  int parity = 0;
+  LnRow<T, N, V> cur;
+  long long row = blockIdx.x;
+  if (row < n) load_ln_row(cur, s, dy, dpre, mu, rstd, row, h, col, ok);
+  for (; row < n; row += gridDim.x) {
+    LnRow<T, N, V> next;  // in flight during this row's sums
+    if (row + gridDim.x < n)
+      load_ln_row(next, s, dy, dpre, mu, rstd, row + gridDim.x, h, col, ok);
+    const float m = cur.mu, rs = cur.rstd;
+    float c[2] = {0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      if (!ok[k]) continue;
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const float xhat = (ptt::to_f32(cur.s[k].v[e]) - m) * rs;
+        const float d = ptt::to_f32(cur.dy[k].v[e]);
+        const float dyw = d * wv[k][e];
+        c[0] += dyw;
+        c[1] += dyw * xhat;
+        dw[k][e] += d * xhat;
+        db[k][e] += d;
+      }
+    }
+    if (row_sums != nullptr) {
+      c[0] = row_sums[2 * row];
+      c[1] = row_sums[2 * row + 1];
+    } else {
+      ptt::block_sums<2>(c, red, parity);
+    }
+    const float c1 = c[0] * inv_h, c2 = c[1] * inv_h;
+    const long long off = row * h;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {  // x^ and dy*w again from the row's registers
+      if (!ok[k]) continue;
+      float o[N];
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const float xhat = (ptt::to_f32(cur.s[k].v[e]) - m) * rs;
+        o[e] = rs * (ptt::to_f32(cur.dy[k].v[e]) * wv[k][e] - c1 - xhat * c2);
+        if (dpre != nullptr) o[e] += ptt::to_f32(cur.dpre[k].v[e]);
+      }
+      ptt::store_f32<T, N>(dx + off + col[k], o);
+    }
+    cur = next;
+  }
+  float* out = part + static_cast<long long>(blockIdx.x) * 2 * h;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    if (!ok[k]) continue;
+    ptt::store_f32<float, N>(out + col[k], dw[k]);
+    ptt::store_f32<float, N>(out + h + col[k], db[k]);
+  }
 }
 
-// dw[c], db[c]: the partial rows' column c summed in block order
-template <typename W>
+// row_sums[row] = (sum of dy*w, sum of dy*w*x^) over the row, for rows of
+// several segments
+template <typename T, typename W>
 __global__ void __launch_bounds__(kThreads)
-add_ln_dwdb_reduce_kernel(const float* __restrict__ part, W* __restrict__ dw,
-                          W* __restrict__ db, int blocks, int h) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= h) return;
-  float sw = 0.f, sb = 0.f;
-  for (int i = 0; i < blocks; ++i) {
-    sw += part[static_cast<long long>(i) * 2 * h + c];
-    sb += part[static_cast<long long>(i) * 2 * h + h + c];
+add_ln_bwd_row_sums_kernel(const T* __restrict__ s, const W* __restrict__ w,
+                           const float* __restrict__ mu, const float* __restrict__ rstd,
+                           const T* __restrict__ dy, float* __restrict__ row_sums, int h) {
+  __shared__ float part[2][33];
+  const long long off = static_cast<long long>(blockIdx.x) * h;
+  const float m = mu[blockIdx.x], rs = rstd[blockIdx.x];
+  float l1 = 0.f, l2 = 0.f;
+  for (int c = threadIdx.x; c < h; c += kThreads) {
+    const float dyw = ptt::to_f32(dy[off + c]) * ptt::to_f32(w[c]);
+    l1 += dyw;
+    l2 += dyw * ((ptt::to_f32(s[off + c]) - m) * rs);
   }
-  dw[c] = ptt::from_f32<W>(sw);
-  db[c] = ptt::from_f32<W>(sb);
+  l1 = block_sum_in(l1, part[0]);
+  l2 = block_sum_in(l2, part[1]);
+  if (threadIdx.x == 0) {
+    row_sums[2 * static_cast<long long>(blockIdx.x)] = l1;
+    row_sums[2 * static_cast<long long>(blockIdx.x) + 1] = l2;
+  }
+}
+
+template <typename T, typename W, int N>
+int launch_add_ln_bwd_n(const void* sum, const void* w, const void* mu, const void* rstd,
+                        const void* dy, const void* dpre, void* dx, void* dw, void* db,
+                        void* scratch, long long n, int h, int blocks, cudaStream_t st) {
+  const ptt::NormBwdGeom g = ptt::norm_bwd_geom(h, N, kLnBwdElems);
+  float* part = static_cast<float*>(scratch);
+  float* row_sums = nullptr;
+  if (g.segs > 1) {
+    row_sums = part + static_cast<long long>(blocks) * 2 * h;
+    add_ln_bwd_row_sums_kernel<T, W><<<static_cast<unsigned>(n), kThreads, 0, st>>>(
+        static_cast<const T*>(sum), static_cast<const W*>(w), static_cast<const float*>(mu),
+        static_cast<const float*>(rstd), static_cast<const T*>(dy), row_sums, h);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  add_ln_bwd_kernel<T, W, N><<<dim3(blocks, g.segs), g.threads, 0, st>>>(
+      static_cast<const T*>(sum), static_cast<const W*>(w), static_cast<const float*>(mu),
+      static_cast<const float*>(rstd), static_cast<const T*>(dy), static_cast<const T*>(dpre),
+      static_cast<T*>(dx), part, row_sums, n, h);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(ptt::launch_col_sum<W>(part, static_cast<W*>(dw),
+                                                 static_cast<W*>(db), blocks, 2 * h, h, st));
 }
 
 template <typename T, typename W>
 int launch_add_ln_bwd(const void* sum, const void* w, const void* mu, const void* rstd,
                       const void* dy, const void* dpre, void* dx, void* dw, void* db,
-                      void* part, long long n, int h, int blocks, cudaStream_t s) {
-  const size_t smem = 2 * static_cast<size_t>(h) * sizeof(float);
-  auto k = &add_ln_bwd_kernel<T, W>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const long long per = (n + blocks - 1) / blocks;
-  k<<<blocks, kThreads, smem, s>>>(
-      static_cast<const T*>(sum), static_cast<const W*>(w), static_cast<const float*>(mu),
-      static_cast<const float*>(rstd), static_cast<const T*>(dy),
-      static_cast<const T*>(dpre), static_cast<T*>(dx), static_cast<float*>(part), n, h,
-      per);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  add_ln_dwdb_reduce_kernel<W><<<(h + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const float*>(part), static_cast<W*>(dw), static_cast<W*>(db), blocks, h);
-  return static_cast<int>(cudaGetLastError());
+                      void* scratch, long long n, int h, int blocks, cudaStream_t st) {
+  constexpr int N = 16 / sizeof(T);
+  if (h % N == 0 && aligned16(sum) && aligned16(dy) && aligned16(dx) &&
+      (dpre == nullptr || aligned16(dpre)))
+    return launch_add_ln_bwd_n<T, W, N>(sum, w, mu, rstd, dy, dpre, dx, dw, db, scratch, n, h,
+                                        blocks, st);
+  return launch_add_ln_bwd_n<T, W, 1>(sum, w, mu, rstd, dy, dpre, dx, dw, db, scratch, n, h,
+                                      blocks, st);
 }
 
 }  // namespace
@@ -447,10 +537,12 @@ extern "C" int ptt_add_layer_norm_fwd(const void* x, const void* r, const void* 
 }
 
 // sum, dy, dpre (or NULL), dx [n, h] of dtype; w, dw, db [h] of w_dtype;
-// mu, rstd [n] f32; part [blocks, 2, h] f32 scratch, blocks in [1, n].
+// mu, rstd [n] f32; scratch: blocks * 2h + 2n f32 (the blocks' dw and db
+// partial rows, then the row sums of rows wider than one segment); blocks
+// in [1, n].
 extern "C" int ptt_add_layer_norm_bwd(const void* sum, const void* w, const void* mu,
                                       const void* rstd, const void* dy, const void* dpre,
-                                      void* dx, void* dw, void* db, void* part, long long n,
+                                      void* dx, void* dw, void* db, void* scratch, long long n,
                                       int h, int blocks, int dtype, int w_dtype,
                                       void* stream) {
   if (n == 0 || blocks < 1) return static_cast<int>(cudaGetLastError());
@@ -458,13 +550,13 @@ extern "C" int ptt_add_layer_norm_bwd(const void* sum, const void* w, const void
   if (dtype == ptt::kBF16) {
     if (w_dtype == ptt::kBF16)
       return launch_add_ln_bwd<__nv_bfloat16, __nv_bfloat16>(sum, w, mu, rstd, dy, dpre, dx,
-                                                             dw, db, part, n, h, blocks, s);
+                                                             dw, db, scratch, n, h, blocks, s);
     return launch_add_ln_bwd<__nv_bfloat16, float>(sum, w, mu, rstd, dy, dpre, dx, dw, db,
-                                                   part, n, h, blocks, s);
+                                                   scratch, n, h, blocks, s);
   }
   if (w_dtype == ptt::kBF16)
     return launch_add_ln_bwd<float, __nv_bfloat16>(sum, w, mu, rstd, dy, dpre, dx, dw, db,
-                                                   part, n, h, blocks, s);
-  return launch_add_ln_bwd<float, float>(sum, w, mu, rstd, dy, dpre, dx, dw, db, part, n, h,
+                                                   scratch, n, h, blocks, s);
+  return launch_add_ln_bwd<float, float>(sum, w, mu, rstd, dy, dpre, dx, dw, db, scratch, n, h,
                                          blocks, s);
 }

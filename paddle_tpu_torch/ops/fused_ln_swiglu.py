@@ -38,7 +38,7 @@ _ADAMW_ARGTYPES = (_P,) * 4 + (ctypes.c_longlong,) + (ctypes.c_float,) * 9 + \
 _LN_ARGTYPES = (_P,) * 8 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
                             ctypes.c_int, ctypes.c_int)
 _LN_BWD_ARGTYPES = (_P,) * 10 + (ctypes.c_longlong,) + (ctypes.c_int,) * 4
-_LN_BWD_BLOCKS_PER_SM = 4       # row runs per SM, each with f32 dw/db partial rows
+_LN_BWD_BLOCKS_PER_SM = 2       # B11b's persistent grid: blocks an SM (as B1b's)
 _SMEM_BYTES = 227 * 1024        # shared memory one block may take on the H100
 
 
@@ -228,7 +228,7 @@ def add_layer_norm_bwd_plain(s: torch.Tensor, weight: torch.Tensor, mu: torch.Te
 
 
 def _check_ln(op: str, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-              smem_per_col: int, **like_x: torch.Tensor) -> None:
+              **like_x: torch.Tensor) -> None:
     h = x.shape[-1]
     _check_like(op, x, **like_x)
     if weight.dtype not in _DTYPES:
@@ -237,9 +237,6 @@ def _check_ln(op: str, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
     if weight.shape != (h,) or weight.device != x.device:
         raise ValueError(f"{op} kernel: weight and bias must be [{h}] on {x.device}, "
                          f"got {tuple(weight.shape)} on {weight.device}")
-    if h * smem_per_col > _SMEM_BYTES:
-        raise ValueError(f"{op} kernel keeps {smem_per_col} bytes a column of a row in "
-                         f"shared memory: h = {h} exceeds {_SMEM_BYTES} bytes")
 
 
 def fused_add_layer_norm(x: torch.Tensor, residual: torch.Tensor, weight: torch.Tensor,
@@ -249,9 +246,12 @@ def fused_add_layer_norm(x: torch.Tensor, residual: torch.Tensor, weight: torch.
     twin on CPU ones."""
     if not x.is_cuda:
         return add_layer_norm_plain(x, residual, weight, bias, eps)
-    _check_ln("add_layer_norm", x, weight, bias, 4, residual=residual)
+    _check_ln("add_layer_norm", x, weight, bias, residual=residual)
     _refuse_grad("add_layer_norm", x, residual, weight, bias)
     h = x.shape[-1]
+    if h * 4 > _SMEM_BYTES:
+        raise ValueError(f"add_layer_norm kernel keeps a row's f32 sum in shared memory: "
+                         f"h = {h} exceeds {_SMEM_BYTES} bytes")
     out, s = torch.empty_like(x), torch.empty_like(x)
     mu = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mu)
@@ -268,13 +268,14 @@ def fused_add_layer_norm_bwd(s: torch.Tensor, weight: torch.Tensor, mu: torch.Te
                              dpre: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B11b: (dx, dw, db) by the kernel on CUDA tensors, by the plain twin
-    on CPU ones.  The kernel writes f32 dw and db partial rows, one pair a
-    block, into a scratch tensor allocated here and sums them in a second
-    pass."""
+    on CPU ones.  The kernel's persistent grid writes f32 dw and db partial
+    rows, one pair a block, into a scratch tensor allocated here (with room
+    for the row sums of rows wider than one segment) and sums them in a
+    second kernel.  Any h: the kernel keeps no row in shared memory."""
     if not s.is_cuda:
         return add_layer_norm_bwd_plain(s, weight, mu, rstd, dy, dpre)
     like = dict(dy=dy) if dpre is None else dict(dy=dy, dpre=dpre)
-    _check_ln("add_layer_norm bwd", s, weight, weight, 8, **like)
+    _check_ln("add_layer_norm bwd", s, weight, weight, **like)
     _refuse_grad("add_layer_norm", s, weight, dy)
     h = s.shape[-1]
     n = s.numel() // h
@@ -287,13 +288,12 @@ def fused_add_layer_norm_bwd(s: torch.Tensor, weight: torch.Tensor, mu: torch.Te
     if n == 0:
         return dx, torch.zeros_like(weight), torch.zeros_like(weight)
     dw, db = torch.empty_like(weight), torch.empty_like(weight)
-    sms = torch.cuda.get_device_properties(s.device).multi_processor_count
-    blocks = min(n, _LN_BWD_BLOCKS_PER_SM * sms)
-    part = torch.empty((blocks, 2, h), dtype=torch.float32, device=s.device)
+    blocks = min(n, _LN_BWD_BLOCKS_PER_SM * _build.sm_count(s.device))
+    scratch = torch.empty(blocks * 2 * h + 2 * n, dtype=torch.float32, device=s.device)
     _build.launch("fused_ln_swiglu", "ptt_add_layer_norm_bwd", _LN_BWD_ARGTYPES, s.device,
                   _build.ptr(s), _build.ptr(weight), _build.ptr(mu), _build.ptr(rstd),
                   _build.ptr(dy), _build.ptr(dpre), _build.ptr(dx), _build.ptr(dw),
-                  _build.ptr(db), _build.ptr(part), n, h, blocks, _DTYPES[s.dtype],
+                  _build.ptr(db), _build.ptr(scratch), n, h, blocks, _DTYPES[s.dtype],
                   _DTYPES[weight.dtype])
     LAUNCHES["add_layer_norm_bwd"] += 1
     return dx, dw, db

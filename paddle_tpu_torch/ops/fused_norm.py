@@ -25,7 +25,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int)
 _BWD_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_longlong,) + (ctypes.c_int,) * 3
-_BWD_BLOCKS_PER_SM = 4  # row runs per SM, each with one f32 dw partial row
+# B1b's persistent grid: blocks an SM, one f32 dw partial row each; two are
+# what fit an SM at its registers (3 and 4 timed slower on the H100)
+_BWD_BLOCKS_PER_SM = 2
 
 
 def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -93,8 +95,9 @@ def fused_rms_norm(x: torch.Tensor, weight: torch.Tensor,
 def fused_rms_norm_bwd(x: torch.Tensor, weight: torch.Tensor, rstd: torch.Tensor,
                        dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """B1b: (dx, dw) by the kernel on CUDA tensors, by the plain version on
-    CPU tensors.  The kernel writes one f32 dw partial row per block into a
-    scratch tensor allocated here and sums them in a second pass."""
+    CPU tensors.  The kernel's persistent grid writes one f32 dw partial row
+    a block into a scratch tensor allocated here (with room for the row sums
+    of rows wider than one segment) and sums them in a second kernel."""
     if not x.is_cuda:
         return rms_norm_bwd_plain(x, weight, rstd, dy)
     _check(x, weight)
@@ -113,13 +116,12 @@ def fused_rms_norm_bwd(x: torch.Tensor, weight: torch.Tensor, rstd: torch.Tensor
     if n == 0:
         return dx, torch.zeros_like(weight)
     dw = torch.empty_like(weight)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = min(n, _BWD_BLOCKS_PER_SM * sms)
-    part = torch.empty((blocks, h), dtype=torch.float32, device=x.device)
+    blocks = min(n, _BWD_BLOCKS_PER_SM * _build.sm_count(x.device))
+    scratch = torch.empty(blocks * h + n, dtype=torch.float32, device=x.device)
     _build.launch("rms_norm", "ptt_rms_norm_bwd", _BWD_ARGTYPES, x.device,
                   _build.ptr(x), _build.ptr(weight), _build.ptr(rstd),
                   _build.ptr(dy), _build.ptr(dx), _build.ptr(dw),
-                  _build.ptr(part), n, h, blocks, _DTYPES[x.dtype])
+                  _build.ptr(scratch), n, h, blocks, _DTYPES[x.dtype])
     LAUNCHES["rms_norm_bwd"] += 1
     return dx, dw
 

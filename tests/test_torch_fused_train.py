@@ -286,6 +286,36 @@ class TestAddLayerNorm:
                 _close(dw, jdw, LN_DWDB)
                 _close(db, jdb, LN_DWDB)
 
+    @pytest.mark.parametrize("dpre", [False, True], ids=["no_dpre", "dpre"])
+    @pytest.mark.parametrize("x_dtype,w_dtype", [("float32", "float32"),
+                                                 ("float32", "bfloat16"),
+                                                 ("bfloat16", "float32"),
+                                                 ("bfloat16", "bfloat16")])
+    @pytest.mark.parametrize("n", [1, 3, 64])
+    @pytest.mark.parametrize("h", [1000, 1001, 256])
+    def test_off_sizes_match_pallas_vjp(self, h, n, x_dtype, w_dtype, dpre):
+        """The sizes the card's B11b takes as special cases (h not a
+        multiple of 8, fewer rows than its persistent grid), both dtypes of
+        x and w, with the residual's cotangent and without it (zero on the
+        JAX side, None here).  bf16 values go to both sides rounded alike;
+        each output at the row of its dtype."""
+        x, r, w, b = _ln_inputs(100, n, h)
+        dy, dp = _np(104, n, h), (_np(105, n, h) if dpre else np.zeros((n, h), np.float32))
+        jx, jr, jdy, jdp = (jnp.asarray(a).astype(x_dtype) for a in (x, r, dy, dp))
+        jw, jb = (jnp.asarray(a).astype(w_dtype) for a in (w, b))
+        (jo, js), (jdx, _, jdw, jdb) = _jax_add_ln(jx, jr, jw, jb, jdy, jdp)
+        tx, tr, tdy, tdp = (torch.from_numpy(a).to(getattr(torch, x_dtype))
+                            for a in (x, r, dy, dp))
+        tw, tb = (torch.from_numpy(a).to(getattr(torch, w_dtype)) for a in (w, b))
+        out, s, mu, rstd = add_layer_norm_plain(tx, tr, tw, tb)
+        dx, dw, db = fused_add_layer_norm_bwd(s, tw, mu, rstd, tdy, tdp if dpre else None)
+        assert dx.dtype == tx.dtype and dw.dtype == db.dtype == tw.dtype
+        x_tol = F32 if x_dtype == "float32" else BF16
+        w_tol = LN_DWDB if w_dtype == "float32" else BF16
+        for got, want, tol in ((out, jo, x_tol), (s, js, x_tol), (dx, jdx, x_tol),
+                               (dw, jdw, w_tol), (db, jdb, w_tol)):
+            _close(got, np.asarray(want.astype(jnp.float32)), tol)
+
     def test_bf16_x_with_f32_weight(self):
         """AMP O2's case: x and the residual bf16, w and b f32.  x^ comes
         from the stored bf16 sum, as ``_ln_bwd_kernel`` takes it."""

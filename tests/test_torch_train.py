@@ -11,7 +11,9 @@ same autograd Functions the card runs its kernels through.  Inputs and
 weights are numpy arrays from a seed, in f32.
 
 Tolerances: ``tests/op_test.py``'s float32 row (rtol 2e-5, atol 1e-6) for
-RMSNorm and RoPE; rtol 1e-4 / atol 1e-5 for attention (the sums over keys
+RMSNorm and RoPE, its bfloat16 row (rtol 2e-2, atol 2e-2) for bf16 RMSNorm
+inputs, atol 1e-5 for an f32 dw summed over 64 rows (in another order, as
+``test_torch_fused_train.py``'s LayerNorm dw); rtol 1e-4 / atol 1e-5 for attention (the sums over keys
 run in another order); losses within rtol 1e-4 and gradients within rtol
 1e-4 / atol 1e-6 at f32 (a forward and a backward through two layers, a
 softmax over the vocabulary and reductions in another order).
@@ -54,6 +56,8 @@ from paddle_tpu_torch.optimizer import lr as torch_lr
 torch.set_num_threads(1)
 
 F32 = dict(rtol=2e-5, atol=1e-6)
+BF16 = dict(rtol=2e-2, atol=2e-2)
+ROW_SUM = dict(rtol=2e-5, atol=1e-5)   # f32 dw summed over 64 rows in another order
 ATTN = dict(rtol=1e-4, atol=1e-5)
 LOSS = dict(rtol=1e-4, atol=0)
 GRAD = dict(rtol=1e-4, atol=1e-6)
@@ -95,6 +99,25 @@ class TestRMSNormBackward:
                        fused_rms_norm_bwd(tx, tw, rstd, torch.from_numpy(dy))):
             _close(dx, jdx, F32)
             _close(dw, jdw, F32)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("n", [1, 3, 64])
+    @pytest.mark.parametrize("h", [1000, 1001, 256])
+    def test_off_sizes_match_pallas_vjp(self, h, n, dtype):
+        """The sizes the card's B1b takes as special cases: h not a
+        multiple of 8, fewer rows than its persistent grid.  bf16 inputs
+        go to both sides rounded alike, at the bfloat16 row."""
+        x, w, dy = _np(20, n, h), 1 + 0.1 * _np(21, h), _np(22, n, h)
+        jx, jw, jdy = (jnp.asarray(a).astype(dtype) for a in (x, w, dy))
+        _, vjp = jax.vjp(lambda a, b: jax_rms(a, b, 1e-5, True), jx, jw)
+        jdx, jdw = vjp(jdy)
+        tx, tw, tdy = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in (x, w, dy))
+        _, rstd = rms_norm_plain(tx, tw, 1e-5)
+        dx, dw = fused_rms_norm_bwd(tx, tw, rstd, tdy)
+        assert dx.dtype == dw.dtype == tx.dtype
+        f32 = dtype == "float32"
+        _close(dx.float(), np.asarray(jdx.astype(jnp.float32)), F32 if f32 else BF16)
+        _close(dw.float(), np.asarray(jdw.astype(jnp.float32)), ROW_SUM if f32 else BF16)
 
     def test_function_on_cpu_runs_the_plain_pair(self):
         x = torch.from_numpy(_np(3, 4, 32)).requires_grad_()
