@@ -18,7 +18,8 @@ exits non-zero without them.  Phases, each raising on failure:
    (4096 and 1008 rows, causal and not), sq < sk, head_dim 64 and pads over
    whole 64-row tiles (exact zeros, lse -inf), each case launched twice with
    bit-equal out and lse, and timed beside SDPA at those shapes and over
-   16384 tokens (``flash_fwd_times``);
+   16384 tokens (``flash_fwd_times``); the decode kernel (B6) also by
+   device time at ``generate_batch``'s shape;
 4. end to end: Llama-2-7B at full width and depth, bf16 weights from a
    seeded generator, through ``Predictor.generate_batch`` on ragged prompts
    and ``generate`` on an unpadded batch; launch counts are reset before
@@ -36,7 +37,16 @@ exits non-zero without them.  Phases, each raising on failure:
    first-token logits within 2e-2, exact launches and no page outside the
    prompt's table written; at full depth exact launches, the logits'
    distance, both engines' tokens and the two prefill times
-   (``phase_engine_cp``);
+   (``phase_engine_cp``); then the engine's prefix cache, host-RAM offload
+   tier and journal (``phase_engine_a1``): 8 prompts sharing a 496-token
+   system prompt (7 hits, token-exact against an engine without a cache,
+   TTFT of a miss and of a hit), 8 rows of 512-token prompts outgrowing
+   their pages (at least two swap-outs and recalls, no stall or eviction,
+   token-exact, the first victim's pages bit-equal after its recall; a
+   tier too small for a victim stalls and stays token-exact; swap ms
+   beside a plain pinned copy), and a crash after 10 steps recovered from
+   the journal (every request replayed, token-exact, every sink token
+   once); int8 and fp8 pages and ``cp=2`` with the cache at 2 layers;
 3b. quantized decode parity (run after 3): B8 (int8 cache) and B9 (e4m3
    cache) against their plain twins, q in f32 and bf16, at Llama-2-7B's
    4096 context (batch 8, pos 4000), Llama-2-70B's GQA and off sizes, the
@@ -444,6 +454,12 @@ def phase_parity(torch):
         plain_ms=time_ms(torch, lambda: decode_attention_plain(q, kn, vn, kk, kvv, pos, pads)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=keep)))
+    # the host's share of a call bounds the wrapper's time at this shape
+    # (PERF.md section 7): the device's own time, from torch.profiler
+    dev_ms, split = device_ms(torch, lambda: decode_attention(q, kn, vn, kk, kvv, pos, pads))
+    rows["decode_attention"]["device_ms"] = dev_ms
+    log(f"time decode_attention at generate_batch's shape: device {dev_ms:.4f} ms "
+        f"({split_line(split)}), {b_ms / dev_ms:.3f} of the bound")
     for name, r in rows.items():
         log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
@@ -1343,6 +1359,8 @@ def phase_e2e(torch, card):
     phase_engine(torch, card, model)
     torch.cuda.empty_cache()
     cp_path = phase_engine_cp(torch, card, model)
+    torch.cuda.empty_cache()
+    phase_engine_a1(torch, card, model)
     del model
     return launches, cp_path
 
@@ -1761,6 +1779,349 @@ def phase_engine_cp(torch, card, model):
                 f"tokens {toks.tolist()} vs chunked {toks1.tolist()} "
                 f"({int((toks == toks1).sum())} of {CP_NEW} equal)")
     return path
+
+
+# -- the serving engine's remainder (A1): prefix cache, offload, journal ----------
+A1_SYS_LEN, A1_TAILS, A1_PREFIX_NEW = 496, (16, 23, 30, 37, 44, 51, 58, 64), 16
+A1_PROMPT_LEN, A1_OFFLOAD_NEW, A1_JOURNAL_NEW, A1_JOURNAL_STEPS = 512, 48, 32, 10
+# 8 rows of 512-token prompts take 33 pages each.  With 7 pages to spare, the
+# first pressure (each row's 34th page) preempts the youngest row, and its 33
+# freed pages let it be recalled at once and swapped out again as it grows:
+# at least two swap-outs.  With 0-6 to spare the other rows never give the
+# freed pages back before they finish, and there is one swap-out.
+A1_OFFLOAD_PAGES = BATCH * 33 + 1 + 7
+A1_TIER_PAGES, A1_SMALL_TIER = 2 * 35, 16      # room for a victim; too small for one
+
+
+def a1_prompts(vocab, seed=8):
+    """The prefix run's 8 prompts (a 496-token system prompt and distinct
+    tails) and the offload and journal runs' 8 prompts of 512 tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sys_prompt = rng.integers(1, vocab, A1_SYS_LEN)
+    prefix = [np.concatenate([sys_prompt, rng.integers(1, vocab, n)]).astype(np.int32)
+              for n in A1_TAILS]
+    long = [rng.integers(1, vocab, A1_PROMPT_LEN).astype(np.int32) for _ in range(BATCH)]
+    return prefix, long
+
+
+def a1_serve(torch, e, phases, max_new):
+    """Serve each list of prompts of ``phases`` to completion in turn,
+    launches counted from zero; returns the outputs in prompt order, each
+    phase's last TTFT (ms), the launches, and the forwards by kind."""
+    fwd, n_fwd = e._forward, {"prefill chunks": 0, "decode steps": 0}
+
+    def counted(tokens, *a, **k):
+        n_fwd["decode steps" if tokens.shape[0] == e.max_batch else "prefill chunks"] += 1
+        return fwd(tokens, *a, **k)
+
+    def serve():
+        outs, ttft = [], []
+        for prompts in phases:
+            rids = [e.submit(p, max_new_tokens=max_new) for p in prompts]
+            res = e.run()
+            outs += [res[r] for r in rids]
+            ttft.append(e.meter._window[-1][1] * 1e3)
+        return outs, ttft
+
+    e._forward = counted
+    (outs, ttft), counts = counted_launches(torch, serve)
+    e._forward = fwd
+    return outs, ttft, counts, n_fwd
+
+
+def a1_check_launches(label, L, counts, n_fwd, chunks=None):
+    """The A1 path runs B1 (2L + 1 a forward) and B2 (L a forward) and no
+    other kernel; ``chunks``, where given, is the prefill chunks it needs."""
+    n = sum(n_fwd.values())
+    want = dict(rms_norm=(2 * L + 1) * n, rope=L * n)
+    if counts != want or (chunks is not None and n_fwd["prefill chunks"] != chunks):
+        raise AssertionError(f"{label}: launches {counts} over {n_fwd}, want {want} and "
+                             f"{chunks} prefill chunks")
+
+
+def a1_same(label, got, want, n=None):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if list(g) != list(w[:n]):
+            raise AssertionError(f"{label}: request {i} {list(g)} != {list(w[:n])}")
+
+
+def a1_prefix(torch, model, kind, prompts, kw, full):
+    """The prefix cache on ``prompts``: the first alone (a miss), then the
+    second alone (a hit), then the other six; token-exact against an engine
+    without a cache serving the same phases."""
+    from paddle_tpu_torch.serving import ServingEngine
+
+    L, P = model.config.num_hidden_layers, kw["page_tokens"]
+    phases = [prompts[:1], prompts[1:2], prompts[2:]]
+    e = ServingEngine(model, prefix_cache=True, kv_dtype=kind, **kw)
+    got, ttft, counts, n_fwd = a1_serve(torch, e, phases, A1_PREFIX_NEW)
+    cached = A1_SYS_LEN // P
+    chunks = sum(-(-len(p) // P) for p in prompts) - cached * (len(prompts) - 1)
+    a1_check_launches(f"A1 prefix {kind}", L, counts, n_fwd, chunks)
+    s = e.prefix.summary()
+    if s["hits"] != len(prompts) - 1 or s["tokens_saved"] < (len(prompts) - 1) * A1_SYS_LEN:
+        raise AssertionError(f"A1 prefix {kind}: {s}")
+    e.pool.check_leaks(allow_shared=True)
+    e.prefix.clear()
+    e.pool.check_leaks()
+    del e
+    ref = ServingEngine(model, kv_dtype=kind, **kw)
+    want, ttft_ref, _, _ = a1_serve(torch, ref, phases, A1_PREFIX_NEW)
+    del ref
+    a1_same(f"A1 prefix {kind}", got, want)
+    log(f"engine A1 prefix {L}-layer {kind}: hits {s['hits']}, misses {s['misses']}, tokens "
+        f"saved {s['tokens_saved']}, {n_fwd['prefill chunks']} prefill chunks (without the "
+        f"cache {chunks + cached * (len(prompts) - 1)}); token-exact against the engine "
+        f"without a cache; launches {counts}"
+        + (f"; TTFT of a miss {ttft[0]:.1f} ms, of a hit {ttft[1]:.1f} ms (alone; without "
+           f"the cache {ttft_ref[1]:.1f} ms)" if full else ""))
+    return ttft
+
+
+def a1_offload_pages(torch, e, rid):
+    """Device copies of ``rid``'s pages, every plane and layer."""
+    idx = torch.as_tensor(e.pool.table(rid), device=e.device)
+    return {key: [a.index_select(0, idx) for a in arrs] for key, arrs in e._arenas.items()}
+
+
+def a1_offload(torch, model, kind, prompts, want, kw, full):
+    """The offload tier: 8 rows of 512-token prompts in A1_OFFLOAD_PAGES
+    pages grow to A1_OFFLOAD_NEW tokens, so preemption swaps pages to the
+    host tier and back; token-exact against ``want`` (an engine with room
+    for all), the first victim's pages bit-equal after its recall; then a
+    tier too small for one victim: offload stalls, still token-exact.
+    Returns the bytes of one swap-out, and the ms of each swap-out and each
+    recall of the first run, in order."""
+    from paddle_tpu_torch.serving import OffloadPool, ServingEngine
+
+    L = model.config.num_hidden_layers
+    okw = dict(kw, num_pages=A1_OFFLOAD_PAGES)
+    e = ServingEngine(model, offload=OffloadPool(max_pages=A1_TIER_PAGES), kv_dtype=kind, **okw)
+    watch, swaps = {}, []
+    offload, recall, export, import_ = e._offload, e._recall, e._export_pages, e._import_pages
+
+    def timed(fn, what):
+        def run(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            swaps.append((what, (time.perf_counter() - t) * 1e3))
+            return out
+        return run
+
+    def _offload(victim):
+        if not watch:
+            watch["rid"], watch["before"] = victim.rid, a1_offload_pages(torch, e, victim.rid)
+        offload(victim)
+
+    def _recall(r, rows):
+        out = recall(r, rows)
+        if out == "recalled" and r.rid == watch.get("rid") and "after" not in watch:
+            watch["after"] = a1_offload_pages(torch, e, r.rid)
+        return out
+
+    e._offload, e._recall = _offload, _recall
+    e._export_pages, e._import_pages = timed(export, "out"), timed(import_, "in")
+    got, _, counts, n_fwd = a1_serve(torch, e, [prompts], A1_OFFLOAD_NEW)
+    a1_check_launches(f"A1 offload {kind}", L, counts, n_fwd)
+    s = e.meter.summary()
+    if s["kv_offloads"] < 2 or s["kv_recalls"] < 2 or s["kv_offload_stalls"] or s["evictions"]:
+        raise AssertionError(f"A1 offload {kind}: {s}")
+    a1_same(f"A1 offload {kind}", got, want)
+    for key, arrs in watch["before"].items():
+        for li, (a, b) in enumerate(zip(arrs, watch["after"][key])):
+            if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+                raise AssertionError(f"A1 offload {kind}: {key}[{li}] of the victim's pages "
+                                     f"changed across its swap-out and recall")
+    n_pages = watch["before"]["k"][0].shape[0]
+    e.pool.check_leaks()
+    per = s["kv_offload_bytes_out"] / s["kv_offloads"]
+    times = {what: [ms for w, ms in swaps if w == what] for what in ("out", "in")}
+    del e, watch
+    log(f"engine A1 offload {L}-layer {kind}: {s['kv_offloads']} swap-outs, {s['kv_recalls']} "
+        f"recalls, no stall, no eviction; token-exact against the engine with room for all; "
+        f"the first victim's {n_pages} pages bit-equal after its recall; "
+        f"{per / 2**20:.1f} MiB a swap-out; recall {s['kv_recall_bytes_per_token']:.0f} B a "
+        f"new token; launches {counts}")
+    e = ServingEngine(model, offload=OffloadPool(max_pages=A1_SMALL_TIER), kv_dtype=kind, **okw)
+    got, _, counts, n_fwd = a1_serve(torch, e, [prompts], A1_OFFLOAD_NEW)
+    a1_check_launches(f"A1 offload stall {kind}", L, counts, n_fwd)
+    s2 = e.meter.summary()
+    if s2["kv_offload_stalls"] < 1:
+        raise AssertionError(f"A1 offload {kind}, {A1_SMALL_TIER}-page tier: no stall: {s2}")
+    a1_same(f"A1 offload stall {kind}", got, want)
+    e.pool.check_leaks()
+    log(f"engine A1 offload {L}-layer {kind}, a {A1_SMALL_TIER}-page tier: "
+        f"{s2['kv_offload_stalls']} stalls (re-prefills), {e.offload.pages_dropped} frames "
+        f"dropped; token-exact")
+    del e
+    return per, times
+
+
+def a1_pinned_copy(torch, nbytes):
+    """The host link's yardstick: one plain copy of ``nbytes`` from the card
+    to pinned host memory and back (ms each, best of three)."""
+    dev = torch.empty(int(nbytes), dtype=torch.uint8, device="cuda")
+    host = torch.empty(int(nbytes), dtype=torch.uint8, pin_memory=True)
+    times = {}
+    for what, dst, src in (("out", host, dev), ("in", dev, host)):
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            dst.copy_(src)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        times[what] = min(ms)
+    return times
+
+
+def a1_journal(torch, card, model, prompts, want, kw):
+    """The journal: 8 prompts of 512 tokens with A1_JOURNAL_NEW new tokens,
+    journaled with a TokenSink; after A1_JOURNAL_STEPS steps the engine is
+    abandoned (its sink closed, its arenas filled with NaN and freed); a
+    fresh engine recovers and runs.  Token-exact against ``want``, every
+    token in the sink exactly once, no leaked page."""
+    import os
+    import tempfile
+
+    from paddle_tpu_torch.serving import ServingEngine, TokenSink
+
+    L = model.config.num_hidden_layers
+    with tempfile.TemporaryDirectory() as tmp:
+        jdir, spath = os.path.join(tmp, "journal"), os.path.join(tmp, "tokens.jsonl")
+        sink = TokenSink(spath)
+        e = ServingEngine(model, journal=jdir, on_token=sink, **kw)
+        flush, flush_ms, step_ms = e.journal.flush, [], []
+
+        def timed_flush():
+            t = time.perf_counter()
+            out = flush()
+            flush_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        e.journal.flush = timed_flush
+        rids = [e.submit(p, max_new_tokens=A1_JOURNAL_NEW) for p in prompts]
+        for _ in range(A1_JOURNAL_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            e.step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        seen = sum(len(v) for v in TokenSink.collect(spath).values())
+        if e._results or not seen:
+            raise AssertionError(f"A1 journal: at the crash {len(e._results)} finished, "
+                                 f"{seen} tokens delivered")
+        sink.close()
+        for arrs in e._arenas.values():     # the crashed engine's cache is gone
+            for a in arrs:
+                a.fill_(float("nan") if a.is_floating_point() and a.element_size() > 1 else 0)
+        del e
+        torch.cuda.empty_cache()
+        sink = TokenSink(spath)
+        e = ServingEngine(model, journal=jdir, on_token=sink, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        info = e.recover()
+        t_rec = (time.perf_counter() - t) * 1e3
+        outs = e.run()
+        torch.cuda.synchronize()
+        t_run = (time.perf_counter() - t) * 1e3 - t_rec
+        sink.close()
+        streams = TokenSink.collect(spath)   # raises on a duplicate or a gap
+        if info["replayed"] != len(prompts):
+            raise AssertionError(f"A1 journal: replayed {info}")
+        a1_same("A1 journal", [outs[r] for r in rids], want, A1_JOURNAL_NEW)
+        a1_same("A1 journal sink", [streams[r] for r in rids], want, A1_JOURNAL_NEW)
+        e.pool.check_leaks()
+    decode, fl = step_ms[1:], flush_ms[1:]      # the first step prefills all 8
+    log(f"engine A1 journal {L}-layer bf16 on {card}: {seen} tokens delivered before the "
+        f"crash, replayed {info['replayed']}; token-exact, every sink token exactly once; "
+        f"flush {sum(fl) / len(fl):.3f} ms a decode step ({100 * sum(fl) / sum(decode):.2f}% "
+        f"of its {sum(decode) / len(decode):.2f} ms); recover() {t_rec:.2f} ms, then run() "
+        f"{t_run:.1f} ms to the end (8 re-prefills of {A1_PROMPT_LEN} tokens and "
+        f"{A1_JOURNAL_NEW - 1} decode steps)")
+
+
+def a1_cp_gate(torch, shallow, prompts, kw):
+    """``ServingEngine(cp=2, prefix_cache=True)``: the first prompt
+    prefills through the ring, the second (a hit) on the chunked path with
+    reason ``prefix_cached``."""
+    from paddle_tpu_torch.serving import ServingEngine
+
+    e = ServingEngine(shallow, cp=2, prefix_cache=True, **kw)
+    outs, _, counts, _ = a1_serve(torch, e, [prompts[:1], prompts[1:2]], A1_PREFIX_NEW)
+    if e.cp_prefills != 1 or e.cp_fallbacks != {"prefix_cached": 1} \
+            or e.prefix.summary()["hits"] != 1:
+        raise AssertionError(f"A1 CP gate: {e.cp_prefills} ring prefills, fallbacks "
+                             f"{e.cp_fallbacks}, {e.prefix.summary()}")
+    if counts.get("ring_merge", 0) != 2 * 3 or any(
+            o.shape != (A1_PREFIX_NEW,) or o.min() < 0 for o in outs):
+        raise AssertionError(f"A1 CP gate: launches {counts}, outputs {outs}")
+    e.prefix.clear()
+    e.pool.check_leaks()
+    log(f"engine A1 CP 2-layer cp 2 with the prefix cache: 1 ring prefill, the hit on the "
+        f"chunked path (cp_fallbacks {e.cp_fallbacks}); launches {counts}")
+
+
+def phase_engine_a1(torch, card, model):
+    """The serving engine's remainder on Llama-2-7B (``model``, full width
+    and depth, bf16, 16-token pages, ``max_batch`` 8): the prefix cache
+    (``a1_prefix``: 7 hits, token-exact, TTFT of a miss and of a hit),
+    the host-RAM offload tier (``a1_offload``: at least two swap-outs and
+    recalls, no stall or eviction, token-exact, pages bit-equal after a
+    recall; a tier too small for a victim stalls and stays token-exact;
+    swap ms and GB/s beside a plain pinned copy of the same bytes), and the
+    journal (``a1_journal``: a crash after 10 steps, a fresh engine
+    recovers: replayed 8, token-exact, every sink token once; flush and
+    replay ms).  At full width and 2 layers: int8 and fp8 pages through the
+    prefix and offload runs, and the CP gate (``a1_cp_gate``).  Each run's
+    launches are counted from zero: B1 and B2 once a layer every forward,
+    nothing else (B10 under the CP gate)."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = model.config
+    prefix, long = a1_prompts(cfg.vocab_size)
+    p0 = next(model.parameters())
+    shallow = LlamaForCausalLM(dataclasses.replace(cfg, num_hidden_layers=2),
+                               device=p0.device, dtype=p0.dtype, seed=0).eval()
+    for kind in ("int8", "fp8"):
+        a1_prefix(torch, shallow, kind, prefix, ENGINE_KW, False)
+        want, _, _, _ = a1_serve(torch, ServingEngine(shallow, kv_dtype=kind, **ENGINE_KW),
+                                 [long], A1_OFFLOAD_NEW)
+        a1_offload(torch, shallow, kind, long, want, ENGINE_KW, False)
+        torch.cuda.empty_cache()
+    a1_cp_gate(torch, shallow, prefix, ENGINE_KW)
+    del shallow
+    torch.cuda.empty_cache()
+
+    a1_prefix(torch, model, "bf16", prefix, ENGINE_KW, True)
+    torch.cuda.empty_cache()
+    want, _, _, _ = a1_serve(torch, ServingEngine(model, **ENGINE_KW), [long], A1_OFFLOAD_NEW)
+    torch.cuda.empty_cache()
+    nbytes, times = a1_offload(torch, model, "bf16", long, want, ENGINE_KW, True)
+    plain = a1_pinned_copy(torch, nbytes)
+
+    def rate(ms):
+        return f"{ms:.2f} ms ({nbytes / ms / 1e6:.2f} GB/s)"
+
+    # the first swap-out also allocates the pinned buffer; later ones reuse it
+    out1, outs = times["out"][0], sorted(times["out"][1:])
+    ins = sorted(times["in"])
+    log(f"engine A1 swap on {card}, one victim of {nbytes / 2**20:.1f} MiB: the first "
+        f"swap-out {rate(out1)}, the median of the other {len(outs)} {rate(outs[len(outs) // 2])}; "
+        f"recall, the first {rate(times['in'][0])}, the median of {len(ins)} "
+        f"{rate(ins[len(ins) // 2])}; a plain pinned copy of the same bytes: to the host "
+        f"{rate(plain['out'])}, to the card {rate(plain['in'])}")
+    torch.cuda.empty_cache()
+    a1_journal(torch, card, model, long, want, ENGINE_KW)
+    torch.cuda.empty_cache()
 
 
 def rel_l2(a, b) -> float:

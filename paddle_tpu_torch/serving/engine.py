@@ -36,11 +36,24 @@
   front and recomputes from its prompt, token-exact because decoding is
   greedy), deadline shedding, a circuit breaker, per-request SLO
   milestones in :class:`~.metrics.SLOMeter`.
+- **Prefix cache** (``prefix_cache=``, ``PADDLE_TPU_PREFIX_CACHE=1``): a
+  request whose prompt starts with cached full pages adopts them
+  (:class:`~.prefix_cache.PrefixCache`) and its prefill resumes at the
+  first uncached chunk; under ``cp`` > 1 such a request takes the chunked
+  path (reason ``prefix_cached``), since the ring rewrites every page.
+- **Host-RAM offload** (``offload=``, ``PADDLE_TPU_KV_OFFLOAD=1``): a
+  preempted request's private pages go to an :class:`~.kv_pool.
+  OffloadPool` and come back when it is re-admitted, with no recompute; a
+  victim's pages leave the card in one copy a plane (pinned host memory)
+  and return in one.  Frames dropped by the tier's LRU turn the recall into
+  a re-prefill (``kv_offload_stalls``).
+- **Journal** (``journal=``, ``journal_ship=``): accepted requests and
+  delivered tokens are flushed to a :class:`~.journal.ServingJournal`
+  before the sink sees a token, and :meth:`ServingEngine.recover` replays
+  it into a fresh engine with every token delivered exactly once.
 
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
 item: speculative decoding (A2), tensor-parallel decode (``tp`` > 1, A6),
-the host-RAM offload tier, the prefix cache, the
-journal and crash recovery (``journal``, ``journal_ship``, ``recover``),
 disaggregated prefill (``submit_prefilled``, ``prefill_export``, A8) and
 the decode-loop watchdog (A7).  The reference's chaos seams
 (``_faults.fire``) and telemetry events wait for A7 and A8.
@@ -55,11 +68,16 @@ Env knobs: ``PADDLE_TPU_SERVE_MAX_BATCH`` (rows, default 4),
 ``PADDLE_TPU_SERVE_DEFER_LOOKAHEAD`` / ``_DEFER_MAX`` (long-prompt
 deferral window / starvation cap), ``PADDLE_TPU_KV_DTYPE`` and
 ``PADDLE_TPU_KV_FP8_SCALE`` (pages), ``PADDLE_TPU_SERVE_CP`` (ring members
-of the context-parallel prefill, default 1).
+of the context-parallel prefill, default 1), ``PADDLE_TPU_PREFIX_CACHE`` /
+``PADDLE_TPU_PREFIX_PAGES`` (prefix cache on / its page budget, 64),
+``PADDLE_TPU_KV_OFFLOAD`` / ``PADDLE_TPU_KV_OFFLOAD_PAGES`` (host tier on /
+its page budget, 64), ``PADDLE_TPU_RESUME_REPORT`` (where ``recover`` writes
+its report).
 """
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import threading
@@ -75,11 +93,13 @@ from ..distributed.meta_parallel.context_parallel import ring_attention
 from ..distributed.topology import build_mesh
 from ..models.llama import apply_rotary_at_positions
 from .admission import AdmissionController, Deadline, Overloaded, _env_float, _env_int
-from .kv_pool import PagedKVPool, PoolExhausted, TRASH_PAGE, default_page_tokens
+from .journal import ServingJournal
+from .kv_pool import OffloadPool, PagedKVPool, PoolExhausted, TRASH_PAGE, default_page_tokens
 from .kv_quant import (default_fp8_scale, dequantize_kv, dequantize_kv_fp8,
                        kv_cache_dtype, kv_page_bytes, kv_scale_page_bytes,
                        quantize_kv, quantize_kv_fp8)
 from .metrics import SLOMeter
+from .prefix_cache import PrefixCache
 
 __all__ = ["Request", "ServingEngine"]
 
@@ -125,6 +145,9 @@ class Request:
         self.delivered = 0                    # client-visible high-water mark
         self.delivered_tokens: List[int] = []
         self.defers = 0                       # FIFO-head bypasses suffered
+        self.cached_tokens = 0                # prompt tokens adopted from the
+        # prefix cache at the LAST admission (reset on eviction)
+        self.offloads = 0                     # host-RAM swap-outs suffered
 
     @property
     def pos(self) -> int:
@@ -153,9 +176,16 @@ class ServingEngine:
     ``cp`` > 1: prompts of at least ``cp`` page-chunks prefill in one
     forward with ring attention over ``cp`` members (module docstring);
     ``cp`` with ``tp`` > 1 raises ``ValueError``, as in the reference.
-    ``speculative``, ``tp`` > 1, ``offload``, ``prefix_cache``,
-    ``journal`` and ``journal_ship`` raise ``NotImplementedError``, also
-    when their environment variables turn them on."""
+    ``prefix_cache``: ``True`` (a trie under ``PADDLE_TPU_PREFIX_PAGES``),
+    an ``int`` page budget, or a :class:`PrefixCache` over this engine's
+    pool; default ``PADDLE_TPU_PREFIX_CACHE=1``.  ``offload``: ``True`` (a
+    tier under ``PADDLE_TPU_KV_OFFLOAD_PAGES``), an ``int`` page budget, or
+    an :class:`OffloadPool`; default ``PADDLE_TPU_KV_OFFLOAD=1``.
+    ``journal``: a directory or a :class:`ServingJournal`;
+    ``journal_ship(seq, data)`` receives each flushed segment before the
+    tokens it covers reach ``on_token``.  ``speculative`` and ``tp`` > 1
+    raise ``NotImplementedError``, also when their environment variables
+    turn them on."""
 
     def __init__(self, model, *, max_batch: Optional[int] = None,
                  page_tokens: Optional[int] = None,
@@ -185,14 +215,6 @@ class ServingEngine:
                 f"(shard prompts OR heads, not both yet)")
         if tp > 1:
             raise _not_ported("tensor-parallel decode (tp > 1)", "A6")
-        if offload or (offload is None
-                       and os.environ.get("PADDLE_TPU_KV_OFFLOAD", "0") == "1"):
-            raise _not_ported("the host-RAM KV offload tier (offload=)", "A1")
-        if prefix_cache or (prefix_cache is None and
-                            os.environ.get("PADDLE_TPU_PREFIX_CACHE", "0") == "1"):
-            raise _not_ported("the prefix cache (prefix_cache=)", "A1")
-        if journal is not None or journal_ship is not None:
-            raise _not_ported("the serving journal (journal=, journal_ship=)", "A1")
         if lint:
             raise ValueError(
                 "ServingEngine(lint=True): the donation lint checks the "
@@ -215,6 +237,9 @@ class ServingEngine:
         self.meter = SLOMeter(now=self._now)
         self.admission = admission if admission is not None else \
             AdmissionController(max_queue=max_queue, now=self._now)
+        self.journal: Optional[ServingJournal] = \
+            ServingJournal(journal, ship=journal_ship) \
+            if isinstance(journal, str) else journal
         self._on_token = on_token
 
         param = next(p for p in model.parameters() if p.is_floating_point())
@@ -254,6 +279,26 @@ class ServingEngine:
             kv_scale_page_bytes(P, kv_heads, self.kv_dtype, n_layers=n_layers),
             self.kv_dtype)
         self.meter.set_kv_bytes_per_token(self.pool.bytes_per_token())
+
+        if prefix_cache is None:
+            prefix_cache = os.environ.get("PADDLE_TPU_PREFIX_CACHE", "0") == "1"
+        if prefix_cache is True:
+            prefix_cache = PrefixCache(self.pool)
+        elif isinstance(prefix_cache, int) and not isinstance(prefix_cache, bool) \
+                and prefix_cache > 0:
+            prefix_cache = PrefixCache(self.pool, max_pages=prefix_cache)
+        self.prefix: Optional[PrefixCache] = \
+            prefix_cache if isinstance(prefix_cache, PrefixCache) else None
+        if offload is None:
+            offload = os.environ.get("PADDLE_TPU_KV_OFFLOAD", "0") == "1"
+        if offload is True:
+            offload = OffloadPool()
+        elif isinstance(offload, int) and not isinstance(offload, bool) and offload > 0:
+            offload = OffloadPool(max_pages=offload)
+        self.offload: Optional[OffloadPool] = \
+            offload if isinstance(offload, OffloadPool) else None
+        self._offload_lost: set = set()   # parked rids whose frames the
+        # tier's LRU dropped: their recall becomes a re-prefill
 
         self._queue: deque = deque()
         self._active: Dict[int, Request] = {}          # row -> Request
@@ -325,6 +370,13 @@ class ServingEngine:
         if delivered_tokens:
             r.delivered = len(delivered_tokens)
             r.delivered_tokens = [int(t) for t in delivered_tokens]
+        if self.journal is not None:
+            # durable BEFORE it is queued: a failed flush leaves neither a
+            # queue entry nor a journal record of a refused request
+            self.journal.submit_durable(r.rid, r.prompt, r.max_new_tokens,
+                                        r.eos_token_id, r.deadline,
+                                        primed=r.delivered_tokens or None,
+                                        age_s=age_s, trace_id=trace_id)
         self._queue.append(r)
         self.meter.submit(r.rid, age_s=age_s, trace_id=trace_id)
         self.meter.set_queue_depth(len(self._queue))
@@ -340,8 +392,69 @@ class ServingEngine:
         raise _not_ported("disaggregated prefill (prefill_export)", "A8")
 
     def recover(self) -> dict:
-        """Replay a journal after a crash: not ported (no journal)."""
-        raise _not_ported("journal replay (recover)", "A1")
+        """Replay the journal into this (fresh) engine after a crash:
+        re-submit every accepted, unfinished request with its rid and
+        delivered high-water mark (tokens the client saw are regenerated,
+        not delivered again), its deadlines aged by the wall time since its
+        submit, then re-offer every journaled token to the sink (which drops
+        what it already has), then restore finished results and shed
+        records.  Reads nothing of the engine that wrote the journal.
+        Returns ``{"replayed", "finished", "shed", "truncated",
+        "known_rids"}`` and writes the resume report
+        (``PADDLE_TPU_RESUME_REPORT``) when there was anything to
+        recover."""
+        if self.journal is None:
+            raise RuntimeError("recover() needs a journal-backed engine")
+        st = self.journal.load_state()
+        replayed = 0
+        for rid in st.open_rids():
+            rec = st.requests[rid]
+            r = Request(np.asarray(rec["prompt"], np.int32),
+                        rec["max_new_tokens"], rec["eos_token_id"], rid=rid,
+                        trace_id=rec.get("trace_id"))
+            r.deadline = Deadline.from_doc(rec.get("deadline"))
+            toks = st.delivered.get(rid, [])
+            r.delivered = len(toks)
+            r.delivered_tokens = list(toks)
+            self._queue.append(r)
+            age = max(0.0, time.time() - rec.get("submit_wall", time.time()))
+            self.meter.submit(r.rid, age_s=age, trace_id=r.trace_id)
+            replayed += 1
+        # re-offer BEFORE restoring _results: a status poll must never see a
+        # rid finished while its journaled tokens are on their way to the sink
+        if self._on_token is not None:
+            for rid in sorted(st.delivered):
+                if rid in st.shed:
+                    continue
+                for idx, tok in enumerate(st.delivered[rid]):
+                    self._on_token(rid, idx, tok)
+        for rid in st.finished:
+            self._results[rid] = np.asarray(st.delivered.get(rid, []), np.int32)
+        for rid, reason in st.shed.items():
+            self.shed[rid] = reason
+        info = {"replayed": replayed, "finished": len(st.finished),
+                "shed": len(st.shed), "truncated": st.truncated,
+                "known_rids": sorted(st.requests)}
+        if st.requests:
+            self._write_resume_report(info)
+        if self._queue:
+            self.meter.set_queue_depth(len(self._queue))
+            self._work.set()
+        return info
+
+    @staticmethod
+    def _write_resume_report(info: dict) -> None:
+        """The reference's resume-report protocol: a relaunching supervisor
+        reads ``<PADDLE_TPU_RESUME_REPORT>.0`` back."""
+        base = os.environ.get("PADDLE_TPU_RESUME_REPORT")
+        if not base:
+            return
+        try:
+            with open(f"{base}.0", "w") as f:
+                json.dump({"rank": 0, "source": "journal",
+                           "replayed": info["replayed"]}, f)
+        except OSError:
+            pass
 
     def run(self, max_steps: int = 100000, *, forever: bool = False,
             watchdog_s: Optional[float] = None,
@@ -375,7 +488,8 @@ class ServingEngine:
             if not forever and steps > max_steps:
                 raise RuntimeError(f"serving loop did not quiesce in "
                                    f"{max_steps} steps")
-        self.pool.check_leaks()
+        # a live prefix cache legitimately pins pages at quiesce
+        self.pool.check_leaks(allow_shared=self.prefix is not None)
         return dict(self._results)
 
     def serve_forever(self, **kw) -> Dict[int, np.ndarray]:
@@ -390,11 +504,12 @@ class ServingEngine:
     def step(self) -> None:
         """One scheduler iteration: shed what cannot meet its deadline,
         admit what fits, prefill the newly admitted, take one decode step
-        for every active row, retire finished rows, then surface newly
-        delivered tokens to the sink.
+        for every active row, retire finished rows, then flush the journal
+        and surface newly delivered tokens to the sink.
 
-        ``OSError``-class failures are absorbed: the circuit breaker counts
-        them and the next step retries; after
+        ``OSError``-class failures (a journal flush that failed through its
+        retries) are absorbed: the circuit breaker counts them and the next
+        step retries with the records still buffered; after
         ``PADDLE_TPU_SERVE_MAX_STEP_FAILURES`` consecutive ones the error
         propagates."""
         self.steps_total += 1
@@ -413,8 +528,9 @@ class ServingEngine:
                 self.first_step_wall = time.time()
 
     def _undelivered(self) -> bool:
-        """Tokens still awaiting delivery to the sink."""
-        return bool(self._pending_delivery)
+        """Tokens or journal records still awaiting a successful flush."""
+        return bool(self._pending_delivery) or (
+            self.journal is not None and self.journal.pending > 0)
 
     def _step_inner(self) -> bool:
         self._shed_scan()
@@ -453,18 +569,32 @@ class ServingEngine:
     def _shed(self, r: Request, reason: str) -> None:
         r.state = SHED
         self.shed[r.rid] = reason
+        if self.journal is not None:
+            self.journal.shed(r.rid, reason)
         self.meter.shed(r.rid, reason=reason)
 
-    def _admit_need(self, r: Request) -> int:
-        """Pages to allocate when admitting ``r``: its prompt and the slot
-        of its first decode write."""
-        return self.pool.pages_for(len(r.prompt) + 1)
+    def _admit_need(self, r: Request):
+        """``(pages to allocate, cached prefix pages to adopt)`` when
+        admitting ``r``: its prompt and the slot of its first decode write,
+        less the prefix cache's longest match (which never covers the last
+        prompt token, so at least one page is always fresh)."""
+        total = self.pool.pages_for(len(r.prompt) + 1)
+        if self.prefix is None:
+            return total, []
+        pages, _ = self.prefix.match(r.prompt)
+        return total - len(pages), pages
 
     def _admit(self) -> None:
         rows = self._free_rows()
         while self._queue and rows:
             r = self._queue[0]
-            need = self._admit_need(r)
+            if self.pool.is_parked(r.rid):
+                # a swapped-out request at the head: its KV comes back from
+                # the host tier (or it re-prefills if the frames are gone)
+                if self._recall(r, rows) == "wait":
+                    break
+                continue
+            need, cached = self._admit_need(r)
             if not self.pool.can_alloc(need):
                 # pool pressure: a long prompt at the head must not wedge
                 # admission — try ONE shorter request from the lookahead
@@ -472,14 +602,21 @@ class ServingEngine:
                 if not self._admit_bypass(r, need, rows):
                     break
                 continue
-            self._admit_one(r, need, rows, from_head=True)
+            self._admit_one(r, need, rows, from_head=True, cached=cached)
 
     def _admit_one(self, r: Request, need: int, rows: List[int],
-                   *, from_head: bool) -> None:
+                   *, from_head: bool, cached=()) -> None:
         if from_head:
             self._queue.popleft()
         else:
             self._queue.remove(r)
+        # a prefix hit adopts the trie's pages (a reference each) and
+        # allocates only the rest; prefill resumes after them
+        if cached:
+            self.pool.adopt(r.rid, cached)
+        r.cached_tokens = len(cached) * self.page_tokens
+        if self.prefix is not None:
+            self.prefix.note(bool(cached), n_tokens=r.cached_tokens)
         self.pool.alloc(r.rid, need)
         r.row = rows.pop(0)
         r.state = RUNNING
@@ -493,18 +630,21 @@ class ServingEngine:
         not fit, admit one STRICTLY smaller request from the next
         ``PADDLE_TPU_SERVE_DEFER_LOOKAHEAD`` queue slots instead.  The head
         keeps its place and can be bypassed at most
-        ``PADDLE_TPU_SERVE_DEFER_MAX`` times."""
+        ``PADDLE_TPU_SERVE_DEFER_MAX`` times.  Demand is compared in fresh
+        pages: a long prompt that is mostly cached is cheap."""
         if head.defers >= self._defer_max:
             return False
         window = min(len(self._queue), self._defer_lookahead + 1)
         for i in range(1, window):
             c = self._queue[i]
-            need = self._admit_need(c)
+            if self.pool.is_parked(c.rid):
+                continue   # parked requests re-enter only through _recall
+            need, cached = self._admit_need(c)
             if need < head_need and self.pool.can_alloc(need):
                 head.defers += 1
                 self.meter.defer(head.rid, defers=head.defers,
                                  need=head_need, free=self.pool.pages_free)
-                self._admit_one(c, need, rows, from_head=False)
+                self._admit_one(c, need, rows, from_head=False, cached=cached)
                 return True
         return False
 
@@ -517,14 +657,127 @@ class ServingEngine:
         victim.row = None
         victim.state = QUEUED
         victim.generated = []        # replayed from the prompt on re-admit
+        victim.cached_tokens = 0     # its pages went back (the trie keeps
+        # its own); the re-admission matches the prefix cache again
         victim.evictions += 1
         self._queue.appendleft(victim)
         self.meter.evict(victim.rid, reason="pool_pressure", pages_freed=freed)
 
     def _preempt(self, victim: Request) -> None:
-        """A pool-pressure preemption: without the host-RAM offload tier
-        (not ported) it is the eviction replay."""
-        self._evict(victim)
+        """A pool-pressure preemption: with a host-RAM offload tier the
+        victim's pages spill and it resumes without recompute
+        (:meth:`_offload`); without one, the eviction replay."""
+        if self.offload is not None:
+            self._offload(victim)
+        else:
+            self._evict(victim)
+
+    def _offload(self, victim: Request) -> None:
+        """Swap ``victim`` out to the host tier: its PRIVATE pages leave the
+        card as :class:`OffloadPool` frames and are freed; its SHARED pages
+        (prefix-cache adoptions) keep its reference and never copy.  It
+        keeps its generated tokens and requeues at the front.  If the puts
+        LRU-drop frames of any parked request (this one included), that
+        request is marked lost and re-prefills at its recall."""
+        pages = self.pool.table(victim.rid)
+        spill = [(j, p) for j, p in enumerate(pages) if self.pool.refcount(p) <= 1]
+        # the copy ends before swap_out frees the pages for reuse
+        frames = self._export_pages([p for _, p in spill])
+        self.pool.swap_out(victim.rid)
+        del self._active[victim.row]
+        victim.row = None
+        victim.state = QUEUED
+        victim.offloads += 1
+        self._queue.appendleft(victim)
+        nbytes = 0
+        lost = set()
+        for (j, _), fr in zip(spill, frames):
+            nbytes += OffloadPool._frame_bytes(fr)
+            for rid_lost, _slot in self.offload.put(victim.rid, j, fr):
+                lost.add(rid_lost)
+        for rid_lost in lost:
+            # a partial frame set is useless: drop the rest too
+            self._offload_lost.add(rid_lost)
+            self.offload.drop(rid_lost)
+        self.meter.offload(victim.rid, pages=len(frames),
+                           shared_pages=len(pages) - len(frames), bytes_out=nbytes)
+
+    def _recall(self, r: Request, rows: List[int]) -> str:
+        """Re-admit the parked request at the head of the queue.  Returns
+        ``"recalled"`` (its row active again, its KV restored),
+        ``"downgraded"`` (its frames are gone: reset to a re-prefill, still
+        queued) or ``"wait"`` (frames intact, too few free pages)."""
+        if r.rid in self._offload_lost or self.offload is None:
+            self._downgrade(r)
+            return "downgraded"
+        missing = [j for j, p in enumerate(self.pool.parked_plan(r.rid)) if p is None]
+        if not all(self.offload.holds(r.rid, j) for j in missing):
+            self._downgrade(r)
+            return "downgraded"
+        if not self.pool.can_alloc(len(missing)):
+            # nearing re-admission: let the LRU drop colder frames first
+            self.offload.touch(r.rid)
+            return "wait"
+        _, refill = self.pool.swap_in(r.rid)
+        frames = [self.offload.get(r.rid, j) for j, _ in refill]
+        self._import_pages([p for _, p in refill], frames)
+        self._queue.popleft()
+        r.row = rows.pop(0)
+        r.state = RUNNING
+        self._active[r.row] = r
+        self.meter.recall(r.rid, pages=len(refill),
+                          bytes_in=sum(OffloadPool._frame_bytes(f) for f in frames),
+                          n_tokens=len(r.generated))
+        self.meter.set_occupancy(self.pool.occupancy())
+        return "recalled"
+
+    def _downgrade(self, r: Request) -> None:
+        """The offload stall: the parked request's frames are gone, so it
+        releases its retained references and re-prefills from its prompt,
+        the ``delivered`` high-water mark keeping its tokens from being
+        delivered twice.  It keeps its queue position."""
+        self.pool.drop_parked(r.rid)
+        if self.offload is not None:
+            self.offload.drop(r.rid)
+        self._offload_lost.discard(r.rid)
+        r.generated = []
+        r.cached_tokens = 0
+        r.evictions += 1
+        self.meter.offload_stall(r.rid)
+
+    def _export_pages(self, pids) -> List[dict]:
+        """Host copies of the physical pages ``pids``, one frame a page:
+        ``{plane: [layers, page_tokens, ...]}``, the reference's format.  A
+        plane's pages leave the device in ONE copy: one ``index_select`` a
+        layer into a device buffer ``[n, layers, ...]``, copied whole into
+        host memory (pinned for a card), of which each frame is a view.
+        The copy is on the compute stream and waits for it, so it has
+        finished when this returns and the pages may be reused."""
+        if not pids:
+            return []
+        idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
+        host = {}
+        for key, arrs in self._arenas.items():
+            dev = torch.stack([_raw(a).index_select(0, idx) for a in arrs],
+                              dim=1).view(arrs[0].dtype)
+            host[key] = torch.empty(dev.shape, dtype=dev.dtype,
+                                    pin_memory=self.device.type == "cuda")
+            host[key].copy_(dev)
+        return [{key: buf[i] for key, buf in host.items()} for i in range(len(pids))]
+
+    def _import_pages(self, pids, frames) -> None:
+        """Write ``frames`` (:meth:`_export_pages`'s format) into the
+        physical pages ``pids``: one host-to-device copy a plane (the
+        frames of one swap-out are consecutive views of one buffer, taken
+        as one without a host copy), then one ``index_copy_`` a layer, on
+        the compute stream ahead of the next forward."""
+        if not pids:
+            return
+        idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
+        for key, arrs in self._arenas.items():
+            dev = _host_run([f[key] for f in frames]).to(self.device)
+            for li, a in enumerate(arrs):
+                _raw(a).index_copy_(0, idx, _raw(dev[:, li]))
 
     def _victim_key(self, x: Request):
         """Eviction preference under pool pressure, largest key loses:
@@ -571,6 +824,8 @@ class ServingEngine:
         r.row = None
         r.state = FINISHED
         self._results[r.rid] = np.asarray(r.generated, np.int32)
+        if self.journal is not None:
+            self.journal.finish(r.rid)
         self.meter.finish(r.rid, n_tokens=len(r.generated),
                           deadline=r.deadline)
         self.meter.set_occupancy(self.pool.occupancy())
@@ -585,16 +840,17 @@ class ServingEngine:
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.int64), device=self.device)
 
-    def _prefill_chunks(self, prompt, table) -> np.ndarray:
+    def _prefill_chunks(self, prompt, table, c0: int = 0) -> np.ndarray:
         """Run ``prompt`` through the forward in page-sized chunks over the
-        block table ``table`` [1, max_pages_per_seq]; returns the last
+        block table ``table`` [1, max_pages_per_seq], from chunk ``c0`` on
+        (the chunks before it are prefix-cached pages); returns the last
         prompt token's logits [V] on the host, in f32."""
         P = self.page_tokens
         n_chunks = -(-len(prompt) // P)
         tables = self._tensor(table)
         n_tok = self._tensor([P])          # a full chunk: junk tail slots
         logits = None                      # are overwritten by decode
-        for c in range(n_chunks):
+        for c in range(c0, n_chunks):
             chunk = np.zeros((1, P), np.int64)
             part = prompt[c * P:(c + 1) * P]
             chunk[0, :len(part)] = part
@@ -604,28 +860,42 @@ class ServingEngine:
         return logits[0, 0].float().cpu().numpy()
 
     def _prefill(self, r: Request) -> None:
-        if self._cp_accepts(len(r.prompt)):
+        n_chunks = -(-len(r.prompt) // self.page_tokens)
+        # a prefix hit adopted chunks [0, c0) already filled; the match cap
+        # keeps c0 < n_chunks, so the last token's logits are computed
+        c0 = min(r.cached_tokens // self.page_tokens, n_chunks - 1)
+        if self._cp_accepts(len(r.prompt), cached_tokens=r.cached_tokens):
             logits = self._cp_prefill_run(r.prompt, self.pool.table(r.rid))
         else:
-            logits = self._prefill_chunks(r.prompt, self._padded_table(r.rid)[None])
+            logits = self._prefill_chunks(r.prompt, self._padded_table(r.rid)[None], c0)
         tok = int(np.argmax(logits))
         r.generated.append(tok)
         self.meter.first_token(r.rid)
         self._deliver(r, tok)
+        if self.prefix is not None:
+            # the prompt's full pages serve later requests (the chunks
+            # matched at admission just refresh their LRU stamp)
+            self.prefix.insert(r.prompt, self.pool.table(r.rid))
 
     # -- context-parallel prefill ---------------------------------------------
-    def _cp_accepts(self, n_prompt: int) -> bool:
-        """Gate of the CP prefill.  A prompt of fewer page-chunks than ring
-        members takes the chunked path (reason ``short_prompt``, counted in
-        ``cp_fallbacks``): some members would hold only padding.  The
-        reference's ``prefix_cached`` and ``kv_import`` reasons cannot arise
-        (the prefix cache and page import are not ported)."""
+    def _cp_accepts(self, n_prompt: int, *, cached_tokens: int = 0) -> bool:
+        """Gate of the CP prefill; each refusal is counted by reason in
+        ``cp_fallbacks``.  ``prefix_cached``: the ring rewrites every page
+        of the prompt, which would overwrite pages other requests share and
+        recompute the cached prefix.  ``short_prompt``: fewer page-chunks
+        than ring members, so some members would hold only padding.  The
+        reference's ``kv_import`` reason waits for disaggregated prefill
+        (A8)."""
         if self.cp <= 1:
             return False
-        if -(-n_prompt // self.page_tokens) < self.cp:
-            self.cp_fallbacks["short_prompt"] = self.cp_fallbacks.get("short_prompt", 0) + 1
-            return False
-        return True
+        if cached_tokens > 0:
+            reason = "prefix_cached"
+        elif -(-n_prompt // self.page_tokens) < self.cp:
+            reason = "short_prompt"
+        else:
+            return True
+        self.cp_fallbacks[reason] = self.cp_fallbacks.get(reason, 0) + 1
+        return False
 
     def _cp_prefill_run(self, prompt, pages) -> np.ndarray:
         """Prefill ``prompt`` over its allocated ``pages`` in one forward:
@@ -729,10 +999,11 @@ class ServingEngine:
     # -- delivery ----------------------------------------------------------
     def _deliver(self, r: Request, tok: int) -> None:
         """Token bookkeeping right after ``r.generated.append(tok)``: new
-        tokens advance the high-water mark and queue for the sink; replayed
-        ones (after an eviction) are suppressed and checked against what
-        the client already saw — greedy decode is deterministic, so a
-        divergence is an engine bug."""
+        tokens advance the journaled high-water mark and queue for the sink
+        (emitted after the covering journal flush); replayed ones (after an
+        eviction, an offload stall or a crash) are suppressed and checked
+        against what the client already saw — greedy decode is
+        deterministic, so a divergence is an engine bug."""
         idx = len(r.generated) - 1
         if idx < r.delivered:
             if r.delivered_tokens[idx] != tok:
@@ -743,10 +1014,16 @@ class ServingEngine:
             return
         r.delivered_tokens.append(tok)
         r.delivered = idx + 1
+        if self.journal is not None:
+            self.journal.deliver(r.rid, idx, tok)
         self._pending_delivery.append((r.rid, idx, tok))
 
     def _flush_delivery(self) -> None:
-        """Hand the step's new tokens to the sink (``on_token``)."""
+        """The durability barrier, then the sink: journal records reach disk
+        BEFORE any token they cover reaches ``on_token``.  On a flush
+        failure everything stays pending; the step-failure path retries."""
+        if self.journal is not None:
+            self.journal.flush()
         if self._on_token is not None:
             for rid, idx, tok in self._pending_delivery:
                 self._on_token(rid, idx, tok)
@@ -852,3 +1129,22 @@ class ServingEngine:
         if take is not None:
             hidden = hidden[:, take:take + 1]
         return model._logits(hidden)
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as bytes where torch indexes no e4m3 (fp8 pages)."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def _host_run(ts: List[torch.Tensor]) -> torch.Tensor:
+    """The host tensors ``ts`` (one plane of consecutive frames) as one
+    tensor ``[n, ...]``: a view of their buffer when they are consecutive
+    slices of it (the frames of one swap-out, in slot order), else stacked."""
+    t0 = ts[0]
+    ptr, step = t0.untyped_storage().data_ptr(), t0.numel()
+    if all(t.is_contiguous() and t.untyped_storage().data_ptr() == ptr
+           and t.storage_offset() == t0.storage_offset() + i * step
+           for i, t in enumerate(ts)):
+        return t0.as_strided((len(ts), *t0.shape), (step, *t0.stride()),
+                             t0.storage_offset())
+    return torch.stack(ts)

@@ -1,6 +1,6 @@
-"""Paged KV pool: fixed-size token pages and per-request block tables
-(port of the reference's ``serving/kv_pool.py``, without the host-RAM
-offload tier).
+"""Paged KV pool: fixed-size token pages and per-request block tables,
+and the host-RAM tier for parked pages (port of the reference's
+``serving/kv_pool.py``).
 
 Pure accounting, no tensors: the :class:`~.engine.ServingEngine` owns the
 physical ``[num_pages, page_tokens, kv_heads, head_dim]`` arenas and
@@ -9,26 +9,37 @@ trash page: idle batch rows of a decode step write their (ignored) k/v
 there.  Pages carry copy-on-write refcounts (``incref``/``decref``/
 ``adopt``): a page returns to the free list when its last reference drops.
 
-``swap_out``/``swap_in``/the parked plans and ``OffloadPool`` belong to the
-host-RAM offload tier, which is not ported yet (the engine raises for
-``offload=``).
+A request preempted under pool pressure can be PARKED (``swap_out``): its
+private pages return to the free list once the engine has copied their
+bytes into :class:`OffloadPool` frames, and its shared pages keep the
+request's reference, so their one resident copy serves every holder.
+``swap_in`` rebuilds the table, all or nothing.
 
 Env: ``PADDLE_TPU_PAGE_TOKENS`` sets the default page size (tokens per
-page, 16).
+page, 16); ``PADDLE_TPU_KV_OFFLOAD_PAGES`` the host tier's budget in pages
+(64).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List
+from collections import OrderedDict
+from typing import Dict, List, Optional, Tuple
 
-__all__ = ["PagedKVPool", "PoolExhausted", "default_page_tokens", "TRASH_PAGE"]
+__all__ = ["PagedKVPool", "OffloadPool", "PoolExhausted",
+           "default_page_tokens", "default_offload_pages", "TRASH_PAGE"]
 
 TRASH_PAGE = 0
 
 
 def default_page_tokens() -> int:
     return int(os.environ.get("PADDLE_TPU_PAGE_TOKENS", "16"))
+
+
+def default_offload_pages() -> int:
+    """Host-RAM offload tier capacity in pages
+    (``PADDLE_TPU_KV_OFFLOAD_PAGES``, default 64)."""
+    return int(os.environ.get("PADDLE_TPU_KV_OFFLOAD_PAGES", "64"))
 
 
 class PoolExhausted(RuntimeError):
@@ -53,6 +64,10 @@ class PagedKVPool:
         # page id -> live references (>= 1 while allocated); a page is on
         # the free list or in here, never both; the trash page is in neither
         self._refs: Dict[int, int] = {}
+        # parked requests: rid -> per-slot plan, a page id where the slot's
+        # page is shared (the rid's reference is kept) or None where its
+        # bytes went to the host tier
+        self._parked: Dict[object, List[Optional[int]]] = {}
         self._peak_used = 0
         # byte accountant (the engine fills it in via set_page_bytes)
         self.bytes_per_page = 0
@@ -196,14 +211,85 @@ class PagedKVPool:
         pages = self._tables.pop(rid)
         return self.decref(reversed(pages))
 
+    # -- parking for the host-RAM offload tier ------------------------------
+    def swap_out(self, rid) -> List[Optional[int]]:
+        """Park ``rid``'s table and return the per-slot plan.  Private pages
+        (this table holds the only reference) return to the free list —
+        the CALLER must have copied their bytes to the :class:`OffloadPool`
+        first — and park as ``None``.  Shared pages keep the rid's
+        reference (no other holder's free can drop them while the request
+        is parked) and park as their page id: their one resident copy
+        serves every holder, so they never copy."""
+        if rid not in self._tables:
+            raise KeyError(f"swap_out of unknown request {rid!r}")
+        if rid in self._parked:
+            raise KeyError(f"swap_out of already-parked request {rid!r}")
+        plan: List[Optional[int]] = []
+        for p in self._tables.pop(rid):
+            if self._refs.get(p, 0) > 1:
+                plan.append(p)
+            else:
+                self.decref([p])
+                plan.append(None)
+        self._parked[rid] = plan
+        return list(plan)
+
+    def swap_in(self, rid) -> Tuple[List[int], List[Tuple[int, int]]]:
+        """Un-park ``rid``: rebuild its block table and return ``(table,
+        refill)``, ``refill`` the ``(slot, new page)`` pairs the caller must
+        restore from the :class:`OffloadPool` frames.  All or nothing:
+        raises :class:`PoolExhausted`, leaving the request parked, when the
+        private slots cannot all be allocated."""
+        if rid not in self._parked:
+            raise KeyError(f"swap_in of unparked request {rid!r}")
+        plan = self._parked[rid]
+        need = sum(1 for p in plan if p is None)
+        if len(self._free) < need:
+            raise PoolExhausted(
+                f"swap_in needs {need} pages, {len(self._free)} free "
+                f"({self.pages_used}/{self.capacity} in use)")
+        del self._parked[rid]
+        table: List[int] = []
+        refill: List[Tuple[int, int]] = []
+        for j, p in enumerate(plan):
+            if p is None:
+                p = self._free.pop()
+                self._refs[p] = 1
+                refill.append((j, p))
+            table.append(int(p))
+        self._tables[rid] = table
+        self._peak_used = max(self._peak_used, self.pages_used)
+        return list(table), refill
+
+    def drop_parked(self, rid) -> int:
+        """Abandon a parked request whose host frames are gone (the engine
+        re-prefills it instead): release its retained shared-page
+        references; returns how many pages returned to the free list."""
+        if rid not in self._parked:
+            raise KeyError(f"drop_parked of unparked request {rid!r}")
+        plan = self._parked.pop(rid)
+        return self.decref([p for p in reversed(plan) if p is not None])
+
+    def is_parked(self, rid) -> bool:
+        return rid in self._parked
+
+    def parked_plan(self, rid) -> List[Optional[int]]:
+        """The per-slot park plan (page id for a resident shared slot,
+        ``None`` for a slot whose bytes went to the host tier)."""
+        return list(self._parked[rid])
+
     def check_leaks(self, allow_shared: bool = False) -> None:
-        """Assert the quiesced-pool invariant: no table left behind, and
-        the free list plus the referenced pages partition
+        """Assert the quiesced-pool invariant: no table or parked request
+        left behind, and the free list plus the referenced pages partition
         ``{1..num_pages-1}`` exactly (a shared page counts once).  With
-        ``allow_shared``, surviving references are legal."""
+        ``allow_shared`` (a live prefix cache), surviving references are
+        legal."""
         if self._tables:
             raise AssertionError(
                 f"leaked block tables: { {k: len(v) for k, v in self._tables.items()} }")
+        if self._parked:
+            raise AssertionError(
+                f"leaked parked requests: { {k: len(v) for k, v in self._parked.items()} }")
         if not allow_shared and self._refs:
             raise AssertionError(
                 f"leaked page references: { {p: c for p, c in sorted(self._refs.items())} }")
@@ -218,3 +304,101 @@ class PagedKVPool:
             raise AssertionError(
                 f"page accounting corrupt: {len(self._free)} free + "
                 f"{len(self._refs)} referenced != capacity {self.capacity}")
+
+
+class OffloadPool:
+    """Host-RAM tier for the page frames of parked requests, under a page
+    budget (``PADDLE_TPU_KV_OFFLOAD_PAGES``).
+
+    A frame is one page across every layer: a dict from arena plane
+    (``k``, ``v`` and, for int8 pages, ``ks``, ``vs``) to a host array
+    ``[layers, page_tokens, ...]``.  A spill fills a staging slot first and
+    :meth:`publish` inserts it as one dict insert, so a recall never reads
+    a torn frame.  Eviction is LRU over frames; the engine re-stamps
+    (:meth:`touch`) a parked request's frames as it nears re-admission.  A
+    drop is LOSS, not corruption: :meth:`put` returns the dropped owners,
+    and the engine re-prefills those requests (an "offload stall")."""
+
+    def __init__(self, max_pages: Optional[int] = None):
+        self.max_pages = int(max_pages if max_pages is not None
+                             else default_offload_pages())
+        # (rid, slot) -> frame {plane: host array [layers, ...]}
+        self._frames: "OrderedDict[Tuple[object, int], dict]" = OrderedDict()
+        self._staging: Optional[Tuple[Tuple[object, int], dict]] = None
+        self.pages_out = 0        # frames spilled to host
+        self.pages_in = 0         # frames recalled to the device
+        self.pages_dropped = 0    # frames LRU-dropped (recall impossible)
+        self.bytes_out = 0
+        self.bytes_in = 0
+
+    # -- capacity ----------------------------------------------------------
+    def frames_held(self) -> int:
+        return len(self._frames)
+
+    def holds(self, rid, slot: int) -> bool:
+        return (rid, slot) in self._frames
+
+    @staticmethod
+    def _frame_bytes(frame: dict) -> int:
+        return sum(int(v.nbytes) for v in frame.values())
+
+    # -- spill -------------------------------------------------------------
+    def stage(self, rid, slot: int, frame: dict) -> None:
+        """Phase one of a spill: park the host copy in the staging slot.
+        Nothing is recallable until :meth:`publish`."""
+        self._staging = ((rid, int(slot)), frame)
+
+    def publish(self) -> List[Tuple[object, int]]:
+        """Phase two: insert the staged frame, then trim to the budget.
+        Returns the (rid, slot) owners of the LRU-dropped frames."""
+        if self._staging is None:
+            raise RuntimeError("publish with no staged frame")
+        key, frame = self._staging
+        self._staging = None
+        self._frames[key] = frame
+        self._frames.move_to_end(key)
+        self.pages_out += 1
+        self.bytes_out += self._frame_bytes(frame)
+        dropped: List[Tuple[object, int]] = []
+        while len(self._frames) > self.max_pages:
+            k, _ = self._frames.popitem(last=False)
+            self.pages_dropped += 1
+            dropped.append(k)
+        return dropped
+
+    def put(self, rid, slot: int, frame: dict) -> List[Tuple[object, int]]:
+        """Stage and publish in one call."""
+        self.stage(rid, slot, frame)
+        return self.publish()
+
+    # -- recall ------------------------------------------------------------
+    def get(self, rid, slot: int) -> Optional[dict]:
+        """Pop and return the frame of ``(rid, slot)``, or ``None`` if it
+        was LRU-dropped (the caller must re-prefill)."""
+        frame = self._frames.pop((rid, int(slot)), None)
+        if frame is not None:
+            self.pages_in += 1
+            self.bytes_in += self._frame_bytes(frame)
+        return frame
+
+    def touch(self, rid) -> int:
+        """Re-stamp every frame of ``rid`` as most recently useful (``rid``
+        nears re-admission); returns how many frames were stamped."""
+        keys = [k for k in self._frames if k[0] == rid]
+        for k in keys:
+            self._frames.move_to_end(k)
+        return len(keys)
+
+    def drop(self, rid) -> int:
+        """Discard every frame of ``rid``; returns how many were dropped."""
+        keys = [k for k in self._frames if k[0] == rid]
+        for k in keys:
+            del self._frames[k]
+        return len(keys)
+
+    def summary(self) -> dict:
+        return {"frames_held": len(self._frames),
+                "max_pages": self.max_pages,
+                "pages_out": self.pages_out, "pages_in": self.pages_in,
+                "pages_dropped": self.pages_dropped,
+                "bytes_out": self.bytes_out, "bytes_in": self.bytes_in}

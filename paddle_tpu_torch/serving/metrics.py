@@ -12,9 +12,9 @@ dropped at finish or shed, and the exact totals are O(1) counters.
 ``summary()`` has the reference's keys.  The reference also exports every
 gauge, counter and histogram through its telemetry layer (Prometheus text,
 the flight recorder, the metrics depot): that export waits for the port of
-the telemetry layer (ROADMAP A8).  The offload tier and speculative
-decoding are not ported either: their fields read as the reference's do
-with those features off.  ``FleetMeter`` belongs to the serving fleet (A8).
+the telemetry layer (ROADMAP A8).  Speculative decoding is not ported
+(A2): its fields read as the reference's do with it off.  ``FleetMeter``
+belongs to the serving fleet (A8).
 """
 
 from __future__ import annotations
@@ -116,6 +116,12 @@ class SLOMeter:
         self.kv_bytes_per_token: Optional[float] = None
         self.tokens_out_total = 0        # new tokens
         self.tokens_replayed_total = 0   # recomputed after an eviction
+        # the host-RAM offload tier: swaps in pages and bytes
+        self.offloads_total = 0
+        self.recalls_total = 0
+        self.offload_stalls_total = 0
+        self.offload_bytes_out_total = 0
+        self.recall_bytes_in_total = 0
         self.tpot_ema_s: Optional[float] = None
         self._trace_complete = 0
 
@@ -173,6 +179,40 @@ class SLOMeter:
         # reset (the retained first_token_t stands — the client saw it)
         c.replay_watermark = max(c.replay_watermark, c.n_tokens)
         c.n_tokens = 0
+
+    def offload(self, rid, *, pages: int, shared_pages: int,
+                bytes_out: int) -> None:
+        """A preempted request's private pages went to the host tier
+        (shared pages stay resident and move no byte).  Unlike
+        :meth:`evict`, the token milestones stand: the recall restores the
+        cache, nothing is recomputed."""
+        self.offloads_total += 1
+        self.offload_bytes_out_total += int(bytes_out)
+
+    def recall(self, rid, *, pages: int, bytes_in: int,
+               n_tokens: int) -> None:
+        """A parked request's frames came back from the host tier; its
+        ``n_tokens`` generated tokens resume without recompute."""
+        self.recalls_total += 1
+        self.recall_bytes_in_total += int(bytes_in)
+
+    def offload_stall(self, rid) -> None:
+        """A parked request's frames were LRU-dropped before its recall: it
+        re-prefills from its prompt, and its token milestones reset as an
+        eviction's do."""
+        c = self._clocks[rid]
+        self.offload_stalls_total += 1
+        self.evictions_total += 1
+        c.evictions += 1
+        c.replay_watermark = max(c.replay_watermark, c.n_tokens)
+        c.n_tokens = 0
+
+    def kv_recall_bytes_per_token(self) -> float:
+        """Host-to-device recall bytes over every NEW token the engine
+        produced (0.0 until a recall)."""
+        if self.tokens_out_total <= 0:
+            return 0.0
+        return self.recall_bytes_in_total / self.tokens_out_total
 
     def shed(self, rid, *, reason: str) -> None:
         """A queued request dropped by deadline shedding: it will never
@@ -289,12 +329,13 @@ class SLOMeter:
             "spec_acceptance": None,
             "effective_tokens_per_step": None,
             "kv_bytes_per_token": self.kv_bytes_per_token,
-            "kv_offloads": 0,
-            "kv_recalls": 0,
-            "kv_offload_stalls": 0,
-            "kv_offload_bytes_out": 0,
-            "kv_recall_bytes_in": 0,
-            "kv_recall_bytes_per_token": 0.0,
+            "kv_offloads": self.offloads_total,
+            "kv_recalls": self.recalls_total,
+            "kv_offload_stalls": self.offload_stalls_total,
+            "kv_offload_bytes_out": self.offload_bytes_out_total,
+            "kv_recall_bytes_in": self.recall_bytes_in_total,
+            "kv_recall_bytes_per_token": round(
+                self.kv_recall_bytes_per_token(), 3),
             "tpot_ema_ms": _r(None if self.tpot_ema_s is None
                               else self.tpot_ema_s * 1e3),
         }

@@ -11,7 +11,9 @@ chunks, 48 tokens):
 - the pages the ring prefill writes: every page outside the prompt's table
   and the trash page untouched, the prompt's pages equal to the chunked
   prefill's (int8 scales and fp8 bytes included) up to f32 rounding;
-- a one-chunk prompt takes the chunked path (``short_prompt``);
+- a one-chunk prompt takes the chunked path (``short_prompt``), and so
+  does a prefix-cache hit (``prefix_cached``), token-exact against the JAX
+  engine's ``cp=2`` run with the cache;
 - ``tp=2, cp=2`` raises; the ring members wrap round-robin over the
   visible devices; no page leaks.
 
@@ -143,6 +145,36 @@ def test_one_chunk_prompt_takes_the_chunked_path(model):
     assert eng.cp_fallbacks == {"short_prompt": 1} and eng.cp_prefills == 0
     np.testing.assert_array_equal(got[0], _serve(ServingEngine(model, **ENGINE), [p],
                                                  max_new=4)[0])
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_prefix_hit_takes_the_chunked_path(model, kv_dtype):
+    """Under cp=2 the first request of a shared prefix prefills through the
+    ring and a second one that hits the cache takes the chunked path
+    (reason ``prefix_cached``): the ring would rewrite pages the trie
+    shares.  Both streams equal the JAX engine's cp=2 run with the cache."""
+    rng = np.random.default_rng(13)
+    shared = rng.integers(1, 96, 24)                 # three full pages
+    prompts = [np.concatenate([shared, rng.integers(1, 96, n)]).astype(np.int32)
+               for n in (9, 5)]
+    outs = {}
+    for name, eng in (("torch", ServingEngine(model, cp=2, prefix_cache=True,
+                                              kv_dtype=kv_dtype, **ENGINE)),
+                      ("jax", JaxEngine(_jax_model(), cp=2, prefix_cache=True,
+                                        kv_dtype=kv_dtype, **ENGINE))):
+        outs[name] = [_serve_one(eng, p) for p in prompts]
+        assert eng.prefix.summary()["hits"] == 1
+        eng.prefix.clear()
+        eng.pool.check_leaks()
+        if name == "torch":
+            assert eng.cp_prefills == 1 and eng.cp_fallbacks == {"prefix_cached": 1}
+    for g, w in zip(outs["torch"], outs["jax"]):
+        np.testing.assert_array_equal(g, w)
+
+
+def _serve_one(eng, prompt, max_new=8):
+    rid = eng.submit(prompt, max_new_tokens=max_new)
+    return eng.run()[rid]
 
 
 def test_tp_with_cp_is_loud(model):

@@ -18,7 +18,9 @@
   value one ulp apart can cross a rounding boundary of the quantizer);
   mid-flight eviction token-exact against the JAX engine and against the
   port's own ``generate``; equal SLO summaries under the same fake clock;
-  loud failures on poisoned pages; the unported options raise.
+  loud failures on poisoned pages; the unported options raise (the prefix
+  cache, the offload tier and the journal are held in
+  ``test_torch_prefix_offload.py`` and ``test_torch_journal.py``).
 
 Engine sizes are explicit: ``tests/conftest.py`` pins the serving
 environment variables for the whole suite.
@@ -450,11 +452,7 @@ class TestEngine:
                 eng.step()
 
     @pytest.mark.parametrize("kw, item", [
-        (dict(speculative=3), "A2"), (dict(tp=2), "A6"),
-        (dict(offload=True), "offload"), (dict(prefix_cache=True), "prefix cache"),
-        (dict(journal="journal_dir"), "journal"), (dict(journal_ship=print), "journal")],
-        ids=["kw0-A2", "kw1-A6", "kw3-offload", "kw4-prefix cache", "kw5-journal",
-             "kw6-journal"])
+        (dict(speculative=3), "A2"), (dict(tp=2), "A6")], ids=["kw0-A2", "kw1-A6"])
     def test_unported_options_raise(self, pair, kw, item):
         with pytest.raises(NotImplementedError, match=item):
             ServingEngine(pair[1], **ENGINE, **kw)
@@ -467,7 +465,7 @@ class TestEngine:
             eng.submit_prefilled(np.arange(1, 4), 1, [])
         with pytest.raises(NotImplementedError, match="A8"):
             eng.prefill_export(np.arange(1, 4))
-        with pytest.raises(NotImplementedError, match="journal"):
+        with pytest.raises(RuntimeError, match="journal-backed"):
             eng.recover()
         with pytest.raises(NotImplementedError, match="A7"):
             eng.run(watchdog_s=1.0)
