@@ -47,6 +47,24 @@ exits non-zero without them.  Phases, each raising on failure:
    beside a plain pinned copy), and a crash after 10 steps recovered from
    the journal (every request replayed, token-exact, every sink token
    once); int8 and fp8 pages and ``cp=2`` with the cache at 2 layers;
+   then generation's remainder (``phase_generation_a2``): beam search (4
+   beams, 32 new tokens, eos 2) on 2 unpadded and 2 left-padded rows of
+   512, K = 1 token-exact against greedy ``generate``, every returned
+   score within 1e-3 of a teacher-forced rescoring of its ids, exact B3 and
+   B6 launches, its time beside greedy ``generate`` on the same 8 rows and
+   one cache reorder's device time; ``speculative_generate`` (prompt 512,
+   64 new tokens, k 4) with the n-gram, 4-layer shallow-exit and oracle
+   drafters, token-exact against ``generate`` at full depth in f32
+   weights with the oracle accepting everything, and at 2 layers in bf16
+   token-exact or parted only at a near-tie (the logits that chose the
+   parting token on each path within 2e-2 of each other), exact launches
+   (the drafter's B6 counted), tokens/s, acceptance and the verify
+   forward's ms beside a serial step's; ``ServingEngine(speculative=4)``
+   on ``phase_engine``'s 8 prompts with the n-gram and oracle drafters,
+   held against the serial engine as the standalone loop is, every decode
+   forward [8, 5], no leaked page; and ``nn.dynamic_decode`` of a
+   ``BeamSearchDecoder`` over a ``GRUCell`` on the card against the same
+   run on the CPU;
 3b. quantized decode parity (run after 3): B8 (int8 cache) and B9 (e4m3
    cache) against their plain twins, q in f32 and bf16, at Llama-2-7B's
    4096 context (batch 8, pos 4000), Llama-2-70B's GQA and off sizes, the
@@ -1361,6 +1379,8 @@ def phase_e2e(torch, card):
     cp_path = phase_engine_cp(torch, card, model)
     torch.cuda.empty_cache()
     phase_engine_a1(torch, card, model)
+    torch.cuda.empty_cache()
+    phase_generation_a2(torch, card, model)
     del model
     return launches, cp_path
 
@@ -1827,7 +1847,7 @@ def a1_serve(torch, e, phases, max_new):
 
     e._forward = counted
     (outs, ttft), counts = counted_launches(torch, serve)
-    e._forward = fwd
+    del e._forward       # the spy closes over the engine: break the cycle
     return outs, ttft, counts, n_fwd
 
 
@@ -2122,6 +2142,533 @@ def phase_engine_a1(torch, card, model):
     torch.cuda.empty_cache()
     a1_journal(torch, card, model, long, want, ENGINE_KW)
     torch.cuda.empty_cache()
+
+
+A2_BEAMS, A2_NEW, A2_EOS, A2_LP = 4, 32, 2, 1.0
+A2_BEAM_ROWS = (512, 512), (250, 511)       # unpadded; left-padded in 512
+A2_RESCORE_RTOL = 1e-3
+A2_SPEC_PROMPT, A2_SPEC_NEW, A2_SPEC_K, A2_SHALLOW_LAYERS = 512, 64, 4, 4
+A2_DD = dict(embed=512, hidden=1024, vocab=32000, beam=4, batch=8, steps=32)
+
+
+class StreamDrafter:
+    """An oracle drafter: it knows the serial greedy stream of each prompt
+    (``streams``: [(prompt, stream)]) and proposes its next tokens."""
+
+    def __init__(self, streams):
+        self.streams, self.probs, self._ctx = streams, None, []
+
+    def begin(self, context):
+        self._ctx = [int(t) for t in context]
+
+    def observe(self, tokens):
+        self._ctx.extend(int(t) for t in tokens)
+
+    def propose(self, k, temperature=0.0, rng=None):
+        for prompt, stream in self.streams:
+            if self._ctx[:len(prompt)] == prompt:
+                done = len(self._ctx) - len(prompt)
+                return [int(t) for t in stream[done:done + k]]
+        return []
+
+
+def oracle_of(streams):
+    streams = [([int(t) for t in p], [int(t) for t in s]) for p, s in streams]
+    return lambda: StreamDrafter(streams)
+
+
+def counted_forwards(torch, model, fn):
+    """``fn()`` with launches counted from zero and ``model``'s forwards
+    counted; returns (result, launches, forwards)."""
+    n, fwd = [0], model.forward
+
+    def counting(*a, **k):
+        n[0] += 1
+        return fwd(*a, **k)
+
+    model.forward = counting
+    try:
+        result, counts = counted_launches(torch, fn)
+    finally:
+        del model.forward
+    return result, counts, n[0]
+
+
+def wall_s(torch, fn, repeats: int = 2) -> float:
+    best = None
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best or 1e9, time.perf_counter() - t)
+    return best
+
+
+def a2_rescore(torch, model, ids, pad_lens, hyps, nrs, eos, lp):
+    """Teacher-forced scores of the hypotheses ``hyps`` [b * nrs, T]: the
+    same prefill at batch b, caches tiled ``nrs``-fold, then one cached
+    step a token, summing each chosen token's log-prob up to its eos,
+    over ``len ** lp``."""
+    b, prompt = ids.shape
+    T = hyps.shape[1]
+    with torch.inference_mode():
+        caches = model.new_kv_cache(b, -(-(prompt + T) // 8) * 8)
+        logits, _ = model(ids, kv_cache=caches, position_offset=0, pad_lens=pad_lens)
+        caches = [(k.repeat_interleave(nrs, 0), v.repeat_interleave(nrs, 0)) for k, v in caches]
+        pl = None if pad_lens is None else pad_lens.repeat_interleave(nrs, 0)
+        logp = torch.log_softmax(logits[:, -1].float(), -1).repeat_interleave(nrs, 0)
+        total = torch.zeros(b * nrs, device=ids.device)
+        n = torch.zeros(b * nrs, device=ids.device)
+        alive = torch.ones(b * nrs, dtype=torch.bool, device=ids.device)
+        for t in range(T):
+            tok = hyps[:, t].long()
+            total += torch.where(alive, logp.gather(1, tok[:, None])[:, 0], 0.0)
+            n += alive.float()
+            alive &= tok != eos
+            if t < T - 1:
+                logits, caches = model(tok[:, None], kv_cache=caches, position_offset=prompt + t,
+                                       pad_lens=pl)
+                logp = torch.log_softmax(logits[:, -1].float(), -1)
+    return total / n.pow(lp)
+
+
+def a2_beam(torch, card, model):
+    """Beam search on ``model``: an unpadded and a left-padded batch of 2
+    rows in 512, 4 beams, ``A2_NEW`` tokens, eos 2, every hypothesis
+    returned.  Gates: K = 1 without eos token-exact against greedy
+    ``generate`` on the same rows; each returned score within
+    A2_RESCORE_RTOL of a teacher-forced rescoring of its ids (the same
+    kernels at the same shapes, so only the order of the f32 sums differs;
+    a hypothesis whose caches followed a wrong parent is off by O(1));
+    launches exact: B3 L times for the prefill, B6 L times a beam step on
+    b·K rows, B1 2L+1 and B2 L a forward.  Reports its time against greedy
+    ``generate`` on the same b·K rows and the device time of one cache
+    reorder."""
+    import numpy as np
+
+    cfg = model.config
+    L, T, K = cfg.num_hidden_layers, A2_NEW, A2_BEAMS
+    dev = next(model.parameters()).device
+    rng = np.random.default_rng(10)
+    for label, lens in zip(("unpadded", "left-padded"), A2_BEAM_ROWS):
+        S = max(lens)
+        ids = np.zeros((len(lens), S), np.int32)
+        mask = np.zeros((len(lens), S), np.int32)
+        for i, n in enumerate(lens):
+            ids[i, S - n:] = rng.integers(3, cfg.vocab_size, n)
+            mask[i, S - n:] = 1
+        mask = None if mask.all() else mask
+        ids_t = torch.as_tensor(ids, device=dev).long()
+        pad_lens = None if mask is None else torch.as_tensor(
+            S - mask.sum(1), dtype=torch.int32, device=dev)
+        b = len(lens)
+        greedy, _ = model.generate(ids, max_new_tokens=T, attention_mask=mask)
+        with torch.inference_mode():
+            k1, _ = model._generate_beam(ids_t, pad_lens, T, 1, -1, -1, 0, A2_LP, False)
+        if not torch.equal(k1[:, 0], greedy):
+            raise AssertionError(f"beam {label}: K = 1 differs from greedy generate: "
+                                 f"{k1[:, 0].tolist()} != {greedy.tolist()}")
+        kw = dict(max_new_tokens=T, num_beams=K, eos_token_id=A2_EOS, length_penalty=A2_LP,
+                  num_return_sequences=K, attention_mask=mask)
+        (hyps, scores), counts, n_fwd = counted_forwards(
+            torch, model, lambda: model.generate(ids, **kw))
+        want = dict(rms_norm=(2 * L + 1) * n_fwd, rope=L * n_fwd, flash_attention=L,
+                    decode_attention=L * (n_fwd - 1))
+        if counts != want or not 1 <= n_fwd <= T:
+            raise AssertionError(f"beam {label}: launches {counts} over {n_fwd} forwards, "
+                                 f"want {want}")
+        if tuple(hyps.shape) != (b * K, T) or not torch.isfinite(scores).all() \
+                or int(hyps.min()) < 0 or int(hyps.max()) >= cfg.vocab_size:
+            raise AssertionError(f"beam {label}: bad output {hyps.shape} {scores.tolist()}")
+        rescored = a2_rescore(torch, model, ids_t, pad_lens, hyps, K, A2_EOS, A2_LP)
+        err = float(((rescored - scores).abs() / scores.abs()).max())
+        log(f"beam {label} ({b} rows, K {K}, {T} new, eos {A2_EOS}): K = 1 equals greedy; "
+            f"{n_fwd - 1} beam steps, launches {counts}; scores {scores.tolist()}; "
+            f"rescored within {err:.3g} relative (tol {A2_RESCORE_RTOL}); eos in "
+            f"{int((hyps == A2_EOS).any(1).sum())} of {b * K} hypotheses")
+        if not err <= A2_RESCORE_RTOL:
+            raise AssertionError(f"beam {label}: scores {scores.tolist()} vs teacher-forced "
+                                 f"{rescored.tolist()}")
+        mask_k = None if mask is None else np.repeat(mask, K, 0)
+        t_beam = wall_s(torch, lambda: model.generate(ids, **kw))
+        t_greedy = wall_s(torch, lambda: model.generate(np.repeat(ids, K, 0), max_new_tokens=T,
+                                                       attention_mask=mask_k))
+        log(f"beam {label} on {card}: {t_beam * 1e3:.1f} ms for {b} rows x {K} beams x {T} "
+            f"tokens; greedy generate on the same {b * K} rows {t_greedy * 1e3:.1f} ms "
+            f"(beam / greedy {t_beam / t_greedy:.3f})")
+    rows = 2 * K
+    caches = model.new_kv_cache(rows, -(-(max(A2_BEAM_ROWS[0]) + T) // 8) * 8)
+    perm = torch.arange(rows, device=dev).flip(0)
+    nbytes = 2 * sum(c.numel() * c.element_size() for kv in caches for c in kv)
+
+    def reorder():
+        return [(k.index_select(0, perm), v.index_select(0, perm)) for k, v in caches]
+
+    ms, _ = device_ms(torch, reorder, iters=5)
+    log(f"beam cache reorder on {card} ({L} layers, {rows} rows of "
+        f"{caches[0][0].shape[1]} slots, bf16): {ms:.4f} ms device time, "
+        f"{nbytes / ms / 1e6:.1f} GB/s of {nbytes / 2**30:.3f} GiB read and written "
+        f"(bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    del caches
+
+
+def first_diff(got, want):
+    """Index of the first token where ``got`` and ``want`` differ, or None."""
+    return next((i for i, (g, w) in enumerate(zip(got, want)) if int(g) != int(w)), None)
+
+
+def record_logits(torch, model, fn, first):
+    """``fn()`` with every batch-1 forward of ``model`` recording its f32
+    logits by absolute position, from position ``first`` on (a later
+    forward over a position replaces an earlier one's row: the last one is
+    what chose the token).  Returns (result, {position: logits})."""
+    rec, fwd = {}, model.forward
+
+    def spy(ids, *a, **k):
+        out = fwd(ids, *a, **k)
+        pos, rows = k.get("position_offset", 0), out[0][0]
+        for j in range(max(first - pos, 0), rows.shape[0]):
+            rec[pos + j] = rows[j].float().cpu()
+        return out
+
+    model.forward = spy
+    try:
+        result = fn()
+    finally:
+        del model.forward
+    return result, rec
+
+
+def certify_divergence(torch, label, got, want, got_logits, want_logits, gate):
+    """Two greedy streams that run different attention code (a verify
+    window against a serial step) in bf16 may part at a near-tie.  Where
+    they part, at token i, the logits that chose token i on each path
+    (``*_logits[i]``) must each pick its own stream's token and, when
+    ``gate``, agree within LOGITS_REL_TOL (the 2-layer tolerance between
+    two bf16 paths): the two tokens were a near-tie there, not a fault.
+    Returns (tokens that match, a line for the log)."""
+    i = first_diff(got, want)
+    if i is None:
+        return len(want), "token-exact"
+    s, v = want_logits[i], got_logits[i]
+    w, g = int(want[i]), int(got[i])
+    r = rel_l2(v, s)
+    note = (f"part at token {i}: serial {w}, other {g}; serial path's logits of the two "
+            f"{float(s[w]):.4f} / {float(s[g]):.4f}, other path's {float(v[w]):.4f} / "
+            f"{float(v[g]):.4f}; the paths' logits there {r:.4g} relative L2 apart")
+    if int(s.argmax()) != w or int(v.argmax()) != g:
+        raise AssertionError(f"{label}: recorded logits do not choose the tokens; {note}")
+    if gate and not r <= LOGITS_REL_TOL:
+        raise AssertionError(f"{label}: {note} (tol {LOGITS_REL_TOL})")
+    return i, note
+
+
+def a2_spec_run(torch, model, prompt, drafter, layers=0, record=False):
+    """``speculative_generate`` on one prompt, launches counted; a model
+    drafter's single-token steps are counted; with ``record``, the
+    logits that chose each token.  Returns (ids, stats, launches, drafter
+    steps, seconds, logits by token)."""
+    from paddle_tpu_torch.generation import ShallowExitDrafter, speculative_generate
+
+    steps, made = [0], []
+    if layers:
+        cap = A2_SPEC_PROMPT + A2_SPEC_NEW + A2_SPEC_K
+
+        def drafter():
+            d = ShallowExitDrafter(model, cap, draft_layers=layers)
+            step = d._step
+
+            def counted(tok, pos):
+                steps[0] += 1
+                return step(tok, pos)
+
+            d._step = counted
+            made.append(d)
+            return d
+
+    def run():
+        return counted_launches(torch, lambda: speculative_generate(
+            model, prompt[None], max_new_tokens=A2_SPEC_NEW, drafter=drafter, k=A2_SPEC_K))
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    if record:
+        ((ids, stats), counts), rec = record_logits(torch, model, run, len(prompt) - 1)
+    else:
+        ((ids, stats), counts), rec = run(), {}
+    secs = time.perf_counter() - t
+    for d in made:       # the counting step closes over the drafter: break the cycle
+        del d._step
+    by_token = [rec.get(len(prompt) - 1 + i) for i in range(A2_SPEC_NEW)]
+    return ids[0].cpu().numpy(), stats, counts, steps[0], secs, by_token
+
+
+def a2_generate(torch, model, prompt):
+    """Greedy ``generate`` on one prompt: its ids, the logits that chose
+    each token, and its seconds."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    (ids, _), rec = record_logits(torch, model, lambda: model.generate(
+        prompt[None], max_new_tokens=A2_SPEC_NEW), len(prompt) - 1)
+    secs = time.perf_counter() - t
+    return (ids[0].cpu().numpy(), [rec[len(prompt) - 1 + i] for i in range(A2_SPEC_NEW)],
+            secs)
+
+
+def a2_spec_gate(torch, label, model, prompt, dl, exact):
+    """The n-gram, shallow-exit (``dl`` layers) and oracle drafters against
+    ``generate``: token-exact, the oracle accepting everything, when
+    ``exact`` (f32); else (bf16) token-exact or parted at a certified
+    near-tie (``certify_divergence``), the oracle accepting everything up
+    to there.  Tokens/s of each run (one run each, logits recorded)."""
+    want, want_logits, t_gen = a2_generate(torch, model, prompt)
+    for name, dr, layers in (("ngram", "ngram", 0), (f"shallow-exit {dl}", None, dl),
+                             ("oracle", oracle_of([(prompt, want)]), 0)):
+        got, st, _, _, secs, got_logits = a2_spec_run(torch, model, prompt, dr, layers,
+                                                      record=True)
+        same, note = certify_divergence(torch, f"speculative {label} {name}", got, want,
+                                        got_logits, want_logits, gate=True)
+        if exact and same != len(want):
+            raise AssertionError(f"speculative {label} {name}: {note}")
+        if name == "oracle" and same == len(want) and st["acceptance_rate"] != 1.0:
+            raise AssertionError(f"speculative {label} oracle: acceptance {st['acceptance_rate']}")
+        log(f"speculative {label} {name}: {note} ({same} of {A2_SPEC_NEW} tokens equal "
+            f"generate's), acceptance {st['acceptance_rate']}, "
+            f"{st['effective_tokens_per_step']:.3f} tokens a step; {A2_SPEC_NEW / secs:.1f} "
+            f"tokens/s against generate's {A2_SPEC_NEW / t_gen:.1f} (one run each)")
+
+
+def a2_speculative(torch, card, model, shallow, ref32):
+    """``speculative_generate`` at batch 1 (prompt 512, ``A2_SPEC_NEW`` new
+    tokens, k 4) with the n-gram drafter, ``ShallowExitDrafter`` and an
+    oracle drafter (the greedy stream).  Gates (``a2_spec_gate``): at full
+    depth in f32 weights token-exact against ``generate`` and the oracle's
+    acceptance 1.0; at 2 layers in bf16 the same, or parted at a certified
+    near-tie.  At full depth in bf16: launches exact (B3 L for the
+    prefill; B6 only in the drafter's steps, its layers a step; B1 and B2
+    per forward of the target and of the drafter), and reports tokens/s
+    against ``generate``, the acceptance, tokens a verify step, the verify
+    forward's ms against a serial step's, and where the stream parts from
+    ``generate``'s."""
+    import numpy as np
+
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    prompt = np.random.default_rng(11).integers(3, cfg.vocab_size, A2_SPEC_PROMPT).astype(np.int32)
+    a2_spec_gate(torch, "2-layer bf16", shallow, prompt, 1, exact=False)
+    a2_spec_gate(torch, f"{L}-layer f32", ref32, prompt, A2_SHALLOW_LAYERS, exact=True)
+
+    t_gen = wall_s(torch, lambda: model.generate(prompt[None], max_new_tokens=A2_SPEC_NEW))
+    want, want_logits, _ = a2_generate(torch, model, prompt)
+    log(f"speculative {L}-layer bf16 on {card}: generate {A2_SPEC_NEW / t_gen:.1f} tokens/s "
+        f"({t_gen * 1e3:.1f} ms, batch 1, prompt {A2_SPEC_PROMPT})")
+    dl = A2_SHALLOW_LAYERS
+    for name, dr, layers in (("ngram", "ngram", 0), (f"shallow-exit {dl}", None, dl),
+                             ("oracle", oracle_of([(prompt, want)]), 0)):
+        got, _, _, _, _, got_logits = a2_spec_run(torch, model, prompt, dr, layers, record=True)
+        _, note = certify_divergence(torch, f"speculative {L}-layer bf16 {name}", got, want,
+                                     got_logits, want_logits, gate=False)
+        _, st, counts, steps, secs, _ = a2_spec_run(torch, model, prompt, dr, layers)
+        n_fwd = 1 + st["verify_steps"]
+        want_counts = dict(rms_norm=(2 * L + 1) * n_fwd + (2 * layers + 1) * steps,
+                           rope=L * n_fwd + layers * steps, flash_attention=L,
+                           decode_attention=layers * steps)
+        want_counts = {k: c for k, c in want_counts.items() if c}
+        if counts != want_counts:
+            raise AssertionError(f"speculative {name}: launches {counts}, {st['verify_steps']} "
+                                 f"verify steps and {steps} drafter steps launch {want_counts}")
+        log(f"speculative {L}-layer bf16 {name} on {card}: {A2_SPEC_NEW / secs:.1f} tokens/s "
+            f"({secs * 1e3:.1f} ms; generate {t_gen * 1e3:.1f}), acceptance "
+            f"{st['acceptance_rate']}, {st['effective_tokens_per_step']:.3f} tokens a step over "
+            f"{st['verify_steps']} verify steps, {steps} drafter steps; launches {counts}; "
+            f"against generate's stream: {note}")
+
+    # one verify forward (1 + k tokens) against one serial step, at the
+    # position the stream's middle reaches
+    pos = A2_SPEC_PROMPT + A2_SPEC_NEW // 2
+    caches = model.new_kv_cache(1, -(-(A2_SPEC_PROMPT + A2_SPEC_NEW + A2_SPEC_K) // 8) * 8)
+    toks = {s: torch.as_tensor(prompt[None, :s], device=caches[0][0].device).long()
+            for s in (1, 1 + A2_SPEC_K)}
+    ms = {}
+    with torch.inference_mode():
+        for s, tk in toks.items():
+            ms[s] = time_ms(torch, lambda: model(tk, kv_cache=caches, position_offset=pos),
+                            iters=10, repeats=3)
+    log(f"speculative {L}-layer bf16 on {card}: a verify forward of {1 + A2_SPEC_K} tokens "
+        f"{ms[1 + A2_SPEC_K]:.3f} ms, a serial step {ms[1]:.3f} ms (ratio "
+        f"{ms[1 + A2_SPEC_K] / ms[1]:.3f}) at position {pos}")
+    del caches
+
+
+def a2_serve(torch, model, prompts, spec):
+    """Serve ``prompts`` (MAX_NEW tokens each) on a bf16-page engine with
+    ``speculative=spec``; returns the outputs, the engine's summary, the
+    decode forwards' widths and ms (synchronised), the f32 logits that
+    chose each decoded token, by (prompt, token), and the run's seconds."""
+    from paddle_tpu_torch.serving import ServingEngine
+
+    e = ServingEngine(model, speculative=spec, **ENGINE_KW)
+    widths, ms, rec = set(), [], {}
+    fwd = e._forward
+    rids = {}
+
+    def spy(tokens, positions, tables, n_tok, **k):
+        if tokens.shape[0] != e.max_batch:
+            return fwd(tokens, positions, tables, n_tok, **k)
+        widths.add(tuple(tokens.shape))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fwd(tokens, positions, tables, n_tok, **k)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        for row, r in e._active.items():
+            i, p = rids[r.rid], len(r.prompt)
+            for j in range(int(n_tok[row])):
+                rec[(i, int(positions[row]) + j - p + 1)] = out[row, j].float().cpu()
+        return out
+
+    e._forward = spy
+    for i, p in enumerate(prompts):
+        rids[e.submit(p, max_new_tokens=MAX_NEW)] = i
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = e.run()            # raises on a leaked page
+    secs = time.perf_counter() - t
+    del e._forward           # the spy closes over the engine: break the cycle
+    e.pool.check_leaks()
+    outs = [list(res[r]) for r in rids]
+    summary = e.meter.summary()
+    del e
+    torch.cuda.empty_cache()
+    return outs, summary, widths, ms, rec, secs
+
+
+def a2_engine(torch, card, model, shallow, ref32):
+    """``ServingEngine(speculative=4)`` on the 8 ragged prompts of
+    ``phase_engine`` (bf16 pages, MAX_NEW tokens) with the n-gram and the
+    oracle drafters.  Gates: every decode forward [8, 5] wide and no
+    leaked page; at full depth in f32 weights token-exact against the
+    serial engine and the oracle's acceptance 1.0; at 2 layers in bf16 the
+    same, or each parted stream certified a near-tie
+    (``certify_divergence``).  At full depth in bf16, reports the decode
+    forward's ms at S = 5 against S = 1, tokens a step, the acceptance and
+    the tokens that match the serial engine's."""
+    import numpy as np
+
+    from paddle_tpu_torch.generation import SpecConfig
+
+    cfg = model.config
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in ENGINE_PROMPT_LENS]
+    width = {(BATCH, 1 + A2_SPEC_K)}
+    L = cfg.num_hidden_layers
+    for label, m, gate in (("2-layer bf16", shallow, "near-tie"), (f"{L}-layer f32", ref32, "exact"),
+                           (f"{L}-layer bf16", model, None)):
+        serial, _, w1, ms1, rec1, secs1 = a2_serve(torch, m, prompts, None)
+        oracle = oracle_of(list(zip(prompts, serial)))
+        for name, spec in (("ngram", A2_SPEC_K), ("oracle", SpecConfig(k=A2_SPEC_K, drafter=oracle))):
+            outs, s, w, ms, rec, secs = a2_serve(torch, m, prompts, spec)
+            same, notes = 0, []
+            for i, (o, r) in enumerate(zip(outs, serial)):
+                n, note = certify_divergence(
+                    torch, f"engine speculative {label} {name} request {i}", o, r,
+                    [rec.get((i, t)) for t in range(MAX_NEW)],
+                    [rec1.get((i, t)) for t in range(MAX_NEW)], gate=gate == "near-tie")
+                same += n
+                if n < MAX_NEW:
+                    notes.append(f"request {i}: {note}")
+            log(f"engine speculative {label} {name}: {same} of {BATCH * MAX_NEW} tokens match "
+                f"the serial engine's{'; ' if notes else ''}{'; '.join(notes)}; acceptance "
+                f"{s['spec_acceptance']}, {s['effective_tokens_per_step']} tokens a row a step; "
+                f"decode forwards {sorted(w)}: {len(ms)} at {np.median(ms):.2f} ms (median), "
+                f"serial {sorted(w1)}: {len(ms1)} at {np.median(ms1):.2f} ms; the run "
+                f"{secs:.2f} s, serial {secs1:.2f} s (with the prefills)")
+            if w != width:
+                raise AssertionError(f"engine speculative {label} {name}: decode widths {w}")
+            if gate == "exact" and same != BATCH * MAX_NEW:
+                raise AssertionError(f"engine speculative {label} {name}: streams differ from "
+                                     f"the serial engine's")
+            if gate and name == "oracle" and same == BATCH * MAX_NEW \
+                    and s["spec_acceptance"] != 1.0:
+                raise AssertionError(f"engine speculative {label} oracle: acceptance "
+                                     f"{s['spec_acceptance']}")
+
+
+def a2_dynamic_decode(torch, card, dev="cuda"):
+    """``dynamic_decode`` of a ``BeamSearchDecoder`` over a ``GRUCell``
+    (embed 512, hidden 1024, vocab 32000, beam 4, batch 8, 32 steps), on
+    the card and on the CPU from the same seeded weights and states: the
+    back-traced ids, lengths and finished flags equal, the final
+    log-probs within the f32 row of tests/op_test.py."""
+    from paddle_tpu_torch import nn
+
+    c = A2_DD
+    g = torch.Generator().manual_seed(0)
+    embed = nn.Embedding(c["vocab"], c["embed"], std=0.5, generator=g, device="cpu")
+    cell = nn.GRUCell(c["embed"], c["hidden"], generator=g)
+    out = nn.Linear(c["hidden"], c["vocab"], std=0.1, generator=g, device="cpu")
+    h0 = torch.randn(c["batch"], c["hidden"], generator=g)
+    runs = {}
+    for where in ("cpu", dev):
+        mods = [mod.to(where) for mod in (embed, cell, out)]
+        dec = nn.BeamSearchDecoder(mods[1], 0, 1, c["beam"], embedding_fn=mods[0],
+                                   output_fn=mods[2])
+
+        def run():
+            with torch.inference_mode():
+                return nn.dynamic_decode(dec, inits=h0.to(where), max_step_num=c["steps"] - 1,
+                                         return_length=True)
+
+        t = time.perf_counter()
+        runs[where] = run()
+        secs = time.perf_counter() - t
+        if where == dev:
+            torch.cuda.synchronize()
+            secs = wall_s(torch, run)
+        log(f"dynamic_decode on {where}: {secs * 1e3:.1f} ms")
+    (ids_c, st_c, len_c), (ids_g, st_g, len_g) = runs["cpu"], runs[dev]
+    if tuple(ids_g.shape) != (c["batch"], c["steps"], c["beam"]):
+        raise AssertionError(f"dynamic_decode: shape {tuple(ids_g.shape)}")
+    for name, a, b in (("ids", ids_g, ids_c), ("lengths", len_g, len_c),
+                       ("finished", st_g.finished, st_c.finished)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"dynamic_decode: {name} on the card differ from the CPU's")
+    err = check_close(torch, "dynamic_decode log_probs", st_g.log_probs.cpu(), st_c.log_probs,
+                      TOL["float32"])
+    log(f"dynamic_decode on {card} vs CPU ({c}): ids, lengths and finished equal, log_probs "
+        f"within {err:.3g} (f32 row); {int(st_g.finished.sum())} of "
+        f"{c['batch'] * c['beam']} beams finished")
+
+
+def phase_generation_a2(torch, card, model):
+    """Generation's remainder on Llama-2-7B (``model``, bf16, full width
+    and depth): beam search (``a2_beam``), ``speculative_generate``
+    (``a2_speculative``), ``ServingEngine(speculative=4)``
+    (``a2_engine``) and ``nn.dynamic_decode`` (``a2_dynamic_decode``).
+    The token-exact gates run at full depth in an f32 copy of the weights;
+    in bf16, a verify window and a serial step (different attention code)
+    may part at a near-tie even at 2 layers, so there a parting is
+    certified (``certify_divergence``) and at full depth reported."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    t0 = time.perf_counter()
+    a2_beam(torch, card, model)
+    torch.cuda.empty_cache()
+    p0 = next(model.parameters())
+    shallow = LlamaForCausalLM(dataclasses.replace(model.config, num_hidden_layers=2),
+                               device=p0.device, dtype=p0.dtype, seed=0).eval()
+    ref32 = copy.deepcopy(model).float()
+    a2_speculative(torch, card, model, shallow, ref32)
+    torch.cuda.empty_cache()
+    a2_engine(torch, card, model, shallow, ref32)
+    del shallow, ref32
+    gc.collect()
+    torch.cuda.empty_cache()
+    a2_dynamic_decode(torch, card)
+    log(f"generation A2 phase: {time.perf_counter() - t0:.1f} s")
 
 
 def rel_l2(a, b) -> float:
@@ -2479,7 +3026,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve, cp = phase_e2e(torch, card)
     launches = {"serve": serve, "quant": quant_launches, "cp": cp}
+    gc.collect()         # the serving phases' engines and models, before training
     torch.cuda.empty_cache()
+    log(f"after the serving phases: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
     launches["train"] = phase_train(torch, card)
     torch.cuda.empty_cache()
     launches["gpt_train"] = phase_gpt_train(torch, card)

@@ -1,6 +1,6 @@
 """Autoregressive decoding over a static KV cache: ``cached_attention``,
-``rope_with_row_offsets`` and ``GenerationMixin.generate`` (port of the
-reference's ``generation/__init__.py``).
+``rope_with_row_offsets``, ``GenerationMixin.generate`` and speculative
+decoding (port of the reference's ``generation/__init__.py``).
 
 The reference compiles the whole generation into one XLA program; here it
 is an eager loop: one prefill forward, then one forward per new token.  The
@@ -8,9 +8,11 @@ cache is a list of per-layer ``(k, v)`` tensors of static shape
 ``[batch, capacity, kv_heads, head_dim]``, written IN PLACE at each step's
 position.  Greedy and sampled decoding, the eos/pad latch,
 ``min_new_tokens``, ``repetition_penalty``, left-padded ``attention_mask``
-batches and ``bucket="pow2"`` behave as in the reference; sampling draws
-from a ``torch.Generator`` seeded with ``seed`` (its numbers differ from
-``jax.random``'s).  Beam search is not ported yet.
+batches, ``bucket="pow2"``, beam search (``num_beams`` > 1,
+:mod:`.beam_search`) and ``num_return_sequences`` behave as in the
+reference; sampling draws from a ``torch.Generator`` seeded with ``seed``
+(its numbers differ from ``jax.random``'s).  :mod:`.speculative` holds the
+drafters and ``speculative_generate``.
 """
 
 from __future__ import annotations
@@ -24,8 +26,14 @@ from ..nn import functional as F
 from ..ops import use_kernel
 from ..ops.decode_attention import decode_attention, decode_attention_plain
 from ..ops.flash_attention import flash_attention_fwd
+from .beam_search import beam_search_loop
+from .speculative import (AdaptiveK, DraftModelDrafter, NGramDrafter,  # noqa: F401
+                          ShallowExitDrafter, SpecConfig, rejection_sample_step,
+                          speculative_generate)
 
-__all__ = ["GenerationMixin", "cached_attention", "rope_with_row_offsets"]
+__all__ = ["GenerationMixin", "cached_attention", "rope_with_row_offsets",
+           "SpecConfig", "AdaptiveK", "NGramDrafter", "DraftModelDrafter",
+           "ShallowExitDrafter", "rejection_sample_step", "speculative_generate"]
 
 _F32_MIN = torch.finfo(torch.float32).min
 
@@ -95,11 +103,13 @@ class GenerationMixin:
         kv = getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
         return cfg.num_hidden_layers, kv, cfg.head_dim
 
-    def new_kv_cache(self, batch: int, capacity: int
+    def new_kv_cache(self, batch: int, capacity: int, layers: Optional[int] = None
                      ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """Zeroed per-layer (k, v) caches [batch, capacity, kv, d] in the
-        dtype of the first floating parameter, on the model's device."""
-        layers, kv, d = self._kv_cache_spec()
+        dtype of the first floating parameter, on the model's device: one
+        pair a layer, or for the first ``layers`` layers."""
+        n, kv, d = self._kv_cache_spec()
+        layers = n if layers is None else layers
         p = next(p for p in self.parameters() if p.is_floating_point())
         shape = (batch, capacity, kv, d)
         return [(torch.zeros(shape, dtype=p.dtype, device=p.device),
@@ -113,17 +123,27 @@ class GenerationMixin:
                  pad_token_id: Optional[int] = None, seed: int = 0,
                  min_new_tokens: int = 0, repetition_penalty: float = 1.0,
                  attention_mask=None, num_beams: int = 1,
-                 bucket: Optional[str] = None):
-        """Greedy (``do_sample=False``) or sampled (temperature, top-k,
-        top-p) decoding.  ``input_ids`` [batch, prompt_len]; ragged prompts
-        are LEFT-padded with ``attention_mask`` (1 = real token), and every
-        row decodes as if unpadded.  Rows that emit ``eos_token_id`` are
-        latched and emit ``pad_token_id`` (default: eos) afterwards.
-        ``min_new_tokens`` suppresses eos until that many tokens are out;
+                 length_penalty: float = 1.0, early_stopping: bool = False,
+                 num_return_sequences: int = 1, bucket: Optional[str] = None):
+        """Greedy (``do_sample=False``), sampled (temperature, top-k,
+        top-p) or, with ``num_beams`` > 1, beam-search decoding.
+        ``input_ids`` [batch, prompt_len]; ragged prompts are LEFT-padded
+        with ``attention_mask`` (1 = real token), and every row decodes as
+        if unpadded.  Rows that emit ``eos_token_id`` are latched and emit
+        ``pad_token_id`` (default: eos) afterwards.  ``min_new_tokens``
+        suppresses eos until that many tokens are out;
         ``repetition_penalty`` > 1 divides positive (multiplies negative)
         logits of tokens already in the prompt or generated.
         ``bucket="pow2"`` left-pads the prompt to the next power of two
-        (>= 16, capped by the position budget)."""
+        (>= 16, capped by the position budget).
+
+        Beam search scores a hypothesis ``cum_logprob /
+        len**length_penalty``; ``early_stopping=True`` stops a row once it
+        holds ``num_beams`` hypotheses, False while a running beam could
+        still win.  It returns the best ``num_return_sequences`` hypotheses
+        of each row, ``[batch * num_return_sequences, max_new_tokens]`` ids
+        and one f32 score each.  With sampling, ``num_return_sequences``
+        repeats each row that many times (distinct samples)."""
         device = next(self.parameters()).device
         ids = torch.as_tensor(_as_numpy(input_ids)).to(device=device,
                                                         dtype=torch.int64)
@@ -173,10 +193,32 @@ class GenerationMixin:
             raise ValueError("min_new_tokens must be in [0, max_new_tokens]")
         if repetition_penalty <= 0:
             raise ValueError("repetition_penalty must be > 0")
+        nrs = int(num_return_sequences)
         if num_beams > 1:
-            raise NotImplementedError(
-                "beam search (generation/beam_search.py) is not ported yet: "
-                "ROADMAP queue A, generation")
+            if do_sample:
+                raise ValueError("num_beams > 1 requires do_sample=False "
+                                 "(beam-sample is not supported)")
+            if repetition_penalty != 1.0:
+                raise NotImplementedError(
+                    "repetition_penalty with beam search is not supported")
+            if not 1 <= nrs <= num_beams:
+                raise ValueError("num_return_sequences must be in [1, num_beams]")
+            ids_k, scores_k = self._generate_beam(
+                ids, pad_lens, max_new, int(num_beams), eos, pad, min_new,
+                float(length_penalty), bool(early_stopping))
+            return (ids_k[:, :nrs].reshape(b * nrs, max_new),
+                    scores_k[:, :nrs].reshape(b * nrs))
+        if nrs != 1:
+            if not do_sample:
+                raise ValueError("num_return_sequences > 1 requires num_beams > 1 "
+                                 "or do_sample=True")
+            if nrs < 1:
+                raise ValueError("num_return_sequences must be >= 1")
+            # each row nrs times; the draws differ row by row
+            ids = ids.repeat_interleave(nrs, dim=0)
+            if pad_lens is not None:
+                pad_lens = pad_lens.repeat_interleave(nrs, dim=0)
+            b = b * nrs
 
         gen = torch.Generator(device=device).manual_seed(int(seed)) \
             if do_sample else None
@@ -245,3 +287,24 @@ class GenerationMixin:
             out_scores.append(logp)
         return (torch.stack(out_ids, dim=1).to(torch.int32),
                 torch.stack(out_scores, dim=1))
+
+    def _generate_beam(self, ids, pad_lens, max_new, K, eos, pad, min_new,
+                       length_penalty, early_stopping):
+        """Beam search: prefill at batch b, each cache tiled K-fold
+        (beam-fastest rows), then :func:`.beam_search.beam_search_loop`.
+        Returns ids [b, K, max_new] and scores [b, K]."""
+        b, prompt = int(ids.shape[0]), int(ids.shape[1])
+        caches = self.new_kv_cache(b, -(-(prompt + max_new) // 8) * 8)
+        logits, _ = self(ids, kv_cache=caches, position_offset=0, pad_lens=pad_lens)
+        caches = [(ck.repeat_interleave(K, dim=0), cv.repeat_interleave(K, dim=0))
+                  for ck, cv in caches]
+        beam_pad_lens = None if pad_lens is None else pad_lens.repeat_interleave(K, dim=0)
+
+        def step(tok, caches, offset, pl):
+            logits, caches = self(tok, kv_cache=caches, position_offset=offset, pad_lens=pl)
+            return logits[:, -1, :], caches
+
+        return beam_search_loop(
+            step, caches, logits[:, -1, :], num_beams=K, max_new=max_new, eos=eos,
+            pad=pad, length_penalty=length_penalty, early_stopping=early_stopping,
+            min_new=min_new, prompt_len=prompt, pad_lens=beam_pad_lens)

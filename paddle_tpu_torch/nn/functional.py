@@ -1,7 +1,7 @@
 """The functional operators of the serving and training paths (port of the
 reference's ``nn/functional/__init__.py``: ``linear``, ``embedding``,
 ``rms_norm``, ``layer_norm``, ``gelu``, ``swiglu``, ``dropout``,
-``scaled_dot_product_attention``, ``cross_entropy``).
+``scaled_dot_product_attention``, ``cross_entropy``, ``gather_tree``).
 
 ``rms_norm``, ``swiglu`` and ``scaled_dot_product_attention`` reach the hand kernels
 through the dispatch seam: without grad, :func:`~paddle_tpu_torch.ops.use_kernel`
@@ -25,7 +25,8 @@ from ..ops.fused_ln_swiglu import SwiGLUFunction, fused_swiglu
 from ..ops.fused_norm import RMSNormFunction, fused_rms_norm, rms_norm_plain
 
 __all__ = ["linear", "embedding", "rms_norm", "layer_norm", "gelu", "swiglu",
-           "dropout", "scaled_dot_product_attention", "cross_entropy"]
+           "dropout", "scaled_dot_product_attention", "cross_entropy",
+           "gather_tree"]
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
@@ -155,3 +156,26 @@ def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,
     if reduction == "mean":
         return loss.sum() / valid.sum().clamp(min=1)
     return loss.sum() if reduction == "sum" else loss
+
+
+def gather_tree(ids: torch.Tensor, parents: torch.Tensor, name=None) -> torch.Tensor:
+    """Back-trace beam-search parent pointers into whole sequences:
+    ``ids``/``parents`` [T, batch, beam] (step t's token and the beam it
+    continued) to the sequences [T, batch, beam], read root to leaf."""
+    T, batch, K = ids.shape
+    parents = parents.long()
+    out = torch.empty_like(ids)
+    ptr = torch.arange(K, device=ids.device).expand(batch, K)
+    for t in range(T - 1, -1, -1):
+        out[t] = ids[t].gather(1, ptr)
+        ptr = parents[t].gather(1, ptr)
+    return out
+
+
+def top_k_stable(x: torch.Tensor, k: int):
+    """The ``k`` largest values of ``x`` along its last axis and their
+    indices, the lower index first among equal values, as
+    ``jax.lax.top_k`` orders them (``torch.topk`` leaves ties unordered on
+    the card): a stable descending sort."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]

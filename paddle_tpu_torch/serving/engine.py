@@ -12,6 +12,14 @@
   ``max_batch`` rows; a row's block table gathers its pages into a
   ``[rows, pages_per_seq * page_tokens, kv, d]`` view masked by the row's
   position.  Idle rows point at the trash page.
+- **Speculative decoding** (``speculative=``, ``PADDLE_TPU_SPEC_K``): every
+  decode forward is ``1 + k`` tokens wide; each row drafts up to ``k``
+  tokens host-side (:class:`~..generation.speculative.NGramDrafter` or a
+  drafter factory), the one forward scores them all, and the greedy
+  acceptance loop emits the longest prefix of drafts that match the
+  target's argmax plus its next token, so the stream is token-exact against
+  serial decode.  :class:`~..generation.speculative.AdaptiveK` sets how
+  many draft slots are valid; the width never changes.
 - **Prefill**: prompts stream through in ``page_tokens``-sized chunks,
   each filling one page; junk tail slots of the last chunk are overwritten
   by the first decode steps before the position mask exposes them.
@@ -53,7 +61,7 @@
   it into a fresh engine with every token delivered exactly once.
 
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: speculative decoding (A2), tensor-parallel decode (``tp`` > 1, A6),
+item: tensor-parallel decode (``tp`` > 1, A6),
 disaggregated prefill (``submit_prefilled``, ``prefill_export``, A8) and
 the decode-loop watchdog (A7).  The reference's chaos seams
 (``_faults.fire``) and telemetry events wait for A7 and A8.
@@ -72,7 +80,8 @@ of the context-parallel prefill, default 1), ``PADDLE_TPU_PREFIX_CACHE`` /
 ``PADDLE_TPU_PREFIX_PAGES`` (prefix cache on / its page budget, 64),
 ``PADDLE_TPU_KV_OFFLOAD`` / ``PADDLE_TPU_KV_OFFLOAD_PAGES`` (host tier on /
 its page budget, 64), ``PADDLE_TPU_RESUME_REPORT`` (where ``recover`` writes
-its report).
+its report), ``PADDLE_TPU_SPEC_K`` (draft length when ``speculative`` is
+not given; 0, the default, is serial decode).
 """
 
 from __future__ import annotations
@@ -91,6 +100,7 @@ import torch
 from ..device import devices
 from ..distributed.meta_parallel.context_parallel import ring_attention
 from ..distributed.topology import build_mesh
+from ..generation.speculative import AdaptiveK, SpecConfig
 from ..models.llama import apply_rotary_at_positions
 from .admission import AdmissionController, Deadline, Overloaded, _env_float, _env_int
 from .journal import ServingJournal
@@ -148,6 +158,7 @@ class Request:
         self.cached_tokens = 0                # prompt tokens adopted from the
         # prefix cache at the LAST admission (reset on eviction)
         self.offloads = 0                     # host-RAM swap-outs suffered
+        self.drafter = None                   # speculative proposer (or None)
 
     @property
     def pos(self) -> int:
@@ -183,9 +194,10 @@ class ServingEngine:
     an :class:`OffloadPool`; default ``PADDLE_TPU_KV_OFFLOAD=1``.
     ``journal``: a directory or a :class:`ServingJournal`;
     ``journal_ship(seq, data)`` receives each flushed segment before the
-    tokens it covers reach ``on_token``.  ``speculative`` and ``tp`` > 1
-    raise ``NotImplementedError``, also when their environment variables
-    turn them on."""
+    tokens it covers reach ``on_token``.  ``speculative``: an ``int`` draft
+    length, a :class:`SpecConfig`, or ``None`` for ``PADDLE_TPU_SPEC_K``
+    (0 = serial decode).  ``tp`` > 1 raises ``NotImplementedError``, also
+    when ``PADDLE_TPU_SERVE_TP`` turns it on."""
 
     def __init__(self, model, *, max_batch: Optional[int] = None,
                  page_tokens: Optional[int] = None,
@@ -203,9 +215,6 @@ class ServingEngine:
             raise TypeError(
                 "ServingEngine serves llama-family causal LMs "
                 "(model.llama.layers); got " + type(model).__name__)
-        if speculative or (speculative is None
-                           and _env_int("PADDLE_TPU_SPEC_K", 0) > 0):
-            raise _not_ported("speculative decoding", "A2")
         tp = int(tp if tp is not None else _env_int("PADDLE_TPU_SERVE_TP", 1))
         self.cp = int(cp if cp is not None else _env_int("PADDLE_TPU_SERVE_CP", 1))
         if self.cp > 1 and tp > 1:
@@ -300,12 +309,27 @@ class ServingEngine:
         self._offload_lost: set = set()   # parked rids whose frames the
         # tier's LRU dropped: their recall becomes a re-prefill
 
+        # speculative decoding: every decode forward is [R, 1 + k] wide; a
+        # row's valid-token count carries the adaptive draft length
+        if speculative is None:
+            env_k = _env_int("PADDLE_TPU_SPEC_K", 0)
+            speculative = SpecConfig(k=env_k) if env_k > 0 else None
+        elif isinstance(speculative, int):
+            speculative = SpecConfig(k=speculative) if speculative > 0 else None
+        elif not isinstance(speculative, SpecConfig):
+            raise TypeError("speculative must be None, an int draft "
+                            "length, or a generation.SpecConfig")
+        self.spec: Optional[SpecConfig] = speculative
+        self._spec_width = 1 + (self.spec.k if self.spec else 0)
+        self._adapt = AdaptiveK(self.spec.k, self.spec.adaptive,
+                                decay=self.spec.ema_decay) if self.spec else None
+
         self._queue: deque = deque()
         self._active: Dict[int, Request] = {}          # row -> Request
         self._results: Dict[int, np.ndarray] = {}
         self.shed: Dict[int, str] = {}                 # rid -> reason
         self.last_decode_logits = None   # host copy of the latest decode
-        # step's logits [R, 1, V] (f32)
+        # step's logits [R, 1 + k, V] (f32)
         self.steps_total = 0
         self.first_step_wall: Optional[float] = None
         self._pending_delivery: List[tuple] = []       # (rid, idx, token)
@@ -659,6 +683,8 @@ class ServingEngine:
         victim.generated = []        # replayed from the prompt on re-admit
         victim.cached_tokens = 0     # its pages went back (the trie keeps
         # its own); the re-admission matches the prefix cache again
+        victim.drafter = None        # rebuilt at the re-prefill: drafts only
+        # choose which positions are verified, never the tokens
         victim.evictions += 1
         self._queue.appendleft(victim)
         self.meter.evict(victim.rid, reason="pool_pressure", pages_freed=freed)
@@ -742,6 +768,7 @@ class ServingEngine:
         self._offload_lost.discard(r.rid)
         r.generated = []
         r.cached_tokens = 0
+        r.drafter = None
         r.evictions += 1
         self.meter.offload_stall(r.rid)
 
@@ -876,6 +903,12 @@ class ServingEngine:
             # the prompt's full pages serve later requests (the chunks
             # matched at admission just refresh their LRU stamp)
             self.prefix.insert(r.prompt, self.pool.table(r.rid))
+        if self.spec is not None:
+            # (re)built here, so an eviction replay and a crash recovery
+            # get a drafter primed with the tokens a first admission's saw
+            r.drafter = self.spec.make_drafter()
+            r.drafter.begin([int(t) for t in r.prompt])
+            r.drafter.observe([tok])
 
     # -- context-parallel prefill ---------------------------------------------
     def _cp_accepts(self, n_prompt: int, *, cached_tokens: int = 0) -> bool:
@@ -949,26 +982,43 @@ class ServingEngine:
         return ring_attention(q, k, v, mesh=self._mesh, causal=True)
 
     def _decode_step(self) -> None:
-        """One serial decode step (S = 1) over every active row; idle rows
-        decode token 0 at position 0 into the trash page."""
-        R, MP = self.max_batch, self.max_pages_per_seq
-        tokens = np.zeros((R, 1), np.int64)
+        """One decode step over every active row, ``1 + k`` tokens wide
+        (serial decode: k = 0).  With speculation each row drafts ``k_r``
+        tokens host-side, the one forward scores positions ``pos ..
+        pos + k_r``, and the greedy acceptance loop emits the longest prefix
+        whose drafts match the target's argmax, then the target's own next
+        token.  A rejected draft's slots lie at or past the next write
+        position: the next step overwrites them before it reads them, and
+        the position mask hides what lies beyond.  Idle rows decode token 0
+        at position 0 into the trash page."""
+        R, MP, S = self.max_batch, self.max_pages_per_seq, self._spec_width
+        tokens = np.zeros((R, S), np.int64)
         positions = np.zeros((R,), np.int64)
         n_tok = np.zeros((R,), np.int64)
         tables = np.full((R, MP), TRASH_PAGE, np.int64)
+        drafts: Dict[int, List[int]] = {}
         stepped: List[Request] = []
         for r in [self._active[row] for row in sorted(self._active)]:
             # _ensure_page can evict LATER snapshot entries; skip anything
             # no longer running so an evictee never allocates while queued
             if r.state != RUNNING or r.row is None or r.done():
                 continue
-            self._ensure_page(r, 1)
+            d: List[int] = []
+            if self.spec is not None and r.drafter is not None:
+                # never draft past the output budget: the last budgeted
+                # token needs no verification slot
+                k_r = min(self._adapt.k(), r.max_new_tokens - len(r.generated) - 1)
+                if k_r > 0:
+                    d = [int(t) for t in r.drafter.propose(k_r)]
+            drafts[r.rid] = d
+            self._ensure_page(r, 1 + len(d))
         # _ensure_page may have evicted rows; rebuild the live view
         for row, r in sorted(self._active.items()):
             if r.done():
                 continue
-            tokens[row, 0] = r.generated[-1]
-            n_tok[row] = 1
+            seq = [r.generated[-1]] + drafts.get(r.rid, [])
+            tokens[row, :len(seq)] = seq
+            n_tok[row] = len(seq)
             positions[row] = r.pos
             tables[row] = self._padded_table(r.rid)
             stepped.append(r)
@@ -978,10 +1028,12 @@ class ServingEngine:
             return
         logits = self._forward(self._tensor(tokens), self._tensor(positions),
                                self._tensor(tables), self._tensor(n_tok))
-        logits = logits.float().cpu().numpy()               # [R, 1, V]
+        logits = logits.float().cpu().numpy()               # [R, S, V]
         self.last_decode_logits = logits
+        proposed_total = accepted_total = emitted_total = 0
         for r in stepped:
-            row_logits = logits[r.row, :1]
+            nv = int(n_tok[r.row])
+            row_logits = logits[r.row, :nv]
             if not np.all(np.isfinite(row_logits)):
                 # a corrupted int8 scale (or any cache poisoning) surfaces
                 # as NaN/inf logits — fail LOUDLY instead of emitting junk
@@ -989,10 +1041,29 @@ class ServingEngine:
                     f"non-finite decode logits for rid {r.rid} "
                     f"(kv_dtype={self.kv_dtype}): corrupted KV page or "
                     f"scale buffer")
-            tok = int(np.argmax(row_logits[0]))
-            r.generated.append(tok)
-            self.meter.token(r.rid)
-            self._deliver(r, tok)
+            d = drafts.get(r.rid, [])
+            emitted: List[int] = []
+            for i in range(nv):
+                tok = int(np.argmax(row_logits[i]))
+                r.generated.append(tok)
+                self.meter.token(r.rid)
+                self._deliver(r, tok)
+                emitted.append(tok)
+                if r.done():
+                    break
+                if i < nv - 1 and tok != d[i]:
+                    break   # the rest of the draft follows a rejected token
+            if self.spec is not None:
+                accepted = len(emitted) - 1
+                proposed_total += len(d)
+                accepted_total += accepted
+                emitted_total += len(emitted)
+                self._adapt.update(accepted, len(d))
+                if r.drafter is not None and not r.done():
+                    r.drafter.observe(emitted)
+        if self.spec is not None:
+            self.meter.spec_step(proposed=proposed_total, accepted=accepted_total,
+                                 emitted=emitted_total, rows=len(stepped))
         for r in list(self._active.values()):
             self._retire_if_done(r)
 
@@ -1092,7 +1163,7 @@ class ServingEngine:
     @torch.inference_mode()
     def _forward(self, tokens, positions, tables, n_tok, take=None):
         """The transformer step shared by chunked prefill and decode:
-        ``tokens`` [R, s] (decode: s = 1; prefill: R = 1, s = page_tokens)
+        ``tokens`` [R, s] (decode: s = 1 + k; prefill: R = 1, s = page_tokens)
         at ``positions`` [R] (each row's first token), ``n_tok`` [R] valid
         tokens per row (idle rows 0: their writes go to the trash page).
         Returns logits [R, s, V], or with ``take`` those of position

@@ -12,9 +12,10 @@ dropped at finish or shed, and the exact totals are O(1) counters.
 ``summary()`` has the reference's keys.  The reference also exports every
 gauge, counter and histogram through its telemetry layer (Prometheus text,
 the flight recorder, the metrics depot): that export waits for the port of
-the telemetry layer (ROADMAP A8).  Speculative decoding is not ported
-(A2): its fields read as the reference's do with it off.  ``FleetMeter``
-belongs to the serving fleet (A8).
+the telemetry layer (ROADMAP A8).  With speculative decoding on,
+``spec_step`` counts each verify step's drafts, acceptances and emitted
+tokens; with it off, ``spec_acceptance`` and ``effective_tokens_per_step``
+read ``None``.  ``FleetMeter`` belongs to the serving fleet (A8).
 """
 
 from __future__ import annotations
@@ -124,6 +125,12 @@ class SLOMeter:
         self.recall_bytes_in_total = 0
         self.tpot_ema_s: Optional[float] = None
         self._trace_complete = 0
+        # speculative decoding: drafts proposed / accepted, tokens emitted
+        self.spec_proposed_total = 0
+        self.spec_accepted_total = 0
+        self.spec_emitted_total = 0
+        self.spec_verify_steps = 0
+        self.spec_rows_total = 0
 
     def clock(self, rid) -> RequestClock:
         return self._clocks[rid]
@@ -292,6 +299,29 @@ class SLOMeter:
         layers): the denominator the int8/fp8 page halving shows up in."""
         self.kv_bytes_per_token = float(b)
 
+    def spec_step(self, *, proposed: int, accepted: int, emitted: int,
+                  rows: int) -> None:
+        """One speculative verify step over ``rows`` live rows: ``proposed``
+        drafts went in, ``accepted`` matched the target's argmax,
+        ``emitted`` tokens came out (at least one a row)."""
+        self.spec_proposed_total += int(proposed)
+        self.spec_accepted_total += int(accepted)
+        self.spec_emitted_total += int(emitted)
+        self.spec_rows_total += int(rows)
+        self.spec_verify_steps += 1
+
+    def spec_acceptance(self) -> float:
+        """Fraction of drafted tokens the target's own argmax confirmed."""
+        if self.spec_proposed_total <= 0:
+            return 0.0
+        return self.spec_accepted_total / self.spec_proposed_total
+
+    def effective_tokens_per_step(self) -> float:
+        """Mean tokens emitted a row per verify step (serial decode: 1.0)."""
+        if self.spec_rows_total <= 0:
+            return 0.0
+        return self.spec_emitted_total / self.spec_rows_total
+
     # -- rollup ------------------------------------------------------------
     def summary(self) -> Dict[str, object]:
         """SLO rollup (milliseconds); percentiles over the bounded window,
@@ -326,8 +356,11 @@ class SLOMeter:
             "deadline_miss_rate": round(self.deadline_miss_rate(), 4),
             "evictions": self.evictions_total,
             "kv_pool_occupancy_peak": round(self.occupancy_peak, 4),
-            "spec_acceptance": None,
-            "effective_tokens_per_step": None,
+            "spec_acceptance": (round(self.spec_acceptance(), 4)
+                                if self.spec_verify_steps else None),
+            "effective_tokens_per_step": (
+                round(self.effective_tokens_per_step(), 4)
+                if self.spec_verify_steps else None),
             "kv_bytes_per_token": self.kv_bytes_per_token,
             "kv_offloads": self.offloads_total,
             "kv_recalls": self.recalls_total,

@@ -208,8 +208,14 @@ class TestSampling:
 
 class TestRefusals:
     def test_beam_search_not_ported(self, tiny):
-        with pytest.raises(NotImplementedError, match="beam"):
-            tiny[1].generate(_ids(13, (1, 4)), max_new_tokens=2, num_beams=2)
+        """Beam search is ported (test_torch_beam_search.py holds it); of
+        its options, only the repetition penalty is refused, as in the
+        reference."""
+        with pytest.raises(NotImplementedError, match="repetition_penalty with beam"):
+            tiny[1].generate(_ids(13, (1, 4)), max_new_tokens=2, num_beams=2,
+                             repetition_penalty=1.5)
+        ids, scores = tiny[1].generate(_ids(13, (1, 4)), max_new_tokens=2, num_beams=2)
+        assert tuple(ids.shape) == (1, 2) and tuple(scores.shape) == (1,)
 
     def test_moe_and_labels_not_ported(self, tiny):
         """MoE is not ported; of the labels path, only the chunked fused

@@ -451,8 +451,9 @@ class TestEngine:
             for _ in range(4):
                 eng.step()
 
+    # speculative decoding (A2) is ported: with it on, tp > 1 still raises
     @pytest.mark.parametrize("kw, item", [
-        (dict(speculative=3), "A2"), (dict(tp=2), "A6")], ids=["kw0-A2", "kw1-A6"])
+        (dict(speculative=3, tp=2), "A6"), (dict(tp=2), "A6")], ids=["kw0-A2", "kw1-A6"])
     def test_unported_options_raise(self, pair, kw, item):
         with pytest.raises(NotImplementedError, match=item):
             ServingEngine(pair[1], **ENGINE, **kw)
@@ -469,8 +470,12 @@ class TestEngine:
             eng.recover()
         with pytest.raises(NotImplementedError, match="A7"):
             eng.run(watchdog_s=1.0)
+        # speculative decoding (A2) is ported: the variable turns it on,
+        # and tensor-parallel decode still raises under it
         monkeypatch.setenv("PADDLE_TPU_SPEC_K", "2")
-        with pytest.raises(NotImplementedError, match="A2"):
+        assert ServingEngine(pair[1], **ENGINE)._spec_width == 3
+        monkeypatch.setenv("PADDLE_TPU_SERVE_TP", "2")
+        with pytest.raises(NotImplementedError, match="A6"):
             ServingEngine(pair[1], **ENGINE)
 
 
