@@ -113,7 +113,19 @@ exits non-zero without them.  Phases, each raising on failure:
    ``use_fused_layernorm`` and ``use_fused_adamw`` on (then off), the
    gates at 2 and 24 layers;
 9. GPT generate: greedy ``generate`` on GPT-3 1.3B bf16, batch 8, prompt
-   128, 8 new tokens, with its flash and decode launches counted.
+   128, 8 new tokens, with its flash and decode launches counted;
+10. the distributed process layer (``phase_dist``, after 9 with the card's
+   cache emptied): ``python -m paddle_tpu_torch.distributed.launch
+   --nproc_per_node 1`` runs a worker that takes NCCL at world size 1,
+   runs every collective and P2P call on CUDA tensors under an armed
+   ``CommWatchdog`` (which must not fire), and takes 3 ``TrainStep``s of
+   7's Llama through ``DataParallel``: its launches a step equal 7's and
+   its losses are within 2e-2 of 7's first three; then the bucket sync
+   (one NCCL AVG all_reduce a 25 MB bucket) timed on those gradients and
+   bit-equal after; a failed worker fails the phase with its log's tail on
+   stderr.  Then the single-controller collectives on a ``dp=4`` mesh
+   whose members share the card, on a 25 MB bf16 bucket a member, equal
+   to the same calls on a CPU mesh, timed.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
@@ -2700,16 +2712,18 @@ def phase_train(torch, card):
     the plain bf16 path's; ten 8-layer steps at 4 x 2048 on one batch give
     finite, falling losses and launch each kernel as often as the path
     needs.  Then tokens/s, MFU, peak memory and a profile; then the same
-    steps with the two fused flags off, timed for comparison."""
+    steps with the two fused flags off, timed for comparison.  Returns the
+    flags-on run's (launches, losses, ms a step), which ``phase_dist``
+    holds its DataParallel steps against."""
     ids, labels = train_batch(torch, 32000)
     gate_shallow(torch, make_llama, LLAMA_ON, ids[:1], labels[:1])
     gate_deep(torch, make_llama, TRAIN_LAYERS, LLAMA_ON, ids[:1], labels[:1])
     torch.cuda.empty_cache()
-    launches = train_steps(torch, card, make_llama, TRAIN_LAYERS, LLAMA_ON, ids, labels)
+    on = train_steps(torch, card, make_llama, TRAIN_LAYERS, LLAMA_ON, ids, labels)
     torch.cuda.empty_cache()
     train_steps(torch, card, make_llama, TRAIN_LAYERS,
                 dict(use_fused_swiglu=False, use_fused_adamw=False), ids, labels)
-    return launches
+    return on
 
 
 def phase_gpt_train(torch, card):
@@ -2725,7 +2739,7 @@ def phase_gpt_train(torch, card):
     gate_shallow(torch, make_gpt, GPT_ON, ids[:1], labels[:1])
     gate_deep(torch, make_gpt, L, GPT_ON, ids[:1], labels[:1])
     torch.cuda.empty_cache()
-    launches = train_steps(torch, card, make_gpt, L, GPT_ON, ids, labels)
+    launches = train_steps(torch, card, make_gpt, L, GPT_ON, ids, labels)[0]
     torch.cuda.empty_cache()
     train_steps(torch, card, make_gpt, L, dict(use_fused_layernorm=False, use_fused_adamw=False),
                 ids, labels)
@@ -2848,7 +2862,8 @@ def gate_deep(torch, make, layers, on, gate_ids, gate_labels):
 def train_steps(torch, card, make, layers, flags, ids, labels):
     """TRAIN_WARMUP then TRAIN_STEPS TrainSteps of ``make(layers)`` under
     AMP O2 with ``flags`` on one batch; checks the launches of the counted
-    steps against what the model's path needs and returns them."""
+    steps against what the model's path needs.  Returns (the counted
+    steps' launches, every step's loss, ms a counted step)."""
     import numpy as np
 
     import paddle_tpu_torch as ptt
@@ -2908,7 +2923,7 @@ def train_steps(torch, card, make, layers, flags, ids, labels):
             f"TFLOP/s; peak memory {peak / 2**30:.2f} GiB")
         profile_step(torch, f"train step {label}", lambda: step(ids, labels))
     del model, opt, step
-    return launches
+    return launches, losses, step_s * 1e3
 
 
 def profile_step(torch, label, fn):
@@ -2959,6 +2974,315 @@ def phase_profile(torch, generate, T):
         log(f"profile {label}: wall {wall:.2f} ms (profiled), device busy {total:.2f} ms, "
             f"idle share {1 - total / wall:.3f}; top kernels (ms): "
             + "; ".join(f"{name[:48]} {ms:.3f}" for name, ms in top))
+
+
+DIST_STEPS = 3                  # DataParallel TrainSteps through the launcher
+DIST_TIMEOUT_S = 480            # the launcher and its worker, kernels loaded
+DIST_WATCH_S = 300.0            # CommWatchdog timeout: must not fire
+DIST_BUCKET_MB = 25             # DataParallel's comm_buffer_size, and (b)'s bucket
+DIST_MEMBERS = 4                # (b): single-controller members sharing cuda:0
+
+# The launched worker of phase_dist, run as
+# ``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 1
+# --log_dir <dir> payload.py args.json``.  It writes its results to
+# ``args["out"]``.
+DIST_PAYLOAD = '''
+import json, sys, time
+import numpy as np
+import torch
+import torch.distributed as tdist
+
+import paddle_tpu_torch as ptt
+import paddle_tpu_torch.distributed as dist
+from paddle_tpu_torch.distributed import communication as comm
+from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b, llama_tiny
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+from paddle_tpu_torch.optimizer import AdamW
+
+args = json.loads(open(sys.argv[1]).read())
+dev = args["device"]
+if dev == "cpu":
+    ptt.set_device("cpu")
+env = dist.init_parallel_env()
+backend = tdist.get_backend()
+if backend != ("nccl" if dev == "cuda" else "gloo") or env.world_size != 1 \\
+        or env.rank != 0 or dist.get_world_size() != 1:
+    raise AssertionError(f"init_parallel_env: {backend}, world {env.world_size}, "
+                         f"rank {env.rank}")
+sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+fired = []
+watchdog = dist.CommWatchdog(timeout=args["watch_s"], on_timeout=fired.append)
+
+
+def same(what, got, want):
+    if got.device.type != dev or not torch.equal(got, want):
+        raise AssertionError(f"{what}: {got.device} {got.flatten()[:4]} != {want.flatten()[:4]}")
+
+
+def collectives():
+    """Every call of the collective API on this rank's rows, each against
+    its value over one rank (the rows themselves)."""
+    data = torch.as_tensor(np.random.default_rng(0).integers(-4, 5, (4, 1024)),
+                           dtype=torch.float32)
+    x, want = comm.scatter_stack(data), data.to(dev)
+    for op in ("sum", "avg", "max", "min", "prod"):
+        same(f"all_reduce {op}", comm.all_reduce(x.clone(), op=op), want)
+        same(f"reduce_scatter {op}", comm.reduce_scatter(x, op=op), want)
+    same("all_gather", comm.all_gather(x), want)
+    same("all_gather list", comm.all_gather([], x)[0], want)
+    same("all_to_all", comm.all_to_all(x), want)
+    same("broadcast", comm.broadcast(x.clone(), src=0), want)
+    same("reduce", comm.reduce(x.clone(), dst=0), want)
+    same("scatter", comm.scatter(None, [data], src=0), want)
+    same("ppermute", comm.ppermute(x, [(0, 0)]), want)
+    buf = torch.zeros_like(x)
+    comm.send(x, dst=0)
+    comm.recv(buf, src=0)
+    same("send/recv", buf, want)
+    buf.zero_()
+    comm.isend(x, dst=0)
+    comm.irecv(buf, src=0).wait()
+    same("isend/irecv", buf, want)
+    buf.zero_()
+    for task in comm.batch_isend_irecv([comm.P2POp(comm.isend, x, 0),
+                                        comm.P2POp(comm.irecv, buf, 0)]):
+        task.wait()
+    same("batch_isend_irecv", buf, want)
+    for got in comm.coalesced_reduce_scatter([x, x[:2]], bucket_bytes=1 << 20):
+        same("coalesced_reduce_scatter", got, want[:got.shape[0]])
+    same("stream.all_reduce", comm.stream.all_reduce(x.clone()), want)
+    comm.barrier()
+    comm.wait(x)
+
+
+def timed(fn, reps):
+    """ms a call of fn: CUDA events around ``reps`` calls on the card."""
+    fn()
+    sync()
+    if dev != "cuda":
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t) * 1e3 / reps
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+with watchdog.watch("collectives"):
+    collectives()
+    sync()
+
+cfg = (llama2_7b if args["config"] == "llama2_7b" else llama_tiny)(
+    num_hidden_layers=args["layers"])
+model = LlamaForCausalLM(cfg, device=dev, seed=0)
+opt = AdamW(1e-4, parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(1.0))
+model, opt = ptt.amp.decorate(model, opt, level="O2", dtype="bfloat16")
+dp = dist.DataParallel(model, comm_buffer_size=args["bucket_mb"])
+step = TrainStep(dp, lambda m, x, y: m(x, labels=y)[0], opt)
+ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (args["batch"], args["seq"]))
+ids = ids.astype(np.int32)
+ids, labels = (torch.as_tensor(a, device=dev) for a in (ids, np.roll(ids, -1, axis=1)))
+losses, step_ms = [], []
+with ptt.flag_guard(**args["flags"]), watchdog.watch("train"):
+    sync()
+    reset_launch_counts()
+    for _ in range(args["steps"]):
+        t = time.perf_counter()
+        losses.append(float(step(ids, labels)))
+        sync()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = dict(LAUNCHES)
+
+# the bucket sync on the last step's gradients: apply_collective_grads
+# past its one-process return, called directly
+buckets = dp._grad_buckets()
+grads = [p.grad for b in buckets for p in b]
+nbytes = sum(g.numel() * g.element_size() for g in grads)
+before = [g.clone() for g in grads]
+with watchdog.watch("bucket sync"):
+    sync_ms = timed(dp._sync_buckets, args["reps"])
+    flat = torch.ones(args["bucket_mb"] << 19, dtype=torch.bfloat16, device=dev)
+    lone_ms = timed(lambda: comm.all_reduce(flat, op="avg"), args["reps"])
+unchanged = all(torch.equal(a, b) for a, b in zip(grads, before))
+watchdog.stop()
+if not unchanged:
+    raise AssertionError("an AVG over one rank changed the gradients")
+json.dump(dict(backend=backend, world_size=env.world_size, rank=env.rank,
+               losses=losses, step_ms=step_ms, launches=launches,
+               buckets=len(buckets), tensors=len(grads), bucket_bytes=nbytes,
+               dtypes=sorted({str(g.dtype) for g in grads}), sync_ms=sync_ms,
+               lone_bytes=flat.numel() * flat.element_size(), lone_ms=lone_ms,
+               watchdog_fired=len(fired), unchanged=unchanged),
+          open(args["out"], "w"))
+tdist.destroy_process_group()
+print("dist payload done", flush=True)
+'''
+
+
+def dist_launch(torch, args: dict, workdir: str) -> dict:
+    """Run DIST_PAYLOAD with ``args`` under the port's launcher, one
+    process, its logs under ``workdir``; the payload's results.  A failed
+    or hung worker fails the phase, with the tail of its log on stderr."""
+    import os
+    import signal
+
+    payload = os.path.join(workdir, "payload.py")
+    with open(payload, "w") as f:
+        f.write(DIST_PAYLOAD)
+    args = dict(args, out=os.path.join(workdir, "result.json"))
+    with open(os.path.join(workdir, "args.json"), "w") as f:
+        json.dump(args, f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    for k in ("PADDLE_TRAINER_ID", "PADDLE_TRAINERS_NUM", "PADDLE_MASTER",
+              "PADDLE_LOCAL_RANK", "PADDLE_NPROC_PER_NODE"):
+        env.pop(k, None)
+    log_dir = os.path.join(workdir, "log")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch", "--nproc_per_node",
+           "1", "--log_dir", log_dir, payload, os.path.join(workdir, "args.json")]
+    proc = subprocess.Popen(cmd, cwd=root, env=env, start_new_session=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        out = proc.communicate(timeout=DIST_TIMEOUT_S)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)   # the launcher and its worker
+        out = proc.communicate()[0]
+    rc = proc.returncode
+    if rc != 0 or not os.path.exists(args["out"]):
+        worker = os.path.join(log_dir, "workerlog.0")
+        tail = open(worker).read()[-6000:] if os.path.exists(worker) else "(no workerlog.0)"
+        print(f"launcher output:\n{out[-3000:]}\nworkerlog.0 tail:\n{tail}", file=sys.stderr,
+              flush=True)
+        raise AssertionError(f"launch --nproc_per_node 1: exit {rc}")
+    with open(args["out"]) as f:
+        return json.load(f)
+
+
+def dist_single_controller(torch, dev="cuda"):
+    """(b): every collective of a single-controller ``build_mesh(dp=4)``
+    whose members share one device, on a stack of four 25 MB bf16 buckets
+    of integer-valued data, against the same call on a CPU mesh: exact, and
+    AVG within 1e-6 relative.  Returns {op: ms on the card}."""
+    import numpy as np
+
+    from paddle_tpu_torch.distributed import communication as comm
+    from paddle_tpu_torch.distributed import topology
+
+    n = DIST_MEMBERS
+    rows, cols = 1024, (DIST_BUCKET_MB << 20) // 2 // 1024   # one member: 25 MB of bf16
+    rng = np.random.default_rng(3)
+    ints = torch.from_numpy(rng.integers(-4, 5, (n * rows, cols), dtype=np.int8))
+    twos = torch.from_numpy(rng.choice(np.array([-2, -1, 1, 2], np.int8), (n * rows, cols)))
+    groups = {where: topology.CommGroup(topology.build_mesh(dp=n, devices=[where] * n),
+                                        ("data",)) for where in (dev, "cpu")}
+    ring = [(i, (i + 1) % n) for i in range(n)]
+
+    def send_recv(x, g):
+        buf = torch.zeros_like(x)
+        comm.send(x, dst=1, group=g)
+        comm.recv(buf, src=n - 1, group=g)
+        return buf
+
+    cases = {
+        "all_reduce sum": lambda x, g: comm.all_reduce(x.clone(), "sum", g),
+        "all_reduce avg": lambda x, g: comm.all_reduce(x.clone(), "avg", g),
+        "all_reduce max": lambda x, g: comm.all_reduce(x.clone(), "max", g),
+        "all_reduce min": lambda x, g: comm.all_reduce(x.clone(), "min", g),
+        "all_reduce prod": lambda x, g: comm.all_reduce(x.clone(), "prod", g),
+        "all_gather": lambda x, g: comm.all_gather(x, group=g),
+        "reduce_scatter": lambda x, g: comm.reduce_scatter(x, group=g),
+        "all_to_all": lambda x, g: comm.all_to_all(x, group=g),
+        "broadcast": lambda x, g: comm.broadcast(x.clone(), 1, g),
+        "reduce": lambda x, g: comm.reduce(x.clone(), 0, group=g),
+        "scatter": lambda x, g: comm.scatter(None, list(x.chunk(n)), 1, g),
+        "ppermute ring": lambda x, g: comm.ppermute(x, ring, g),
+        "send/recv": send_recv,
+        "coalesced_reduce_scatter": lambda x, g: torch.cat(
+            comm.coalesced_reduce_scatter([x, x], g, bucket_bytes=DIST_BUCKET_MB << 20)),
+    }
+    times = {}
+    for name, fn in cases.items():
+        data = twos if name.endswith("prod") else ints
+        x = {w: comm.scatter_stack(data.to(torch.bfloat16), g) for w, g in groups.items()}
+        got, want = fn(x[dev], groups[dev]), fn(x["cpu"], groups["cpu"])
+        if got.device.type != dev or got.shape != want.shape:
+            raise AssertionError(f"single controller {name}: {got.device} {tuple(got.shape)}")
+        diff = float((got.cpu().float() - want.float()).abs().max())
+        bound = 1e-6 * float(want.float().abs().max()) if name.endswith("avg") else 0.0
+        if diff > bound:
+            raise AssertionError(f"single controller {name}: card and CPU differ by {diff}")
+        times[name] = time_ms(torch, lambda: fn(x[dev], groups[dev]), iters=5, repeats=3)
+        comm.clear_pending_p2p()
+        del x, got, want
+    log(f"dist single controller, {n} members on {dev}, a {DIST_BUCKET_MB} MB bf16 bucket "
+        f"each (stack [{n * rows}, {cols}]), equal to the CPU mesh; ms on the card: "
+        + "; ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    return times
+
+
+def phase_dist(torch, card, train):
+    """The distributed process layer (ROADMAP A6a) on the card.  (a) The
+    launcher: ``python -m paddle_tpu_torch.distributed.launch
+    --nproc_per_node 1`` runs DIST_PAYLOAD, which takes NCCL at world size
+    1, runs every collective on CUDA tensors, and takes DIST_STEPS
+    ``TrainStep``s of Llama-2-7B width (TRAIN_LAYERS, LLAMA_ON, the
+    TRAIN_BATCH x TRAIN_SEQ batch) through ``DataParallel``; its launches
+    a step must equal ``phase_train``'s (``train``: launches, losses, ms a
+    step) and its losses, finite and falling, each within LOGITS_REL_TOL
+    of ``phase_train``'s at the same step with the same seeds; it times
+    the bucket sync on the last gradients.  (b) The single-controller
+    collectives (``dist_single_controller``).  (c) A ``CommWatchdog``
+    armed around (a)'s collectives, training and sync must not fire."""
+    import math
+    import shutil
+    import tempfile
+
+    train_launches, train_losses, train_ms = train
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        t = time.perf_counter()
+        res = dist_launch(torch, dict(
+            device="cuda", config="llama2_7b", layers=TRAIN_LAYERS, batch=TRAIN_BATCH,
+            seq=TRAIN_SEQ, steps=DIST_STEPS, flags=LLAMA_ON, bucket_mb=DIST_BUCKET_MB,
+            watch_s=DIST_WATCH_S, reps=10), workdir)
+        took = time.perf_counter() - t
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    losses = res["losses"]
+    log(f"dist launch --nproc_per_node 1 on {card}: {took:.1f} s, backend {res['backend']}, "
+        f"world {res['world_size']}, rank {res['rank']}; DataParallel losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)} (phase_train's first "
+        f"{' '.join(f'{x:.4f}' for x in train_losses[:DIST_STEPS])}); ms a step "
+        f"{' '.join(f'{x:.1f}' for x in res['step_ms'])} (phase_train's {train_ms:.1f}); "
+        f"watchdog fired {res['watchdog_fired']}")
+    if (res["backend"], res["world_size"], res["rank"], res["watchdog_fired"]) != \
+            ("nccl", 1, 0, 0) or not res["unchanged"]:
+        raise AssertionError(f"dist launch: {res}")
+    per_step = {k: v * TRAIN_STEPS for k, v in res["launches"].items()}
+    want = {k: v * DIST_STEPS for k, v in train_launches.items()}
+    if per_step != want:
+        raise AssertionError(f"dist launch: launches {res['launches']} in {DIST_STEPS} steps, "
+                             f"phase_train's {train_launches} in {TRAIN_STEPS}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, train_losses)]
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and max(rel) <= LOGITS_REL_TOL):
+        raise AssertionError(f"dist launch: losses {losses} against {train_losses}: {rel}")
+    ms_bucket = res["sync_ms"] / res["buckets"]
+    log(f"dist bucket sync on {card}: {res['buckets']} buckets of {DIST_BUCKET_MB} MB over "
+        f"{res['tensors']} gradients ({res['dtypes']}), {res['bucket_bytes'] / 1e9:.4f} GB; "
+        f"{res['sync_ms']:.4f} ms a sync (pack, one NCCL AVG all_reduce a bucket, unpack), "
+        f"{ms_bucket:.4f} ms a bucket, {res['bucket_bytes'] / res['sync_ms'] / 1e6:.2f} GB/s; "
+        f"a lone {res['lone_bytes'] / 2**20:.0f} MiB NCCL AVG all_reduce {res['lone_ms']:.4f} "
+        f"ms, {res['lone_bytes'] / res['lone_ms'] / 1e6:.2f} GB/s; AVG over one rank left "
+        f"the gradients bit-equal")
+    dist_single_controller(torch)
 
 
 SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is counted on)
@@ -3030,11 +3354,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"after the serving phases: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
         f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
-    launches["train"] = phase_train(torch, card)
+    train = phase_train(torch, card)
+    launches["train"] = train[0]
     torch.cuda.empty_cache()
     launches["gpt_train"] = phase_gpt_train(torch, card)
     torch.cuda.empty_cache()
     phase_gpt_generate(torch, card)
+    gc.collect()         # the launcher's worker needs the memory this process cached
+    torch.cuda.empty_cache()
+    phase_dist(torch, card, train)
     kernels = []
     for name, (src, replaces, path) in SOURCES.items():
         n = launches[path][HOPS_OF.get(name, name)]

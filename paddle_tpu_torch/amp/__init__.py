@@ -17,7 +17,7 @@ from typing import Any
 import torch
 from torch import nn
 
-from ..nn.layers import LayerNorm
+from ..nn.layer.norm import LayerNorm
 
 __all__ = ["decorate"]
 
@@ -38,10 +38,15 @@ def _cast(value: Any, dtype: torch.dtype) -> Any:
 
 
 def decorate(models, optimizers=None, level: str = "O2", dtype="bfloat16",
-             master_weight=None):
+             master_weight=None, save_dtype=None):
     """Cast ``models`` for ``level`` O2 and arm master weights on
     ``optimizers`` (unless ``master_weight`` is False).  Returns the
-    models (and optimizers) in the shape they were given."""
+    models (and optimizers) in the shape they were given.  ``save_dtype``
+    (the dtype ``state_dict`` would save in) is not ported yet (ROADMAP
+    A4): anything but None raises."""
+    if save_dtype is not None:
+        raise NotImplementedError("amp.decorate save_dtype= is not ported yet "
+                                  "(ROADMAP A4)")
     dt = _DTYPES[dtype] if isinstance(dtype, str) else dtype
     single_model = not isinstance(models, (list, tuple))
     model_list = [models] if single_model else list(models)

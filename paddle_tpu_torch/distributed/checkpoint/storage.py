@@ -35,9 +35,13 @@ def _attempts() -> int:
 
 def retry_io(fn: Callable[[], T], *, attempts: Optional[int] = None,
              base_delay: float = 0.05, max_delay: float = 2.0,
-             jitter: float = 0.5) -> T:
-    """Call ``fn``, retrying an ``OSError`` with exponential backoff; the
-    last failure propagates."""
+             jitter: float = 0.5, rng: Optional[random.Random] = None,
+             describe: str = "checkpoint io") -> T:
+    """Call ``fn``, retrying an ``OSError`` with exponential backoff, the
+    jitter drawn from ``rng`` (default: the ``random`` module); the last
+    failure propagates.  ``describe`` names the operation in the
+    reference's flight recorder, which waits for ROADMAP A8: unused."""
+    rng = rng or random
     attempts = _attempts() if attempts is None else max(1, attempts)
     for attempt in range(attempts):
         try:
@@ -48,7 +52,7 @@ def retry_io(fn: Callable[[], T], *, attempts: Optional[int] = None,
             if attempt == attempts - 1:
                 raise
             time.sleep(min(max_delay, base_delay * 2 ** attempt)
-                       * (1.0 + jitter * random.random()))
+                       * (1.0 + jitter * rng.random()))
     raise AssertionError("unreachable")
 
 

@@ -14,9 +14,10 @@ import torch.utils.checkpoint
 __all__ = ["recompute"]
 
 
-def recompute(function: Callable, *args, **kwargs):
+def recompute(function: Callable, *args, use_reentrant: bool = True, **kwargs):
     """``function(*args, **kwargs)`` with its activations recomputed in
     the backward pass; ``function`` may be a module, whose parameters get
-    their gradients as usual."""
+    their gradients as usual.  ``use_reentrant`` has no effect, as in the
+    reference: the recompute is always torch's non-reentrant one."""
     return torch.utils.checkpoint.checkpoint(function, *args, use_reentrant=False,
                                              **kwargs)

@@ -23,13 +23,12 @@ The reference's ``scale`` argument is taken only as ``None`` or
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 
 from ...ops.attention import sdpa_reference
-from ...ops.sharded import mesh_flash_attention
+from ...ops.sharded import check_flash_scale, mesh_flash_attention
 from ..topology import get_hybrid_communicate_group
 
 __all__ = ["ring_attention", "ulysses_attention"]
@@ -43,13 +42,6 @@ def _resolve_mesh(mesh):
         raise RuntimeError("context parallelism needs a mesh: pass mesh= or set a "
                            "hybrid communicate group first")
     return hcg.mesh
-
-
-def _check_scale(scale: Optional[float], d: int) -> None:
-    if scale is not None and not math.isclose(scale, 1.0 / math.sqrt(d), rel_tol=1e-6):
-        raise NotImplementedError(
-            f"context parallelism: scale {scale} is not ported; the port's flash "
-            f"kernels scale by 1/sqrt(head_dim) = {1.0 / math.sqrt(d)}")
 
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh=None,
@@ -68,7 +60,7 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh=No
         raise ValueError(
             f"Ulysses needs q heads ({q.shape[2]}) AND kv heads ({k.shape[2]}) "
             f"divisible by the sep degree ({n}) — the head-sharded phase splits both")
-    _check_scale(scale, q.shape[3])
+    check_flash_scale(scale, q.shape[3])
     hq, hkv = q.shape[2] // n, k.shape[2] // n
     outs = []
     for m, dev in enumerate(members):
@@ -95,7 +87,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh=None,
                          f"divide q heads ({h})")
     if s % n != 0:
         raise ValueError(f"sequence {s} not divisible by sep degree {n}")
-    _check_scale(scale, d)
+    check_flash_scale(scale, d)
     if n == 1:
         return sdpa_reference(q, k, v, is_causal=causal)
     return mesh_flash_attention(q, k, v, mesh, causal=causal, sep_axis=sep_axis)

@@ -4,15 +4,21 @@ the reference's ``distributed/topology.py``).
 The reference lays ``["data", "pipe", "sharding", "sep", "model"]`` out as
 the axes of a ``jax.sharding.Mesh`` and lets XLA run one program per device.
 The port's :class:`Mesh` is the same bookkeeping over ``torch.device``
-members: an array of devices with named axes and ``shape`` as a dict.  One
-process drives every member, as the JAX engine's single controller does, so
-a member is a position on the mesh, not a process, and ``devices=`` may
-repeat a device: n ring members can share one card, or the CPU.
+members: an array of devices with named axes and ``shape`` as a dict.
 
-Only the ``sep`` axis (context parallelism: :mod:`.meta_parallel.context_parallel`)
-runs here.  A degree above 1 on ``data``, ``pipe``, ``sharding`` or
-``model`` needs the multi-process NCCL core and raises
-``NotImplementedError`` (ROADMAP A6).
+Two modes, as in the reference:
+- single controller (:func:`build_mesh`): one process drives every member,
+  as the JAX engine's single controller does, so a member is a position on
+  the mesh, not a process, and ``devices=`` may repeat a device: n members
+  can share one card, or the CPU;
+- multi-process (``distributed.init_parallel_env``): member i is process
+  i's device, ``Mesh.procs`` says which process owns each member, and a
+  group's collectives run over ``torch.distributed``.
+
+The ``data`` axis (data parallelism: the collectives and ``DataParallel``)
+and the ``sep`` axis (context parallelism: :mod:`.meta_parallel.context_parallel`)
+run here.  A degree above 1 on ``model`` waits for ROADMAP A6b, on
+``pipe`` and ``sharding`` for A6c, and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,23 +27,33 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import devices as _visible_devices
 
 __all__ = ["Mesh", "CommunicateTopology", "CommGroup", "HybridCommunicateGroup",
-           "get_hybrid_communicate_group", "set_hybrid_communicate_group", "build_mesh"]
+           "get_hybrid_communicate_group", "set_hybrid_communicate_group", "build_mesh",
+           "process_mesh_coords"]
 
 _HYBRID_AXES = ("data", "pipe", "sharding", "sep", "model")
+_WAITING = {"pipe": "A6c", "sharding": "A6c", "model": "A6b"}   # their queue items
 
 
 class Mesh:
     """``devices``: an array of ``torch.device`` members, one axis per
-    name of ``axis_names``; ``shape`` maps each axis to its size."""
+    name of ``axis_names``; ``shape`` maps each axis to its size.
+    ``procs`` (multi-process meshes only): an int array of the same shape,
+    the rank of the process that owns each member; None when one process
+    drives them all."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 procs: Optional[np.ndarray] = None):
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names, devices.shape))
+        if procs is not None and procs.shape != devices.shape:
+            raise ValueError(f"procs {procs.shape} and devices {devices.shape} differ")
+        self.procs = procs
 
     @property
     def size(self) -> int:
@@ -75,11 +91,12 @@ def build_mesh(dp: int = 1, pp: int = 1, sharding: int = 1, sep: int = 1, mp: in
         if n % known != 0:
             raise ValueError(f"device count {n} not divisible by fixed degrees {known}")
         degrees[unknown[0]] = n // known
-    others = {a: v for a, v in degrees.items() if a != "sep" and v > 1}
-    if others:
+    waiting = {a: v for a, v in degrees.items() if a in _WAITING and v > 1}
+    if waiting:
         raise NotImplementedError(
-            f"build_mesh: degrees {others} need the multi-process NCCL core, which is "
-            f"not ported to paddle_tpu_torch yet (ROADMAP A6); only sep runs here")
+            "build_mesh: " + ", ".join(f"{a} degree {v} waits for ROADMAP {_WAITING[a]}"
+                                       for a, v in waiting.items())
+            + " (only data and sep run in paddle_tpu_torch yet)")
     total = int(np.prod(list(degrees.values())))
     if total != n:
         raise ValueError(
@@ -110,9 +127,27 @@ class CommunicateTopology:
         return self.get_dim(axis_name)
 
 
+def process_rank() -> int:
+    """This process's rank in the job: torch.distributed's rank once a
+    process group exists, else 0."""
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def process_mesh_coords(mesh: Mesh) -> Dict[str, int]:
+    """This process's coordinates on ``mesh``: those of the first member it
+    owns (all zeros on a single-controller mesh, whose one process owns
+    every member)."""
+    if mesh.procs is not None:
+        hits = np.argwhere(mesh.procs == process_rank())
+        if len(hits):
+            return dict(zip(mesh.axis_names, (int(i) for i in hits[0])))
+    return {a: 0 for a in mesh.axis_names}
+
+
 class CommGroup:
-    """A communication group: a set of mesh axes.  One process drives every
-    member, so its rank in any group is 0."""
+    """A communication group: a set of mesh axes (the reference's
+    ``CommGroup``, its analogue of a ProcessGroup).  ``rank`` is this
+    process's position in the group: 0 on a single-controller mesh."""
 
     def __init__(self, mesh: Mesh, axes: Tuple[str, ...], group_id: int = 0):
         self.mesh = mesh
@@ -129,7 +164,13 @@ class CommGroup:
 
     @property
     def rank(self) -> int:
-        return 0
+        """This process's mesh coordinates along the group axes, flattened
+        in axis order."""
+        coords = process_mesh_coords(self.mesh)
+        r = 0
+        for a in self.axes:
+            r = r * self.mesh.shape[a] + coords[a]
+        return r
 
     def __repr__(self):
         return f"CommGroup(axes={self.axes}, nranks={self.nranks})"
@@ -137,8 +178,9 @@ class CommGroup:
 
 class HybridCommunicateGroup:
     """The reference's ``HybridCommunicateGroup`` over a :class:`Mesh`: its
-    topology, and the sep degree, group and rank (the other axes wait for
-    ROADMAP A6)."""
+    topology, the global group, and the data and sep degrees, groups and
+    ranks (the model axis waits for ROADMAP A6b, pipe and sharding for
+    A6c)."""
 
     def __init__(self, topology: Optional[CommunicateTopology] = None, *,
                  mesh: Optional[Mesh] = None, dp: int = 1, pp: int = 1, sharding: int = 1,
@@ -154,7 +196,16 @@ class HybridCommunicateGroup:
         self.mesh = mesh
         self._topo = CommunicateTopology(_HYBRID_AXES, [mesh.shape[a] for a in _HYBRID_AXES])
         self.nranks = mesh.size
-        self.global_rank = 0
+        self.global_rank = process_rank()
+
+    def get_data_parallel_world_size(self) -> int:
+        return self.mesh.shape["data"]
+
+    def get_data_parallel_group(self) -> CommGroup:
+        return CommGroup(self.mesh, ("data",))
+
+    def get_data_parallel_rank(self) -> int:
+        return process_mesh_coords(self.mesh)["data"]
 
     def get_sep_parallel_world_size(self) -> int:
         return self.mesh.shape["sep"]
@@ -163,7 +214,10 @@ class HybridCommunicateGroup:
         return CommGroup(self.mesh, ("sep",))
 
     def get_sep_parallel_rank(self) -> int:
-        return 0
+        return process_mesh_coords(self.mesh)["sep"]
+
+    def get_global_group(self) -> CommGroup:
+        return CommGroup(self.mesh, _HYBRID_AXES)
 
     def topology(self) -> CommunicateTopology:
         return self._topo

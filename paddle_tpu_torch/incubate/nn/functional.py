@@ -27,10 +27,16 @@ __all__ = ["fused_layer_norm"]
 def fused_layer_norm(x: torch.Tensor, norm_weight: torch.Tensor,
                      norm_bias: Optional[torch.Tensor], epsilon: float = 1e-5,
                      begin_norm_axis: int = -1, bias: Optional[torch.Tensor] = None,
-                     residual: Optional[torch.Tensor] = None):
+                     residual: Optional[torch.Tensor] = None, quant_scale: float = -1,
+                     quant_round_type: int = 0, quant_max_bound: float = 0,
+                     quant_min_bound: float = 0):
     """LayerNorm(x [+ bias] [+ residual]) over the last axis.  With
     ``residual``, returns ``(out, pre)``, ``pre`` being the sum that went
-    in; without it, ``out``."""
+    in; without it, ``out``.  A quantized output (``quant_scale > 0``)
+    raises, as in the reference."""
+    if quant_scale > 0:
+        raise NotImplementedError("fused_layer_norm: a quantized output is not "
+                                  "supported, as in the reference")
     if begin_norm_axis not in (-1, x.dim() - 1):
         raise NotImplementedError(
             f"fused_layer_norm normalizes the last axis only, got "

@@ -12,8 +12,16 @@ splits every batch argument into k micro-batches along dim 0, sums their
 gradients in f32, and divides by k (the reference's default averaging);
 the loss returned is the mean of the micro-batch losses.
 
+``donate`` is accepted and has no effect: the reference donates the
+state buffers to its compiled step, and the eager step updates them in
+place anyway.  A model with an ``apply_collective_grads`` method (a
+``distributed.DataParallel``) has its gradients synchronised after each
+(micro-batch) backward and before the clip and update: across processes,
+the mean over the data-parallel group, which the reference's compiled step
+gets from XLA's gradient all-reduce over a batch sharded on ``data``.
+
 The reference's ``health_guard``, ``persistent_cache``, ``snapshotter`` and
-SDC monitor are not ported yet (ROADMAP queue A) and raise.
+SDC monitor are not ported yet (ROADMAP A5, after A7) and raise.
 """
 
 from __future__ import annotations
@@ -33,15 +41,16 @@ class TrainStep:
     model's device."""
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer,
-                 gradient_merge: Optional[int] = None,
+                 donate: bool = True, gradient_merge: Optional[int] = None,
                  health_guard=None, persistent_cache=None, snapshotter=None):
         for name, value in (("health_guard", health_guard),
                             ("persistent_cache", persistent_cache),
                             ("snapshotter", snapshotter)):
             if value is not None:
                 raise NotImplementedError(
-                    f"TrainStep {name}= is not ported yet (ROADMAP queue A)")
+                    f"TrainStep {name}= is not ported yet (ROADMAP A5)")
         self.model = model
+        self._sync_grads = getattr(model, "apply_collective_grads", None)
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self._merge_k = max(1, int(gradient_merge or 1))
@@ -49,7 +58,7 @@ class TrainStep:
 
     def attach_sdc_monitor(self, monitor) -> None:
         raise NotImplementedError(
-            "TrainStep SDC monitor is not ported yet (ROADMAP queue A)")
+            "TrainStep SDC monitor is not ported yet (ROADMAP A5)")
 
     def _batch(self, batch) -> List[torch.Tensor]:
         device = next(self.model.parameters()).device
@@ -70,6 +79,8 @@ class TrainStep:
         if k == 1:
             loss = self.loss_fn(self.model, *arrays).float()
             loss.backward()
+            if self._sync_grads is not None:
+                self._sync_grads()
             self.optimizer.step()
             return loss.detach()
         merged: Dict[int, torch.Tensor] = {}
@@ -78,6 +89,8 @@ class TrainStep:
             micro = [a.chunk(k)[i] for a in arrays]
             loss_i = self.loss_fn(self.model, *micro).float()
             loss_i.backward()
+            if self._sync_grads is not None:   # the mean over ranks is linear:
+                self._sync_grads()             # synchronise each micro-batch
             loss_sum += loss_i.detach()
             for p in self._params:
                 if p.grad is not None:

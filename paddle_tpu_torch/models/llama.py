@@ -46,7 +46,11 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     initializer_range: float = 0.02
     recompute: bool = False  # rematerialize each decoder layer in backward
-    moe_num_experts: int = 0  # MoE is not ported: > 0 raises
+    moe_num_experts: int = 0  # MoE is not ported (ROADMAP A9): > 0 raises
+    moe_top_k: int = 2        # the reference's MoE fields, read by nothing yet
+    moe_capacity_factor: float = 2.0
+    moe_every: int = 1
+    moe_expert_axes: tuple = None
     # > 0: the chunked fused linear + cross entropy loss, not ported: raises
     fused_ce_chunk: int = 0
 

@@ -4,5 +4,5 @@ gradient clipping of the port."""
 from . import functional  # noqa: F401
 from .clip import ClipGradByGlobalNorm  # noqa: F401
 from .decode import BeamSearchDecoder, Decoder, dynamic_decode  # noqa: F401
-from .layers import Dropout, Embedding, LayerNorm, Linear, RMSNorm  # noqa: F401
-from .rnn import GRUCell, LSTMCell, RNNCellBase, SimpleRNNCell  # noqa: F401
+from .layer import (Dropout, Embedding, GRUCell, LayerNorm, Linear,  # noqa: F401
+                    LSTMCell, RMSNorm, RNNCellBase, SimpleRNNCell)

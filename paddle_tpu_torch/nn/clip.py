@@ -16,10 +16,13 @@ __all__ = ["ClipGradByGlobalNorm"]
 
 class ClipGradByGlobalNorm:
     """Scale every gradient by ``clip_norm / max(global_norm, clip_norm)``,
-    the global norm taken over all clipped gradients in f32."""
+    the global norm taken over all clipped gradients in f32.  As in the
+    reference, ``group_name`` is kept and ``auto_skip_clip`` has no effect."""
 
-    def __init__(self, clip_norm: float):
+    def __init__(self, clip_norm: float, group_name: str = "default_group",
+                 auto_skip_clip: bool = False):
         self.clip_norm = float(clip_norm)
+        self.group_name = group_name
 
     def __call__(self, params_grads: List[Tuple[torch.Tensor, torch.Tensor]]
                  ) -> List[Tuple[torch.Tensor, torch.Tensor]]:

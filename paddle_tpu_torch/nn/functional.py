@@ -30,21 +30,31 @@ __all__ = ["linear", "embedding", "rms_norm", "layer_norm", "gelu", "swiglu",
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
-           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+           bias: Optional[torch.Tensor] = None, name=None) -> torch.Tensor:
     """x [..., in] @ weight [in, out] (paddle's layout), + bias [out]."""
     out = torch.matmul(x, weight)
     return out if bias is None else out + bias
 
 
-def embedding(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """Rows of ``weight`` [vocab, dim] at the ids ``x``."""
-    return weight[x.long()]
+def embedding(x: torch.Tensor, weight: torch.Tensor, padding_idx=None,
+              sparse: bool = False, name=None) -> torch.Tensor:
+    """Rows of ``weight`` [vocab, dim] at the ids ``x``; the rows at the id
+    ``padding_idx`` are zero.  ``sparse`` has no effect (dense gradient, as
+    in the reference)."""
+    out = weight[x.long()]
+    if padding_idx is not None:
+        out = out.masked_fill((x == padding_idx)[..., None], 0.0)
+    return out
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             epsilon: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last axis in f32, times ``weight``, cast to x's
-    dtype."""
+def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
+             epsilon: float = 1e-6, name=None) -> torch.Tensor:
+    """RMSNorm over the last axis in f32, times ``weight`` (if given), cast
+    to x's dtype.  Without a weight it is the plain normalisation: the
+    kernel (B1) always takes one, as the reference's does."""
+    if weight is None:
+        xf = x.float()
+        return (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + epsilon)).to(x.dtype)
     if use_function("use_fused_rms_norm", x, weight):
         return RMSNormFunction.apply(x, weight, epsilon)
     if use_kernel("use_fused_rms_norm", x):
@@ -53,7 +63,8 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
 
 
 def layer_norm(x: torch.Tensor, normalized_shape, weight: Optional[torch.Tensor] = None,
-               bias: Optional[torch.Tensor] = None, epsilon: float = 1e-5) -> torch.Tensor:
+               bias: Optional[torch.Tensor] = None, epsilon: float = 1e-5,
+               name=None) -> torch.Tensor:
     """LayerNorm over the trailing ``normalized_shape`` axes in f32 (the
     variance as mean((x − mean)²)), times ``weight`` and plus ``bias`` in
     f32, cast to x's dtype; ``weight`` and ``bias`` may be f32 while x is
@@ -72,12 +83,12 @@ def layer_norm(x: torch.Tensor, normalized_shape, weight: Optional[torch.Tensor]
     return out.to(x.dtype)
 
 
-def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
+def gelu(x: torch.Tensor, approximate: bool = False, name=None) -> torch.Tensor:
     """GELU: exact (erf) by default, the tanh form with ``approximate``."""
     return torch.nn.functional.gelu(x, approximate="tanh" if approximate else "none")
 
 
-def swiglu(x: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.Tensor:
+def swiglu(x: torch.Tensor, y: Optional[torch.Tensor] = None, name=None) -> torch.Tensor:
     """silu(x) * y; with one argument, x's last axis is split in halves
     (gate, up).  With ``use_fused_swiglu`` on and two arguments of one
     shape, the fused SwiGLU (B4: f32 inside, out in x's dtype); otherwise
@@ -100,10 +111,11 @@ def _no_dropout(p: float, training: bool, what: str) -> None:
             f"A); use p = 0 or eval mode")
 
 
-def dropout(x: torch.Tensor, p: float = 0.5, training: bool = True,
-            mode: str = "upscale_in_train") -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float = 0.5, axis=None, training: bool = True,
+            mode: str = "upscale_in_train", name=None) -> torch.Tensor:
     """Identity at p = 0 or outside training (times 1 − p for
-    ``downscale_in_infer`` in eval); p > 0 in training raises."""
+    ``downscale_in_infer`` in eval); p > 0 in training raises.  ``axis``
+    (the axes a mask would vary along) matters only where it raises."""
     _no_dropout(p, training, "dropout")
     if not training and mode == "downscale_in_infer":
         return x * (1.0 - p)
@@ -114,7 +126,7 @@ def scaled_dot_product_attention(query: torch.Tensor, key: torch.Tensor,
                                  value: torch.Tensor,
                                  attn_mask: Optional[torch.Tensor] = None,
                                  dropout_p: float = 0.0, is_causal: bool = False,
-                                 training: bool = True) -> torch.Tensor:
+                                 training: bool = True, name=None) -> torch.Tensor:
     """Attention in the [batch, seq, heads, head_dim] layout.  Without an
     additive mask this is the flash function (hand kernels on the card);
     with one it is the composite ``sdpa_reference``, whose masked form has
@@ -130,22 +142,25 @@ def scaled_dot_product_attention(query: torch.Tensor, key: torch.Tensor,
 
 def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,
                   ignore_index: int = -100, reduction: str = "mean",
-                  soft_label: bool = False, label_smoothing: float = 0.0
-                  ) -> torch.Tensor:
-    """Softmax cross entropy over the last axis against hard labels
-    (``label`` of ``input``'s shape without its last axis, or with it of
-    size 1), log-softmax in f32.
+                  soft_label: bool = False, axis: int = -1, use_softmax: bool = True,
+                  label_smoothing: float = 0.0, name=None) -> torch.Tensor:
+    """Softmax cross entropy over the class axis ``axis`` against hard
+    labels (``label`` of ``input``'s shape without that axis, or with it of
+    size 1), log-softmax in f32; with ``use_softmax=False``, ``input``
+    holds probabilities and their log is taken (floored at 1e-30).
     Labels equal to ``ignore_index`` add nothing; ``"mean"`` divides by
     the number of the others (at least 1).  ``label_smoothing`` mixes the
     one-hot target with the uniform one."""
     if soft_label or weight is not None:
         raise NotImplementedError(
             "cross_entropy: soft labels and class weights are not ported "
-            "yet (ROADMAP queue A)")
+            "yet (ROADMAP A3)")
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"reduction must be mean, sum or none, got {reduction!r}")
-    logp = torch.log_softmax(input.float(), dim=-1)
-    hard = label.squeeze(-1) if label.dim() == input.dim() else label
+    axis = axis % input.dim()
+    hard = label.squeeze(axis) if label.dim() == input.dim() else label
+    x = input.float().movedim(axis, -1)
+    logp = torch.log_softmax(x, dim=-1) if use_softmax else x.clamp(min=1e-30).log()
     valid = hard != ignore_index
     picked = logp.gather(-1, torch.where(valid, hard, 0).long()[..., None])[..., 0]
     loss = -picked

@@ -7,20 +7,31 @@ a sequence dim sharded over ``sep`` goes to the ring (``ring_flash``).  The
 port runs meshes whose only axis above 1 is ``sep`` (see
 ``distributed.topology``): the sequence splits into one chunk per ring
 member and B10's ring loop (:mod:`.ring_flash`) runs the hops.  The RMSNorm,
-rope and Ulysses wrappers over data, sharding and model axes wait for the
-NCCL core (ROADMAP A6).
+rope and Ulysses wrappers over the data, sharding and model axes wait for
+the mesh axes (ROADMAP A6b).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from .ring_flash import (RingFlashAttentionFunction, gather_chunks,
                          ring_flash_attention_fwd, split_chunks)
 
-__all__ = ["active_mesh", "mesh_flash_supported", "mesh_flash_attention"]
+__all__ = ["active_mesh", "mesh_flash_supported", "mesh_flash_attention",
+           "check_flash_scale"]
+
+
+def check_flash_scale(scale: Optional[float], d: int) -> None:
+    """Raise unless ``scale`` is None or 1/sqrt(d), the one scale of the
+    port's flash kernels."""
+    if scale is not None and not math.isclose(scale, 1.0 / math.sqrt(d), rel_tol=1e-6):
+        raise NotImplementedError(
+            f"scale {scale} is not ported; the port's flash kernels scale by "
+            f"1/sqrt(head_dim) = {1.0 / math.sqrt(d)}")
 
 
 def active_mesh():
@@ -49,11 +60,16 @@ def mesh_flash_supported(mesh, q_shape, k_shape, *, has_mask: bool, dropout_p: f
 
 
 def mesh_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh, *,
-                         causal: bool = False, sep_axis: str = "sep") -> torch.Tensor:
+                         causal: bool = False, scale: Optional[float] = None,
+                         interpret: bool = False, sep_axis: str = "sep") -> torch.Tensor:
     """Global [b, s, h, d] q/k/v on one device → global out: the ring over
     the mesh's ``sep_axis`` members (B10), or one flash call when the
     degree is 1.  Differentiable: with grad wanted, the forward and backward
-    rings run as :class:`RingFlashAttentionFunction`."""
+    rings run as :class:`RingFlashAttentionFunction`.  ``scale`` is taken
+    as None or 1/sqrt(head_dim), the flash kernels' one scale (the ring's
+    departure, ``context_parallel``); ``interpret`` (the Pallas
+    interpreter) has no counterpart: CPU tensors run the plain twins."""
+    check_flash_scale(scale, q.shape[3])
     members = mesh.axis_devices(sep_axis)
     if len(members) == 1:
         from ..nn.functional import scaled_dot_product_attention

@@ -180,8 +180,13 @@ class Adam(Optimizer):
     _slot_names = ("moment1", "moment2")
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
-                 parameters=None, weight_decay=None, grad_clip=None,
-                 multi_precision=False, name=None):
+                 parameters=None, weight_decay=None, grad_clip=None, lazy_mode=False,
+                 multi_precision=False, use_multi_tensor=False, amsgrad=False, name=None):
+        for arg, value in (("lazy_mode", lazy_mode), ("use_multi_tensor", use_multi_tensor),
+                           ("amsgrad", amsgrad)):
+            if value:
+                raise NotImplementedError(
+                    f"Adam/AdamW {arg}=True is not ported yet (ROADMAP A4)")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          multi_precision, name)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
@@ -223,10 +228,11 @@ class AdamW(Adam):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
                  parameters=None, weight_decay=0.01, lr_ratio=None,
-                 apply_decay_param_fun=None, grad_clip=None,
-                 multi_precision=False, name=None):
+                 apply_decay_param_fun=None, grad_clip=None, lazy_mode=False,
+                 multi_precision=False, amsgrad=False, name=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         weight_decay, grad_clip, multi_precision, name)
+                         weight_decay, grad_clip, lazy_mode, multi_precision,
+                         amsgrad=amsgrad, name=name)
         self._apply_decay_param_fun = apply_decay_param_fun
         self._lr_ratio = lr_ratio
 

@@ -14,10 +14,12 @@ __all__ = ["LRScheduler", "LinearWarmup", "CosineAnnealingDecay"]
 
 
 class LRScheduler:
-    def __init__(self, learning_rate: float = 0.1, last_epoch: int = -1):
+    def __init__(self, learning_rate: float = 0.1, last_epoch: int = -1,
+                 verbose: bool = False):
         self.base_lr = float(learning_rate)
         self.last_epoch = last_epoch
         self.last_lr = self.base_lr
+        self.verbose = verbose    # stored, printing nothing, as the reference's
         self.step()
 
     def get_lr(self) -> float:
@@ -43,12 +45,12 @@ class LinearWarmup(LRScheduler):
     the warm-up)."""
 
     def __init__(self, learning_rate, warmup_steps, start_lr, end_lr,
-                 last_epoch=-1):
+                 last_epoch=-1, verbose=False):
         self.lr_after = learning_rate
         self.warmup_steps = warmup_steps
         self.start_lr = start_lr
         self.end_lr = end_lr
-        super().__init__(start_lr, last_epoch)
+        super().__init__(start_lr, last_epoch, verbose)
 
     def get_lr(self):
         step = max(self.last_epoch, 0)
@@ -63,10 +65,10 @@ class LinearWarmup(LRScheduler):
 class CosineAnnealingDecay(LRScheduler):
     """eta_min + (base − eta_min)·(1 + cos(π·min(step, T_max)/T_max))/2."""
 
-    def __init__(self, learning_rate, T_max, eta_min=0.0, last_epoch=-1):
+    def __init__(self, learning_rate, T_max, eta_min=0.0, last_epoch=-1, verbose=False):
         self.T_max = T_max
         self.eta_min = eta_min
-        super().__init__(learning_rate, last_epoch)
+        super().__init__(learning_rate, last_epoch, verbose)
 
     def get_lr(self):
         step = max(self.last_epoch, 0)

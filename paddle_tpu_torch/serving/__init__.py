@@ -29,8 +29,8 @@ environment variable:
 
 The engine runs where the model lies: the card, or the CPU for a model
 made with ``device="cpu"``.  The fleet, the router, the autoscaler and
-disaggregated prefill are not ported yet (ROADMAP A8), nor speculative
-decoding (A2) or tensor-parallel decode (A6).
+disaggregated prefill are not ported yet (ROADMAP A8), nor
+tensor-parallel decode (A6b).
 """
 
 from .admission import (AdmissionController, CircuitBreaker, Deadline,  # noqa: F401

@@ -61,7 +61,7 @@
   it into a fresh engine with every token delivered exactly once.
 
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: tensor-parallel decode (``tp`` > 1, A6),
+item: tensor-parallel decode (``tp`` > 1, A6b),
 disaggregated prefill (``submit_prefilled``, ``prefill_export``, A8) and
 the decode-loop watchdog (A7).  The reference's chaos seams
 (``_faults.fire``) and telemetry events wait for A7 and A8.
@@ -223,7 +223,7 @@ class ServingEngine:
                 f"PADDLE_TPU_SERVE_TP={tp}: the serving mesh is one axis "
                 f"(shard prompts OR heads, not both yet)")
         if tp > 1:
-            raise _not_ported("tensor-parallel decode (tp > 1)", "A6")
+            raise _not_ported("tensor-parallel decode (tp > 1)", "A6b")
         if lint:
             raise ValueError(
                 "ServingEngine(lint=True): the donation lint checks the "

@@ -222,9 +222,11 @@ class TestTopology:
         assert hcg.topology().get_dim("sep") == 3
 
     def test_other_axes_wait_for_nccl(self):
-        with pytest.raises(NotImplementedError, match="A6"):
-            topology.build_mesh(dp=2, devices=["cpu"] * 2)
-        with pytest.raises(NotImplementedError, match="A6"):
+        # the data axis runs since A6a; the others wait for A6b and A6c
+        assert topology.build_mesh(dp=2, devices=["cpu"] * 2).shape["data"] == 2
+        with pytest.raises(NotImplementedError, match="A6c"):
+            topology.build_mesh(pp=2, devices=["cpu"] * 2)
+        with pytest.raises(NotImplementedError, match="A6b"):
             topology.build_mesh(mp=-1, sep=2, devices=["cpu"] * 4)
         with pytest.raises(ValueError, match="multiply"):
             topology.build_mesh(sep=2, devices=["cpu"] * 3)
