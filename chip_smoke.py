@@ -125,7 +125,24 @@ exits non-zero without them.  Phases, each raising on failure:
    bit-equal after; a failed worker fails the phase with its log's tail on
    stderr.  Then the single-controller collectives on a ``dp=4`` mesh
    whose members share the card, on a 25 MB bf16 bucket a member, equal
-   to the same calls on a CPU mesh, timed.
+   to the same calls on a CPU mesh, timed;
+11. the model axis (``phase_tp``, after 10): (c) the mesh wrappers at
+   Llama-2-7B's training attention [4, 2048, 32, 128] bf16, every member
+   on the card, each bit-equal to one kernel call with exact launches
+   (flash over model 2 and its three grads, Ulysses over model 2 x sep 2,
+   RMSNorm over data 2 x sep 2 and its dx, rope over data 2 x sep 2 x
+   model 2); (b) a 7B-width decoder layer of ``mp_layers`` with a
+   column-parallel LM head and ``ParallelCrossEntropy``, tp 2, [1, 2048]
+   tokens, sequence parallelism off and on, loss and grads within 2e-2 of
+   the unsharded layer with ``F.cross_entropy``, SP on bit-equal to off,
+   exact B1, B1b, B2, B2 bwd, B3, B3b, B3c, B4 launches; (a)
+   ``ServingEngine(tp=2)`` on Llama-2-7B with ``phase_engine``'s prompts
+   against ``tp=1``: in f32 weights at 32 layers token-exact on f32 pages
+   and exact or certified near-ties on int8 and fp8 pages, in bf16 at 2
+   layers logits within 2e-2 and exact or certified near-ties, exact B1
+   and B2 launches on every run; then at full depth in bf16, beside
+   ``tp=1``: the 512-token prefill, the decode step, pool bytes a token in
+   all and a member, and peak memory.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
@@ -3285,6 +3302,470 @@ def phase_dist(torch, card, train):
     dist_single_controller(torch)
 
 
+TP = 2                              # phase_tp: the model-axis members, all on cuda:0
+TP_KINDS = ("bf16", "int8", "fp8")
+TP_LAYER_SEQ = 2048                 # (b): the decoder layer's [1, 2048] tokens
+TP_WRAP_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 32, 128)   # (c): Llama-2-7B's training attention
+
+
+def tp_mesh(torch, dev, **degrees):
+    """A single-controller mesh whose members all sit on ``dev``."""
+    import math
+
+    from paddle_tpu_torch.distributed.topology import build_mesh
+
+    return build_mesh(devices=[dev] * math.prod(degrees.values()), **degrees)
+
+
+def tp_same(label, got, want):
+    if got.shape != want.shape or not bool((got == want).all()):
+        err = (got.float() - want.float()).abs().max()
+        raise AssertionError(f"{label}: not bit-equal to one kernel call (max |diff| {err})")
+
+
+def tp_mesh_wrappers(torch, dev="cuda"):
+    """(c) The mesh wrappers at Llama-2-7B's training shape, bf16, each
+    bit-equal to one kernel call on the whole tensor (rows and heads are
+    independent), with exact launches: ``mesh_flash_attention`` over
+    model 2 (forward and the three grads), ``mesh_ulysses_flash`` over
+    model 2 x sep 2, ``mesh_rms_norm`` over data 2 x sep 2 (forward and
+    dx; dw, the sum of the members' partial dw, within LOGITS_REL_TOL
+    relative L2), ``mesh_rope`` over data 2 x sep 2 x model 2."""
+    from paddle_tpu_torch.models.llama import _rope_tables
+    from paddle_tpu_torch.ops.flash_attention import FlashAttentionFunction, flash_attention_fwd
+    from paddle_tpu_torch.ops.fused_norm import RMSNormFunction, fused_rms_norm
+    from paddle_tpu_torch.ops.rope import fused_rope
+    from paddle_tpu_torch.ops.sharded import (mesh_flash_attention, mesh_rms_norm, mesh_rope,
+                                              mesh_ulysses_flash)
+
+    b, s, h, d = TP_WRAP_SHAPE
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    lines = []
+
+    def run(label, mesh, fn, want_fn, launches):
+        got, n = counted_launches(torch, fn)
+        if n != launches:
+            raise AssertionError(f"{label}: launches {n}, want {launches}")
+        want = want_fn()
+        for i, (a, w) in enumerate(zip(got, want)):
+            tp_same(f"{label} output {i}", a, w)
+        lines.append(f"{label} on {dict((a, n_) for a, n_ in mesh.shape.items() if n_ > 1)}: "
+                     f"bit-equal, launches {n}")
+
+    m2 = tp_mesh(torch, dev, mp=2)
+    run("mesh_flash_attention", m2,
+        lambda: (mesh_flash_attention(q, k, v, m2, causal=True),),
+        lambda: (flash_attention_fwd(q, k, v, causal=True)[0],), {"flash_attention": 2})
+
+    def flash_grads(fn):
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        out = fn(qq, kk, vv)
+        out.backward(dout)
+        return (out.detach(), qq.grad, kk.grad, vv.grad)
+
+    dout = torch.randn(b, s, h, d, generator=g, device=dev).to(torch.bfloat16)
+    run("mesh_flash_attention backward", m2,
+        lambda: flash_grads(lambda a, b_, c: mesh_flash_attention(a, b_, c, m2, causal=True)),
+        lambda: flash_grads(lambda a, b_, c: FlashAttentionFunction.apply(a, b_, c, True)),
+        {"flash_attention": 2, "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2})
+    m4 = tp_mesh(torch, dev, mp=2, sep=2)
+    run("mesh_ulysses_flash", m4, lambda: (mesh_ulysses_flash(q, k, v, m4, causal=True),),
+        lambda: (flash_attention_fwd(q, k, v, causal=True)[0],), {"flash_attention": 4})
+    x = torch.randn(b, s, h * d, generator=g, device=dev).to(torch.bfloat16)
+    w = (1.0 + 0.1 * torch.randn(h * d, generator=g, device=dev)).to(torch.bfloat16)
+    rows = tp_mesh(torch, dev, dp=2, sep=2)
+    run("mesh_rms_norm", rows, lambda: (mesh_rms_norm(x, w, rows, 1e-5),),
+        lambda: (fused_rms_norm(x, w, 1e-5)[0],), {"rms_norm": 4})
+    dy = torch.randn(b, s, h * d, generator=g, device=dev).to(torch.bfloat16)
+
+    def norm_grads(fn):
+        xx, ww = x.detach().requires_grad_(), w.detach().requires_grad_()
+        fn(xx, ww).backward(dy)
+        return xx.grad, ww.grad
+
+    (dx, dw), n = counted_launches(torch, lambda: norm_grads(
+        lambda a, b_: mesh_rms_norm(a, b_, rows, 1e-5)))
+    dx1, dw1 = norm_grads(lambda a, b_: RMSNormFunction.apply(a, b_, 1e-5))
+    if n != {"rms_norm": 4, "rms_norm_bwd": 4}:
+        raise AssertionError(f"mesh_rms_norm backward: launches {n}")
+    tp_same("mesh_rms_norm dx", dx, dx1)
+    err = rel_l2(dw, dw1)
+    if not err <= LOGITS_REL_TOL:
+        raise AssertionError(f"mesh_rms_norm dw: relative L2 {err} > {LOGITS_REL_TOL}")
+    lines.append(f"mesh_rms_norm backward: dx bit-equal, dw (the sum of 4 members' bf16 "
+                 f"partial dw) {err:.3g} relative L2 from one call's, launches {n}")
+    cos, sin = (t.to(dev) for t in _rope_tables(d, s, 10000.0))
+    pos = torch.arange(s, device=dev, dtype=torch.int32).expand(b, s).contiguous()
+    m8 = tp_mesh(torch, dev, dp=2, sep=2, mp=2)
+    run("mesh_rope", m8, lambda: mesh_rope(q, k, cos, sin, m8),
+        lambda: fused_rope(q, k, cos, sin, pos), {"rope": 8})
+    for line in lines:
+        log(f"tp (c) {line}")
+
+
+def tp_decoder_layer(torch, cfg, sp, dev, dtype):
+    """A Llama decoder layer of ``mp_layers`` (column-parallel q/k/v/gate/up,
+    row-parallel o/down; with ``sp`` their sequence-parallel forms and the
+    activations scattered around the layer) and a column-parallel LM head,
+    under the live model mesh."""
+    from torch import nn
+
+    from paddle_tpu_torch.distributed.meta_parallel import (
+        ColumnParallelLinear, ColumnSequenceParallelLinear, GatherOp, RowParallelLinear,
+        RowSequenceParallelLinear, ScatterOp)
+    from paddle_tpu_torch.models.llama import apply_rotary_pos_emb
+    from paddle_tpu_torch.nn import RMSNorm
+    from paddle_tpu_torch.nn import functional as F
+
+    col = ColumnSequenceParallelLinear if sp else ColumnParallelLinear
+    row = RowSequenceParallelLinear if sp else RowParallelLinear
+    hs, inter = cfg.hidden_size, cfg.intermediate_size
+    H, KV, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    init = dict(std=cfg.initializer_range, device=dev, dtype=dtype,
+                generator=torch.Generator(device=dev).manual_seed(21))
+
+    class Layer(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.input_layernorm = RMSNorm(hs, cfg.rms_norm_eps, device=dev, dtype=dtype)
+            self.q_proj = col(hs, H * d, has_bias=False, gather_output=False, **init)
+            self.k_proj = col(hs, KV * d, has_bias=False, gather_output=False, **init)
+            self.v_proj = col(hs, KV * d, has_bias=False, gather_output=False, **init)
+            self.o_proj = row(H * d, hs, has_bias=False, input_is_parallel=True, **init)
+            self.post_attention_layernorm = RMSNorm(hs, cfg.rms_norm_eps, device=dev,
+                                                    dtype=dtype)
+            self.gate_proj = col(hs, inter, has_bias=False, gather_output=False, **init)
+            self.up_proj = col(hs, inter, has_bias=False, gather_output=False, **init)
+            self.down_proj = row(inter, hs, has_bias=False, input_is_parallel=True, **init)
+            self.lm_head = ColumnParallelLinear(hs, cfg.vocab_size, has_bias=False,
+                                                gather_output=False, **init)
+
+        def forward(self, x, cos, sin):
+            b, s = x.shape[:2]
+            if sp:
+                x = ScatterOp.apply(x)
+            hx = self.input_layernorm(x)
+            q = self.q_proj(hx).view(b, s, H, d)
+            k = self.k_proj(hx).view(b, s, KV, d)
+            v = self.v_proj(hx).view(b, s, KV, d)
+            q, k = apply_rotary_pos_emb(q, k, cos, sin)
+            o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            x = x + self.o_proj(o.reshape(b, s, H * d))
+            h2 = self.post_attention_layernorm(x)
+            x = x + self.down_proj(F.swiglu(self.gate_proj(h2), self.up_proj(h2)))
+            if sp:
+                x = GatherOp.apply(x)
+            return self.lm_head(x)
+
+    return Layer()
+
+
+def tp_layer(torch, cfg=None, dev="cuda", seq=TP_LAYER_SEQ, dtype=None):
+    """(b) A Llama-2-7B-width decoder layer built from ``mp_layers`` under a
+    ``model`` 2 mesh (both members on the card), sequence parallelism off
+    and on, against the same weights in the port's ``LlamaDecoderLayer``
+    with an unsharded LM head: [1, ``seq``] tokens, bf16, loss
+    (``ParallelCrossEntropy`` over the 32000-wide logits, mean; the
+    reference ``F.cross_entropy``) and every gradient within LOGITS_REL_TOL
+    relative L2; SP on bit-equal to SP off (on one controller the SP ops
+    are value identities); launches exact: B1, B1b 2 each, B2, B2 bwd,
+    B3, B3b, B3c once a member, B4 and its backward once, with
+    ``use_fused_swiglu`` on."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.distributed.meta_parallel import ParallelCrossEntropy
+    from paddle_tpu_torch.models import llama2_7b
+    from paddle_tpu_torch.models.llama import LlamaDecoderLayer, _rope_tables
+    from paddle_tpu_torch.nn import functional as F
+
+    cfg = cfg or llama2_7b(num_hidden_layers=1)
+    dtype = dtype or torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = (torch.randn(1, seq, cfg.hidden_size, generator=g, device=dev)).to(dtype)
+    labels = torch.randint(0, cfg.vocab_size, (1, seq), generator=g, device=dev)
+    labels[0, :7] = -100
+    cos, sin = (t.to(dev) for t in _rope_tables(cfg.head_dim, cfg.max_position_embeddings,
+                                                   cfg.rope_theta))
+    names = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+    results = {}
+    saved = topology.get_hybrid_communicate_group()
+    topology.set_hybrid_communicate_group(
+        topology.HybridCommunicateGroup(mesh=tp_mesh(torch, dev, mp=TP)))
+    try:
+        with ptt.flag_guard(use_fused_swiglu=True):
+            for sp in (False, True):
+                layer = tp_decoder_layer(torch, cfg, sp, dev, dtype)
+                ce = ParallelCrossEntropy(ignore_index=-100)
+
+                def step():
+                    xx = x.detach().requires_grad_()
+                    per = ce(layer(xx, cos, sin), labels)
+                    loss = per.sum() / (labels != -100).sum()
+                    loss.backward()
+                    return loss.detach(), xx.grad
+
+                (loss, dx), n = counted_launches(torch, step)
+                grads = {nm: p.grad for nm, p in layer.named_parameters()}
+                results[sp] = (loss, dx, grads, n)
+    finally:
+        topology.set_hybrid_communicate_group(saved)
+    ref = LlamaDecoderLayer(cfg, std=cfg.initializer_range, device=dev, dtype=dtype,
+                            generator=torch.Generator(device=dev).manual_seed(0))
+    head = layer.lm_head.weight.detach()
+    with torch.no_grad():
+        ref.input_layernorm.weight.copy_(layer.input_layernorm.weight)
+        ref.post_attention_layernorm.weight.copy_(layer.post_attention_layernorm.weight)
+        for nm in names:
+            sub = ref.self_attn if nm in names[:4] else ref.mlp
+            getattr(sub, nm).weight.copy_(getattr(layer, nm).weight)
+    with ptt.flag_guard(use_fused_swiglu=True):
+        def ref_step():
+            xx = x.detach().requires_grad_()
+            hw = head.clone().requires_grad_()
+            logits = F.linear(ref(xx, cos, sin), hw)
+            loss = F.cross_entropy(logits.reshape(-1, cfg.vocab_size), labels.reshape(-1),
+                                   ignore_index=-100)
+            loss.backward()
+            return loss.detach(), xx.grad, hw.grad
+
+        (rloss, rdx, rhead), rn = counted_launches(torch, ref_step)
+    ref_grads = {"input_layernorm.weight": ref.input_layernorm.weight.grad,
+                 "post_attention_layernorm.weight": ref.post_attention_layernorm.weight.grad,
+                 "lm_head.weight": rhead}
+    for nm in names:
+        sub = ref.self_attn if nm in names[:4] else ref.mlp
+        ref_grads[f"{nm}.weight"] = getattr(sub, nm).weight.grad
+    want = {"rms_norm": 2, "rms_norm_bwd": 2, "rope": TP, "rope_bwd": TP,
+            "flash_attention": TP, "flash_attention_bwd_dq": TP,
+            "flash_attention_bwd_dkv": TP, "swiglu": 1, "swiglu_bwd": 1}
+    for sp, (loss, dx, grads, n) in results.items():
+        if n != want:
+            raise AssertionError(f"tp layer (sp {sp}): launches {n}, want {want}")
+        rel = {"loss": abs(float(loss) - float(rloss)) / abs(float(rloss)), "dx": rel_l2(dx, rdx)}
+        rel.update({nm: rel_l2(gr, ref_grads[nm]) for nm, gr in grads.items()})
+        worst = max(rel, key=rel.get)
+        log(f"tp (b) decoder layer of mp_layers, sequence_parallel {sp}, [1, {seq}] tokens, "
+            f"tp {TP}: loss {float(loss):.5f} (unsharded {float(rloss):.5f}); worst relative "
+            f"L2 to the unsharded layer {rel[worst]:.4g} ({worst}); launches {n} (unsharded "
+            f"{rn})")
+        if not rel[worst] <= LOGITS_REL_TOL:
+            raise AssertionError(f"tp layer (sp {sp}): {worst} {rel[worst]} > {LOGITS_REL_TOL}")
+    off, on = results[False], results[True]
+    if not (torch.equal(off[0], on[0]) and torch.equal(off[1], on[1])
+            and all(torch.equal(off[2][nm], on[2][nm]) for nm in off[2])):
+        raise AssertionError("tp layer: sequence_parallel on differs from off")
+    log("tp (b) sequence_parallel on: loss and every gradient bit-equal to off")
+
+
+def tp_record(torch, e):
+    """Spy on engine ``e``: the f32 logits that chose each token, by
+    (rid, token index).  Returns (record, undo)."""
+    rec, cur = {}, []
+    fwd, pre = e._forward, e._prefill
+
+    def prefill(r):
+        cur[:] = [r]
+        return pre(r)
+
+    def spy(tokens, positions, tables, n_tok, take=None):
+        out = fwd(tokens, positions, tables, n_tok, take=take)
+        if take is not None:
+            rec[(cur[0].rid, 0)] = out[0, 0].float().cpu()
+        else:
+            for row, r in e._active.items():
+                rec[(r.rid, len(r.generated))] = out[row, 0].float().cpu()
+        return out
+
+    e._forward, e._prefill = spy, prefill
+
+    def undo():
+        del e._forward, e._prefill
+    return rec, undo
+
+
+def tp_serve(torch, model, tp, kind, prompts, T, record=False):
+    """Serve ``prompts`` (T new tokens each) on ``ServingEngine(model,
+    tp=tp)`` with ``kind`` pages; returns the streams, the launches, the
+    recorded logits and the run's seconds."""
+    from paddle_tpu_torch.serving import ServingEngine
+
+    e = ServingEngine(model, tp=tp, kv_dtype=kind, **ENGINE_KW)
+    rec, undo = tp_record(torch, e) if record else ({}, None)
+    rids = [e.submit(p, max_new_tokens=T) for p in prompts]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    (outs, n) = counted_launches(torch, e.run)
+    secs = time.perf_counter() - t
+    if undo is not None:
+        undo()
+    e.pool.check_leaks()
+    streams = [[int(t_) for t_ in outs[r]] for r in rids]
+    logits = {(i, j): rec[(r, j)] for i, r in enumerate(rids) for j in range(T)
+              if (r, j) in rec}
+    del e
+    return streams, n, logits, secs
+
+
+def tp_streams(torch, label, got, want, got_logits, want_logits, T):
+    """``got`` (tp=2) against ``want`` (tp=1), one stream a prompt, with the
+    logits that chose each token: each pair token-exact or parted at a
+    near-tie ``certify_divergence`` certifies, and every logit of the
+    shared prefix within LOGITS_REL_TOL.  Returns (worst relative L2, exact
+    streams, a note for each parting)."""
+    worst, exact, notes = 0.0, 0, []
+    for i, (a, b) in enumerate(zip(got, want)):
+        stop = first_diff(a, b)
+        for j in range(T if stop is None else stop):
+            worst = max(worst, rel_l2(got_logits[(i, j)], want_logits[(i, j)]))
+        same, note = certify_divergence(
+            torch, f"{label} prompt {i}", a, b, {j: got_logits[(i, j)] for j in range(T)},
+            {j: want_logits[(i, j)] for j in range(T)}, True)
+        exact += same == T
+        if stop is not None:
+            notes.append(f"prompt {i}: " + note.replace("serial", "tp=1").replace(
+                "other", f"tp={TP}"))
+    if not worst <= LOGITS_REL_TOL:
+        raise AssertionError(f"{label}: logits {worst} > {LOGITS_REL_TOL}")
+    return worst, exact, notes
+
+
+def tp_want(L, chunks, steps, tp):
+    """Launches of an engine run: per forward (each prefill chunk and
+    decode step) B1 2L + 1 times (the norms run once, on the model's
+    card) and B2 tp x L times (each member rotates its heads)."""
+    return {"rms_norm": (2 * L + 1) * (chunks + steps), "rope": tp * L * (chunks + steps)}
+
+
+def tp_engine(torch, card, cfg, make):
+    """(a) ``ServingEngine(tp=2)`` on Llama-2-7B (``cfg``; ``make(layers,
+    dtype)`` builds it),
+    both members on the card, phase_engine's 8 ragged prompts, MAX_NEW new
+    tokens, bf16, int8 and fp8 pages.  Gates (``tp_streams``): f32 weights
+    at full depth, every stream on f32 pages equal to ``tp=1``'s; there
+    and in bf16 at 2 layers on every page type, every logit that chose a
+    token both engines emit within LOGITS_REL_TOL of ``tp=1``'s and the
+    streams equal or parted at a certified near-tie (on int8 and fp8 pages
+    a k or v that differs from ``tp=1``'s by f32 rounding can round to
+    another code, so exactness is not promised there); exact launches
+    (``tp_want``) on every run; no leaked page.  Then, at full depth in
+    bf16, ``tp=1`` and ``tp=2`` side by side: the prefill of a 512-token
+    prompt, the decode step, pool bytes a token in all and a member, and
+    peak memory."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import ServingEngine
+
+    L, T, P = cfg.num_hidden_layers, MAX_NEW, ENGINE_KW["page_tokens"]
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in ENGINE_PROMPT_LENS]
+    chunks = sum(-(-len(p) // P) for p in prompts)
+
+    def check(label, n, tp, layers):
+        want = tp_want(layers, chunks, T - 1, tp)
+        if n != want:
+            raise AssertionError(f"{label}: launches {n}, want {want}")
+
+    model = make(L, torch.float32)
+    for kind in TP_KINDS:
+        (s1, n1, lg1, t1), (s2, n2, lg2, t2) = (
+            tp_serve(torch, model, tp, kind, prompts, T, record=True) for tp in (1, TP))
+        check(f"tp 1 f32 {kind}", n1, 1, L)
+        check(f"tp {TP} f32 {kind}", n2, TP, L)
+        worst, exact, notes = tp_streams(torch, f"tp f32 {kind}", s2, s1, lg2, lg1, T)
+        log(f"tp (a) f32 weights, {L} layers, {kind} pages: {exact} of {len(prompts)} tp={TP} "
+            f"streams token-exact against tp=1 ({T} tokens each); worst relative L2 of the "
+            f"logits {worst:.4g}; runs {t1:.2f} s (tp=1) and {t2:.2f} s (tp={TP})"
+            f"{'; ' if notes else ''}{'; '.join(notes)}")
+        if kind == "bf16" and exact != len(prompts):
+            raise AssertionError(f"tp f32 pages: {len(prompts) - exact} streams part from tp=1")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    shallow = make(2, torch.bfloat16)
+    for kind in TP_KINDS:
+        (s1, n1, lg1, _), (s2, n2, lg2, _) = (
+            tp_serve(torch, shallow, tp, kind, prompts, T, record=True) for tp in (1, TP))
+        check(f"tp 1 2-layer {kind}", n1, 1, 2)
+        check(f"tp {TP} 2-layer {kind}", n2, TP, 2)
+        worst, exact, notes = tp_streams(torch, f"tp 2-layer {kind}", s2, s1, lg2, lg1, T)
+        log(f"tp (a) bf16, 2 layers, {kind} pages: worst relative L2 of tp={TP}'s logits to "
+            f"tp=1's {worst:.4g} (tol {LOGITS_REL_TOL}); {exact} of {len(prompts)} streams "
+            f"token-exact{'; ' if notes else ''}{'; '.join(notes)}")
+    del shallow
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = make(L, torch.bfloat16)
+    p512 = rng.integers(1, cfg.vocab_size, ENGINE_PREFILL_LEN).astype(np.int32)
+    for tp in (1, TP):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        engines = {k: ServingEngine(model, tp=tp, kv_dtype=k, **ENGINE_KW) for k in TP_KINDS}
+        arenas = torch.cuda.memory_allocated() - base
+        _, _, _, step_s, launches = engine_lockstep(torch, engines, prompts, T)
+        peak = torch.cuda.max_memory_allocated()
+        for k, e in engines.items():
+            e.run()
+            e.pool.check_leaks()
+            check(f"tp {tp} bf16 {k}", {n: c for n, c in launches[k].items() if c}, tp, L)
+        for k, e in engines.items():
+            e.pool.alloc("p512", e.pool.pages_for(ENGINE_PREFILL_LEN + 1))
+            table = e._padded_table("p512")[None]
+            ms = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                e._prefill_chunks(p512, table)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+            e.pool.free("p512")
+            decode = step_s[k][1:]
+            log(f"tp (a) tp={tp} {k} pages, {L} layers bf16 on {card}: prefill of a "
+                f"{ENGINE_PREFILL_LEN}-token prompt {min(ms):.1f} ms; decode step "
+                f"{np.mean(decode) * 1e3:.2f} ms at batch {BATCH} (median "
+                f"{np.median(decode) * 1e3:.2f}); pool {e.pool.bytes_per_token():.0f} B a token "
+                f"in all, {e.pool.member_bytes_per_token():.0f} B a member")
+        log(f"tp (a) tp={tp}: three engines' arenas {arenas / 2**30:.3f} GiB; peak "
+            f"{peak / 2**30:.2f} GiB with the model during the lockstep run; launches a run "
+            f"{tp_want(L, chunks, T - 1, tp)}")
+        del engines
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tp_make(layers, dtype):
+    """Llama-2-7B at ``layers`` layers in ``dtype`` on the card, seeded."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+
+    return LlamaForCausalLM(llama2_7b(num_hidden_layers=layers), device="cuda",
+                            dtype=dtype, seed=0).eval()
+
+
+def phase_tp(torch, card):
+    """The model axis (ROADMAP A6b) on the card, every member on cuda:0:
+    (c) the mesh wrappers (``tp_mesh_wrappers``), (b) a decoder layer of
+    ``mp_layers`` with sequence parallelism off and on (``tp_layer``), (a)
+    ``ServingEngine(tp=2)`` on Llama-2-7B (``tp_engine``)."""
+    t = time.perf_counter()
+    tp_mesh_wrappers(torch)
+    torch.cuda.empty_cache()
+    tp_layer(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    from paddle_tpu_torch.models import llama2_7b
+
+    tp_engine(torch, card, llama2_7b(), tp_make)
+    log(f"tp phase: {time.perf_counter() - t:.1f} s")
+
+
 SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is counted on)
     "rms_norm": ("paddle_tpu_torch/ops/csrc/rms_norm.cu",
                  "paddle_tpu/ops/pallas/fused_norm.py:88", "serve"),
@@ -3363,6 +3844,9 @@ def main() -> int:
     gc.collect()         # the launcher's worker needs the memory this process cached
     torch.cuda.empty_cache()
     phase_dist(torch, card, train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_tp(torch, card)
     kernels = []
     for name, (src, replaces, path) in SOURCES.items():
         n = launches[path][HOPS_OF.get(name, name)]

@@ -19,7 +19,7 @@ Two modes, chosen by the group's mesh:
   arithmetic over its [g, m, ...] blocks there, with the reference's
   results for the same numpy stack.  Members on several cards still
   compute on the first one: spreading a stack over the cards waits for
-  ROADMAP A6b.
+  ROADMAP A6d (a multi-card machine).
 - **Multi-process** (the mesh of ``init_parallel_env``, one member a
   process): a stacked tensor is this process's own rows, on its device,
   and each call is one ``torch.distributed`` collective over the group's

@@ -13,8 +13,9 @@ device and return the global output there; the mesh's ``sep`` members (see
   CPU or with ``use_flash_attention`` off.  The reference's plain path is a
   jnp online-softmax scan that computes the same function; the port keeps
   one ring loop.  Differentiable.
-- :func:`ulysses_attention`: the heads split over the members, each runs
-  flash attention (B3) over the full sequence for its heads, and the
+- :func:`ulysses_attention`: the heads split over the ``model`` × ``sep``
+  members (``ops.sharded.mesh_ulysses_flash``), each runs flash attention
+  (B3; B3b/B3c with grad) over the full sequence for its heads, and the
   outputs concatenate.
 
 The reference's ``scale`` argument is taken only as ``None`` or
@@ -28,7 +29,7 @@ from typing import Optional
 import torch
 
 from ...ops.attention import sdpa_reference
-from ...ops.sharded import check_flash_scale, mesh_flash_attention
+from ...ops.sharded import check_flash_scale, mesh_flash_attention, mesh_ulysses_flash
 from ..topology import get_hybrid_communicate_group
 
 __all__ = ["ring_attention", "ulysses_attention"]
@@ -47,28 +48,19 @@ def _resolve_mesh(mesh):
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh=None,
                       sep_axis: str = "sep", is_causal: bool = False,
                       scale: Optional[float] = None) -> torch.Tensor:
-    """[b, s, h, d] attention with the heads split over the ``sep_axis``
-    members (DeepSpeed-Ulysses' head-sharded phase): member m attends over
-    the full sequence with its q heads and their kv heads, then the outputs
-    concatenate along the heads on q's device."""
-    from ...nn.functional import scaled_dot_product_attention
-
+    """[b, s, h, d] attention with the heads split over the ``model`` ×
+    ``sep_axis`` members (DeepSpeed-Ulysses' head-sharded phase, batch over
+    data × sharding): each member attends over the full sequence with its q
+    heads and their kv heads, then the outputs concatenate along the heads
+    on q's device."""
     mesh = _resolve_mesh(mesh)
-    members = mesh.axis_devices(sep_axis)
-    n = len(members)
+    n = mesh.shape[sep_axis]
     if q.shape[2] % n or k.shape[2] % n:
         raise ValueError(
             f"Ulysses needs q heads ({q.shape[2]}) AND kv heads ({k.shape[2]}) "
             f"divisible by the sep degree ({n}) — the head-sharded phase splits both")
-    check_flash_scale(scale, q.shape[3])
-    hq, hkv = q.shape[2] // n, k.shape[2] // n
-    outs = []
-    for m, dev in enumerate(members):
-        qm, km, vm = (t[:, :, j * m:j * (m + 1)].contiguous().to(dev)
-                      for t, j in ((q, hq), (k, hkv), (v, hkv)))
-        outs.append(scaled_dot_product_attention(qm, km, vm, is_causal=is_causal,
-                                                 training=False).to(q.device))
-    return torch.cat(outs, dim=2)
+    return mesh_ulysses_flash(q, k, v, mesh, causal=is_causal, scale=scale,
+                              sep_axis=sep_axis)
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh=None,

@@ -15,10 +15,14 @@ Two modes, as in the reference:
   i's device, ``Mesh.procs`` says which process owns each member, and a
   group's collectives run over ``torch.distributed``.
 
-The ``data`` axis (data parallelism: the collectives and ``DataParallel``)
-and the ``sep`` axis (context parallelism: :mod:`.meta_parallel.context_parallel`)
-run here.  A degree above 1 on ``model`` waits for ROADMAP A6b, on
-``pipe`` and ``sharding`` for A6c, and raises ``NotImplementedError``.
+The ``data`` axis (data parallelism: the collectives and ``DataParallel``),
+the ``sep`` axis (context parallelism: :mod:`.meta_parallel.context_parallel`)
+and the ``model`` axis (tensor parallelism: :mod:`.meta_parallel.mp_layers`,
+:mod:`.meta_parallel.sequence_parallel`, the mesh wrappers of
+``ops/sharded.py`` and ``ServingEngine(tp=n)``) run here.  A degree above 1
+on ``pipe`` or ``sharding`` waits for ROADMAP A6c and raises
+``NotImplementedError``; the sharding axis's groups and ranks exist at
+degree 1, as the pipe axis's do.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ __all__ = ["Mesh", "CommunicateTopology", "CommGroup", "HybridCommunicateGroup",
            "process_mesh_coords"]
 
 _HYBRID_AXES = ("data", "pipe", "sharding", "sep", "model")
-_WAITING = {"pipe": "A6c", "sharding": "A6c", "model": "A6b"}   # their queue items
+_WAITING = {"pipe": "A6c", "sharding": "A6c"}   # their queue items
 
 
 class Mesh:
@@ -96,7 +100,7 @@ def build_mesh(dp: int = 1, pp: int = 1, sharding: int = 1, sep: int = 1, mp: in
         raise NotImplementedError(
             "build_mesh: " + ", ".join(f"{a} degree {v} waits for ROADMAP {_WAITING[a]}"
                                        for a, v in waiting.items())
-            + " (only data and sep run in paddle_tpu_torch yet)")
+            + " (data, sep and model run in paddle_tpu_torch)")
     total = int(np.prod(list(degrees.values())))
     if total != n:
         raise ValueError(
@@ -178,9 +182,9 @@ class CommGroup:
 
 class HybridCommunicateGroup:
     """The reference's ``HybridCommunicateGroup`` over a :class:`Mesh`: its
-    topology, the global group, and the data and sep degrees, groups and
-    ranks (the model axis waits for ROADMAP A6b, pipe and sharding for
-    A6c)."""
+    topology, the per-axis groups (data, model, pipe, sharding, sep), the
+    fused data×sep and check groups, the global group, and this process's
+    rank on each axis."""
 
     def __init__(self, topology: Optional[CommunicateTopology] = None, *,
                  mesh: Optional[Mesh] = None, dp: int = 1, pp: int = 1, sharding: int = 1,
@@ -198,26 +202,65 @@ class HybridCommunicateGroup:
         self.nranks = mesh.size
         self.global_rank = process_rank()
 
+    # degrees
     def get_data_parallel_world_size(self) -> int:
         return self.mesh.shape["data"]
 
-    def get_data_parallel_group(self) -> CommGroup:
-        return CommGroup(self.mesh, ("data",))
+    def get_model_parallel_world_size(self) -> int:
+        return self.mesh.shape["model"]
 
-    def get_data_parallel_rank(self) -> int:
-        return process_mesh_coords(self.mesh)["data"]
+    def get_pipe_parallel_world_size(self) -> int:
+        return self.mesh.shape["pipe"]
+
+    def get_sharding_parallel_world_size(self) -> int:
+        return self.mesh.shape["sharding"]
 
     def get_sep_parallel_world_size(self) -> int:
         return self.mesh.shape["sep"]
 
+    # groups
+    def get_data_parallel_group(self) -> CommGroup:
+        return CommGroup(self.mesh, ("data",))
+
+    def get_model_parallel_group(self) -> CommGroup:
+        return CommGroup(self.mesh, ("model",))
+
+    def get_pipe_parallel_group(self) -> CommGroup:
+        return CommGroup(self.mesh, ("pipe",))
+
+    def get_sharding_parallel_group(self) -> CommGroup:
+        return CommGroup(self.mesh, ("sharding",))
+
     def get_sep_parallel_group(self) -> CommGroup:
         return CommGroup(self.mesh, ("sep",))
+
+    def get_dp_sep_parallel_group(self) -> CommGroup:
+        return CommGroup(self.mesh, ("data", "sep"))
+
+    def get_check_parallel_group(self, sharding: bool = False) -> CommGroup:
+        """The group over every axis but data (without sharding when
+        ``sharding``): the inf/nan check and global-norm reduction."""
+        axes = ("pipe", "sep", "model") if sharding else ("pipe", "sharding", "sep", "model")
+        return CommGroup(self.mesh, axes)
+
+    def get_global_group(self) -> CommGroup:
+        return CommGroup(self.mesh, _HYBRID_AXES)
+
+    # this process's coordinates (all 0 on a single-controller mesh)
+    def get_data_parallel_rank(self) -> int:
+        return process_mesh_coords(self.mesh)["data"]
+
+    def get_model_parallel_rank(self) -> int:
+        return process_mesh_coords(self.mesh)["model"]
+
+    def get_sharding_parallel_rank(self) -> int:
+        return process_mesh_coords(self.mesh)["sharding"]
 
     def get_sep_parallel_rank(self) -> int:
         return process_mesh_coords(self.mesh)["sep"]
 
-    def get_global_group(self) -> CommGroup:
-        return CommGroup(self.mesh, _HYBRID_AXES)
+    def get_stage_id(self) -> int:
+        return process_mesh_coords(self.mesh)["pipe"]
 
     def topology(self) -> CommunicateTopology:
         return self._topo

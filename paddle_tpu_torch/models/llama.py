@@ -22,8 +22,8 @@ from ..distributed.fleet_utils import recompute
 from ..generation import GenerationMixin, cached_attention
 from ..nn import Embedding, Linear, RMSNorm
 from ..nn import functional as F
-from ..ops import use_function, use_kernel
-from ..ops.rope import RopeFunction, fused_rope, rope_plain
+from ..ops.rope import rotate
+from ..ops.sharded import mesh_route, mesh_rope, mesh_rope_supported
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
            "llama2_7b", "llama2_13b", "llama2_70b", "apply_rotary_pos_emb",
@@ -114,8 +114,15 @@ def apply_rotary_pos_emb(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
                          pad_lens: Optional[torch.Tensor] = None):
     """Rotate q [b, s, h, d] and k at positions ``position_offset + j``,
     less ``pad_lens[b]`` per row when given (left-padded rows; positions
-    inside the padding clip to 0).  One kernel serves every case."""
+    inside the padding clip to 0).  One kernel serves every case.  Under a
+    live single-controller mesh, rows without padding go through
+    ``mesh_rope`` (each member rotates its block), as the reference's do."""
     b, s = q.shape[0], q.shape[1]
+    mesh = mesh_route("use_fused_rope") if pad_lens is None else None
+    if mesh is not None and mesh_rope_supported(mesh, q.shape, k.shape) \
+            and position_offset + s <= cos.shape[0]:
+        rows = slice(position_offset, position_offset + s)
+        return mesh_rope(q, k, cos[rows], sin[rows], mesh)
     pos_ids = position_offset + torch.arange(s, device=q.device,
                                              dtype=torch.int32)[None, :]
     pos_ids = (pos_ids.expand(b, s) if pad_lens is None
@@ -131,11 +138,7 @@ def apply_rotary_at_positions(q: torch.Tensor, k: torch.Tensor, cos: torch.Tenso
     cos/sin rows, which its serving engine applies at each row's own
     positions.  Goes through the rope kernel (B2) on the card when
     ``use_fused_rope`` is on, as every other rope of the port does."""
-    if use_function("use_fused_rope", q, k):
-        return RopeFunction.apply(q, k, cos, sin, pos_ids)
-    if use_kernel("use_fused_rope", q):
-        return fused_rope(q, k, cos, sin, pos_ids)
-    return rope_plain(q, k, cos, sin, pos_ids)
+    return rotate(q, k, cos, sin, pos_ids)
 
 
 class LlamaAttention(nn.Module):

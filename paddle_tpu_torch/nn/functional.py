@@ -23,6 +23,8 @@ from ..ops.attention import sdpa_reference
 from ..ops.flash_attention import FlashAttentionFunction, flash_attention_fwd
 from ..ops.fused_ln_swiglu import SwiGLUFunction, fused_swiglu
 from ..ops.fused_norm import RMSNormFunction, fused_rms_norm, rms_norm_plain
+from ..ops.sharded import (mesh_flash_attention, mesh_flash_supported, mesh_rms_norm,
+                           mesh_rms_norm_supported, mesh_route)
 
 __all__ = ["linear", "embedding", "rms_norm", "layer_norm", "gelu", "swiglu",
            "dropout", "scaled_dot_product_attention", "cross_entropy",
@@ -51,10 +53,23 @@ def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
              epsilon: float = 1e-6, name=None) -> torch.Tensor:
     """RMSNorm over the last axis in f32, times ``weight`` (if given), cast
     to x's dtype.  Without a weight it is the plain normalisation: the
-    kernel (B1) always takes one, as the reference's does."""
+    kernel (B1) always takes one, as the reference's does.  Under a live
+    single-controller mesh the rows go through ``mesh_rms_norm`` where its
+    gate takes them, as the reference's do."""
     if weight is None:
         xf = x.float()
         return (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + epsilon)).to(x.dtype)
+    mesh = mesh_route("use_fused_rms_norm")
+    if mesh is not None and x.dim() >= 2 and x.shape[-1] == weight.shape[-1] \
+            and mesh_rms_norm_supported(mesh, x.shape):
+        return mesh_rms_norm(x, weight, mesh, epsilon)
+    return _rms_norm(x, weight, epsilon)
+
+
+def _rms_norm(x: torch.Tensor, weight: torch.Tensor, epsilon: float) -> torch.Tensor:
+    """RMSNorm on one device: the autograd Function (B1 and B1b on the
+    card) with grad, B1 without, the plain version on the CPU or with the
+    flag off."""
     if use_function("use_fused_rms_norm", x, weight):
         return RMSNormFunction.apply(x, weight, epsilon)
     if use_kernel("use_fused_rms_norm", x):
@@ -128,16 +143,32 @@ def scaled_dot_product_attention(query: torch.Tensor, key: torch.Tensor,
                                  dropout_p: float = 0.0, is_causal: bool = False,
                                  training: bool = True, name=None) -> torch.Tensor:
     """Attention in the [batch, seq, heads, head_dim] layout.  Without an
-    additive mask this is the flash function (hand kernels on the card);
-    with one it is the composite ``sdpa_reference``, whose masked form has
-    no kernel yet.  A non-zero ``dropout_p`` in training raises."""
+    additive mask this is the flash function (hand kernels on the card),
+    through ``mesh_flash_attention`` under a live single-controller mesh
+    whose gate takes the shapes, as in the reference; with a mask it is the
+    composite ``sdpa_reference``, whose masked form has no kernel yet.  A
+    non-zero ``dropout_p`` in training raises."""
     _no_dropout(dropout_p, training, "attention dropout")
     if attn_mask is None:
-        if use_function("use_flash_attention", query, key, value):
-            return FlashAttentionFunction.apply(query, key, value, is_causal)
-        if use_kernel("use_flash_attention", query):
-            return flash_attention_fwd(query, key, value, causal=is_causal)[0]
+        mesh = mesh_route("use_flash_attention")
+        if mesh is not None and mesh_flash_supported(mesh, query.shape, key.shape,
+                                                     has_mask=False, dropout_p=0.0,
+                                                     causal=is_causal):
+            return mesh_flash_attention(query, key, value, mesh, causal=is_causal)
+        return _attention(query, key, value, is_causal)
     return sdpa_reference(query, key, value, mask=attn_mask, is_causal=is_causal)
+
+
+def _attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
+               is_causal: bool) -> torch.Tensor:
+    """Unmasked attention on one device: the flash Function (B3, B3b/B3c)
+    with grad, B3 without, ``sdpa_reference`` on the CPU or with the flag
+    off."""
+    if use_function("use_flash_attention", query, key, value):
+        return FlashAttentionFunction.apply(query, key, value, is_causal)
+    if use_kernel("use_flash_attention", query):
+        return flash_attention_fwd(query, key, value, causal=is_causal)[0]
+    return sdpa_reference(query, key, value, is_causal=is_causal)
 
 
 def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,

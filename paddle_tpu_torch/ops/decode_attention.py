@@ -10,7 +10,9 @@ Replaces the reference's ``ops/pallas/decode_attention.py``:
 ``_decode_kernel_fp8`` (B9), whose aliased output blocks are the TPU's
 form of the same in-place append.  The reference's ``*_supported`` gates
 are TPU tiling rules and have no counterpart: the kernels take any cache
-length and raise on what they cannot take.
+length and raise on what they cannot take.  Its tensor-parallel gate,
+:func:`decode_attention_sharded_supported`, answers for these kernels'
+own per-shard rules.
 """
 
 from __future__ import annotations
@@ -25,7 +27,10 @@ from . import LAUNCHES, _build
 
 __all__ = ["decode_attention_plain", "decode_attention",
            "decode_attention_int8_plain", "decode_attention_int8",
-           "decode_attention_fp8_plain", "decode_attention_fp8"]
+           "decode_attention_fp8_plain", "decode_attention_fp8",
+           "decode_attention_sharded_supported"]
+
+DEFAULT_BLOCK_K = 256   # the reference's TPU tile; taken and not read
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6 + \
@@ -263,3 +268,33 @@ def decode_attention_fp8(q, k_new, v_new, cache_k, cache_v, pos: int,
                   _DTYPES[q.dtype])
     LAUNCHES["decode_attention_fp8"] += 1
     return out, cache_k, cache_v
+
+
+def decode_attention_sharded_supported(q_shape, cache_shape, *, tp: int = 1,
+                                       block_k: int = DEFAULT_BLOCK_K,
+                                       int8: bool = False, fp8: bool = False,
+                                       emit_fallback: bool = False) -> bool:
+    """Whether a decode kernel (B6; B8 with ``int8``, B9 with ``fp8``) takes
+    the shapes one member of a ``model`` axis of ``tp`` members sees: q
+    [b, 1, h, d] and the cache [b, C, kv, d] with the heads split evenly
+    over the members (a ragged split would change the q-group geometry),
+    then the kernel's own rules on a member's shapes: one query token,
+    kv heads dividing q heads, and head_dim a multiple of 8 (16 for int8
+    and fp8) and at most 256.  The reference's TPU rules on the cache
+    length (``C >= block_k``, ``C % block_k == 0``) do not apply: the H100
+    kernels take any length, so ``block_k`` is not read.  The reference's
+    ``kernel_fallback`` events (``emit_fallback=True``) wait for the
+    telemetry of ROADMAP A8 and raise."""
+    if emit_fallback:
+        raise NotImplementedError("decode_attention_sharded_supported(emit_fallback="
+                                  "True): kernel_fallback telemetry is not ported "
+                                  "yet (ROADMAP A8)")
+    if tp < 1 or (int8 and fp8) or len(q_shape) != 4 or len(cache_shape) != 4:
+        return False
+    b, s, h, d = q_shape
+    _, _, kv, dc = cache_shape
+    if h % tp or kv % tp:
+        return False
+    h, kv = h // tp, kv // tp
+    return (s == 1 and d == dc and kv >= 1 and h % kv == 0
+            and d % (16 if int8 or fp8 else 8) == 0 and d <= 256)

@@ -19,9 +19,9 @@ from typing import Tuple
 
 import torch
 
-from . import LAUNCHES, _build
+from . import LAUNCHES, _build, use_function, use_kernel
 
-__all__ = ["rope_plain", "fused_rope", "fused_rope_bwd", "RopeFunction"]
+__all__ = ["rope_plain", "fused_rope", "fused_rope_bwd", "RopeFunction", "rotate"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_longlong,) + (ctypes.c_int,) * 4 + \
@@ -118,3 +118,15 @@ class RopeFunction(torch.autograd.Function):
         dq_in, dk_in = fused_rope_bwd(dq.contiguous(), dk.contiguous(), cos, sin,
                                       pos_ids)
         return dq_in, dk_in, None, None, None
+
+
+def rotate(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+           pos_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rope seam: :class:`RopeFunction` when a gradient is wanted and
+    ``use_fused_rope`` is on, B2 on the card with the flag on, the plain
+    version otherwise."""
+    if use_function("use_fused_rope", q, k):
+        return RopeFunction.apply(q, k, cos, sin, pos_ids)
+    if use_kernel("use_fused_rope", q):
+        return fused_rope(q, k, cos, sin, pos_ids)
+    return rope_plain(q, k, cos, sin, pos_ids)

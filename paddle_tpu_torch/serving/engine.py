@@ -32,6 +32,18 @@
   SPMD); one process drives the port's ring, so member i sits on visible
   card ``i mod n_cards`` (``cp_devices``), and several members may share
   one card.  The projections and the MLP run on the model's card.
+- **Tensor-parallel decode** (``tp`` > 1, ``PADDLE_TPU_SERVE_TP``): the
+  Megatron split of the reference, over a ``model`` axis of ``tp`` members
+  (``serving/disagg.py``): member j holds its share of the q/k/v/gate/up
+  columns and the o/down rows, and its kv heads' k/v (and int8 scale)
+  arenas.  Chunked prefill and decode run the same forward: the norms,
+  embedding, residual adds and LM head once on the model's device; each
+  member's projections, rope (B2 on its heads) and paged attention on its
+  device; the row-parallel outputs summed over the members in member order.
+  As with ``cp``, one process drives the members, which go round-robin over
+  the visible cards from the model's, so several may share one card.  Page
+  frames hold every kv head, so a page exported at one ``tp`` recalls at
+  another.
 - **Paged attention** is what the reference computes: scatter this step's
   k/v (quantized on the scatter for int8/fp8 pages), gather ``arena[tables]``
   (dequantized at the gather), then a grouped einsum with f32 accumulation
@@ -61,8 +73,7 @@
   it into a fresh engine with every token delivered exactly once.
 
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: tensor-parallel decode (``tp`` > 1, A6b),
-disaggregated prefill (``submit_prefilled``, ``prefill_export``, A8) and
+item: disaggregated prefill (``submit_prefilled``, ``prefill_export``, A8) and
 the decode-loop watchdog (A7).  The reference's chaos seams
 (``_faults.fire``) and telemetry events wait for A7 and A8.
 
@@ -76,7 +87,8 @@ Env knobs: ``PADDLE_TPU_SERVE_MAX_BATCH`` (rows, default 4),
 ``PADDLE_TPU_SERVE_DEFER_LOOKAHEAD`` / ``_DEFER_MAX`` (long-prompt
 deferral window / starvation cap), ``PADDLE_TPU_KV_DTYPE`` and
 ``PADDLE_TPU_KV_FP8_SCALE`` (pages), ``PADDLE_TPU_SERVE_CP`` (ring members
-of the context-parallel prefill, default 1), ``PADDLE_TPU_PREFIX_CACHE`` /
+of the context-parallel prefill, default 1), ``PADDLE_TPU_SERVE_TP``
+(tensor-parallel members, default 1), ``PADDLE_TPU_PREFIX_CACHE`` /
 ``PADDLE_TPU_PREFIX_PAGES`` (prefix cache on / its page budget, 64),
 ``PADDLE_TPU_KV_OFFLOAD`` / ``PADDLE_TPU_KV_OFFLOAD_PAGES`` (host tier on /
 its page budget, 64), ``PADDLE_TPU_RESUME_REPORT`` (where ``recover`` writes
@@ -99,9 +111,12 @@ import torch
 
 from ..device import devices
 from ..distributed.meta_parallel.context_parallel import ring_attention
+from ..distributed.meta_parallel.mp_layers import member_sum
 from ..distributed.topology import build_mesh
 from ..generation.speculative import AdaptiveK, SpecConfig
 from ..models.llama import apply_rotary_at_positions
+from ..nn import functional as F
+from .disagg import decode_mesh, shard_arenas, shard_llama_params
 from .admission import AdmissionController, Deadline, Overloaded, _env_float, _env_int
 from .journal import ServingJournal
 from .kv_pool import OffloadPool, PagedKVPool, PoolExhausted, TRASH_PAGE, default_page_tokens
@@ -196,8 +211,10 @@ class ServingEngine:
     ``journal_ship(seq, data)`` receives each flushed segment before the
     tokens it covers reach ``on_token``.  ``speculative``: an ``int`` draft
     length, a :class:`SpecConfig`, or ``None`` for ``PADDLE_TPU_SPEC_K``
-    (0 = serial decode).  ``tp`` > 1 raises ``NotImplementedError``, also
-    when ``PADDLE_TPU_SERVE_TP`` turns it on."""
+    (0 = serial decode).  ``tp`` (default ``PADDLE_TPU_SERVE_TP``, 1): the
+    members of tensor-parallel decode (module docstring); it must divide
+    the attention and kv head counts, and it takes the model's parameters
+    for itself, as the reference's ``shard_llama_params`` does."""
 
     def __init__(self, model, *, max_batch: Optional[int] = None,
                  page_tokens: Optional[int] = None,
@@ -222,8 +239,6 @@ class ServingEngine:
                 f"PADDLE_TPU_SERVE_CP={self.cp} cannot combine with "
                 f"PADDLE_TPU_SERVE_TP={tp}: the serving mesh is one axis "
                 f"(shard prompts OR heads, not both yet)")
-        if tp > 1:
-            raise _not_ported("tensor-parallel decode (tp > 1)", "A6b")
         if lint:
             raise ValueError(
                 "ServingEngine(lint=True): the donation lint checks the "
@@ -263,31 +278,60 @@ class ServingEngine:
         self.cp_prefills = 0                     # prompts the ring prefilled
         self.cp_fallbacks: Dict[str, int] = {}   # gate reason -> count
         n_layers, kv_heads, head_dim = model._kv_cache_spec()
+        self.tp = tp
+        h_att = model.config.num_attention_heads
+        if tp < 1 or kv_heads % tp or h_att % tp:
+            raise ValueError(
+                f"PADDLE_TPU_SERVE_TP={tp} must divide both kv_heads ({kv_heads}) "
+                f"and attention heads ({h_att}) — a ragged shard would change the "
+                f"q-group geometry")
+        if tp > 1:
+            # members round-robin over the visible devices, from the model's
+            cards = devices(self.device.type)
+            at = cards.index(self.device) if self.device in cards else 0
+            self._mesh = decode_mesh(tp, devices=cards[at:] + cards[:at])
+            shard_llama_params(model, self._mesh)
+        self.tp_devices = self._mesh.axis_devices("model") if tp > 1 else [self.device]
+        # each layer's projection weights, one a member (the engine keeps
+        # the shards it was built with)
+        self._weights = [
+            {key: (proj.weight.shards if tp > 1 else [proj.weight]) for key, proj in (
+                ("q", ly.self_attn.q_proj), ("k", ly.self_attn.k_proj),
+                ("v", ly.self_attn.v_proj), ("o", ly.self_attn.o_proj),
+                ("gate", ly.mlp.gate_proj), ("up", ly.mlp.up_proj),
+                ("down", ly.mlp.down_proj))}
+            for ly in model.llama.layers]
         self._arena_shape = (N, P, kv_heads, head_dim)
         self.kv_dtype = kv_cache_dtype(kv_dtype)
         self._fp8_scale = default_fp8_scale() if self.kv_dtype == "fp8" else None
         adt = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}.get(self.kv_dtype,
                                                                    self._cdt)
 
-        def zeros(shape, dtype):
-            return [torch.zeros(shape, dtype=dtype, device=self.device)
-                    for _ in range(n_layers)]
-
-        self._arenas: Dict[str, List[torch.Tensor]] = {
-            "k": zeros(self._arena_shape, adt), "v": zeros(self._arena_shape, adt)}
+        planes = {"k": (self._arena_shape, adt), "v": (self._arena_shape, adt)}
         self._scale_bytes = 0
         if self.kv_dtype == "int8":
             sshape = (N, P, kv_heads)
-            self._arenas["ks"] = zeros(sshape, torch.float32)
-            self._arenas["vs"] = zeros(sshape, torch.float32)
+            planes.update(ks=(sshape, torch.float32), vs=(sshape, torch.float32))
             self._scale_bytes = 2 * n_layers * int(np.prod(sshape)) * 4
         self._arena_bytes = 2 * n_layers * int(np.prod(self._arena_shape)) \
-            * self._arenas["k"][0].element_size()
+            * adt.itemsize
+        # one dict of arenas a member, each holding its kv heads; a layer at
+        # a time, so no whole global cache is ever held beside the shards
+        self._shards: List[Dict[str, List[torch.Tensor]]] = [
+            {key: [] for key in planes} for _ in self.tp_devices]
+        for key, (shape, dtype) in planes.items():
+            for _ in range(n_layers):
+                layer = {key: [torch.zeros(shape, dtype=dtype, device=self.device)]}
+                parts = shard_arenas(layer, self._mesh) if tp > 1 else [layer]
+                for ar, part in zip(self._shards, parts):
+                    ar[key] += part[key]
+        self._arenas = self._shards[0]   # the whole cache when tp == 1
         self.pool.set_page_bytes(
             kv_page_bytes(P, kv_heads, head_dim, self.kv_dtype, n_layers=n_layers),
             kv_scale_page_bytes(P, kv_heads, self.kv_dtype, n_layers=n_layers),
-            self.kv_dtype)
-        self.meter.set_kv_bytes_per_token(self.pool.bytes_per_token())
+            self.kv_dtype, shards=tp)
+        self.meter.set_kv_bytes_per_token(self.pool.bytes_per_token(),
+                                          per_member=self.pool.member_bytes_per_token())
 
         if prefix_cache is None:
             prefix_cache = os.environ.get("PADDLE_TPU_PREFIX_CACHE", "0") == "1"
@@ -782,11 +826,13 @@ class ServingEngine:
         finished when this returns and the pages may be reused."""
         if not pids:
             return []
-        idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
+        idx = self._page_ids(pids)
         host = {}
         for key, arrs in self._arenas.items():
-            dev = torch.stack([_raw(a).index_select(0, idx) for a in arrs],
-                              dim=1).view(arrs[0].dtype)
+            # [n, layers, page_tokens, kv, (d)]: the members' kv heads joined
+            planes = [torch.stack([_raw(a).index_select(0, idx[a.device]) for a in ar[key]],
+                                  dim=1).to(self.device) for ar in self._shards]
+            dev = (planes[0] if len(planes) == 1 else torch.cat(planes, 3)).view(arrs[0].dtype)
             host[key] = torch.empty(dev.shape, dtype=dev.dtype,
                                     pin_memory=self.device.type == "cuda")
             host[key].copy_(dev)
@@ -800,11 +846,19 @@ class ServingEngine:
         the compute stream ahead of the next forward."""
         if not pids:
             return
-        idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
-        for key, arrs in self._arenas.items():
+        idx = self._page_ids(pids)
+        for key in self._arenas:
             dev = _host_run([f[key] for f in frames]).to(self.device)
-            for li, a in enumerate(arrs):
-                _raw(a).index_copy_(0, idx, _raw(dev[:, li]))
+            w = dev.shape[3] // self.tp            # a member's kv heads
+            for j, ar in enumerate(self._shards):
+                part = dev.narrow(3, j * w, w).to(self.tp_devices[j])
+                for li, a in enumerate(ar[key]):
+                    _raw(a).index_copy_(0, idx[a.device], _raw(part[:, li]))
+
+    def _page_ids(self, pids) -> Dict[torch.device, torch.Tensor]:
+        """The page ids on each member's device."""
+        return {dev: torch.as_tensor(pids, dtype=torch.long, device=dev)
+                for dev in set(self.tp_devices)}
 
     def _victim_key(self, x: Request):
         """Eviction preference under pool pressure, largest key loses:
@@ -955,7 +1009,7 @@ class ServingEngine:
         pos = torch.arange(tokens.shape[1], device=tokens.device)
         page, slot = table[pos // self.page_tokens], pos % self.page_tokens
         return self._layers(tokens, pos[None].to(torch.int32), take,
-                            lambda q, k, v, li: self._ring_attention(q, k, v, li, page, slot))
+                            lambda q, k, v, li, ar: self._ring_attention(q, k, v, li, page, slot))
 
     def _ring_attention(self, q, k, v, li, page, slot):
         """Scatter the whole prompt's k/v [1, s, kv, d] into layer ``li``'s
@@ -1117,19 +1171,19 @@ class ServingEngine:
         col = torch.arange(MP * P, device=tables.device)
         return page, slot, col <= pos_js[:, None, None, :, None]
 
-    def _paged_attention(self, q, k_new, v_new, li, tables, page, slot, visible):
+    def _paged_attention(self, q, k_new, v_new, li, ar, tables, page, slot, visible):
         """Scatter this step's k/v [R, s, kv, d] into layer ``li``'s page
-        arenas IN PLACE at (``page``, ``slot``) and attend each row of q
-        [R, s, h, d] over its gathered pages where ``visible``.  As the
-        reference's grouped einsum: the cache dtype's products with f32
-        accumulation (computed in f32 from the same values), junk columns
-        masked to exact zeros; int8 pages quantize on the scatter (scales
-        into the scale arenas) and dequantize at the gather, fp8 pages
-        under the static scale."""
+        arenas of ``ar`` (one member's) IN PLACE at (``page``, ``slot``) and
+        attend each row of q [R, s, h, d] over its gathered pages where
+        ``visible``.  As the reference's grouped einsum: the cache dtype's
+        products with f32 accumulation (computed in f32 from the same
+        values), junk columns masked to exact zeros; int8 pages quantize on
+        the scatter (scales into the scale arenas) and dequantize at the
+        gather, fp8 pages under the static scale."""
         R, s, h, d = q.shape
         kv = k_new.shape[2]
         C = tables.shape[1] * self.page_tokens
-        ar = self._arenas
+        tables, page, slot, visible = (t.to(q.device) for t in (tables, page, slot, visible))
         kp, vp = ar["k"][li], ar["v"][li]
         if self.kv_dtype == "int8":
             kq, ksc = quantize_kv(k_new)
@@ -1172,30 +1226,46 @@ class ServingEngine:
         pos_ids = (positions[:, None] + torch.arange(s, device=tokens.device)
                    ).to(torch.int32)
         page, slot, visible = self._slots(tables, positions, n_tok, s)
-        return self._layers(tokens, pos_ids, take, lambda q, k, v, li: self._paged_attention(
-            q, k, v, li, tables, page, slot, visible))
+        return self._layers(tokens, pos_ids, take, lambda q, k, v, li, ar: self._paged_attention(
+            q, k, v, li, ar, tables, page, slot, visible))
 
     def _layers(self, tokens, pos_ids, take, attend):
-        """Embedding, the decoder layers with ``attend(q, k, v, layer)`` as
-        their attention (q, k rotated at ``pos_ids`` [R, s]), the final
-        norm, and the logits of every position or of ``take`` only."""
+        """Embedding, the decoder layers with ``attend(q, k, v, layer,
+        arenas)`` as their attention over a member's heads and arenas (q, k
+        rotated at ``pos_ids`` [R, s]), the final norm, and the logits of
+        every position or of ``take`` only.  The projections, rope and
+        attention run on each member (one when ``tp`` == 1); the
+        row-parallel outputs are summed over the members in member order, in
+        f32 (``member_sum``); the rest runs once on the model's device."""
         model = self.model
         base = model.llama
         R, s = tokens.shape
         cfg = model.config
-        h, kvh, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        h, kvh, d = cfg.num_attention_heads // self.tp, cfg.num_key_value_heads // self.tp, \
+            cfg.head_dim
         cos, sin = base.rope_cos.float(), base.rope_sin.float()
+        rope = {dev: (cos.to(dev), sin.to(dev), pos_ids.to(dev)) for dev in self.tp_devices}
         x = base.embed_tokens(tokens)
         for li, layer in enumerate(base.layers):
-            attn = layer.self_attn
+            w = self._weights[li]
             xin = layer.input_layernorm(x)
-            q = attn.q_proj(xin).view(R, s, h, d)
-            k = attn.k_proj(xin).view(R, s, kvh, d)
-            v = attn.v_proj(xin).view(R, s, kvh, d)
-            q, k = apply_rotary_at_positions(q, k, cos, sin, pos_ids)
-            out = attend(q, k, v, li)
-            x = x + attn.o_proj(out.reshape(R, s, h * d))
-            x = x + layer.mlp(layer.post_attention_layernorm(x))
+            parts = []
+            for j, dev in enumerate(self.tp_devices):
+                xj = xin.to(dev)
+                q = F.linear(xj, w["q"][j]).view(R, s, h, d)
+                k = F.linear(xj, w["k"][j]).view(R, s, kvh, d)
+                v = F.linear(xj, w["v"][j]).view(R, s, kvh, d)
+                q, k = apply_rotary_at_positions(q, k, *rope[dev])
+                out = attend(q, k, v, li, self._shards[j])
+                parts.append(F.linear(out.reshape(R, s, h * d), w["o"][j]))
+            x = x + member_sum(parts, x.device)
+            x2 = layer.post_attention_layernorm(x)
+            parts = []
+            for j, dev in enumerate(self.tp_devices):
+                xj = x2.to(dev)
+                act = F.swiglu(F.linear(xj, w["gate"][j]), F.linear(xj, w["up"][j]))
+                parts.append(F.linear(act, w["down"][j]))
+            x = x + member_sum(parts, x.device)
         hidden = base.norm(x)
         if take is not None:
             hidden = hidden[:, take:take + 1]

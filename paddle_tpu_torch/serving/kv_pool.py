@@ -73,15 +73,19 @@ class PagedKVPool:
         self.bytes_per_page = 0
         self.scale_bytes_per_page = 0
         self.kv_dtype = "bf16"
+        self.shards = 1
 
     # -- byte accounting ---------------------------------------------------
     def set_page_bytes(self, arena_bytes: int, scale_bytes: int = 0,
-                       kv_dtype: str = "bf16") -> None:
+                       kv_dtype: str = "bf16", shards: int = 1) -> None:
         """Record what one page costs on the device (across all layers,
-        k+v, plus any scale planes)."""
+        k+v, plus any scale planes), in all; ``shards``: the members of a
+        tensor-parallel engine, each holding an equal share of every page
+        (its kv heads)."""
         self.bytes_per_page = int(arena_bytes)
         self.scale_bytes_per_page = int(scale_bytes)
         self.kv_dtype = str(kv_dtype)
+        self.shards = int(shards)
 
     def pool_bytes(self) -> int:
         """Device bytes held by the allocatable pages (trash page excluded)."""
@@ -94,6 +98,11 @@ class PagedKVPool:
         """Device bytes one token slot costs (arena + scales, all layers)."""
         return (self.bytes_per_page + self.scale_bytes_per_page) \
             / max(self.page_tokens, 1)
+
+    def member_bytes_per_token(self) -> float:
+        """What one token slot costs each member of a tensor-parallel
+        engine: :meth:`bytes_per_token` over the members."""
+        return self.bytes_per_token() / self.shards
 
     # -- capacity ----------------------------------------------------------
     @property

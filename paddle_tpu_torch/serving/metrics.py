@@ -115,6 +115,7 @@ class SLOMeter:
         self.deadline_misses_total = 0
         self.defers_total = 0
         self.kv_bytes_per_token: Optional[float] = None
+        self.kv_bytes_per_token_member: Optional[float] = None
         self.tokens_out_total = 0        # new tokens
         self.tokens_replayed_total = 0   # recomputed after an eviction
         # the host-RAM offload tier: swaps in pages and bytes
@@ -294,10 +295,13 @@ class SLOMeter:
         self.occupancy = float(frac)
         self.occupancy_peak = max(self.occupancy_peak, float(frac))
 
-    def set_kv_bytes_per_token(self, b: float) -> None:
+    def set_kv_bytes_per_token(self, b: float, per_member: Optional[float] = None) -> None:
         """Device bytes one KV token slot costs (arena + scales, all
-        layers): the denominator the int8/fp8 page halving shows up in."""
+        layers): the denominator the int8/fp8 page halving shows up in.
+        ``per_member``: what each member of a tensor-parallel engine holds
+        of it (``b`` itself with one member)."""
         self.kv_bytes_per_token = float(b)
+        self.kv_bytes_per_token_member = float(b if per_member is None else per_member)
 
     def spec_step(self, *, proposed: int, accepted: int, emitted: int,
                   rows: int) -> None:

@@ -7,7 +7,9 @@ pod).  Beyond it, every collective and P2P call of each rank is held
 against its rows of the single-controller result on a CPU mesh (which
 ``test_torch_distributed.py`` holds against the JAX package), and a
 ``DataParallel`` ``TrainStep`` on two half batches against one process on
-the whole batch.  Every launch has its own timeout of at most 120 s."""
+the whole batch; and the tensor-parallel layers (ROADMAP A6b) with each
+process holding its shard, against one process on the whole weights.
+Every launch has its own timeout of at most 120 s."""
 
 import os
 import subprocess
@@ -168,6 +170,83 @@ _DP_PAYLOAD = _PREAMBLE + textwrap.dedent("""
 """)
 
 
+_TP_PAYLOAD = _PREAMBLE + textwrap.dedent("""
+    from paddle_tpu_torch.distributed.meta_parallel import (
+        ColumnParallelLinear, ColumnSequenceParallelLinear, GatherOp, ParallelCrossEntropy,
+        RowParallelLinear, RowSequenceParallelLinear, ScatterOp, VocabParallelEmbedding,
+        register_sequence_parallel_allreduce_hooks)
+
+    # a model axis over the two processes: each holds its shard
+    members = np.empty(2, dtype=object)
+    members[:] = [torch.device("cpu")] * 2
+    shape = (1, 1, 1, 1, 2)
+    topology.set_hybrid_communicate_group(topology.HybridCommunicateGroup(mesh=topology.Mesh(
+        members.reshape(shape), topology._HYBRID_AXES, np.arange(2).reshape(shape))))
+    hcg = dist.get_hybrid_communicate_group()
+    assert hcg.get_model_parallel_rank() == rank and hcg.get_model_parallel_world_size() == 2
+
+    def close(got, want, what):
+        np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=what)
+
+    def mine(t, axis):
+        w = t.shape[axis] // 2
+        return t.narrow(axis, rank * w, w)
+
+    rng = np.random.default_rng(5)
+    ids = torch.from_numpy(rng.integers(0, 64, (2, 8)))
+    labels = torch.from_numpy(rng.integers(0, 64, (2, 8)))
+    labels[0, :2] = -100
+    for sp in (False, True):
+        col_t = ColumnSequenceParallelLinear if sp else ColumnParallelLinear
+        row_t = RowSequenceParallelLinear if sp else RowParallelLinear
+        g = torch.Generator().manual_seed(3)
+        emb = VocabParallelEmbedding(64, 16, generator=g, device="cpu")
+        col = col_t(16, 32, gather_output=False, generator=g, device="cpu")
+        row = row_t(32, 16, input_is_parallel=True, generator=g, device="cpu")
+        head = ColumnParallelLinear(16, 64, has_bias=False, gather_output=False,
+                                    generator=g, device="cpu")
+        norm = ptt.nn.RMSNorm(16)
+        with torch.no_grad():
+            col.bias.copy_(mine(torch.arange(32.0) / 32, 0))
+            row.bias.copy_(torch.arange(16.0) / 16)
+            norm.weight.copy_(1.0 + torch.arange(16.0) / 64)
+        if sp:   # the norm sees this process's tokens: sum its grad over the group
+            register_sequence_parallel_allreduce_hooks(
+                torch.nn.ModuleList([emb, col, row, head, norm]))
+        assert tuple(col.weight.shape) == (16, 16) and tuple(row.weight.shape) == (16, 16)
+        h = emb(ids)
+        h = ScatterOp.apply(h) if sp else h
+        h = row(col(norm(h)))
+        h = GatherOp.apply(h) if sp else h
+        loss = ParallelCrossEntropy()(head(h), labels).sum()
+        loss.backward()
+
+        # one process on the whole weights, the same draws
+        g = torch.Generator().manual_seed(3)
+        W = [torch.empty(s_).normal_(0.0, 0.02, generator=g).requires_grad_()
+             for s_ in ((64, 16), (16, 32), (32, 16), (16, 64))]
+        bc = (torch.arange(32.0) / 32).requires_grad_()
+        br = (torch.arange(16.0) / 16).requires_grad_()
+        nw = (1.0 + torch.arange(16.0) / 64).requires_grad_()
+        x = W[0][ids]
+        x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + 1e-6) * nw
+        logits = ((x @ W[1] + bc) @ W[2] + br) @ W[3]
+        want = torch.nn.functional.cross_entropy(logits.reshape(-1, 64), labels.reshape(-1),
+                                                 ignore_index=-100, reduction="sum")
+        want.backward()
+        close(loss, want, f"loss sp={sp}")
+        close(emb.weight.grad, mine(W[0].grad, 0), "embedding grad")
+        close(col.weight.grad, mine(W[1].grad, 1), "column grad")
+        close(col.bias.grad, mine(bc.grad, 0), "column bias grad")
+        close(row.weight.grad, mine(W[2].grad, 0), "row grad")
+        close(row.bias.grad, br.grad, "row bias grad")
+        close(head.weight.grad, mine(W[3].grad, 1), "head grad")
+        close(norm.weight.grad, nw.grad, f"norm weight grad sp={sp}")
+    print("TP PAYLOAD OK rank", rank, flush=True)
+""")
+
+
 def _run_launch(tmp_path, payload_src, nproc=2, timeout=120, extra_env=None, args=()):
     payload = tmp_path / "payload.py"
     payload.write_text(payload_src)
@@ -233,6 +312,17 @@ class TestDataParallelMultiProcess:
         assert proc.returncode == 0, f"launch failed: {proc.stderr}\n{logs}"
         for name, text in logs.items():
             assert "DP PAYLOAD OK rank" in text, f"{name}: {text[-2000:]}"
+
+
+class TestTensorParallelMultiProcess:
+    def test_parallel_layers_across_processes(self, tmp_path):
+        """Two gloo processes on a model axis: the four ``mp_layers`` and
+        the SP linears with a marked norm weight, forward and backward,
+        against one process on the whole weights."""
+        proc, logs = _run_launch(tmp_path, _TP_PAYLOAD)
+        assert proc.returncode == 0, f"launch failed: {proc.stderr}\n{logs}"
+        for name, text in logs.items():
+            assert "TP PAYLOAD OK rank" in text, f"{name}: {text[-2000:]}"
 
 
 class TestUnported:

@@ -26,6 +26,8 @@ Engine sizes are explicit: ``tests/conftest.py`` pins the serving
 environment variables for the whole suite.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -451,11 +453,13 @@ class TestEngine:
             for _ in range(4):
                 eng.step()
 
-    # speculative decoding (A2) is ported: with it on, tp > 1 still raises
-    @pytest.mark.parametrize("kw, item", [
-        (dict(speculative=3, tp=2), "A6"), (dict(tp=2), "A6")], ids=["kw0-A2", "kw1-A6"])
-    def test_unported_options_raise(self, pair, kw, item):
-        with pytest.raises(NotImplementedError, match=item):
+    # speculative decoding (A2) and tensor-parallel decode (A6b) are ported:
+    # what is left is the reference's own refusals, a ragged tp and tp with cp
+    @pytest.mark.parametrize("kw, match", [
+        (dict(speculative=3, tp=3), "must divide"), (dict(tp=2, cp=2), "cannot combine")],
+        ids=["kw0-A2", "kw1-A6"])
+    def test_unported_options_raise(self, pair, kw, match):
+        with pytest.raises(ValueError, match=match):
             ServingEngine(pair[1], **ENGINE, **kw)
 
     def test_unported_entry_points_raise(self, pair, monkeypatch):
@@ -470,13 +474,13 @@ class TestEngine:
             eng.recover()
         with pytest.raises(NotImplementedError, match="A7"):
             eng.run(watchdog_s=1.0)
-        # speculative decoding (A2) is ported: the variable turns it on,
-        # and tensor-parallel decode still raises under it
+        # speculative decoding (A2) and tensor-parallel decode (A6b) are
+        # ported: the variables turn them on
         monkeypatch.setenv("PADDLE_TPU_SPEC_K", "2")
         assert ServingEngine(pair[1], **ENGINE)._spec_width == 3
         monkeypatch.setenv("PADDLE_TPU_SERVE_TP", "2")
-        with pytest.raises(NotImplementedError, match="A6"):
-            ServingEngine(pair[1], **ENGINE)
+        eng = ServingEngine(copy.deepcopy(pair[1]), **ENGINE)
+        assert eng.tp == 2 and eng._spec_width == 3 and len(eng._shards) == 2
 
 
 class TestModelHelpers:
