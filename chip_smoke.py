@@ -142,7 +142,25 @@ exits non-zero without them.  Phases, each raising on failure:
    layers logits within 2e-2 and exact or certified near-ties, exact B1
    and B2 launches on every run; then at full depth in bf16, beside
    ``tp=1``: the 512-token prefill, the decode step, pool bytes a token in
-   all and a member, and peak memory.
+   all and a member, and peak memory;
+12. the schedules (``phase_hybrid``, after 11): (a) ``fleet.init`` at dp 1
+   x mp 2 x pp 2 x sharding 2 (8 members on the card) with amp O2 and the
+   sharding stage in the strategy, ``LlamaForCausalLMHybrid`` at
+   Llama-2-7B width through ``distributed_model``/``distributed_optimizer``
+   and ``DistributedTrainStep`` at stages 1, 2 and 3: at 2 layers its loss
+   and every grad within 2e-2 relative L2 of the plain model's with the
+   same weights (through ``convert.py``); at 8 layers on 7's batch the
+   first 3 losses within 2e-2 of 7's, exact launches a step
+   (``hybrid_want``), step ms, tokens/s, MFU and peak memory; (b)
+   ``OneFOneBLayers`` at pp 2, v 1 and 2, M 4, on 4 decoder layers at 7B
+   width, recompute on and off, against the layers run in turn (f32 1e-5,
+   bf16 2e-2), segments run against GPipe's, ms and peak memory, and
+   ``PipelineParallel.train_batch`` against ``OneFOneBLayers.train_batch``;
+   (c) the collective-matmul ring at mp 2 and 4 on [8192, 4096] x [4096,
+   11008] and the row form against the fused form, f32 and bf16, timed.
+   10's worker also runs ``fleet.init`` + ``DistributedTrainStep`` at ZeRO
+   stage 2 over its process mesh (world size 1), losses and launches equal
+   to 7's.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
@@ -154,6 +172,7 @@ from __future__ import annotations
 import copy
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -3004,7 +3023,7 @@ DIST_MEMBERS = 4                # (b): single-controller members sharing cuda:0
 # --log_dir <dir> payload.py args.json``.  It writes its results to
 # ``args["out"]``.
 DIST_PAYLOAD = '''
-import json, sys, time
+import gc, json, sys, time
 import numpy as np
 import torch
 import torch.distributed as tdist
@@ -3128,15 +3147,41 @@ with watchdog.watch("bucket sync"):
     flat = torch.ones(args["bucket_mb"] << 19, dtype=torch.bfloat16, device=dev)
     lone_ms = timed(lambda: comm.all_reduce(flat, op="avg"), args["reps"])
 unchanged = all(torch.equal(a, b) for a, b in zip(grads, before))
+
+# fleet's hybrid path over the processes: fleet.init then DistributedTrainStep
+# at ZeRO stage 2 (the sharding stage from the strategy), amp O2 by fleet
+n_buckets, n_grads, grad_dtypes = len(buckets), len(grads), sorted({str(g.dtype) for g in grads})
+lone_bytes = flat.numel() * flat.element_size()
+del step, dp, model, opt, buckets, grads, before, flat
+gc.collect()
+if dev == "cuda":
+    torch.cuda.empty_cache()
+strategy = dist.fleet.DistributedStrategy()
+strategy.amp, strategy.amp_configs = True, {"level": "O2", "dtype": "bfloat16"}
+strategy.sharding, strategy.sharding_configs = True, {"stage": 2}
+dist.fleet.init(is_collective=True, strategy=strategy)
+hcg = dist.get_hybrid_communicate_group()
+model = dist.fleet.distributed_model(LlamaForCausalLM(cfg, device=dev, seed=0))
+opt = dist.fleet.distributed_optimizer(AdamW(1e-4, parameters=model.parameters(),
+                                             grad_clip=ClipGradByGlobalNorm(1.0)))
+zstep = dist.DistributedTrainStep(model, lambda m, x, y: m(x, labels=y)[0], opt, hcg)
+if hcg.mesh.procs is None or zstep.sharding_stage != 2:
+    raise AssertionError(f"fleet: {hcg.mesh}, stage {zstep.sharding_stage}")
+with ptt.flag_guard(**args["flags"]), watchdog.watch("zero"):
+    sync()
+    reset_launch_counts()
+    zero_losses = [float(zstep(ids, labels)) for _ in range(args["steps"])]
+    sync()
+    zero_launches = dict(LAUNCHES)
 watchdog.stop()
 if not unchanged:
     raise AssertionError("an AVG over one rank changed the gradients")
 json.dump(dict(backend=backend, world_size=env.world_size, rank=env.rank,
                losses=losses, step_ms=step_ms, launches=launches,
-               buckets=len(buckets), tensors=len(grads), bucket_bytes=nbytes,
-               dtypes=sorted({str(g.dtype) for g in grads}), sync_ms=sync_ms,
-               lone_bytes=flat.numel() * flat.element_size(), lone_ms=lone_ms,
-               watchdog_fired=len(fired), unchanged=unchanged),
+               buckets=n_buckets, tensors=n_grads, bucket_bytes=nbytes,
+               dtypes=grad_dtypes, sync_ms=sync_ms, lone_bytes=lone_bytes, lone_ms=lone_ms,
+               watchdog_fired=len(fired), unchanged=unchanged, zero_losses=zero_losses,
+               zero_launches=zero_launches, zero_procs=hcg.mesh.procs.tolist()),
           open(args["out"], "w"))
 tdist.destroy_process_group()
 print("dist payload done", flush=True)
@@ -3291,6 +3336,15 @@ def phase_dist(torch, card, train):
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
             and max(rel) <= LOGITS_REL_TOL):
         raise AssertionError(f"dist launch: losses {losses} against {train_losses}: {rel}")
+    zero = res["zero_losses"]
+    zrel = [abs(a - b) / abs(b) for a, b in zip(zero, train_losses)]
+    log(f"dist fleet.init + DistributedTrainStep (ZeRO stage 2 from the strategy, amp O2) "
+        f"over the process mesh {res['zero_procs']}: losses {' '.join(f'{x:.4f}' for x in zero)}"
+        f" (relative to phase_train's {' '.join(f'{x:.2g}' for x in zrel)}); launches "
+        f"{res['zero_launches']} in {DIST_STEPS} steps")
+    if max(zrel) > LOGITS_REL_TOL or {k: v * TRAIN_STEPS for k, v in
+                                      res["zero_launches"].items()} != want:
+        raise AssertionError(f"dist fleet ZeRO: {zero} {res['zero_launches']}")
     ms_bucket = res["sync_ms"] / res["buckets"]
     log(f"dist bucket sync on {card}: {res['buckets']} buckets of {DIST_BUCKET_MB} MB over "
         f"{res['tensors']} gradients ({res['dtypes']}), {res['bucket_bytes'] / 1e9:.4f} GB; "
@@ -3766,6 +3820,420 @@ def phase_tp(torch, card):
     log(f"tp phase: {time.perf_counter() - t:.1f} s")
 
 
+HYBRID = dict(dp_degree=1, mp_degree=2, pp_degree=2, sharding_degree=2)   # 8 members
+HYBRID_STEPS, HYBRID_GATED = 5, 3   # steps a stage; the first 3 gated on phase_train's
+PIPE_LAYERS, PIPE_M = 4, 4          # (b): 7B-width decoder layers, micro-batches
+RING_DEGREES = (2, 4)               # (c): the model degrees of the ring
+
+
+def hybrid_want(L, tensors):
+    """Launches of one hybrid step at HYBRID's degrees on TRAIN_BATCH x
+    TRAIN_SEQ: the mesh wrappers split the batch over sharding (2 blocks)
+    and, for rope and flash, the heads over model (2 x 2 blocks); SwiGLU
+    runs on the global tensors; B5 runs on each state's 2 sharding blocks."""
+    blocks = HYBRID["sharding_degree"] * HYBRID["dp_degree"]
+    heads = blocks * HYBRID["mp_degree"]
+    return {"rms_norm": blocks * (2 * L + 1), "rms_norm_bwd": blocks * (2 * L + 1),
+            "rope": heads * L, "rope_bwd": heads * L, "flash_attention": heads * L,
+            "flash_attention_bwd_dq": heads * L, "flash_attention_bwd_dkv": heads * L,
+            "swiglu": L, "swiglu_bwd": L, "adamw": blocks * tensors}
+
+
+def hybrid_fleet(dev, stage):
+    """fleet.init at HYBRID's degrees, every member on ``dev``, with amp O2
+    bf16 and the sharding stage in the strategy."""
+    import paddle_tpu_torch.distributed as dist
+
+    s = dist.fleet.DistributedStrategy()
+    s.hybrid_configs = dict(HYBRID, sep_degree=1)
+    s.amp, s.amp_configs = True, {"level": "O2", "dtype": "bfloat16"}
+    s.sharding, s.sharding_configs = True, {"stage": stage}
+    n = 1
+    for v in HYBRID.values():
+        n *= v
+    dist.fleet.init(is_collective=True, strategy=s, devices=[dev] * n)
+    return dist.get_hybrid_communicate_group()
+
+
+def hybrid_step(torch, cfg, weights, dev, stage):
+    """LlamaForCausalLMHybrid(cfg) with ``weights`` (a plain Llama's, numpy)
+    through convert.py, fleet's distributed_model / distributed_optimizer
+    (AdamW(1e-4) + ClipGradByGlobalNorm(1.0)), and DistributedTrainStep at
+    ``stage`` (from the optimizer's tag)."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.convert import load_numpy_state_dict
+    from paddle_tpu_torch.models.llama_parallel import (LlamaForCausalLMHybrid,
+                                                        stack_llama_state_dict)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    hcg = hybrid_fleet(dev, stage)
+    model = LlamaForCausalLMHybrid(cfg, hcg, device=dev, dtype=torch.bfloat16)
+    load_numpy_state_dict(model, stack_llama_state_dict(weights))
+    model = dist.fleet.distributed_model(model)
+    opt = dist.fleet.distributed_optimizer(AdamW(
+        1e-4, parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(1.0)))
+    step = dist.DistributedTrainStep(model, lambda m, x, y: m(x, labels=y)[0], opt, hcg)
+    if step.sharding_stage != stage:
+        raise AssertionError(f"hybrid: stage {step.sharding_stage}, asked {stage}")
+    return model, opt, step
+
+
+def host_weights(torch, layers):
+    """The seeded plain Llama-2-7B-width model's f32 weights (phase_train's),
+    as numpy."""
+    plain = make_llama(layers)
+    weights = {k: v.detach().cpu().numpy().copy() for k, v in plain.state_dict().items()}
+    del plain
+    return weights
+
+
+def hybrid_gate_shallow(torch, cfg, dev, ids, labels):
+    """(a) at 2 layers, bf16: the hybrid model's loss and every grad within
+    LOGITS_REL_TOL relative L2 of the plain LlamaForCausalLM's with the
+    same weights (TrainStep's path), at each stage."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.models.llama_parallel import stack_llama_state_dict
+
+    weights = host_weights(torch, 2)
+    plain = LlamaForCausalLM(cfg, device=dev, seed=1)
+    plain.load_state_dict({k: torch.from_numpy(v) for k, v in weights.items()})
+    plain = ptt.amp.decorate(plain, level="O2", dtype="bfloat16")
+    ploss, pgrads = loss_and_grads(torch, plain, ids, labels, LLAMA_ON, torch.float32)
+    del plain
+    want = stack_llama_state_dict({k: g.cpu().numpy() for k, g in pgrads.items()})
+    for stage in (1, 2, 3):
+        model, opt, step = hybrid_step(torch, cfg, weights, dev, stage)
+        with ptt.flag_guard(**LLAMA_ON):
+            loss, grads = step._loss_and_grads(step._batch((ids, labels)))
+        names = {id(p): n for n, p in model.named_parameters()}
+        rel = {names[id(p)]: rel_l2(g, torch.from_numpy(want[names[id(p)]]).to(g.device))
+               for p, g in grads}
+        rel["loss"] = abs(float(loss) - float(ploss)) / abs(float(ploss))
+        worst = max(rel, key=rel.get)
+        log(f"hybrid (a) 2-layer stage {stage}: loss {float(loss):.5f} (plain "
+            f"{float(ploss):.5f}); worst relative L2 to the plain model's {rel[worst]:.4g} "
+            f"({worst}) over {len(grads)} grads")
+        if not rel[worst] <= LOGITS_REL_TOL:
+            raise AssertionError(f"hybrid 2-layer stage {stage}: {worst} {rel[worst]}")
+        del model, opt, step, grads
+        gc.collect()
+
+
+def hybrid_steps(torch, card, cfg, weights, dev, ids, labels, train_losses):
+    """(a) at TRAIN_LAYERS: HYBRID_STEPS DistributedTrainSteps a stage; the
+    first HYBRID_GATED losses within LOGITS_REL_TOL of phase_train's; the
+    steps after the first counted: exact launches (hybrid_want), step ms
+    (median), tokens/s, MFU, peak memory.  Returns the counted launches of
+    all three stages."""
+    import statistics
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    total = {}
+    L = cfg.num_hidden_layers
+    for stage in (1, 2, 3):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, opt, step = hybrid_step(torch, cfg, weights, dev, stage)
+        n_params = sum(p.numel() for p in step._params)
+        with ptt.flag_guard(**LLAMA_ON):
+            losses, ms = [float(step(ids, labels))], []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            for _ in range(HYBRID_STEPS - 1):
+                t = time.perf_counter()
+                losses.append(float(step(ids, labels)))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+            launches = {k: c for k, c in LAUNCHES.items() if c}
+        peak = torch.cuda.max_memory_allocated()
+        counted = HYBRID_STEPS - 1
+        want = {k: counted * v for k, v in hybrid_want(L, len(step._params)).items()}
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, train_losses)]
+        med = statistics.median(ms)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        flops = 6 * n_params * tokens + L * 7 * TRAIN_BATCH * cfg.num_attention_heads \
+            * TRAIN_SEQ ** 2 * cfg.head_dim
+        log(f"hybrid (a) stage {stage}, {L} layers, {TRAIN_BATCH}x{TRAIN_SEQ}, {HYBRID} on "
+            f"{card}: losses {' '.join(f'{x:.4f}' for x in losses)} (phase_train's "
+            f"{' '.join(f'{x:.4f}' for x in train_losses[:HYBRID_STEPS])}; relative "
+            f"{' '.join(f'{x:.2g}' for x in rel)}); step ms {' '.join(f'{x:.1f}' for x in ms)} "
+            f"(median {med:.1f}), {tokens / med * 1e3:.1f} tokens/s, MFU "
+            f"{flops / (med / 1e3) / BF16_FLOPS:.4f} of {flops / 1e12:.2f} TFLOP a step; peak "
+            f"{peak / 2**30:.2f} GiB; launches in {counted} steps {launches}")
+        if max(rel[:HYBRID_GATED]) > LOGITS_REL_TOL or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"hybrid stage {stage}: losses {losses} against "
+                                 f"{train_losses[:HYBRID_STEPS]}")
+        if launches != want:
+            raise AssertionError(f"hybrid stage {stage}: launches {launches}, want {want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if stage == 1:
+            with ptt.flag_guard(**LLAMA_ON):
+                profile_step(torch, f"hybrid step stage {stage}", lambda: step(ids, labels))
+        del model, opt, step
+    return total
+
+
+def pipe_blocks(torch, cfg, n, dev, dtype, seed=5):
+    """``n`` seeded Llama decoder layers, each taking one input (the rope
+    tables its buffers), as the pipeline engines call a block."""
+    from torch import nn
+
+    from paddle_tpu_torch.models.llama import LlamaDecoderLayer, _rope_tables
+
+    cos, sin = _rope_tables(cfg.head_dim, cfg.max_position_embeddings, cfg.rope_theta)
+
+    class Block(nn.Module):
+        def __init__(self, layer):
+            super().__init__()
+            self.layer = layer
+            self.register_buffer("cos", cos.to(dev), persistent=False)
+            self.register_buffer("sin", sin.to(dev), persistent=False)
+
+        def forward(self, x):
+            return self.layer(x, self.cos, self.sin)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [Block(LlamaDecoderLayer(cfg, std=cfg.initializer_range, device=dev, dtype=dtype,
+                                    generator=g)) for _ in range(n)]
+
+
+def pipe_loss(out, y):
+    return (out.float() - y.float()).square().mean()
+
+
+def pipe_sequential(torch, blocks, x, y, m):
+    """Loss and every block's grads of ``blocks`` run on each micro-batch in
+    turn (each loss / m), the reference the engines are held to."""
+    params = [p for b in blocks for p in b.parameters()]
+    grads = [torch.zeros_like(p) for p in params]
+    total = 0.0
+    for mx, my in zip(x.chunk(m), y.chunk(m)):
+        h = mx
+        for b in blocks:
+            h = b(h)
+        loss = pipe_loss(h, my) / m
+        for acc, d in zip(grads, torch.autograd.grad(loss, params)):
+            acc += d
+        total += float(loss.detach())
+    per = len(params) // len(blocks)
+    return total, [grads[i * per:(i + 1) * per] for i in range(len(blocks))]
+
+
+def hybrid_pipeline(torch, card, cfg, dev, seq, tol32=1e-5):
+    """(b) OneFOneBLayers at pp 2 (both stages on ``dev``), v 1 and 2, M 4,
+    on PIPE_LAYERS decoder layers, [TRAIN_BATCH, seq] tokens, recompute
+    True and False: loss and grads against the layers run in turn, f32
+    within ``tol32`` and bf16 within LOGITS_REL_TOL relative L2; segments
+    run P·M·v against GPipe's P·(M+P-1); ms and peak memory of each policy;
+    PipelineParallel.train_batch on a PipelineLayer of the same blocks
+    against OneFOneBLayers.train_batch, f32 losses within ``tol32``."""
+    from paddle_tpu_torch.distributed import GPipeLayers, OneFOneBLayers
+    from paddle_tpu_torch.distributed.meta_parallel import PipelineLayer, PipelineParallel
+    from paddle_tpu_torch.optimizer import AdamW
+
+    mesh = tp_mesh(torch, dev, pp=2)
+    g = torch.Generator(device=dev).manual_seed(31)
+    x32 = torch.randn(TRAIN_BATCH, seq, cfg.hidden_size, generator=g, device=dev)
+    y32 = torch.randn(TRAIN_BATCH, seq, cfg.hidden_size, generator=g, device=dev)
+    for dtype, tol in ((torch.float32, tol32), (torch.bfloat16, LOGITS_REL_TOL)):
+        x, y = x32.to(dtype), y32.to(dtype)
+        blocks = pipe_blocks(torch, cfg, PIPE_LAYERS, dev, dtype)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want_loss, want_grads = pipe_sequential(torch, blocks, x, y, PIPE_M)
+        torch.cuda.synchronize()
+        log(f"hybrid (b) sequential {str(dtype)[6:]}: {PIPE_LAYERS} layers on {PIPE_M} "
+            f"micro-batches in turn, forward and backward "
+            f"{(time.perf_counter() - t) * 1e3:.1f} ms on {card}")
+        names = [n for n, _ in blocks[0].named_parameters()]
+        for v in (1, 2):
+            for recompute in (True, False):
+                eng = OneFOneBLayers(blocks, mesh, PIPE_M, pipe_loss, num_virtual_stages=v,
+                                     recompute=recompute)
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t = time.perf_counter()
+                loss, grads = eng.loss_and_grads(x, y)
+                torch.cuda.synchronize()
+                took = (time.perf_counter() - t) * 1e3
+                peak = torch.cuda.max_memory_allocated() - base
+                rel = {"loss": abs(float(loss) - want_loss) / abs(want_loss)}
+                for k, name in enumerate(names):
+                    ref = torch.stack([want_grads[i][k] for i in eng._row_order.tolist()])
+                    rel[name] = rel_l2(grads[k], ref)
+                worst = max(rel, key=rel.get)
+                segs = (eng.segments_run, eng.segments_recomputed)
+                log(f"hybrid (b) 1F1B {str(dtype)[6:]} v {v} recompute {recompute}: loss "
+                    f"{float(loss):.6f} (sequential {want_loss:.6f}); worst relative L2 "
+                    f"{rel[worst]:.3g} ({worst}); segments run {segs[0]} (P·M·v "
+                    f"{2 * PIPE_M * v}), recomputed {segs[1]}; {took:.1f} ms, peak "
+                    f"{peak / 2**30:.2f} GiB above the weights on {card}")
+                if rel[worst] > tol or segs[0] != 2 * PIPE_M * v or \
+                        segs[1] != (2 * PIPE_M * v if recompute else 0):
+                    raise AssertionError(f"1F1B {dtype} v {v} recompute {recompute}: {rel}, "
+                                         f"segments {segs}")
+                del eng, grads
+        if dtype == torch.bfloat16:
+            gp = GPipeLayers(blocks, mesh, PIPE_M)
+            t = time.perf_counter()
+            pipe_loss(gp(x), y).backward()
+            torch.cuda.synchronize()
+            log(f"hybrid (b) GPipe bf16: segments run {gp.segments_run} (P·(M+P-1) "
+                f"{2 * (PIPE_M + 1)}) against 1F1B's {2 * PIPE_M}; forward and backward "
+                f"{(time.perf_counter() - t) * 1e3:.1f} ms")
+            if gp.segments_run != 2 * (PIPE_M + 1):
+                raise AssertionError(f"GPipe segments {gp.segments_run}")
+            del gp
+        else:
+            eng = OneFOneBLayers(pipe_blocks(torch, cfg, PIPE_LAYERS, dev, dtype), mesh,
+                                 PIPE_M, pipe_loss)
+            fresh = pipe_blocks(torch, cfg, PIPE_LAYERS, dev, dtype)
+            host = PipelineParallel(PipelineLayer(fresh, num_stages=2, loss_fn=pipe_loss),
+                                    accumulate_steps=PIPE_M)
+            eopt = AdamW(1e-4, parameters=list(eng.parameters()))
+            hopt = AdamW(1e-4, parameters=[p for b in fresh for p in b.parameters()])
+            got = [float(eng.train_batch((x, y), eopt)) for _ in range(2)]
+            want = [float(host.train_batch((x, y), hopt)) for _ in range(2)]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            log(f"hybrid (b) PipelineParallel.train_batch f32 losses "
+                f"{' '.join(f'{v:.6f}' for v in want)}, OneFOneBLayers.train_batch "
+                f"{' '.join(f'{v:.6f}' for v in got)} (relative {rel:.3g})")
+            if rel > tol32:
+                raise AssertionError(f"PipelineParallel against 1F1B: {rel}")
+            del eng, host, fresh, eopt, hopt
+        del blocks, want_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def ring_close(torch, label, got, want, abs_terms, dtype):
+    """The ring against the fused form.  f32: within the reference's rtol
+    and atol 1e-5 plus 8 f32 epsilons of the sum of the terms' absolute
+    values (the sums run in another order).  bf16: within LOGITS_REL_TOL
+    relative L2; the reference's elementwise 5e-2 fits its unit-scale
+    [16, 12] operands, and a 7B-width dW (8192 rows a sum) rounds each of
+    the ring's p partial sums to bf16, an absolute error near 2^-9 of its
+    scale.  Returns the f32 max |diff| or the bf16 relative L2."""
+    if dtype == torch.float32:
+        bound = 1e-5 + 1e-5 * want.abs() + 8 * F32_EPS * abs_terms
+        err = (got - want).abs()
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"{label}: max |diff| {float(err.max()):.3g}")
+        return float(err.max())
+    rel = rel_l2(got, want)
+    if not rel <= LOGITS_REL_TOL:
+        raise AssertionError(f"{label}: relative L2 {rel:.3g} > {LOGITS_REL_TOL}")
+    return rel
+
+
+def hybrid_ring(torch, card, dev, rows, hidden, inter):
+    """(c) the collective-matmul ring at model degree 2 and 4, every member
+    on ``dev``: all_gather_matmul on [rows, hidden] x [hidden, inter] and
+    matmul_reduce_scatter on [rows, inter] x [inter, hidden], forward and
+    both grads against the fused form (each member's product, joined or
+    summed as the TP layers' fused form does), f32 and bf16; then the times
+    of one column and one row layer's forward and backward, ring and fused,
+    in bf16."""
+    from paddle_tpu_torch.distributed import overlap
+    from paddle_tpu_torch.distributed.meta_parallel.mp_layers import member_sum
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    for p in RING_DEGREES:
+        mesh = tp_mesh(torch, dev, mp=p)
+        forms = {
+            "column": (lambda x, w: overlap.all_gather_matmul(x, w, mesh),
+                       lambda x, w: torch.cat([x @ wj for wj in w.chunk(p, 1)], -1),
+                       (rows, hidden), (hidden, inter)),
+            "row": (lambda x, w: overlap.matmul_reduce_scatter(x, w, mesh),
+                    lambda x, w: member_sum([xj @ wj for xj, wj in
+                                             zip(x.chunk(p, -1), w.chunk(p, 0))], x.device),
+                    (rows, inter), (inter, hidden))}
+        for form, (ring, fused, xs, ws) in forms.items():
+            x32 = torch.randn(*xs, generator=g, device=dev)
+            w32 = torch.randn(*ws, generator=g, device=dev) / math.sqrt(xs[1])
+            dy32 = torch.randn(xs[0], ws[1], generator=g, device=dev)
+            errs, times = {}, {}
+            for dtype in (torch.float32, torch.bfloat16):
+                x, w, dy = (t.to(dtype) for t in (x32, w32, dy32))
+
+                def run(fn):
+                    xx, ww = x.detach().requires_grad_(), w.detach().requires_grad_()
+                    out = fn(xx, ww)
+                    out.backward(dy)
+                    return out.detach(), xx.grad, ww.grad
+
+                got, want = run(ring), run(fused)
+                ax, aw, ady = x.float().abs(), w.float().abs(), dy.float().abs()
+                terms = (ax @ aw, ady @ aw.T, ax.T @ ady)
+                errs[str(dtype)[6:]] = [ring_close(torch, f"ring mp {p} {form} {n}", a, b, t,
+                                                   dtype)
+                                        for n, a, b, t in zip(("out", "dx", "dw"), got, want,
+                                                              terms)]
+                del got, want, terms, ax, aw, ady
+                if dtype == torch.bfloat16:
+                    for name, fn in (("ring", ring), ("fused", fused)):
+                        times[name] = time_ms(torch, lambda: run(fn), iters=5, repeats=3)
+            log(f"hybrid (c) ring mp {p} {form} [{xs[0]}, {xs[1]}] x [{ws[0]}, {ws[1]}] on "
+                f"{card}: (out, dx, dw) f32 max |ring - fused| "
+                f"{', '.join(f'{e:.3g}' for e in errs['float32'])}, bf16 relative L2 "
+                f"{', '.join(f'{e:.3g}' for e in errs['bfloat16'])}; forward + backward bf16 "
+                f"ring {times['ring']:.3f} ms, fused {times['fused']:.3f} ms "
+                f"({times['ring'] / times['fused']:.2f}x)")
+            del x32, w32, dy32
+        torch.cuda.empty_cache()
+
+
+def phase_hybrid(torch, card, train=None, cfg=None, dev="cuda", batch=None):
+    """The schedules (ROADMAP A6c) on the card, every member on ``dev``:
+    (a) fleet's hybrid step at Llama-2-7B width (``hybrid_gate_shallow``,
+    ``hybrid_steps``), (b) the pipeline engines (``hybrid_pipeline``), (c)
+    the collective-matmul ring (``hybrid_ring``).  ``train``: phase_train's
+    (launches, losses, ms), run here (the flags-on steps) when not given;
+    ``batch``: (ids, labels), by default phase_train's.  Returns (a)'s
+    counted launches."""
+    import dataclasses
+
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.models import llama2_7b
+
+    t0 = time.perf_counter()
+    cfg = cfg or llama2_7b(num_hidden_layers=TRAIN_LAYERS)
+    ids, labels = batch or train_batch(torch, cfg.vocab_size)
+    if train is None:
+        train = train_steps(torch, card, make_llama, cfg.num_hidden_layers, LLAMA_ON, ids,
+                            labels)
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        hybrid_gate_shallow(torch, dataclasses.replace(cfg, num_hidden_layers=2), dev,
+                            ids[:2], labels[:2])
+        gc.collect()
+        torch.cuda.empty_cache()
+        weights = host_weights(torch, cfg.num_hidden_layers)
+        launches = hybrid_steps(torch, card, cfg, weights, dev, ids, labels, train[1])
+        del weights
+    finally:
+        topology.set_hybrid_communicate_group(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    hybrid_pipeline(torch, card, cfg, dev, ids.shape[1])
+    t2 = time.perf_counter()
+    hybrid_ring(torch, card, dev, ids.shape[0] * ids.shape[1], cfg.hidden_size,
+                cfg.intermediate_size)
+    log(f"hybrid phase: {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f}, (b) "
+        f"{t2 - t1:.1f}, (c) {time.perf_counter() - t2:.1f})")
+    return launches
+
+
 SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is counted on)
     "rms_norm": ("paddle_tpu_torch/ops/csrc/rms_norm.cu",
                  "paddle_tpu/ops/pallas/fused_norm.py:88", "serve"),
@@ -3805,6 +4273,9 @@ SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is count
 # on the CP path (every B3 launch there is a ring hop, each followed by one
 # merge; ``cp_launches`` holds the two counts equal)
 HOPS_OF = {"ring_flash_attention": "flash_attention"}
+
+# the kernels of fleet's hybrid step: their launches add the hybrid path's
+HYBRID_KERNELS = frozenset(hybrid_want(1, 1))
 
 
 def main() -> int:
@@ -3847,13 +4318,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_tp(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["hybrid"] = phase_hybrid(torch, card, train)
     kernels = []
     for name, (src, replaces, path) in SOURCES.items():
-        n = launches[path][HOPS_OF.get(name, name)]
-        if n == 0:
-            raise AssertionError(f"{name}: never launched on the {path} path")
+        paths = {path: launches[path][HOPS_OF.get(name, name)]}
+        if name in HYBRID_KERNELS:
+            paths["hybrid"] = launches["hybrid"].get(name, 0)
+        for where, n in paths.items():
+            if n == 0:
+                raise AssertionError(f"{name}: never launched on the {where} path")
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                            launches=n, **rows[name]))
+                            launches=sum(paths.values()), paths=paths, **rows[name]))
     print(json.dumps({"kernels": kernels}))
     print(f"card (name, power limit): {card}")
     print(json.dumps({"ok": True, "device": {

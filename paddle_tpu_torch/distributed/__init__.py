@@ -1,20 +1,31 @@
 """paddle_tpu_torch.distributed: the port of ``paddle_tpu.distributed``.
 
-So far its process layer (ROADMAP A6a): the TCP store and rendezvous, the
+The process layer (ROADMAP A6a: the TCP store and rendezvous, the
 communication watchdog, the collectives and P2P over a mesh driven from one
-process or over ``torch.distributed`` (NCCL on the card, gloo on the CPU),
-``init_parallel_env``, ``DataParallel`` and the launch CLI
-(``python -m paddle_tpu_torch.distributed.launch``); ``topology`` with its
-``data`` and ``sep`` axes, ``meta_parallel.context_parallel`` and
-``fleet_utils``' activation recompute."""
+process or over ``torch.distributed``, ``init_parallel_env``,
+``DataParallel``, the launch CLI), the model axis (A6b: ``meta_parallel``'s
+tensor and sequence parallelism, context parallelism) and the schedules
+(A6c: ``fleet``, ``DistributedTrainStep`` with ZeRO stages 1-3,
+``ScannedLayers``, the GPipe and 1F1B engines, ``group_sharded_parallel``
+and ``overlap``'s collective-matmul ring and gradient buckets).
+``auto_parallel`` waits for ROADMAP A6c2."""
 
 from . import communication  # noqa: F401
+from . import fleet  # noqa: F401
+from . import meta_parallel  # noqa: F401
+from . import overlap  # noqa: F401
 from .communication import (P2POp, ReduceOp, all_gather, all_reduce, all_to_all,  # noqa: F401
                             barrier, batch_isend_irecv, broadcast, get_group, irecv,
                             isend, new_group, ppermute, recv, reduce, reduce_scatter,
                             scatter, scatter_stack, send, stream, wait)
+from .engine import (DistributedTrainStep, GPipeLayers, ScannedLayers,  # noqa: F401
+                     gpipe_spmd_step)
+from .fleet import FaultDomain, HeartbeatLease, LeaseMonitor  # noqa: F401
 from .parallel import (DataParallel, ParallelEnv, get_rank, get_world_size,  # noqa: F401
                        init_parallel_env, is_initialized)
+from .pipeline_1f1b import (OneFOneBLayers, make_1f1b_schedule,  # noqa: F401
+                            schedule_efficiency)
+from .sharding import group_sharded_parallel, save_group_sharded_model  # noqa: F401
 from .store import TCPKVStore, TCPStore, rendezvous  # noqa: F401
 from .topology import (CommGroup, HybridCommunicateGroup, build_mesh,  # noqa: F401
                        get_hybrid_communicate_group, set_hybrid_communicate_group)

@@ -1,7 +1,7 @@
 """Hybrid-parallel building blocks (port of the reference's
 ``distributed/meta_parallel/``): the tensor-parallel layers, sequence
-parallelism, and context parallelism (ring attention and Ulysses).  The
-pipeline names import and raise naming ROADMAP A6c."""
+parallelism, context parallelism (ring attention and Ulysses), and the
+pipeline segmentation and host runtimes."""
 
 from .context_parallel import ring_attention, ulysses_attention  # noqa: F401
 from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,  # noqa: F401

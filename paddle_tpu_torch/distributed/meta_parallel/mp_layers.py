@@ -31,11 +31,12 @@ two modes of ``distributed.topology``:
 
 Every parameter records ``split_axis`` and ``is_distributed`` as the
 reference's do; a parameter the reference replicates (a row-parallel bias)
-is held whole, once.  ``PADDLE_TPU_TP_OVERLAP`` set on asks for the
-reference's collective-matmul ring (``overlap/collective_matmul.py``),
-which waits for ROADMAP A6c and raises; unset, the port takes the fused
-form (the reference's default decomposes above its row threshold: the
-same math, another schedule).  Weights are drawn from N(0, ``std``) with
+is held whole, once.  Above the ring gate (``overlap.should_decompose``:
+``PADDLE_TPU_TP_OVERLAP`` on, the default, model degree 2 or more, 256
+ring-chunk rows a member, pipe degree 1) the column and row linears take
+the reference's collective-matmul ring (``overlap/collective_matmul.py``):
+the same product as a ring of partial matmuls, with the mirrored ring as
+its backward; below it, the fused form above.  Weights are drawn from N(0, ``std``) with
 the caller's generator at the global shape (the port's initializer for
 every Linear; ``ParamAttr`` and initializers wait for A3), so a process
 of a multi-process job holds the same values as the global weight's
@@ -44,7 +45,6 @@ shard.
 
 from __future__ import annotations
 
-import os
 from typing import List, Optional
 
 import torch
@@ -53,6 +53,7 @@ from torch import nn
 
 from ...nn import functional as F
 from ...nn.layer.common import check_attr
+from ..overlap import all_gather_matmul, matmul_reduce_scatter, should_decompose
 from ..topology import CommGroup, get_hybrid_communicate_group, process_mesh_coords
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear", "RowParallelLinear",
@@ -65,15 +66,6 @@ def _mesh():
         raise RuntimeError("call fleet.init / init_parallel_env (or set a "
                            "HybridCommunicateGroup) before building parallel layers")
     return hcg.mesh
-
-
-def _refuse_overlap() -> None:
-    v = os.environ.get("PADDLE_TPU_TP_OVERLAP")
-    if v is not None and v not in ("0", "false"):
-        raise NotImplementedError(
-            f"PADDLE_TPU_TP_OVERLAP={v}: the collective-matmul ring "
-            "(distributed/overlap) is not ported yet (ROADMAP A6c); unset it "
-            "or set it to 0 for the fused form")
 
 
 class _Model:
@@ -124,6 +116,10 @@ def _mark(p: nn.Parameter, axis: Optional[int]) -> nn.Parameter:
     if axis is not None:
         p.split_axis = axis
     return p
+
+
+def _bias(out: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    return out if bias is None else out + bias
 
 
 def member_sum(parts: List[torch.Tensor], device: torch.device) -> torch.Tensor:
@@ -272,12 +268,25 @@ class ColumnParallelLinear(nn.Module):
         self.bias = _zeros(out_features, device, dtype, self._model, 0) if has_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _refuse_overlap()
         m = self._model
+        ring = should_decompose(tuple(x.shape), m.mesh)
         if m.multi:
-            out = F.linear(_CIdentity.apply(x, m.group), self.weight, self.bias)
+            if ring:   # this process's row chunk through the ring
+                chunk = _Split.apply(x.reshape(-1, x.shape[-1]), m.group, m.rank, 0)
+                out = _bias(all_gather_matmul(chunk, self.weight, m.mesh)
+                            .reshape(*x.shape[:-1], -1), self.bias)
+            else:
+                out = F.linear(_CIdentity.apply(x, m.group), self.weight, self.bias)
             return _Gather.apply(out, m.group, m.rank, out.dim() - 1) \
                 if self.gather_output else out
+        if ring:
+            return _bias(all_gather_matmul(x.reshape(-1, x.shape[-1]), self.weight, m.mesh)
+                         .reshape(*x.shape[:-1], -1), self.bias)
+        return self._fused(x)
+
+    def _fused(self, x: torch.Tensor) -> torch.Tensor:
+        """Single controller: each member's columns, joined."""
+        m = self._model
         biases = m.shards(self.bias, 0) if self.bias is not None else [None] * m.n
         outs = [F.linear(x.to(w.device), w, b).to(x.device)
                 for w, b in zip(m.shards(self.weight, 1), biases)]
@@ -308,22 +317,34 @@ class RowParallelLinear(nn.Module):
             if has_bias else None
 
     def _partial(self, x: torch.Tensor) -> torch.Tensor:
-        """The members' partial products summed: global [.., out]."""
+        """The members' partial products summed: global [.., out]; above
+        the ring gate, by the matmul-reduce-scatter ring (across processes
+        its row blocks are then all-gathered)."""
         m = self._model
+        ring = should_decompose(tuple(x.shape), m.mesh)
         if m.multi:
             if not self.input_is_parallel:
                 x = _Split.apply(x, m.group, m.rank, x.dim() - 1)
+            if ring:
+                rows = matmul_reduce_scatter(x.reshape(-1, x.shape[-1]), self.weight, m.mesh)
+                return _Gather.apply(rows, m.group, m.rank, 0).reshape(*x.shape[:-1], -1)
             return _MpAllReduce.apply(F.linear(x, self.weight), m.group)
-        xs = x.chunk(m.n, -1) if x.shape[-1] % m.n == 0 else None
-        if xs is None:
+        if x.shape[-1] % m.n:
             raise ValueError(f"input features {x.shape[-1]} not divisible by mp degree {m.n}")
+        if ring:
+            return matmul_reduce_scatter(x.reshape(-1, x.shape[-1]), self.weight,
+                                         m.mesh).reshape(*x.shape[:-1], -1)
+        return self._fused(x)
+
+    def _fused(self, x: torch.Tensor) -> torch.Tensor:
+        """Single controller: each member's partial product, summed."""
+        m = self._model
         return member_sum([F.linear(xj.to(w.device), w)
-                     for xj, w in zip(xs, m.shards(self.weight, 0))], x.device)
+                           for xj, w in zip(x.chunk(m.n, -1), m.shards(self.weight, 0))],
+                          x.device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _refuse_overlap()
-        out = self._partial(x)
-        return out if self.bias is None else out + self.bias
+        return _bias(self._partial(x), self.bias)
 
 
 class ParallelCrossEntropy(nn.Module):

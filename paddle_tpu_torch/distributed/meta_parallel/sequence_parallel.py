@@ -26,8 +26,10 @@ of ``distributed.topology`` hold it differently:
   parameter's gradient over the group, as paddle's backward hooks do.
 
 ``sequence_parallel_enabled`` is the one gate (the flag, then
-``PADDLE_TPU_SP``, then on when mp > 1).  The reference's ring lowering
-(``PADDLE_TPU_TP_OVERLAP``) waits for ROADMAP A6c and raises.
+``PADDLE_TPU_SP``, then on when mp > 1).  Above the ring gate
+(``overlap.should_decompose_seq``) the SP linears take the reference's
+sequence-parallel rings (``all_gather_matmul_seq`` before the column
+matmul, ``matmul_reduce_scatter_seq`` after the row matmul), in both modes.
 """
 
 from __future__ import annotations
@@ -40,8 +42,9 @@ from torch import nn
 
 from ...nn import functional as F
 from ..topology import get_hybrid_communicate_group
+from ..overlap import all_gather_matmul_seq, matmul_reduce_scatter_seq, should_decompose_seq
 from .mp_layers import (ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
-                        _all_reduce, _Gather, _mesh, _Model, _refuse_overlap, _Split)
+                        _all_reduce, _bias, _Gather, _mesh, _Model, _Split)
 
 __all__ = ["ScatterOp", "GatherOp", "AllGatherOp", "ReduceScatterOp",
            "ColumnSequenceParallelLinear", "RowSequenceParallelLinear",
@@ -185,11 +188,19 @@ class ColumnSequenceParallelLinear(ColumnParallelLinear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         m = self._model
-        if not m.multi:
-            return super().forward(x)
-        _refuse_overlap()
-        out = F.linear(_Gather.apply(x, m.group, m.rank, 1, True), self.weight, self.bias)
-        return _Gather.apply(out, m.group, m.rank, out.dim() - 1) if self.gather_output else out
+        seq = list(x.shape)
+        if m.multi:
+            seq[1] *= m.n      # the gate reads the global sequence
+        ring = x.dim() == 3 and should_decompose_seq(tuple(seq), m.mesh)
+        if ring:
+            out = _bias(all_gather_matmul_seq(x, self.weight, m.mesh), self.bias)
+        elif not m.multi:
+            return self._fused(x)
+        else:
+            out = F.linear(_Gather.apply(x, m.group, m.rank, 1, True), self.weight, self.bias)
+        if m.multi and self.gather_output:
+            return _Gather.apply(out, m.group, m.rank, out.dim() - 1)
+        return out
 
 
 class RowSequenceParallelLinear(RowParallelLinear):
@@ -210,10 +221,14 @@ class RowSequenceParallelLinear(RowParallelLinear):
 
     def forward(self, x: torch.Tensor, seq_dim: int = 1) -> torch.Tensor:
         m = self._model
-        if not m.multi:
-            return super().forward(x)
-        _refuse_overlap()
-        if not self.input_is_parallel:
+        if m.multi and not self.input_is_parallel:
             x = _Split.apply(x, m.group, m.rank, x.dim() - 1)
+        if seq_dim % x.dim() == x.dim() - 2 and should_decompose_seq(tuple(x.shape), m.mesh):
+            return _bias(matmul_reduce_scatter_seq(x, self.weight, m.mesh), self.bias)
+        if not m.multi:
+            if x.shape[-1] % m.n:
+                raise ValueError(f"input features {x.shape[-1]} not divisible by mp "
+                                 f"degree {m.n}")
+            return _bias(self._fused(x), self.bias)
         out = _Split.apply(F.linear(x, self.weight), m.group, m.rank, seq_dim % x.dim(), True)
-        return out if self.bias is None else out + self.bias
+        return _bias(out, self.bias)

@@ -15,14 +15,14 @@ Two modes, as in the reference:
   i's device, ``Mesh.procs`` says which process owns each member, and a
   group's collectives run over ``torch.distributed``.
 
-The ``data`` axis (data parallelism: the collectives and ``DataParallel``),
-the ``sep`` axis (context parallelism: :mod:`.meta_parallel.context_parallel`)
-and the ``model`` axis (tensor parallelism: :mod:`.meta_parallel.mp_layers`,
+Every axis runs: ``data`` (data parallelism: the collectives and
+``DataParallel``), ``pipe`` (the pipeline engines: :mod:`.engine`,
+:mod:`.pipeline_1f1b`, :mod:`.meta_parallel.pipeline_parallel`),
+``sharding`` (ZeRO stages 1-3 of :class:`.engine.DistributedTrainStep`),
+``sep`` (context parallelism: :mod:`.meta_parallel.context_parallel`) and
+``model`` (tensor parallelism: :mod:`.meta_parallel.mp_layers`,
 :mod:`.meta_parallel.sequence_parallel`, the mesh wrappers of
-``ops/sharded.py`` and ``ServingEngine(tp=n)``) run here.  A degree above 1
-on ``pipe`` or ``sharding`` waits for ROADMAP A6c and raises
-``NotImplementedError``; the sharding axis's groups and ranks exist at
-degree 1, as the pipe axis's do.
+``ops/sharded.py`` and ``ServingEngine(tp=n)``).
 """
 
 from __future__ import annotations
@@ -40,7 +40,6 @@ __all__ = ["Mesh", "CommunicateTopology", "CommGroup", "HybridCommunicateGroup",
            "process_mesh_coords"]
 
 _HYBRID_AXES = ("data", "pipe", "sharding", "sep", "model")
-_WAITING = {"pipe": "A6c", "sharding": "A6c"}   # their queue items
 
 
 class Mesh:
@@ -95,12 +94,6 @@ def build_mesh(dp: int = 1, pp: int = 1, sharding: int = 1, sep: int = 1, mp: in
         if n % known != 0:
             raise ValueError(f"device count {n} not divisible by fixed degrees {known}")
         degrees[unknown[0]] = n // known
-    waiting = {a: v for a, v in degrees.items() if a in _WAITING and v > 1}
-    if waiting:
-        raise NotImplementedError(
-            "build_mesh: " + ", ".join(f"{a} degree {v} waits for ROADMAP {_WAITING[a]}"
-                                       for a, v in waiting.items())
-            + " (data, sep and model run in paddle_tpu_torch)")
     total = int(np.prod(list(degrees.values())))
     if total != n:
         raise ValueError(

@@ -9,8 +9,12 @@ the reference differentiates with respect to the f32 master weights, so a
 bf16 parameter's gradient is its bf16 cotangent cast to f32, which is what
 the optimizer does with ``.grad`` before the clip.  ``gradient_merge=k``
 splits every batch argument into k micro-batches along dim 0, sums their
-gradients in f32, and divides by k (the reference's default averaging);
-the loss returned is the mean of the micro-batch losses.
+gradients in f32, and divides by k (the reference's default averaging;
+``optimizer._gradient_merge_avg`` False, which ``fleet`` sets from its
+strategy, keeps the sum); the loss returned is the mean of the
+micro-batch losses.  Without ``gradient_merge``, k comes from
+``optimizer._gradient_merge_k`` (set by ``fleet.distributed_optimizer``),
+as in the reference.
 
 ``donate`` is accepted and has no effect: the reference donates the
 state buffers to its compiled step, and the eager step updates them in
@@ -53,7 +57,10 @@ class TrainStep:
         self._sync_grads = getattr(model, "apply_collective_grads", None)
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        if gradient_merge is None:
+            gradient_merge = getattr(optimizer, "_gradient_merge_k", 1)
         self._merge_k = max(1, int(gradient_merge or 1))
+        self._merge_avg = bool(getattr(optimizer, "_gradient_merge_avg", True))
         self._params = [p for p in model.parameters() if p.requires_grad]
 
     def attach_sdc_monitor(self, monitor) -> None:
@@ -72,7 +79,14 @@ class TrainStep:
         return arrays
 
     def __call__(self, *batch) -> torch.Tensor:
-        arrays = self._batch(batch)
+        loss, grads = self._loss_and_grads(self._batch(batch))
+        self._update(grads)
+        return loss
+
+    def _loss_and_grads(self, arrays: List[torch.Tensor]):
+        """The loss (an f32 scalar) and the ``[(param, grad)]`` the update
+        takes: the optimizer's parameters with their ``.grad``, or, under
+        gradient merge, the merged f32 gradients."""
         for p in self._params:
             p.grad = None
         k = self._merge_k
@@ -81,8 +95,8 @@ class TrainStep:
             loss.backward()
             if self._sync_grads is not None:
                 self._sync_grads()
-            self.optimizer.step()
-            return loss.detach()
+            return loss.detach(), [(p, p.grad) for p in self.optimizer._parameter_list
+                                   if p.requires_grad and p.grad is not None]
         merged: Dict[int, torch.Tensor] = {}
         loss_sum = torch.zeros((), dtype=torch.float32, device=arrays[0].device)
         for i in range(k):
@@ -97,6 +111,10 @@ class TrainStep:
                     g = p.grad.float()
                     merged[id(p)] = g if id(p) not in merged else merged[id(p)] + g
                     p.grad = None
-        grads = [(p, merged[id(p)] / k) for p in self._params if id(p) in merged]
+        div = k if self._merge_avg else 1
+        return loss_sum / k, [(p, merged[id(p)] / div) for p in self._params
+                              if id(p) in merged]
+
+    def _update(self, grads) -> None:
+        """Clip and update (the optimizer's ``_apply``)."""
         self.optimizer._apply(grads)
-        return loss_sum / k

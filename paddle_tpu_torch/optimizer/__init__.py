@@ -62,6 +62,10 @@ class Optimizer:
         self._multi_precision = multi_precision
         self._accumulators: Dict[int, Dict[str, Any]] = {}
         self._master_weights: Dict[int, torch.Tensor] = {}
+        # id(param) -> (dim, n): its slots and master are held as n member
+        # blocks along dim, stacked [n, *block] (a DistributedTrainStep's
+        # ZeRO layout); state_dict shows them in the parameter's layout
+        self._layouts: Dict[int, Tuple[int, int]] = {}
         self._step_count = 0
 
     # -- lr ------------------------------------------------------------
@@ -139,6 +143,21 @@ class Optimizer:
 
 
     # -- checkpointing ------------------------------------------------
+    def _global(self, p: torch.Tensor, v: Any) -> Any:
+        """A slot or master in ``p``'s own layout."""
+        if id(p) not in self._layouts or not isinstance(v, torch.Tensor):
+            return v
+        dim, _ = self._layouts[id(p)]
+        return torch.cat(v.unbind(0), dim)
+
+    def _blocked(self, p: torch.Tensor, v: Any) -> torch.Tensor:
+        """A loaded slot or master on ``p``'s device, in its held layout."""
+        v = torch.as_tensor(v, device=p.device)
+        if id(p) not in self._layouts:
+            return v
+        dim, n = self._layouts[id(p)]
+        return torch.stack(v.chunk(n, dim)).contiguous()
+
     def state_dict(self) -> Dict[str, Any]:
         out: Dict[str, Any] = {}
         for p in self._parameter_list:
@@ -148,10 +167,10 @@ class Optimizer:
             if st is None and p.requires_grad:
                 st = self._init_state(p)
             for slot, v in (st or {}).items():
-                out[f"{key}.{slot}"] = v
+                out[f"{key}.{slot}"] = self._global(p, v)
             mw = self._master_weights.get(id(p))
             if mw is not None:
-                out[f"{key}.master_weight"] = mw
+                out[f"{key}.master_weight"] = self._global(p, mw)
         if isinstance(self._learning_rate, LRScheduler):
             out["LR_Scheduler"] = self._learning_rate.state_dict()
         out["@step"] = self._step_count
@@ -164,11 +183,11 @@ class Optimizer:
                   if f"{key}.{slot}" in state}
             if st:
                 self._accumulators[id(p)] = {
-                    k: v if isinstance(v, int) else torch.as_tensor(v, device=p.device)
+                    k: v if isinstance(v, int) else self._blocked(p, v)
                     for k, v in st.items()}
             mw = state.get(f"{key}.master_weight")
             if mw is not None:
-                self._master_weights[id(p)] = torch.as_tensor(mw, device=p.device)
+                self._master_weights[id(p)] = self._blocked(p, mw)
         if "LR_Scheduler" in state and isinstance(self._learning_rate, LRScheduler):
             self._learning_rate.set_state_dict(state["LR_Scheduler"])
         self._step_count = int(state.get("@step", 0))

@@ -222,15 +222,16 @@ class TestTopology:
         assert hcg.topology().get_dim("sep") == 3
 
     def test_other_axes_wait_for_nccl(self):
-        # the data axis runs since A6a and the model axis since A6b; pipe
-        # and sharding wait for A6c
+        # the data axis runs since A6a, the model axis since A6b, pipe and
+        # sharding since A6c
         assert topology.build_mesh(dp=2, devices=["cpu"] * 2).shape["data"] == 2
         mesh = topology.build_mesh(mp=-1, sep=2, devices=["cpu"] * 4)
         assert (mesh.shape["model"], mesh.shape["sep"]) == (2, 2)
-        with pytest.raises(NotImplementedError, match="A6c"):
-            topology.build_mesh(pp=2, devices=["cpu"] * 2)
-        with pytest.raises(NotImplementedError, match="A6c"):
-            topology.build_mesh(sharding=2, devices=["cpu"] * 2)
+        assert topology.build_mesh(pp=2, devices=["cpu"] * 2).shape["pipe"] == 2
+        mesh = topology.build_mesh(sharding=2, devices=["cpu"] * 2)
+        assert mesh.shape["sharding"] == 2
+        assert topology.HybridCommunicateGroup(mesh=mesh).get_sharding_parallel_group() \
+            .nranks == 2
         with pytest.raises(ValueError, match="multiply"):
             topology.build_mesh(sep=2, devices=["cpu"] * 3)
 

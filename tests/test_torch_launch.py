@@ -7,8 +7,10 @@ pod).  Beyond it, every collective and P2P call of each rank is held
 against its rows of the single-controller result on a CPU mesh (which
 ``test_torch_distributed.py`` holds against the JAX package), and a
 ``DataParallel`` ``TrainStep`` on two half batches against one process on
-the whole batch; and the tensor-parallel layers (ROADMAP A6b) with each
-process holding its shard, against one process on the whole weights.
+the whole batch; the tensor-parallel layers (ROADMAP A6b) with each
+process holding its shard, against one process on the whole weights; and
+(A6c) ``fleet.init`` over the processes with ``DistributedTrainStep`` at
+stages 0-2 and the collective-matmul ring across them.
 Every launch has its own timeout of at most 120 s."""
 
 import os
@@ -40,6 +42,14 @@ _PREAMBLE = textwrap.dedent("""
     rank = int(os.environ["PADDLE_TRAINER_ID"])
     assert tdist.get_backend() == "gloo" and tdist.get_world_size() == 2
     assert env.rank == rank == dist.get_rank() and env.world_size == 2
+""")
+
+# every payload that joined the process group leaves it before it exits: a
+# gloo group still alive at interpreter exit can abort the process there
+# ("terminate called without an active exception") after its checks passed
+_EPILOGUE = textwrap.dedent("""
+    tdist.barrier()
+    tdist.destroy_process_group()
 """)
 
 _PAYLOAD = _PREAMBLE + textwrap.dedent("""
@@ -118,7 +128,7 @@ _PAYLOAD = _PREAMBLE + textwrap.dedent("""
     except TypeError:
         pass
     print("PAYLOAD OK rank", rank, flush=True)
-""")
+""") + _EPILOGUE
 
 _DP_PAYLOAD = _PREAMBLE + textwrap.dedent("""
     from paddle_tpu_torch.jit import TrainStep
@@ -167,7 +177,7 @@ _DP_PAYLOAD = _PREAMBLE + textwrap.dedent("""
             both = comm.all_gather([], p.detach().reshape(1, -1).contiguous())
             assert torch.equal(both[0], both[1]), name          # the ranks agree
     print("DP PAYLOAD OK rank", rank, flush=True)
-""")
+""") + _EPILOGUE
 
 
 _TP_PAYLOAD = _PREAMBLE + textwrap.dedent("""
@@ -244,7 +254,126 @@ _TP_PAYLOAD = _PREAMBLE + textwrap.dedent("""
         close(head.weight.grad, mine(W[3].grad, 1), "head grad")
         close(norm.weight.grad, nw.grad, f"norm weight grad sp={sp}")
     print("TP PAYLOAD OK rank", rank, flush=True)
-""")
+""") + _EPILOGUE
+
+
+_HYBRID_PAYLOAD = _PREAMBLE + textwrap.dedent("""
+    from paddle_tpu_torch.distributed.meta_parallel import (
+        ColumnParallelLinear, ColumnSequenceParallelLinear, RowParallelLinear,
+        RowSequenceParallelLinear)
+    from paddle_tpu_torch.distributed.overlap import should_decompose
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def close(got, want, what, rtol=1e-5, atol=1e-6):
+        np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(),
+                                   rtol=rtol, atol=atol, err_msg=what)
+
+    def mine(t, axis):
+        w = t.shape[axis] // 2
+        return t.narrow(axis, rank * w, w)
+
+    def fleet_init(**configs):
+        s = dist.fleet.DistributedStrategy()
+        s.hybrid_configs = configs
+        dist.fleet.init(is_collective=True, strategy=s)
+        return dist.get_hybrid_communicate_group()
+
+    # ZeRO across the two processes: sharding 2, the global batch given to
+    # each, against one process on the whole batch
+    hcg = fleet_init(sharding_degree=2)
+    assert hcg.mesh.procs is not None and hcg.get_sharding_parallel_rank() == rank
+    os.environ["PADDLE_TPU_BUCKET_MB"] = "0.01"          # several buckets
+    ids = np.random.default_rng(7).integers(1, 256, (4, 16)).astype(np.int64)
+
+    def build():
+        model = LlamaForCausalLM(llama_tiny(), device="cpu", seed=7)
+        return model, AdamW(1e-3, parameters=model.parameters(),
+                            grad_clip=ClipGradByGlobalNorm(1.0))
+
+    whole, wopt = build()
+    wstep = TrainStep(whole, lambda m, a, b: m(a, labels=b)[0], wopt)
+    want = [float(wstep(ids, ids)) for _ in range(3)]
+    for stage in (0, 1, 2):
+        model, opt = build()
+        step = dist.DistributedTrainStep(model, lambda m, a, b: m(a, labels=b)[0], opt, hcg,
+                                         sharding_stage=stage)
+        got = [float(step(ids, ids)) for _ in range(3)]
+        np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=f"stage {stage}")
+        for (name, p), q in zip(model.named_parameters(), whole.parameters()):
+            close(p, q, f"stage {stage} {name}", rtol=1e-4, atol=1e-5)
+        held = [opt._accumulators[id(p)]["moment1"] for p in model.parameters()
+                if id(p) in opt._layouts]
+        assert (len(held) > 0) == (stage > 0)
+        assert all(m.shape[0] == 1 for m in held)      # this process's block only
+        if stage:
+            assert step._grad_bucketer.num_buckets > 1
+    for bad in (dict(sharding_stage=3),):
+        try:
+            dist.DistributedTrainStep(model, lambda m, a, b: m(a, labels=b)[0], opt, hcg, **bad)
+        except NotImplementedError as e:
+            assert "A6d" in str(e)
+        else:
+            raise AssertionError(f"{bad} across processes was taken")
+
+    # the collective-matmul ring across the two processes on a model axis
+    os.environ["PADDLE_TPU_TP_OVERLAP"] = "1"
+    os.environ["PADDLE_TPU_TP_OVERLAP_MIN_ROWS"] = "1"
+    hcg = fleet_init(mp_degree=2)
+    rng = np.random.default_rng(11)
+    xs = torch.from_numpy(rng.standard_normal((2, 8, 16)).astype(np.float32))
+    dys = torch.from_numpy(rng.standard_normal((2, 8, 16)).astype(np.float32))
+    for sp in (False, True):
+        col_t = ColumnSequenceParallelLinear if sp else ColumnParallelLinear
+        row_t = RowSequenceParallelLinear if sp else RowParallelLinear
+        g = torch.Generator().manual_seed(3)
+        col = col_t(16, 32, gather_output=False, generator=g, device="cpu")
+        row = row_t(32, 16, input_is_parallel=True, generator=g, device="cpu")
+        with torch.no_grad():
+            col.bias.copy_(mine(torch.arange(32.0) / 32, 0))
+            row.bias.copy_(torch.arange(16.0) / 16)
+        x = (mine(xs, 1) if sp else xs).clone().requires_grad_()
+        assert should_decompose((2, 8, 16), hcg.mesh)
+        out = row(col(x))
+        (out * (mine(dys, 1) if sp else dys)).sum().backward()
+
+        g = torch.Generator().manual_seed(3)
+        W1 = torch.empty(16, 32).normal_(0.0, 0.02, generator=g).requires_grad_()
+        W2 = torch.empty(32, 16).normal_(0.0, 0.02, generator=g).requires_grad_()
+        bc = (torch.arange(32.0) / 32).requires_grad_()
+        br = (torch.arange(16.0) / 16).requires_grad_()
+        xr = xs.clone().requires_grad_()
+        ref = (xr @ W1 + bc) @ W2 + br
+        (ref * dys).sum().backward()
+        close(out, mine(ref, 1) if sp else ref, f"ring output sp={sp}")
+        close(x.grad, mine(xr.grad, 1) if sp else xr.grad, f"ring input grad sp={sp}")
+        close(col.weight.grad, mine(W1.grad, 1), f"ring column grad sp={sp}")
+        close(col.bias.grad, mine(bc.grad, 0), f"ring column bias grad sp={sp}")
+        close(row.weight.grad, mine(W2.grad, 0), f"ring row grad sp={sp}")
+
+    # the hybrid Llama over the model axis across the processes (SP and the
+    # ring on, each process holding its shards) against one controller
+    from paddle_tpu_torch.models.llama_parallel import LlamaForCausalLMHybrid
+
+    def hybrid_losses(group):
+        model = LlamaForCausalLMHybrid(llama_tiny(), group, device="cpu", seed=5)
+        opt = AdamW(1e-3, parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(0.5))
+        step = dist.DistributedTrainStep(model, lambda m, a, b: m(a, labels=b)[0], opt, group)
+        return model, [float(step(ids, ids)) for _ in range(3)]
+
+    model, got = hybrid_losses(hcg)
+    assert model.sequence_parallel and tuple(model.lm_head.weight.shape) == (64, 128)
+    one = topology.HybridCommunicateGroup(mesh=topology.build_mesh(devices=["cpu"]))
+    topology.set_hybrid_communicate_group(one)
+    whole, want = hybrid_losses(one)
+    np.testing.assert_allclose(got, want, rtol=1e-5, err_msg="hybrid Llama across processes")
+    for (name, p), q in zip(model.named_parameters(), whole.parameters()):
+        axis = getattr(p, "split_axis", None) if vars(p).get("is_distributed") else None
+        close(p, q if axis is None else mine(q, axis), name, rtol=1e-4, atol=1e-5)
+    print("HYBRID PAYLOAD OK rank", rank, flush=True)
+""") + _EPILOGUE
 
 
 def _run_launch(tmp_path, payload_src, nproc=2, timeout=120, extra_env=None, args=()):
@@ -323,6 +452,22 @@ class TestTensorParallelMultiProcess:
         assert proc.returncode == 0, f"launch failed: {proc.stderr}\n{logs}"
         for name, text in logs.items():
             assert "TP PAYLOAD OK rank" in text, f"{name}: {text[-2000:]}"
+
+
+class TestHybridMultiProcess:
+    def test_zero_and_ring_across_processes(self, tmp_path):
+        """Two gloo processes: ``fleet.init`` over them, then
+        ``DistributedTrainStep`` at stages 0, 1 and 2 (this process's block
+        of the optimizer states, the gradients reduce-scattered a bucket at
+        a time, the parameters all-gathered; stage 3 refused, A6d) against
+        one process on the whole batch; then the collective-matmul ring
+        (each step a ``batch_isend_irecv`` to the ring neighbour), the
+        tensor-parallel and the sequence-parallel linears, forward and
+        backward, against one process on the whole weights."""
+        proc, logs = _run_launch(tmp_path, _HYBRID_PAYLOAD)
+        assert proc.returncode == 0, f"launch failed: {proc.stderr}\n{logs}"
+        for name, text in logs.items():
+            assert "HYBRID PAYLOAD OK rank" in text, f"{name}: {text[-2000:]}"
 
 
 class TestUnported:

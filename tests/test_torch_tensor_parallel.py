@@ -17,9 +17,10 @@ at the reference's layouts: dp 2 × sharding 2 × model 2 and dp 4 × model 2
   functional ops' routing through them under a live mesh;
 - a model of ``mp_layers`` carried across by its ``state_dict``.
 
-Tolerances: ``tests/op_test.py``'s f32 rows.  Left out: the reference's
-collective-matmul ring (``should_decompose_seq``, ``all_gather_matmul_seq``:
-ROADMAP A6c; ``PADDLE_TPU_TP_OVERLAP`` set on raises in the port).
+Tolerances: ``tests/op_test.py``'s f32 rows.  The collective-matmul ring
+the layers take above its gate (ROADMAP A6c) is held against the JAX rings
+in ``test_torch_overlap.py``; here ``PADDLE_TPU_TP_OVERLAP`` on gives the
+fused form's result.
 """
 
 import math
@@ -62,8 +63,8 @@ def _port_mesh(shape):
 @pytest.fixture(params=list(LAYOUTS))
 def hcgs(request, monkeypatch):
     """(JAX hybrid group, port hybrid group) of one layout, each live in its
-    package for the test; the collective-matmul ring off in the JAX
-    package (it has no port yet)."""
+    package for the test; the collective-matmul ring off in both packages
+    (``test_torch_overlap.py`` holds it)."""
     monkeypatch.setenv("PADDLE_TPU_TP_OVERLAP", "0")
     dp, _, sh, _, mp = LAYOUTS[request.param]
     saved = jtopo.get_hybrid_communicate_group(), topology.get_hybrid_communicate_group()
@@ -118,8 +119,9 @@ class TestHybridGroup:
         assert hcg.get_model_parallel_group().nranks == 2
         assert mesh.axis_devices("model") == [torch.device("cpu")] * 2
         for kw in (dict(pp=2), dict(sharding=2)):
-            with pytest.raises(NotImplementedError, match="A6c"):
-                topology.build_mesh(devices=["cpu"] * 2, **kw)
+            mesh = topology.build_mesh(devices=["cpu"] * 2, **kw)
+            axis = "pipe" if "pp" in kw else "sharding"
+            assert mesh.shape[axis] == 2 and mesh.axis_devices(axis) == [torch.device("cpu")] * 2
 
 
 # ---------------------------------------------------------------------------
@@ -205,10 +207,19 @@ class TestMpLayers:
                 make()
 
     def test_overlap_ring_waits_for_a6c(self, hcgs, monkeypatch):
-        col = tmp.ColumnParallelLinear(16, 32)
+        """The ring runs since A6c: with ``PADDLE_TPU_TP_OVERLAP`` on and
+        the row gate at 1, the column and row layers give the fused form's
+        output."""
+        col = tmp.ColumnParallelLinear(16, 32, device="cpu")
+        row = tmp.RowParallelLinear(32, 16, input_is_parallel=True, device="cpu")
+        x = torch.from_numpy(_rng(9).standard_normal((2, 8, 16)).astype(np.float32))
+        fused = row(col(x))
         monkeypatch.setenv("PADDLE_TPU_TP_OVERLAP", "1")
-        with pytest.raises(NotImplementedError, match="A6c"):
-            col(torch.zeros(2, 8, 16))
+        monkeypatch.setenv("PADDLE_TPU_TP_OVERLAP_MIN_ROWS", "1")
+        from paddle_tpu_torch.distributed.overlap import should_decompose
+
+        assert should_decompose(tuple(x.shape), hcgs[1].mesh)
+        torch.testing.assert_close(row(col(x)), fused, **F32)
 
     def test_replicated_bias_held_once(self, hcgs):
         row = tmp.RowParallelLinear(32, 16)
@@ -569,7 +580,14 @@ def test_mp_layers_model_carries_across_by_state_dict(hcgs):
     ids=["PipelineLayer", "LayerDesc", "SharedLayerDesc", "PipelineParallel",
          "PipelineParallelWithInterleave"])
 def test_pipeline_names_import_and_wait_for_a6c(make):
+    """Ported in A6c: the descriptors and the layer build, and the runtimes
+    refuse anything but a ``PipelineLayer``, as the reference's do
+    (``test_torch_pipeline.py`` drives them)."""
     from paddle_tpu_torch.distributed import meta_parallel
 
-    with pytest.raises(NotImplementedError, match="A6c"):
-        make(meta_parallel)
+    try:
+        built = make(meta_parallel)
+    except TypeError as e:
+        assert "PipelineLayer" in str(e)
+    else:
+        assert isinstance(built, (meta_parallel.PipelineLayer, meta_parallel.LayerDesc))
