@@ -160,7 +160,27 @@ exits non-zero without them.  Phases, each raising on failure:
    11008] and the row form against the fused form, f32 and bf16, timed.
    10's worker also runs ``fleet.init`` + ``DistributedTrainStep`` at ZeRO
    stage 2 over its process mesh (world size 1), losses and launches equal
-   to 7's.
+   to 7's;
+13. ZeRO offload (``phase_offload``, after 12): the host link from pinned
+   memory (to the card, to the host, both at once); B5's host route over
+   the 8-layer step's 75 tensors, f32 p, m and v in a pinned
+   ``HostArena`` and the bf16 weight written on the card, bit-equal to B5
+   on device states, within the f32 row of the plain twin, pageable
+   states and a CPU gradient refused, timed beside the plain version
+   across the link and the bound over the link; (a) fleet on the one card
+   (stage 1, every degree 1) at 8 layers on 7's batch and
+   ``DistributedTrainStep`` at stages 1-3 on 12's 8 members (2 layers),
+   each with offload against resident states: losses, launches and final
+   weights bit-equal, step ms, B5's device ms a step, peak, pinned bytes
+   and seconds; (b) Llama-2-7B at full depth and width (32 layers, 4 x
+   2048, 75.3 GiB pinned) with offload: finite, falling losses, 291 B5
+   launches a step, step ms, peak, the host's memory;
+14. ``auto_parallel`` (``phase_auto``): fleet at mp 2 x sharding 2 (4
+   members on the card), ``shard_layer`` placing the projections as
+   mp_layers does, ``shard_optimizer`` and ``Engine.fit`` over 7's batch
+   (losses within 2e-2 of 7's, exact launches, each projection's spec in
+   the step), ``evaluate`` and ``predict``; the Partial identities on the
+   card bit-exact.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
@@ -215,10 +235,10 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ms(torch, fn, iters: int = 20, repeats: int = 5) -> float:
+def time_ms(torch, fn, iters: int = 20, repeats: int = 5, warmup: int = 3) -> float:
     """Median over ``repeats`` of the mean device time of ``iters`` calls
-    between CUDA events, after a warm-up."""
-    for _ in range(3):
+    between CUDA events, after ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -234,14 +254,15 @@ def time_ms(torch, fn, iters: int = 20, repeats: int = 5) -> float:
     return sorted(times)[repeats // 2]
 
 
-def device_ms(torch, fn, iters: int = 20):
+def device_ms(torch, fn, iters: int = 20, warmup: int = 3):
     """Device time per call of ``fn``: every CUDA kernel that ``iters``
     calls launch, from ``torch.profiler``, summed and divided by ``iters``
-    (the host's share of a call left out).  Returns (ms, {kernel: ms})."""
+    (the host's share of a call left out), after ``warmup`` calls.
+    Returns (ms, {kernel: ms})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3826,40 +3847,43 @@ PIPE_LAYERS, PIPE_M = 4, 4          # (b): 7B-width decoder layers, micro-batche
 RING_DEGREES = (2, 4)               # (c): the model degrees of the ring
 
 
-def hybrid_want(L, tensors):
-    """Launches of one hybrid step at HYBRID's degrees on TRAIN_BATCH x
-    TRAIN_SEQ: the mesh wrappers split the batch over sharding (2 blocks)
-    and, for rope and flash, the heads over model (2 x 2 blocks); SwiGLU
-    runs on the global tensors; B5 runs on each state's 2 sharding blocks."""
-    blocks = HYBRID["sharding_degree"] * HYBRID["dp_degree"]
-    heads = blocks * HYBRID["mp_degree"]
+def hybrid_want(L, tensors, degrees=HYBRID):
+    """Launches of one hybrid step at ``degrees`` on TRAIN_BATCH x
+    TRAIN_SEQ: the mesh wrappers split the batch over data x sharding (2
+    blocks at HYBRID's) and, for rope and flash, the heads over model (2 x
+    2 blocks); SwiGLU runs on the global tensors; B5 runs on each state's
+    sharding blocks."""
+    blocks = degrees["sharding_degree"] * degrees["dp_degree"]
+    heads = blocks * degrees["mp_degree"]
     return {"rms_norm": blocks * (2 * L + 1), "rms_norm_bwd": blocks * (2 * L + 1),
             "rope": heads * L, "rope_bwd": heads * L, "flash_attention": heads * L,
             "flash_attention_bwd_dq": heads * L, "flash_attention_bwd_dkv": heads * L,
             "swiglu": L, "swiglu_bwd": L, "adamw": blocks * tensors}
 
 
-def hybrid_fleet(dev, stage):
-    """fleet.init at HYBRID's degrees, every member on ``dev``, with amp O2
-    bf16 and the sharding stage in the strategy."""
+def hybrid_fleet(dev, stage, degrees=HYBRID, offload=False):
+    """fleet.init at ``degrees``, every member on ``dev``, with amp O2 bf16
+    and the sharding stage (and ``offload``, when set) in the strategy."""
     import paddle_tpu_torch.distributed as dist
 
     s = dist.fleet.DistributedStrategy()
-    s.hybrid_configs = dict(HYBRID, sep_degree=1)
+    s.hybrid_configs = dict(degrees, sep_degree=1)
     s.amp, s.amp_configs = True, {"level": "O2", "dtype": "bfloat16"}
     s.sharding, s.sharding_configs = True, {"stage": stage}
+    if offload:
+        s.sharding_configs["offload"] = True
     n = 1
-    for v in HYBRID.values():
+    for v in degrees.values():
         n *= v
     dist.fleet.init(is_collective=True, strategy=s, devices=[dev] * n)
     return dist.get_hybrid_communicate_group()
 
 
-def hybrid_step(torch, cfg, weights, dev, stage):
+def hybrid_step(torch, cfg, weights, dev, stage, offload=False):
     """LlamaForCausalLMHybrid(cfg) with ``weights`` (a plain Llama's, numpy)
     through convert.py, fleet's distributed_model / distributed_optimizer
     (AdamW(1e-4) + ClipGradByGlobalNorm(1.0)), and DistributedTrainStep at
-    ``stage`` (from the optimizer's tag)."""
+    ``stage`` (from the optimizer's tag; ``offload`` too)."""
     import paddle_tpu_torch.distributed as dist
     from paddle_tpu_torch.convert import load_numpy_state_dict
     from paddle_tpu_torch.models.llama_parallel import (LlamaForCausalLMHybrid,
@@ -3867,15 +3891,16 @@ def hybrid_step(torch, cfg, weights, dev, stage):
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
 
-    hcg = hybrid_fleet(dev, stage)
+    hcg = hybrid_fleet(dev, stage, offload=offload)
     model = LlamaForCausalLMHybrid(cfg, hcg, device=dev, dtype=torch.bfloat16)
     load_numpy_state_dict(model, stack_llama_state_dict(weights))
     model = dist.fleet.distributed_model(model)
     opt = dist.fleet.distributed_optimizer(AdamW(
         1e-4, parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(1.0)))
     step = dist.DistributedTrainStep(model, lambda m, x, y: m(x, labels=y)[0], opt, hcg)
-    if step.sharding_stage != stage:
-        raise AssertionError(f"hybrid: stage {step.sharding_stage}, asked {stage}")
+    if (step.sharding_stage, step.offload) != (stage, offload):
+        raise AssertionError(f"hybrid: stage {step.sharding_stage}, offload {step.offload}; "
+                             f"asked {stage}, {offload}")
     return model, opt, step
 
 
@@ -4234,6 +4259,469 @@ def phase_hybrid(torch, card, train=None, cfg=None, dev="cuda", batch=None):
     return launches
 
 
+OFFLOAD_STEPS = 3                   # (a), (b): steps a run; the last one profiled
+OFFLOAD_HYBRID_LAYERS = 2           # (a): the hybrid stages' depth (time: PERF.md §4)
+FULL_LAYERS = 32                    # (b): Llama-2-7B at full depth
+FULL_ROWS = 4                       # (b): 2048-token rows a step (PERF.md §4)
+LINK_BYTES = 1 << 30                # the host link's yardstick copies
+ONE_CARD = dict(dp_degree=1, mp_degree=1, pp_degree=1, sharding_degree=1)
+
+
+def host_memory() -> dict:
+    """The host's MemTotal and MemAvailable, GiB."""
+    got = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                got[key] = int(val.split()[0]) / 2**20
+    return got
+
+
+def available_gib() -> float:
+    return host_memory()["MemAvailable"]
+
+
+def meminfo() -> str:
+    return " ".join(f"{k} {v:.2f} GiB" for k, v in host_memory().items())
+
+
+def host_link(torch, nbytes=LINK_BYTES):
+    """The host link from pinned host memory (a ``HostArena``, as the
+    offloaded states use): GB/s to the card, to the host, and each way with
+    both copies at once on two streams (best of three)."""
+    from paddle_tpu_torch.device import HostArena
+
+    arena = HostArena(2 * nbytes, pin=True)
+    h_in, h_out = (arena.take((nbytes,), torch.uint8) for _ in range(2))
+    d_in, d_out = (torch.empty(nbytes, dtype=torch.uint8, device="cuda") for _ in range(2))
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+
+    def best_s(pairs):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for st, (dst, src) in zip(streams, pairs):
+                with torch.cuda.stream(st):
+                    dst.copy_(src, non_blocking=True)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return min(times)
+
+    rates = {k: nbytes / best_s(pairs) / 1e9 for k, pairs in (
+        ("to card", [(d_in, h_in)]), ("to host", [(h_out, d_out)]),
+        ("both", [(d_in, h_in), (h_out, d_out)]))}
+    del h_in, h_out, d_in, d_out
+    arena.release()
+    log(f"offload link: pinned host memory, {nbytes / 2**30:.0f} GiB copies: to the card "
+        f"{rates['to card']:.2f} GB/s, to the host {rates['to host']:.2f} GB/s, both at "
+        f"once {rates['both']:.2f} GB/s each way")
+    return rates
+
+
+def offload_b5_host(torch, link):
+    """B5's host route at the 8-layer step's 75 tensors: f32 p, m and v in
+    a pinned ``HostArena``, g on the card, the parameter's bf16 copy written
+    on the card (``out``); each tensor bit-equal to B5 on the same states in
+    device memory and within the f32 row of the plain twin; pageable host
+    states and a CPU gradient with card states refused.  Timed as a sweep
+    (ms and device ms) beside the plain version across the link (the
+    states copied to the card, ``adamw_plain``, copied back) and the bound:
+    12 bytes a parameter each way over the link at ``link``'s rate with
+    both directions busy.  Returns the ``kernels`` row."""
+    from paddle_tpu_torch.device import HostArena
+    from paddle_tpu_torch.ops.fused_ln_swiglu import adamw_plain, adamw_scalars, fused_adamw
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = [tuple(p.shape) for p in make_llama(TRAIN_LAYERS).parameters()]
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = sum(math.prod(sh) for sh in shapes)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    arena = HostArena(3 * HostArena.span(shapes, f32), pin=True)
+    args = (7, 0.9, 0.999, 1e-8, 0.1)
+    sc = adamw_scalars(1e-3, 7, 0.9, 0.999)
+    rows, err = [], 0.0
+    for sh in shapes:
+        p = torch.randn(sh, generator=gen, device="cuda")
+        g = 0.1 * torch.randn(sh, generator=gen, device="cuda")
+        m = 0.01 * torch.randn(sh, generator=gen, device="cuda")
+        v = (0.01 * torch.randn(sh, generator=gen, device="cuda")).abs()
+        hp, hm, hv = (arena.take(sh, f32).copy_(t) for t in (p, m, v))
+        out = torch.empty(sh, dtype=bf16, device="cuda")
+        want = adamw_plain(p, g, m, v, sc[0], sc[1], sc[2], 0.9, 0.999, 1e-8, 0.1, True)
+        fused_adamw(p, g, m, v, 1e-3, *args, True)
+        fused_adamw(hp, g, hm, hv, 1e-3, *args, True, out=out)
+        for name, h, d in (("p", hp, p), ("m", hm, m), ("v", hv, v)):
+            if not torch.equal(h.to("cuda"), d):
+                raise AssertionError(f"adamw host route {sh} {name}: not bit-equal to B5 on "
+                                     f"device states")
+        if not torch.equal(out, p.to(bf16)):
+            raise AssertionError(f"adamw host route {sh}: out is not the new p in bf16")
+        err = max(err, *(check_close(torch, f"adamw host {nm}", h.to("cuda"), w, TOL["float32"])
+                         for nm, h, w in zip("pmv", (hp, hm, hv), want)))
+        del want, p, m, v
+        rows.append((hp, g, hm, hv, out))
+    small = torch.randn(4096, device="cuda")
+    for bad, what in (((small.cpu(), small, small.cpu(), small.cpu()), "pageable"),
+                      ((small, small.cpu(), small, small), "CPU gradient")):
+        try:
+            fused_adamw(*bad, 1e-3, *args, True)
+        except ValueError:
+            continue
+        raise AssertionError(f"adamw: a {what} call was not refused")
+
+    def sweep():
+        for hp, g, hm, hv, out in rows:
+            fused_adamw(hp, g, hm, hv, 1e-3, *args, True, out=out)
+
+    def plain_sweep():
+        for hp, g, hm, hv, out in rows:
+            dp, dm, dv = (t.to("cuda", non_blocking=True) for t in (hp, hm, hv))
+            new = adamw_plain(dp, g, dm, dv, sc[0], sc[1], sc[2], 0.9, 0.999, 1e-8, 0.1, True)
+            for dst, src in zip((hp, hm, hv, out), (*new, new[0])):
+                dst.copy_(src, non_blocking=True)
+
+    ms = time_ms(torch, sweep, iters=1, repeats=2, warmup=1)
+    # one profiled sweep has reported half of its event-timed device time:
+    # two are profiled, after a warm-up one
+    dev_ms, by = device_ms(torch, sweep, iters=2, warmup=1)
+    plain_ms = time_ms(torch, plain_sweep, iters=1, repeats=1, warmup=1)
+    link_ms = 12 * n / (link["both"] * 1e9) * 1e3
+    hbm_ms, _ = bound_ms(6 * n, 16 * n, F32_FLOPS)     # g read, out written on the card
+    log(f"offload B5 host route: {len(shapes)} tensors, {n / 1e9:.3f} B f32 parameters, "
+        f"bit-equal to B5 on device states, max_abs_err to the plain twin {err:.3g}; sweep "
+        f"{ms:.2f} ms, device {dev_ms:.2f} ms ({split_line(by)}), plain across the link "
+        f"{plain_ms:.2f} ms; bound {link_ms:.2f} ms (12 B a parameter each way at "
+        f"{link['both']:.2f} GB/s; the card's own bytes {hbm_ms:.3f} ms): "
+        f"{link_ms / dev_ms:.3f} of the bound by device time")
+    del rows
+    arena.release()
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=max(link_ms, hbm_ms), bound_by="bytes", library_ms=None)
+
+
+def b5_device_ms(torch, fn):
+    """Device ms of B5's kernels over one call of ``fn`` (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "adamw_kernel" in e.key)
+
+
+def offload_run(torch, label, build, ids, labels, steps=OFFLOAD_STEPS, keep=True):
+    """``steps`` DistributedTrainSteps of ``build()``'s (model, opt, step)
+    under LLAMA_ON, the last one profiled for B5's device time.  Returns
+    (losses, ms of the timed steps after the first, peak bytes, launches,
+    B5 device ms of the profiled step, the final parameters on the host
+    when ``keep``, (pinned bytes, pin seconds))."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, opt, step = build()
+    arena = opt._host_arena
+    pinned = (arena.nbytes, arena.pin_s) if arena is not None else (0, 0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, ms = [], []
+    with ptt.flag_guard(**LLAMA_ON):
+        for _ in range(steps - 1):
+            t = time.perf_counter()
+            losses.append(float(step(ids, labels)))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        b5 = b5_device_ms(torch, lambda: losses.append(float(step(ids, labels))))
+    launches = {k: c for k, c in LAUNCHES.items() if c}
+    peak = torch.cuda.max_memory_allocated()
+    final = [p.detach().to("cpu", copy=True) for p in model.parameters()] if keep else None
+    del model, opt, step, arena
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"offload {label}: losses {' '.join(f'{x:.4f}' for x in losses)}; step ms "
+        f"{' '.join(f'{x:.1f}' for x in ms)}; B5 device {b5:.2f} ms a step; peak "
+        f"{peak / 2**30:.2f} GiB; pinned {pinned[0] / 2**30:.2f} GiB in {pinned[1]:.2f} s; "
+        f"launches in {steps} steps {launches}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"offload {label}: losses {losses}")
+    return losses, ms[1:], peak, launches, b5, final, pinned
+
+
+def offload_same(torch, label, got, want):
+    """(a)'s gate: losses, launches and final parameters bit-equal."""
+    if got[0] != want[0] or got[3] != want[3]:
+        raise AssertionError(f"offload {label}: losses {got[0]} / {want[0]}, launches "
+                             f"{got[3]} / {want[3]}")
+    for i, (a, b) in enumerate(zip(got[5], want[5])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"offload {label}: parameter {i} not bit-equal")
+
+
+def offload_fleet(torch, cfg, offload, ids, labels, keep=True, dev="cuda"):
+    """Fleet on the one card (every degree 1) with amp O2 and sharding
+    stage 1 (+ offload): phase_train's model and optimizer."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def build():
+        hcg = hybrid_fleet(dev, 1, ONE_CARD, offload)
+        model = dist.fleet.distributed_model(LlamaForCausalLM(cfg, device=dev, seed=0))
+        opt = dist.fleet.distributed_optimizer(AdamW(
+            1e-4, parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(1.0)))
+        step = dist.DistributedTrainStep(model, lambda m, x, y: m(x, labels=y)[0], opt, hcg)
+        if step.offload != offload or step.sharding_stage != 1:
+            raise AssertionError(f"offload fleet: offload {step.offload}, asked {offload}")
+        return model, opt, step
+
+    L = cfg.num_hidden_layers
+    return offload_run(torch, f"fleet {L} layers {tuple(ids.shape)} offload {offload}", build,
+                       ids, labels, keep=keep)
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def offload_compare(torch, card, train=None, cfg=None, dev="cuda", batch=None):
+    """(a): at 8 layers on phase_train's batch, fleet on the one card with
+    offload against resident states, then DistributedTrainStep at stages
+    1-3 on HYBRID's 8 members (OFFLOAD_HYBRID_LAYERS deep) with offload
+    against resident: losses, launches and final parameters bit-equal.
+    Returns the offload runs' launches."""
+    import dataclasses
+
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.models import llama2_7b
+
+    cfg = cfg or llama2_7b(num_hidden_layers=TRAIN_LAYERS)
+    ids, labels = batch or train_batch(torch, cfg.vocab_size)
+    total = {}
+    try:
+        res = offload_fleet(torch, cfg, False, ids, labels, dev=dev)
+        off = offload_fleet(torch, cfg, True, ids, labels, dev=dev)
+        offload_same(torch, "fleet", off, res)
+        n_tensors = 2 + 9 * cfg.num_hidden_layers + 1
+        if off[3].get("adamw") != n_tensors * OFFLOAD_STEPS:
+            raise AssertionError(f"offload fleet: B5 launches {off[3].get('adamw')}, want "
+                                 f"{n_tensors} a step")
+        log(f"offload (a) fleet {cfg.num_hidden_layers} layers {tuple(ids.shape)} on {card}: "
+            f"losses and parameters bit-equal to resident states; step {median(off[1]):.1f} "
+            f"ms against {median(res[1]):.1f} resident"
+            + (f" and phase_train's {train[2]:.1f}" if train else "")
+            + f"; B5 {off[4]:.2f} ms a step against {res[4]:.2f}; peak {off[2] / 2**30:.2f} "
+            f"GiB against {res[2] / 2**30:.2f} ({(res[2] - off[2]) / 2**30:.2f} GiB less); "
+            f"{off[6][0] / 2**30:.2f} GiB pinned in {off[6][1]:.2f} s")
+        for k, v in off[3].items():
+            total[k] = total.get(k, 0) + v
+        del res, off
+        shallow = dataclasses.replace(cfg, num_hidden_layers=OFFLOAD_HYBRID_LAYERS)
+        weights = host_weights(torch, shallow.num_hidden_layers)
+        for stage in (1, 2, 3):
+            runs = [offload_run(torch, f"hybrid stage {stage} offload {o}",
+                                lambda o=o: hybrid_step(torch, shallow, weights, dev, stage, o),
+                                ids, labels) for o in (False, True)]
+            offload_same(torch, f"hybrid stage {stage}", runs[1], runs[0])
+            log(f"offload (a) hybrid stage {stage} {HYBRID}, {shallow.num_hidden_layers} layers: "
+                f"bit-equal to resident states; "
+                f"step {median(runs[1][1]):.1f} ms against {median(runs[0][1]):.1f}; peak "
+                f"{runs[1][2] / 2**30:.2f} GiB against {runs[0][2] / 2**30:.2f}")
+            for k, v in runs[1][3].items():
+                total[k] = total.get(k, 0) + v
+            del runs
+        del weights
+    finally:
+        topology.set_hybrid_communicate_group(None)
+    return total
+
+
+def offload_full(torch, card, rows=FULL_ROWS):
+    """(b): Llama-2-7B at full depth and width, amp O2, AdamW + clip,
+    through fleet on the one card with offload, ``rows`` rows of 2048
+    tokens: OFFLOAD_STEPS steps with finite, falling losses and exactly one
+    B5 launch a parameter tensor a step (2 + 9·32 + 1 = 291); the host's
+    memory before and after, the pinned bytes and seconds, the device
+    peak.  Returns the launches."""
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.models import llama2_7b
+
+    cfg = llama2_7b(num_hidden_layers=FULL_LAYERS)
+    ids, labels = train_batch(torch, cfg.vocab_size)
+    ids, labels = ids[:rows], labels[:rows]
+    gc.collect()
+    log(f"offload (b) host memory before: {meminfo()}")
+    try:
+        losses, ms, peak, launches, b5, _, pinned = offload_fleet(torch, cfg, True, ids, labels,
+                                                                  keep=False)
+    finally:
+        topology.set_hybrid_communicate_group(None)
+    n_tensors = 2 + 9 * FULL_LAYERS + 1
+    log(f"offload (b) {FULL_LAYERS} layers {rows}x{TRAIN_SEQ} on {card}: losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; step ms {' '.join(f'{x:.1f}' for x in ms)}; "
+        f"B5 {b5:.2f} ms a step; device peak {peak / 2**30:.2f} GiB; {pinned[0] / 2**30:.2f} "
+        f"GiB pinned in {pinned[1]:.2f} s; the arena released, host memory {meminfo()}")
+    # the unpinned pages come back to the host a few seconds after the release
+    t = time.perf_counter()
+    while available_gib() < pinned[0] / 2**30 and time.perf_counter() - t < 20:
+        time.sleep(1)
+    log(f"offload (b) host memory {time.perf_counter() - t:.1f} s later: {meminfo()}")
+    if launches.get("adamw") != n_tensors * OFFLOAD_STEPS or not losses[-1] < losses[0]:
+        raise AssertionError(f"offload (b): losses {losses}, B5 launches "
+                             f"{launches.get('adamw')}, want {n_tensors} a step")
+    return launches
+
+
+def phase_offload(torch, card, train=None):
+    """ZeRO offload (ROADMAP A6c2): the host link, B5's host route
+    (``offload_b5_host``), (a) offload against resident states at 8
+    layers (``offload_compare``), (b) full depth (``offload_full``).
+    Returns (the host route's kernels row, the offload path's launches)."""
+    t0 = time.perf_counter()
+    log(f"offload: host memory {meminfo()}")
+    link = host_link(torch)
+    row = offload_b5_host(torch, link)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = offload_compare(torch, card, train)
+    t1 = time.perf_counter()
+    for k, v in offload_full(torch, card).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"offload phase: {time.perf_counter() - t0:.1f} s ((b) {time.perf_counter() - t1:.1f})")
+    return row, launches
+
+
+AUTO = dict(dp_degree=1, mp_degree=2, pp_degree=1, sharding_degree=2)   # (c): 4 members
+AUTO_COLUMN = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")     # Shard(1) on model
+AUTO_ROW = ("o_proj", "down_proj")                                       # Shard(0) on model
+
+
+def auto_partials(torch, pm, dev):
+    """The Partial value identities on the card, bit-exact: sum → Replicate
+    and → Shard(0) give the value, avg the value over the model degree,
+    sum → avg → sum back the value."""
+    from paddle_tpu_torch.distributed import auto_parallel as ap
+
+    x = torch.randn(64, 4096, device=dev).to(torch.bfloat16)
+    n = len(pm.dim_names)
+    at = pm.dim_names.index("model")
+
+    def on_model(p):
+        return [p if i == at else ap.Replicate() for i in range(n)]
+
+    rep = [ap.Replicate()] * n
+    t = ap.shard_tensor(x, pm, on_model(ap.Partial()))
+    avg = ap.shard_tensor(x, pm, on_model(ap.Partial("avg")))
+    back = ap.reshard(ap.reshard(t, pm, on_model(ap.Partial("avg"))), pm, on_model(ap.Partial()))
+    for label, got, want in (
+            ("sum to Replicate", ap.reshard(t, pm, rep), x),
+            ("sum to Shard(0)", ap.reshard(t, pm, on_model(ap.Shard(0))), x),
+            ("avg to Replicate", ap.reshard(avg, pm, rep), x / pm.get_dim_size("model")),
+            ("sum to avg to sum", ap.reshard(back, pm, rep), x)):
+        if got.device != x.device or not torch.equal(got, want):
+            raise AssertionError(f"auto (c) Partial {label}: not bit-exact on {dev}")
+
+
+def phase_auto(torch, card, train=None, cfg=None, dev="cuda", batch=None):
+    """auto_parallel (ROADMAP A6c2) at Llama-2-7B width, 8 layers: fleet at
+    AUTO's degrees with every member on ``dev``, amp O2 and ZeRO stage 1;
+    ``shard_layer`` places the projections as mp_layers does (column
+    Shard(1), row Shard(0) over ``model``), ``shard_optimizer``, and
+    ``Engine(model, loss, AdamW + clip, strategy)``: ``fit`` over
+    HYBRID_GATED epochs of phase_train's batch (losses within
+    LOGITS_REL_TOL of phase_train's, exact launches, every projection's
+    spec in the step), then ``evaluate`` and ``predict``; the Partial
+    identities on the card.  Returns fit's launches."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.distributed as dist
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.distributed import auto_parallel as ap
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.models import llama2_7b
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t0 = time.perf_counter()
+    cfg = cfg or llama2_7b(num_hidden_layers=TRAIN_LAYERS)
+    ids, labels = batch or train_batch(torch, cfg.vocab_size)
+    if train is None:
+        train = train_steps(torch, card, make_llama, cfg.num_hidden_layers, LLAMA_ON, ids,
+                            labels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    V, L = cfg.vocab_size, cfg.num_hidden_layers
+    try:
+        hcg = hybrid_fleet(dev, 1, AUTO)
+        strategy = dist.fleet.fleet.strategy
+        pm = ap.ProcessMesh(hcg.mesh)
+        auto_partials(torch, pm, dev)
+
+        def shard_fn(name, sublayer, mesh):
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in AUTO_COLUMN + AUTO_ROW:
+                pl = [ap.Shard(1 if leaf in AUTO_COLUMN else 0) if a == "model"
+                      else ap.Replicate() for a in mesh.dim_names]
+                sublayer._parameters["weight"] = ap.shard_tensor(
+                    sublayer._parameters["weight"], mesh, pl)
+
+        model = dist.fleet.distributed_model(make_llama(L) if dev == "cuda" else
+                                             make_llama(L).to(dev))
+        ap.shard_layer(model, pm, shard_fn)
+        opt = ap.shard_optimizer(dist.fleet.distributed_optimizer(AdamW(
+            1e-4, parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(1.0))))
+        engine = ap.Engine(model, lambda logits, y: F.cross_entropy(
+            logits.reshape(-1, V), y.reshape(-1)), opt, strategy=strategy)
+        engine.prepare()
+        step = engine._train_step
+        placed = [n for n, p, s in zip([n for n, p in model.named_parameters()], step._params,
+                                       step._param_shardings)
+                  if n.rsplit(".", 2)[-2] in AUTO_COLUMN + AUTO_ROW and "model" in str(s)]
+        if len(placed) != len(AUTO_COLUMN + AUTO_ROW) * L:
+            raise AssertionError(f"auto (c): {len(placed)} projections keep their layout")
+        reset_launch_counts()
+        with ptt.flag_guard(**LLAMA_ON):
+            t = time.perf_counter()
+            hist = engine.fit([(ids, labels)], epochs=HYBRID_GATED, verbose=0)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t
+            launches = {k: c for k, c in LAUNCHES.items() if c}
+            logs = engine.evaluate([(ids, labels)], verbose=0)
+            out = engine.predict([(ids, labels)], steps=1)
+        losses = hist["loss"]
+        want = {k: HYBRID_GATED * v for k, v in hybrid_want(L, len(step._params), AUTO).items()}
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, train[1])]
+        log(f"auto (c) Engine {AUTO} on {card}: {len(placed)} projections placed by "
+            f"shard_layer; fit losses {' '.join(f'{x:.4f}' for x in losses)} (phase_train's "
+            f"{' '.join(f'{x:.4f}' for x in train[1][:HYBRID_GATED])}; relative "
+            f"{' '.join(f'{x:.2g}' for x in rel)}); {fit_s / HYBRID_GATED * 1e3:.1f} ms a step; "
+            f"evaluate loss {logs['loss']:.4f}; predict {out[0].shape} finite "
+            f"{bool(np.isfinite(out[0]).all())}; launches in fit {launches}")
+        if max(rel) > LOGITS_REL_TOL or launches != want:
+            raise AssertionError(f"auto (c): losses {losses} against {train[1][:3]}; "
+                                 f"launches {launches}, want {want}")
+        if not (math.isfinite(logs["loss"]) and out[0].shape == (*ids.shape, V)
+                and np.isfinite(out[0]).all()):
+            raise AssertionError(f"auto (c): evaluate {logs}, predict {out[0].shape}")
+        del model, opt, engine, step, out
+    finally:
+        topology.set_hybrid_communicate_group(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"auto phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is counted on)
     "rms_norm": ("paddle_tpu_torch/ops/csrc/rms_norm.cu",
                  "paddle_tpu/ops/pallas/fused_norm.py:88", "serve"),
@@ -4267,15 +4755,19 @@ SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is count
                              "paddle_tpu/ops/pallas/ring_flash.py:159", "cp"),
     "ring_merge": ("paddle_tpu_torch/ops/csrc/ring_flash.cu",
                    "paddle_tpu/ops/pallas/ring_flash.py:159", "cp"),
+    "adamw_host": ("paddle_tpu_torch/ops/csrc/fused_ln_swiglu.cu",
+                   "paddle_tpu/ops/pallas/fused_ln_swiglu.py:280", "offload"),
 }
 
-# B10 has no kernel of its own: its launches are the B3 launches of its hops
-# on the CP path (every B3 launch there is a ring hop, each followed by one
-# merge; ``cp_launches`` holds the two counts equal)
-HOPS_OF = {"ring_flash_attention": "flash_attention"}
+# the count a row reads: B10 has no kernel of its own, its launches are the
+# B3 launches of its hops on the CP path (every B3 launch there is a ring
+# hop, each followed by one merge; ``cp_launches`` holds the two counts
+# equal); B5's host route is B5 launched on the offload path's pinned states
+COUNTED_AS = {"ring_flash_attention": "flash_attention", "adamw_host": "adamw"}
 
-# the kernels of fleet's hybrid step: their launches add the hybrid path's
-HYBRID_KERNELS = frozenset(hybrid_want(1, 1))
+# the kernels of fleet's hybrid step and of auto_parallel's Engine step:
+# their launches add those paths'
+EXTRA_PATHS = {"hybrid": frozenset(hybrid_want(1, 1)), "auto": frozenset(hybrid_want(1, 1))}
 
 
 def main() -> int:
@@ -4321,11 +4813,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches["hybrid"] = phase_hybrid(torch, card, train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows["adamw_host"], launches["offload"] = phase_offload(torch, card, train)
+    launches["auto"] = phase_auto(torch, card, train)
     kernels = []
     for name, (src, replaces, path) in SOURCES.items():
-        paths = {path: launches[path][HOPS_OF.get(name, name)]}
-        if name in HYBRID_KERNELS:
-            paths["hybrid"] = launches["hybrid"].get(name, 0)
+        paths = {path: launches[path].get(COUNTED_AS.get(name, name), 0)}
+        for extra, names in EXTRA_PATHS.items():
+            if name in names:
+                paths[extra] = launches[extra].get(name, 0)
         for where, n in paths.items():
             if n == 0:
                 raise AssertionError(f"{name}: never launched on the {where} path")

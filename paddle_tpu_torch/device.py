@@ -9,11 +9,13 @@ CPU quietly, so a missing card cannot pass for a slow one.
 
 from __future__ import annotations
 
-from typing import List, Optional, Union
+import math
+import time
+from typing import List, Optional, Sequence, Union
 
 import torch
 
-__all__ = ["set_device", "get_device", "resolve_device", "devices"]
+__all__ = ["set_device", "get_device", "resolve_device", "devices", "HostArena"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -58,3 +60,68 @@ def devices(kind: Optional[str] = None) -> List[torch.device]:
         return [torch.device("cpu")]
     resolve_device(kind)
     return [torch.device(kind, i) for i in range(torch.cuda.device_count())]
+
+
+class HostArena:
+    """One block of host memory, page-locked when ``pin`` is true, carved
+    into tensors by :meth:`take` (each at a 256-byte boundary).
+
+    Pinning registers the block with the CUDA driver (``cudaHostRegister``):
+    a card then reaches it directly under unified addressing, which is how
+    B5 updates ZeRO-offloaded optimizer states.  One registration of the
+    exact size, because torch's pinned allocator rounds every block up to
+    a power of two (nearly twice the bytes for a 75 GiB state).  ``pin_s``
+    is the seconds the pinning took (the pages zeroed, then registered).
+    :meth:`release` (run too when the arena is collected) unregisters the
+    block; tensors taken from it then lie in pageable memory, where B5
+    refuses them."""
+
+    ALIGN = 256
+
+    def __init__(self, nbytes: int, pin: bool):
+        self.nbytes = int(nbytes)
+        self._buf = torch.empty(max(self.nbytes, 1), dtype=torch.uint8)
+        self._at = 0
+        self._pinned = False
+        self.pin_s = 0.0
+        if pin:
+            t = time.perf_counter()
+            # fault the pages in first, on torch's CPU threads: the driver's
+            # registration of resident pages is several times faster than
+            # its own faulting in one thread
+            self._buf.zero_()
+            rc = torch.cuda.cudart().cudaHostRegister(self._buf.data_ptr(), self._buf.numel(), 0)
+            if int(rc) != 0:
+                raise RuntimeError(f"cudaHostRegister of {self.nbytes} bytes failed: CUDA "
+                                   f"error {int(rc)}")
+            self._pinned = True
+            self.pin_s = time.perf_counter() - t
+
+    @classmethod
+    def span(cls, shapes: Sequence, dtype: torch.dtype) -> int:
+        """The bytes :meth:`take` needs for a tensor of each of ``shapes``."""
+        size = torch.empty((), dtype=dtype).element_size()
+        return sum(-(-math.prod(s) * size // cls.ALIGN) * cls.ALIGN for s in shapes)
+
+    @property
+    def pinned(self) -> bool:
+        return self._pinned
+
+    def take(self, shape, dtype: torch.dtype) -> torch.Tensor:
+        """An uninitialised tensor of ``shape`` and ``dtype`` in the arena."""
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        at = self._at
+        if at + n > self.nbytes:
+            raise RuntimeError(f"HostArena: {n} bytes at {at} overrun {self.nbytes}")
+        self._at = at + -(-n // self.ALIGN) * self.ALIGN
+        return self._buf[at:at + n].view(dtype).view(tuple(shape))
+
+    def release(self) -> None:
+        """Unregister the block (after the card's pending work)."""
+        if self._pinned:
+            torch.cuda.synchronize()
+            torch.cuda.cudart().cudaHostUnregister(self._buf.data_ptr())
+            self._pinned = False
+
+    def __del__(self):
+        self.release()

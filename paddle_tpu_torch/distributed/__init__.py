@@ -7,13 +7,18 @@ process or over ``torch.distributed``, ``init_parallel_env``,
 tensor and sequence parallelism, context parallelism) and the schedules
 (A6c: ``fleet``, ``DistributedTrainStep`` with ZeRO stages 1-3,
 ``ScannedLayers``, the GPipe and 1F1B engines, ``group_sharded_parallel``
-and ``overlap``'s collective-matmul ring and gradient buckets).
-``auto_parallel`` waits for ROADMAP A6c2."""
+and ``overlap``'s collective-matmul ring and gradient buckets) and their
+remainder (A6c2: ZeRO offload, ``auto_parallel``'s placements,
+``shard_layer`` and ``Engine``)."""
 
+from . import auto_parallel  # noqa: F401
 from . import communication  # noqa: F401
 from . import fleet  # noqa: F401
 from . import meta_parallel  # noqa: F401
 from . import overlap  # noqa: F401
+from .auto_parallel import (Partial, Placement, ProcessMesh, Replicate, Shard,  # noqa: F401
+                            dtensor_from_fn, get_mesh, reshard, set_mesh, shard_layer,
+                            shard_optimizer, shard_tensor)
 from .communication import (P2POp, ReduceOp, all_gather, all_reduce, all_to_all,  # noqa: F401
                             barrier, batch_isend_irecv, broadcast, get_group, irecv,
                             isend, new_group, ppermute, recv, reduce, reduce_scatter,

@@ -33,6 +33,16 @@ two modes of ``distributed.topology``:
   gradients.  Stage 3, a ``pipe`` degree above 1 and a ``sep`` degree above
   1 across processes wait for ROADMAP A6d (the multi-card item) and raise.
 
+ZeRO offload (``offload=True``, the reference's ``pinned_host`` memory
+kind) holds every parameter's f32 master and moments, at any stage, in
+pinned host memory (one ``device.HostArena`` a step, in the stacked layout
+above): B5 reads the gradient on the card and updates the states across
+the host link in place, writing the new bf16 value into the parameter's
+view on the card; the gradients and parameters stay on the card.  It needs
+the mesh's members on a card (``_offload_supported``); on the CPU the
+request degrades with the reference's warning and the states stay where
+they are.
+
 The spec policy (:func:`param_storage_spec`, :func:`state_storage_spec`,
 :func:`param_compute_spec`, :func:`grad_comm_axes`) is the reference's,
 over the layer layouts the port records: ``model`` at a tensor-parallel
@@ -45,6 +55,7 @@ A spec is a tuple with one entry a dim: None, an axis, or a tuple of axes
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import Callable, List, Optional, Sequence
 
@@ -52,6 +63,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..device import HostArena
 from ..jit import TrainStep
 from ..nn.clip import ClipGradByGlobalNorm
 from .topology import CommGroup, process_mesh_coords
@@ -71,11 +83,16 @@ def _axes_of(entry) -> tuple:
 
 def _current_spec(arr: torch.Tensor, mesh) -> List:
     """The layer layout of a parameter: what ScannedLayers recorded on a
-    stacked one, ``model`` at a tensor-parallel one's ``split_axis``, else
-    replicated."""
+    stacked one, an ``auto_parallel`` placement's spec when its mesh has
+    ``mesh``'s axes and sizes (the reference reads the array's
+    ``NamedSharding`` so), ``model`` at a tensor-parallel one's
+    ``split_axis``, else replicated."""
     spec = getattr(arr, "_layer_spec", None)
     if spec is not None:
         return list(spec)
+    placed = getattr(arr, "_dist_spec", None)
+    if placed is not None and placed[0] == tuple(mesh.shape.items()):
+        return list(placed[1])
     spec = [None] * arr.dim()
     if vars(arr).get("is_distributed") is True and hasattr(arr, "split_axis"):
         spec[arr.split_axis] = "model"
@@ -169,8 +186,10 @@ class DistributedTrainStep(TrainStep):
     from ``group_sharded_parallel``'s or ``fleet.distributed_optimizer``'s
     tag).  ``hcg``: a ``HybridCommunicateGroup`` or a ``Mesh``.
     ``batch_specs``: a spec for each batch argument (default: dim 0 over
-    ``data`` x ``sharding``, dim 1 over ``sep``).  ``offload`` (states in
-    pinned host memory) waits for ROADMAP A6c2 and raises; the reference's
+    ``data`` x ``sharding``, dim 1 over ``sep``).  ``offload`` (default
+    from the optimizer's ``_sharding_offload`` tag): masters and moments in
+    pinned host memory where the members are cards, else a warning and
+    resident states (``self.offload`` says which).  The reference's
     ``health_guard``, ``persistent_cache`` and ``snapshotter`` wait for A5."""
 
     def __init__(self, model: nn.Module, loss_fn: Callable, optimizer, hcg,
@@ -188,12 +207,12 @@ class DistributedTrainStep(TrainStep):
         self.sharding_stage = int(sharding_stage)
         if offload is None:
             offload = bool(getattr(optimizer, "_sharding_offload", False))
-        if offload:
-            raise NotImplementedError(
-                "DistributedTrainStep offload=True (optimizer states in pinned host "
-                "memory) is not ported yet (ROADMAP A6c2); the reference keeps them in "
-                "device memory where it cannot place them on the host")
-        self.offload = False
+        self.offload = bool(offload) and self._offload_supported()
+        if offload and not self.offload:
+            logging.getLogger("paddle_tpu.distributed").warning(
+                "offload=True requested but this backend (%s) cannot place optimizer "
+                "states in pinned host memory; optimizer states stay in device memory",
+                self.mesh.devices.flat[0].type)
         self._batch_specs = batch_specs
         super().__init__(model, loss_fn, optimizer, donate=donate,
                          gradient_merge=gradient_merge, health_guard=health_guard,
@@ -214,15 +233,24 @@ class DistributedTrainStep(TrainStep):
         self._place_state()
         self._grad_bucketer = self._build_bucketer()
 
+    def _offload_supported(self) -> bool:
+        """Pinned host memory needs the members on a card (the reference's
+        probe: its backend must compile host-memory placements)."""
+        return self.mesh.devices.flat[0].type == "cuda"
+
     # -- placement ----------------------------------------------------------
     def _place_state(self) -> None:
         """Record the specs, and hold each parameter's optimizer states (and
-        f32 master) as its ``sharding`` members' blocks."""
+        f32 master) as its ``sharding`` members' blocks: on the parameter's
+        device, or with offload in one pinned ``HostArena``, filled a
+        parameter at a time (no parameter's states are ever all on the card)."""
         mesh, opt, stage = self.mesh, self.optimizer, self.sharding_stage
         n = mesh.shape.get("sharding", 1)
         me = process_mesh_coords(mesh)["sharding"] if self._multi else None
+        self.state_memory_kind = "pinned_host" if self.offload else "device"
         self._param_shardings, self._compute_shardings = [], []
         self._grad_shardings, self._state_shardings = [], []
+        plan = []       # (p, has_master, dim, the held shape)
         for p in self._params:
             ps = param_storage_spec(p, mesh, stage)
             ss = state_storage_spec(p, mesh, stage)
@@ -234,27 +262,44 @@ class DistributedTrainStep(TrainStep):
             self._state_shardings.append(
                 {**{s: ss for s in opt._slot_names}, **({"@master": ss} if has_master else {})})
             dim = _sharding_dim(ss)
+            shape = list(p.shape)
+            if dim is not None:     # the members' blocks, stacked [n, *block]
+                shape[dim] //= n    # (across processes only this one's: [1, *block])
+                shape = [n if me is None else 1] + shape
+            plan.append((p, has_master, dim, tuple(shape)))
+        arena = None
+        if self.offload:
+            if opt._host_arena is not None:
+                opt._host_arena.release()
+            arena = opt._host_arena = HostArena(sum(
+                HostArena.span([shape] * (len(opt._slot_names) + has_master),
+                               opt._update_dtype(p)) for p, has_master, _, shape in plan),
+                pin=self.mesh.devices.flat[0].type == "cuda")
+        for p, has_master, dim, shape in plan:
+            dtype = opt._update_dtype(p)
             if dim is None:
-                opt._state_for(p)
-                if has_master:
-                    opt._master(p)
-                continue
-            # the members' blocks, stacked [n, *block] (across processes,
-            # only this process's: [1, *block])
-            mine = (lambda t: torch.stack(_blocks(t, dim, n)).contiguous()) if me is None \
-                else (lambda t: _blocks(t, dim, n)[me].contiguous()[None])
+                held = lambda t: t      # noqa: E731
+            elif me is None:
+                held = lambda t: torch.stack(_blocks(t, dim, n)).contiguous()  # noqa: E731
+            else:
+                held = lambda t: _blocks(t, dim, n)[me].contiguous()[None]    # noqa: E731
+
+            def put(t):
+                return held(t) if arena is None else arena.take(shape, dtype).copy_(held(t))
+
             st = opt._accumulators.get(id(p))
             if st is None:
-                src = p.detach().float() if has_master else p.detach()
-                st = {s: torch.zeros_like(mine(src)) for s in opt._slot_names}
+                st = {s: torch.zeros(shape, dtype=dtype, device=p.device) if arena is None
+                      else arena.take(shape, dtype).zero_() for s in opt._slot_names}
                 st["@t"] = 0
             else:
-                st = {k: v if isinstance(v, int) else mine(v) for k, v in st.items()}
+                st = {k: v if isinstance(v, int) else put(v) for k, v in st.items()}
             opt._accumulators[id(p)] = st
             if has_master:
                 mw = opt._master_weights.get(id(p))
-                opt._master_weights[id(p)] = mine(mw if mw is not None else p.detach().float())
-            opt._layouts[id(p)] = (dim, n)
+                opt._master_weights[id(p)] = put(mw if mw is not None else p.detach().float())
+            if dim is not None:
+                opt._layouts[id(p)] = (dim, n)
 
     def _build_bucketer(self):
         """Size-targeted gradient buckets for the sharded-optimizer stages
@@ -332,12 +377,8 @@ class DistributedTrainStep(TrainStep):
         if self._grad_bucketer is not None:
             self._grad_bucketer.constrain([by_id.get(id(p)) for p in self._params], self.mesh,
                                           grad_comm_axes(self.mesh))
-        opt = self.optimizer
-        grads = [(p, g.to(torch.float32 if opt._has_master(p) else p.dtype))
-                 for p, g in grads]
-        if opt._grad_clip is not None:
-            grads = opt._grad_clip(grads)
-        self._apply_blocks(grads, lambda p, g, dim, n: _blocks(g, dim, n), None)
+        self._apply_blocks(self.optimizer._clipped(grads),
+                           lambda p, g, dim, n: _blocks(g, dim, n), None)
 
     @torch.no_grad()
     def _apply_blocks(self, grads, grad_blocks, member: Optional[int]) -> None:
@@ -348,15 +389,11 @@ class DistributedTrainStep(TrainStep):
         base_lr = opt.get_lr()
         for p, g in grads:
             lr = base_lr * getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
-            st = opt._state_for(p)
             layout = opt._layouts.get(id(p))
             if layout is None:
-                new_p, new_st = opt._update_rule(opt._master(p), g, st, lr, p)
-                st.update(new_st)
-                if opt._has_master(p):
-                    opt._master_weights[id(p)] = new_p
-                p.copy_(new_p)
+                opt._update_param(p, g, lr)
                 continue
+            st = opt._state_for(p)
             dim, n = layout
             master = opt._master_weights.get(id(p))
             views = _blocks(p, dim, n)
@@ -366,14 +403,21 @@ class DistributedTrainStep(TrainStep):
                 view = views[j]
                 work = master[k] if master is not None else \
                     (view if view.is_contiguous() else view.contiguous())
+                out = None      # an offloaded master: B5 writes the card's view
+                if work.device != view.device:
+                    out = view if view.is_contiguous() else \
+                        torch.empty_like(view, memory_format=torch.contiguous_format)
                 new_w, new_st = opt._update_rule(work, gb.contiguous(), {**slots, "@t": st["@t"]},
-                                                 lr, p)
+                                                 lr, p, out=out)
                 for s, v in slots.items():
                     if new_st[s] is not v:
                         v.copy_(new_st[s])
                 if new_w is not work:
                     work.copy_(new_w)
-                if work is not view:
+                if out is not None:
+                    if out is not view:
+                        view.copy_(out)
+                elif work is not view:
                     view.copy_(work)
             st["@t"] = new_st["@t"]
         opt._step_count += 1

@@ -20,8 +20,9 @@ amp, and gradient merge's k and averaging (read by ``TrainStep``).  The
 strategy's knob audit is the reference's: a reference knob the port does
 not honor raises when set away from its default, an unknown knob or config
 key raises.  ``strategy.asp`` (2:4 sparsity, ``incubate.asp``) waits for
-ROADMAP A9 and raises at ``init``; ``sharding_configs["offload"]`` is
-refused by ``DistributedTrainStep`` (A6c2).  The fault domain and elastic
+ROADMAP A9 and raises at ``init``; ``sharding_configs["offload"]`` tags
+the optimizer, whose ``DistributedTrainStep`` then holds masters and
+moments in pinned host memory.  The fault domain and elastic
 training (``fault_domain``, ``elastic``, ``FaultDomain``,
 ``HeartbeatLease``, ``LeaseMonitor``) import and raise naming ROADMAP A7.
 """

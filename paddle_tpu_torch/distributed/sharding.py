@@ -6,9 +6,10 @@ the ZeRO entry point).
 gradients) or "p_g_os" (stage 3: and parameters) tags the model and the
 optimizer with the stage that ``DistributedTrainStep`` reads; a
 non-default ``buffer_max_size`` is the gradient bucket target in bytes,
-else ``PADDLE_TPU_BUCKET_MB`` (default 25) decides.  ``offload=True``
-(states in pinned host memory) waits for ROADMAP A6c2 and raises, and
-``save_group_sharded_model`` waits for A3 (``framework.io.save``).
+else ``PADDLE_TPU_BUCKET_MB`` (default 25) decides.  ``offload=True`` tags
+the optimizer so that ``DistributedTrainStep`` holds its masters and
+moments in pinned host memory.  ``save_group_sharded_model`` writes the
+model's and the optimizer's state dicts with ``framework.io.save``.
 """
 
 from __future__ import annotations
@@ -33,21 +34,20 @@ def group_sharded_parallel(model: nn.Module, optimizer, level: str, scaler=None,
 
     if level not in _LEVELS:
         raise ValueError(f"level must be one of {sorted(_LEVELS)}, got {level!r}")
-    if offload:
-        raise NotImplementedError(
-            "group_sharded_parallel offload=True (optimizer states in pinned host "
-            "memory) is not ported yet (ROADMAP A6c2); the reference keeps them in "
-            "device memory where it cannot place them on the host")
     optimizer._sharding_stage = _LEVELS[level]
     model._sharding_stage = _LEVELS[level]
     optimizer._grad_bucket_bytes = int(buffer_max_size) if buffer_max_size != 2 ** 23 \
         else grad_bucket_bytes()
-    optimizer._sharding_offload = False
+    optimizer._sharding_offload = bool(offload)
     return model, optimizer, scaler
 
 
 def save_group_sharded_model(model: nn.Module, output: str, optimizer=None) -> None:
-    """Waits for ROADMAP A3 (``framework.io.save``)."""
-    raise NotImplementedError(
-        "save_group_sharded_model needs framework.io.save, which is not ported yet "
-        "(ROADMAP A3); save model.state_dict() with torch.save meanwhile")
+    """``output + ".pdmodel"`` (the model's state dict) and, given the
+    optimizer, ``output + ".pdopt"`` (its state dict, in each parameter's
+    own layout), through ``framework.io.save``."""
+    from ..framework.io import save
+
+    save(model.state_dict(), output + ".pdmodel")
+    if optimizer is not None:
+        save(optimizer.state_dict(), output + ".pdopt")

@@ -7,7 +7,7 @@ out of the norm and keep their gradient."""
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Iterable, List, Optional, Tuple
 
 import torch
 
@@ -26,12 +26,27 @@ class ClipGradByGlobalNorm:
 
     def __call__(self, params_grads: List[Tuple[torch.Tensor, torch.Tensor]]
                  ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-        clipped = [g for p, g in params_grads
-                   if g is not None and getattr(p, "need_clip", True)]
-        if not clipped:
+        scale = self.global_scale(params_grads)
+        if scale is None:
             return params_grads
-        norm = torch.sqrt(sum(g.float().square().sum() for g in clipped))
-        scale = self.clip_norm / torch.clamp(norm, min=self.clip_norm)
-        return [(p, g if g is None or not getattr(p, "need_clip", True)
-                 else (g.float() * scale).to(g.dtype))
-                for p, g in params_grads]
+        return [(p, self.scaled(p, g, scale)) for p, g in params_grads]
+
+    def global_scale(self, params_grads: Iterable[Tuple[torch.Tensor, torch.Tensor]]
+                     ) -> Optional[torch.Tensor]:
+        """``clip_norm / max(global_norm, clip_norm)``, or None when no
+        gradient is clipped.  ``params_grads`` may be a generator: each
+        gradient is read once, in order, and may be dropped after."""
+        terms = [g.float().square().sum() for p, g in params_grads
+                 if g is not None and getattr(p, "need_clip", True)]
+        if not terms:
+            return None
+        norm = torch.sqrt(sum(terms))
+        return self.clip_norm / torch.clamp(norm, min=self.clip_norm)
+
+    @staticmethod
+    def scaled(p: torch.Tensor, g: Optional[torch.Tensor],
+               scale: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """``g`` clipped by ``scale`` (from :meth:`global_scale`)."""
+        if g is None or scale is None or not getattr(p, "need_clip", True):
+            return g
+        return (g.float() * scale).to(g.dtype)

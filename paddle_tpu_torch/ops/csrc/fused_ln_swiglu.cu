@@ -22,6 +22,14 @@
 //   a step moves 28 bytes an f32 parameter and allocates nothing.  lr,
 //   1 - beta1^t and 1 - beta2^t arrive as f32 arguments computed in f32 by
 //   the wrapper, as the TPU wrapper computes them (fused_ln_swiglu.py:273-276).
+//   With ZeRO offload p (the f32 master), m and v lie in pinned host memory
+//   and the kernel reads and writes them over the host link in place
+//   (zero-copy: the wrapper passes their device addresses under unified
+//   addressing), 12 bytes each way a parameter.  The optional out is the
+//   card's copy of the parameter (bf16 under AMP O2): the kernel writes the
+//   new p rounded to out's dtype there, so the refreshed weight does not
+//   cross the link a second time (an extra output of this kernel; the TPU
+//   kernel has none, the reference's XLA program casts after the update).
 // - B11 takes one block of 256 threads per row.  Each thread keeps the f32
 //   sums of its own columns in shared memory (the same columns in every
 //   pass, so no barrier is needed for them), so the variance is taken in
@@ -187,10 +195,10 @@ __device__ __forceinline__ void adamw_val(float& p, float g, float& m, float& v,
   if (a.decay) p = p - a.lr_wd * old;
 }
 
-template <typename T, int N>
+template <typename T, typename O, int N>
 __global__ void __launch_bounds__(kThreads)
 adamw_kernel(T* __restrict__ p, const T* __restrict__ g, float* __restrict__ m,
-             float* __restrict__ v, long long n, AdamArgs a) {
+             float* __restrict__ v, O* __restrict__ out, long long n, AdamArgs a) {
   const long long nvec = n / N;
   const long long first = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
@@ -205,6 +213,7 @@ adamw_kernel(T* __restrict__ p, const T* __restrict__ g, float* __restrict__ m,
     ptt::store_f32<T, N>(p + i * N, pv);
     ptt::store_f32<float, N>(m + i * N, mv);
     ptt::store_f32<float, N>(v + i * N, vv);
+    if (out != nullptr) ptt::store_f32<O, N>(out + i * N, pv);
   }
   const long long j = nvec * N + first;
   if (j < n) {
@@ -213,19 +222,30 @@ adamw_kernel(T* __restrict__ p, const T* __restrict__ g, float* __restrict__ m,
     p[j] = ptt::from_f32<T>(pv);
     m[j] = mv;
     v[j] = vv;
+    if (out != nullptr) out[j] = ptt::from_f32<O>(pv);
   }
 }
 
-template <typename T>
-int launch_adamw(void* p, const void* g, void* m, void* v, long long n, const AdamArgs& a,
-                 cudaStream_t s) {
-  constexpr int N = 4;  // 16 bytes of m and v; 8 or 16 bytes of p and g
-  const bool vec = aligned16(p) && aligned16(g) && aligned16(m) && aligned16(v);
-  auto k = vec ? &adamw_kernel<T, N> : &adamw_kernel<T, 1>;
+template <typename T, typename O>
+int launch_adamw_to(void* p, const void* g, void* m, void* v, void* out, long long n,
+                 const AdamArgs& a, cudaStream_t s) {
+  constexpr int N = 4;  // 16 bytes of m and v; 8 or 16 bytes of p, g and out
+  const bool vec = aligned16(p) && aligned16(g) && aligned16(m) && aligned16(v) &&
+                   (out == nullptr || aligned16(out));
+  auto k = vec ? &adamw_kernel<T, O, N> : &adamw_kernel<T, O, 1>;
   k<<<grid_for(vec ? (n + N - 1) / N : n), kThreads, 0, s>>>(
       static_cast<T*>(p), static_cast<const T*>(g), static_cast<float*>(m),
-      static_cast<float*>(v), n, a);
+      static_cast<float*>(v), static_cast<O*>(out), n, a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_adamw(void* p, const void* g, void* m, void* v, void* out, int out_dtype,
+                 long long n, const AdamArgs& a, cudaStream_t s) {
+  if (out != nullptr && out_dtype == ptt::kBF16)
+    return launch_adamw_to<T, __nv_bfloat16>(p, g, m, v, out, n, a, s);
+  if (out != nullptr) return launch_adamw_to<T, float>(p, g, m, v, out, n, a, s);
+  return launch_adamw_to<T, T>(p, g, m, v, nullptr, n, a, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -504,16 +524,33 @@ extern "C" int ptt_swiglu_bwd(const void* g, const void* u, const void* dy, void
 }
 
 // p, g: n contiguous elements of one dtype (the update's); m, v: n f32,
-// all updated in place.  omb1 = 1 - beta1 and omb2 = 1 - beta2 as the
-// caller rounds them; lr_wd = lr * weight_decay in f32.
-extern "C" int ptt_adamw(void* p, const void* g, void* m, void* v, long long n, float lr,
-                         float bc1, float bc2, float b1, float omb1, float b2, float omb2,
-                         float eps, float lr_wd, int decay, int dtype, void* stream) {
+// all updated in place; out (or NULL): n elements of out_dtype receiving
+// the new p.  Any of p, m and v may be the device address of pinned host
+// memory.  omb1 = 1 - beta1 and omb2 = 1 - beta2 as the caller rounds
+// them; lr_wd = lr * weight_decay in f32.
+extern "C" int ptt_adamw(void* p, const void* g, void* m, void* v, void* out, long long n,
+                         float lr, float bc1, float bc2, float b1, float omb1, float b2,
+                         float omb2, float eps, float lr_wd, int decay, int dtype,
+                         int out_dtype, void* stream) {
   if (n == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const AdamArgs a{lr, bc1, bc2, b1, omb1, b2, omb2, eps, lr_wd, decay};
-  if (dtype == ptt::kBF16) return launch_adamw<__nv_bfloat16>(p, g, m, v, n, a, s);
-  return launch_adamw<float>(p, g, m, v, n, a, s);
+  if (dtype == ptt::kBF16)
+    return launch_adamw<__nv_bfloat16>(p, g, m, v, out, out_dtype, n, a, s);
+  return launch_adamw<float>(p, g, m, v, out, out_dtype, n, a, s);
+}
+
+// The address under which the current card reaches host memory at host:
+// 0 and *dev set when host lies in pinned (page-locked, mapped) memory,
+// cudaErrorInvalidValue when it is ordinary pageable memory.
+extern "C" int ptt_host_device_ptr(const void* host, void** dev) {
+  cudaPointerAttributes attr;
+  const cudaError_t rc = cudaPointerGetAttributes(&attr, host);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (attr.type != cudaMemoryTypeHost || attr.devicePointer == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *dev = attr.devicePointer;
+  return 0;
 }
 
 // x, r, out, sum [n, h] of dtype; w, b [h] of w_dtype; mu, rstd [n] f32.

@@ -33,8 +33,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _SWIGLU_ARGTYPES = (_P, _P, _P, ctypes.c_longlong, ctypes.c_int)
 _SWIGLU_BWD_ARGTYPES = (_P,) * 5 + (ctypes.c_longlong, ctypes.c_int)
-_ADAMW_ARGTYPES = (_P,) * 4 + (ctypes.c_longlong,) + (ctypes.c_float,) * 9 + \
-    (ctypes.c_int, ctypes.c_int)
+_ADAMW_ARGTYPES = (_P,) * 5 + (ctypes.c_longlong,) + (ctypes.c_float,) * 9 + \
+    (ctypes.c_int,) * 3
 _LN_ARGTYPES = (_P,) * 8 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
                             ctypes.c_int, ctypes.c_int)
 _LN_BWD_ARGTYPES = (_P,) * 10 + (ctypes.c_longlong,) + (ctypes.c_int,) * 4
@@ -156,33 +156,71 @@ def adamw_plain(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tens
     return new_p.to(p.dtype), m_new, v_new
 
 
+def _card_address(t: torch.Tensor, device: torch.device) -> int:
+    """The address under which ``device`` reaches ``t``: its own on that
+    card, the mapped address of pinned host memory; else raise."""
+    if t.is_cuda:
+        if t.device != device:
+            raise ValueError(f"adamw kernel: a tensor on {t.device}, the gradient on {device}")
+        return t.data_ptr()
+    addr = ctypes.c_void_p()
+    lib = _build._library("fused_ln_swiglu")
+    lib.ptt_host_device_ptr.argtypes = (_P, ctypes.POINTER(ctypes.c_void_p))
+    with torch.cuda.device(device):
+        rc = lib.ptt_host_device_ptr(t.data_ptr(), ctypes.byref(addr)) if t.numel() else 0
+    if rc != 0:
+        raise ValueError(f"adamw kernel: a {tuple(t.shape)} host tensor in pageable memory; "
+                         f"offloaded optimizer states must lie in pinned host memory")
+    return addr.value or 0
+
+
 def fused_adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                 lr: float, t: int, beta1: float, beta2: float, eps: float,
-                weight_decay: float, decay: bool
+                weight_decay: float, decay: bool, out: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B5: one AdamW step of ``p`` (any shape; p and g of one dtype, m and
     v f32), written IN PLACE into p, m and v, which are returned.  The TPU
     kernel returns new arrays; updating in place saves three f32 copies of
-    every parameter a step.  The kernel on CUDA tensors, the plain twin
-    (whose results are copied in) on CPU tensors."""
+    every parameter a step.  ``out`` (optional, contiguous, f32 or bf16, on
+    the gradient's device) also receives the new p in its dtype.
+
+    The route follows the gradient: on a CPU gradient the plain twin runs
+    (whose results are copied in), and every tensor must lie on the CPU; on
+    a CUDA gradient the kernel runs on its card, and each of p, m and v lies
+    on that card or in pinned host memory (ZeRO offload: the kernel updates
+    the states across the host link in place).  Any other mix, pageable
+    host memory among them, raises."""
     lr32, bc1, bc2 = adamw_scalars(lr, t, beta1, beta2)
     _refuse_grad("adamw", p, g, m, v)
-    if not p.is_cuda:
+    if not g.is_cuda:
+        if any(x is not None and x.is_cuda for x in (p, m, v, out)):
+            raise ValueError("adamw: a CPU gradient with state on a card")
         new = adamw_plain(p, g, m, v, lr32, bc1, bc2, beta1, beta2, eps,
                           weight_decay, decay)
         for dst, src in zip((p, m, v), new):
             dst.copy_(src)
+        if out is not None:
+            out.copy_(new[0])
         return p, m, v
-    _check_like("adamw", p, g=g)
-    _check_like("adamw", m, v=v)
-    if m.dtype != torch.float32 or m.shape != p.shape or m.device != p.device:
-        raise ValueError(f"adamw kernel: m and v must be f32 {tuple(p.shape)} on "
-                         f"{p.device}, got {m.dtype} {tuple(m.shape)}")
-    _build.launch("fused_ln_swiglu", "ptt_adamw", _ADAMW_ARGTYPES, p.device,
-                  _build.ptr(p), _build.ptr(g), _build.ptr(m), _build.ptr(v), p.numel(),
+    if p.dtype not in _DTYPES or g.dtype != p.dtype:
+        raise TypeError(f"adamw kernel: p and g of one dtype, f32 or bf16; got {p.dtype}, "
+                        f"{g.dtype}")
+    for name, x, dtype in (("p", p, p.dtype), ("g", g, p.dtype), ("m", m, torch.float32),
+                           ("v", v, torch.float32)):
+        if x.shape != p.shape or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"adamw kernel: {name} must be a contiguous {dtype} tensor of "
+                             f"shape {tuple(p.shape)}, got {x.dtype} {tuple(x.shape)}")
+    if out is not None and (out.shape != p.shape or out.dtype not in _DTYPES
+                            or out.device != g.device or not out.is_contiguous()):
+        raise ValueError(f"adamw kernel: out must be a contiguous f32 or bf16 tensor of shape "
+                         f"{tuple(p.shape)} on {g.device}")
+    dev = g.device
+    addrs = [_card_address(x, dev) for x in (p, m, v)]
+    _build.launch("fused_ln_swiglu", "ptt_adamw", _ADAMW_ARGTYPES, dev,
+                  addrs[0], _build.ptr(g), addrs[1], addrs[2], _build.ptr(out), p.numel(),
                   lr32, bc1, bc2, beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
                   float(np.float32(lr32) * np.float32(weight_decay)), int(decay),
-                  _DTYPES[p.dtype])
+                  _DTYPES[p.dtype], _DTYPES[out.dtype] if out is not None else 0)
     LAUNCHES["adamw"] += 1
     return p, m, v
 

@@ -18,6 +18,16 @@ and AdamW run the one-sweep AdamW (B5: the hand kernel on CUDA tensors,
 its plain twin on CPU ones), which updates the master weight (or the f32
 parameter) and both moments IN PLACE; so, as with ``torch.optim``, a
 ``state_dict`` holds live tensors: save or clone it before the next step.
+
+Each gradient is cast to its update's dtype when its turn comes, and the
+global-norm clip reads every cast gradient once for the norm before the
+updates: the arithmetic and its order are the reference's, and at most one
+parameter's f32 gradient copy is alive at a time (27 GB fewer at
+Llama-2-7B's full depth).  ZeRO offload (``DistributedTrainStep(offload=
+True)``) holds the masters and moments in pinned host memory
+(``_host_arena``): the update runs B5 with the gradient on the card and
+the states on the host, and B5 also writes the new value into the card's
+parameter; ``set_state_dict`` copies into the pinned tensors.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..framework.flags import get_flags
+from ..nn.clip import ClipGradByGlobalNorm
 from ..ops.fused_ln_swiglu import fused_adamw
 from . import lr as lr_module
 from .lr import LRScheduler
@@ -66,6 +77,8 @@ class Optimizer:
         # blocks along dim, stacked [n, *block] (a DistributedTrainStep's
         # ZeRO layout); state_dict shows them in the parameter's layout
         self._layouts: Dict[int, Tuple[int, int]] = {}
+        # ZeRO offload: the pinned host block holding the masters and slots
+        self._host_arena = None
         self._step_count = 0
 
     # -- lr ------------------------------------------------------------
@@ -77,6 +90,10 @@ class Optimizer:
     # -- state ----------------------------------------------------------
     def _has_master(self, p: torch.Tensor) -> bool:
         return self._multi_precision and p.dtype in _HALF
+
+    def _update_dtype(self, p: torch.Tensor) -> torch.dtype:
+        """The dtype the update of ``p`` runs in (its master's, or its own)."""
+        return torch.float32 if self._has_master(p) else p.dtype
 
     def _master(self, p: torch.Tensor) -> torch.Tensor:
         """The tensor the update runs on: the f32 master weight of a half
@@ -103,8 +120,11 @@ class Optimizer:
 
     # -- core step --------------------------------------------------------
     def _update_rule(self, p: torch.Tensor, g: torch.Tensor, state: Dict[str, Any],
-                     lr: float, param: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """(new value of ``p``, new slots) from the gradient ``g``."""
+                     lr: float, param: torch.Tensor, out: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """(new value of ``p``, new slots) from the gradient ``g``; ``out``
+        (an offloaded master's parameter on the card) also receives the new
+        value in its dtype."""
         raise NotImplementedError
 
     @torch.no_grad()
@@ -118,20 +138,47 @@ class Optimizer:
         """Cast each gradient to its update's dtype (f32 for a master
         weight), clip, and update.  ``jit.TrainStep`` calls this with its
         merged f32 gradients."""
-        params_grads = [(p, g.to(self._master(p).dtype)) for p, g in params_grads]
-        if self._grad_clip is not None:
-            params_grads = self._grad_clip(params_grads)
         base_lr = self.get_lr()
-        for p, g in params_grads:
+        for p, g in self._clipped(params_grads):
             lr_mult = getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
-            st = self._state_for(p)
-            new_p, new_state = self._update_rule(self._master(p), g, st,
-                                                 base_lr * lr_mult, p)
-            st.update(new_state)
-            if self._has_master(p):
-                self._master_weights[id(p)] = new_p
-            p.copy_(new_p)
+            self._update_param(p, g, base_lr * lr_mult)
         self._step_count += 1
+
+    def _clipped(self, params_grads):
+        """``(p, g)`` in order, each gradient cast to its update's dtype and
+        clipped, cast only when its turn comes (a global-norm clip takes its
+        norm over the cast gradients first, one at a time)."""
+        def cast(p, g):
+            return g if g is None else g.to(self._update_dtype(p))
+
+        clip = self._grad_clip
+        if clip is None:
+            return ((p, cast(p, g)) for p, g in params_grads)
+        if not isinstance(clip, ClipGradByGlobalNorm):
+            return iter(clip([(p, cast(p, g)) for p, g in params_grads]))
+        scale = clip.global_scale((p, cast(p, g)) for p, g in params_grads)
+        return ((p, clip.scaled(p, cast(p, g), scale)) for p, g in params_grads)
+
+    def _update_param(self, p: torch.Tensor, g: torch.Tensor, lr: float) -> None:
+        """One update of ``p`` whole; an offloaded master (on the host) has
+        the kernel write ``p`` on the card."""
+        st = self._state_for(p)
+        work = self._master(p)
+        out = p if work.device != p.device else None
+        new_p, new_state = self._update_rule(work, g, st, lr, p, out=out)
+        held = self._host_arena is not None     # offloaded states keep their place
+        for k, v in new_state.items():
+            if held and isinstance(v, torch.Tensor) and st[k] is not v:
+                st[k].copy_(v)
+            else:
+                st[k] = v
+        if self._has_master(p):
+            if held and new_p is not work:
+                work.copy_(new_p)
+            else:
+                self._master_weights[id(p)] = new_p
+        if out is None:
+            p.copy_(new_p)
 
     @torch.no_grad()
     def clear_grad(self, set_to_zero: bool = False) -> None:
@@ -150,13 +197,17 @@ class Optimizer:
         dim, _ = self._layouts[id(p)]
         return torch.cat(v.unbind(0), dim)
 
-    def _blocked(self, p: torch.Tensor, v: Any) -> torch.Tensor:
-        """A loaded slot or master on ``p``'s device, in its held layout."""
+    def _blocked(self, p: torch.Tensor, v: Any, held: Any = None) -> torch.Tensor:
+        """A loaded slot or master on ``p``'s device, in its held layout;
+        with offload, copied into ``held`` (the tensor it replaces, in the
+        host arena)."""
         v = torch.as_tensor(v, device=p.device)
-        if id(p) not in self._layouts:
-            return v
-        dim, n = self._layouts[id(p)]
-        return torch.stack(v.chunk(n, dim)).contiguous()
+        if id(p) in self._layouts:
+            dim, n = self._layouts[id(p)]
+            v = torch.stack(v.chunk(n, dim)).contiguous()
+        if self._host_arena is not None and isinstance(held, torch.Tensor):
+            return held.copy_(v)
+        return v
 
     def state_dict(self) -> Dict[str, Any]:
         out: Dict[str, Any] = {}
@@ -182,12 +233,14 @@ class Optimizer:
             st = {slot: state[f"{key}.{slot}"] for slot in self._slot_names + ("@t",)
                   if f"{key}.{slot}" in state}
             if st:
+                held = self._accumulators.get(id(p), {})
                 self._accumulators[id(p)] = {
-                    k: v if isinstance(v, int) else self._blocked(p, v)
+                    k: v if isinstance(v, int) else self._blocked(p, v, held.get(k))
                     for k, v in st.items()}
             mw = state.get(f"{key}.master_weight")
             if mw is not None:
-                self._master_weights[id(p)] = self._blocked(p, mw)
+                self._master_weights[id(p)] = self._blocked(
+                    p, mw, self._master_weights.get(id(p)))
         if "LR_Scheduler" in state and isinstance(self._learning_rate, LRScheduler):
             self._learning_rate.set_state_dict(state["LR_Scheduler"])
         self._step_count = int(state.get("@step", 0))
@@ -216,7 +269,13 @@ class Adam(Optimizer):
     def _should_decay(self, param: Optional[torch.Tensor]) -> bool:
         return bool(self._weight_decay)
 
-    def _update_rule(self, p, g, state, lr, param):
+    def _update_rule(self, p, g, state, lr, param, out=None):
+        offloaded = out is not None or any(
+            t.device != g.device for t in (p, state["moment1"], state["moment2"]))
+        if offloaded and not self._decoupled() and self._weight_decay:
+            raise NotImplementedError(
+                "offloaded optimizer states take the decoupled update (AdamW) only: "
+                "Adam's coupled decay would read the master on the host")
         if not self._decoupled() and self._weight_decay:
             g = g + self._weight_decay * p
         t = state["@t"] + 1
@@ -228,8 +287,12 @@ class Adam(Optimizer):
             decay = self._decoupled() and self._should_decay(param)
             m, v = state["moment1"].float(), state["moment2"].float()
             fused_adamw(p, g, m, v, lr, t, b1, b2, self._epsilon,
-                        self._weight_decay, decay)
+                        self._weight_decay, decay, out=out)
             return p, {"moment1": m, "moment2": v, "@t": t}
+        if offloaded:
+            raise RuntimeError(
+                "optimizer states offloaded to host memory are updated by the fused "
+                "AdamW kernel (B5) only: set use_fused_adamw, or turn offload off")
         m = b1 * state["moment1"] + (1 - b1) * g
         v = b2 * state["moment2"] + (1 - b2) * g.square()
         mhat = m / (1 - b1 ** t)
@@ -258,10 +321,10 @@ class AdamW(Adam):
     def _decoupled(self) -> bool:
         return True
 
-    def _update_rule(self, p, g, state, lr, param):
+    def _update_rule(self, p, g, state, lr, param, out=None):
         if self._lr_ratio is not None:
             lr = lr * float(self._lr_ratio(param))
-        return super()._update_rule(p, g, state, lr, param)
+        return super()._update_rule(p, g, state, lr, param, out=out)
 
     def _should_decay(self, param):
         if not self._weight_decay:

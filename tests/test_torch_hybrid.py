@@ -24,6 +24,8 @@ Tolerances: losses rtol 1e-4 (``tests/test_distributed.py``); weights
 within 1e-4 relative L2 (f32).
 """
 
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -126,7 +128,7 @@ class TestStrategyKnobAudit:
         with pytest.raises(NotImplementedError, match="A9"):
             dist.fleet.init(is_collective=True, strategy=s, devices=["cpu"])
 
-    def test_sharding_offload_knob_wires_through_and_is_refused(self):
+    def test_sharding_offload_knob_wires_through_and_is_refused(self, caplog):
         s = dist.fleet.DistributedStrategy()
         s.sharding = True
         s.sharding_configs = {"stage": 3, "offload": True}
@@ -135,9 +137,13 @@ class TestStrategyKnobAudit:
         model = ptt.nn.Linear(2, 2, device="cpu")
         opt = dist.fleet.distributed_optimizer(AdamW(0.1, parameters=model.parameters()))
         assert opt._sharding_offload is True and opt._sharding_stage == 3
-        with pytest.raises(NotImplementedError, match="A6c2"):
-            dist.DistributedTrainStep(model, lambda m, a: m(a).sum(), opt,
-                                      dist.get_hybrid_communicate_group())
+        # the CPU members cannot pin host memory: the reference's warning,
+        # and the states stay where they are (tests/test_torch_offload.py)
+        with caplog.at_level(logging.WARNING, "paddle_tpu.distributed"):
+            step = dist.DistributedTrainStep(model, lambda m, a: m(a).sum(), opt,
+                                             dist.get_hybrid_communicate_group())
+        assert step.offload is False and step.sharding_stage == 3
+        assert any("offload=True requested" in r.message for r in caplog.records)
 
 
 class TestFleet:
@@ -198,8 +204,6 @@ class TestFleet:
                      lambda: dist.LeaseMonitor(None, 1)):
             with pytest.raises(NotImplementedError, match="A7"):
                 make()
-        with pytest.raises(NotImplementedError, match="A3"):
-            dist.save_group_sharded_model(None, "out")
 
 
 # ---------------------------------------------------------------------------
@@ -309,8 +313,8 @@ class TestDistributedTrainStep:
         assert step.sharding_stage == 2 and step._grad_bucketer.bucket_bytes == 4096
         with pytest.raises(ValueError, match="level"):
             dist.group_sharded_parallel(tm, opt, "zero9")
-        with pytest.raises(NotImplementedError, match="A6c2"):
-            dist.group_sharded_parallel(tm, opt, "os", offload=True)
+        tm, opt, _ = dist.group_sharded_parallel(tm, opt, "os", offload=True)
+        assert opt._sharding_offload is True and opt._sharding_stage == 1
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,9 @@ The rule, for each port callable whose module and name the reference has:
   so a positional call means the same in both;
 - a parameter only the port has is keyword-only, or comes after all of the
   reference's (the port's ``std``, ``generator``, ``device``, ``dtype``).
-The deliberate departures are listed in ``DEPARTURES`` with their reasons.
+The deliberate departures are listed in ``DEPARTURES`` with their reasons,
+and keyword-only additions that change what a call does in
+``KEYWORD_DEPARTURES``.
 """
 
 import importlib
@@ -46,6 +48,17 @@ DEPARTURES = {
     "paddle_tpu_torch.nn.layer.rnn.RNNCellBase":
         "a torch.nn.Module; the reference's Layer base (name_scope, dtype) "
         "waits for ROADMAP A3",
+}
+
+# keyword-only parameters only the port has that change what a call does
+# (the signature rule allows them; they are listed so that a reader of a
+# call written for the reference knows); ROADMAP §C
+KEYWORD_DEPARTURES = {
+    "paddle_tpu_torch.distributed.auto_parallel.ProcessMesh": (
+        "devices",
+        "names the members, so several may share a card or the CPU (as "
+        "fleet.init(devices=...) allows); the reference takes jax.devices() "
+        "and refuses a mesh larger than them, as the port does without it"),
 }
 
 
@@ -103,6 +116,18 @@ def test_signature_matches_reference(path):
         assert any(faults.values()), f"{path} now matches: drop its departure"
         return
     assert not any(faults.values()), f"{path}: {faults}; port {my_pos}, reference {ref_pos}"
+
+
+@pytest.mark.parametrize("path", sorted(KEYWORD_DEPARTURES))
+def test_keyword_departures_are_keyword_only_and_port_only(path):
+    mod_name, name = path.rsplit(".", 1)
+    port = getattr(importlib.import_module(mod_name), name)
+    ref = getattr(importlib.import_module("paddle_tpu" + mod_name[len("paddle_tpu_torch"):]),
+                  name)
+    keyword = KEYWORD_DEPARTURES[path][0]
+    mine = {p.name: p for p in _params(port)}
+    assert path in CALLABLES and mine[keyword].kind == inspect.Parameter.KEYWORD_ONLY
+    assert keyword not in {p.name for p in _params(ref)}
 
 
 def test_reference_flags_all_defined():
