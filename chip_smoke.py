@@ -138,7 +138,7 @@ exits non-zero without them.  Phases, each raising on failure:
    exact B1, B1b, B2, B2 bwd, B3, B3b, B3c, B4 launches; (a)
    ``ServingEngine(tp=2)`` on Llama-2-7B with ``phase_engine``'s prompts
    against ``tp=1``: in f32 weights at 32 layers token-exact on f32 pages
-   and exact or certified near-ties on int8 and fp8 pages, in bf16 at 2
+   and at 8 layers exact or certified near-ties on int8 and fp8 pages, in bf16 at 2
    layers logits within 2e-2 and exact or certified near-ties, exact B1
    and B2 launches on every run; then at full depth in bf16, beside
    ``tp=1``: the 512-token prefill, the decode step, pool bytes a token in
@@ -181,6 +181,22 @@ exits non-zero without them.  Phases, each raising on failure:
    (losses within 2e-2 of 7's, exact launches, each projection's spec in
    the step), ``evaluate`` and ``predict``; the Partial identities on the
    card bit-exact.
+15. the training step's remainder: a ``telemetry.StepMeter`` wraps 7's
+   and 8's counted steps (its MFU within 1% of the script's, the chip
+   table's H100 row, its memory peak equal to ``max_memory_allocated``,
+   its JSONL read back); ``phase_fused_ce`` (after 7): 7's 8-layer model
+   with ``fused_ce_chunk=1024`` against 0 from the same weights (loss and
+   grads within 2e-2, the steps' losses and launches, ms a step and peak
+   memory of both) and ``F.fused_linear_cross_entropy`` alone against
+   ``F.cross_entropy`` on the full logits at [8192, 4096] x [4096, 32000];
+16. the ``nn.Layer`` tree (``phase_ernie``, after 9): ERNIE 3.0 base at
+   its published width (12 layers, hidden 768, vocab 40000), eval, 16 x
+   512 tokens, ``ErnieForSequenceClassification`` and ``ErnieForMaskedLM``
+   in f32 and bf16, each with B3 (12 launches a forward) and on the plain
+   path, logits against the f32 plain path, a padded batch through the
+   masked composite with no launch; B3, B3b and B3c at its attention
+   shape [16, 512, 12, 64] in 3 and 5 (B3 also in f32, the SIMT forward),
+   timed beside SDPA.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
@@ -190,12 +206,15 @@ non-zero before the last line.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -381,6 +400,37 @@ def flash_fwd_times(torch, gen):
     return times
 
 
+ERNIE_BATCH, ERNIE_SEQ = 16, 512         # phase_ernie: ERNIE 3.0 base inference
+ERNIE_ATTN = (ERNIE_BATCH, ERNIE_SEQ, ERNIE_SEQ, 12, 12, 64)   # b, sq, sk, hq, hkv, d
+
+
+def ernie_flash_times(torch, gen):
+    """B3 at ERNIE 3.0 base's attention [16, 512, 12, 64], not causal, in
+    f32 (the SIMT forward) and bf16 (the wgmma forward at d 64): {shape:
+    kernel ms, bound, SDPA ms in the same dtype}, each printed."""
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    b, s, _, h, _, d = ERNIE_ATTN
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {}
+    for dtype, peak in ((torch.float32, F32_FLOPS), (torch.bfloat16, BF16_FLOPS)):
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device=gen.device).to(dtype)
+                   for _ in range(3))
+        # q, k, v read, out written, lse; 2 products (Q K^T, P V) a pair
+        b_ms, b_by = bound_ms(4 * q.numel() * q.element_size() + b * h * s * 4,
+                              4 * d * b * h * s * s, peak)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, False), iters=10, repeats=3)
+        lib = time_ms(torch, lambda: sdpa(qt, kt, vt), iters=10, repeats=3)
+        name = str(dtype).split(".")[1]
+        shape = f"{[b, s, h, d]} full {name}"
+        times[shape] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        log(f"time flash_attention ERNIE 3.0 base {shape}: kernel {ms:.4f} ms, SDPA "
+            f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x the bound")
+        del q, k, v, qt, kt, vt
+    return times
+
+
 def phase_parity(torch):
     from paddle_tpu_torch.models.llama import _rope_tables
     from paddle_tpu_torch.ops.decode_attention import (decode_attention,
@@ -463,7 +513,8 @@ def phase_parity(torch):
         ("causal sq<sk GQA", 2, 200, 520, 8, 2, d, True, None),
         ("causal d64 s1000 GQA", 2, 1000, 1000, 8, 2, 64, True, None),
         ("varlen d64 s384 GQA", 3, 384, 384, 8, 2, 64, True,
-         torch.tensor([0, 130, 300], dtype=torch.int32, device=dev))]
+         torch.tensor([0, 130, 300], dtype=torch.int32, device=dev)),
+        ("ERNIE 3.0 base full", *ERNIE_ATTN, False, None)]
     for label, b, sq, sk, hq, hkv, hd, causal, pl in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q = randn(b, sq, hq, hd, dtype=dtype)
@@ -500,7 +551,7 @@ def phase_parity(torch):
         plain_ms=time_ms(torch, lambda: flash_attention_plain(q, k, v, True, pads)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=keep)),
-        shapes=flash_fwd_times(torch, gen))
+        shapes={**flash_fwd_times(torch, gen), **ernie_flash_times(torch, gen)})
 
     # B6 decode attention: main path mid-decode, pad >= pos rows, 70B GQA
     C = 544
@@ -868,7 +919,8 @@ def phase_bwd_parity(torch):
              ("causal GPT-3 1.3B", b, s, 16, 16, d, True),
              ("ring hop diag", 1, 4096, h, h, d, True),
              ("ring hop full", 1, 4096, h, h, d, False),
-             ("causal d64 s1000 GQA", 2, 1000, 8, 2, 64, True)]
+             ("causal d64 s1000 GQA", 2, 1000, 8, 2, 64, True),
+             ("ERNIE 3.0 base full", ERNIE_BATCH, ERNIE_SEQ, 12, 12, 64, False)]
     timed = {}  # bf16 inputs of the shapes timed below
     for label, bb, sq, hq, hkv, hd, causal in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -888,7 +940,8 @@ def phase_bwd_parity(torch):
                 f"{'' if causal else ' full'}: max_abs_err dq {errs[0]:.3g} dk {errs[1]:.3g} "
                 f"dv {errs[2]:.3g}; two launches bit-equal")
             if dtype == torch.bfloat16 and label in ("causal 7B", "causal GPT-3 1.3B",
-                                                     "ring hop diag", "ring hop full"):
+                                                     "ring hop diag", "ring hop full",
+                                                     "ERNIE 3.0 base full"):
                 timed[label] = (q, k, v, out, lse, do, causal, errs)
             del q, k, v, out, lse, do, got, again, want
             torch.cuda.empty_cache()
@@ -922,15 +975,23 @@ def phase_bwd_parity(torch):
         rows[name] = dict(max_abs_err=err, ms=time_ms(torch, fn, iters=5, repeats=3),
                           plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=library,
                           shapes={})
-    # the same kernels at GPT-3 1.3B's training shape and the ring's hop shapes
+    # the same kernels at GPT-3 1.3B's training shape, the ring's hop shapes
+    # and ERNIE 3.0 base's attention (there beside SDPA's whole backward)
     for label, (q, k, v, out, lse, do, causal, _) in timed.items():
         shape = f"{list(q.shape)} {'causal' if causal else 'full'}"
+        library = None
+        if label.startswith("ERNIE"):
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+            lib_out = sdpa(qt, kt, vt)
+            library = backward_ms(lib_out, (qt, kt, vt), do.transpose(1, 2))
+            del lib_out, qt, kt, vt
         for name, (b_ms, b_by), fn in zip(names, bounds(q, causal),
                                           kernel_fns(q, k, v, out, lse, do, causal)):
             ms = time_ms(torch, fn, iters=5, repeats=3)
-            rows[name]["shapes"][shape] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
+            rows[name]["shapes"][shape] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                                               library_ms=library)
             log(f"time {name} {label} {shape} bf16: kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
-                f"({b_by})")
+                f"({b_by}), SDPA's whole backward {library}")
     del timed, q, k, v, out, lse, do
     for name, r in rows.items():
         log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -2783,6 +2844,139 @@ def phase_train(torch, card):
     return on
 
 
+FUSED_CE_CHUNK = 1024              # phase_fused_ce: fused_ce_chunk of the chunked loss
+FUSED_CE_WARMUP, FUSED_CE_STEPS = 2, 5
+
+
+def fused_ce_run(torch, chunk, ids, labels, cfg=None, dev="cuda"):
+    """FUSED_CE_WARMUP then FUSED_CE_STEPS TrainSteps of the 8-layer
+    Llama-2-7B-width model (seed 0) under AMP O2 with LLAMA_ON and
+    ``fused_ce_chunk=chunk``: (losses, ms a counted step, peak bytes of the
+    counted steps, their launches)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = cfg or llama2_7b(num_hidden_layers=TRAIN_LAYERS)
+    model = LlamaForCausalLM(dataclasses.replace(cfg, fused_ce_chunk=chunk), device=dev, seed=0)
+    opt = AdamW(1e-4, parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = ptt.amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    step = TrainStep(model, lambda m, x, y: m(x, labels=y)[0], opt)
+    with ptt.flag_guard(**LLAMA_ON):
+        losses = [float(step(ids, labels)) for _ in range(FUSED_CE_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = [step(ids, labels) for _ in range(FUSED_CE_STEPS)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / FUSED_CE_STEPS * 1e3
+        launches, peak = dict(LAUNCHES), torch.cuda.max_memory_allocated()
+    del model, opt, step
+    return losses + [float(x) for x in out], ms, peak, launches
+
+
+def fused_ce_alone(torch, dev="cuda", shape=(TRAIN_BATCH * TRAIN_SEQ, 4096, 32000)):
+    """``F.fused_linear_cross_entropy`` (chunk FUSED_CE_CHUNK) against
+    ``F.cross_entropy`` on the full logits of the same product, forward and
+    backward, at the 4 x 2048-token batch's head: hidden [8192, 4096] and
+    weight [4096, 32000] in bf16.  Each one's ms and the peak it adds
+    above its inputs; the two losses and grads within the bf16 row."""
+    from paddle_tpu_torch.nn import functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n, d, vocab = shape
+    h = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16).requires_grad_()
+    w = (torch.randn(d, vocab, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    w.requires_grad_()
+    lab = torch.randint(0, vocab, (n,), generator=gen, device=dev)
+    fns = {"fused": lambda: F.fused_linear_cross_entropy(h, w, lab, chunk_size=FUSED_CE_CHUNK),
+           "full logits": lambda: F.cross_entropy(h @ w, lab)}
+    out = {}
+    for name, fn in fns.items():
+        def fwd_bwd():
+            return torch.autograd.grad(fn(), (h, w))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = fn()
+        grads = torch.autograd.grad(loss, (h, w))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = time_ms(torch, fwd_bwd, iters=5, repeats=3)
+        out[name] = dict(loss=float(loss.detach()), grads=grads, ms=ms, peak=peak)
+        log(f"fused_ce alone {name} [{n}, {d}] x [{d}, {vocab}] bf16 forward and backward: "
+            f"{ms:.3f} ms, peak {peak / 2**30:.3f} GiB above the inputs")
+    a, b = out["fused"], out["full logits"]
+    if abs(a["loss"] - b["loss"]) > LOGITS_REL_TOL * abs(b["loss"]) \
+            or max(rel_l2(x, y) for x, y in zip(a["grads"], b["grads"])) > LOGITS_REL_TOL:
+        raise AssertionError(f"fused_ce alone: loss {a['loss']} against {b['loss']}, grads "
+                             f"{[rel_l2(x, y) for x, y in zip(a['grads'], b['grads'])]}")
+    return {k: dict(ms=v["ms"], peak_gib=v["peak"] / 2**30) for k, v in out.items()}
+
+
+def phase_fused_ce(torch, card, cfg=None, dev="cuda", batch=None, alone_shape=None):
+    """The chunked fused linear + cross entropy (``fused_ce_chunk``) on the
+    training path: Llama-2-7B width, 8 layers, one 4 x 2048 batch, AMP O2
+    with the fused flags on, as ``phase_train``.  Gates: on one model, the
+    chunked loss and every grad within LOGITS_REL_TOL (relative L2, the
+    2-layer gate of ``phase_train``) of the loss over the full logits; the
+    chunked steps' losses within it of the unchunked steps' from the same
+    weights (the first two steps' relative to each loss, the later ones,
+    once the batch is memorised, relative to the first loss), with the
+    same launches a step.  Logs each run's ms a step and
+    peak memory, and the fused loss alone against ``F.cross_entropy`` on
+    the full logits (``fused_ce_alone``)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+
+    t0 = time.perf_counter()
+    cfg = cfg or llama2_7b(num_hidden_layers=TRAIN_LAYERS)
+    ids, labels = batch or train_batch(torch, cfg.vocab_size)
+    gc.collect()
+    torch.cuda.empty_cache()
+    chunked = dataclasses.replace(cfg, fused_ce_chunk=FUSED_CE_CHUNK)
+    model = ptt.amp.decorate(LlamaForCausalLM(chunked, device=dev, seed=0),
+                             level="O2", dtype="bfloat16")
+    lf, gf = loss_and_grads(torch, model, ids, labels, LLAMA_ON)
+    model.config.fused_ce_chunk = 0
+    lu, gu = loss_and_grads(torch, model, ids, labels, LLAMA_ON)
+    del model
+    r_loss = abs(float(lf) - float(lu)) / abs(float(lu))
+    rows = sorted(((rel_l2(gf[n], gu[n]), n) for n in gu), reverse=True)
+    log(f"fused_ce {cfg.num_hidden_layers}-layer {list(ids.shape)}: loss chunked "
+        f"{float(lf):.6f}, full logits {float(lu):.6f} (relative {r_loss:.3g}); grad relative "
+        f"L2, worst three: " + "; ".join(f"{n} {r:.4g}" for r, n in rows[:3]))
+    if r_loss > LOGITS_REL_TOL or rows[0][0] > LOGITS_REL_TOL:
+        raise AssertionError(f"fused_ce gate: loss {r_loss}; grads {rows[:3]}")
+    del gf, gu
+    runs = {chunk: fused_ce_run(torch, chunk, ids, labels, cfg, dev)
+            for chunk in (FUSED_CE_CHUNK, 0)}
+    (lc, ms_c, peak_c, launch_c), (l0, ms_0, peak_0, launch_0) = runs[FUSED_CE_CHUNK], runs[0]
+    log(f"fused_ce steps on {card}: chunk {FUSED_CE_CHUNK}: {ms_c:.1f} ms a step, peak "
+        f"{peak_c / 2**30:.2f} GiB; chunk 0: {ms_0:.1f} ms a step, peak {peak_0 / 2**30:.2f} "
+        f"GiB; the chunked loss takes {(ms_c / ms_0 - 1) * 100:+.2f}% time and "
+        f"{(peak_c - peak_0) / 2**30:+.3f} GiB; losses chunked "
+        f"{' '.join(f'{x:.4f}' for x in lc)}, full {' '.join(f'{x:.4f}' for x in l0)}")
+    # both runs memorise the one batch: after two steps the losses fall below
+    # 1% of the first, where two bf16 runs part by more than 2e-2 of their
+    # own size, so each step's distance is taken against the first loss
+    worst = max(abs(a - b) / (abs(b) if i < 2 else abs(l0[0]))
+                for i, (a, b) in enumerate(zip(lc, l0)))
+    if worst > LOGITS_REL_TOL or launch_c != launch_0 or not all(map(math.isfinite, lc)):
+        raise AssertionError(f"fused_ce steps: losses part by {worst}; launches {launch_c} "
+                             f"against {launch_0}")
+    alone = fused_ce_alone(torch, dev, *([alone_shape] if alone_shape else []))
+    log(f"fused_ce phase: {time.perf_counter() - t0:.1f} s")
+    return dict(step_ms={FUSED_CE_CHUNK: ms_c, 0: ms_0},
+                peak_gib={FUSED_CE_CHUNK: peak_c / 2**30, 0: peak_0 / 2**30}, alone=alone)
+
+
 def phase_gpt_train(torch, card):
     """The training step of GPT-3 1.3B at full width and depth, as the
     Llama one, with ``use_fused_layernorm`` and ``use_fused_adamw`` on:
@@ -2838,6 +3032,109 @@ def phase_gpt_generate(torch, card):
     log(f"gpt generate greedy tokens identical to the plain path: "
         f"{float((out == plain).float().mean()):.4f} of {BATCH * T}")
     del model
+
+
+ERNIE_TIMED = 3                     # phase_ernie: forwards timed a configuration
+
+
+def ernie_forward(torch, model, ids, segments, mask=None):
+    """One eval forward under no_grad, synchronised: (output, launches)."""
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with torch.no_grad():
+        out = model(ids, segments, mask)
+    torch.cuda.synchronize()
+    return out, dict(LAUNCHES)
+
+
+def phase_ernie(torch, card, cfg=None, dev="cuda", batch=(ERNIE_BATCH, ERNIE_SEQ)):
+    """ERNIE 3.0 base inference at its published width (``ErnieConfig()``:
+    12 layers, hidden 768, 12 heads, FFN 3072, vocab 40000), eval, batch 16
+    x 512 tokens with segment ids, random weights from seed 0:
+    ``ErnieForSequenceClassification`` and ``ErnieForMaskedLM`` in f32 and
+    in bf16 (``Layer.to(dtype="bfloat16")``), each with the flash kernel
+    (B3, 12 launches a forward and no other) and on the plain path (no
+    launch).  Gates, against the f32 plain path's logits: f32 with the
+    kernel within 1e-4 relative L2 (the f32 attention row); bf16 with the
+    kernel within LOGITS_REL_TOL or no further than DEPTH_REL_MARGIN times
+    the plain bf16 path.  A batch with a padding mask takes the masked
+    composite: no launch, bit-equal to the flag-off run, finite.  Logs each
+    forward's ms and tokens/s.  Returns one counted kernel forward's
+    launches."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import (ErnieConfig, ErnieForMaskedLM,
+                                         ErnieForSequenceClassification)
+    from paddle_tpu_torch.ops import LAUNCHES
+
+    t_phase = time.perf_counter()
+    cfg = cfg or ErnieConfig()
+    b, s = batch
+    rng = np.random.default_rng(12)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)), device=dev)
+    segments = torch.as_tensor(rng.integers(0, 2, (b, s)), device=dev)
+    lengths = rng.integers(s // 4, s + 1, b)
+    mask = torch.as_tensor(np.arange(s)[None, :] < lengths[:, None], device=dev).to(torch.int32)
+    tokens = b * s
+    want = dict.fromkeys(LAUNCHES, 0)
+    counted = None
+    for cls in (ErnieForSequenceClassification, ErnieForMaskedLM):
+        gc.collect()
+        torch.cuda.empty_cache()
+        name = cls.__name__[len("ErnieFor"):]
+        model = cls(cfg, device=dev, seed=0).eval()
+        with ptt.flag_guard(**OFF_FLAGS):
+            ref, _ = ernie_forward(torch, model, ids, segments)
+        errors = {}
+        for dtype in ("float32", "bfloat16"):
+            model.to(dtype=dtype)
+            for path, flags in (("kernel", {}), ("plain", OFF_FLAGS)):
+                with ptt.flag_guard(**flags):
+                    out, launches = ernie_forward(torch, model, ids, segments)
+                    times = []
+                    for _ in range(ERNIE_TIMED):
+                        t = time.perf_counter()
+                        ernie_forward(torch, model, ids, segments)
+                        times.append(time.perf_counter() - t)
+                ms = sorted(times)[ERNIE_TIMED // 2] * 1e3
+                expect = dict(want, flash_attention=cfg.num_hidden_layers if path == "kernel"
+                              else 0)
+                if launches != expect:
+                    raise AssertionError(f"ernie {name} {dtype} {path}: launches {launches}, "
+                                         f"want {expect}")
+                if not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"ernie {name} {dtype} {path}: non-finite logits")
+                errors[dtype, path] = rel_l2(out, ref)
+                log(f"ernie {name} {dtype} {path} {b}x{s} on {card}: "
+                    f"forward {ms:.2f} ms, {tokens / ms * 1e3:.0f} tokens/s, logits "
+                    f"{list(out.shape)} relative L2 to the f32 plain path "
+                    f"{errors[dtype, path]:.3g}, launches {launches['flash_attention']} B3")
+                if path == "kernel" and dtype == "bfloat16" and cls is ErnieForMaskedLM:
+                    counted = launches
+                del out
+        k32, k16, p16 = (errors["float32", "kernel"], errors["bfloat16", "kernel"],
+                         errors["bfloat16", "plain"])
+        if k32 > TOL["float32_attn"]["rtol"] or not (
+                k16 <= LOGITS_REL_TOL or k16 <= DEPTH_REL_MARGIN * p16):
+            raise AssertionError(f"ernie {name}: f32 kernel {k32} (bound "
+                                 f"{TOL['float32_attn']['rtol']}), bf16 kernel {k16} against "
+                                 f"plain bf16 {p16}")
+        # a padding mask takes the masked composite, as in the reference
+        masked, launches = ernie_forward(torch, model, ids, segments, mask)
+        with ptt.flag_guard(**OFF_FLAGS):
+            plain_masked, _ = ernie_forward(torch, model, ids, segments, mask)
+        if launches != want or not torch.equal(masked, plain_masked) \
+                or not bool(torch.isfinite(masked).all()):
+            raise AssertionError(f"ernie {name} masked: launches {launches}, equal to the "
+                                 f"plain path {torch.equal(masked, plain_masked)}")
+        log(f"ernie {name} bf16 with a padding mask (lengths {lengths.min()}-"
+            f"{lengths.max()}): the masked composite, no launch, bit-equal to the plain path")
+        del model, ref, masked, plain_masked
+    log(f"ernie phase: {time.perf_counter() - t_phase:.1f} s")
+    return counted
 
 
 def train_batch(torch, vocab):
@@ -2928,6 +3225,7 @@ def train_steps(torch, card, make, layers, flags, ids, labels):
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
     from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.telemetry import StepMeter
 
     gc.collect()  # an earlier phase's models in reference cycles would count in the peak
     model = make(layers)
@@ -2936,22 +3234,38 @@ def train_steps(torch, card, make, layers, flags, ids, labels):
     opt = AdamW(1e-4, parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(1.0))
     model, opt = ptt.amp.decorate(model, opt, level="O2", dtype="bfloat16")
     step = TrainStep(model, lambda m, x, y: m(x, labels=y)[0], opt)
+    L, tokens = layers, TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n_params * tokens + L * 7 * TRAIN_BATCH * cfg.num_attention_heads \
+        * TRAIN_SEQ ** 2 * cfg.head_dim
     with ptt.flag_guard(**flags):
         losses = [float(step(ids, labels)) for _ in range(TRAIN_WARMUP)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        t0 = time.perf_counter()
-        out = [step(ids, labels) for _ in range(TRAIN_STEPS)]
-        torch.cuda.synchronize()
-        took = time.perf_counter() - t0
-        launches = dict(LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
-        losses += [float(x) for x in out]
+        with tempfile.TemporaryDirectory() as telemetry_dir:
+            os.environ["PADDLE_TPU_TELEMETRY_DIR"] = telemetry_dir
+            try:
+                meter = StepMeter(f"train_{make.__name__[5:]}", tokens_per_step=tokens,
+                                  flops_per_step=flops)
+            finally:
+                del os.environ["PADDLE_TPU_TELEMETRY_DIR"]
+            t0 = time.perf_counter()
+            meter.begin()
+            out = []
+            for i in range(TRAIN_STEPS):
+                out.append(step(ids, labels))
+                if i == TRAIN_STEPS - 1:   # the meter's window ends where took's does
+                    torch.cuda.synchronize()
+                meter.step()
+            took = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            losses += [float(x) for x in out]
+            summary = meter_check(torch, meter, flops / (took / TRAIN_STEPS) / BF16_FLOPS,
+                                  peak, label)
         log(f"train {label} losses: {' '.join(f'{x:.4f}' for x in losses)}")
         if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
             raise AssertionError(f"training {label}: losses not finite and falling: {losses}")
-        L = layers
         on = {k: bool(ptt.get_flags(k)[k])
               for k in ("use_fused_swiglu", "use_fused_adamw", "use_fused_layernorm")}
         per_step = dict.fromkeys(LAUNCHES, 0)
@@ -2969,18 +3283,49 @@ def train_steps(torch, card, make, layers, flags, ids, labels):
         if launches != want:
             raise AssertionError(f"training {label}: launches {launches}, {TRAIN_STEPS} "
                                  f"steps of {L} layers launch {want}")
-        tokens = TRAIN_BATCH * TRAIN_SEQ
-        flops = 6 * n_params * tokens + L * 7 * TRAIN_BATCH * cfg.num_attention_heads \
-            * TRAIN_SEQ ** 2 * cfg.head_dim
         step_s = took / TRAIN_STEPS
         log(f"train {label} throughput on {card}: {tokens / step_s:.1f} tokens/s, "
             f"{step_s * 1e3:.1f} ms a step ({n_params / 1e9:.3f} B params in {n_tensors} "
             f"tensors, {L} layers, {TRAIN_BATCH}x{TRAIN_SEQ}), MFU "
             f"{flops / step_s / BF16_FLOPS:.4f} of {flops / 1e12:.2f} TFLOP a step at 989 "
-            f"TFLOP/s; peak memory {peak / 2**30:.2f} GiB")
+            f"TFLOP/s; peak memory {peak / 2**30:.2f} GiB; StepMeter: {summary}")
         profile_step(torch, f"train step {label}", lambda: step(ids, labels))
     del model, opt, step
     return launches, losses, step_s * 1e3
+
+
+def meter_check(torch, meter, mfu, peak, label):
+    """The StepMeter around the counted steps against the script's own
+    numbers: its MFU within 1% of ``mfu`` (the same FLOP count over the
+    same window), the chip table's row for the card's name, its memory
+    peak equal to ``torch.cuda.max_memory_allocated`` (``peak``), and its
+    JSONL file, read back, one record a step.  Returns the summary."""
+    from paddle_tpu_torch.telemetry import PEAK_HBM_GBPS, PEAK_TFLOPS, chip_lookup
+    from paddle_tpu_torch.telemetry.memory import hbm_watermarks
+
+    summary = meter.summary()
+    name = torch.cuda.get_device_name(0)
+    row = (chip_lookup(name, PEAK_TFLOPS), chip_lookup(name, PEAK_HBM_GBPS))
+    log(f"StepMeter {label} on {name!r}: peaks {meter.peak_tflops} TFLOP/s and "
+        f"{meter.peak_hbm_gbps} GB/s (table row {row}); MFU {summary['mfu']:.5f} against "
+        f"the script's {mfu:.5f}")
+    if (meter.peak_tflops, meter.peak_hbm_gbps) != row \
+            or ("H100" in name and row[0] == PEAK_TFLOPS["cpu"]):
+        raise AssertionError(f"StepMeter on {name!r}: peaks {meter.peak_tflops}, "
+                             f"{meter.peak_hbm_gbps}; the table gives {row}")
+    if abs(summary["mfu"] * meter.peak_tflops * 1e12 / BF16_FLOPS - mfu) > 0.01 * mfu:
+        raise AssertionError(f"StepMeter MFU {summary['mfu']} (peak {meter.peak_tflops}) "
+                             f"against {mfu} at {BF16_FLOPS / 1e12} TFLOP/s")
+    wm = hbm_watermarks()
+    if wm["peak_gb"] != round(peak / 1e9, 4) or summary["hbm_peak_gb"] != wm["peak_gb"]:
+        raise AssertionError(f"StepMeter memory peak {wm['peak_gb']} GB, summary "
+                             f"{summary['hbm_peak_gb']}, max_memory_allocated {peak}")
+    with open(meter.jsonl_path) as f:
+        records = [json.loads(line) for line in f]
+    if [r["step"] for r in records] != list(range(1, TRAIN_STEPS + 1)) \
+            or records[-1]["hbm_peak_gb"] != wm["peak_gb"]:
+        raise AssertionError(f"StepMeter JSONL {meter.jsonl_path}: {records[-1:]}")
+    return summary
 
 
 def profile_step(torch, label, fn):
@@ -3379,6 +3724,7 @@ def phase_dist(torch, card, train):
 
 TP = 2                              # phase_tp: the model-axis members, all on cuda:0
 TP_KINDS = ("bf16", "int8", "fp8")
+TP_QUANT_F32_LAYERS = 8             # (a): f32 weights on int8/fp8 pages (time: PERF.md §4)
 TP_LAYER_SEQ = 2048                 # (b): the decoder layer's [1, 2048] tokens
 TP_WRAP_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 32, 128)   # (c): Llama-2-7B's training attention
 
@@ -3718,8 +4064,9 @@ def tp_engine(torch, card, cfg, make):
     dtype)`` builds it),
     both members on the card, phase_engine's 8 ragged prompts, MAX_NEW new
     tokens, bf16, int8 and fp8 pages.  Gates (``tp_streams``): f32 weights
-    at full depth, every stream on f32 pages equal to ``tp=1``'s; there
-    and in bf16 at 2 layers on every page type, every logit that chose a
+    at full depth, every stream on f32 pages equal to ``tp=1``'s; f32
+    weights at TP_QUANT_F32_LAYERS on int8 and fp8 pages, and bf16 at 2
+    layers on every page type, every logit that chose a
     token both engines emit within LOGITS_REL_TOL of ``tp=1``'s and the
     streams equal or parted at a certified near-tie (on int8 and fp8 pages
     a k or v that differs from ``tp=1``'s by f32 rounding can round to
@@ -3743,16 +4090,21 @@ def tp_engine(torch, card, cfg, make):
         if n != want:
             raise AssertionError(f"{label}: launches {n}, want {want}")
 
-    model = make(L, torch.float32)
     for kind in TP_KINDS:
+        depth = L if kind == "bf16" else min(L, TP_QUANT_F32_LAYERS)
+        if kind in TP_KINDS[:2]:   # full depth for bf16 pages, then the quantized depth
+            model = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = make(depth, torch.float32)
         (s1, n1, lg1, t1), (s2, n2, lg2, t2) = (
             tp_serve(torch, model, tp, kind, prompts, T, record=True) for tp in (1, TP))
-        check(f"tp 1 f32 {kind}", n1, 1, L)
-        check(f"tp {TP} f32 {kind}", n2, TP, L)
+        check(f"tp 1 f32 {kind}", n1, 1, depth)
+        check(f"tp {TP} f32 {kind}", n2, TP, depth)
         worst, exact, notes = tp_streams(torch, f"tp f32 {kind}", s2, s1, lg2, lg1, T)
-        log(f"tp (a) f32 weights, {L} layers, {kind} pages: {exact} of {len(prompts)} tp={TP} "
-            f"streams token-exact against tp=1 ({T} tokens each); worst relative L2 of the "
-            f"logits {worst:.4g}; runs {t1:.2f} s (tp=1) and {t2:.2f} s (tp={TP})"
+        log(f"tp (a) f32 weights, {depth} layers, {kind} pages: {exact} of {len(prompts)} "
+            f"tp={TP} streams token-exact against tp=1 ({T} tokens each); worst relative L2 "
+            f"of the logits {worst:.4g}; runs {t1:.2f} s (tp=1) and {t2:.2f} s (tp={TP})"
             f"{'; ' if notes else ''}{'; '.join(notes)}")
         if kind == "bf16" and exact != len(prompts):
             raise AssertionError(f"tp f32 pages: {len(prompts) - exact} streams part from tp=1")
@@ -4765,9 +5117,10 @@ SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is count
 # equal); B5's host route is B5 launched on the offload path's pinned states
 COUNTED_AS = {"ring_flash_attention": "flash_attention", "adamw_host": "adamw"}
 
-# the kernels of fleet's hybrid step and of auto_parallel's Engine step:
-# their launches add those paths'
-EXTRA_PATHS = {"hybrid": frozenset(hybrid_want(1, 1)), "auto": frozenset(hybrid_want(1, 1))}
+# the kernels of fleet's hybrid step, of auto_parallel's Engine step and of
+# ERNIE's inference: their launches add those paths
+EXTRA_PATHS = {"hybrid": frozenset(hybrid_want(1, 1)), "auto": frozenset(hybrid_want(1, 1)),
+               "ernie": frozenset({"flash_attention"})}
 
 
 def main() -> int:
@@ -4801,9 +5154,15 @@ def main() -> int:
     train = phase_train(torch, card)
     launches["train"] = train[0]
     torch.cuda.empty_cache()
+    phase_fused_ce(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     launches["gpt_train"] = phase_gpt_train(torch, card)
     torch.cuda.empty_cache()
     phase_gpt_generate(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["ernie"] = phase_ernie(torch, card)
     gc.collect()         # the launcher's worker needs the memory this process cached
     torch.cuda.empty_cache()
     phase_dist(torch, card, train)

@@ -97,7 +97,7 @@ class Engine:
         return DataLoader(data, batch_sampler=sampler, collate_fn=collate_fn)
 
     def _on_device(self, xs):
-        dev = next(self._model.parameters()).device
+        dev = next(iter(self._model.parameters())).device
         return [torch.as_tensor(x, device=dev) for x in xs]
 
     def fit(self, train_data=None, train_sample_split=None, batch_size: int = 1,

@@ -38,7 +38,8 @@ the reference's collective-matmul ring (``overlap/collective_matmul.py``):
 the same product as a ring of partial matmuls, with the mirrored ring as
 its backward; below it, the fused form above.  Weights are drawn from N(0, ``std``) with
 the caller's generator at the global shape (the port's initializer for
-every Linear; ``ParamAttr`` and initializers wait for A3), so a process
+every Linear; ``ParamAttr`` and initializers on these layers wait for
+ROADMAP A3c, which rebases them on ``nn.Layer``), so a process
 of a multi-process job holds the same values as the global weight's
 shard.
 """
@@ -52,12 +53,28 @@ import torch.distributed as dist
 from torch import nn
 
 from ...nn import functional as F
-from ...nn.layer.common import check_attr
 from ..overlap import all_gather_matmul, matmul_reduce_scatter, should_decompose
 from ..topology import CommGroup, get_hybrid_communicate_group, process_mesh_coords
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear", "RowParallelLinear",
            "ParallelCrossEntropy"]
+
+
+def _check_attr(attr, what: str, droppable: bool) -> bool:
+    """Whether the parameter ``what`` exists under ``attr`` (None: yes;
+    False: no, where the layer can drop it).  ``ParamAttr``, initializers
+    and names raise: these layers are not ``nn.Layer``s yet (ROADMAP
+    A3c)."""
+    if attr is None:
+        return True
+    if attr is False:
+        if droppable:
+            return False
+        raise ValueError("attr=False is handled by the calling layer (means: no "
+                         f"parameter), and {what} cannot be left out")
+    raise NotImplementedError(
+        f"{what}: parameter attributes (ParamAttr, initializers, names) on the "
+        "model-parallel layers are not ported yet (ROADMAP A3c); pass None or False")
 
 
 def _mesh():
@@ -225,7 +242,7 @@ class VocabParallelEmbedding(nn.Module):
                  generator: Optional[torch.Generator] = None, device=None,
                  dtype=torch.float32):
         super().__init__()
-        check_attr(weight_attr, "VocabParallelEmbedding weight", droppable=False)
+        _check_attr(weight_attr, "VocabParallelEmbedding weight", droppable=False)
         self._model = _Model(_mesh())
         self._model.check("vocab size", num_embeddings)
         self._num_embeddings = num_embeddings
@@ -259,7 +276,7 @@ class ColumnParallelLinear(nn.Module):
                  generator: Optional[torch.Generator] = None, device=None,
                  dtype=torch.float32):
         super().__init__()
-        check_attr(weight_attr, "ColumnParallelLinear weight", droppable=False)
+        _check_attr(weight_attr, "ColumnParallelLinear weight", droppable=False)
         self._model = _Model(_mesh())
         self._model.check("out_features", out_features)
         self.gather_output = gather_output
@@ -307,7 +324,7 @@ class RowParallelLinear(nn.Module):
                  generator: Optional[torch.Generator] = None, device=None,
                  dtype=torch.float32):
         super().__init__()
-        check_attr(weight_attr, "RowParallelLinear weight", droppable=False)
+        _check_attr(weight_attr, "RowParallelLinear weight", droppable=False)
         self._model = _Model(_mesh())
         self._model.check("in_features", in_features)
         self.input_is_parallel = input_is_parallel

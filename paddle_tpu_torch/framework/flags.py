@@ -179,8 +179,8 @@ define_flag("pallas_interpret", False,
             "nothing here: the port has no Pallas kernels, and CPU tensors run "
             "the plain twins.")
 define_flag("seed_offset_by_rank", True,
-            "Reference name: offset the global seed by process rank. Not read by "
-            "the port, which takes generators and seeds explicitly.")
+            "Offset the global seed (framework.random.seed) by the process rank "
+            "of torch.distributed, when it is initialized.")
 define_flag("fast_dropout_rng", True,
             "Reference name: the TPU's 'rbg' dropout PRNG. Means nothing on the "
             "card; dropout in training waits for a Philox generator (ROADMAP A9).")

@@ -144,7 +144,7 @@ class GenerationMixin:
         of each row, ``[batch * num_return_sequences, max_new_tokens]`` ids
         and one f32 score each.  With sampling, ``num_return_sequences``
         repeats each row that many times (distinct samples)."""
-        device = next(self.parameters()).device
+        device = next(iter(self.parameters())).device
         ids = torch.as_tensor(_as_numpy(input_ids)).to(device=device,
                                                         dtype=torch.int64)
         if ids.dim() != 2:

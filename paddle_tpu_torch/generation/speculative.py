@@ -193,7 +193,7 @@ class DraftModelDrafter(_ModelDrafterBase):
         super().__init__()
         self.model = draft_model
         self._capacity = _capacity(capacity)
-        self._device = next(draft_model.parameters()).device
+        self._device = next(iter(draft_model.parameters())).device
 
     def _fresh_caches(self):
         return self.model.new_kv_cache(1, self._capacity)
@@ -220,7 +220,7 @@ class ShallowExitDrafter(_ModelDrafterBase):
         self.model = model
         self.draft_layers = max(1, min(int(draft_layers), len(base.layers)))
         self._capacity = _capacity(capacity)
-        self._device = next(model.parameters()).device
+        self._device = next(iter(model.parameters())).device
 
     def _fresh_caches(self):
         return self.model.new_kv_cache(1, self._capacity, layers=self.draft_layers)
@@ -312,7 +312,7 @@ def speculative_generate(model, input_ids, max_new_tokens: int = 64, *,
     default eos, else 0), and ``stats`` with ``proposed`` / ``accepted`` /
     ``acceptance_rate`` / ``verify_steps`` / ``tokens`` / ``rows`` /
     ``effective_tokens_per_step``."""
-    device = next(model.parameters()).device
+    device = next(iter(model.parameters())).device
     ids = torch.as_tensor(input_ids.detach().cpu().numpy() if torch.is_tensor(input_ids)
                           else np.asarray(input_ids)).long()
     if ids.dim() != 2:

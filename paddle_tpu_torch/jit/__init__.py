@@ -24,8 +24,11 @@ place anyway.  A model with an ``apply_collective_grads`` method (a
 the mean over the data-parallel group, which the reference's compiled step
 gets from XLA's gradient all-reduce over a batch sharded on ``data``.
 
-The reference's ``health_guard``, ``persistent_cache``, ``snapshotter`` and
-SDC monitor are not ported yet (ROADMAP A5, after A7) and raise.
+The reference's ``health_guard``, ``snapshotter`` and SDC monitor wait
+for the health and checkpoint layers (ROADMAP A7) and raise.
+``persistent_cache`` keeps compiled XLA programs across processes; an
+eager step compiles no program, so it raises too, naming the compile
+service (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -48,11 +51,15 @@ class TrainStep:
                  donate: bool = True, gradient_merge: Optional[int] = None,
                  health_guard=None, persistent_cache=None, snapshotter=None):
         for name, value in (("health_guard", health_guard),
-                            ("persistent_cache", persistent_cache),
                             ("snapshotter", snapshotter)):
             if value is not None:
                 raise NotImplementedError(
-                    f"TrainStep {name}= is not ported yet (ROADMAP A5)")
+                    f"TrainStep {name}= is not ported yet (ROADMAP A7)")
+        if persistent_cache is not None:
+            raise NotImplementedError(
+                "TrainStep persistent_cache= caches compiled XLA programs across "
+                "processes; the eager step compiles none, so it has nothing to "
+                "cache (the compile service is ROADMAP A10)")
         self.model = model
         self._sync_grads = getattr(model, "apply_collective_grads", None)
         self.loss_fn = loss_fn
@@ -65,10 +72,10 @@ class TrainStep:
 
     def attach_sdc_monitor(self, monitor) -> None:
         raise NotImplementedError(
-            "TrainStep SDC monitor is not ported yet (ROADMAP A5)")
+            "TrainStep SDC monitor is not ported yet (ROADMAP A7)")
 
     def _batch(self, batch) -> List[torch.Tensor]:
-        device = next(self.model.parameters()).device
+        device = next(iter(self.model.parameters())).device
         arrays = [torch.as_tensor(b, device=device) for b in batch]
         if self._merge_k > 1:
             for a in arrays:

@@ -1,5 +1,5 @@
 """The Llama family for serving and training (port of the reference's
-``models/llama.py``, without MoE and the chunked fused loss).
+``models/llama.py``, without MoE).
 
 Parameter names and layouts are those of the JAX model (paddle ``[in, out]``
 Linear weights), so its ``state_dict`` loads through
@@ -51,7 +51,8 @@ class LlamaConfig:
     moe_capacity_factor: float = 2.0
     moe_every: int = 1
     moe_expert_axes: tuple = None
-    # > 0: the chunked fused linear + cross entropy loss, not ported: raises
+    # > 0: training loss by F.fused_linear_cross_entropy in chunks of this
+    # many tokens, returning (loss, None)
     fused_ce_chunk: int = 0
 
     @property
@@ -280,18 +281,25 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
     def forward(self, input_ids, labels=None, attn_mask=None, kv_cache=None,
                 position_offset: int = 0, pad_lens=None):
         """Logits; with ``labels`` [b, s] (next-token ids, -100 ignored),
-        ``(loss, logits)`` with the mean cross entropy in f32; with
-        ``kv_cache``, ``(logits, kv_cache)``."""
+        ``(loss, logits)`` with the mean cross entropy in f32, or ``(loss,
+        None)`` when ``fused_ce_chunk > 0`` (the chunked fused loss, which
+        makes no logits); with ``kv_cache``, ``(logits, kv_cache)``."""
         if kv_cache is not None:  # decode path: (logits, kv_cache)
             hidden, new_cache = self.llama(input_ids, attn_mask, position_offset,
                                            kv_cache=kv_cache, pad_lens=pad_lens)
             return self._logits(hidden), new_cache
+        hidden = self.llama(input_ids, attn_mask)
         if labels is not None and self.config.fused_ce_chunk > 0:
-            raise NotImplementedError(
-                "fused_ce_chunk > 0: the chunked fused linear + cross entropy "
-                "training loss (F.fused_linear_cross_entropy) is not ported "
-                "yet (ROADMAP queue A); set fused_ce_chunk=0")
-        logits = self._logits(self.llama(input_ids, attn_mask))
+            # the chunked fused linear + cross entropy: the [tokens, vocab]
+            # logits are never made, so none are returned
+            head_w = self.lm_head.weight if self.lm_head is not None \
+                else self.llama.embed_tokens.weight.T  # tied embeddings
+            loss = F.fused_linear_cross_entropy(
+                hidden.reshape(-1, self.config.hidden_size), head_w,
+                torch.as_tensor(labels, device=hidden.device).reshape(-1),
+                chunk_size=self.config.fused_ce_chunk)
+            return loss, None
+        logits = self._logits(hidden)
         if labels is None:
             return logits
         loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),

@@ -1,18 +1,22 @@
-"""Common layers as ``torch.nn.Module``s (port of the reference's
-``nn/layer/common.py``: ``Linear``, ``Embedding``, ``Dropout``).
+"""Common layers (port of the reference's ``nn/layer/common.py``:
+``Linear``, ``Embedding``, ``Dropout``, ``Flatten``, ``Identity``,
+``Unflatten``, ``CosineSimilarity``, ``PairwiseDistance``).
 
-The constructors take the reference's arguments in its order.  Parameter
-attributes (``ParamAttr``, an initializer or a name) are not ported yet
-(ROADMAP A3): ``None`` gives the default parameter, and ``False`` means no
-parameter, as in the reference, where a layer that cannot drop a parameter
-refuses it.  The port's own arguments (``std``, ``generator``, ``device``,
-``dtype``) are keyword-only after them.
+Each is a :class:`~.layers.Layer`.  The constructors take the reference's
+arguments in its order; ``weight_attr``/``bias_attr`` are a ``ParamAttr``,
+an initializer, a name, ``None`` (the default parameter) or ``False`` (no
+parameter, where the layer can drop it; a weight cannot, as in the
+reference).  The port's own arguments (``std``, ``generator``, ``device``,
+``dtype``) are keyword-only after them: ``std`` replaces the default
+initializer by N(0, ``std``) (the initializer every Llama and GPT layer of
+the reference passes as ``weight_attr``); without it the defaults are the
+reference's (``Linear`` XavierNormal, ``Embedding`` N(0, 1), biases zero).
 
 ``Linear.weight`` keeps paddle's ``[in, out]`` layout and computes
 ``x @ W + b``, so weights cross between the two packages without
-transposes.  Weights are drawn from N(0, ``std``) with the caller's
-``torch.Generator`` (the initializer every Llama and GPT layer of the
-reference uses); biases start at zero.
+transposes.  The image layers of ``common.py`` (Upsample, Pad*,
+PixelShuffle/Unshuffle, Unfold, ChannelShuffle, ZeroPad2D, Bilinear)
+come with the convolutions (ROADMAP A3b).
 """
 
 from __future__ import annotations
@@ -20,51 +24,49 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
 
 from .. import functional as F
+from .. import initializer as I
+from .layers import Layer
 
-__all__ = ["Linear", "Embedding", "Dropout"]
-
-
-def _normal(shape, std, generator, device, dtype) -> nn.Parameter:
-    w = torch.empty(shape, device=device, dtype=dtype)
-    w.normal_(0.0, std, generator=generator)
-    return nn.Parameter(w)
+__all__ = ["Linear", "Embedding", "Dropout", "Flatten", "Identity", "Unflatten",
+           "CosineSimilarity", "PairwiseDistance"]
 
 
 def check_attr(attr, what: str, droppable: bool) -> bool:
-    """Whether the parameter ``what`` exists under ``attr`` (None: yes;
-    False: no, where the layer can drop it).  The reference's
+    """Whether the parameter ``what`` exists under ``attr`` (False: no,
+    where the layer can drop it; anything else: yes).  The reference's
     ``create_parameter`` refuses ``False`` for a parameter its layer always
-    has; ``ParamAttr`` and initializers wait for ROADMAP A3."""
-    if attr is None:
+    has."""
+    if attr is not False:
         return True
-    if attr is False:
-        if droppable:
-            return False
-        raise ValueError("attr=False is handled by the calling layer (means: no "
-                         f"parameter), and {what} cannot be left out")
-    raise NotImplementedError(
-        f"{what}: parameter attributes (ParamAttr, initializers, names) are "
-        "not ported yet (ROADMAP A3); pass None or False")
+    if droppable:
+        return False
+    raise ValueError("attr=False is handled by the calling layer (means: no "
+                     f"parameter), and {what} cannot be left out")
 
 
-class Linear(nn.Module):
-    """y = x @ W + b, W of shape [in_features, out_features] and b [out]
-    (zeros).  ``bias_attr=False`` leaves the bias out (the Llama
-    projections have none)."""
+def _std_or(std: Optional[float], default):
+    return default if std is None else I.Normal(0.0, std)
+
+
+class Linear(Layer):
+    """y = x @ W + b, W of shape [in_features, out_features] and b [out].
+    ``bias_attr=False`` leaves the bias out (the Llama projections have
+    none)."""
 
     def __init__(self, in_features: int, out_features: int, weight_attr=None,
-                 bias_attr=None, name=None, *, std: float = 0.02,
+                 bias_attr=None, name=None, *, std: Optional[float] = None,
                  generator: Optional[torch.Generator] = None, device=None,
                  dtype=torch.float32):
-        super().__init__()
+        super().__init__(dtype=dtype)
+        self._place(device, generator)
         check_attr(weight_attr, "Linear weight", droppable=False)
         self.in_features, self.out_features = in_features, out_features
-        self.weight = _normal((in_features, out_features), std, generator,
-                              device, dtype)
-        self.bias = nn.Parameter(torch.zeros(out_features, device=device, dtype=dtype)) \
+        self.weight = self.create_parameter(
+            [in_features, out_features], attr=weight_attr,
+            default_initializer=_std_or(std, I.XavierNormal()))
+        self.bias = self.create_parameter([out_features], attr=bias_attr, is_bias=True) \
             if check_attr(bias_attr, "Linear bias", droppable=True) else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -74,7 +76,7 @@ class Linear(nn.Module):
         return f"in_features={self.in_features}, out_features={self.out_features}"
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     """Rows of a [num_embeddings, embedding_dim] table.  With
     ``padding_idx`` (negative counts from the end), that row of the weight
     starts at zero and the output rows at that id are zero, as in the
@@ -83,14 +85,17 @@ class Embedding(nn.Module):
 
     def __init__(self, num_embeddings: int, embedding_dim: int, padding_idx=None,
                  sparse: bool = False, weight_attr=None, name=None, *,
-                 std: float = 0.02, generator: Optional[torch.Generator] = None,
+                 std: Optional[float] = None, generator: Optional[torch.Generator] = None,
                  device=None, dtype=torch.float32):
-        super().__init__()
+        super().__init__(dtype=dtype)
+        self._place(device, generator)
         check_attr(weight_attr, "Embedding weight", droppable=False)
+        self._num_embeddings, self._embedding_dim = num_embeddings, embedding_dim
         self._padding_idx = (padding_idx if padding_idx is None or padding_idx >= 0
                              else num_embeddings + padding_idx)
-        self.weight = _normal((num_embeddings, embedding_dim), std, generator,
-                              device, dtype)
+        self.weight = self.create_parameter(
+            [num_embeddings, embedding_dim], attr=weight_attr,
+            default_initializer=_std_or(std, I.Normal(0.0, 1.0)))
         if self._padding_idx is not None:
             with torch.no_grad():
                 self.weight[self._padding_idx] = 0.0
@@ -99,12 +104,13 @@ class Embedding(nn.Module):
         return F.embedding(x, self.weight, padding_idx=self._padding_idx)
 
     def extra_repr(self) -> str:
-        return f"{self.weight.shape[0]}, {self.weight.shape[1]}"
+        return f"{self._num_embeddings}, {self._embedding_dim}"
 
 
-class Dropout(nn.Module):
-    """``F.dropout`` in the module's training mode: identity at p = 0 or in
-    eval mode; p > 0 in training raises (no Philox generator yet)."""
+class Dropout(Layer):
+    """``F.dropout`` in the layer's training mode: identity at p = 0 or in
+    eval mode; p > 0 in training raises (no Philox generator yet, ROADMAP
+    A9)."""
 
     def __init__(self, p: float = 0.5, axis=None, mode: str = "upscale_in_train",
                  name=None):
@@ -116,3 +122,56 @@ class Dropout(nn.Module):
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
+
+
+class Flatten(Layer):
+    """Axes ``start_axis`` to ``stop_axis`` merged into one."""
+
+    def __init__(self, start_axis: int = 1, stop_axis: int = -1):
+        super().__init__()
+        self.start_axis, self.stop_axis = start_axis, stop_axis
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.flatten(x, self.start_axis, self.stop_axis)
+
+
+class Identity(Layer):
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x
+
+
+class Unflatten(Layer):
+    """Axis ``axis`` split into ``shape`` (the inverse of Flatten)."""
+
+    def __init__(self, axis: int, shape, name=None):
+        super().__init__()
+        self.axis, self.shape = axis, list(shape)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        full = list(x.shape)
+        ax = self.axis if self.axis >= 0 else len(full) + self.axis
+        return x.reshape(full[:ax] + self.shape + full[ax + 1:])
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis: int = 1, eps: float = 1e-8):
+        super().__init__()
+        self.axis, self.eps = axis, eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
+
+
+class PairwiseDistance(Layer):
+    """The p-norm distance between row pairs."""
+
+    def __init__(self, p: float = 2.0, epsilon: float = 1e-6, keepdim: bool = False,
+                 name=None):
+        super().__init__()
+        self.p, self.epsilon, self.keepdim = p, epsilon, keepdim
+
+    def forward(self, x, y):
+        return F.pairwise_distance(x, y, self.p, self.epsilon, self.keepdim)

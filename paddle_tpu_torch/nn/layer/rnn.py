@@ -9,10 +9,11 @@ hidden, input], ``weight_hh`` [gates * hidden, hidden], ``bias_ih`` and
 the reference's, in its order of operations: LSTM gates i, f, g, o;
 GRU's candidate resets after the matmul, ``h' = (h - c) * z + c``.  Weights
 are drawn from U(-1/sqrt(hidden), 1/sqrt(hidden)) with the caller's
-``torch.Generator``; an ``*_attr=False`` weight is frozen at 1 and such a
-bias at 0, as in the reference.  The fused multi-step layers (``RNN``,
-``SimpleRNN``, ``LSTM``, ``GRU``, ``BiRNN``) are not ported yet (ROADMAP
-A3).
+``torch.Generator``, unless a ``ParamAttr`` or an initializer names
+another; an ``*_attr=False`` weight is frozen at 1 and such a bias at 0,
+as in the reference.  The cells are :class:`~.layers.Layer`s.  The fused
+multi-step layers (``RNN``, ``SimpleRNN``, ``LSTM``, ``GRU``, ``BiRNN``)
+are not ported yet (ROADMAP A3b).
 """
 
 from __future__ import annotations
@@ -21,12 +22,14 @@ import math
 from typing import Optional
 
 import torch
-from torch import nn
+
+from .. import initializer as I
+from .layers import Layer
 
 __all__ = ["RNNCellBase", "SimpleRNNCell", "LSTMCell", "GRUCell"]
 
 
-class RNNCellBase(nn.Module):
+class RNNCellBase(Layer):
     """Base of the single-step cells."""
 
     def get_initial_states(self, batch_ref: torch.Tensor, shape=None):
@@ -41,34 +44,31 @@ class RNNCellBase(nn.Module):
         return torch.zeros((batch,) + tuple(shape), device=batch_ref.device)
 
 
-def _param(shape, attr, std: float, is_bias: bool, generator, device, dtype):
+def _param(cell: Layer, shape, attr, std: float, is_bias: bool):
     if attr is False:
         # the reference freezes a disabled weight at 1 and a disabled bias at 0
-        return nn.Parameter(torch.full(shape, 0.0 if is_bias else 1.0, device=device,
-                                       dtype=dtype), requires_grad=False)
-    if attr is not None:
-        raise NotImplementedError("parameter attributes (ParamAttr) are not "
-                                  "ported yet (ROADMAP A3): pass None or False")
-    w = torch.empty(shape, device=device, dtype=dtype)
-    w.uniform_(-std, std, generator=generator)
-    return nn.Parameter(w)
+        p = cell.create_parameter(shape, None,
+                                  default_initializer=I.Constant(0.0 if is_bias else 1.0))
+        p.requires_grad_(False)
+        return p
+    return cell.create_parameter(shape, attr, default_initializer=I.Uniform(-std, std))
 
 
 class _Cell(RNNCellBase):
     def __init__(self, gates: int, input_size: int, hidden_size: int, weight_ih_attr,
                  weight_hh_attr, bias_ih_attr, bias_hh_attr,
                  generator: Optional[torch.Generator], device, dtype):
-        super().__init__()
+        super().__init__(dtype=dtype)
+        self._place(device, generator)
         if hidden_size <= 0:
             raise ValueError("hidden_size must be > 0")
         self.input_size, self.hidden_size = input_size, hidden_size
         std = 1.0 / math.sqrt(hidden_size)
         g = gates * hidden_size
-        place = dict(generator=generator, device=device, dtype=dtype)
-        self.weight_ih = _param((g, input_size), weight_ih_attr, std, False, **place)
-        self.weight_hh = _param((g, hidden_size), weight_hh_attr, std, False, **place)
-        self.bias_ih = _param((g,), bias_ih_attr, std, True, **place)
-        self.bias_hh = _param((g,), bias_hh_attr, std, True, **place)
+        self.weight_ih = _param(self, (g, input_size), weight_ih_attr, std, False)
+        self.weight_hh = _param(self, (g, hidden_size), weight_hh_attr, std, False)
+        self.bias_ih = _param(self, (g,), bias_ih_attr, std, True)
+        self.bias_hh = _param(self, (g,), bias_hh_attr, std, True)
 
 
 class SimpleRNNCell(_Cell):

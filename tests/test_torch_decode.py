@@ -24,6 +24,7 @@ import paddle_tpu.nn as jnn
 import paddle_tpu.nn.functional as JF
 from paddle_tpu.tensor.tensor import Tensor
 
+import paddle_tpu_torch as ptt
 import paddle_tpu_torch.nn as nn
 from paddle_tpu_torch.convert import load_numpy_state_dict
 from paddle_tpu_torch.nn import functional as F
@@ -32,6 +33,14 @@ torch.set_num_threads(1)
 
 F32 = dict(rtol=2e-5, atol=1e-6)    # tests/op_test.py, float32
 NEG = 1e9
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The cells are layers built on the default device: the CPU here."""
+    ptt.set_device("cpu")
+    yield
+    ptt.set_device(None)
 
 
 def _carry(jax_layer, torch_layer):
@@ -184,7 +193,7 @@ V, E, H, K = 23, 8, 16, 4
 def layers():
     paddle.seed(11)
     jl = (jnn.Embedding(V, E), jnn.GRUCell(E, H), jnn.Linear(H, V))
-    tl = (_carry(jl[0], nn.Embedding(V, E, device="cpu")), _carry(jl[1], nn.GRUCell(E, H)),
+    tl = (_carry(jl[0], nn.Embedding(V, E, device="cpu")), _carry(jl[1], nn.GRUCell(E, H, device="cpu")),
           _carry(jl[2], nn.Linear(H, V, device="cpu")))
     return jl, tl
 

@@ -218,13 +218,14 @@ class TestRefusals:
         assert tuple(ids.shape) == (1, 2) and tuple(scores.shape) == (1,)
 
     def test_moe_and_labels_not_ported(self, tiny):
-        """MoE is not ported; of the labels path, only the chunked fused
-        loss (``fused_ce_chunk > 0``) is not."""
+        """MoE is not ported; the labels path is whole: the chunked fused
+        loss (``fused_ce_chunk > 0``) gives ``(loss, None)``
+        (tests/test_torch_fused_ce.py holds its values)."""
         with pytest.raises(NotImplementedError, match="MoE"):
             LlamaForCausalLM(llama_tiny(moe_num_experts=4), device="cpu")
-        with pytest.raises(NotImplementedError, match="training loss"):
-            LlamaForCausalLM(llama_tiny(fused_ce_chunk=4), device="cpu")(
-                torch.ones(1, 2, dtype=torch.long), labels=torch.ones(1, 2))
+        loss, logits = LlamaForCausalLM(llama_tiny(fused_ce_chunk=4), device="cpu")(
+            torch.ones(1, 2, dtype=torch.long), labels=torch.ones(1, 2, dtype=torch.long))
+        assert logits is None and loss.shape == () and torch.isfinite(loss)
 
     def test_bad_attention_mask(self, tiny):
         with pytest.raises(ValueError, match="LEFT-padded"):

@@ -45,9 +45,6 @@ DEPARTURES = {
     "paddle_tpu_torch.inference.Predictor":
         "built from a model (Predictor.from_model); the handle-based "
         "Predictor(Config) over a saved program waits for ROADMAP A3",
-    "paddle_tpu_torch.nn.layer.rnn.RNNCellBase":
-        "a torch.nn.Module; the reference's Layer base (name_scope, dtype) "
-        "waits for ROADMAP A3",
 }
 
 # keyword-only parameters only the port has that change what a call does
@@ -177,8 +174,8 @@ def test_linear_third_positional_is_weight_attr():
             nn.Linear(4, 8, False)
     lin = paddle_tpu_torch.nn.Linear(4, 8, None, False, device="cpu")
     assert lin.bias is None and tuple(lin.weight.shape) == (4, 8)
-    with pytest.raises(NotImplementedError, match="A3"):
-        paddle_tpu_torch.nn.Linear(4, 8, "w_0", device="cpu")
+    named = paddle_tpu_torch.nn.Linear(4, 8, "w_0", device="cpu")
+    assert named.weight.param_name == "w_0" and named.bias.param_name is None
 
 
 def test_padding_idx_zeros_rows():

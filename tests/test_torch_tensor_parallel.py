@@ -64,8 +64,10 @@ def _port_mesh(shape):
 def hcgs(request, monkeypatch):
     """(JAX hybrid group, port hybrid group) of one layout, each live in its
     package for the test; the collective-matmul ring off in both packages
-    (``test_torch_overlap.py`` holds it)."""
+    (``test_torch_overlap.py`` holds it).  The port's members are the CPU,
+    which is the default device for the test (where its layers are built)."""
     monkeypatch.setenv("PADDLE_TPU_TP_OVERLAP", "0")
+    ptt.set_device("cpu")
     dp, _, sh, _, mp = LAYOUTS[request.param]
     saved = jtopo.get_hybrid_communicate_group(), topology.get_hybrid_communicate_group()
     jhcg = jtopo.HybridCommunicateGroup(dp=dp, sharding=sh, mp=mp)
@@ -73,6 +75,7 @@ def hcgs(request, monkeypatch):
     jtopo.set_hybrid_communicate_group(jhcg)
     topology.set_hybrid_communicate_group(thcg)
     yield jhcg, thcg
+    ptt.set_device(None)
     jtopo.set_hybrid_communicate_group(saved[0])
     topology.set_hybrid_communicate_group(saved[1])
 

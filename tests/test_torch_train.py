@@ -215,13 +215,25 @@ class TestCrossEntropy:
         _close(got, want.numpy(), F32)
 
     def test_all_ignored_mean_is_zero_and_soft_labels_raise(self):
+        """All-ignored labels give a zero mean; soft labels and class
+        weights, which raised before the loss layers were ported, now give
+        the reference's values (tests/test_torch_layers.py holds them over
+        every reduction)."""
         got = F.cross_entropy(torch.zeros(3, 4), torch.full((3,), -100))
         assert float(got) == 0.0
-        with pytest.raises(NotImplementedError, match="soft labels"):
-            F.cross_entropy(torch.zeros(3, 4), torch.zeros(3, 4), soft_label=True)
-        with pytest.raises(NotImplementedError, match="class weights"):
-            F.cross_entropy(torch.zeros(3, 4), torch.zeros(3, dtype=torch.long),
-                            weight=torch.ones(4))
+        rng = np.random.default_rng(7)
+        x = rng.standard_normal((3, 4)).astype(np.float32)
+        soft = rng.dirichlet(np.ones(4), 3).astype(np.float32)
+        hard, w = np.array([0, 3, -100]), np.array([0.5, 1.0, 2.0, 1.5], np.float32)
+        pairs = [(F.cross_entropy(torch.from_numpy(x), torch.from_numpy(soft), soft_label=True),
+                  JF.cross_entropy(paddle.to_tensor(x), paddle.to_tensor(soft),
+                                   soft_label=True)),
+                 (F.cross_entropy(torch.from_numpy(x), torch.from_numpy(hard),
+                                  weight=torch.from_numpy(w)),
+                  JF.cross_entropy(paddle.to_tensor(x), paddle.to_tensor(hard),
+                                   weight=paddle.to_tensor(w)))]
+        for got, want in pairs:
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5, atol=1e-6)
 
 
 class TestSchedulersAndClip:
@@ -430,10 +442,17 @@ class TestEagerOptimizer:
 
 class TestRefusals:
     def test_fused_ce_chunk_raises(self):
+        """The chunked fused loss, which raised before it was ported, gives
+        ``(loss, None)`` equal to the unfused loss; the hybrid model keeps
+        refusing it, as the reference's does (tests/test_torch_fused_ce.py
+        holds it against the JAX package)."""
         tm = LlamaForCausalLM(llama_tiny(fused_ce_chunk=8), device="cpu")
         ids, labels = _batch(80)
-        with pytest.raises(NotImplementedError, match="fused_ce_chunk"):
-            tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
+        loss, logits = tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
+        tm.config.fused_ce_chunk = 0
+        want = tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))[0]
+        assert logits is None
+        torch.testing.assert_close(loss, want, rtol=2e-5, atol=1e-6)
 
     @pytest.mark.parametrize("arg", ["health_guard", "persistent_cache", "snapshotter"])
     def test_train_step_guards_raise(self, arg):
