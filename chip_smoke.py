@@ -8,7 +8,7 @@ exits non-zero without them.  Phases, each raising on failure:
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: every kernel under ``paddle_tpu_torch/ops/csrc/`` compiled with
    nvcc from the checkout, with the build seconds and ptxas's report (a
-   wgmma kernel that spills fails);
+   wgmma kernel, or the f32 forward at d 64 or 128, that spills fails);
 3. parity: each kernel against its plain PyTorch version on the card, in
    f32 and bf16, at Llama-2-7B serving shapes and at the GQA attention of
    Llama-2-70B, with the kernel's, plain version's and library call's times
@@ -194,9 +194,17 @@ exits non-zero without them.  Phases, each raising on failure:
    512 tokens, ``ErnieForSequenceClassification`` and ``ErnieForMaskedLM``
    in f32 and bf16, each with B3 (12 launches a forward) and on the plain
    path, logits against the f32 plain path, a padded batch through the
-   masked composite with no launch; B3, B3b and B3c at its attention
-   shape [16, 512, 12, 64] in 3 and 5 (B3 also in f32, the SIMT forward),
-   timed beside SDPA.
+   masked composite with no launch, and where the f32 forward's device
+   time goes by kernel; B3, B3b and B3c at its attention shape [16, 512,
+   12, 64] in 3 and 5 (B3 also in f32, ``fwd_f32``), timed beside SDPA;
+17. the f32 forward (``fwd_f32``) also at generate's varlen prefill [8,
+   512, 32, 128] and Llama's training shape [4, 2048, 32, 128] causal
+   (``flash_fwd_f32_times``, in 3), with parity cases at head_dim 8 (s
+   77), 40 (sq < sk, GQA 4:1) and a batch row padded whole; ptxas's spill
+   report fails the build for its d 64 and d 128 instances; the variants
+   no main path times beside SDPA in their dtype: B3b/B3c in f32 at 4 x
+   2048 causal and ERNIE's shape, and B3, B3b, B3c in bf16 at head_dim 256
+   ([2, 2048, 16, 256] causal, the WMMA kernels) in 3 and 5.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
@@ -326,6 +334,14 @@ def check_sum_close(torch, name, got, want, abs_terms) -> float:
     return check_close(torch, name, got, want, TOL["bfloat16"])
 
 
+def gpu_clocks() -> str:
+    """The card's SM clock, power draw and temperature now, as nvidia-smi
+    prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+
+
 def phase_device(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -356,8 +372,10 @@ def phase_build():
                 kernel = next(kernels)
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas {name} {kernel}: {line.strip()}")
-                # the wgmma kernels keep their accumulators in registers
-                if "_wg<" in kernel and re.search(r"[1-9]\d* bytes spill", line):
+                # the wgmma kernels keep their accumulators in registers, and
+                # so does the f32 forward at the head dims of the models (64, 128)
+                if ("_wg<" in kernel or re.search(r"fwd_f32<(\(int\))?(64|128),", kernel)) \
+                        and re.search(r"[1-9]\d* bytes spill", line):
                     raise AssertionError(f"ptxas: {kernel} spills: {line.strip()}")
 
 
@@ -406,7 +424,7 @@ ERNIE_ATTN = (ERNIE_BATCH, ERNIE_SEQ, ERNIE_SEQ, 12, 12, 64)   # b, sq, sk, hq, 
 
 def ernie_flash_times(torch, gen):
     """B3 at ERNIE 3.0 base's attention [16, 512, 12, 64], not causal, in
-    f32 (the SIMT forward) and bf16 (the wgmma forward at d 64): {shape:
+    f32 (``fwd_f32``) and bf16 (the wgmma forward at d 64): {shape:
     kernel ms, bound, SDPA ms in the same dtype}, each printed."""
     from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd
 
@@ -426,8 +444,179 @@ def ernie_flash_times(torch, gen):
         shape = f"{[b, s, h, d]} full {name}"
         times[shape] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
         log(f"time flash_attention ERNIE 3.0 base {shape}: kernel {ms:.4f} ms, SDPA "
-            f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x the bound")
+            f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x the bound; "
+            f"clocks.sm, power.draw, temperature after: {gpu_clocks()}")
         del q, k, v, qt, kt, vt
+    return times
+
+
+F32_FLASH_SHAPES = (  # B3 in f32 (fwd_f32, d 128): label, b, s, heads, varlen
+    ("generate f32 prefill", BATCH, 512, 32, True),          # main path's pads
+    ("Llama train f32", TRAIN_BATCH, TRAIN_SEQ, 32, False))  # default-dtype training
+D256_SHAPE = (2, 2048, 16, 256)   # b, s, heads, d: bf16 at 128 < d <= 256, causal
+
+
+def flash_fwd_f32_times(torch, gen):
+    """B3 in f32 (``fwd_f32`` at head_dim 128) at F32_FLASH_SHAPES, causal
+    (the varlen one with the main path's pads, bound by its valid pairs),
+    and B3 in bf16 at head_dim 256 (the WMMA kernel) at D256_SHAPE, causal:
+    {shape: kernel ms, bound, SDPA ms in the same dtype (the varlen one with
+    the same boolean mask)}, each printed."""
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = gen.device
+    cases = [(label, b, s, h, 128, varlen, torch.float32, F32_FLOPS)
+             for label, b, s, h, varlen in F32_FLASH_SHAPES]
+    cases.append(("d256 bf16", *D256_SHAPE[:3], D256_SHAPE[3], False, torch.bfloat16, BF16_FLOPS))
+    times = {}
+    for label, b, s, h, d, varlen, dtype, peak in cases:
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        pad_list = pad_lens_of_main_path() if varlen else [0] * b
+        pairs = h * sum((s - p) * (s - p + 1) // 2 for p in pad_list)
+        # q, k, v read, out written, lse; 2 products (Q K^T, P V) a pair
+        b_ms, b_by = bound_ms(4 * q.numel() * q.element_size() + b * h * s * 4,
+                              4 * d * pairs, peak)
+        pads, keep = None, None
+        if varlen:
+            pads = torch.tensor(pad_list, dtype=torch.int32, device=dev)
+            keep = (torch.ones(s, s, dtype=torch.bool, device=dev).tril()[None, None]
+                    & (torch.arange(s, device=dev) >= pads[:, None, None, None]))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, True, pads), iters=10, repeats=3)
+        lib = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=keep, is_causal=keep is None),
+                      iters=10, repeats=3)
+        name = str(dtype).split(".")[1]
+        shape = f"{[b, s, h, d]} {'varlen' if varlen else 'causal'} {name}"
+        times[shape] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        log(f"time flash_attention {label} {shape}: kernel {ms:.4f} ms, SDPA {lib:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x the bound")
+        del q, k, v, qt, kt, vt, keep
+    torch.cuda.empty_cache()
+    return times
+
+
+_S_LOOP = "for (int c = 0; c < d; c += 4) {"
+_PV_LOOP = "for (int kk = 0; kk < kBK; kk += 4) {"
+_S_BY_KEY = """#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[i][j]"""
+# fwd_f32's A/B (flash_f32_ab): each variant is flash_attention.cu with these
+# texts replaced; "x_" variants compute wrong results on purpose (a phase
+# removed, loads pointed at one address) and are timed only
+F32_AB_VARIANTS = {
+    "RT 8 (as built)": [],
+    "RT 4, 64 rows, 3 blocks": [("launch_f32<64, 4, 8, 2>", "launch_f32<64, 4, 4, 3>")],
+    "8 warps, RT 4": [("launch_f32<64, 4, 8, 2>", "launch_f32<64, 8, 4, 2>")],
+    "8 warps, RT 8": [("launch_f32<64, 4, 8, 2>", "launch_f32<64, 8, 8, 1>")],
+    "S column by column": [(_S_BY_KEY, """#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < RT; ++i) s[i][j]""")],
+    "x_no S": [(_S_LOOP, "for (int c = 0; c < 0; c += 4) {")],
+    "x_no P V": [(_PV_LOOP, "for (int kk = 0; kk < 0; kk += 4) {")],
+    "x_no S, no P V": [(_S_LOOP, "for (int c = 0; c < 0; c += 4) {"),
+                       (_PV_LOOP, "for (int kk = 0; kk < 0; kk += 4) {")],
+    "x_K/V loaded once": [
+        ("if (it + 1 < n_tiles) {", "if (false) {"),
+        ("      load_f32_tile<kBK, DP, kThreads>(Vs, v + at,",
+         "      if (it == 0) load_f32_tile<kBK, DP, kThreads>(Vs, v + at,")],
+    "x_no exp2": [("hw::exp2_approx(fmaf(s[i][j], sl2, -m_ok))", "fmaf(s[i][j], sl2, -m_ok)")],
+    "x_no second barrier": [
+        ("    __syncthreads();  // V tile it landed and P is written; every lane is done with K", "")],
+    "x_no P stores": [("        Pr[4 * i * kF32LDP + kg + 8 * j] = p;", "")],
+    "x_K loads on one address": [("const float* Kr = Ks + kg * kLD;", "const float* Kr = Ks;")],
+    "x_Q loads on one address": [("const float* Qr = Qs + r0 * kLD;",
+                                  "const float* Qr = Qs + warp * L::kRowsW * kLD;")],
+}
+
+
+def flash_f32_ab(torch, variants=None, rounds=2):
+    """Times ``fwd_f32`` variants (F32_AB_VARIANTS: copies of
+    flash_attention.cu with texts replaced, each built by nvcc into
+    build/ab/<n>/ and called through ctypes) at ERNIE's [16, 512, 12, 64]
+    and Llama's [4, 2048, 32, 128] causal in f32, in turns (all variants,
+    then all again in reverse, ``rounds`` times); prints each variant's
+    ptxas registers and spills for its d 64 and d 128 instances, its
+    parity against the plain version (not for "x_" variants), every time
+    and the median, with the clocks.  Callable alone after ``phase_device``
+    (no ``phase_build`` needed)."""
+    import ctypes
+    import shutil
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops.flash_attention import _ARGTYPES, flash_attention_plain
+
+    variants = variants or F32_AB_VARIANTS
+    root = _build.BUILD_DIR.parent / "ab"
+    procs = {}
+    for n, (name, reps) in enumerate(variants.items()):
+        out = root / str(n)
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.copytree(_build.CSRC, out)
+        src = (out / "flash_attention.cu").read_text()
+        for old, new in reps:
+            if old not in src:
+                raise AssertionError(f"A/B {name}: {old[:60]!r} is not in flash_attention.cu")
+            src = src.replace(old, new)
+        (out / "flash_attention.cu").write_text(src)
+        procs[name] = (out, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / "lib.so"),
+             str(out / "flash_attention.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    fns = {}
+    for name, (out, proc) in procs.items():
+        text = proc.communicate()[0]
+        if proc.returncode:
+            raise AssertionError(f"A/B {name}: nvcc failed:\n{text[-3000:]}")
+        lines = text.splitlines()
+        for i, line in enumerate(lines):
+            m = re.search(r"fwd_f32ILi(64|128)E", line)
+            if m and "Compiling entry" in line:
+                log(f"A/B {name}: DP {m.group(1)}: {lines[i + 2].strip()}; {lines[i + 3].strip()}")
+        fn = getattr(ctypes.CDLL(str(out / "lib.so")), "ptt_flash_attention_fwd")
+        fn.argtypes, fn.restype = [*_ARGTYPES, ctypes.c_void_p], ctypes.c_int
+        fns[name] = fn
+
+    def run(fn, q, k, v, causal):
+        b, sq, hq, d = q.shape
+        out, lse = torch.empty_like(q), torch.empty(b, hq, sq, device=q.device)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(), lse.data_ptr(),
+                b, sq, k.shape[1], hq, k.shape[2], d, 1.0 / math.sqrt(d), int(causal), 0,
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise AssertionError(f"A/B launch: CUDA error {rc}")
+        return out, lse
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shapes = {"ERNIE [16, 512, 12, 64] full": ((16, 512, 12, 64), False),
+              "[4, 2048, 32, 128] causal": ((TRAIN_BATCH, TRAIN_SEQ, 32, 128), True)}
+    data = {label: [torch.randn(shape, generator=gen, device="cuda") for _ in range(3)]
+            for label, (shape, _) in shapes.items()}
+    for name, fn in fns.items():
+        if name.startswith("x_"):
+            continue
+        for hd, causal in ((64, False), (128, True), (40, True)):
+            q, k, v = (torch.randn(2, 300, 4, hd, generator=gen, device="cuda") for _ in range(3))
+            check_close(torch, f"A/B {name} d{hd}", run(fn, q, k, v, causal)[0],
+                        flash_attention_plain(q, k, v, causal)[0], TOL["float32_attn"])
+    times = {}
+    for _ in range(rounds):
+        for name in [*fns, *reversed(list(fns))]:
+            for label, (_, causal) in shapes.items():
+                q, k, v = data[label]
+                times.setdefault((name, label), []).append(time_ms(
+                    torch, lambda: run(fns[name], q, k, v, causal), iters=10, repeats=3))
+        log(f"A/B clocks: {gpu_clocks()}")
+    for (name, label), ts in times.items():
+        log(f"A/B {name} {label} f32: {' '.join(f'{t:.4f}' for t in ts)} ms, median "
+            f"{sorted(ts)[len(ts) // 2]:.4f}")
     return times
 
 
@@ -514,7 +703,14 @@ def phase_parity(torch):
         ("causal d64 s1000 GQA", 2, 1000, 1000, 8, 2, 64, True, None),
         ("varlen d64 s384 GQA", 3, 384, 384, 8, 2, 64, True,
          torch.tensor([0, 130, 300], dtype=torch.int32, device=dev)),
-        ("ERNIE 3.0 base full", *ERNIE_ATTN, False, None)]
+        ("ERNIE 3.0 base full", *ERNIE_ATTN, False, None),
+        # the smallest head_dim the wrapper takes on ragged tiles; d 40 with
+        # sq < sk and GQA 4:1; a batch row padded entirely (every query row
+        # of it sees no key)
+        ("causal d8 s77 GQA", 2, 77, 77, 4, 2, 8, True, None),
+        ("causal d40 sq<sk GQA 4:1", 2, 100, 230, 8, 2, 40, True, None),
+        ("varlen d64 s200 row padded whole", 3, 200, 200, 4, 2, 64, True,
+         torch.tensor([0, 200, 37], dtype=torch.int32, device=dev))]
     for label, b, sq, sk, hq, hkv, hd, causal, pl in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q = randn(b, sq, hq, hd, dtype=dtype)
@@ -551,7 +747,8 @@ def phase_parity(torch):
         plain_ms=time_ms(torch, lambda: flash_attention_plain(q, k, v, True, pads)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=keep)),
-        shapes={**flash_fwd_times(torch, gen), **ernie_flash_times(torch, gen)})
+        shapes={**flash_fwd_times(torch, gen), **ernie_flash_times(torch, gen),
+                **flash_fwd_f32_times(torch, gen)})
 
     # B6 decode attention: main path mid-decode, pad >= pos rows, 70B GQA
     C = 544
@@ -867,7 +1064,8 @@ def phase_bwd_parity(torch):
     ring's hop shapes (4096 rows, causal and not) and at off-size attention
     shapes (d 64, 72, 256); B3b/B3c launched twice must give the same bits.
     Then times in bf16 at the main shape, and B3b/B3c's at GPT-3 1.3B's
-    shape and the hop shapes (the ``shapes`` entry of their rows)."""
+    shape and the hop shapes (the ``shapes`` entry of their rows), then in
+    f32 at the training shape and ERNIE's and in bf16 at head_dim 256."""
     from paddle_tpu_torch.models.llama import _rope_tables
     from paddle_tpu_torch.ops.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_dkv, flash_attention_bwd_dq,
@@ -921,7 +1119,7 @@ def phase_bwd_parity(torch):
              ("ring hop full", 1, 4096, h, h, d, False),
              ("causal d64 s1000 GQA", 2, 1000, 8, 2, 64, True),
              ("ERNIE 3.0 base full", ERNIE_BATCH, ERNIE_SEQ, 12, 12, 64, False)]
-    timed = {}  # bf16 inputs of the shapes timed below
+    timed, timed32 = {}, {}  # bf16 and f32 inputs of the shapes timed below
     for label, bb, sq, hq, hkv, hd, causal in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q = randn(bb, sq, hq, hd, dtype=dtype)
@@ -943,17 +1141,21 @@ def phase_bwd_parity(torch):
                                                      "ring hop diag", "ring hop full",
                                                      "ERNIE 3.0 base full"):
                 timed[label] = (q, k, v, out, lse, do, causal, errs)
+            if dtype == torch.float32 and label in ("causal 7B", "ERNIE 3.0 base full"):
+                timed32[label] = (q, k, v, out, lse, do, causal, errs)
             del q, k, v, out, lse, do, got, again, want
             torch.cuda.empty_cache()
 
     def bounds(q, causal):
-        """(bound ms, bound by) of B3b and of B3c on q's shape."""
+        """(bound ms, bound by) of B3b and of B3c on q's shape, at the peak
+        of q's dtype (f32 outside the tensor cores, or bf16)."""
         bb, sq, hq, hd = q.shape
         pairs = bb * hq * sq * (sq + 1) // 2 if causal else bb * hq * sq * sq
         io, lse_bytes = q.numel() * q.element_size(), bb * hq * sq * 4
+        peak = F32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
         # B3b: q k v out dout in, dq out, lse in, delta out; 3 products a pair.
         # B3c: q k v dout lse delta in, dk dv out; 4 products a pair.
-        return [bound_ms(nbytes, products * 2 * hd * pairs, BF16_FLOPS)
+        return [bound_ms(nbytes, products * 2 * hd * pairs, peak)
                 for nbytes, products in ((5 * io + 2 * lse_bytes, 3),
                                          (6 * io + 2 * lse_bytes, 4))]
 
@@ -993,6 +1195,32 @@ def phase_bwd_parity(torch):
             log(f"time {name} {label} {shape} bf16: kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
                 f"({b_by}), SDPA's whole backward {library}")
     del timed, q, k, v, out, lse, do
+    torch.cuda.empty_cache()
+    # the variants no main path times: f32 inputs (the SIMT backward of the
+    # default dtype's training) at the training shape and ERNIE's, and bf16
+    # at head_dim 256 (the WMMA kernels bwd_*_tc) at D256_SHAPE, causal;
+    # each beside SDPA's whole backward in the same dtype
+    bb, s256, h256, d256 = D256_SHAPE
+    q = randn(bb, s256, h256, d256, dtype=torch.bfloat16)
+    k, v, do = (randn(bb, s256, h256, d256, dtype=torch.bfloat16) for _ in range(3))
+    out, lse = flash_attention_fwd(q, k, v, True)
+    timed32["d256 bf16"] = (q, k, v, out, lse, do, True, None)
+    for label, (q, k, v, out, lse, do, causal, _) in timed32.items():
+        dtype = str(q.dtype).split(".")[1]
+        shape = f"{list(q.shape)} {'causal' if causal else 'full'} {dtype}"
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        lib_out = sdpa(qt, kt, vt, is_causal=causal)
+        library = backward_ms(lib_out, (qt, kt, vt), do.transpose(1, 2))
+        del lib_out, qt, kt, vt
+        for name, (b_ms, b_by), fn in zip(names, bounds(q, causal),
+                                          kernel_fns(q, k, v, out, lse, do, causal)):
+            ms = time_ms(torch, fn, iters=2, repeats=3, warmup=1)
+            rows[name]["shapes"][shape] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                                               library_ms=library)
+            log(f"time {name} {label} {shape}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}), {ms / b_ms:.2f}x the bound, SDPA's whole backward {library:.4f}")
+        torch.cuda.empty_cache()
+    del timed32, q, k, v, out, lse, do
     for name, r in rows.items():
         log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
@@ -3099,6 +3327,14 @@ def phase_ernie(torch, card, cfg=None, dev="cuda", batch=(ERNIE_BATCH, ERNIE_SEQ
                         t = time.perf_counter()
                         ernie_forward(torch, model, ids, segments)
                         times.append(time.perf_counter() - t)
+                    if dtype == "float32" and path == "kernel":
+                        # where the f32 forward's device time goes, by kernel
+                        dev_ms, split = device_ms(
+                            torch, lambda: ernie_forward(torch, model, ids, segments),
+                            iters=2, warmup=0)
+                        top = dict(sorted(split.items(), key=lambda kv: -kv[1])[:6])
+                        log(f"profile ernie {name} float32 kernel: device {dev_ms:.3f} ms a "
+                            f"forward; {split_line(top)}")
                 ms = sorted(times)[ERNIE_TIMED // 2] * 1e3
                 expect = dict(want, flash_attention=cfg.num_hidden_layers if path == "kernel"
                               else 0)

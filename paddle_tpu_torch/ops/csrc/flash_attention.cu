@@ -61,10 +61,67 @@
 //
 // bf16 with 128 < d <= 256 keeps WMMA 16x16x16 fragments
 // (flash_fwd_tc_kernel): S and P through shared memory, O in shared memory
-// in f32.  f32 inputs run a SIMT kernel (no tensor-core path keeps full
-// f32): four threads share a query row, each holding a quarter of q and of
-// the accumulator in registers (interleaved columns, four banks) and
-// summing partial scores with two shuffles.
+// in f32.
+//
+// f32 inputs (fwd_f32) stay in f32 on the FP32 pipes: single-pass TF32 keeps
+// about three decimal digits, short of the f32 attention tolerance.  Two
+// rates bound them on the H100: the FFMAs' (67 TFLOP/s, one warp
+// instruction a clock on each of an SM's four schedulers, so every other
+// instruction takes an FFMA's slot) and shared memory's path to the
+// registers (128 bytes a clock an SM, so a warp's 16-byte load takes four
+// clocks whether its lanes share an address or not).  The design blocks
+// registers as a SIMT GEMM does, so that each lane does 4 FFMAs (RT 8; 2.7
+// at RT 4) for every float it loads from shared memory:
+//   * Q, K and V tiles lie row-major in shared memory, rows padded by 16
+//     bytes (DP + 4 floats), filled by cp.async with zero fill (ragged rows,
+//     the DP - d columns); no transpose on the way in.
+//   * A warp owns 4 RT query rows of the block's tile; lane 8 rg + kg owns
+//     rows rg + 4 i (i < RT) and keys kg + 8 j (j < 8) of each 64-key tile,
+//     an RT x 8 block of S in registers.  Each step of 4 columns reads the
+//     rows' q (RT float4 loads) and the keys' k (8 float4 loads) and does
+//     32 RT FFMAs: at RT = 8, sixteen loads feed 256 FFMAs.  The padding
+//     puts the rows (keys) a load touches on distinct banks, and the lanes
+//     that share a row (a key) read one address.
+//   * The 8 lanes of a row are one quarter of a warp: a row's max takes
+//     three xor shuffles a tile, and its sum is kept per lane and summed
+//     once, at the end.  exp2 with scale * log2(e) folded in (ex2.approx);
+//     only a tile that crosses the pad, the diagonal or the last key masks
+//     per element.
+//   * P goes to shared memory as [row][key] (stride 72: the 32 lanes' stores
+//     hit 32 banks), then each lane accumulates O for its RT rows and
+//     columns 4 kg + 32 c (c < DP / 32) from float4 loads of P (4 keys a
+//     row) and V: at DP 64 and RT 8, sixteen loads for 256 FFMAs again.
+//   * K and V have one buffer each and take turns: V of tile it lands while
+//     S = Q K^T of tile it is computed, K of tile it + 1 while O += P V of
+//     tile it is; two block barriers a tile.
+//   * Causal query tiles launch heaviest first.  Nothing is summed across
+//     blocks and every sum runs in a fixed order: two launches give the same
+//     bits.  The S loop runs to d, not DP; only P V spends work on the zero
+//     columns of a head dim that is not 64, 128 or 256.
+// Instances (DP: warps, RT, query rows a block, blocks an SM): 64: 4, 8,
+// 128, two (104 KB, 251 registers); 128: 8, 4, 128, one (168 KB, 242
+// registers); 256: 8, 2, 64, one (213 KB).
+// What bounds it, measured (chip_smoke.py's flash_f32_ab: copies of this
+// file that differ in one choice, timed in turns in one call, medians of
+// 4, f32 on an H100 80GB HBM3 at 700 W; PERF.md section 6): 0.340 ms at
+// ERNIE 3.0 base's [16, 512, 12, 64], 0.57 of the FFMA rate.  Removing the
+// S loop, the P V loop or both leaves 0.197, 0.230 and 0.098 ms: S runs at
+// about 0.67 of the FFMA rate and P V at 0.87.  Skipping the K/V loads
+// after the first tile, the exponentials, the second barrier or the P
+// stores moves it by at most 3%, and pointing all of a warp's K or Q loads
+// at one address by at most 1.3%.  So bank conflicts and the loads'
+// latency do not bound it; the shared loads' data path does: a warp's
+// 16-byte load delivers 512 bytes over the SM's 128 bytes a clock whether
+// its lanes share addresses or not, and at RT 8 the 16 loads a step of 4
+// columns take as many of those cycles as its 256 FFMAs take issue
+// cycles.  A larger register tile would tip the balance to the FFMAs but
+// does not fit 255 registers beside O; TF32 products split in three on the
+// tensor cores are the way past.  Rejected: at DP 64, RT 4 over 64 rows,
+// three blocks an SM (0.360 ms), eight warps a block (RT 4: 0.365, with
+// 112 bytes of spills; RT 8: 0.336, within the spread of the two blocks of
+// four warps built, 0.336-0.343); at DP 128, S summed one column at a time
+// over all 32 accumulators (4.30 ms against 4.20 at [4, 2048, 32, 128]
+// causal).
 #include <mma.h>
 
 #include "common.cuh"
@@ -72,129 +129,244 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRowThreads = 4;                       // threads per query row
-constexpr int kBlockQ = kThreads / kRowThreads;      // query rows per block
+namespace hw = ptt::sm90;
 
-template <typename T, int DPT, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ pad_lens,
-                 T* __restrict__ out, float* __restrict__ lse, int sq, int sk,
-                 int hq, int hkv, int d, float scale, int causal) {
-  extern __shared__ float smem[];
-  float* ks = smem;           // [BK][d]
-  float* vs = smem + BK * d;  // [BK][d]
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int hk = h / (hq / hkv);
-  const int sub = threadIdx.x % kRowThreads;
-  const int row = q0 + threadIdx.x / kRowThreads;
-  const bool row_ok = row < sq;
-  const int offset = sk - sq;
-  const int pad = pad_lens != nullptr ? pad_lens[b] : 0;
+// ---------------------------------------------------------------------------
+// f32: FFMA tiles
+// ---------------------------------------------------------------------------
+constexpr int kF32BK = 64;           // keys a K/V tile
+constexpr int kF32LDP = kF32BK + 8;  // row stride of P, in floats
 
-  // this thread's columns of the query row: sub, sub + 4, sub + 8, ...
-  float qr[DPT], acc[DPT];
-  const T* qp = q + ((static_cast<int64_t>(b) * sq + row) * hq + h) * d;
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    const int c = sub + kRowThreads * i;
-    qr[i] = (row_ok && c < d) ? ptt::to_f32(qp[c]) : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
+template <int DP, int NW, int RT>
+struct F32Tile {
+  static constexpr int kThreads = 32 * NW;
+  static constexpr int kRowsW = 4 * RT;     // query rows a warp
+  static constexpr int kBQ = NW * kRowsW;   // query rows a block
+  static constexpr int kLD = DP + 4;        // row stride of Q, K, V, in floats
+  static constexpr int kCols = DP / 8;      // O columns a lane
+  static constexpr size_t kSmem =
+      sizeof(float) * ((static_cast<size_t>(kBQ) + 2 * kF32BK) * kLD + kBQ * kF32LDP);
+};
 
-  const int last_row = min(q0 + kBlockQ, sq) - 1;
-  const int k_end = causal ? min(sk, last_row + offset + 1) : sk;
-  const int k_begin = (pad / BK) * BK;
-  const int64_t kv_stride = static_cast<int64_t>(hkv) * d;  // between key rows
-  const int64_t kv_base = static_cast<int64_t>(b) * sk * kv_stride +
-                          static_cast<int64_t>(hk) * d;
+__device__ __forceinline__ float lane4(const float4& v, int e) {  // v.x, .y, .z, .w
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
 
-  for (int t0 = k_begin; t0 < k_end; t0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int e = threadIdx.x; e < BK * d; e += kThreads) {
-      const int jr = e / d, c = e - jr * d;
-      const int kr = t0 + jr;
-      float kval = 0.f, vval = 0.f;
-      if (kr < sk) {
-        const int64_t off = kv_base + kr * kv_stride + c;
-        kval = ptt::to_f32(k[off]);
-        vval = ptt::to_f32(v[off]);
-      }
-      ks[e] = kval;
-      vs[e] = vval;
-    }
-    __syncthreads();
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
-    float p[BK];
-    float m_tile = -INFINITY;
+// ROWS x DP floats of src (row stride `stride` floats) into a [ROWS][DP + 4]
+// tile, 16 bytes a copy, neighbouring threads on neighbouring chunks; rows
+// >= rows_valid and columns >= d are zero
+template <int ROWS, int DP, int THREADS>
+__device__ __forceinline__ void load_f32_tile(float* tile, const float* src, int64_t stride,
+                                              int rows_valid, int d, int tid) {
+  constexpr int kChunks = DP / 4;
+  static_assert((ROWS * kChunks) % THREADS == 0, "whole tiles a pass");
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) {
-        const int c = sub + kRowThreads * i;
-        if (c < d) part += qr[i] * ks[j * d + c];
-      }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      const int col = t0 + j;
-      const bool ok = col < sk && col >= pad && (!causal || col <= row + offset);
-      p[j] = ok ? part * scale : -INFINITY;
-      m_tile = fmaxf(m_tile, p[j]);
-    }
-    // a row with every score masked so far keeps m == -inf; a finite
-    // reference point turns p and alpha into exact zeros instead of NaN
-    const float m_new = fmaxf(m, m_tile);
-    const float m_ok = (m_new == -INFINITY) ? 0.f : m_new;
-    const float alpha = expf(m - m_ok);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      p[j] = expf(p[j] - m_ok);
-      psum += p[j];
-    }
-    l = l * alpha + psum;
-    m = m_new;
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      const int c = sub + kRowThreads * i;
-      float a = acc[i] * alpha;
-      if (c < d) {
-#pragma unroll
-        for (int j = 0; j < BK; ++j) a += p[j] * vs[j * d + c];
-      }
-      acc[i] = a;
-    }
-  }
-
-  if (row_ok) {
-    const float ld = (l == 0.f) ? 1.f : l;  // rows with no valid key: zeros
-    T* op = out + ((static_cast<int64_t>(b) * sq + row) * hq + h) * d;
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      const int c = sub + kRowThreads * i;
-      if (c < d) op[c] = ptt::from_f32<T>(acc[i] / ld);
-    }
-    if (sub == 0) lse[(static_cast<int64_t>(b) * hq + h) * sq + row] = m + logf(ld);
+  for (int n = 0; n < ROWS * kChunks / THREADS; ++n) {
+    const int e = tid + n * THREADS;
+    const int r = e / kChunks, c = (e % kChunks) * 4;
+    const bool valid = r < rows_valid && c < d;
+    hw::cp_async16(hw::smem_u32(tile + r * (DP + 4) + c), valid ? src + r * stride + c : src,
+                   valid);
   }
 }
 
-template <typename T, int DPT>
-int launch(const void* q, const void* k, const void* v, const void* pad_lens,
-           void* out, void* lse, int b, int sq, int sk, int hq, int hkv, int d,
-           float scale, int causal, cudaStream_t stream) {
-  constexpr int BK = DPT >= 64 ? 32 : 64;  // keeps p[BK] + q + acc in registers
-  const size_t smem = 2 * static_cast<size_t>(BK) * d * sizeof(float);
-  auto kernel = flash_fwd_kernel<T, DPT, BK>;
-  const cudaError_t e = ptt::sm90::set_smem(kernel, smem);
+// B3 in f32: one block per (tile of kBQ query rows, q head, batch row)
+template <int DP, int NW, int RT, int MIN_BLOCKS>
+__global__ void __launch_bounds__(32 * NW, MIN_BLOCKS)
+fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+        const int* __restrict__ pad_lens, float* __restrict__ out, float* __restrict__ lse,
+        int sq, int sk, int hq, int hkv, int d, float scale, int causal) {
+  using L = F32Tile<DP, NW, RT>;
+  constexpr int kBQ = L::kBQ, kBK = kF32BK, kLD = L::kLD, kThreads = L::kThreads;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;                // [kBQ][kLD]
+  float* Ks = Qs + kBQ * kLD;     // [kBK][kLD]
+  float* Vs = Ks + kBK * kLD;     // [kBK][kLD]
+  float* Ps = Vs + kBK * kLD;     // [kBQ][kF32LDP]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rg = lane >> 3, kg = lane & 7;
+  // the last query tiles see the most keys under the causal mask: launched
+  // first, they leave the light ones for the end of the grid
+  const int b = blockIdx.z, h = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int hk = h / (hq / hkv);
+  const int offset = sk - sq;
+  const int pad = pad_lens != nullptr ? pad_lens[b] : 0;
+  const int64_t q_stride = static_cast<int64_t>(hq) * d;
+  const int64_t kv_stride = static_cast<int64_t>(hkv) * d;
+  const int64_t q_base = static_cast<int64_t>(b) * sq * q_stride + static_cast<int64_t>(h) * d;
+  const int64_t kv_base = static_cast<int64_t>(b) * sk * kv_stride + static_cast<int64_t>(hk) * d;
+
+  // key tiles [k_begin, k_end): none wholly left of the pad or above the
+  // diagonal is loaded
+  const int last_row = min(q0 + kBQ, sq) - 1;
+  const int k_end = causal ? min(sk, last_row + offset + 1) : sk;
+  const int k_begin = (pad / kBK) * kBK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
+  if (n_tiles > 0) {
+    load_f32_tile<kBQ, DP, kThreads>(Qs, q + q_base + q0 * q_stride, q_stride, sq - q0, d, tid);
+    load_f32_tile<kBK, DP, kThreads>(Ks, k + kv_base + k_begin * kv_stride, kv_stride,
+                                     sk - k_begin, d, tid);
+  }
+  hw::cp_async_commit();
+
+  const int r0 = warp * L::kRowsW + rg;  // this lane's rows of the tile: r0 + 4 i
+  float o[RT][L::kCols];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int c = 0; c < L::kCols; ++c) o[i][c] = 0.f;
+  // m: the running max of the scores times scale * log2(e); l: this lane's
+  // share of the running sum
+  float m[RT], l[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) m[i] = -INFINITY, l[i] = 0.f;
+  const float sl2 = scale * hw::kLog2e;
+  const float* Qr = Qs + r0 * kLD;
+  const float* Kr = Ks + kg * kLD;
+  float* Pr = Ps + r0 * kF32LDP;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = k_begin + it * kBK;
+    cp_async_wait_all();
+    __syncthreads();  // K tile it (and Q) landed; every lane is done with V
+    {
+      const int64_t at = kv_base + static_cast<int64_t>(t0) * kv_stride;
+      load_f32_tile<kBK, DP, kThreads>(Vs, v + at, kv_stride, sk - t0, d, tid);
+    }
+    hw::cp_async_commit();
+
+    float s[RT][8];  // S = Q K^T: rows r0 + 4 i, keys t0 + kg + 8 j
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int c = 0; c < d; c += 4) {
+      float4 qv[RT], kv[8];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) qv[i] = *reinterpret_cast<const float4*>(Qr + 4 * i * kLD + c);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) kv[j] = *reinterpret_cast<const float4*>(Kr + 8 * j * kLD + c);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[i][j] = fmaf(lane4(qv[i], e), lane4(kv[j], e), s[i][j]);
+    }
+
+    // only a tile that crosses the pad, the diagonal or the last key masks
+    // per element
+    if (t0 < pad || t0 + kBK > sk || (causal && t0 + kBK - 1 > q0 + offset)) {
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const int hi = min(sk, causal ? q0 + r0 + 4 * i + offset + 1 : sk);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = t0 + kg + 8 * j;
+          if (col < pad || col >= hi) s[i][j] = -INFINITY;
+        }
+      }
+    }
+    // online softmax; a row with every key masked so far keeps m = -inf, and
+    // a finite reference point turns p and alpha into exact zeros
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      float mt = s[i][0];
+#pragma unroll
+      for (int j = 1; j < 8; ++j) mt = fmaxf(mt, s[i][j]);
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
+      const float m_new = fmaxf(m[i], mt * sl2);
+      const float m_ok = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = hw::exp2_approx(m[i] - m_ok);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = hw::exp2_approx(fmaf(s[i][j], sl2, -m_ok));
+        ps += p;
+        Pr[4 * i * kF32LDP + kg + 8 * j] = p;
+      }
+      l[i] = l[i] * alpha + ps;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < L::kCols; ++c) o[i][c] *= alpha;
+    }
+
+    cp_async_wait_all();
+    __syncthreads();  // V tile it landed and P is written; every lane is done with K
+    if (it + 1 < n_tiles) {
+      const int64_t at = kv_base + static_cast<int64_t>(t0 + kBK) * kv_stride;
+      load_f32_tile<kBK, DP, kThreads>(Ks, k + at, kv_stride, sk - t0 - kBK, d, tid);
+    }
+    hw::cp_async_commit();
+
+    // O += P V: rows r0 + 4 i, columns 4 kg + 32 c + (0..3)
+#pragma unroll 2
+    for (int kk = 0; kk < kBK; kk += 4) {
+      float4 pv[RT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(Pr + 4 * i * kF32LDP + kk);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* Vr = Vs + (kk + e) * kLD + 4 * kg;
+#pragma unroll
+        for (int c = 0; c < DP / 32; ++c) {
+          const float4 vv = *reinterpret_cast<const float4*>(Vr + 32 * c);
+#pragma unroll
+          for (int i = 0; i < RT; ++i) {
+            const float p = lane4(pv[i], e);
+            o[i][4 * c + 0] = fmaf(p, vv.x, o[i][4 * c + 0]);
+            o[i][4 * c + 1] = fmaf(p, vv.y, o[i][4 * c + 1]);
+            o[i][4 * c + 2] = fmaf(p, vv.z, o[i][4 * c + 2]);
+            o[i][4 * c + 3] = fmaf(p, vv.w, o[i][4 * c + 3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    // the row's sum over its 8 lanes (the same bits on each of them)
+    float lt = l[i];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 4);
+    const float ld = lt == 0.f ? 1.f : lt;  // rows with no valid key: zeros
+    const int row = q0 + r0 + 4 * i;
+    if (row >= sq) continue;
+    float* op = out + q_base + row * q_stride + 4 * kg;
+#pragma unroll
+    for (int c = 0; c < DP / 32; ++c)
+      if (4 * kg + 32 * c < d)
+        *reinterpret_cast<float4*>(op + 32 * c) =
+            make_float4(o[i][4 * c] / ld, o[i][4 * c + 1] / ld, o[i][4 * c + 2] / ld,
+                        o[i][4 * c + 3] / ld);
+    if (kg == 0)  // natural log: lse = (m + log2 l) ln 2
+      lse[(static_cast<int64_t>(b) * hq + h) * sq + row] = (m[i] + log2f(ld)) * hw::kLn2;
+  }
+}
+
+template <int DP, int NW, int RT, int MIN_BLOCKS>
+int launch_f32(const void* q, const void* k, const void* v, const void* pad_lens, void* out,
+               void* lse, int b, int sq, int sk, int hq, int hkv, int d, float scale,
+               int causal, cudaStream_t stream) {
+  using L = F32Tile<DP, NW, RT>;
+  auto kernel = fwd_f32<DP, NW, RT, MIN_BLOCKS>;
+  const cudaError_t e = hw::set_smem(kernel, L::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, hq, b);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(pad_lens), static_cast<T*>(out), static_cast<float*>(lse),
+  kernel<<<dim3((sq + L::kBQ - 1) / L::kBQ, hq, b), L::kThreads, L::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(pad_lens), static_cast<float*>(out), static_cast<float*>(lse),
       sq, sk, hq, hkv, d, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -202,14 +374,11 @@ int launch(const void* q, const void* k, const void* v, const void* pad_lens,
 int dispatch_f32(const void* q, const void* k, const void* v, const void* pad_lens,
                  void* out, void* lse, int b, int sq, int sk, int hq, int hkv, int d,
                  float scale, int causal, cudaStream_t s) {
-  using T = float;
-  const int dpt = (d + kRowThreads - 1) / kRowThreads;
-  if (dpt <= 2) return launch<T, 2>(q, k, v, pad_lens, out, lse, b, sq, sk, hq, hkv, d, scale, causal, s);
-  if (dpt <= 4) return launch<T, 4>(q, k, v, pad_lens, out, lse, b, sq, sk, hq, hkv, d, scale, causal, s);
-  if (dpt <= 8) return launch<T, 8>(q, k, v, pad_lens, out, lse, b, sq, sk, hq, hkv, d, scale, causal, s);
-  if (dpt <= 16) return launch<T, 16>(q, k, v, pad_lens, out, lse, b, sq, sk, hq, hkv, d, scale, causal, s);
-  if (dpt <= 32) return launch<T, 32>(q, k, v, pad_lens, out, lse, b, sq, sk, hq, hkv, d, scale, causal, s);
-  return launch<T, 64>(q, k, v, pad_lens, out, lse, b, sq, sk, hq, hkv, d, scale, causal, s);
+  if (d <= 64)
+    return launch_f32<64, 4, 8, 2>(q, k, v, pad_lens, out, lse, b, sq, sk, hq, hkv, d, scale, causal, s);
+  if (d <= 128)
+    return launch_f32<128, 8, 4, 1>(q, k, v, pad_lens, out, lse, b, sq, sk, hq, hkv, d, scale, causal, s);
+  return launch_f32<256, 8, 2, 1>(q, k, v, pad_lens, out, lse, b, sq, sk, hq, hkv, d, scale, causal, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -413,7 +582,6 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* pad_len
 // ---------------------------------------------------------------------------
 // bf16, head_dim <= 128: wgmma, S, P and O in registers, cp.async tile ring
 // ---------------------------------------------------------------------------
-namespace hw = ptt::sm90;
 
 // One warpgroup of 128 threads a block; its accumulators' 64 rows (wgmma's
 // m) are the block's query tile, and the streamed K/V tiles are 64 rows too

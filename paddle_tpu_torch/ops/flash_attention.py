@@ -110,8 +110,8 @@ def _check(q, k, v, pad_lens=None) -> None:
     if pad_lens is not None and (pad_lens.dtype != torch.int32 or
                                  pad_lens.shape != (b,)):
         raise ValueError(f"flash kernel: pad_lens must be int32 [{b}]")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash kernel: bf16 q, k, v must start on 16-byte "
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash kernel: q, k, v must start on 16-byte "
                          "boundaries (it loads 16 bytes a thread)")
 
 

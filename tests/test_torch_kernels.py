@@ -37,7 +37,7 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops import LAUNCHES, _build, use_kernel
 from paddle_tpu_torch.ops.attention import sdpa_reference
 from paddle_tpu_torch.ops.decode_attention import decode_attention
-from paddle_tpu_torch.ops.flash_attention import (flash_attention_fwd,
+from paddle_tpu_torch.ops.flash_attention import (_check, flash_attention_fwd,
                                                   flash_attention_plain)
 from paddle_tpu_torch.ops.fused_norm import fused_rms_norm
 from paddle_tpu_torch.ops.rope import fused_rope, rope_plain
@@ -194,6 +194,32 @@ class TestFlashAttention:
         assert torch.isneginf(got_lse[1, :, :100]).all()
         assert torch.isfinite(got_lse[1, :, 100:]).all() and torch.isfinite(got_lse[0]).all()
 
+    def test_head_dim_8_causal_matches_pallas(self):
+        """The smallest head_dim the card's wrapper takes, causal, GQA 2:1."""
+        q, k, v = _np(33, 2, 40, 4, 8), _np(34, 2, 40, 2, 8), _np(35, 2, 40, 2, 8)
+        out, (_, _, _, _, lse) = jax_flash_fwd(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None, True, 8, 8, True)
+        got, got_lse = flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                           torch.from_numpy(v), True)
+        _close(got, out, ATTN)
+        _close(got_lse, np.asarray(lse)[..., 0], ATTN)
+
+    def test_varlen_fully_padded_row_matches_pallas(self):
+        """Row 1's pad is the whole sequence: every one of its query rows
+        sees no key and is exact zeros with lse -inf, in both."""
+        b, s, d = 3, 24, 16
+        q, k, v = _np(36, b, s, 4, d), _np(37, b, s, 2, d), _np(38, b, s, 2, d)
+        pads = np.asarray([0, s, 5], np.int32)
+        out, lse = jax_flash_internal_fwd(
+            *(jax_to_internal(jnp.asarray(x)) for x in (q, k, v)), scale=1.0 / np.sqrt(d),
+            causal=True, block_q=8, block_k=8, interpret=True, pad_lens=jnp.asarray(pads))
+        got, got_lse = flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                           torch.from_numpy(v), True, torch.from_numpy(pads))
+        _close(got, np.asarray(out).transpose(0, 2, 1, 3), ATTN)
+        _close(got_lse, np.asarray(lse)[..., 0], ATTN)
+        assert not got[1].any() and torch.isneginf(got_lse[1]).all()
+        assert torch.isfinite(got_lse[0]).all() and torch.isfinite(got_lse[2, :, 5:]).all()
+
     def test_sdpa_reference_matches_jax(self):
         q, k, v = _np(17, 2, 8, 4, 16), _np(18, 2, 8, 2, 16), _np(19, 2, 8, 2, 16)
         mask = np.where(_np(20, 2, 1, 1, 8) > 0, 0.0, -1e9).astype(np.float32)
@@ -208,6 +234,46 @@ class TestFlashAttention:
         got = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         torch.testing.assert_close(got, sdpa_reference(q, k, v, is_causal=True),
                                    **ATTN)
+
+
+class TestFlashWrapperRules:
+    """What the card's wrapper takes (``_check``) and where a CPU tensor
+    goes.  The f32 and bf16 kernels load 16 bytes a thread."""
+
+    @staticmethod
+    def _qkv(d, dtype=torch.float32, b=1, s=4, h=2):
+        return [torch.zeros(b, s, h, d, dtype=dtype) for _ in range(3)]
+
+    @pytest.mark.parametrize("d", range(8, 257, 8))
+    def test_accepts_every_head_dim_multiple_of_8_up_to_256(self, d):
+        _check(*self._qkv(d))
+
+    @pytest.mark.parametrize("d", [4, 12, 260, 264])
+    def test_rejects_other_head_dims(self, d):
+        with pytest.raises(ValueError, match="head_dim"):
+            _check(*self._qkv(d))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_rejects_a_misaligned_contiguous_view(self, dtype):
+        b, s, h, d = 1, 4, 2, 8
+        q, k, v = self._qkv(d, dtype, b, s, h)
+        n = b * s * h * d
+        shifted = torch.empty(n + 1, dtype=dtype)[1:].view(b, s, h, d)
+        assert shifted.is_contiguous() and shifted.data_ptr() % 16
+        for args in ((shifted, k, v), (q, shifted, v), (q, k, shifted)):
+            with pytest.raises(ValueError, match="16-byte"):
+                _check(*args)
+
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_cpu_tensors_take_the_plain_version(self, causal):
+        q, k, v = (torch.from_numpy(_np(i, 2, 24, 4, 8)) for i in (39, 40, 41))
+        pads = torch.tensor([0, 24], dtype=torch.int32)
+        before = dict(LAUNCHES)
+        for pl in (None, pads):
+            got, got_lse = flash_attention_fwd(q, k, v, causal, pl)
+            want, want_lse = flash_attention_plain(q, k, v, causal, pl)
+            assert torch.equal(got, want) and torch.equal(got_lse, want_lse)
+        assert LAUNCHES == before
 
 
 class TestDecodeAttention:
