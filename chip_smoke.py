@@ -8,7 +8,8 @@ exits non-zero without them.  Phases, each raising on failure:
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: every kernel under ``paddle_tpu_torch/ops/csrc/`` compiled with
    nvcc from the checkout, with the build seconds and ptxas's report (a
-   wgmma kernel, or the f32 forward at d 64 or 128, that spills fails);
+   wgmma kernel, or the f32 forward or backward at d 64 or 128, that
+   spills fails);
 3. parity: each kernel against its plain PyTorch version on the card, in
    f32 and bf16, at Llama-2-7B serving shapes and at the GQA attention of
    Llama-2-70B, with the kernel's, plain version's and library call's times
@@ -201,10 +202,22 @@ exits non-zero without them.  Phases, each raising on failure:
    512, 32, 128] and Llama's training shape [4, 2048, 32, 128] causal
    (``flash_fwd_f32_times``, in 3), with parity cases at head_dim 8 (s
    77), 40 (sq < sk, GQA 4:1) and a batch row padded whole; ptxas's spill
-   report fails the build for its d 64 and d 128 instances; the variants
-   no main path times beside SDPA in their dtype: B3b/B3c in f32 at 4 x
-   2048 causal and ERNIE's shape, and B3, B3b, B3c in bf16 at head_dim 256
-   ([2, 2048, 16, 256] causal, the WMMA kernels) in 3 and 5.
+   report fails the build for its d 64 and d 128 instances; B3, B3b, B3c
+   in bf16 at head_dim 256 ([2, 2048, 16, 256] causal, the WMMA kernels,
+   which no main path runs) beside SDPA in 3 and 5;
+18. the f32 backward (B3b/B3c on the tensor cores, three TF32 products an
+   f32 product): its parity cases are 5's f32 ones; timed in 5 at 4 x
+   2048 causal and ERNIE's shape beside SDPA's whole f32 backward (and the
+   kernels SDPA runs, from ``torch.profiler``), with both bounds (f32
+   operations at 67 TFLOP/s, three TF32 products at 494.7); ptxas's spill
+   report fails the build for their d 64 and d 128 instances; then the
+   default dtype's training step (``phase_train_f32``, after 7): Llama-2-7B
+   width in f32, no ``amp.decorate``, AdamW with the clip through
+   ``TrainStep`` on 7's batch: at 2 layers the kernels' loss and every
+   grad within 1e-4 relative L2 of the plain path's, then 4 layers (cut
+   for memory), 1 warm-up and 3 counted steps with exact launches (4 B3b,
+   4 B3c a step), ms a step, peak memory and B3b's and B3c's device time
+   in a profiled step.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
@@ -228,6 +241,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 F32_FLOPS = 67e12              # f32 outside the tensor cores
+TF32_FLOPS = 494.7e12          # dense TF32 tensor-core peak (3 TF32 products an f32 one)
 INT8_OPS = 1979e12             # dense int8 (and fp8) tensor-core peak
 F32_EPS = 2.0 ** -23
 TOL = {"float32": dict(rtol=2e-5, atol=1e-6),       # tests/op_test.py f32 row
@@ -373,8 +387,9 @@ def phase_build():
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas {name} {kernel}: {line.strip()}")
                 # the wgmma kernels keep their accumulators in registers, and
-                # so does the f32 forward at the head dims of the models (64, 128)
-                if ("_wg<" in kernel or re.search(r"fwd_f32<(\(int\))?(64|128),", kernel)) \
+                # so do the f32 forward and backward at the models' head dims
+                if ("_wg<" in kernel or re.search(
+                        r"(fwd_f32|bwd_dq_tf32|bwd_dkv_tf32)<(\(int\))?(64|128),", kernel)) \
                         and re.search(r"[1-9]\d* bytes spill", line):
                     raise AssertionError(f"ptxas: {kernel} spills: {line.strip()}")
 
@@ -525,8 +540,8 @@ F32_AB_VARIANTS = {
                        (_PV_LOOP, "for (int kk = 0; kk < 0; kk += 4) {")],
     "x_K/V loaded once": [
         ("if (it + 1 < n_tiles) {", "if (false) {"),
-        ("      load_f32_tile<kBK, DP, kThreads>(Vs, v + at,",
-         "      if (it == 0) load_f32_tile<kBK, DP, kThreads>(Vs, v + at,")],
+        ("      hw::load_f32_tile<kBK, DP, kThreads>(Vs, v + at,",
+         "      if (it == 0) hw::load_f32_tile<kBK, DP, kThreads>(Vs, v + at,")],
     "x_no exp2": [("hw::exp2_approx(fmaf(s[i][j], sl2, -m_ok))", "fmaf(s[i][j], sl2, -m_ok)")],
     "x_no second barrier": [
         ("    __syncthreads();  // V tile it landed and P is written; every lane is done with K", "")],
@@ -537,38 +552,36 @@ F32_AB_VARIANTS = {
 }
 
 
-def flash_f32_ab(torch, variants=None, rounds=2):
-    """Times ``fwd_f32`` variants (F32_AB_VARIANTS: copies of
-    flash_attention.cu with texts replaced, each built by nvcc into
-    build/ab/<n>/ and called through ctypes) at ERNIE's [16, 512, 12, 64]
-    and Llama's [4, 2048, 32, 128] causal in f32, in turns (all variants,
-    then all again in reverse, ``rounds`` times); prints each variant's
-    ptxas registers and spills for its d 64 and d 128 instances, its
-    parity against the plain version (not for "x_" variants), every time
-    and the median, with the clocks.  Callable alone after ``phase_device``
-    (no ``phase_build`` needed)."""
+def ab_build(source, variants, symbols, argtypes, report):
+    """Copies of ``paddle_tpu_torch/ops/csrc`` with texts replaced, one a
+    variant (``variants``: {name: [(old, new), ...]}, each old text replaced
+    in ``source``.cu or else in the header that holds it), each
+    ``source``.cu built by nvcc into build/ab/<source>/<n>/, all at once;
+    logs ptxas's registers and spills of the kernels whose mangled names
+    match ``report``.  Returns {name: {symbol: ctypes function}}."""
     import ctypes
     import shutil
 
     from paddle_tpu_torch.ops import _build
-    from paddle_tpu_torch.ops.flash_attention import _ARGTYPES, flash_attention_plain
 
-    variants = variants or F32_AB_VARIANTS
-    root = _build.BUILD_DIR.parent / "ab"
+    root = _build.BUILD_DIR.parent / "ab" / source
     procs = {}
     for n, (name, reps) in enumerate(variants.items()):
         out = root / str(n)
         shutil.rmtree(out, ignore_errors=True)
         shutil.copytree(_build.CSRC, out)
-        src = (out / "flash_attention.cu").read_text()
+        files = [out / f"{source}.cu", *sorted(out.glob("*.cuh"))]
+        texts = {f: f.read_text() for f in files}
         for old, new in reps:
-            if old not in src:
-                raise AssertionError(f"A/B {name}: {old[:60]!r} is not in flash_attention.cu")
-            src = src.replace(old, new)
-        (out / "flash_attention.cu").write_text(src)
+            where = next((f for f in files if old in texts[f]), None)
+            if where is None:
+                raise AssertionError(f"A/B {name}: {old[:60]!r} is in no source of {source}")
+            texts[where] = texts[where].replace(old, new)
+        for f, text in texts.items():
+            f.write_text(text)
         procs[name] = (out, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / "lib.so"),
-             str(out / "flash_attention.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+             str(out / f"{source}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
     fns = {}
     for name, (out, proc) in procs.items():
@@ -577,28 +590,60 @@ def flash_f32_ab(torch, variants=None, rounds=2):
             raise AssertionError(f"A/B {name}: nvcc failed:\n{text[-3000:]}")
         lines = text.splitlines()
         for i, line in enumerate(lines):
-            m = re.search(r"fwd_f32ILi(64|128)E", line)
+            m = re.search(report, line)
             if m and "Compiling entry" in line:
-                log(f"A/B {name}: DP {m.group(1)}: {lines[i + 2].strip()}; {lines[i + 3].strip()}")
-        fn = getattr(ctypes.CDLL(str(out / "lib.so")), "ptt_flash_attention_fwd")
-        fn.argtypes, fn.restype = [*_ARGTYPES, ctypes.c_void_p], ctypes.c_int
-        fns[name] = fn
+                log(f"A/B {name}: {m.group(0)}: {lines[i + 2].strip()}; {lines[i + 3].strip()}")
+        lib = ctypes.CDLL(str(out / "lib.so"))
+        fns[name] = {}
+        for symbol in symbols:
+            fn = getattr(lib, symbol)
+            fn.argtypes, fn.restype = [*argtypes, ctypes.c_void_p], ctypes.c_int
+            fns[name][symbol] = fn
+    return fns
+
+
+def ab_times(torch, fns, cases, rounds):
+    """{(variant, case): [ms, ...]}: each case ({label: fn(variant's
+    functions)}) timed for every variant in turns (all variants, then all in
+    reverse, ``rounds`` times), the clocks logged after each round; every
+    time and the median logged."""
+    times = {}
+    for _ in range(rounds):
+        for name in [*fns, *reversed(list(fns))]:
+            for label, run in cases.items():
+                times.setdefault((name, label), []).append(time_ms(
+                    torch, lambda: run(fns[name]), iters=10, repeats=3))
+        log(f"A/B clocks: {gpu_clocks()}")
+    for (name, label), ts in times.items():
+        log(f"A/B {name} {label}: {' '.join(f'{t:.4f}' for t in ts)} ms, median "
+            f"{sorted(ts)[len(ts) // 2]:.4f}")
+    return times
+
+
+def flash_f32_ab(torch, variants=None, rounds=2):
+    """Times ``fwd_f32`` variants (F32_AB_VARIANTS, built by ``ab_build``
+    and called through ctypes) at ERNIE's [16, 512, 12, 64] and Llama's
+    [4, 2048, 32, 128] causal in f32, in turns (``ab_times``); logs each
+    variant's ptxas registers and spills for its d 64 and d 128 instances
+    and its parity against the plain version (not for "x_" variants).
+    Callable alone after ``phase_device`` (no ``phase_build`` needed)."""
+    from paddle_tpu_torch.ops.flash_attention import _ARGTYPES, flash_attention_plain
+
+    fns = ab_build("flash_attention", variants or F32_AB_VARIANTS,
+                   ["ptt_flash_attention_fwd"], _ARGTYPES, r"fwd_f32ILi(64|128)E")
 
     def run(fn, q, k, v, causal):
         b, sq, hq, d = q.shape
         out, lse = torch.empty_like(q), torch.empty(b, hq, sq, device=q.device)
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(), lse.data_ptr(),
-                b, sq, k.shape[1], hq, k.shape[2], d, 1.0 / math.sqrt(d), int(causal), 0,
-                torch.cuda.current_stream().cuda_stream)
+        rc = fn["ptt_flash_attention_fwd"](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(), lse.data_ptr(),
+            b, sq, k.shape[1], hq, k.shape[2], d, 1.0 / math.sqrt(d), int(causal), 0,
+            torch.cuda.current_stream().cuda_stream)
         if rc:
             raise AssertionError(f"A/B launch: CUDA error {rc}")
         return out, lse
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    shapes = {"ERNIE [16, 512, 12, 64] full": ((16, 512, 12, 64), False),
-              "[4, 2048, 32, 128] causal": ((TRAIN_BATCH, TRAIN_SEQ, 32, 128), True)}
-    data = {label: [torch.randn(shape, generator=gen, device="cuda") for _ in range(3)]
-            for label, (shape, _) in shapes.items()}
     for name, fn in fns.items():
         if name.startswith("x_"):
             continue
@@ -606,18 +651,128 @@ def flash_f32_ab(torch, variants=None, rounds=2):
             q, k, v = (torch.randn(2, 300, 4, hd, generator=gen, device="cuda") for _ in range(3))
             check_close(torch, f"A/B {name} d{hd}", run(fn, q, k, v, causal)[0],
                         flash_attention_plain(q, k, v, causal)[0], TOL["float32_attn"])
-    times = {}
-    for _ in range(rounds):
-        for name in [*fns, *reversed(list(fns))]:
-            for label, (_, causal) in shapes.items():
-                q, k, v = data[label]
-                times.setdefault((name, label), []).append(time_ms(
-                    torch, lambda: run(fns[name], q, k, v, causal), iters=10, repeats=3))
-        log(f"A/B clocks: {gpu_clocks()}")
-    for (name, label), ts in times.items():
-        log(f"A/B {name} {label} f32: {' '.join(f'{t:.4f}' for t in ts)} ms, median "
-            f"{sorted(ts)[len(ts) // 2]:.4f}")
-    return times
+    cases = {}
+    for label, shape, causal in (("ERNIE [16, 512, 12, 64] full f32", (16, 512, 12, 64), False),
+                                 ("[4, 2048, 32, 128] causal f32",
+                                  (TRAIN_BATCH, TRAIN_SEQ, 32, 128), True)):
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+        cases[label] = lambda fn, q=q, k=k, v=v, causal=causal: run(fn, q, k, v, causal)
+    return ab_times(torch, fns, cases, rounds)
+
+
+# B3b/B3c f32's A/B (flash_bwd_tf32_ab): each variant is flash_attention_bwd.cu
+# (or mma_tf32.cuh) with these texts replaced; "x_" variants compute wrong
+# results on purpose and are timed only
+BWD_AB_VARIANTS = {
+    "as built": [],
+    "lo rounded to nearest": [("lo = __float_as_uint(x - __uint_as_float(hi));",
+                               "lo = tf32_rna(x - __uint_as_float(hi));")],
+    "hi by cvt.rna.tf32.f32": [("return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
+                                """uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return y;""")],
+    "S, dP looped to d, not unrolled": [("""#pragma unroll
+  for (int c = 0; c < LD - 4; c += 32) {  // LD - 4 = DP
+    if (c >= d) break;""", "  for (int c = 0; c < d; c += 32) {")],
+    "dq 128: 4 warps": [("launch_dq_tf32<128, 8, 32, 1>", "launch_dq_tf32<128, 4, 32, 1>")],
+    "dq 128: 4 warps, 16-key tiles, 2 blocks": [("launch_dq_tf32<128, 8, 32, 1>",
+                                                 "launch_dq_tf32<128, 4, 16, 2>")],
+    "dkv 128: 4 warps": [("launch_dkv_tf32<128, 8, 32, 128, 1>",
+                          "launch_dkv_tf32<128, 4, 32, 128, 1>")],
+    "dkv 128: 8 warps, 16-row tiles": [("launch_dkv_tf32<128, 8, 32, 128, 1>",
+                                        "launch_dkv_tf32<128, 8, 16, 128, 1>")],
+    "dq 64: 32-key tiles": [("launch_dq_tf32<64, 4, 64, 2>", "launch_dq_tf32<64, 4, 32, 2>")],
+    "dkv 64: 8 warps": [("launch_dkv_tf32<64, 4, 32, 64, 2>",
+                         "launch_dkv_tf32<64, 8, 32, 64, 1>")],
+    "one accumulator for the whole sum": [
+        ("hw::mma_3xtf32(part[e], ah, al, bh, bl);",
+         "hw::mma_3xtf32(acc[4 * v + e], ah, al, bh, bl);"),
+        ("for (int x = 0; x < 4; ++x) acc[4 * v + e][x] += part[e][x];",
+         "for (int x = 0; x < 4; ++x) part[e][x] = 0.f;")],
+    "x_1xTF32": [("""  mma_tf32(d, a_lo, b_hi);
+  mma_tf32(d, a_hi, b_lo);
+  mma_tf32(d, a_hi, b_hi);""", "  mma_tf32(d, a_hi, b_hi);")],
+    "x_3 products, no split": [("""  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));""", """  hi = __float_as_uint(x);
+  lo = hi;""")],
+}
+
+
+def flash_bwd_tf32_ab(torch, variants=None, rounds=2):
+    """Times B3b's and B3c's f32 variants (BWD_AB_VARIANTS, built by
+    ``ab_build``) at ERNIE's [16, 512, 12, 64] full and Llama's [4, 2048,
+    32, 128] causal, in turns (``ab_times``).  First each variant but the
+    "x_" ones against the plain backward (d 64 full, d 128 causal, d 72 GQA
+    causal with sq < sk, Llama-2-70B's GQA [1, 2048, 64 / 8, 128] causal):
+    its largest errors and the elements outside the f32 backward tolerance
+    are logged, and "as built" must have none.  Callable alone after
+    ``phase_device``."""
+    from paddle_tpu_torch.ops.flash_attention import (_BWD_ARGTYPES, flash_attention_bwd_plain,
+                                                      flash_attention_plain)
+
+    dq_sym, dkv_sym = "ptt_flash_attention_bwd_dq", "ptt_flash_attention_bwd_dkv"
+    fns = ab_build("flash_attention_bwd", variants or BWD_AB_VARIANTS, [dq_sym, dkv_sym],
+                   _BWD_ARGTYPES, r"bwd_d(q|kv)_tf32ILi(64|128)E")
+
+    def call(fn, *ptrs_and_dims):
+        rc = fn(*ptrs_and_dims, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise AssertionError(f"A/B launch: CUDA error {rc}")
+
+    def dims(q, k, causal):
+        b, sq, hq, d = q.shape
+        return (b, sq, k.shape[1], hq, k.shape[2], d, 1.0 / math.sqrt(d), int(causal), 0)
+
+    def run_dq(f, q, k, v, out, lse, do, causal):
+        dq, delta = torch.empty_like(q), torch.empty_like(lse)
+        call(f[dq_sym], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), dq.data_ptr(), delta.data_ptr(), *dims(q, k, causal))
+        return dq, delta
+
+    def run_dkv(f, q, k, v, do, lse, delta, causal):
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        call(f[dkv_sym], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims(q, k, causal))
+        return dk, dv
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def inputs(b, sq, sk, hq, hkv, d, causal):
+        q, do = (torch.randn(b, sq, hq, d, generator=gen, device="cuda") for _ in range(2))
+        k, v = (torch.randn(b, sk, hkv, d, generator=gen, device="cuda") for _ in range(2))
+        out, lse = flash_attention_plain(q, k, v, causal)
+        return q, k, v, out.contiguous(), lse.contiguous(), do
+
+    tol = TOL["float32_attn_bwd"]
+    for shape in ((2, 300, 300, 4, 4, 64, False), (1, 256, 256, 4, 4, 128, True),
+                  (2, 200, 260, 8, 2, 72, True), (1, 2048, 2048, 64, 8, 128, True)):
+        q, k, v, out, lse, do = inputs(*shape)
+        want = flash_attention_bwd_plain(q, k, v, out, lse, do, shape[-1])
+        for name, f in fns.items():
+            if name.startswith("x_"):
+                continue
+            dq, delta = run_dq(f, q, k, v, out, lse, do, shape[-1])
+            got = (dq, *run_dkv(f, q, k, v, do, lse, delta, shape[-1]))
+            errs = [(float((g_ - w_).abs().max()),
+                     int(((g_ - w_).abs() > tol["atol"] + tol["rtol"] * w_.abs()).sum()))
+                    for g_, w_ in zip(got, want)]
+            log(f"A/B {name} {list(shape)}: max_abs_err dq dk dv "
+                f"{' '.join(f'{e:.3g}' for e, _ in errs)}; outside the f32 tolerance "
+                f"{' '.join(str(n) for _, n in errs)}")
+            if name == "as built" and any(n for _, n in errs):
+                raise AssertionError(f"A/B as built {shape}: outside the tolerance {errs}")
+        del q, k, v, out, lse, do, want
+    cases = {}
+    for label, shape in (("ERNIE [16, 512, 12, 64] full f32", (16, 512, 512, 12, 12, 64, False)),
+                         ("[4, 2048, 32, 128] causal f32",
+                          (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 128, True))):
+        q, k, v, out, lse, do = inputs(*shape)
+        causal = shape[-1]
+        delta = run_dq(fns["as built"] if "as built" in fns else next(iter(fns.values())),
+                       q, k, v, out, lse, do, causal)[1]
+        cases[f"dq {label}"] = (lambda f, a=(q, k, v, out, lse, do, causal): run_dq(f, *a))
+        cases[f"dkv {label}"] = (lambda f, a=(q, k, v, do, lse, delta, causal): run_dkv(f, *a))
+    return ab_times(torch, fns, cases, rounds)
 
 
 def phase_parity(torch):
@@ -1147,17 +1302,22 @@ def phase_bwd_parity(torch):
             torch.cuda.empty_cache()
 
     def bounds(q, causal):
-        """(bound ms, bound by) of B3b and of B3c on q's shape, at the peak
-        of q's dtype (f32 outside the tensor cores, or bf16)."""
+        """(bound ms, bound by, floor ms) of B3b and of B3c on q's shape, at
+        the peak of q's dtype (f32 outside the tensor cores, or bf16); the
+        floor, in f32 only (else None), counts each f32 product as three
+        TF32 products on the tensor cores, as the f32 kernels do them."""
         bb, sq, hq, hd = q.shape
         pairs = bb * hq * sq * (sq + 1) // 2 if causal else bb * hq * sq * sq
         io, lse_bytes = q.numel() * q.element_size(), bb * hq * sq * 4
-        peak = F32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
+        f32 = q.dtype == torch.float32
+        out = []
         # B3b: q k v out dout in, dq out, lse in, delta out; 3 products a pair.
         # B3c: q k v dout lse delta in, dk dv out; 4 products a pair.
-        return [bound_ms(nbytes, products * 2 * hd * pairs, peak)
-                for nbytes, products in ((5 * io + 2 * lse_bytes, 3),
-                                         (6 * io + 2 * lse_bytes, 4))]
+        for nbytes, products in ((5 * io + 2 * lse_bytes, 3), (6 * io + 2 * lse_bytes, 4)):
+            ops = products * 2 * hd * pairs
+            out.append((*bound_ms(nbytes, ops, F32_FLOPS if f32 else BF16_FLOPS),
+                        bound_ms(nbytes, 3 * ops, TF32_FLOPS)[0] if f32 else None))
+        return out
 
     def kernel_fns(q, k, v, out, lse, do, causal):
         _, delta = flash_attention_bwd_dq(q, k, v, out, lse, do, causal)
@@ -1172,8 +1332,8 @@ def phase_bwd_parity(torch):
     lib_out = sdpa(qt, kt, vt, is_causal=True)
     library = backward_ms(lib_out, (qt, kt, vt), do.transpose(1, 2))
     del lib_out, qt, kt, vt
-    for name, (b_ms, b_by), err, fn in zip(names, bounds(q, True), (errs[0], max(errs[1:])),
-                                            kernel_fns(q, k, v, out, lse, do, True)):
+    for name, (b_ms, b_by, _), err, fn in zip(names, bounds(q, True), (errs[0], max(errs[1:])),
+                                               kernel_fns(q, k, v, out, lse, do, True)):
         rows[name] = dict(max_abs_err=err, ms=time_ms(torch, fn, iters=5, repeats=3),
                           plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=library,
                           shapes={})
@@ -1187,8 +1347,8 @@ def phase_bwd_parity(torch):
             lib_out = sdpa(qt, kt, vt)
             library = backward_ms(lib_out, (qt, kt, vt), do.transpose(1, 2))
             del lib_out, qt, kt, vt
-        for name, (b_ms, b_by), fn in zip(names, bounds(q, causal),
-                                          kernel_fns(q, k, v, out, lse, do, causal)):
+        for name, (b_ms, b_by, _), fn in zip(names, bounds(q, causal),
+                                             kernel_fns(q, k, v, out, lse, do, causal)):
             ms = time_ms(torch, fn, iters=5, repeats=3)
             rows[name]["shapes"][shape] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
                                                library_ms=library)
@@ -1196,10 +1356,10 @@ def phase_bwd_parity(torch):
                 f"({b_by}), SDPA's whole backward {library}")
     del timed, q, k, v, out, lse, do
     torch.cuda.empty_cache()
-    # the variants no main path times: f32 inputs (the SIMT backward of the
-    # default dtype's training) at the training shape and ERNIE's, and bf16
-    # at head_dim 256 (the WMMA kernels bwd_*_tc) at D256_SHAPE, causal;
-    # each beside SDPA's whole backward in the same dtype
+    # f32 inputs (the 3xTF32 kernels of the default dtype's training) at the
+    # training shape and ERNIE's, and bf16 at head_dim 256 (the WMMA kernels
+    # bwd_*_tc, which no path runs) at D256_SHAPE, causal; each beside SDPA's
+    # whole backward in the same dtype, with the kernels that SDPA runs
     bb, s256, h256, d256 = D256_SHAPE
     q = randn(bb, s256, h256, d256, dtype=torch.bfloat16)
     k, v, do = (randn(bb, s256, h256, d256, dtype=torch.bfloat16) for _ in range(3))
@@ -1211,14 +1371,27 @@ def phase_bwd_parity(torch):
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         lib_out = sdpa(qt, kt, vt, is_causal=causal)
         library = backward_ms(lib_out, (qt, kt, vt), do.transpose(1, 2))
+        _, by = device_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), iters=2, warmup=1)
+        log(f"time SDPA's whole backward {label} {shape}: {library:.4f} ms; device ms by "
+            f"kernel: {split_line(by)}")
         del lib_out, qt, kt, vt
-        for name, (b_ms, b_by), fn in zip(names, bounds(q, causal),
-                                          kernel_fns(q, k, v, out, lse, do, causal)):
-            ms = time_ms(torch, fn, iters=2, repeats=3, warmup=1)
+        pair = 0.0
+        for name, (b_ms, b_by, floor), fn in zip(names, bounds(q, causal),
+                                                 kernel_fns(q, k, v, out, lse, do, causal)):
+            ms = time_ms(torch, fn, iters=5, repeats=3, warmup=2)
+            pair += ms
             rows[name]["shapes"][shape] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
                                                library_ms=library)
+            extra = ""
+            if floor is not None:
+                rows[name]["shapes"][shape]["tf32_floor_ms"] = floor
+                extra = f", 3xTF32 floor {floor:.4f} ms ({ms / floor:.2f}x)"
             log(f"time {name} {label} {shape}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
-                f"({b_by}), {ms / b_ms:.2f}x the bound, SDPA's whole backward {library:.4f}")
+                f"({b_by}), {ms / b_ms:.2f}x the bound{extra}, SDPA's whole backward "
+                f"{library:.4f}")
+        log(f"time flash bwd pair {label} {shape}: {pair:.4f} ms against SDPA's whole "
+            f"backward {library:.4f} ({pair / library:.2f}x)")
         torch.cuda.empty_cache()
     del timed32, q, k, v, out, lse, do
     for name, r in rows.items():
@@ -3502,19 +3675,7 @@ def train_steps(torch, card, make, layers, flags, ids, labels):
         log(f"train {label} losses: {' '.join(f'{x:.4f}' for x in losses)}")
         if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
             raise AssertionError(f"training {label}: losses not finite and falling: {losses}")
-        on = {k: bool(ptt.get_flags(k)[k])
-              for k in ("use_fused_swiglu", "use_fused_adamw", "use_fused_layernorm")}
-        per_step = dict.fromkeys(LAUNCHES, 0)
-        per_step.update(flash_attention=L, flash_attention_bwd_dq=L, flash_attention_bwd_dkv=L,
-                        adamw=n_tensors if on["use_fused_adamw"] else 0)
-        if make is make_llama:
-            per_step.update(rms_norm=2 * L + 1, rope=L, rms_norm_bwd=2 * L + 1, rope_bwd=L,
-                            swiglu=L if on["use_fused_swiglu"] else 0,
-                            swiglu_bwd=L if on["use_fused_swiglu"] else 0)
-        else:
-            per_step.update(add_layer_norm=L if on["use_fused_layernorm"] else 0,
-                            add_layer_norm_bwd=L if on["use_fused_layernorm"] else 0)
-        want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+        want = {k: TRAIN_STEPS * v for k, v in step_launches(make, L, n_tensors).items()}
         log(f"train {label} launches in {TRAIN_STEPS} steps: {launches}")
         if launches != want:
             raise AssertionError(f"training {label}: launches {launches}, {TRAIN_STEPS} "
@@ -3528,6 +3689,102 @@ def train_steps(torch, card, make, layers, flags, ids, labels):
         profile_step(torch, f"train step {label}", lambda: step(ids, labels))
     del model, opt, step
     return launches, losses, step_s * 1e3
+
+
+def step_launches(make, L, n_tensors):
+    """The kernel launches of one TrainStep of ``make``'s model at L layers
+    (``n_tensors`` parameter tensors) under the flags now set."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import LAUNCHES
+
+    on = {k: bool(ptt.get_flags(k)[k])
+          for k in ("use_fused_swiglu", "use_fused_adamw", "use_fused_layernorm")}
+    per_step = dict.fromkeys(LAUNCHES, 0)
+    per_step.update(flash_attention=L, flash_attention_bwd_dq=L, flash_attention_bwd_dkv=L,
+                    adamw=n_tensors if on["use_fused_adamw"] else 0)
+    if make is make_llama:
+        per_step.update(rms_norm=2 * L + 1, rope=L, rms_norm_bwd=2 * L + 1, rope_bwd=L,
+                        swiglu=L if on["use_fused_swiglu"] else 0,
+                        swiglu_bwd=L if on["use_fused_swiglu"] else 0)
+    else:
+        per_step.update(add_layer_norm=L if on["use_fused_layernorm"] else 0,
+                        add_layer_norm_bwd=L if on["use_fused_layernorm"] else 0)
+    return per_step
+
+
+TRAIN_F32_LAYERS = 4               # phase_train_f32: Llama-2-7B width in f32, depth cut for memory
+TRAIN_F32_WARMUP, TRAIN_F32_STEPS = 1, 3
+F32_GATE_REL = 1e-4                # f32 kernels against the plain f32 path, relative L2
+
+
+def phase_train_f32(torch, card, make=None, batch=None):
+    """The default dtype's training step, which launches B3b and B3c in f32:
+    Llama-2-7B width left in f32 (no ``amp.decorate``), the default flags
+    (flash attention on), AdamW(1e-4) with ClipGradByGlobalNorm(1.0)
+    through TrainStep on ``train_batch``'s 4 x 2048.  Gate: at 2 layers the
+    kernels' loss and every grad within F32_GATE_REL relative L2 of the
+    plain path's (OFF_FLAGS) on the same weights.  Then TRAIN_F32_LAYERS
+    layers, TRAIN_F32_WARMUP and TRAIN_F32_STEPS steps: finite, falling
+    losses, each kernel launched as often as the path needs (L B3b and L
+    B3c a step), ms a step, peak memory and a profile of one step with B3b's
+    and B3c's device time.  Returns the counted steps' launches."""
+    import numpy as np
+
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from paddle_tpu_torch.optimizer import AdamW
+
+    make = make or make_llama
+    ids, labels = batch or train_batch(torch, 32000)
+    gc.collect()
+    model = make(2)
+    (lk, gk), (lp, gp) = (loss_and_grads(torch, model, ids[:1], labels[:1], flags)
+                          for flags in (None, OFF_FLAGS))
+    del model
+    r_loss = abs(float(lk) - float(lp)) / abs(float(lp))
+    rows = sorted(((rel_l2(gk[n], gp[n]), n) for n in gp), reverse=True)
+    log(f"train f32 2-layer 1x{ids.shape[1]}: loss kernels {float(lk):.7f} plain "
+        f"{float(lp):.7f} (relative {r_loss:.3g}); grad relative L2 kernels vs plain, worst "
+        f"three: " + "; ".join(f"{n} {r:.3g}" for r, n in rows[:3]))
+    if r_loss > F32_GATE_REL or rows[0][0] > F32_GATE_REL:
+        raise AssertionError(f"f32 2-layer gate: loss {r_loss}, worst grad {rows[0]}")
+    del gk, gp
+    torch.cuda.empty_cache()
+
+    L = TRAIN_F32_LAYERS
+    model = make(L)
+    n_params, n_tensors = model.num_params(), len(list(model.parameters()))
+    opt = AdamW(1e-4, parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(1.0))
+    step = TrainStep(model, lambda m, x, y: m(x, labels=y)[0], opt)
+    label = f"f32 {L} layers"
+    losses = [float(step(ids, labels)) for _ in range(TRAIN_F32_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = [step(ids, labels) for _ in range(TRAIN_F32_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TRAIN_F32_STEPS * 1e3
+    launches, peak = dict(LAUNCHES), torch.cuda.max_memory_allocated()
+    losses += [float(x) for x in out]
+    log(f"train {label} losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"training {label}: losses not finite and falling: {losses}")
+    want = {k: TRAIN_F32_STEPS * v for k, v in step_launches(make, L, n_tensors).items()}
+    log(f"train {label} launches in {TRAIN_F32_STEPS} steps: {launches}")
+    if launches != want:
+        raise AssertionError(f"training {label}: launches {launches}, {TRAIN_F32_STEPS} "
+                             f"steps of {L} layers launch {want}")
+    log(f"train {label} on {card}: {step_ms:.1f} ms a step ({n_params / 1e9:.3f} B params in "
+        f"{n_tensors} tensors, {ids.shape[0]}x{ids.shape[1]}), peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    busy = profile_step(torch, f"train step {label}", lambda: step(ids, labels))
+    mine = {n: ms for n, ms in busy.items() if "bwd_dq_tf32" in n or "bwd_dkv_tf32" in n}
+    log(f"profile train step {label}: B3b + B3c {sum(mine.values()):.3f} ms of "
+        f"{sum(busy.values()):.3f} ms device time ({split_line(mine)})")
+    del model, opt, step
+    return launches
 
 
 def meter_check(torch, meter, mfu, peak, label):
@@ -3567,7 +3824,7 @@ def meter_check(torch, meter, mfu, peak, label):
 def profile_step(torch, label, fn):
     """Device time by kernel and the device's idle share over one call of
     ``fn``, from ``torch.profiler`` (whose own host cost inflates the wall
-    time and so the idle share)."""
+    time and so the idle share); returns {kernel: device ms}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3584,6 +3841,7 @@ def profile_step(torch, label, fn):
     log(f"profile {label}: wall {wall:.2f} ms (profiled), device busy {total:.2f} ms, "
         f"idle share {1 - total / wall:.3f}; top kernels (ms): "
         + "; ".join(f"{name[:48]} {ms:.3f}" for name, ms in top))
+    return busy
 
 
 def phase_profile(torch, generate, T):
@@ -5353,10 +5611,12 @@ SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is count
 # equal); B5's host route is B5 launched on the offload path's pinned states
 COUNTED_AS = {"ring_flash_attention": "flash_attention", "adamw_host": "adamw"}
 
-# the kernels of fleet's hybrid step, of auto_parallel's Engine step and of
-# ERNIE's inference: their launches add those paths
+# the kernels of fleet's hybrid step, of auto_parallel's Engine step, of ERNIE's
+# inference and of the f32 Llama step: their launches add those paths
 EXTRA_PATHS = {"hybrid": frozenset(hybrid_want(1, 1)), "auto": frozenset(hybrid_want(1, 1)),
-               "ernie": frozenset({"flash_attention"})}
+               "ernie": frozenset({"flash_attention"}),
+               "train_f32": frozenset({"flash_attention", "flash_attention_bwd_dq",
+                                       "flash_attention_bwd_dkv"})}
 
 
 def main() -> int:
@@ -5389,6 +5649,9 @@ def main() -> int:
         f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
     train = phase_train(torch, card)
     launches["train"] = train[0]
+    torch.cuda.empty_cache()
+    launches["train_f32"] = phase_train_f32(torch, card)
+    gc.collect()
     torch.cuda.empty_cache()
     phase_fused_ce(torch, card)
     gc.collect()

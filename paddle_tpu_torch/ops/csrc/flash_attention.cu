@@ -156,24 +156,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// ROWS x DP floats of src (row stride `stride` floats) into a [ROWS][DP + 4]
-// tile, 16 bytes a copy, neighbouring threads on neighbouring chunks; rows
-// >= rows_valid and columns >= d are zero
-template <int ROWS, int DP, int THREADS>
-__device__ __forceinline__ void load_f32_tile(float* tile, const float* src, int64_t stride,
-                                              int rows_valid, int d, int tid) {
-  constexpr int kChunks = DP / 4;
-  static_assert((ROWS * kChunks) % THREADS == 0, "whole tiles a pass");
-#pragma unroll
-  for (int n = 0; n < ROWS * kChunks / THREADS; ++n) {
-    const int e = tid + n * THREADS;
-    const int r = e / kChunks, c = (e % kChunks) * 4;
-    const bool valid = r < rows_valid && c < d;
-    hw::cp_async16(hw::smem_u32(tile + r * (DP + 4) + c), valid ? src + r * stride + c : src,
-                   valid);
-  }
-}
-
 // B3 in f32: one block per (tile of kBQ query rows, q head, batch row)
 template <int DP, int NW, int RT, int MIN_BLOCKS>
 __global__ void __launch_bounds__(32 * NW, MIN_BLOCKS)
@@ -208,9 +190,10 @@ fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* _
   const int k_begin = (pad / kBK) * kBK;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
   if (n_tiles > 0) {
-    load_f32_tile<kBQ, DP, kThreads>(Qs, q + q_base + q0 * q_stride, q_stride, sq - q0, d, tid);
-    load_f32_tile<kBK, DP, kThreads>(Ks, k + kv_base + k_begin * kv_stride, kv_stride,
-                                     sk - k_begin, d, tid);
+    hw::load_f32_tile<kBQ, DP, kThreads>(Qs, q + q_base + q0 * q_stride, q_stride, sq - q0, d,
+                                         tid);
+    hw::load_f32_tile<kBK, DP, kThreads>(Ks, k + kv_base + k_begin * kv_stride, kv_stride,
+                                         sk - k_begin, d, tid);
   }
   hw::cp_async_commit();
 
@@ -236,7 +219,7 @@ fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* _
     __syncthreads();  // K tile it (and Q) landed; every lane is done with V
     {
       const int64_t at = kv_base + static_cast<int64_t>(t0) * kv_stride;
-      load_f32_tile<kBK, DP, kThreads>(Vs, v + at, kv_stride, sk - t0, d, tid);
+      hw::load_f32_tile<kBK, DP, kThreads>(Vs, v + at, kv_stride, sk - t0, d, tid);
     }
     hw::cp_async_commit();
 
@@ -303,7 +286,7 @@ fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* _
     __syncthreads();  // V tile it landed and P is written; every lane is done with K
     if (it + 1 < n_tiles) {
       const int64_t at = kv_base + static_cast<int64_t>(t0 + kBK) * kv_stride;
-      load_f32_tile<kBK, DP, kThreads>(Ks, k + at, kv_stride, sk - t0 - kBK, d, tid);
+      hw::load_f32_tile<kBK, DP, kThreads>(Ks, k + at, kv_stride, sk - t0 - kBK, d, tid);
     }
     hw::cp_async_commit();
 

@@ -28,9 +28,12 @@
 // Bound on the H100: the tensor cores.  B3b recomputes S and dP and does
 // dQ (three products of the causal [s, s] by d work), B3c recomputes S and
 // dP and does dV and dK (four): at the training shape [4, 2048, 32, 128]
-// causal 0.2086 and 0.2781 ms at 989 TFLOP/s, together 0.487 ms.  The
-// whole function needs 5 products (SDPA's fused backward: 0.906 ms on this
-// card), the yardstick, not the bound of this split.
+// causal 0.2086 and 0.2781 ms at 989 TFLOP/s in bf16, together 0.487 ms.
+// The whole function needs 5 products (SDPA's fused backward: 0.906 ms on
+// this card), the yardstick, not the bound of this split.  In f32 the same
+// 206.3 + 275.0 GFLOP take 3.08 + 4.10 ms at the FP32 pipes' 67 TFLOP/s;
+// as three TF32 products each on the tensor cores (494.7 TFLOP/s) the floor
+// is 1.25 + 1.67 ms.
 //
 // bf16 with head_dim <= 128 (bwd_dq_wg, bwd_dkv_wg; the head dim padded
 // with zero columns to DP = 64 or 128): each warpgroup of 128 threads owns
@@ -72,255 +75,523 @@
 //
 // bf16 with 128 < d <= 256 keeps the WMMA kernels (bwd_dq_tc, bwd_dkv_tc):
 // 16x16x16 fragments, 32-key tiles, S and dP through shared memory in f32.
-// f32 inputs run SIMT kernels (no tensor-core path keeps full f32): eight
-// threads share a row, each holding an eighth of its vectors in registers,
-// and stream the other operand through shared memory.
+//
+// f32 (bwd_dq_tf32, bwd_dkv_tf32) runs on the tensor cores too, each f32
+// product as three TF32 products (mma_tf32.cuh: hi and lo parts of both
+// operands, lo_a hi_b + hi_a lo_b + hi_a hi_b into f32 accumulators), which
+// keeps about f32's error where one TF32 product keeps three digits.  The
+// FP32 pipes' 67 TFLOP/s cap any SIMT design at 7.2 ms for the pair at the
+// training shape (the SIMT pair that this replaces took 47.96 ms; SDPA's
+// f32 backward, one CUTLASS kernel fmha_cutlassB_f32_*_sm80, 10.47), while
+// three TF32 products run at 164.9 TFLOP/s of f32 work.  Hopper's wgmma
+// takes TF32 only K-major from shared memory (no transpose for 32-bit
+// types), and dQ = dS K, dV = P^T dO and dK = dS^T Q read their B operand
+// along the other axis, so the products are warp-level mma.sync m16n8k8,
+// whose fragments a lane loads itself:
+//   * The layout is FA2's on m16n8k8: a warp owns 16 rows of the block's
+//     resident operand (Q and dO in B3b, K and V in B3c, both in shared
+//     memory: at d 128 a warp's 16 rows of one operand are 64 registers a
+//     lane, split in two 128) and multiplies them against the streamed
+//     tiles (K, V in B3b; Q, dO with their lse and delta in B3c), which
+//     come through two cp.async stages with zero fill for ragged rows and
+//     the DP - d columns.  Rows are DP + 4 floats apart.
+//   * S = Q K^T and dP = dO V^T sum over the head dim in any order, so the
+//     k slots follow the loads (mma_xyt): a lane's A and B values of four
+//     k steps are 8 consecutive floats of a row, two float4 loads, and the
+//     8 lanes of a quarter warp hit 32 distinct banks.
+//   * P and dS are computed in the accumulators (exp2 of s * scale * log2e
+//     - lse * log2e by ex2.approx) and are already the A operand of the
+//     next product: the k order of dQ += dS K (dV += P^T dO, dK += dS^T Q)
+//     is permuted so that slot t is the accumulator's column 2 t and slot
+//     t + 4 its column 2 t + 1, and B reads rows 2 t and 2 t + 1 (mma_ay).
+//     The output columns are permuted as well, so that those B reads and
+//     the final stores are float4s.  No shuffle, no shared-memory round
+//     trip for P or dS.
+//   * The tensor cores add into their accumulator without rounding to
+//     nearest: with dK and dV summed in one accumulator over all their rows,
+//     3146 elements of dK and 4247 of dV at Llama-2-70B's GQA (16384 rows a
+//     key) fell outside the f32 tolerance of the plain backward (largest
+//     errors 8.8e-4 and 1.6e-3).  So each streamed tile's products sum into
+//     a zeroed accumulator that the FP32 pipe then adds, rounded to nearest
+//     (mma_ay): 2.1e-5 and 2.6e-5, at the same speed.
+//   * Operands are split at each fragment load (3 instructions), from one
+//     f32 copy in shared memory: hi and lo planes of every tile would not
+//     fit two stages beside the resident operands at d 128, and dropping
+//     the splits altogether saves a tenth of the time (below).
+//   * Tiles wholly above the diagonal are not loaded, a warp whose rows see
+//     none of a tile skips it, and only tiles that cross the diagonal or the
+//     ragged edge mask per element.  Every sum runs in a fixed order in one
+//     block: two launches give the same bits.
+// Instances (DP: warps, streamed rows a tile, shared memory, blocks an SM):
+// B3b 64: 4, 64, 102 KB, two; 128: 8, 32, 198 KB, one; 256: 4, 16, 195 KB.
+// B3c 64: 4, 32, 68.5 KB, two (registers); 128: 8, 32, 198.5 KB, one; 256:
+// 4, 16, 195 KB, dK and dV in two passes of 128 columns.  ptxas: no spill
+// at DP 64 and 128 (200-247 registers); 64 bytes at B3c's DP 256.
+// What bounds it, measured (chip_smoke.py's flash_bwd_tf32_ab: copies of
+// this file that differ in one choice, timed in turns in one call, medians
+// of 4, f32 on an H100 80GB HBM3 at 700 W; PERF.md section 6): at
+// [4, 2048, 32, 128] causal B3b 3.89 ms and B3c 5.04, 3.1x and 3.0x their
+// 3xTF32 floor (SDPA's whole f32 backward 10.53).  One TF32 product instead
+// of three (no lo parts) leaves 2.08 and 2.57 ms, three products of unsplit
+// operands 3.36 and 4.62: the two extra products take about a third of the
+// time and the splits a tenth, while even one product a product runs the
+// tensor cores at a fifth of their TF32 rate, so the fragment loads,
+// exponentials and latencies of mma.sync around them bound it, not the
+// tensor cores.  Rejected in the same call (B3b, B3c ms at that shape
+// unless marked): four warps at DP 128 (4.93; 6.61 with 40 bytes of
+// spills); 16-key tiles and two blocks an SM for B3b (4.46); 16-row tiles
+// for B3c (5.88); lo rounded to nearest before the product (4.36, 5.66);
+// hi rounded by cvt.rna.tf32.f32 instead of two integer instructions
+// (4.81, 6.21); the head-dim loop of S and dP not unrolled (4.01, 5.15); at
+// ERNIE 3.0 base's [16, 512, 12, 64], 32-key tiles for B3b (0.377 against
+// 0.352 ms) and eight warps for B3c (0.496 against 0.482).
 #include <mma.h>
 
 #include "common.cuh"
 #include "flash_common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// f32: SIMT
-// ---------------------------------------------------------------------------
-constexpr int kThreads = 128;
-constexpr int kRT = 8;                  // threads per row
-constexpr int kRows = kThreads / kRT;   // rows per block
-constexpr int kTile = 32;               // rows of the streamed operand per tile
-
-__device__ __forceinline__ float row_sum(float v) {  // over a row's kRT lanes
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  return v;
-}
-
-template <int DPT>
-__global__ void __launch_bounds__(kThreads)
-bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const float* __restrict__ o,
-           const float* __restrict__ dout, const float* __restrict__ lse,
-           float* __restrict__ dq, float* __restrict__ delta_out, int sq, int sk,
-           int hq, int hkv, int d, float scale, int causal) {
-  extern __shared__ float smem[];
-  float* ks = smem;              // [kTile][d]
-  float* vs = smem + kTile * d;  // [kTile][d]
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRows;
-  const int hk = h / (hq / hkv);
-  const int sub = threadIdx.x % kRT;
-  const int row = q0 + threadIdx.x / kRT;
-  const bool row_ok = row < sq;
-  const int offset = sk - sq;
-  const int64_t qoff = ((static_cast<int64_t>(b) * sq + row) * hq + h) * d;
-
-  float qr[DPT], dor[DPT], acc[DPT];
-  float delta = 0.f;
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    const int c = sub + kRT * i;
-    const bool ok = row_ok && c < d;
-    qr[i] = ok ? q[qoff + c] : 0.f;
-    dor[i] = ok ? dout[qoff + c] : 0.f;
-    delta += ok ? dor[i] * o[qoff + c] : 0.f;
-    acc[i] = 0.f;
-  }
-  delta = row_sum(delta);
-  const int64_t lrow = (static_cast<int64_t>(b) * hq + h) * sq + row;
-  const float lse_r = row_ok ? lse[lrow] : 0.f;
-  if (row_ok && sub == 0) delta_out[lrow] = delta;
-
-  const int last_row = min(q0 + kRows, sq) - 1;
-  const int k_end = causal ? min(sk, last_row + offset + 1) : sk;
-  const int64_t kv_stride = static_cast<int64_t>(hkv) * d;
-  const int64_t kv_base = static_cast<int64_t>(b) * sk * kv_stride +
-                          static_cast<int64_t>(hk) * d;
-  for (int t0 = 0; t0 < k_end; t0 += kTile) {
-    __syncthreads();  // the previous tile is consumed
-    for (int e = threadIdx.x; e < kTile * d; e += kThreads) {
-      const int jr = e / d, c = e - jr * d;
-      const int kr = t0 + jr;
-      const bool ok = kr < sk;
-      const int64_t off = kv_base + kr * kv_stride + c;
-      ks[e] = ok ? k[off] : 0.f;
-      vs[e] = ok ? v[off] : 0.f;
-    }
-    __syncthreads();
-    const int jn = min(kTile, k_end - t0);
-    for (int j = 0; j < jn; ++j) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) {
-        const int c = sub + kRT * i;
-        if (c < d) {
-          s += qr[i] * ks[j * d + c];
-          dp += dor[i] * vs[j * d + c];
-        }
-      }
-      s = row_sum(s);
-      dp = row_sum(dp);
-      const int col = t0 + j;
-      const bool ok = row_ok && (!causal || col <= row + offset) && lse_r != -INFINITY;
-      const float p = ok ? expf(s * scale - lse_r) : 0.f;
-      const float ds = p * (dp - delta) * scale;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) {
-        const int c = sub + kRT * i;
-        if (c < d) acc[i] += ds * ks[j * d + c];
-      }
-    }
-  }
-  if (row_ok) {
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      const int c = sub + kRT * i;
-      if (c < d) dq[qoff + c] = acc[i];
-    }
-  }
-}
-
-template <int DPT>
-__global__ void __launch_bounds__(kThreads)
-bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            float* __restrict__ dk, float* __restrict__ dv, int sq, int sk, int hq,
-            int hkv, int d, float scale, int causal) {
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [kTile][d]
-  float* dos = smem + kTile * d;    // [kTile][d]
-  float* ls = dos + kTile * d;      // [kTile] lse of the tile's rows
-  float* dls = ls + kTile;          // [kTile] delta of the tile's rows
-  const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * kRows;
-  const int rep = hq / hkv;
-  const int sub = threadIdx.x % kRT;
-  const int key = k0 + threadIdx.x / kRT;
-  const bool key_ok = key < sk;
-  const int offset = sk - sq;
-  const int64_t koff = ((static_cast<int64_t>(b) * sk + key) * hkv + hk) * d;
-
-  float kr[DPT], vr[DPT], dka[DPT], dva[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    const int c = sub + kRT * i;
-    const bool ok = key_ok && c < d;
-    kr[i] = ok ? k[koff + c] : 0.f;
-    vr[i] = ok ? v[koff + c] : 0.f;
-    dka[i] = 0.f;
-    dva[i] = 0.f;
-  }
-  // the first query row that sees key k0 is k0 - offset
-  const int q_begin = causal ? max(0, k0 - offset) : 0;
-  const int64_t q_stride = static_cast<int64_t>(hq) * d;
-  for (int r = 0; r < rep; ++r) {
-    const int h = hk * rep + r;
-    const int64_t q_base = static_cast<int64_t>(b) * sq * q_stride +
-                           static_cast<int64_t>(h) * d;
-    const int64_t l_base = (static_cast<int64_t>(b) * hq + h) * sq;
-    for (int t0 = q_begin; t0 < sq; t0 += kTile) {
-      __syncthreads();  // the previous tile is consumed
-      for (int e = threadIdx.x; e < kTile * d; e += kThreads) {
-        const int ir = e / d, c = e - ir * d;
-        const int qr_ = t0 + ir;
-        const bool ok = qr_ < sq;
-        const int64_t off = q_base + qr_ * q_stride + c;
-        qs[e] = ok ? q[off] : 0.f;
-        dos[e] = ok ? dout[off] : 0.f;
-      }
-      for (int i = threadIdx.x; i < kTile; i += kThreads) {
-        const bool ok = t0 + i < sq;
-        ls[i] = ok ? lse[l_base + t0 + i] : -INFINITY;
-        dls[i] = ok ? delta[l_base + t0 + i] : 0.f;
-      }
-      __syncthreads();
-      const int in = min(kTile, sq - t0);
-      for (int i = 0; i < in; ++i) {
-        float s = 0.f, dp = 0.f;
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) {
-          const int c = sub + kRT * j;
-          if (c < d) {
-            s += kr[j] * qs[i * d + c];
-            dp += vr[j] * dos[i * d + c];
-          }
-        }
-        s = row_sum(s);
-        dp = row_sum(dp);
-        const int row = t0 + i;
-        const bool ok = key_ok && (!causal || key <= row + offset) && ls[i] != -INFINITY;
-        const float p = ok ? expf(s * scale - ls[i]) : 0.f;
-        const float ds = p * (dp - dls[i]) * scale;
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) {
-          const int c = sub + kRT * j;
-          if (c < d) {
-            dva[j] += p * dos[i * d + c];
-            dka[j] += ds * qs[i * d + c];
-          }
-        }
-      }
-    }
-  }
-  if (key_ok) {
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      const int c = sub + kRT * i;
-      if (c < d) {
-        dk[koff + c] = dka[i];
-        dv[koff + c] = dva[i];
-      }
-    }
-  }
-}
-
+namespace hw = ptt::sm90;
 using ptt::sm90::set_smem;  // the largest carveout: two ~100 KB blocks an SM
 
-template <int DPT>
-int launch_f32(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const void* lse, void* dq, void* dk, void* dv,
-               void* delta, int b, int sq, int sk, int hq, int hkv, int d,
-               float scale, int causal, bool dq_pass, cudaStream_t s) {
-  if (dq_pass) {
-    const size_t smem = 2 * static_cast<size_t>(kTile) * d * sizeof(float);
-    auto kernel = bwd_dq_f32<DPT>;
-    cudaError_t e = set_smem(kernel, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<dim3((sq + kRows - 1) / kRows, hq, b), kThreads, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(o),
-        static_cast<const float*>(dout), static_cast<const float*>(lse),
-        static_cast<float*>(dq), static_cast<float*>(delta), sq, sk, hq, hkv, d, scale,
-        causal);
-  } else {
-    const size_t smem = (2 * static_cast<size_t>(kTile) * d + 2 * kTile) * sizeof(float);
-    auto kernel = bwd_dkv_f32<DPT>;
-    cudaError_t e = set_smem(kernel, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<dim3((sk + kRows - 1) / kRows, hkv, b), kThreads, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, hq, hkv, d, scale,
-        causal);
+// ---------------------------------------------------------------------------
+// f32: 3xTF32 products on the tensor cores (mma.sync m16n8k8, mma_tf32.cuh)
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// acc[j] += X Y_j^T: X is a warp's 16 rows at x (this lane reads rows g and
+// g + 8), Y_j the 8 rows at y + 8 j rows (this lane reads row 8 j + g), both
+// row-major with row stride LD, summed over the head dim's 32-column groups
+// below d.  The sum over the head dim runs in any order, so the k slots are
+// assigned to suit the loads: in each group, lane t's slots t and t + 4 of
+// four k steps are the 8 floats at column 8 t, two float4 loads a row (slot
+// t of a step is an even column, slot t + 4 the odd one after it).  With LD
+// = 4 mod 32 the 8 lanes of each quarter warp hit 32 distinct banks.
+template <int NT, int LD>
+__device__ __forceinline__ void mma_xyt(float (&acc)[NT][4], const float* x, const float* y,
+                                        int d, int g, int t) {
+  const float* xr = x + g * LD + 8 * t;
+  const float* yr = y + g * LD + 8 * t;
+#pragma unroll
+  for (int c = 0; c < LD - 4; c += 32) {  // LD - 4 = DP
+    if (c >= d) break;
+#pragma unroll
+    for (int h = 0; h < 8; h += 4) {
+      const float4 xa = lds4(xr + c + h), xb = lds4(xr + 8 * LD + c + h);
+      uint32_t ah[2][4], al[2][4];  // two k steps: columns (+0, +1) and (+2, +3)
+      hw::split_tf32(xa.x, ah[0][0], al[0][0]);
+      hw::split_tf32(xb.x, ah[0][1], al[0][1]);
+      hw::split_tf32(xa.y, ah[0][2], al[0][2]);
+      hw::split_tf32(xb.y, ah[0][3], al[0][3]);
+      hw::split_tf32(xa.z, ah[1][0], al[1][0]);
+      hw::split_tf32(xb.z, ah[1][1], al[1][1]);
+      hw::split_tf32(xa.w, ah[1][2], al[1][2]);
+      hw::split_tf32(xb.w, ah[1][3], al[1][3]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float4 yv = lds4(yr + 8 * j * LD + c + h);
+        uint32_t bh[2][2], bl[2][2];
+        hw::split_tf32(yv.x, bh[0][0], bl[0][0]);
+        hw::split_tf32(yv.y, bh[0][1], bl[0][1]);
+        hw::split_tf32(yv.z, bh[1][0], bl[1][0]);
+        hw::split_tf32(yv.w, bh[1][1], bl[1][1]);
+        hw::mma_3xtf32(acc[j], ah[0], al[0], bh[0], bl[0]);
+        hw::mma_3xtf32(acc[j], ah[1], al[1], bh[1], bl[1]);
+      }
+    }
   }
+}
+
+// acc[j] += A Y over NK k steps of 8: A is a warp's [16][8 NK] accumulator
+// of mma_xyt (k step s is its n tile s) and Y the 8 NK rows at y (row
+// stride LD).  No shuffle brings A into the A layout: k slot t stands for
+// the accumulator's column 2 t and slot t + 4 for 2 t + 1, so a lane's
+// accumulator registers are its A registers (a0 = c0, a1 = c2, a2 = c1,
+// a3 = c3), and B reads rows 2 t and 2 t + 1 of the step.  The output's
+// columns are permuted too: column c of n tile j is head-dim column
+// 32 (j / 4) + 4 c + j % 4, so that B's column g of the tiles 4 v .. 4 v + 3
+// is the float4 at 32 v + 4 g (conflict-free with LD = 4 mod 32), and a
+// lane's accumulator columns 2 t and 2 t + 1 are the 8 floats at 32 v + 8 t
+// (store_xy).  The tensor cores add into their f32 accumulator without
+// rounding to nearest, a bias that grows with the number of additions (dK
+// at Llama-2-70B's GQA sums 16384 rows); so the NK steps sum into a zeroed
+// accumulator, 3 NK additions, and that is added to acc by the FP32 pipe,
+// rounded to nearest.  Column groups at or past d are skipped.
+template <int NK, int NJ, int LD>
+__device__ __forceinline__ void mma_ay(float (&acc)[NJ][4], const float (&a)[NK][4],
+                                       const float* y, int d, int g, int t) {
+  const float* y0 = y + 2 * t * LD + 4 * g;
+#pragma unroll
+  for (int v = 0; v < NJ / 4; ++v) {
+    if (32 * v >= d) continue;
+    float part[4][4] = {};
+#pragma unroll
+    for (int s = 0; s < NK; ++s) {
+      uint32_t ah[4], al[4];
+      hw::split_tf32(a[s][0], ah[0], al[0]);
+      hw::split_tf32(a[s][2], ah[1], al[1]);
+      hw::split_tf32(a[s][1], ah[2], al[2]);
+      hw::split_tf32(a[s][3], ah[3], al[3]);
+      const float4 r0 = lds4(y0 + 8 * s * LD + 32 * v), r1 = lds4(y0 + (8 * s + 1) * LD + 32 * v);
+      const float b0[4] = {r0.x, r0.y, r0.z, r0.w}, b1[4] = {r1.x, r1.y, r1.z, r1.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t bh[2], bl[2];
+        hw::split_tf32(b0[e], bh[0], bl[0]);
+        hw::split_tf32(b1[e], bh[1], bl[1]);
+        hw::mma_3xtf32(part[e], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[4 * v + e][x] += part[e][x];
+  }
+}
+
+// rows r and r + 8 of a warp's output accumulator in mma_ay's column order
+// to dst + row * stride, columns below d; rows >= rows_valid are not stored
+template <int NJ>
+__device__ __forceinline__ void store_xy(const float (&acc)[NJ][4], float* dst, int64_t stride,
+                                         int r, int rows_valid, int d, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (r + 8 * i >= rows_valid) continue;
+    float* row = dst + (r + 8 * i) * stride + 8 * t;
+#pragma unroll
+    for (int v = 0; v < NJ / 4; ++v) {
+      if (32 * v + 8 * t >= d) continue;  // d % 8 == 0: all 8 columns or none
+      *reinterpret_cast<float4*>(row + 32 * v) =
+          make_float4(acc[4 * v][2 * i], acc[4 * v + 1][2 * i], acc[4 * v + 2][2 * i],
+                      acc[4 * v + 3][2 * i]);
+      *reinterpret_cast<float4*>(row + 32 * v + 4) =
+          make_float4(acc[4 * v][2 * i + 1], acc[4 * v + 1][2 * i + 1],
+                      acc[4 * v + 2][2 * i + 1], acc[4 * v + 3][2 * i + 1]);
+    }
+  }
+}
+
+// B3b in f32: one block per (tile of 16 NW query rows, q head, batch row),
+// 16 rows a warp; Q and dO stay in shared memory, K and V tiles of BK keys
+// stream through two cp.async stages
+template <int DP, int NW, int BK>
+struct Tf32Dq {
+  static constexpr int kThreads = 32 * NW;
+  static constexpr int kBQ = 16 * NW;
+  static constexpr int kLD = DP + 4;  // row stride of every tile, in floats
+  static constexpr size_t kSmem = sizeof(float) * (2 * kBQ + 4 * BK) * static_cast<size_t>(kLD);
+};
+
+template <int DP, int NW, int BK, int MIN_BLOCKS>
+__global__ void __launch_bounds__(32 * NW, MIN_BLOCKS)
+bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+            const float* __restrict__ o, const float* __restrict__ dout,
+            const float* __restrict__ lse, float* __restrict__ dq,
+            float* __restrict__ delta_out, int sq, int sk, int hq, int hkv, int d, float scale,
+            int causal) {
+  using L = Tf32Dq<DP, NW, BK>;
+  constexpr int kBQ = L::kBQ, kLD = L::kLD, kThreads = L::kThreads, kNT = BK / 8;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;               // [kBQ][kLD]
+  float* dOs = Qs + kBQ * kLD;   // [kBQ][kLD]
+  float* KVs = dOs + kBQ * kLD;  // stage st: K at KVs + 2 st BK kLD, V after it
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // the last query tiles see the most keys: launched first, they leave the
+  // light ones for the end of the grid
+  const int b = blockIdx.z, h = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int hk = h / (hq / hkv);
+  const int offset = sk - sq;
+  const int64_t q_stride = static_cast<int64_t>(hq) * d;
+  const int64_t kv_stride = static_cast<int64_t>(hkv) * d;
+  const int64_t q_base = static_cast<int64_t>(b) * sq * q_stride + static_cast<int64_t>(h) * d;
+  const int64_t kv_base = static_cast<int64_t>(b) * sk * kv_stride + static_cast<int64_t>(hk) * d;
+
+  const int last_row = min(q0 + kBQ, sq) - 1;
+  const int k_end = causal ? min(sk, last_row + offset + 1) : sk;
+  const int n_tiles = k_end > 0 ? (k_end + BK - 1) / BK : 0;
+  auto load_kv = [&](int it) {
+    float* Kt = KVs + 2 * (it % 2) * BK * kLD;
+    const int64_t at = kv_base + static_cast<int64_t>(it) * BK * kv_stride;
+    hw::load_f32_tile<BK, DP, kThreads>(Kt, k + at, kv_stride, sk - it * BK, d, tid);
+    hw::load_f32_tile<BK, DP, kThreads>(Kt + BK * kLD, v + at, kv_stride, sk - it * BK, d, tid);
+  };
+  hw::load_f32_tile<kBQ, DP, kThreads>(Qs, q + q_base + q0 * q_stride, q_stride, sq - q0, d, tid);
+  hw::load_f32_tile<kBQ, DP, kThreads>(dOs, dout + q_base + q0 * q_stride, q_stride, sq - q0, d,
+                                   tid);
+  if (n_tiles > 0) load_kv(0);
+  hw::cp_async_commit();
+
+  // this lane's rows: r_lo and r_lo + 8 of the tile.  delta = rowsum(dO O)
+  // from device memory while the tiles land, the four lanes of a row taking
+  // every fourth float4
+  const int r_lo = 16 * warp + g;
+  float delta_r[2], lse2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r_lo + 8 * i;
+    float acc = 0.f;
+    if (row < sq) {
+      const float* orow = o + q_base + row * q_stride;
+      const float* drow = dout + q_base + row * q_stride;
+      for (int c = 4 * t; c < d; c += 16) {
+        const float4 ov = *reinterpret_cast<const float4*>(orow + c);
+        const float4 dv = *reinterpret_cast<const float4*>(drow + c);
+        acc = fmaf(dv.x, ov.x, acc);
+        acc = fmaf(dv.y, ov.y, acc);
+        acc = fmaf(dv.z, ov.z, acc);
+        acc = fmaf(dv.w, ov.w, acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    delta_r[i] = acc;
+    const int64_t lrow = (static_cast<int64_t>(b) * hq + h) * sq + row;
+    lse2[i] = row < sq ? hw::lse_log2(lse[lrow]) : INFINITY;
+    if (row < sq && t == 0) delta_out[lrow] = acc;
+  }
+
+  float dq_acc[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
+  const float sl2 = scale * hw::kLog2e;
+  const int w0 = q0 + 16 * warp;  // the warp's first row
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = it * BK;
+    const float* Kt = KVs + 2 * (it % 2) * BK * kLD;
+    const float* Vt = Kt + BK * kLD;
+    hw::cp_async_wait<0>();
+    __syncthreads();  // tile it has landed; every warp is done with tile it - 1's stage
+    if (it + 1 < n_tiles) load_kv(it + 1);
+    hw::cp_async_commit();
+    if (causal && t0 > w0 + 15 + offset) continue;  // no row of this warp sees the tile
+
+    float s[kNT][4], dp[kNT][4];  // S = Q K^T, dP = dO V^T: this warp's rows, BK keys
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    mma_xyt<kNT, kLD>(s, Qs + 16 * warp * kLD, Kt, d, g, t);
+    mma_xyt<kNT, kLD>(dp, dOs + 16 * warp * kLD, Vt, d, g, t);
+
+    // ds = p (dp - delta) scale over s, p = 2^(s scale log2 e - lse log2 e);
+    // s[j][2 i + e] is row r_lo + 8 i, key t0 + 8 j + 2 t + e.  Only a tile
+    // that crosses the warp's diagonal or the last key masks per element.
+    const bool edge = (causal && t0 + BK - 1 > w0 + offset) || t0 + BK > sk;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int lim = min(sk, causal ? q0 + r_lo + 8 * i + offset + 1 : sk) - t0;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 2 * i + e;
+          float p = hw::exp2_approx(fmaf(s[j][x], sl2, -lse2[i]));
+          if (edge && 8 * j + 2 * t + e >= lim) p = 0.f;
+          s[j][x] = p * (dp[j][x] - delta_r[i]) * scale;
+        }
+    }
+    mma_ay<kNT, DP / 8, kLD>(dq_acc, s, Kt, d, g, t);  // dQ += dS K
+  }
+  hw::cp_async_wait<0>();
+  store_xy(dq_acc, dq + q_base, q_stride, q0 + r_lo, sq, d, t);
+}
+
+// B3c in f32: one block per (tile of 16 NW keys, kv head, batch row), 16
+// keys a warp; K and V stay in shared memory, the group's Q and dO tiles of
+// BQ rows, with their lse and delta, stream through two cp.async stages.
+// S^T = K Q^T and dP^T = V dO^T leave P^T and dS^T in the accumulator
+// layout that mma_ay takes as the A of dV += P^T dO and dK += dS^T Q.  dK
+// and dV are accumulated DC head-dim columns a pass (a second pass at d >
+// 128 recomputes S^T and dP^T rather than hold 256 accumulators a lane).
+template <int DP, int NW, int BQ>
+struct Tf32Dkv {
+  static constexpr int kThreads = 32 * NW;
+  static constexpr int kBK = 16 * NW;
+  static constexpr int kLD = DP + 4;
+  static constexpr size_t kSmem =
+      sizeof(float) * ((2 * kBK + 4 * BQ) * static_cast<size_t>(kLD) + 4 * BQ);
+};
+
+template <int DP, int NW, int BQ, int DC, int MIN_BLOCKS>
+__global__ void __launch_bounds__(32 * NW, MIN_BLOCKS)
+bwd_dkv_tf32(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             float* __restrict__ dk, float* __restrict__ dv, int sq, int sk, int hq, int hkv,
+             int d, float scale, int causal) {
+  using L = Tf32Dkv<DP, NW, BQ>;
+  constexpr int kBK = L::kBK, kLD = L::kLD, kThreads = L::kThreads, kNT = BQ / 8;
+  static_assert(kThreads >= 2 * BQ && DP % DC == 0, "a thread a row of lse, delta");
+  extern __shared__ __align__(16) float fsm[];
+  float* Ks = fsm;               // [kBK][kLD]
+  float* Vs = Ks + kBK * kLD;    // [kBK][kLD]
+  float* QDs = Vs + kBK * kLD;   // stage st: Q at QDs + 2 st BQ kLD, dO after it
+  float* LDs = QDs + 4 * BQ * kLD;  // stage st: lse at LDs + 2 st BQ, delta after it
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * kBK;
+  const int rep = hq / hkv;
+  const int offset = sk - sq;
+  const int64_t q_stride = static_cast<int64_t>(hq) * d;
+  const int64_t kv_stride = static_cast<int64_t>(hkv) * d;
+  const int64_t kv_base = static_cast<int64_t>(b) * sk * kv_stride + static_cast<int64_t>(hk) * d;
+
+  // the first query row that sees key k0 is k0 - offset; tiles run over the
+  // group's rep heads, n_qt tiles each
+  const int q_begin = causal ? max(0, k0 - offset) : 0;
+  const int n_qt = q_begin < sq ? (sq - q_begin + BQ - 1) / BQ : 0;
+  const int n_tiles = rep * n_qt;
+  auto load_q = [&](int it) {
+    const int r = it / n_qt, t0 = q_begin + (it - r * n_qt) * BQ;
+    const int h = hk * rep + r;
+    const int64_t at = static_cast<int64_t>(b) * sq * q_stride + static_cast<int64_t>(h) * d +
+                       t0 * q_stride;
+    float* Qt = QDs + 2 * (it % 2) * BQ * kLD;
+    hw::load_f32_tile<BQ, DP, kThreads>(Qt, q + at, q_stride, sq - t0, d, tid);
+    hw::load_f32_tile<BQ, DP, kThreads>(Qt + BQ * kLD, dout + at, q_stride, sq - t0, d, tid);
+    if (tid < 2 * BQ) {
+      const int i = tid % BQ;
+      const bool valid = t0 + i < sq;
+      const int64_t l = (static_cast<int64_t>(b) * hq + h) * sq + t0 + i;
+      hw::cp_async4(hw::smem_u32(LDs + 2 * (it % 2) * BQ + tid),
+                    valid ? (tid < BQ ? lse : delta) + l : lse, valid);
+    }
+  };
+  hw::load_f32_tile<kBK, DP, kThreads>(Ks, k + kv_base + k0 * kv_stride, kv_stride, sk - k0, d,
+                                       tid);
+  hw::load_f32_tile<kBK, DP, kThreads>(Vs, v + kv_base + k0 * kv_stride, kv_stride, sk - k0, d,
+                                       tid);
+
+  const float sl2 = scale * hw::kLog2e;
+  const int r_lo = 16 * warp + g;  // this lane's keys: k0 + r_lo and k0 + r_lo + 8
+  const int w0 = k0 + 16 * warp;   // the warp's first key
+  for (int c0 = 0; c0 < DP; c0 += DC) {
+    if (n_tiles > 0) load_q(0);  // K and V land with tile 0
+    hw::cp_async_commit();
+    float dk_acc[DC / 8][4], dv_acc[DC / 8][4];
+#pragma unroll
+    for (int j = 0; j < DC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int t0 = q_begin + (it % n_qt) * BQ;
+      const float* Qt = QDs + 2 * (it % 2) * BQ * kLD;
+      const float* dOt = Qt + BQ * kLD;
+      const float* ls = LDs + 2 * (it % 2) * BQ;
+      const float* dls = ls + BQ;
+      hw::cp_async_wait<0>();
+      __syncthreads();  // tile it has landed; every warp is done with tile it - 1's stage
+      if (it + 1 < n_tiles) load_q(it + 1);
+      hw::cp_async_commit();
+      if (causal && w0 > t0 + BQ - 1 + offset) continue;  // no row sees this warp's keys
+
+      float s[kNT][4], dp[kNT][4];  // S^T = K Q^T, dP^T = V dO^T: this warp's keys, BQ rows
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      mma_xyt<kNT, kLD>(s, Ks + 16 * warp * kLD, Qt, d, g, t);
+      mma_xyt<kNT, kLD>(dp, Vs + 16 * warp * kLD, dOt, d, g, t);
+
+      // p^T over s and ds^T over dp; s[j][2 i + e] is key k0 + r_lo + 8 i,
+      // query row t0 + 8 j + 2 t + e with its own lse and delta.  Only a
+      // tile that crosses the warp's diagonal or the last row masks per
+      // element.
+      const bool edge = (causal && w0 + 15 > t0 + offset) || t0 + BQ > sq;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(dls + c);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float lc = hw::lse_log2(e ? l2.y : l2.x), dc = e ? d2.y : d2.x;
+          // keys that query row t0 + c + e sees: key <= t0 + c + e + offset
+          const int lim = t0 + c + e < sq ? (causal ? t0 + c + e + offset + 1 : sk) : -1;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int x = 2 * i + e;
+            float p = hw::exp2_approx(fmaf(s[j][x], sl2, -lc));
+            if (edge && k0 + r_lo + 8 * i >= lim) p = 0.f;
+            s[j][x] = p;
+            dp[j][x] = p * (dp[j][x] - dc) * scale;
+          }
+        }
+      }
+      mma_ay<kNT, DC / 8, kLD>(dv_acc, s, dOt + c0, d - c0, g, t);  // dV += P^T dO
+      mma_ay<kNT, DC / 8, kLD>(dk_acc, dp, Qt + c0, d - c0, g, t);  // dK += dS^T Q
+    }
+    hw::cp_async_wait<0>();
+    store_xy(dk_acc, dk + kv_base + c0, kv_stride, k0 + r_lo, sk, d - c0, t);
+    store_xy(dv_acc, dv + kv_base + c0, kv_stride, k0 + r_lo, sk, d - c0, t);
+    __syncthreads();  // the next pass reloads stage 0
+  }
+}
+
+template <int DP, int NW, int BK, int MIN_BLOCKS>
+int launch_dq_tf32(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                   const void* lse, void* dq, void* delta, int b, int sq, int sk, int hq,
+                   int hkv, int d, float scale, int causal, cudaStream_t s) {
+  using L = Tf32Dq<DP, NW, BK>;
+  auto kernel = bwd_dq_tf32<DP, NW, BK, MIN_BLOCKS>;
+  const cudaError_t e = set_smem(kernel, L::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3((sq + L::kBQ - 1) / L::kBQ, hq, b), L::kThreads, L::kSmem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(o), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<float*>(dq), static_cast<float*>(delta), sq,
+      sk, hq, hkv, d, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_f32(const void* q, const void* k, const void* v, const void* o,
-                 const void* dout, const void* lse, void* dq, void* dk, void* dv,
-                 void* delta, int b, int sq, int sk, int hq, int hkv, int d, float scale,
-                 int causal, bool dq_pass, cudaStream_t s) {
-  const int dpt = (d + kRT - 1) / kRT;
-#define PTT_F32(N)                                                                 \
-  return launch_f32<N>(q, k, v, o, dout, lse, dq, dk, dv, delta, b, sq, sk, hq, hkv, \
-                       d, scale, causal, dq_pass, s)
-  if (dpt <= 2) PTT_F32(2);
-  if (dpt <= 4) PTT_F32(4);
-  if (dpt <= 8) PTT_F32(8);
-  if (dpt <= 16) PTT_F32(16);
-  PTT_F32(32);
-#undef PTT_F32
+template <int DP, int NW, int BQ, int DC, int MIN_BLOCKS>
+int launch_dkv_tf32(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dk, void* dv, int b, int sq,
+                    int sk, int hq, int hkv, int d, float scale, int causal, cudaStream_t s) {
+  using L = Tf32Dkv<DP, NW, BQ>;
+  auto kernel = bwd_dkv_tf32<DP, NW, BQ, DC, MIN_BLOCKS>;
+  const cudaError_t e = set_smem(kernel, L::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3((sk + L::kBK - 1) / L::kBK, hkv, b), L::kThreads, L::kSmem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), sq,
+      sk, hq, hkv, d, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the instances of the note at the top of this file
+int dispatch_tf32(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                  const void* lse, void* dq, void* dk, void* dv, void* delta, int b, int sq,
+                  int sk, int hq, int hkv, int d, float scale, int causal, bool dq_pass,
+                  cudaStream_t s) {
+  if (dq_pass) {
+    if (d <= 64)
+      return launch_dq_tf32<64, 4, 64, 2>(q, k, v, o, dout, lse, dq, delta, b, sq, sk, hq, hkv,
+                                          d, scale, causal, s);
+    if (d <= 128)
+      return launch_dq_tf32<128, 8, 32, 1>(q, k, v, o, dout, lse, dq, delta, b, sq, sk, hq,
+                                           hkv, d, scale, causal, s);
+    return launch_dq_tf32<256, 4, 16, 1>(q, k, v, o, dout, lse, dq, delta, b, sq, sk, hq, hkv,
+                                         d, scale, causal, s);
+  }
+  if (d <= 64)
+    return launch_dkv_tf32<64, 4, 32, 64, 2>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk, hq,
+                                             hkv, d, scale, causal, s);
+  if (d <= 128)
+    return launch_dkv_tf32<128, 8, 32, 128, 1>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk, hq,
+                                               hkv, d, scale, causal, s);
+  return launch_dkv_tf32<256, 4, 16, 128, 1>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk, hq,
+                                             hkv, d, scale, causal, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -656,7 +927,6 @@ bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
 // ---------------------------------------------------------------------------
 // bf16, head_dim <= 128: wgmma, S and dP in registers, cp.async tile ring
 // ---------------------------------------------------------------------------
-namespace hw = ptt::sm90;
 // One warpgroup of 128 threads a block; its accumulators' 64 rows (wgmma's
 // m) are the block's resident tile, and the streamed tiles are 64 rows too
 constexpr int kWgThreads = 128;
@@ -1014,8 +1284,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* o, const v
   if (b == 0 || sq == 0 || sk == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != ptt::kBF16)
-    return dispatch_f32(q, k, v, o, dout, lse, dq, dk, dv, delta, b, sq, sk, hq, hkv, d,
-                        scale, causal, dq_pass, s);
+    return dispatch_tf32(q, k, v, o, dout, lse, dq, dk, dv, delta, b, sq, sk, hq, hkv, d,
+                         scale, causal, dq_pass, s);
   if (d <= 64)
     return launch_wg<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, b, sq, sk, hq, hkv, d,
                          scale, causal, dq_pass, s);

@@ -1,8 +1,9 @@
 // Helpers shared by the flash-attention forward (flash_attention.cu) and
-// backward (flash_attention_bwd.cu) kernels on wgmma: the base-2 exponential
-// the softmax runs on, the logsumexp in that base, the aligned start of
-// dynamic shared memory for SW128 tiles, the bf16 store of an m64nN
-// accumulator, and the opt-in to more than 48 KB of dynamic shared memory.
+// backward (flash_attention_bwd.cu) kernels: the base-2 exponential the
+// softmax runs on, the logsumexp in that base, the aligned start of dynamic
+// shared memory for SW128 tiles, the bf16 store of an m64nN accumulator,
+// the cp.async load of an f32 tile, and the opt-in to more than 48 KB of
+// dynamic shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -53,6 +54,23 @@ __device__ __forceinline__ void store_acc(const float (&acc)[R], __nv_bfloat16* 
         *reinterpret_cast<__nv_bfloat162*>(row + c) =
             __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
     }
+  }
+}
+
+// ROWS x DP floats of src (row stride `stride` floats) into a [ROWS][DP + 4]
+// tile by cp.async, 16 bytes a copy, neighbouring threads on neighbouring
+// chunks; rows >= rows_valid and columns >= d are zero
+template <int ROWS, int DP, int THREADS>
+__device__ __forceinline__ void load_f32_tile(float* tile, const float* src, int64_t stride,
+                                              int rows_valid, int d, int tid) {
+  constexpr int kChunks = DP / 4;
+  static_assert((ROWS * kChunks) % THREADS == 0, "whole tiles a pass");
+#pragma unroll
+  for (int n = 0; n < ROWS * kChunks / THREADS; ++n) {
+    const int e = tid + n * THREADS;
+    const int r = e / kChunks, c = (e % kChunks) * 4;
+    const bool valid = r < rows_valid && c < d;
+    cp_async16(smem_u32(tile + r * (DP + 4) + c), valid ? src + r * stride + c : src, valid);
   }
 }
 

@@ -155,11 +155,11 @@ def _check_bwd(q, k, v, lse, **like_q) -> None:
     b, sq, hq, _ = q.shape
     for name, t in like_q.items():
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
-                or not t.is_contiguous() or (t.dtype == torch.bfloat16
-                                             and t.data_ptr() % 16):
+                or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash bwd kernel: {name} must be a contiguous "
-                             f"{q.dtype} tensor of q's shape {tuple(q.shape)}, "
-                             f"16-byte aligned in bf16")
+                             f"{q.dtype} tensor of q's shape {tuple(q.shape)} "
+                             f"starting on a 16-byte boundary (the kernels "
+                             f"read it 16 bytes a thread, dout by cp.async)")
     if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 or \
             lse.device != q.device or not lse.is_contiguous():
         raise ValueError(f"flash bwd kernel: lse must be contiguous f32 "

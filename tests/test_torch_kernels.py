@@ -37,7 +37,7 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops import LAUNCHES, _build, use_kernel
 from paddle_tpu_torch.ops.attention import sdpa_reference
 from paddle_tpu_torch.ops.decode_attention import decode_attention
-from paddle_tpu_torch.ops.flash_attention import (_check, flash_attention_fwd,
+from paddle_tpu_torch.ops.flash_attention import (_check, _check_bwd, flash_attention_fwd,
                                                   flash_attention_plain)
 from paddle_tpu_torch.ops.fused_norm import fused_rms_norm
 from paddle_tpu_torch.ops.rope import fused_rope, rope_plain
@@ -263,6 +263,21 @@ class TestFlashWrapperRules:
         for args in ((shifted, k, v), (q, shifted, v), (q, k, shifted)):
             with pytest.raises(ValueError, match="16-byte"):
                 _check(*args)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("name", ["out", "dout"])
+    def test_bwd_rejects_a_misaligned_out_or_dout(self, dtype, name):
+        """B3b and B3c read out and dout 16 bytes a thread (dout by
+        cp.async) in f32 as in bf16."""
+        b, s, h, d = 1, 4, 2, 8
+        q, k, v = self._qkv(d, dtype, b, s, h)
+        lse = torch.zeros(b, h, s)
+        like_q = dict(out=torch.zeros_like(q), dout=torch.zeros_like(q))
+        _check_bwd(q, k, v, lse, **like_q)
+        like_q[name] = torch.empty(b * s * h * d + 1, dtype=dtype)[1:].view(b, s, h, d)
+        assert like_q[name].is_contiguous() and like_q[name].data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte"):
+            _check_bwd(q, k, v, lse, **like_q)
 
     @pytest.mark.parametrize("causal", [False, True])
     def test_cpu_tensors_take_the_plain_version(self, causal):

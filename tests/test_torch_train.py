@@ -59,6 +59,7 @@ F32 = dict(rtol=2e-5, atol=1e-6)
 BF16 = dict(rtol=2e-2, atol=2e-2)
 ROW_SUM = dict(rtol=2e-5, atol=1e-5)   # f32 dw summed over 64 rows in another order
 ATTN = dict(rtol=1e-4, atol=1e-5)
+ATTN_BWD = dict(rtol=1e-4, atol=1e-4)  # chip_smoke.py's float32_attn_bwd row
 LOSS = dict(rtol=1e-4, atol=0)
 GRAD = dict(rtol=1e-4, atol=1e-6)
 SEQ = 16     # a multiple of the 8-row Pallas blocks, so JAX takes its flash kernel
@@ -188,6 +189,37 @@ class TestFlashBackward:
             for g, w in zip(got, want):
                 _close(g, w, ATTN)
 
+    # b, sq, sk, hq, hkv, d, causal: d 8 causal GQA, d 64 not causal, d 128
+    # causal with sq < sk, d 256
+    @pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal", [
+        (2, 64, 64, 4, 2, 8, True), (1, 64, 64, 2, 2, 64, False),
+        (1, 32, 64, 2, 1, 128, True), (1, 32, 32, 2, 2, 256, True)])
+    def test_3xtf32_products_match_pallas_vjp(self, b, sq, sk, hq, hkv, d, causal):
+        """The f32 kernels' arithmetic (csrc/mma_tf32.cuh): the backward's
+        five products (S, dP, dQ, dK, dV) each as three TF32 products, over
+        the plain twin's math, within the f32 backward tolerance of the
+        Pallas kernel's vjp."""
+        q, k, v = _np(40, b, sq, hq, d), _np(41, b, sk, hkv, d), _np(42, b, sk, hkv, d)
+        do = _np(43, b, sq, hq, d)
+        _, vjp = jax.vjp(lambda a, c, e: jax_flash(a, c, e, None, causal, 16, 16, True),
+                         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want = vjp(jnp.asarray(do))
+        tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+        out, lse = flash_attention_plain(tq, tk, tv, causal)
+        got = _bwd_3xtf32(tq, tk, tv, out, lse, tdo, causal)
+        for g, w in zip(got, want):
+            _close(g, w, ATTN_BWD)
+
+    def test_tf32_split_rounds_hi_to_nearest_and_truncates_lo(self):
+        """hi: to nearest, ties away from zero (cvt.rna); lo: the tensor
+        core's read of the rest, its 13 low bits dropped."""
+        x = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -11 - 2 ** -23,
+                          1 + 2 ** -10 + 2 ** -12 + 2 ** -22 + 2 ** -23])
+        hi, lo = _split_tf32(x)
+        assert hi.tolist() == [1 + 2 ** -10, -(1 + 2 ** -10), 1.0, 1 + 2 ** -10]
+        assert lo.tolist() == [-2 ** -11, 2 ** -11, 2 ** -11 - 2 ** -22, 2 ** -12 + 2 ** -22]
+        assert torch.equal(hi + (x - hi), x)
+
     def test_function_gradients_match_autograd_of_reference(self):
         from paddle_tpu_torch.ops.attention import sdpa_reference
 
@@ -198,6 +230,47 @@ class TestFlashBackward:
         want = torch.autograd.grad(sdpa_reference(q, k, v, is_causal=True), (q, k, v), do)
         for g, w in zip(got, want):
             _close(g, w.numpy(), ATTN)
+
+
+def _tf32_bits(x, add):
+    """x's f32 bits plus ``add``, the 13 bits below TF32's mantissa cleared."""
+    return ((x.contiguous().view(torch.int32) + add) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x):
+    """x = hi + lo as the f32 kernels split an operand: hi by cvt.rna
+    (half a TF32 ulp added to the magnitude, then truncated), lo = x - hi
+    as the tensor core reads it (truncated toward zero)."""
+    hi = _tf32_bits(x, 0x1000)
+    return hi, _tf32_bits(x - hi, 0)
+
+
+def _mm_3xtf32(eq, a, b):
+    """einsum(eq, a, b) with each f32 product as three TF32 products,
+    lo_a hi_b + hi_a lo_b + hi_a hi_b, summed in f32."""
+    (ah, al), (bh, bl) = _split_tf32(a), _split_tf32(b)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) + torch.einsum(eq, ah, bh)
+
+
+def _bwd_3xtf32(q, k, v, out, lse, dout, causal):
+    """flash_attention_bwd_plain's f32 math with its five products by
+    _mm_3xtf32."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = 1.0 / np.sqrt(d)
+    kf, vf = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+    s = _mm_3xtf32("bqhd,bkhd->bhqk", q, kf) * scale
+    keep = (lse != float("-inf"))[..., None].expand(b, hq, sq, sk)
+    if causal:
+        keep = keep & (torch.arange(sk)[None, :] <= torch.arange(sq)[:, None] + (sk - sq))
+    p = torch.where(keep, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    delta = (dout * out).sum(-1).transpose(1, 2)
+    ds = p * (_mm_3xtf32("bqhd,bkhd->bhqk", dout, vf) - delta[..., None]) * scale
+    dq = _mm_3xtf32("bhqk,bkhd->bqhd", ds, kf)
+    dk = _mm_3xtf32("bhqk,bqhd->bkhd", ds, q).reshape(b, sk, hkv, rep, d).sum(3)
+    dv = _mm_3xtf32("bhqk,bqhd->bkhd", p, dout).reshape(b, sk, hkv, rep, d).sum(3)
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------
