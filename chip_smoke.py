@@ -76,7 +76,7 @@ exits non-zero without them.  Phases, each raising on failure:
    bf16, at the training shapes (x [8192, 4096]; q, k [4, 2048, 32, 128]
    and GPT-3 1.3B's [4, 2048, 16, 128]), at Llama-2-70B's GQA attention,
    at the ring's hop shapes ([1, 4096, 32, 128], causal and not) and at
-   off-size attention shapes (d 64, 72, 256), each flash case launched
+   off-size attention shapes (d 64, 72, 200, 256), each flash case launched
    twice with bit-equal grads; timed as in 3 (the library call is the
    backward of ``F.rms_norm`` and of SDPA), flash dq and dk/dv also at
    GPT-3 1.3B's and the hop shapes; RMSNorm's also at off sizes (odd h,
@@ -203,8 +203,8 @@ exits non-zero without them.  Phases, each raising on failure:
    (``flash_fwd_f32_times``, in 3), with parity cases at head_dim 8 (s
    77), 40 (sq < sk, GQA 4:1) and a batch row padded whole; ptxas's spill
    report fails the build for its d 64 and d 128 instances; B3, B3b, B3c
-   in bf16 at head_dim 256 ([2, 2048, 16, 256] causal, the WMMA kernels,
-   which no main path runs) beside SDPA in 3 and 5;
+   in bf16 at head_dim 256 ([2, 2048, 16, 256] causal) beside SDPA in 3
+   and 5;
 18. the f32 backward (B3b/B3c on the tensor cores, three TF32 products an
    f32 product): its parity cases are 5's f32 ones; timed in 5 at 4 x
    2048 causal and ERNIE's shape beside SDPA's whole f32 backward (and the
@@ -217,7 +217,20 @@ exits non-zero without them.  Phases, each raising on failure:
    grad within 1e-4 relative L2 of the plain path's, then 4 layers (cut
    for memory), 1 warm-up and 3 counted steps with exact launches (4 B3b,
    4 B3c a step), ms a step, peak memory and B3b's and B3c's device time
-   in a profiled step.
+   in a profiled step;
+19. the bf16 forward and dK/dV at 128 < head_dim <= 256 on wgmma
+   (``fwd_wide``, ``bwd_dkv_wide``; dQ keeps the WMMA ``bwd_dq_tc``): their
+   parity cases in 3 and 5 (d 160 with sq < sk and GQA 4:1, d 256 varlen
+   with a batch row padded whole and one over a whole 128-row tile, d 256
+   not causal on s 300, d 256 with GQA 8:1, d 200 not causal), times at
+   [2, 2048, 16, 256] causal beside SDPA and the bound with the card's
+   clocks; ptxas's spill report fails the build for them; then their path
+   (``phase_train_d256``, after 18): Llama-2-7B width with 16 heads of 256
+   (a config the reference accepts, not a published model) at 2 layers,
+   AMP O2 bf16, AdamW with the clip through ``TrainStep`` on 7's batch:
+   ``gate_shallow`` on that batch, 1 warm-up and 3 counted steps with exact
+   launches (2 B3, 2 B3b, 2 B3c a step), ms a step, and B3's, B3b's and
+   B3c's device time in a profiled step.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
@@ -252,7 +265,7 @@ TOL = {"float32": dict(rtol=2e-5, atol=1e-6),       # tests/op_test.py f32 row
        "float32_attn_bwd": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}      # op_test.py bf16 row
 LOGITS_REL_TOL = 2e-2          # bf16 relative L2 error, kernel vs plain logits
-DEPTH_REL_MARGIN = 1.2         # full depth: kernel error to f32 <= 1.2x plain's
+DEPTH_REL_MARGIN = 1.2         # kernel grad error to f32 <= 1.2x plain's (every depth)
 PROMPT_LENS = (37, 100, 250, 511)
 MAX_NEW = 32
 BATCH = 8
@@ -298,7 +311,9 @@ def time_ms(torch, fn, iters: int = 20, repeats: int = 5, warmup: int = 3) -> fl
 def device_ms(torch, fn, iters: int = 20, warmup: int = 3):
     """Device time per call of ``fn``: every CUDA kernel that ``iters``
     calls launch, from ``torch.profiler``, summed and divided by ``iters``
-    (the host's share of a call left out), after ``warmup`` calls.
+    (the host's share of a call left out), after ``warmup`` calls.  A
+    trace with no device event (the profiler on the chip machine has
+    returned one now and then) is taken once more before this raises.
     Returns (ms, {kernel: ms})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -306,15 +321,17 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by = {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA}
-    if not by:
-        raise AssertionError("torch.profiler recorded no device time")
-    return sum(by.values()), by
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by = {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA}
+        if by:
+            return sum(by.values()), by
+        log("torch.profiler recorded no device time; profiling once more")
+    raise AssertionError("torch.profiler recorded no device time")
 
 
 def split_line(by) -> str:
@@ -386,9 +403,10 @@ def phase_build():
                 kernel = next(kernels)
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas {name} {kernel}: {line.strip()}")
-                # the wgmma kernels keep their accumulators in registers, and
+                # the wgmma kernels keep their accumulators in registers (the
+                # d 256 ones, fwd_wide and bwd_dkv_wide, 128 a thread), and
                 # so do the f32 forward and backward at the models' head dims
-                if ("_wg<" in kernel or re.search(
+                if ("_wg<" in kernel or "_wide<" in kernel or re.search(
                         r"(fwd_f32|bwd_dq_tf32|bwd_dkv_tf32)<(\(int\))?(64|128),", kernel)) \
                         and re.search(r"[1-9]\d* bytes spill", line):
                     raise AssertionError(f"ptxas: {kernel} spills: {line.strip()}")
@@ -474,10 +492,11 @@ D256_SHAPE = (2, 2048, 16, 256)   # b, s, heads, d: bf16 at 128 < d <= 256, caus
 def flash_fwd_f32_times(torch, gen):
     """B3 in f32 (``fwd_f32`` at head_dim 128) at F32_FLASH_SHAPES, causal
     (the varlen one with the main path's pads, bound by its valid pairs),
-    and B3 in bf16 at head_dim 256 (the WMMA kernel) at D256_SHAPE, causal:
-    {shape: kernel ms, bound, SDPA ms in the same dtype (the varlen one with
-    the same boolean mask)}, each printed."""
-    from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd
+    and B3 in bf16 at head_dim 256 (``fwd_wide``) at D256_SHAPE, causal,
+    with the card's clocks and power after it:
+    {shape: kernel ms, bound, plain ms, SDPA ms in the same dtype (the
+    varlen one with the same boolean mask)}, each printed."""
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_plain
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = gen.device
@@ -502,11 +521,14 @@ def flash_fwd_f32_times(torch, gen):
         ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, True, pads), iters=10, repeats=3)
         lib = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=keep, is_causal=keep is None),
                       iters=10, repeats=3)
+        plain = time_ms(torch, lambda: flash_attention_plain(q, k, v, True, pads), iters=2,
+                        repeats=3, warmup=1)
         name = str(dtype).split(".")[1]
         shape = f"{[b, s, h, d]} {'varlen' if varlen else 'causal'} {name}"
-        times[shape] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-        log(f"time flash_attention {label} {shape}: kernel {ms:.4f} ms, SDPA {lib:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x the bound")
+        times[shape] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib, plain_ms=plain)
+        log(f"time flash_attention {label} {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"SDPA {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x the bound; "
+            f"clocks {gpu_clocks()}")
         del q, k, v, qt, kt, vt, keep
     torch.cuda.empty_cache()
     return times
@@ -775,6 +797,137 @@ def flash_bwd_tf32_ab(torch, variants=None, rounds=2):
     return ab_times(torch, fns, cases, rounds)
 
 
+# B3 and B3c at 128 < d <= 256 (flash_d256_ab): each variant is
+# flash_attention.cu or flash_attention_bwd.cu with these texts replaced;
+# "x_" variants compute wrong results on purpose (a phase removed) and are
+# timed only
+# (the rejected designs, one warpgroup a block, 32-key tiles and a third
+# stage, and B3c's S^T recomputed by the dK warpgroup, are in PERF.md
+# section 6 with their times, and in the kernels' source notes)
+D256_FWD_AB_VARIANTS = {
+    "2 warpgroups, 64-key tiles, 2 stages (as built)": [],
+    "x_no S": [("      hw::wgmma_ss_m64n64(s, hw::desc_kmajor(Qw, 64, kk), "
+                "hw::desc_kmajor(Kt, BK, kk), kk);", "      ;")],
+    "x_no softmax": [("""    softmax_tile(s, m, l, alpha, t0, row0, quad, edge, pad, sk, causal, offset, sl2);
+#pragma unroll
+    for (int x = 0; x < DP / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
+    uint32_t a[BK / 16][4];""", "    uint32_t a[BK / 16][4];")],
+    "x_no P V": [("      hw::wgmma_rs_tb<DP>(o, a[kk], hw::desc_mnmajor(Vt, BK, kk), 1);", "      ;")],
+    "x_K/V loaded once": [("    if (it + kStages - 1 < n_tiles) load_kv(it + kStages - 1);", "")],
+}
+D256_BWD_AB_VARIANTS = {
+    "P^T exchanged (as built)": [],
+    "x_no dK, dV products": [
+        ("      hw::wgmma_rs_tb<DP>(acc, a[kk], hw::desc_mnmajor(Yt, kBQ, kk), 1);", "      ;")],
+    "x_no p, ds arithmetic": [("            s[x] = edge && k0 + r_lo + 8 * i >= lim ? 0.f : p;",
+                               "            s[x] = s[x];"),
+                              ("          dp[x] = s[x] * (dp[x] - (x & 1 ? d2.y : d2.x)) * scale;",
+                               "          dp[x] = s[x];")],
+}
+
+
+def flash_d256_ab(torch, fwd_variants=None, bwd_variants=None, rounds=2):
+    """Times the bf16 kernels at 128 < d <= 256, ``fwd_wide`` (B3) and
+    ``bwd_dkv_wide`` (B3c), in their variants (D256_FWD_AB_VARIANTS,
+    D256_BWD_AB_VARIANTS, built by ``ab_build``) at D256_SHAPE causal, in
+    turns (``ab_times``).  First each variant but the "x_" ones against the
+    plain version in bf16 (forward: d 256 GQA 4:1 with sq < sk, d 256
+    varlen with a batch row padded whole, d 160 not causal on s 300; B3c:
+    d 256 GQA 8:1 causal, d 200 not causal), launched twice for equal bits.
+    Callable alone after ``phase_device``."""
+    from paddle_tpu_torch.ops.flash_attention import (_ARGTYPES, _BWD_ARGTYPES,
+                                                      flash_attention_bwd_plain,
+                                                      flash_attention_plain)
+
+    fwd_fns = ab_build("flash_attention", fwd_variants or D256_FWD_AB_VARIANTS,
+                       ["ptt_flash_attention_fwd"], _ARGTYPES,
+                       r"fwd_wideILi256EE")
+    dq_sym, dkv_sym = "ptt_flash_attention_bwd_dq", "ptt_flash_attention_bwd_dkv"
+    bwd_fns = ab_build("flash_attention_bwd", bwd_variants or D256_BWD_AB_VARIANTS,
+                       [dq_sym, dkv_sym], _BWD_ARGTYPES, r"bwd_dkv_wideILi256EE")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(fn, *args):
+        rc = fn(*args, stream)
+        if rc:
+            raise AssertionError(f"A/B launch: CUDA error {rc}")
+
+    def dims(q, k, causal):
+        b, sq, hq, d = q.shape
+        return (b, sq, k.shape[1], hq, k.shape[2], d, 1.0 / math.sqrt(d), int(causal), 1)
+
+    def fwd(f, q, k, v, causal, pads=None):
+        out, lse = torch.empty_like(q), torch.empty(q.shape[0], q.shape[2], q.shape[1],
+                                                    device=q.device)
+        call(f["ptt_flash_attention_fwd"], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             None if pads is None else pads.data_ptr(), out.data_ptr(), lse.data_ptr(),
+             *dims(q, k, causal))
+        return out, lse
+
+    def dkv(f, q, k, v, out, lse, do, causal):
+        dq, delta = torch.empty_like(q), torch.empty_like(lse)
+        call(f[dq_sym], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), dq.data_ptr(), delta.data_ptr(), *dims(q, k, causal))
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        call(f[dkv_sym], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims(q, k, causal))
+        return dk, dv
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    tol = TOL["bfloat16"]
+    for b, sq, sk, hq, hkv, d, causal, pads in (
+            (2, 100, 230, 8, 2, 256, True, None), (3, 200, 200, 4, 2, 256, True, [0, 200, 37]),
+            (2, 300, 300, 4, 2, 160, False, None)):
+        q, k, v = randn(b, sq, hq, d), randn(b, sk, hkv, d), randn(b, sk, hkv, d)
+        pl = None if pads is None else torch.tensor(pads, dtype=torch.int32, device="cuda")
+        want = flash_attention_plain(q, k, v, causal, pl)
+        for name, f in fwd_fns.items():
+            if name.startswith("x_"):
+                continue
+            got, again = fwd(f, q, k, v, causal, pl), fwd(f, q, k, v, causal, pl)
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"A/B {name}: two launches differ")
+            err = check_close(torch, f"A/B {name} d{d}", got[0], want[0], tol)
+            check_close(torch, f"A/B {name} lse d{d}", got[1], want[1], TOL["float32_attn"])
+            log(f"A/B {name} fwd {[b, sq, sk, hq, hkv, d]}: max_abs_err {err:.3g}, bit-equal")
+    for b, s, hq, hkv, d, causal in ((2, 300, 8, 1, 256, True), (2, 300, 4, 2, 200, False)):
+        q, do = randn(b, s, hq, d), randn(b, s, hq, d)
+        k, v = randn(b, s, hkv, d), randn(b, s, hkv, d)
+        out, lse = flash_attention_plain(q, k, v, causal)
+        out, lse = out.contiguous(), lse.contiguous()
+        want = flash_attention_bwd_plain(q, k, v, out, lse, do, causal)[1:]
+        for name, f in bwd_fns.items():
+            if name.startswith("x_"):
+                continue
+            got, again = dkv(f, q, k, v, out, lse, do, causal), dkv(f, q, k, v, out, lse, do,
+                                                                    causal)
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"A/B {name}: two launches differ")
+            errs = [check_close(torch, f"A/B {name} {n}", g, w, tol)
+                    for n, g, w in zip(("dk", "dv"), got, want)]
+            log(f"A/B {name} bwd {[b, s, hq, hkv, d]}: max_abs_err dk {errs[0]:.3g} dv "
+                f"{errs[1]:.3g}, bit-equal")
+    b, s, h, d = D256_SHAPE
+    q, k, v, do = (randn(b, s, h, d) for _ in range(4))
+    out, lse = fwd(next(iter(fwd_fns.values())), q, k, v, True)
+    delta = torch.empty_like(lse)
+    call(next(iter(bwd_fns.values()))[dq_sym], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+         out.data_ptr(), do.data_ptr(), lse.data_ptr(), torch.empty_like(q).data_ptr(),
+         delta.data_ptr(), *dims(q, k, True))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    label = f"{[b, s, h, d]} causal bf16"
+    fwd_times = ab_times(torch, fwd_fns, {f"fwd {label}": lambda f: fwd(f, q, k, v, True)},
+                         rounds)
+    bwd_times = ab_times(torch, bwd_fns, {f"dkv {label}": lambda f: call(
+        f[dkv_sym], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims(q, k, True))}, rounds)
+    return {**fwd_times, **bwd_times}
+
+
 def phase_parity(torch):
     from paddle_tpu_torch.models.llama import _rope_tables
     from paddle_tpu_torch.ops.decode_attention import (decode_attention,
@@ -848,6 +1001,15 @@ def phase_parity(torch):
         # ragged query tiles and head_dims off the 16-column fragments
         ("varlen d72 s300", 2, 300, 300, 4, 2, 72, True, (pads[2:4] // 4).contiguous()),
         ("causal d256 s200", 1, 200, 200, 2, 1, 256, True, None),
+        # the d 256 kernel (fwd_wide in bf16): a batch row padded whole and
+        # one over a whole 128-row tile, d 160 with sq < sk and GQA 4:1, not
+        # causal on ragged tiles
+        ("varlen d256 s200 row padded whole", 3, 200, 200, 4, 2, 256, True,
+         torch.tensor([0, 200, 137], dtype=torch.int32, device=dev)),
+        ("causal d160 sq<sk GQA 4:1", 2, 100, 230, 8, 2, 160, True, None),
+        ("full d256 s300", 2, 300, 300, 4, 2, 256, False, None),
+        # phase_train_d256's attention: 16 heads of 256 over 4 x 2048
+        ("causal d256 train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16, 256, True, None),
         ("causal Llama train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, h, h, d, True, None),
         ("causal GPT-3 1.3B train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16, d, True, None),
         ("ring hop diag", 1, 4096, 4096, h, h, d, True, None),
@@ -1217,7 +1379,8 @@ def phase_bwd_parity(torch):
     and bf16, at the training path's shapes (Llama-2-7B width, batch 4 x
     2048; GPT-3 1.3B's 16 heads), at Llama-2-70B's GQA attention, at the
     ring's hop shapes (4096 rows, causal and not) and at off-size attention
-    shapes (d 64, 72, 256); B3b/B3c launched twice must give the same bits.
+    shapes (d 64, 72, 200, 256, with GQA 8:1 at 256); B3b/B3c launched
+    twice must give the same bits.
     Then times in bf16 at the main shape, and B3b/B3c's at GPT-3 1.3B's
     shape and the hop shapes (the ``shapes`` entry of their rows), then in
     f32 at the training shape and ERNIE's and in bf16 at head_dim 256."""
@@ -1263,12 +1426,17 @@ def phase_bwd_parity(torch):
     del gq, gk, oq, ok, pq, pk
 
     # B3b / B3c: the training shape, 70B GQA (B3c's group sum), off-size
-    # shapes (d 72 and 256), GPT-3 1.3B's shape, the ring's two hop shapes
+    # shapes (d 72, 200 and 256), GPT-3 1.3B's shape, the ring's two hop shapes
     # at cp 4 (a "diag" hop is causal, a "full" one is not) and a ragged d 64
     # GQA case; two launches of the kernels must agree bit for bit
     cases = [("causal 7B", b, s, h, h, d, True), ("causal 70B GQA", 1, s, 64, 8, d, True),
              ("causal d72 s300", 2, 300, 4, 2, 72, True),
              ("causal d256 s200", 1, 200, 2, 1, 256, True),
+             # bwd_dkv_wide's group sum over 8 q heads; d 200 not causal
+             ("causal d256 GQA 8:1", 2, 300, 8, 1, 256, True),
+             ("full d200 s300", 2, 300, 4, 2, 200, False),
+             # phase_train_d256's attention: 16 heads of 256 over 4 x 2048
+             ("causal d256 train", b, s, 16, 16, 256, True),
              ("causal GPT-3 1.3B", b, s, 16, 16, d, True),
              ("ring hop diag", 1, 4096, h, h, d, True),
              ("ring hop full", 1, 4096, h, h, d, False),
@@ -1357,9 +1525,10 @@ def phase_bwd_parity(torch):
     del timed, q, k, v, out, lse, do
     torch.cuda.empty_cache()
     # f32 inputs (the 3xTF32 kernels of the default dtype's training) at the
-    # training shape and ERNIE's, and bf16 at head_dim 256 (the WMMA kernels
-    # bwd_*_tc, which no path runs) at D256_SHAPE, causal; each beside SDPA's
-    # whole backward in the same dtype, with the kernels that SDPA runs
+    # training shape and ERNIE's, and bf16 at head_dim 256 (bwd_dq_tc and
+    # bwd_dkv_wide, phase_train_d256's) at D256_SHAPE, causal; each beside
+    # SDPA's whole backward in the same dtype, with the kernels that SDPA
+    # runs, and the card's clocks
     bb, s256, h256, d256 = D256_SHAPE
     q = randn(bb, s256, h256, d256, dtype=torch.bfloat16)
     k, v, do = (randn(bb, s256, h256, d256, dtype=torch.bfloat16) for _ in range(3))
@@ -1376,13 +1545,16 @@ def phase_bwd_parity(torch):
         log(f"time SDPA's whole backward {label} {shape}: {library:.4f} ms; device ms by "
             f"kernel: {split_line(by)}")
         del lib_out, qt, kt, vt
+        plain = time_ms(torch, lambda: flash_attention_bwd_plain(q, k, v, out, lse, do, causal),
+                        iters=2, repeats=3, warmup=1)
+        log(f"time plain flash backward {label} {shape}: {plain:.4f} ms")
         pair = 0.0
         for name, (b_ms, b_by, floor), fn in zip(names, bounds(q, causal),
                                                  kernel_fns(q, k, v, out, lse, do, causal)):
             ms = time_ms(torch, fn, iters=5, repeats=3, warmup=2)
             pair += ms
             rows[name]["shapes"][shape] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
-                                               library_ms=library)
+                                               library_ms=library, plain_ms=plain)
             extra = ""
             if floor is not None:
                 rows[name]["shapes"][shape]["tf32_floor_ms"] = floor
@@ -1391,7 +1563,7 @@ def phase_bwd_parity(torch):
                 f"({b_by}), {ms / b_ms:.2f}x the bound{extra}, SDPA's whole backward "
                 f"{library:.4f}")
         log(f"time flash bwd pair {label} {shape}: {pair:.4f} ms against SDPA's whole "
-            f"backward {library:.4f} ({pair / library:.2f}x)")
+            f"backward {library:.4f} ({pair / library:.2f}x); clocks {gpu_clocks()}")
         torch.cuda.empty_cache()
     del timed32, q, k, v, out, lse, do
     for name, r in rows.items():
@@ -3589,17 +3761,24 @@ def gate_shallow(torch, make, on, gate_ids, gate_labels):
     depth: the kernels' loss within LOGITS_REL_TOL of the plain path's, and
     every grad too, unless the plain grad is the farther of the two from
     the f32 reference (both bf16 paths sit about 2-3e-2 from it at 7B
-    width, so two correct paths can part by more than the bar)."""
+    width, so two correct paths can part by more than the bar).  Besides,
+    no kernel grad may be further from the f32 reference than
+    DEPTH_REL_MARGIN times the plain grad, whether within the bar or not."""
     (lk, gk), (lp, gp), (lf, gf) = grads_against_f32(torch, make, 2, on, gate_ids,
                                                      gate_labels)
     r_loss = abs(float(lk) - float(lp)) / abs(float(lp))
     rows = sorted(((rel_l2(gk[n], gp[n]), rel_l2(gk[n], gf[n]), rel_l2(gp[n], gf[n]), n)
                    for n in gf), reverse=True)
-    log(f"train {make.__name__[5:]} 2-layer 1x{TRAIN_SEQ}: loss kernels {float(lk):.5f} "
+    log(f"train {make.__name__[5:]} 2-layer {gate_ids.shape[0]}x{gate_ids.shape[1]}: loss "
+        f"kernels {float(lk):.5f} "
         f"plain {float(lp):.5f} f32 {float(lf):.5f} (kernels vs plain {r_loss:.3g}); grad "
         f"relative L2, worst three kernels vs plain (kernels to f32, plain to f32): "
         + "; ".join(f"{n} {kp:.4g} ({kf:.4g}, {pf:.4g})" for kp, kf, pf, n in rows[:3]))
-    bad = [r for r in rows if r[0] > LOGITS_REL_TOL and r[1] > r[2]]
+    worst = max(rows, key=lambda r: r[1] / r[2])
+    log(f"train {make.__name__[5:]} 2-layer: worst grad relative L2 to f32, kernels / plain, "
+        f"{worst[1] / worst[2]:.3f} ({worst[3]}; at most {DEPTH_REL_MARGIN})")
+    bad = [r for r in rows
+           if (r[0] > LOGITS_REL_TOL and r[1] > r[2]) or r[1] > DEPTH_REL_MARGIN * r[2]]
     if r_loss > LOGITS_REL_TOL or bad:
         raise AssertionError(f"2-layer gate: loss {r_loss}; grads {bad}")
 
@@ -3675,7 +3854,7 @@ def train_steps(torch, card, make, layers, flags, ids, labels):
         log(f"train {label} losses: {' '.join(f'{x:.4f}' for x in losses)}")
         if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
             raise AssertionError(f"training {label}: losses not finite and falling: {losses}")
-        want = {k: TRAIN_STEPS * v for k, v in step_launches(make, L, n_tensors).items()}
+        want = {k: TRAIN_STEPS * v for k, v in step_launches(cfg, L, n_tensors).items()}
         log(f"train {label} launches in {TRAIN_STEPS} steps: {launches}")
         if launches != want:
             raise AssertionError(f"training {label}: launches {launches}, {TRAIN_STEPS} "
@@ -3691,10 +3870,12 @@ def train_steps(torch, card, make, layers, flags, ids, labels):
     return launches, losses, step_s * 1e3
 
 
-def step_launches(make, L, n_tensors):
-    """The kernel launches of one TrainStep of ``make``'s model at L layers
-    (``n_tensors`` parameter tensors) under the flags now set."""
+def step_launches(cfg, L, n_tensors):
+    """The kernel launches of one TrainStep of the model of config ``cfg``
+    (a Llama or a GPT) at L layers (``n_tensors`` parameter tensors) under
+    the flags now set."""
     import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import GPTConfig, LlamaConfig
     from paddle_tpu_torch.ops import LAUNCHES
 
     on = {k: bool(ptt.get_flags(k)[k])
@@ -3702,7 +3883,9 @@ def step_launches(make, L, n_tensors):
     per_step = dict.fromkeys(LAUNCHES, 0)
     per_step.update(flash_attention=L, flash_attention_bwd_dq=L, flash_attention_bwd_dkv=L,
                     adamw=n_tensors if on["use_fused_adamw"] else 0)
-    if make is make_llama:
+    if not isinstance(cfg, (LlamaConfig, GPTConfig)):
+        raise TypeError(f"no launch count for a {type(cfg).__name__} model")
+    if isinstance(cfg, LlamaConfig):
         per_step.update(rms_norm=2 * L + 1, rope=L, rms_norm_bwd=2 * L + 1, rope_bwd=L,
                         swiglu=L if on["use_fused_swiglu"] else 0,
                         swiglu_bwd=L if on["use_fused_swiglu"] else 0)
@@ -3754,7 +3937,7 @@ def phase_train_f32(torch, card, make=None, batch=None):
 
     L = TRAIN_F32_LAYERS
     model = make(L)
-    n_params, n_tensors = model.num_params(), len(list(model.parameters()))
+    cfg, n_params, n_tensors = model.config, model.num_params(), len(list(model.parameters()))
     opt = AdamW(1e-4, parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(1.0))
     step = TrainStep(model, lambda m, x, y: m(x, labels=y)[0], opt)
     label = f"f32 {L} layers"
@@ -3771,7 +3954,7 @@ def phase_train_f32(torch, card, make=None, batch=None):
     log(f"train {label} losses: {' '.join(f'{x:.4f}' for x in losses)}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"training {label}: losses not finite and falling: {losses}")
-    want = {k: TRAIN_F32_STEPS * v for k, v in step_launches(make, L, n_tensors).items()}
+    want = {k: TRAIN_F32_STEPS * v for k, v in step_launches(cfg, L, n_tensors).items()}
     log(f"train {label} launches in {TRAIN_F32_STEPS} steps: {launches}")
     if launches != want:
         raise AssertionError(f"training {label}: launches {launches}, {TRAIN_F32_STEPS} "
@@ -3784,6 +3967,94 @@ def phase_train_f32(torch, card, make=None, batch=None):
     log(f"profile train step {label}: B3b + B3c {sum(mine.values()):.3f} ms of "
         f"{sum(busy.values()):.3f} ms device time ({split_line(mine)})")
     del model, opt, step
+    return launches
+
+
+TRAIN_D256_LAYERS = 2              # phase_train_d256: 16 heads of 256 at 7B width
+TRAIN_D256_WARMUP, TRAIN_D256_STEPS = 1, 3
+
+
+def make_llama_d256(layers: int, seed: int = 0):
+    """Llama-2-7B's width with 16 heads of 256 (head_dim = hidden / heads =
+    256): a LlamaConfig the reference accepts, not a published model."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+
+    return LlamaForCausalLM(llama2_7b(num_attention_heads=16, num_key_value_heads=16,
+                                      num_hidden_layers=layers), device="cuda", seed=seed)
+
+
+def phase_train_d256(torch, card, make=None, batch=None):
+    """The path of the bf16 kernels at 128 < d <= 256 (``fwd_wide``,
+    ``bwd_dq_tc``, ``bwd_dkv_wide``): ``make_llama_d256`` at
+    TRAIN_D256_LAYERS layers under AMP O2 bf16, AdamW(1e-4) with
+    ClipGradByGlobalNorm(1.0) through TrainStep on ``train_batch``'s 4 x
+    2048, LLAMA_ON's flags.  Gate (``gate_shallow`` at 2 layers on that
+    batch): the kernels' loss within LOGITS_REL_TOL of the plain path's
+    (OFF_FLAGS) on the same weights, and every grad too unless the plain
+    grad is the farther of the two from an f32 copy's: the kernels round dS
+    to bf16 before dQ and dK, as the TPU kernel does, and the plain path
+    rounds dP instead.  Then TRAIN_D256_WARMUP and TRAIN_D256_STEPS steps:
+    finite, falling losses, each kernel launched as often as the path needs
+    (L B3, L B3b and L B3c a step), ms a step, peak memory, a profile of
+    one step, and B3's, B3b's and B3c's device time a step over
+    TRAIN_D256_STEPS more.  Returns the counted steps' launches."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t_phase = time.perf_counter()
+    make = make or make_llama_d256
+    ids, labels = batch or train_batch(torch, 32000)
+    L = TRAIN_D256_LAYERS
+    gc.collect()
+    gate_shallow(torch, make, LLAMA_ON, ids, labels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = make(L)
+    cfg, n_params, n_tensors = model.config, model.num_params(), len(list(model.parameters()))
+    head_dim = cfg.head_dim
+    opt = AdamW(1e-4, parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = ptt.amp.decorate(model, opt, level="O2", dtype="bfloat16")
+
+    step = TrainStep(model, lambda m, x, y: m(x, labels=y)[0], opt)
+    label = f"d{head_dim} {L} layers"
+    with ptt.flag_guard(**LLAMA_ON):
+        losses = [float(step(ids, labels)) for _ in range(TRAIN_D256_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = [step(ids, labels) for _ in range(TRAIN_D256_STEPS)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / TRAIN_D256_STEPS * 1e3
+        launches, peak = dict(LAUNCHES), torch.cuda.max_memory_allocated()
+        losses += [float(x) for x in out]
+        log(f"train {label} losses: {' '.join(f'{x:.4f}' for x in losses)}")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"training {label}: losses not finite and falling: {losses}")
+        want = {k: TRAIN_D256_STEPS * v for k, v in step_launches(cfg, L, n_tensors).items()}
+        log(f"train {label} launches in {TRAIN_D256_STEPS} steps: {launches}")
+        if launches != want:
+            raise AssertionError(f"training {label}: launches {launches}, {TRAIN_D256_STEPS} "
+                                 f"steps of {L} layers launch {want}")
+        log(f"train {label} on {card}: {step_ms:.1f} ms a step ({n_params / 1e9:.3f} B params "
+            f"in {n_tensors} tensors, {ids.shape[0]}x{ids.shape[1]}), peak memory "
+            f"{peak / 2**30:.2f} GiB")
+        profile_step(torch, f"train step {label}", lambda: step(ids, labels))
+        # the split by kernel from several steps: one step's profile can
+        # leave out some of its kernels' events
+        busy_ms, busy = device_ms(torch, lambda: step(ids, labels), iters=TRAIN_D256_STEPS,
+                                  warmup=0)
+    mine = {n: ms for n, ms in busy.items()
+            if any(k in n for k in ("fwd_wide", "bwd_dq_tc", "bwd_dkv_wide"))}
+    log(f"device time a train step {label} over {TRAIN_D256_STEPS} steps: B3 + B3b + B3c "
+        f"{sum(mine.values()):.3f} ms of {busy_ms:.3f} ms ({split_line(mine)})")
+    del model, opt, step
+    log(f"train_d256 phase: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -5612,11 +5883,14 @@ SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is count
 COUNTED_AS = {"ring_flash_attention": "flash_attention", "adamw_host": "adamw"}
 
 # the kernels of fleet's hybrid step, of auto_parallel's Engine step, of ERNIE's
-# inference and of the f32 Llama step: their launches add those paths
+# inference, of the f32 Llama step and of the head_dim 256 step: their
+# launches add those paths
 EXTRA_PATHS = {"hybrid": frozenset(hybrid_want(1, 1)), "auto": frozenset(hybrid_want(1, 1)),
                "ernie": frozenset({"flash_attention"}),
                "train_f32": frozenset({"flash_attention", "flash_attention_bwd_dq",
-                                       "flash_attention_bwd_dkv"})}
+                                       "flash_attention_bwd_dkv"}),
+               "train_d256": frozenset({"flash_attention", "flash_attention_bwd_dq",
+                                        "flash_attention_bwd_dkv"})}
 
 
 def main() -> int:
@@ -5651,6 +5925,9 @@ def main() -> int:
     launches["train"] = train[0]
     torch.cuda.empty_cache()
     launches["train_f32"] = phase_train_f32(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["train_d256"] = phase_train_d256(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
     phase_fused_ce(torch, card)

@@ -59,9 +59,41 @@
 // memory), 128-key tiles (0.60), and issuing tile it's Q K^T beside tile
 // it - 1's P V with a third stage (0.51).
 //
-// bf16 with 128 < d <= 256 keeps WMMA 16x16x16 fragments
-// (flash_fwd_tc_kernel): S and P through shared memory, O in shared memory
-// in f32.
+// bf16 with 128 < d <= 256 (fwd_wide, the head dim padded with zero
+// columns to DP = 256) runs on wgmma too, but one warpgroup's O is an
+// m64n256 accumulator, 128 registers a thread, which leaves no room for Q
+// as a register operand (64 more).  So:
+//   * A block is two warpgroups, 64 query rows each (128 rows), sharing
+//     each streamed K/V tile of 64 keys.  Q stays in shared memory (64 KB
+//     in the SW128 layout, 4 swizzle atoms a row), read through its
+//     descriptor: S = Q K^T is wgmma with both operands in shared memory
+//     (m64n64k16, 16 k steps).
+//   * The softmax runs in S's accumulator as in fwd_wg; P, rounded to bf16
+//     in registers, is the A operand of O += P V, one m64n256k16 with V
+//     through the transpose bit for every 16 keys.
+//   * K and V stream through two cp.async stages (2 x 64 KB): 193 KB of
+//     shared memory, one block an SM; ptxas: 213 registers, no spill.
+//     Causal tiles launch heaviest first; a warpgroup whose rows see none
+//     of a tile skips it.
+// Bound at [2, 2048, 16, 256] causal: 0.0695 ms (operations); SDPA 0.150-
+// 0.156.  Measured (chip_smoke.py's flash_d256_ab: copies of this file that
+// differ in one choice, timed in turns in one call, medians of 4-6, bf16 on
+// an H100 80GB HBM3 at 700 W; PERF.md section 6): 0.2504-0.2544 ms, against
+// 1.8710 for the WMMA kernel it replaces.  Rejected (ms at that shape):
+// one warpgroup a block, 64-key tiles, 0.318-0.323 (three stages 0.350-
+// 0.359, with spills); one warpgroup with 32-key tiles and two stages, two
+// blocks an SM, 0.304-0.305 (three stages 0.390-0.395); two warpgroups with
+// 32-key tiles 0.316-0.317 (three stages 0.307-0.312); and, built and
+// removed again: 80-key tiles (m64n80, 225 KB) 0.2522 against 0.2544 in
+// the same call; warpgroup 1 skewed half a tile behind, its P V of tile
+// it - 1 beside warpgroup 0's S of tile it, 0.2729 against 0.2532; tile
+// it's P V issued with tile it + 1's S and run under its softmax (a third
+// V stage, 225 KB), 0.2737 against 0.2504.  What bounds it: removing the
+// softmax and the rescale of O leaves 0.202-0.206 ms, loading each K/V
+// tile only once 0.209-0.212, removing S = Q K^T 0.259 and P V 0.271-0.275
+// (slower): the products are not on the critical path; the CUDA-core work
+// of each tile and the stream of K/V tiles from L2 (570 MB at about 2.3
+// TB/s) are.
 //
 // f32 inputs (fwd_f32) stay in f32 on the FP32 pipes: single-pass TF32 keeps
 // about three decimal digits, short of the f32 attention tolerance.  Two
@@ -122,8 +154,6 @@
 // four warps built, 0.336-0.343); at DP 128, S summed one column at a time
 // over all 32 accumulators (4.30 ms against 4.20 at [4, 2048, 32, 128]
 // causal).
-#include <mma.h>
-
 #include "common.cuh"
 #include "flash_common.cuh"
 
@@ -364,203 +394,7 @@ int dispatch_f32(const void* q, const void* k, const void* v, const void* pad_le
   return launch_f32<256, 8, 2, 1>(q, k, v, pad_lens, out, lse, b, sq, sk, hq, hkv, d, scale, causal, s);
 }
 
-// ---------------------------------------------------------------------------
-// bf16 on the tensor cores
-// ---------------------------------------------------------------------------
-namespace wm = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
-
-constexpr int kTcThreads = 128;        // four warps
-constexpr int kTcBQ = 64;              // query rows per block, 16 per warp
-constexpr int kTcBK = 64;              // key rows per tile
-
-// Shared-memory layout for head_dim d, padded to dp (a multiple of 16): the
-// Q, K, V tiles in bf16, the scores S in f32, the probabilities P in bf16 and
-// the accumulator O in f32.  Row strides are padded off a multiple of 128
-// bytes against bank conflicts; every region starts on a 128-byte boundary,
-// and every fragment on a 32-byte one, as WMMA loads require.
-struct TcLayout {
-  int dp, ldh, lds, ldp, ldo;
-  size_t q, k, v, s, p, o, bytes;
-};
-
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
-__host__ __device__ inline TcLayout tc_layout(int d) {
-  TcLayout t;
-  t.dp = (d + 15) / 16 * 16;
-  t.ldh = t.dp + 8;
-  t.lds = kTcBK + 4;
-  t.ldp = kTcBK + 8;
-  t.ldo = t.dp + 4;
-  t.q = 0;
-  t.k = align128(t.q + sizeof(bf16) * kTcBQ * t.ldh);
-  t.v = align128(t.k + sizeof(bf16) * kTcBK * t.ldh);
-  t.s = align128(t.v + sizeof(bf16) * kTcBK * t.ldh);
-  t.p = align128(t.s + sizeof(float) * kTcBQ * t.lds);
-  t.o = align128(t.p + sizeof(bf16) * kTcBQ * t.ldp);
-  t.bytes = align128(t.o + sizeof(float) * kTcBQ * t.ldo);
-  return t;
-}
-
-// 64 rows of d bf16 (row stride src_stride elements) into a [64][ld] tile,
-// 16 bytes a thread per load; rows >= rows_valid and columns [d, dp) zero.
-__device__ inline void load_tile(bf16* dst, int ld, const bf16* src, int64_t src_stride,
-                                 int rows_valid, int d, int dp) {
-  const int vecs = dp / 8;
-  for (int e = threadIdx.x; e < 64 * vecs; e += kTcThreads) {
-    const int r = e / vecs, c = (e - r * vecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid && c < d) val = *reinterpret_cast<const uint4*>(src + r * src_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-__global__ void __launch_bounds__(kTcThreads)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const int* __restrict__ pad_lens,
-                    bf16* __restrict__ out, float* __restrict__ lse, int sq, int sk,
-                    int hq, int hkv, int d, float scale, int causal) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const TcLayout L = tc_layout(d);
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + L.q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw + L.k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem_raw + L.v);
-  float* Ss = reinterpret_cast<float*>(smem_raw + L.s);
-  bf16* Ps = reinterpret_cast<bf16*>(smem_raw + L.p);
-  float* Os = reinterpret_cast<float*>(smem_raw + L.o);
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTcBQ;
-  const int hk = h / (hq / hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int offset = sk - sq;
-  const int pad = pad_lens != nullptr ? pad_lens[b] : 0;
-  const int64_t q_stride = static_cast<int64_t>(hq) * d;   // between query rows
-  const int64_t kv_stride = static_cast<int64_t>(hkv) * d; // between key rows
-
-  load_tile(Qs, L.ldh, q + (static_cast<int64_t>(b) * sq + q0) * q_stride +
-            static_cast<int64_t>(h) * d, q_stride, sq - q0, d, L.dp);
-  for (int e = threadIdx.x; e < kTcBQ * L.dp; e += kTcThreads) {
-    const int r = e / L.dp;
-    Os[r * L.ldo + (e - r * L.dp)] = 0.f;
-  }
-
-  // lanes 2i and 2i+1 of a warp share its query row i: half the columns each
-  const int r_loc = warp * 16 + (lane >> 1);
-  const int row = q0 + r_loc;
-  const int half = lane & 1;
-  float m = -INFINITY, l = 0.f;
-
-  const int last_row = min(q0 + kTcBQ, sq) - 1;
-  const int k_end = causal ? min(sk, last_row + offset + 1) : sk;
-  const int k_begin = (pad / kTcBK) * kTcBK;
-  const int64_t kv_base = static_cast<int64_t>(b) * sk * kv_stride +
-                          static_cast<int64_t>(hk) * d;
-
-  for (int t0 = k_begin; t0 < k_end; t0 += kTcBK) {
-    __syncthreads();  // the previous tiles are consumed (and Q, O are ready)
-    load_tile(Ks, L.ldh, k + kv_base + t0 * kv_stride, kv_stride, sk - t0, d, L.dp);
-    load_tile(Vs, L.ldh, v + kv_base + t0 * kv_stride, kv_stride, sk - t0, d, L.dp);
-    __syncthreads();
-
-    {  // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-      wm::fragment<wm::accumulator, 16, 16, 16, float> acc[kTcBK / 16];
-#pragma unroll
-      for (int n = 0; n < kTcBK / 16; ++n) wm::fill_fragment(acc[n], 0.f);
-      for (int kk = 0; kk < L.dp; kk += 16) {
-        wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> a;
-        wm::load_matrix_sync(a, Qs + warp * 16 * L.ldh + kk, L.ldh);
-#pragma unroll
-        for (int n = 0; n < kTcBK / 16; ++n) {
-          wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major> kf;
-          wm::load_matrix_sync(kf, Ks + n * 16 * L.ldh + kk, L.ldh);
-          wm::mma_sync(acc[n], a, kf, acc[n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < kTcBK / 16; ++n)
-        wm::store_matrix_sync(Ss + warp * 16 * L.lds + n * 16, acc[n], L.lds,
-                              wm::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax of row r_loc over the tile; a row with every score
-    // masked so far keeps m == -inf and a finite reference point turns p
-    // and alpha into exact zeros instead of NaN
-    const float* srow = Ss + r_loc * L.lds + half * 32;
-    float sv[32];
-    float mt = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int col = t0 + half * 32 + j;
-      const bool ok = col < sk && col >= pad && (!causal || col <= row + offset);
-      sv[j] = ok ? srow[j] * scale : -INFINITY;
-      mt = fmaxf(mt, sv[j]);
-    }
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    const float m_new = fmaxf(m, mt);
-    const float m_ok = (m_new == -INFINITY) ? 0.f : m_new;
-    const float alpha = expf(m - m_ok);
-    bf16* prow = Ps + r_loc * L.ldp + half * 32;
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float p = expf(sv[j] - m_ok);
-      psum += p;
-      prow[j] = __float2bfloat16(p);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * alpha + psum;
-    m = m_new;
-    float* orow = Os + r_loc * L.ldo;
-    for (int c = half; c < L.dp; c += 2) orow[c] *= alpha;
-    __syncwarp();
-
-    {  // O += P V for this warp's rows
-      wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> pa[kTcBK / 16];
-#pragma unroll
-      for (int kk = 0; kk < kTcBK / 16; ++kk)
-        wm::load_matrix_sync(pa[kk], Ps + warp * 16 * L.ldp + kk * 16, L.ldp);
-      for (int n = 0; n < L.dp; n += 16) {
-        wm::fragment<wm::accumulator, 16, 16, 16, float> acc;
-        float* o_tile = Os + warp * 16 * L.ldo + n;
-        wm::load_matrix_sync(acc, o_tile, L.ldo, wm::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < kTcBK / 16; ++kk) {
-          wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> vf;
-          wm::load_matrix_sync(vf, Vs + kk * 16 * L.ldh + n, L.ldh);
-          wm::mma_sync(acc, pa[kk], vf, acc);
-        }
-        wm::store_matrix_sync(o_tile, acc, L.ldo, wm::mem_row_major);
-      }
-    }
-    __syncwarp();
-  }
-  __syncthreads();  // O's zeros are visible even when no tile ran
-
-  if (row < sq) {
-    const float ld = (l == 0.f) ? 1.f : l;  // rows with no valid key: zeros
-    bf16* op = out + (static_cast<int64_t>(b) * sq + row) * q_stride +
-               static_cast<int64_t>(h) * d;
-    const float* orow = Os + r_loc * L.ldo;
-    for (int c = half; c < d; c += 2) op[c] = __float2bfloat16(orow[c] / ld);
-    if (half == 0) lse[(static_cast<int64_t>(b) * hq + h) * sq + row] = m + logf(ld);
-  }
-}
-
-int launch_bf16(const void* q, const void* k, const void* v, const void* pad_lens,
-                void* out, void* lse, int b, int sq, int sk, int hq, int hkv, int d,
-                float scale, int causal, cudaStream_t stream) {
-  const size_t smem = tc_layout(d).bytes;
-  const cudaError_t e = ptt::sm90::set_smem(flash_fwd_tc_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((sq + kTcBQ - 1) / kTcBQ, hq, b);
-  flash_fwd_tc_kernel<<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(pad_lens), static_cast<bf16*>(out), static_cast<float*>(lse),
-      sq, sk, hq, hkv, d, scale, causal);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------------------
 // bf16, head_dim <= 128: wgmma, S, P and O in registers, cp.async tile ring
@@ -579,7 +413,8 @@ constexpr int kStages = 2;   // depth of the ring of K/V tiles
 // s becomes p = 2^(s scale log2(e) - m), alpha the rescaling of the rows'
 // earlier sums.  A row with every key masked so far keeps m = -inf; a finite
 // reference point turns p and alpha into exact zeros.
-__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], float (&l)[2],
+template <int R>
+__device__ __forceinline__ void softmax_tile(float (&s)[R], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], int t0, int row0, int quad,
                                              bool edge, int pad, int sk, int causal, int offset,
                                              float sl2) {
@@ -589,7 +424,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], floa
       const int lo = pad - t0;
       const int hi = min(sk, causal ? row0 + 8 * i + offset + 1 : sk) - t0;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < R / 4; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * j + 2 * quad + e;
@@ -598,7 +433,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], floa
     }
     float mt = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) mt = fmaxf(mt, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+    for (int j = 0; j < R / 4; ++j) mt = fmaxf(mt, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
     mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
     mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
     const float m_new = fmaxf(m[i], mt * sl2);
@@ -606,7 +441,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], floa
     alpha[i] = hw::exp2_approx(m[i] - m_ok);
     float ps = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < R / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float& x = s[4 * j + 2 * i + e];
@@ -751,6 +586,156 @@ int launch_wg(const void* q, const void* k, const void* v, const void* pad_lens,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16, 128 < head_dim <= 256: wgmma, Q in shared memory, O in registers
+// ---------------------------------------------------------------------------
+// Two warpgroups a block, 64 query rows each, sharing every streamed tile of
+// kBR keys; kStages stages of K and V
+template <int DP>
+struct WideFwd {
+  static constexpr int kThreads = 256;
+  static constexpr int kBQ = 128;
+  // Q, the stages of K and V; 1024 bytes of alignment slack
+  static constexpr size_t kSmem =
+      (static_cast<size_t>(kBQ) + 2 * kStages * kBR) * DP * sizeof(bf16) + 1024;
+};
+
+// B3 at 128 < d <= 256: one block per (tile of 128 query rows, q head, batch
+// row).  Each warpgroup keeps its 64 rows of Q in shared memory (read
+// through its descriptor), S and P and its DP / 2 registers of O in
+// registers; K and V stream through a ring of kStages stages.
+template <int DP>
+__global__ void __launch_bounds__(256, 1)
+fwd_wide(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+         const int* __restrict__ pad_lens, bf16* __restrict__ out, float* __restrict__ lse,
+         int sq, int sk, int hq, int hkv, int d, float scale, int causal) {
+  using L = WideFwd<DP>;
+  constexpr int kBQ = L::kBQ, kThreads = L::kThreads, BK = kBR;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Qs = hw::smem_base(smem_raw);  // two tiles [64][DP] SW128, one a warpgroup
+  bf16* Ks = Qs + kBQ * DP;            // stage st of K at Ks + st BK DP
+  bf16* Vs = Ks + kStages * BK * DP;   // stage st of V at Vs + st BK DP
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int quad = lane & 3;
+  // the last query tiles see the most keys under the causal mask: launched
+  // first, they leave the light ones for the end of the grid
+  const int b = blockIdx.z, h = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int hk = h / (hq / hkv);
+  const int offset = sk - sq;
+  const int pad = pad_lens != nullptr ? pad_lens[b] : 0;
+  const int64_t q_stride = static_cast<int64_t>(hq) * d;
+  const int64_t kv_stride = static_cast<int64_t>(hkv) * d;
+  const int64_t q_base = static_cast<int64_t>(b) * sq * q_stride + static_cast<int64_t>(h) * d;
+  const int64_t kv_base = static_cast<int64_t>(b) * sk * kv_stride + static_cast<int64_t>(hk) * d;
+
+  // key tiles [k_begin, k_end): none wholly left of the pad or above the
+  // block's diagonal is loaded
+  const int last_row = min(q0 + kBQ, sq) - 1;
+  const int k_end = causal ? min(sk, last_row + offset + 1) : sk;
+  const int k_begin = (pad / BK) * BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  auto load_kv = [&](int it) {
+    const int t0 = k_begin + it * BK;
+    const int64_t at = kv_base + static_cast<int64_t>(t0) * kv_stride;
+    hw::load_tile_sw128<BK, DP, kThreads>(Ks + (it % kStages) * BK * DP, k + at, kv_stride,
+                                          sk - t0, d, tid);
+    hw::load_tile_sw128<BK, DP, kThreads>(Vs + (it % kStages) * BK * DP, v + at, kv_stride,
+                                          sk - t0, d, tid);
+  };
+#pragma unroll
+  for (int w = 0; w < 2; ++w)  // rows >= sq and columns >= d are zero
+    hw::load_tile_sw128<64, DP, kThreads>(Qs + w * 64 * DP,
+                                          q + q_base + (q0 + 64 * w) * q_stride, q_stride,
+                                          sq - q0 - 64 * w, d, tid);
+  for (int t = 0; t < kStages - 1; ++t) {  // Q lands with tile 0
+    if (t < n_tiles) load_kv(t);
+    hw::cp_async_commit();
+  }
+
+  const bf16* Qw = Qs + wg * 64 * DP;
+  const int qw0 = q0 + 64 * wg;                  // this warpgroup's first row
+  const int row0 = qw0 + warp * 16 + (lane >> 2);  // this thread's rows: row0, row0 + 8
+  float o[DP / 2];
+#pragma unroll
+  for (int x = 0; x < DP / 2; ++x) o[x] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  const float sl2 = scale * hw::kLog2e;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = k_begin + it * BK;
+    const bf16* Kt = Ks + (it % kStages) * BK * DP;
+    const bf16* Vt = Vs + (it % kStages) * BK * DP;
+    hw::cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile it has landed; tile it - 1's stage is free
+    if (it + kStages - 1 < n_tiles) load_kv(it + kStages - 1);
+    hw::cp_async_commit();
+    // a warpgroup past the last row, or whose rows see none of the tile
+    if (qw0 >= sq || (causal && t0 > qw0 + 63 + offset)) continue;
+
+    float s[BK / 2];  // S = Q K^T, [64 rows][BK keys]
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      hw::wgmma_ss_m64n64(s, hw::desc_kmajor(Qw, 64, kk), hw::desc_kmajor(Kt, BK, kk), kk);
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(s);
+
+    // only a tile that crosses the pad, the diagonal or the last key masks
+    // per element
+    const bool edge = t0 < pad || t0 + BK > sk || (causal && t0 + BK - 1 > qw0 + offset);
+    softmax_tile(s, m, l, alpha, t0, row0, quad, edge, pad, sk, causal, offset, sl2);
+#pragma unroll
+    for (int x = 0; x < DP / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
+    uint32_t a[BK / 16][4];  // P in bf16 as the A operand
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) hw::acc_to_a(s, kk, a[kk]);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)  // O += P V
+      hw::wgmma_rs_tb<DP>(o, a[kk], hw::desc_mnmajor(Vt, BK, kk), 1);
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(o);
+    hw::fence_regs(a);
+  }
+  hw::cp_async_wait<0>();
+
+  float ld[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    ld[i] = l[i] == 0.f ? 1.f : l[i];  // rows with no valid key: zeros
+  }
+#pragma unroll
+  for (int x = 0; x < DP / 2; ++x) o[x] /= ld[(x >> 1) & 1];
+  hw::store_acc(o, out + q_base, q_stride, row0, sq, d, quad);
+  if (quad == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (row0 + 8 * i < sq)  // natural log: lse = (m + log2 l) ln 2
+        lse[(static_cast<int64_t>(b) * hq + h) * sq + row0 + 8 * i] =
+            (m[i] + log2f(ld[i])) * hw::kLn2;
+  }
+}
+
+template <int DP>
+int launch_wide(const void* q, const void* k, const void* v, const void* pad_lens, void* out,
+                void* lse, int b, int sq, int sk, int hq, int hkv, int d, float scale,
+                int causal, cudaStream_t stream) {
+  using L = WideFwd<DP>;
+  auto kernel = fwd_wide<DP>;
+  const cudaError_t e = hw::set_smem(kernel, L::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3((sq + L::kBQ - 1) / L::kBQ, hq, b), L::kThreads, L::kSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const int*>(pad_lens), static_cast<bf16*>(out), static_cast<float*>(lse),
+      sq, sk, hq, hkv, d, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, out [b, sq, hq, d]; k, v [b, sk, hkv, d]; one dtype (0 = f32, 1 = bf16,
@@ -769,5 +754,6 @@ extern "C" int ptt_flash_attention_fwd(const void* q, const void* k, const void*
     return launch_wg<64>(q, k, v, pad_lens, out, lse, b, sq, sk, hq, hkv, d, scale, causal, s);
   if (d <= 128)
     return launch_wg<128>(q, k, v, pad_lens, out, lse, b, sq, sk, hq, hkv, d, scale, causal, s);
-  return launch_bf16(q, k, v, pad_lens, out, lse, b, sq, sk, hq, hkv, d, scale, causal, s);
+  return launch_wide<256>(q, k, v, pad_lens, out, lse, b, sq, sk, hq, hkv, d, scale, causal,
+                          s);
 }

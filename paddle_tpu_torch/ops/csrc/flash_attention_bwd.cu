@@ -73,8 +73,37 @@
 // operand in B3b (32 more registers a thread for an operand that its
 // shared-memory descriptor already serves).
 //
-// bf16 with 128 < d <= 256 keeps the WMMA kernels (bwd_dq_tc, bwd_dkv_tc):
-// 16x16x16 fragments, 32-key tiles, S and dP through shared memory in f32.
+// bf16 with 128 < d <= 256, the head dim padded with zero columns to DP =
+// 256.  B3c is bwd_dkv_wide, on wgmma as bwd_dkv_wg is; at DP 256 an
+// m64n256 accumulator is 128 registers a thread, so dK and dV cannot share
+// a warpgroup.  A block of two warpgroups owns 64 keys of a kv head: K and
+// V stay in shared memory (64 KB), the group's Q and dO tiles of 64 rows
+// with their lse and delta stream through two cp.async stages (2 x 64 KB).
+//   * Warpgroup 0 computes S^T = K Q^T and P^T from the f32 exp2 of
+//     s scale - lse in its accumulator, writes P^T in f32 to a 16 KB
+//     exchange tile (thread t's 32 slots are thread t's in warpgroup 1 too,
+//     so slot x of all 128 threads is one conflict-free row) and arrives at
+//     a named barrier (bar.arrive 1, 256); then dV += P^T dO, dO through the
+//     transpose bit (m64n256k16).
+//   * Warpgroup 1 computes dP^T = V dO^T meanwhile, waits at that barrier,
+//     forms dS^T = P^T (dP^T - delta) scale from the f32 p, rounds it to
+//     bf16 in registers and accumulates dK += dS^T Q.
+//   * Four products a tile, as at d <= 128, two a warpgroup; the block
+//     barrier at each tile frees both the stage and the exchange tile.  The
+//     group's q heads are summed in one block in a fixed order: two
+//     launches give the same bits.
+// 210 KB of shared memory, one block an SM; ptxas: 255 registers, no
+// spill.  Bound at [2, 2048, 16, 256] causal: 0.1390 ms (operations).
+// Measured (chip_smoke.py's flash_d256_ab, copies of this file that differ
+// in one choice, timed in turns in one call, medians of 4-6, bf16 on an
+// H100 80GB HBM3 at 700 W; PERF.md section 6): 0.4707-0.4719 ms, against
+// 3.6054 for the WMMA kernel it replaces.  Rejected: warpgroup 1 computing
+// S^T and P^T itself (five products, no exchange tile) 0.5595.  Without the dK and dV products it takes 0.398 ms, without the
+// p and ds arithmetic 0.4185: neither alone bounds it.  Not built: the
+// head dim split over the two warpgroups (each holding half of dK and dV,
+// six products a tile).  B3b at these head dims keeps the WMMA kernel
+// bwd_dq_tc<32>: 16x16x16 fragments, 32-key tiles, S and dP through shared
+// memory in f32.
 //
 // f32 (bwd_dq_tf32, bwd_dkv_tf32) runs on the tensor cores too, each f32
 // product as three TF32 products (mma_tf32.cuh: hi and lo parts of both
@@ -595,33 +624,32 @@ int dispatch_tf32(const void* q, const void* k, const void* v, const void* o, co
 }
 
 // ---------------------------------------------------------------------------
-// bf16, 128 < head_dim <= 256: WMMA fragments (launch_tc<32>)
+// bf16, 128 < head_dim <= 256, dQ: WMMA fragments (launch_dq_tc<32>)
 // ---------------------------------------------------------------------------
 namespace wm = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 using Acc = wm::fragment<wm::accumulator, 16, 16, 16, float>;
 
 constexpr int kTcThreads = 128;  // four warps
-constexpr int kTcWarps = kTcThreads / 32;
 constexpr int kTcBQ = 64;        // query rows per tile, 16 per warp
 
 __host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
 
 // Shared-memory layout for head_dim d padded to dp (a multiple of 16) and a
 // key tile of bk rows: the K, V, Q and dO tiles in bf16, S and dP in f32,
-// and one bf16 tile X for the products' left operand (dS in the dq kernel;
-// P, then dS, in the dkv kernel).  The accumulators live in registers; at
-// d <= 256 with 32-key tiles a block stays inside the SM's 227 KB.  Row
-// strides are padded off a multiple of 128 bytes against bank conflicts;
-// every region starts on a 128-byte boundary and every fragment on a
-// 32-byte one, as WMMA loads require.  K and V are adjacent, so the dq
-// kernel's 64-row O tile fits over them while delta is computed.
+// and one bf16 tile X for dS, the left operand of dQ += dS K.  The
+// accumulators live in registers; at d <= 256 with 32-key tiles a block
+// stays inside the SM's 227 KB.  Row strides are padded off a multiple of
+// 128 bytes against bank conflicts; every region starts on a 128-byte
+// boundary and every fragment on a 32-byte one, as WMMA loads require.  K
+// and V are adjacent, so the 64-row O tile fits over them while delta is
+// computed.
 struct TcLayout {
   int dp, ldh, lds, ldp;
-  size_t k, v, q, dout, s, dp_, x, lse, delta, bytes;
+  size_t k, v, q, dout, s, dp_, x, bytes;
 };
 
-__host__ __device__ inline TcLayout tc_layout(int d, int bk, bool dkv) {
+__host__ __device__ inline TcLayout tc_layout(int d, int bk) {
   TcLayout t;
   t.dp = (d + 15) / 16 * 16;
   t.ldh = t.dp + 8;
@@ -640,8 +668,6 @@ __host__ __device__ inline TcLayout tc_layout(int d, int bk, bool dkv) {
   t.s = take(sizeof(float) * kTcBQ * t.lds);
   t.dp_ = take(sizeof(float) * kTcBQ * t.lds);
   t.x = take(sizeof(bf16) * kTcBQ * t.ldp);
-  t.lse = dkv ? take(sizeof(float) * kTcBQ) : 0;
-  t.delta = dkv ? take(sizeof(float) * kTcBQ) : 0;
   t.bytes = at;
   return t;
 }
@@ -697,18 +723,17 @@ __device__ inline void store_frag(const Acc& f, float* stage, bf16* dst, int64_t
   __syncwarp();
 }
 
-// p (and ds) of row r_loc of the 64-row query tile (row `row` of the
-// sequence), over the half `half` of the BK key columns starting at key
-// `key0`, from S and dP.  The dq kernel writes dS in bf16 to X; the dkv
-// kernel writes P in bf16 to X and ds in f32 over dP, for X later.
-template <int BK, bool kDkv>
-__device__ inline void probs_and_ds(const float* S, float* dP, int lds, bf16* X, int ldp,
+// ds of row r_loc of the 64-row query tile (row `row` of the sequence),
+// over the half `half` of the BK key columns starting at key `key0`, from S
+// and dP, written in bf16 to X.
+template <int BK>
+__device__ inline void probs_and_ds(const float* S, const float* dP, int lds, bf16* X, int ldp,
                                     int r_loc, int half, int row, int sq, int key0, int sk,
                                     float lse_r, float delta_r, float scale, int causal,
                                     int offset) {
   const int c0 = half * (BK / 2);
   const float* srow = S + r_loc * lds + c0;
-  float* dprow = dP + r_loc * lds + c0;
+  const float* dprow = dP + r_loc * lds + c0;
   bf16* xrow = X + r_loc * ldp + c0;
   const bool row_ok = row < sq && lse_r != -INFINITY;
 #pragma unroll 8
@@ -716,13 +741,7 @@ __device__ inline void probs_and_ds(const float* S, float* dP, int lds, bf16* X,
     const int col = key0 + c0 + j;
     const bool ok = row_ok && col < sk && (!causal || col <= row + offset);
     const float p = ok ? expf(srow[j] * scale - lse_r) : 0.f;
-    const float ds = p * (dprow[j] - delta_r) * scale;
-    if (kDkv) {
-      xrow[j] = __float2bfloat16(p);
-      dprow[j] = ds;
-    } else {
-      xrow[j] = __float2bfloat16(ds);
-    }
+    xrow[j] = __float2bfloat16(p * (dprow[j] - delta_r) * scale);
   }
 }
 
@@ -735,7 +754,7 @@ bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
           float scale, int causal) {
   constexpr int kFrags = BK == 64 ? 8 : 16;  // dQ column tiles of a warp (dp <= 128 / 256)
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const TcLayout L = tc_layout(d, BK, false);
+  const TcLayout L = tc_layout(d, BK);
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw + L.q);
   bf16* dOs = reinterpret_cast<bf16*>(smem_raw + L.dout);
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw + L.k);
@@ -784,7 +803,7 @@ bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     warp_abt<BK>(Ss, L.lds, Qs, Ks, L.ldh, L.dp, warp);   // S = Q K^T
     warp_abt<BK>(dPs, L.lds, dOs, Vs, L.ldh, L.dp, warp); // dP = dO V^T
     __syncwarp();
-    probs_and_ds<BK, false>(Ss, dPs, L.lds, dSs, L.ldp, r_loc, half, row, sq, t0, sk,
+    probs_and_ds<BK>(Ss, dPs, L.lds, dSs, L.ldp, r_loc, half, row, sq, t0, sk,
                             lse_r, delta_r, scale, causal, offset);
     __syncwarp();
     // dQ += dS K for this warp's rows
@@ -812,116 +831,6 @@ bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
   for (int n = 0; n < kFrags; ++n)
     if (n * 16 < L.dp)
       store_frag(acc[n], stage, dq + q_base, q_stride, q0 + warp * 16, n * 16, sq, d, lane);
-}
-
-// C[j] += X^T Y for the 16x16 output tiles t = warp + 4j of [BK][dp], with
-// X [64][BK] (query rows by keys) and Y [64][dp] in shared memory
-template <int BK, int kTiles>
-__device__ inline void acc_xty(Acc (&C)[kTiles], const bf16* X, int ldp, const bf16* Y,
-                               int ldh, int dp, int warp) {
-  const int nt = dp / 16;
-#pragma unroll
-  for (int j = 0; j < kTiles; ++j) {
-    const int t = warp + kTcWarps * j;
-    if (t < (BK / 16) * nt) {
-      const int i0 = (t / nt) * 16, n0 = (t % nt) * 16;
-#pragma unroll
-      for (int kk = 0; kk < kTcBQ; kk += 16) {
-        // X^T's 16x16 tile at (i0, kk), read column-major from X
-        wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::col_major> xt;
-        wm::load_matrix_sync(xt, X + kk * ldp + i0, ldp);
-        wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> y;
-        wm::load_matrix_sync(y, Y + kk * ldh + n0, ldh);
-        wm::mma_sync(C[j], xt, y, C[j]);
-      }
-    }
-  }
-}
-
-template <int BK>
-__global__ void __launch_bounds__(kTcThreads)
-bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-           const bf16* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-           int sq, int sk, int hq, int hkv, int d, float scale, int causal) {
-  // output tiles of a warp per accumulator: (BK/16)(dp/16)/4 <= 8 for
-  // BK 32 with dp <= 256
-  constexpr int kTiles = 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const TcLayout L = tc_layout(d, BK, true);
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + L.q);
-  bf16* dOs = reinterpret_cast<bf16*>(smem_raw + L.dout);
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw + L.k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem_raw + L.v);
-  float* Ss = reinterpret_cast<float*>(smem_raw + L.s);
-  float* dPs = reinterpret_cast<float*>(smem_raw + L.dp_);
-  bf16* Xs = reinterpret_cast<bf16*>(smem_raw + L.x);
-  float* lse_s = reinterpret_cast<float*>(smem_raw + L.lse);
-  float* delta_s = reinterpret_cast<float*>(smem_raw + L.delta);
-
-  const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * BK;
-  const int rep = hq / hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int offset = sk - sq;
-  const int64_t q_stride = static_cast<int64_t>(hq) * d;
-  const int64_t kv_stride = static_cast<int64_t>(hkv) * d;
-  const int64_t kv_base = static_cast<int64_t>(b) * sk * kv_stride + static_cast<int64_t>(hk) * d;
-
-  load_tile(Ks, L.ldh, k + kv_base + k0 * kv_stride, kv_stride, BK, sk - k0, d, L.dp);
-  load_tile(Vs, L.ldh, v + kv_base + k0 * kv_stride, kv_stride, BK, sk - k0, d, L.dp);
-  Acc dk_acc[kTiles], dv_acc[kTiles];
-#pragma unroll
-  for (int j = 0; j < kTiles; ++j) {
-    wm::fill_fragment(dk_acc[j], 0.f);
-    wm::fill_fragment(dv_acc[j], 0.f);
-  }
-
-  const int r_loc = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  // the first query row that sees key k0 is k0 - offset
-  const int q_begin = causal ? max(0, k0 - offset) : 0;
-  for (int r = 0; r < rep; ++r) {
-    const int h = hk * rep + r;
-    const int64_t q_base = static_cast<int64_t>(b) * sq * q_stride + static_cast<int64_t>(h) * d;
-    const int64_t l_base = (static_cast<int64_t>(b) * hq + h) * sq;
-    for (int t0 = q_begin; t0 < sq; t0 += kTcBQ) {
-      __syncthreads();  // the previous tiles are consumed
-      load_tile(Qs, L.ldh, q + q_base + t0 * q_stride, q_stride, kTcBQ, sq - t0, d, L.dp);
-      load_tile(dOs, L.ldh, dout + q_base + t0 * q_stride, q_stride, kTcBQ, sq - t0, d, L.dp);
-      if (threadIdx.x < kTcBQ) {
-        const bool ok = t0 + threadIdx.x < sq;
-        lse_s[threadIdx.x] = ok ? lse[l_base + t0 + threadIdx.x] : 0.f;
-        delta_s[threadIdx.x] = ok ? delta[l_base + t0 + threadIdx.x] : 0.f;
-      }
-      __syncthreads();
-      warp_abt<BK>(Ss, L.lds, Qs, Ks, L.ldh, L.dp, warp);   // S = Q K^T
-      warp_abt<BK>(dPs, L.lds, dOs, Vs, L.ldh, L.dp, warp); // dP = dO V^T
-      __syncwarp();
-      probs_and_ds<BK, true>(Ss, dPs, L.lds, Xs, L.ldp, r_loc, half, t0 + r_loc, sq, k0, sk,
-                             lse_s[r_loc], delta_s[r_loc], scale, causal, offset);
-      __syncthreads();  // dV reads every warp's rows of P
-      acc_xty<BK>(dv_acc, Xs, L.ldp, dOs, L.ldh, L.dp, warp);   // dV += P^T dO
-      __syncthreads();  // P is consumed; X takes dS
-      for (int e = threadIdx.x; e < kTcBQ * BK; e += kTcThreads) {
-        const int i = e / BK, j = e - i * BK;
-        Xs[i * L.ldp + j] = __float2bfloat16(dPs[i * L.lds + j]);
-      }
-      __syncthreads();
-      acc_xty<BK>(dk_acc, Xs, L.ldp, Qs, L.ldh, L.dp, warp);    // dK += dS^T Q
-    }
-  }
-  __syncthreads();  // S is free: each warp stages its fragments in its rows
-  float* stage = Ss + warp * 16 * L.lds;
-  const int nt = L.dp / 16;
-#pragma unroll
-  for (int j = 0; j < kTiles; ++j) {
-    const int t = warp + kTcWarps * j;
-    if (t < (BK / 16) * nt) {
-      const int i0 = (t / nt) * 16, n0 = (t % nt) * 16;
-      store_frag(dk_acc[j], stage, dk + kv_base, kv_stride, k0 + i0, n0, sk, d, lane);
-      store_frag(dv_acc[j], stage, dv + kv_base, kv_stride, k0 + i0, n0, sk, d, lane);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1249,31 +1158,218 @@ int launch_wg(const void* q, const void* k, const void* v, const void* o, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BK>
-int launch_tc(const void* q, const void* k, const void* v, const void* o, const void* dout,
-              const void* lse, void* dq, void* dk, void* dv, void* delta, int b, int sq,
-              int sk, int hq, int hkv, int d, float scale, int causal, bool dq_pass,
-              cudaStream_t s) {
-  const size_t smem = tc_layout(d, BK, !dq_pass).bytes;
-  if (dq_pass) {
-    auto kernel = bwd_dq_tc<BK>;
-    cudaError_t e = set_smem(kernel, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<dim3((sq + kTcBQ - 1) / kTcBQ, hq, b), kTcThreads, smem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<bf16*>(dq), static_cast<float*>(delta),
-        sq, sk, hq, hkv, d, scale, causal);
-  } else {
-    auto kernel = bwd_dkv_tc<BK>;
-    cudaError_t e = set_smem(kernel, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<dim3((sk + BK - 1) / BK, hkv, b), kTcThreads, smem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-        sq, sk, hq, hkv, d, scale, causal);
+// ---------------------------------------------------------------------------
+// bf16, 128 < head_dim <= 256, dK and dV: wgmma, two warpgroups a block
+// ---------------------------------------------------------------------------
+// How B3c's two warpgroups share a tile's products at 128 < d <= 256 (each
+// holds one m64n256 accumulator, 128 registers a thread): warpgroup 0 forms
+// P^T and accumulates dV, warpgroup 1 reads P^T in f32 from warpgroup 0
+// through shared memory, forms dS^T and accumulates dK (four products a
+// tile).
+template <int DP>
+struct WideDkvLayout {
+  static constexpr int kThreads = 256;
+  static constexpr size_t kTile = kBR * DP * sizeof(bf16);  // bytes of one tile
+  static constexpr size_t kExchange = kBR * kBR * sizeof(float);
+  // K, V, the stages of Q and dO, the exchange tile, the stages' lse and
+  // delta rows; 1024 bytes of alignment slack
+  static constexpr size_t kSmem =
+      (2 + 2 * kStages) * kTile + kExchange + 2 * kStages * kBR * sizeof(float) + 1024;
+};
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// B3c at 128 < d <= 256: one block per (tile of 64 keys, kv head, batch
+// row).  K and V stay in shared memory; the group's Q and dO tiles (64
+// rows) with their lse and delta stream through a ring of kStages stages.
+template <int DP>
+__global__ void __launch_bounds__(256, 1)
+bwd_dkv_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, const bf16* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk, int hq, int hkv,
+             int d, float scale, int causal) {
+  using L = WideDkvLayout<DP>;
+  constexpr int kBK = kBR, kBQ = kBR, kThreads = L::kThreads;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Ks = hw::smem_base(smem_raw);  // [kBK][DP] SW128
+  bf16* Vs = Ks + kBK * DP;
+  bf16* QDs = Vs + kBK * DP;           // stage st: Q at QDs + 2 st kBQ DP, dO after it
+  float* Xs = reinterpret_cast<float*>(QDs + 2 * kStages * kBQ * DP);  // P^T, [32][128]
+  float* LDs = Xs + L::kExchange / sizeof(float);  // stage st: lse, delta
+
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, warp = t >> 5, lane = tid & 31;
+  const int quad = lane & 3;
+  const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * kBK;
+  const int rep = hq / hkv;
+  const int offset = sk - sq;
+  const int64_t q_stride = static_cast<int64_t>(hq) * d;
+  const int64_t kv_stride = static_cast<int64_t>(hkv) * d;
+  const int64_t kv_base = static_cast<int64_t>(b) * sk * kv_stride + static_cast<int64_t>(hk) * d;
+
+  // the first query row that sees key k0 is k0 - offset; tiles run over the
+  // group's rep heads, n_qt tiles each, in a fixed order
+  const int q_begin = causal ? max(0, k0 - offset) : 0;
+  const int n_qt = q_begin < sq ? (sq - q_begin + kBQ - 1) / kBQ : 0;
+  const int n_tiles = rep * n_qt;
+  auto load_q = [&](int it) {
+    const int r = it / n_qt, t0 = q_begin + (it - r * n_qt) * kBQ;
+    const int h = hk * rep + r;
+    const int64_t at = static_cast<int64_t>(b) * sq * q_stride + static_cast<int64_t>(h) * d +
+                       t0 * q_stride;
+    bf16* Qt = QDs + 2 * (it % kStages) * kBQ * DP;
+    hw::load_tile_sw128<kBQ, DP, kThreads>(Qt, q + at, q_stride, sq - t0, d, tid);
+    hw::load_tile_sw128<kBQ, DP, kThreads>(Qt + kBQ * DP, dout + at, q_stride, sq - t0, d, tid);
+    if (tid < 2 * kBQ) {
+      const int i = tid % kBQ;
+      const bool valid = t0 + i < sq;
+      const int64_t l = (static_cast<int64_t>(b) * hq + h) * sq + t0 + i;
+      hw::cp_async4(hw::smem_u32(LDs + 2 * (it % kStages) * kBQ + tid),
+                    valid ? (tid < kBQ ? lse : delta) + l : lse, valid);
+    }
+  };
+  hw::load_tile_sw128<kBK, DP, kThreads>(Ks, k + kv_base + k0 * kv_stride, kv_stride, sk - k0, d,
+                                         tid);
+  hw::load_tile_sw128<kBK, DP, kThreads>(Vs, v + kv_base + k0 * kv_stride, kv_stride, sk - k0, d,
+                                         tid);
+  for (int st = 0; st < kStages - 1; ++st) {  // K and V land with tile 0
+    if (st < n_tiles) load_q(st);
+    hw::cp_async_commit();
   }
+
+  // dV (warpgroup 0) or dK (warpgroup 1) of the block's 64 keys
+  float acc[DP / 2];
+#pragma unroll
+  for (int x = 0; x < DP / 2; ++x) acc[x] = 0.f;
+  const float sl2 = scale * hw::kLog2e;
+  const int r_lo = warp * 16 + (lane >> 2);  // this thread's keys: r_lo, r_lo + 8 past k0
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = q_begin + (it % n_qt) * kBQ;
+    const bf16* Qt = QDs + 2 * (it % kStages) * kBQ * DP;
+    const bf16* dOt = Qt + kBQ * DP;
+    const float* ls = LDs + 2 * (it % kStages) * kBQ;
+    const float* dls = ls + kBQ;
+    hw::cp_async_wait<kStages - 2>();
+    // tile it has landed; tile it - 1's stage and the exchange tile are free
+    __syncthreads();
+    if (it + kStages - 1 < n_tiles) load_q(it + kStages - 1);
+    hw::cp_async_commit();
+    if (causal && k0 > t0 + kBQ - 1 + offset) continue;
+
+    float s[32], dp[32];  // S^T = K Q^T and dP^T = V dO^T, [64 keys][64 rows]
+    hw::wgmma_fence();
+    if (wg == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        hw::wgmma_ss_m64n64(s, hw::desc_kmajor(Ks, kBK, kk), hw::desc_kmajor(Qt, kBQ, kk), kk);
+    }
+    hw::wgmma_commit();
+    if (wg == 1) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        hw::wgmma_ss_m64n64(dp, hw::desc_kmajor(Vs, kBK, kk), hw::desc_kmajor(dOt, kBQ, kk),
+                            kk);
+    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<1>();  // S^T is done; p^T is computed while dP^T runs
+    if (wg == 0) {
+      hw::fence_regs(s);
+      // p^T over s; a column is a query row with its own lse.  Only a tile
+      // that crosses the diagonal or the last row masks per element.
+      const bool edge = (causal && k0 + kBK - 1 > t0 + offset) || t0 + kBQ > sq;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * quad;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float lc = hw::lse_log2(e ? l2.y : l2.x);
+          // keys of this column that its row sees: key <= t0 + c + e + offset
+          const int lim = t0 + c + e < sq ? (causal ? t0 + c + e + offset + 1 : sk) : -1;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int x = 4 * j + 2 * i + e;
+            const float p = hw::exp2_approx(fmaf(s[x], sl2, -lc));
+            s[x] = edge && k0 + r_lo + 8 * i >= lim ? 0.f : p;
+          }
+        }
+      }
+    }
+    uint32_t a[4][4];  // P^T (warpgroup 0) or dS^T (warpgroup 1) in bf16 as the A operand
+    if (wg == 0) {
+      // thread t's accumulator slots are thread t's in warpgroup 1 too:
+      // slot x of every thread in a row of 128 floats, conflict-free
+#pragma unroll
+      for (int x = 0; x < 32; ++x) Xs[x * 128 + t] = s[x];
+      named_arrive(1, 256);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hw::acc_to_a(s, kk, a[kk]);
+    } else {
+      hw::wgmma_wait<0>();
+      hw::fence_regs(dp);
+      named_sync(1, 256);  // warpgroup 0's P^T of this tile is written
+#pragma unroll
+      for (int x = 0; x < 32; ++x) s[x] = Xs[x * 128 + t];
+      // ds^T = p^T (dp^T - delta) scale, from the f32 p
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(dls + 8 * j + 2 * quad);
+#pragma unroll
+        for (int x = 4 * j; x < 4 * j + 4; ++x)
+          dp[x] = s[x] * (dp[x] - (x & 1 ? d2.y : d2.x)) * scale;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hw::acc_to_a(dp, kk, a[kk]);
+    }
+    // dV += P^T dO (warpgroup 0), dK += dS^T Q (warpgroup 1)
+    const bf16* Yt = wg == 0 ? dOt : Qt;
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk)
+      hw::wgmma_rs_tb<DP>(acc, a[kk], hw::desc_mnmajor(Yt, kBQ, kk), 1);
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(acc);
+    hw::fence_regs(a);
+  }
+  hw::cp_async_wait<0>();
+  hw::store_acc(acc, (wg == 0 ? dv : dk) + kv_base, kv_stride, k0 + r_lo, sk, d, quad);
+}
+
+template <int DP>
+int launch_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dk, void* dv, int b, int sq,
+                    int sk, int hq, int hkv, int d, float scale, int causal, cudaStream_t s) {
+  using L = WideDkvLayout<DP>;
+  auto kernel = bwd_dkv_wide<DP>;
+  cudaError_t e = set_smem(kernel, L::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3((sk + kBR - 1) / kBR, hkv, b), L::kThreads, L::kSmem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk,
+      hq, hkv, d, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BK>
+int launch_dq_tc(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                 const void* lse, void* dq, void* delta, int b, int sq, int sk, int hq, int hkv,
+                 int d, float scale, int causal, cudaStream_t s) {
+  const size_t smem = tc_layout(d, BK).bytes;
+  auto kernel = bwd_dq_tc<BK>;
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3((sq + kTcBQ - 1) / kTcBQ, hq, b), kTcThreads, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<bf16*>(dq), static_cast<float*>(delta),
+      sq, sk, hq, hkv, d, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1292,8 +1388,11 @@ int dispatch(const void* q, const void* k, const void* v, const void* o, const v
   if (d <= 128)
     return launch_wg<128>(q, k, v, o, dout, lse, dq, dk, dv, delta, b, sq, sk, hq, hkv, d,
                           scale, causal, dq_pass, s);
-  return launch_tc<32>(q, k, v, o, dout, lse, dq, dk, dv, delta, b, sq, sk, hq, hkv, d,
-                       scale, causal, dq_pass, s);
+  if (dq_pass)
+    return launch_dq_tc<32>(q, k, v, o, dout, lse, dq, delta, b, sq, sk, hq, hkv, d, scale,
+                            causal, s);
+  return launch_dkv_wide<256>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk, hq, hkv, d, scale,
+                              causal, s);
 }
 
 }  // namespace

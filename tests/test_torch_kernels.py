@@ -152,9 +152,9 @@ class TestFlashAttention:
         assert not got[1, :11].any() and torch.isfinite(got).all()
         assert torch.isneginf(lse[1, :, :11]).all() and torch.isfinite(lse[1, :, 11:]).all()
 
-    # the head dims the wgmma forward compiles (DP 64 and 128), at tiles of
-    # 64 rows as the card's kernel takes them
-    @pytest.mark.parametrize("d", [64, 128])
+    # the head dims the wgmma forwards compile (DP 64, 128 and 256, with 160
+    # padded to 256), at tiles of 64 rows as the card's kernels take them
+    @pytest.mark.parametrize("d", [64, 128, 160, 256])
     def test_gqa_4_to_1_matches_pallas(self, d):
         q, k, v = _np(24, 2, 128, 8, d), _np(25, 2, 128, 2, d), _np(26, 2, 128, 2, d)
         out, (_, _, _, _, lse) = jax_flash_fwd(
@@ -164,7 +164,7 @@ class TestFlashAttention:
         _close(got, out, ATTN)
         _close(got_lse, np.asarray(lse)[..., 0], ATTN)
 
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 160, 256])
     def test_causal_sq_below_sk_matches_pallas(self, d):
         """offset = sk - sq = 128: query row i sees keys <= i + 128."""
         q, k, v = _np(27, 1, 64, 4, d), _np(28, 1, 192, 2, d), _np(29, 1, 192, 2, d)
@@ -175,7 +175,7 @@ class TestFlashAttention:
         _close(got, out, ATTN)
         _close(got_lse, np.asarray(lse)[..., 0], ATTN)
 
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 160, 256])
     def test_varlen_pad_over_a_whole_block_matches_pallas(self, d):
         """Row 1's pad (100) covers the first 64-row query block and more:
         its padded rows are exact zeros with lse -inf, as in the Pallas
@@ -219,6 +219,23 @@ class TestFlashAttention:
         _close(got_lse, np.asarray(lse)[..., 0], ATTN)
         assert not got[1].any() and torch.isneginf(got_lse[1]).all()
         assert torch.isfinite(got_lse[0]).all() and torch.isfinite(got_lse[2, :, 5:]).all()
+
+    def test_varlen_fully_padded_row_d256_matches_pallas(self):
+        """As above at head_dim 256 and 64-row tiles, the card's d 256
+        kernel's tile: row 1 is padded whole, row 2 over a whole tile."""
+        b, s, d = 3, 128, 256
+        q, k, v = _np(39, b, s, 4, d), _np(40, b, s, 2, d), _np(41, b, s, 2, d)
+        pads = np.asarray([0, s, 70], np.int32)
+        out, lse = jax_flash_internal_fwd(
+            *(jax_to_internal(jnp.asarray(x)) for x in (q, k, v)), scale=1.0 / np.sqrt(d),
+            causal=True, block_q=64, block_k=64, interpret=True, pad_lens=jnp.asarray(pads))
+        got, got_lse = flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                           torch.from_numpy(v), True, torch.from_numpy(pads))
+        _close(got, np.asarray(out).transpose(0, 2, 1, 3), ATTN)
+        _close(got_lse, np.asarray(lse)[..., 0], ATTN)
+        assert not got[1].any() and torch.isneginf(got_lse[1]).all()
+        assert not got[2, :70].any() and torch.isneginf(got_lse[2, :, :70]).all()
+        assert torch.isfinite(got_lse[0]).all() and torch.isfinite(got_lse[2, :, 70:]).all()
 
     def test_sdpa_reference_matches_jax(self):
         q, k, v = _np(17, 2, 8, 4, 16), _np(18, 2, 8, 2, 16), _np(19, 2, 8, 2, 16)

@@ -189,6 +189,24 @@ class TestFlashBackward:
             for g, w in zip(got, want):
                 _close(g, w, ATTN)
 
+    # the head dims the card's d 256 kernels take (160 padded to 256), with
+    # GQA 4:1 at d 256; tiles of 16 rows over s 64 as above
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("hq,hkv,d", [(4, 2, 160), (4, 4, 256), (8, 2, 256)])
+    def test_plain_matches_pallas_vjp_wide_heads(self, causal, hq, hkv, d):
+        b, s = 1, 64
+        q, k, v = _np(16, b, s, hq, d), _np(17, b, s, hkv, d), _np(18, b, s, hkv, d)
+        do = _np(19, b, s, hq, d)
+        _, vjp = jax.vjp(lambda a, c, e: jax_flash(a, c, e, None, causal, 16, 16, True),
+                         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want = vjp(jnp.asarray(do))
+        tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+        out, lse = flash_attention_plain(tq, tk, tv, causal)
+        for got in (flash_attention_bwd_plain(tq, tk, tv, out, lse, torch.from_numpy(do), causal),
+                    flash_attention_bwd(tq, tk, tv, out, lse, torch.from_numpy(do), causal)):
+            for g, w in zip(got, want):
+                _close(g, w, ATTN)
+
     # b, sq, sk, hq, hkv, d, causal: d 8 causal GQA, d 64 not causal, d 128
     # causal with sq < sk, d 256
     @pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal", [
