@@ -76,10 +76,10 @@ exits non-zero without them.  Phases, each raising on failure:
    bf16, at the training shapes (x [8192, 4096]; q, k [4, 2048, 32, 128]
    and GPT-3 1.3B's [4, 2048, 16, 128]), at Llama-2-70B's GQA attention,
    at the ring's hop shapes ([1, 4096, 32, 128], causal and not) and at
-   off-size attention shapes (d 64, 72, 200, 256), each flash case launched
-   twice with bit-equal grads; timed as in 3 (the library call is the
-   backward of ``F.rms_norm`` and of SDPA), flash dq and dk/dv also at
-   GPT-3 1.3B's and the hop shapes; RMSNorm's also at off sizes (odd h,
+   off-size attention shapes (d 64, 72, 160, 200, 256; at 256 also sq <
+   sk and s 65), each flash case launched twice with bit-equal grads;
+   timed as in 3 (the library call is the backward of ``F.rms_norm`` and
+   of SDPA), flash dq and dk/dv also at GPT-3 1.3B's and the hop shapes; RMSNorm's also at off sizes (odd h,
    1 and 3 rows, rows of several segments), launched twice bit-equal;
 5b. ring parity (run after 5): B10, the ring of context parallelism, with
    its members on the one card: the kernel ring (B3 and the merge kernel a
@@ -219,7 +219,7 @@ exits non-zero without them.  Phases, each raising on failure:
    4 B3c a step), ms a step, peak memory and B3b's and B3c's device time
    in a profiled step;
 19. the bf16 forward and dK/dV at 128 < head_dim <= 256 on wgmma
-   (``fwd_wide``, ``bwd_dkv_wide``; dQ keeps the WMMA ``bwd_dq_tc``): their
+   (``fwd_wide``, ``bwd_dkv_wide``; dQ on wgmma in 20): their
    parity cases in 3 and 5 (d 160 with sq < sk and GQA 4:1, d 256 varlen
    with a batch row padded whole and one over a whole 128-row tile, d 256
    not causal on s 300, d 256 with GQA 8:1, d 200 not causal), times at
@@ -230,7 +230,15 @@ exits non-zero without them.  Phases, each raising on failure:
    AMP O2 bf16, AdamW with the clip through ``TrainStep`` on 7's batch:
    ``gate_shallow`` on that batch, 1 warm-up and 3 counted steps with exact
    launches (2 B3, 2 B3b, 2 B3c a step), ms a step, and B3's, B3b's and
-   B3c's device time in a profiled step.
+   B3c's device time in a profiled step;
+20. the bf16 dQ at 128 < head_dim <= 256 on wgmma (``bwd_dq_wg<256>``,
+   the d <= 128 kernel's design at that width: one warpgroup, dQ's 64 x
+   256 f32 tile in registers): its parity cases in 5 (d 256 causal with
+   sq 136 < sk 264 and GQA 4:1, d 256 on s 65, d 160 GQA 8:1 not
+   causal), dq and delta bit-equal across two launches, delta against the
+   plain rowsum;
+   ``phase_train_d256`` held to ``gate_shallow``'s rule, with the q_proj
+   and k_proj grads' distances logged.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
@@ -401,6 +409,8 @@ def phase_build():
         for line in text.splitlines():
             if "Compiling entry function" in line:
                 kernel = next(kernels)
+            elif "Performance Loss" in line:  # e.g. wgmma products serialized by ptxas
+                log(f"  ptxas {name}: {line.strip()}")
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas {name} {kernel}: {line.strip()}")
                 # the wgmma kernels keep their accumulators in registers (the
@@ -612,6 +622,8 @@ def ab_build(source, variants, symbols, argtypes, report):
             raise AssertionError(f"A/B {name}: nvcc failed:\n{text[-3000:]}")
         lines = text.splitlines()
         for i, line in enumerate(lines):
+            if "Performance Loss" in line:
+                log(f"A/B {name}: {line.strip()}")
             m = re.search(report, line)
             if m and "Compiling entry" in line:
                 log(f"A/B {name}: {m.group(0)}: {lines[i + 2].strip()}; {lines[i + 3].strip()}")
@@ -797,13 +809,15 @@ def flash_bwd_tf32_ab(torch, variants=None, rounds=2):
     return ab_times(torch, fns, cases, rounds)
 
 
-# B3 and B3c at 128 < d <= 256 (flash_d256_ab): each variant is
+# B3, B3b and B3c at 128 < d <= 256 (flash_d256_ab): each variant is
 # flash_attention.cu or flash_attention_bwd.cu with these texts replaced;
 # "x_" variants compute wrong results on purpose (a phase removed) and are
 # timed only
-# (the rejected designs, one warpgroup a block, 32-key tiles and a third
-# stage, and B3c's S^T recomputed by the dK warpgroup, are in PERF.md
-# section 6 with their times, and in the kernels' source notes)
+# (the rejected designs, for B3 one warpgroup a block, 32-key tiles and a
+# third stage, for B3c S^T recomputed by the dK warpgroup, for B3b two
+# warpgroups handing p across or owning 64 rows each and dQ left in flight,
+# are in PERF.md section 6 with their times, and in the kernels' source
+# notes)
 D256_FWD_AB_VARIANTS = {
     "2 warpgroups, 64-key tiles, 2 stages (as built)": [],
     "x_no S": [("      hw::wgmma_ss_m64n64(s, hw::desc_kmajor(Qw, 64, kk), "
@@ -816,7 +830,18 @@ D256_FWD_AB_VARIANTS = {
     "x_K/V loaded once": [("    if (it + kStages - 1 < n_tiles) load_kv(it + kStages - 1);", "")],
 }
 D256_BWD_AB_VARIANTS = {
-    "P^T exchanged (as built)": [],
+    "as built (B3b one warpgroup; B3c P^T exchanged)": [],
+    "x_B3b no S": [("      hw::wgmma_ss_m64n64(s, hw::desc_kmajor(Qs, kBQ, kk), "
+                    "hw::desc_kmajor(Kt, kBK, kk), kk);", "      ;")],
+    "x_B3b no dP": [("      hw::wgmma_ss_m64n64(dp, hw::desc_kmajor(dOs, kBQ, kk), "
+                     "hw::desc_kmajor(Vt, kBK, kk), kk);", "      ;")],
+    "x_B3b no dQ product": [
+        ("      hw::wgmma_rs_tb<DP>(dq_acc, a[kk], hw::desc_mnmajor(Kt, kBK, kk), 1);", "      ;")],
+    "x_B3b no p, ds arithmetic": [
+        ("          s[x] = edge && 8 * j + 2 * quad + e >= lim ? 0.f : p;", "          s[x] = s[x];"),
+        ("s[x] = s[x] * (dp[x] - delta_r[(x >> 1) & 1]) * scale;", "s[x] = dp[x];")],
+    "x_B3b K/V loaded once": [("    if (it + kStages - 1 < n_tiles) load_kv(it + kStages - 1);",
+                               "")],
     "x_no dK, dV products": [
         ("      hw::wgmma_rs_tb<DP>(acc, a[kk], hw::desc_mnmajor(Yt, kBQ, kk), 1);", "      ;")],
     "x_no p, ds arithmetic": [("            s[x] = edge && k0 + r_lo + 8 * i >= lim ? 0.f : p;",
@@ -827,14 +852,16 @@ D256_BWD_AB_VARIANTS = {
 
 
 def flash_d256_ab(torch, fwd_variants=None, bwd_variants=None, rounds=2):
-    """Times the bf16 kernels at 128 < d <= 256, ``fwd_wide`` (B3) and
-    ``bwd_dkv_wide`` (B3c), in their variants (D256_FWD_AB_VARIANTS,
-    D256_BWD_AB_VARIANTS, built by ``ab_build``) at D256_SHAPE causal, in
-    turns (``ab_times``).  First each variant but the "x_" ones against the
-    plain version in bf16 (forward: d 256 GQA 4:1 with sq < sk, d 256
-    varlen with a batch row padded whole, d 160 not causal on s 300; B3c:
-    d 256 GQA 8:1 causal, d 200 not causal), launched twice for equal bits.
-    Callable alone after ``phase_device``."""
+    """Times the bf16 kernels at 128 < d <= 256, ``fwd_wide`` (B3),
+    ``bwd_dq_wg<256>`` (B3b) and ``bwd_dkv_wide`` (B3c), in their variants
+    (D256_FWD_AB_VARIANTS, D256_BWD_AB_VARIANTS, built by ``ab_build``) at
+    D256_SHAPE causal, in turns (``ab_times``).  First each variant but the
+    "x_" ones against the plain version in bf16 (forward: d 256 GQA 4:1
+    with sq < sk, d 256 varlen with a batch row padded whole, d 160 not
+    causal on s 300; B3b: d 256 GQA 4:1 with sq 136 < sk 264, d 256 on s
+    65, d 160 GQA 8:1 not causal; B3c: d 256 GQA 8:1 causal, d 200 not
+    causal), launched twice for equal bits (B3b: dq and delta).  Callable
+    alone after ``phase_device``."""
     from paddle_tpu_torch.ops.flash_attention import (_ARGTYPES, _BWD_ARGTYPES,
                                                       flash_attention_bwd_plain,
                                                       flash_attention_plain)
@@ -844,7 +871,8 @@ def flash_d256_ab(torch, fwd_variants=None, bwd_variants=None, rounds=2):
                        r"fwd_wideILi256EE")
     dq_sym, dkv_sym = "ptt_flash_attention_bwd_dq", "ptt_flash_attention_bwd_dkv"
     bwd_fns = ab_build("flash_attention_bwd", bwd_variants or D256_BWD_AB_VARIANTS,
-                       [dq_sym, dkv_sym], _BWD_ARGTYPES, r"bwd_dkv_wideILi256EE")
+                       [dq_sym, dkv_sym], _BWD_ARGTYPES,
+                       r"bwd_(dq_wg|dkv_wide)ILi256EE")
     stream = torch.cuda.current_stream().cuda_stream
 
     def call(fn, *args):
@@ -864,10 +892,14 @@ def flash_d256_ab(torch, fwd_variants=None, bwd_variants=None, rounds=2):
              *dims(q, k, causal))
         return out, lse
 
-    def dkv(f, q, k, v, out, lse, do, causal):
+    def dq_delta(f, q, k, v, out, lse, do, causal):
         dq, delta = torch.empty_like(q), torch.empty_like(lse)
         call(f[dq_sym], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
              lse.data_ptr(), dq.data_ptr(), delta.data_ptr(), *dims(q, k, causal))
+        return dq, delta
+
+    def dkv(f, q, k, v, out, lse, do, causal):
+        _, delta = dq_delta(f, q, k, v, out, lse, do, causal)
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         call(f[dkv_sym], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
              delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims(q, k, causal))
@@ -894,6 +926,27 @@ def flash_d256_ab(torch, fwd_variants=None, bwd_variants=None, rounds=2):
             err = check_close(torch, f"A/B {name} d{d}", got[0], want[0], tol)
             check_close(torch, f"A/B {name} lse d{d}", got[1], want[1], TOL["float32_attn"])
             log(f"A/B {name} fwd {[b, sq, sk, hq, hkv, d]}: max_abs_err {err:.3g}, bit-equal")
+    for b, sq, sk, hq, hkv, d, causal in ((2, 136, 264, 8, 2, 256, True),
+                                          (2, 65, 65, 4, 2, 256, True),
+                                          (2, 300, 300, 8, 1, 160, False)):
+        q, do = randn(b, sq, hq, d), randn(b, sq, hq, d)
+        k, v = randn(b, sk, hkv, d), randn(b, sk, hkv, d)
+        out, lse = flash_attention_plain(q, k, v, causal)
+        out, lse = out.contiguous(), lse.contiguous()
+        want = (flash_attention_bwd_plain(q, k, v, out, lse, do, causal)[0],
+                (do.float() * out.float()).sum(-1).transpose(1, 2))
+        for name, f in bwd_fns.items():
+            if name.startswith("x_"):
+                continue
+            got = dq_delta(f, q, k, v, out, lse, do, causal)
+            again = dq_delta(f, q, k, v, out, lse, do, causal)
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"A/B {name}: two launches differ")
+            errs = [check_close(torch, f"A/B {name} dq", got[0], want[0], tol),
+                    check_close(torch, f"A/B {name} delta", got[1], want[1],
+                                TOL["float32_attn"])]
+            log(f"A/B {name} dq {[b, sq, sk, hq, hkv, d]}: max_abs_err dq {errs[0]:.3g} delta "
+                f"{errs[1]:.3g}, bit-equal")
     for b, s, hq, hkv, d, causal in ((2, 300, 8, 1, 256, True), (2, 300, 4, 2, 200, False)):
         q, do = randn(b, s, hq, d), randn(b, s, hq, d)
         k, v = randn(b, s, hkv, d), randn(b, s, hkv, d)
@@ -922,9 +975,14 @@ def flash_d256_ab(torch, fwd_variants=None, bwd_variants=None, rounds=2):
     label = f"{[b, s, h, d]} causal bf16"
     fwd_times = ab_times(torch, fwd_fns, {f"fwd {label}": lambda f: fwd(f, q, k, v, True)},
                          rounds)
-    bwd_times = ab_times(torch, bwd_fns, {f"dkv {label}": lambda f: call(
-        f[dkv_sym], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims(q, k, True))}, rounds)
+    dq, dq_delta_out = torch.empty_like(q), torch.empty_like(lse)
+    bwd_times = ab_times(torch, bwd_fns, {
+        f"dq {label}": lambda f: call(
+            f[dq_sym], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dq_delta_out.data_ptr(), *dims(q, k, True)),
+        f"dkv {label}": lambda f: call(
+            f[dkv_sym], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims(q, k, True))}, rounds)
     return {**fwd_times, **bwd_times}
 
 
@@ -1379,8 +1437,9 @@ def phase_bwd_parity(torch):
     and bf16, at the training path's shapes (Llama-2-7B width, batch 4 x
     2048; GPT-3 1.3B's 16 heads), at Llama-2-70B's GQA attention, at the
     ring's hop shapes (4096 rows, causal and not) and at off-size attention
-    shapes (d 64, 72, 200, 256, with GQA 8:1 at 256); B3b/B3c launched
-    twice must give the same bits.
+    shapes (d 64, 72, 160, 200, 256, with GQA 8:1 at 160 and 256, sq < sk
+    and a last query tile of one row at 256); B3b/B3c launched twice must
+    give the same bits, B3b's delta too at head_dim > 128.
     Then times in bf16 at the main shape, and B3b/B3c's at GPT-3 1.3B's
     shape and the hop shapes (the ``shapes`` entry of their rows), then in
     f32 at the training shape and ERNIE's and in bf16 at head_dim 256."""
@@ -1426,27 +1485,33 @@ def phase_bwd_parity(torch):
     del gq, gk, oq, ok, pq, pk
 
     # B3b / B3c: the training shape, 70B GQA (B3c's group sum), off-size
-    # shapes (d 72, 200 and 256), GPT-3 1.3B's shape, the ring's two hop shapes
+    # shapes (d 72, 160, 200 and 256), GPT-3 1.3B's shape, the ring's two hop shapes
     # at cp 4 (a "diag" hop is causal, a "full" one is not) and a ragged d 64
     # GQA case; two launches of the kernels must agree bit for bit
-    cases = [("causal 7B", b, s, h, h, d, True), ("causal 70B GQA", 1, s, 64, 8, d, True),
-             ("causal d72 s300", 2, 300, 4, 2, 72, True),
-             ("causal d256 s200", 1, 200, 2, 1, 256, True),
+    # (label, b, sq, sk, q heads, kv heads, head_dim, causal)
+    cases = [("causal 7B", b, s, s, h, h, d, True), ("causal 70B GQA", 1, s, s, 64, 8, d, True),
+             ("causal d72 s300", 2, 300, 300, 4, 2, 72, True),
+             ("causal d256 s200", 1, 200, 200, 2, 1, 256, True),
              # bwd_dkv_wide's group sum over 8 q heads; d 200 not causal
-             ("causal d256 GQA 8:1", 2, 300, 8, 1, 256, True),
-             ("full d200 s300", 2, 300, 4, 2, 200, False),
+             ("causal d256 GQA 8:1", 2, 300, 300, 8, 1, 256, True),
+             ("full d200 s300", 2, 300, 300, 4, 2, 200, False),
+             # B3b's edges at d 256: sq < sk, both ragged, with the causal
+             # offset; one live row in the last query tile; d 160 GQA 8:1
+             ("causal d256 sq136 sk264 GQA 4:1", 2, 136, 264, 8, 2, 256, True),
+             ("causal d256 s65", 2, 65, 65, 4, 2, 256, True),
+             ("full d160 s300 GQA 8:1", 2, 300, 300, 8, 1, 160, False),
              # phase_train_d256's attention: 16 heads of 256 over 4 x 2048
-             ("causal d256 train", b, s, 16, 16, 256, True),
-             ("causal GPT-3 1.3B", b, s, 16, 16, d, True),
-             ("ring hop diag", 1, 4096, h, h, d, True),
-             ("ring hop full", 1, 4096, h, h, d, False),
-             ("causal d64 s1000 GQA", 2, 1000, 8, 2, 64, True),
-             ("ERNIE 3.0 base full", ERNIE_BATCH, ERNIE_SEQ, 12, 12, 64, False)]
+             ("causal d256 train", b, s, s, 16, 16, 256, True),
+             ("causal GPT-3 1.3B", b, s, s, 16, 16, d, True),
+             ("ring hop diag", 1, 4096, 4096, h, h, d, True),
+             ("ring hop full", 1, 4096, 4096, h, h, d, False),
+             ("causal d64 s1000 GQA", 2, 1000, 1000, 8, 2, 64, True),
+             ("ERNIE 3.0 base full", ERNIE_BATCH, ERNIE_SEQ, ERNIE_SEQ, 12, 12, 64, False)]
     timed, timed32 = {}, {}  # bf16 and f32 inputs of the shapes timed below
-    for label, bb, sq, hq, hkv, hd, causal in cases:
+    for label, bb, sq, sk, hq, hkv, hd, causal in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q = randn(bb, sq, hq, hd, dtype=dtype)
-            k, v = randn(bb, sq, hkv, hd, dtype=dtype), randn(bb, sq, hkv, hd, dtype=dtype)
+            k, v = randn(bb, sk, hkv, hd, dtype=dtype), randn(bb, sk, hkv, hd, dtype=dtype)
             out, lse = flash_attention_fwd(q, k, v, causal)
             do = randn(bb, sq, hq, hd, dtype=dtype)
             got = flash_attention_bwd(q, k, v, out, lse, do, causal)
@@ -1457,9 +1522,19 @@ def phase_bwd_parity(torch):
             tol = TOL["float32_attn_bwd" if dtype == torch.float32 else "bfloat16"]
             errs = [check_close(torch, f"flash bwd {label} {n}", g, w_, tol)
                     for n, g, w_ in zip(("dq", "dk", "dv"), got, want)]
-            log(f"parity flash bwd {label} {dtype} q{list(q.shape)} kv{hkv}"
+            extra = ""
+            if hd > 128:  # B3b's delta too: bit-equal across launches, and the plain rowsum
+                deltas = [flash_attention_bwd_dq(q, k, v, out, lse, do, causal)[1]
+                          for _ in range(2)]
+                if not torch.equal(*deltas):
+                    raise AssertionError(f"flash bwd {label} {dtype}: two deltas differ")
+                err = check_close(torch, f"flash bwd {label} delta", deltas[0],
+                                  (do.float() * out.float()).sum(-1).transpose(1, 2),
+                                  TOL["float32_attn"])
+                extra = f" delta {err:.3g}"
+            log(f"parity flash bwd {label} {dtype} q{list(q.shape)} sk{sk} kv{hkv}"
                 f"{'' if causal else ' full'}: max_abs_err dq {errs[0]:.3g} dk {errs[1]:.3g} "
-                f"dv {errs[2]:.3g}; two launches bit-equal")
+                f"dv {errs[2]:.3g}{extra}; two launches bit-equal")
             if dtype == torch.bfloat16 and label in ("causal 7B", "causal GPT-3 1.3B",
                                                      "ring hop diag", "ring hop full",
                                                      "ERNIE 3.0 base full"):
@@ -1525,7 +1600,7 @@ def phase_bwd_parity(torch):
     del timed, q, k, v, out, lse, do
     torch.cuda.empty_cache()
     # f32 inputs (the 3xTF32 kernels of the default dtype's training) at the
-    # training shape and ERNIE's, and bf16 at head_dim 256 (bwd_dq_tc and
+    # training shape and ERNIE's, and bf16 at head_dim 256 (bwd_dq_wg<256> and
     # bwd_dkv_wide, phase_train_d256's) at D256_SHAPE, causal; each beside
     # SDPA's whole backward in the same dtype, with the kernels that SDPA
     # runs, and the card's clocks
@@ -3781,6 +3856,7 @@ def gate_shallow(torch, make, on, gate_ids, gate_labels):
            if (r[0] > LOGITS_REL_TOL and r[1] > r[2]) or r[1] > DEPTH_REL_MARGIN * r[2]]
     if r_loss > LOGITS_REL_TOL or bad:
         raise AssertionError(f"2-layer gate: loss {r_loss}; grads {bad}")
+    return rows
 
 
 def gate_deep(torch, make, layers, on, gate_ids, gate_labels):
@@ -3985,16 +4061,19 @@ def make_llama_d256(layers: int, seed: int = 0):
 
 def phase_train_d256(torch, card, make=None, batch=None):
     """The path of the bf16 kernels at 128 < d <= 256 (``fwd_wide``,
-    ``bwd_dq_tc``, ``bwd_dkv_wide``): ``make_llama_d256`` at
+    ``bwd_dq_wg<256>``, ``bwd_dkv_wide``): ``make_llama_d256`` at
     TRAIN_D256_LAYERS layers under AMP O2 bf16, AdamW(1e-4) with
     ClipGradByGlobalNorm(1.0) through TrainStep on ``train_batch``'s 4 x
     2048, LLAMA_ON's flags.  Gate (``gate_shallow`` at 2 layers on that
     batch): the kernels' loss within LOGITS_REL_TOL of the plain path's
-    (OFF_FLAGS) on the same weights, and every grad too unless the plain
-    grad is the farther of the two from an f32 copy's: the kernels round dS
-    to bf16 before dQ and dK, as the TPU kernel does, and the plain path
-    rounds dP instead.  Then TRAIN_D256_WARMUP and TRAIN_D256_STEPS steps:
-    finite, falling losses, each kernel launched as often as the path needs
+    (OFF_FLAGS) on the same weights; every grad within LOGITS_REL_TOL of
+    the plain grad unless the plain grad is the farther of the two from an
+    f32 copy's (the kernels round dS to bf16 before dQ and dK, as the TPU
+    kernel does, and the plain path rounds dP instead); and every grad no
+    farther from the f32 copy than DEPTH_REL_MARGIN times the plain grad.
+    The q_proj and k_proj grads, which flow through B3b's dQ, are logged
+    with their three distances.  Then TRAIN_D256_WARMUP and
+    TRAIN_D256_STEPS steps: finite, falling losses, each kernel launched as often as the path needs
     (L B3, L B3b and L B3c a step), ms a step, peak memory, a profile of
     one step, and B3's, B3b's and B3c's device time a step over
     TRAIN_D256_STEPS more.  Returns the counted steps' launches."""
@@ -4011,7 +4090,12 @@ def phase_train_d256(torch, card, make=None, batch=None):
     ids, labels = batch or train_batch(torch, 32000)
     L = TRAIN_D256_LAYERS
     gc.collect()
-    gate_shallow(torch, make, LLAMA_ON, ids, labels)
+    rows = gate_shallow(torch, make, LLAMA_ON, ids, labels)
+    # the grads that flow through B3b's dQ: kernels vs plain (kernels to
+    # f32, plain to f32)
+    log("train d256 2-layer q_proj, k_proj grads: " + "; ".join(
+        f"{n} {kp:.4g} ({kf:.4g}, {pf:.4g})" for kp, kf, pf, n in sorted(rows, key=lambda r: r[3])
+        if "q_proj" in n or "k_proj" in n))
     gc.collect()
     torch.cuda.empty_cache()
     model = make(L)
@@ -4050,7 +4134,7 @@ def phase_train_d256(torch, card, make=None, batch=None):
         busy_ms, busy = device_ms(torch, lambda: step(ids, labels), iters=TRAIN_D256_STEPS,
                                   warmup=0)
     mine = {n: ms for n, ms in busy.items()
-            if any(k in n for k in ("fwd_wide", "bwd_dq_tc", "bwd_dkv_wide"))}
+            if any(k in n for k in ("fwd_wide", "bwd_dq_wg", "bwd_dkv_wide"))}
     log(f"device time a train step {label} over {TRAIN_D256_STEPS} steps: B3 + B3b + B3c "
         f"{sum(mine.values()):.3f} ms of {busy_ms:.3f} ms ({split_line(mine)})")
     del model, opt, step

@@ -74,9 +74,34 @@
 // shared-memory descriptor already serves).
 //
 // bf16 with 128 < d <= 256, the head dim padded with zero columns to DP =
-// 256.  B3c is bwd_dkv_wide, on wgmma as bwd_dkv_wg is; at DP 256 an
-// m64n256 accumulator is 128 registers a thread, so dK and dV cannot share
-// a warpgroup.  A block of two warpgroups owns 64 keys of a kv head: K and
+// 256.  B3b (_bwd_dq_kernel, flash_attention.py:219-260, pallas_call at
+// :315) is bwd_dq_wg<256>, the d <= 128 kernel's design at that width: one
+// warpgroup over 64 query rows, Q and dO resident (64 KB), 64-key K and V
+// tiles through two cp.async stages (128 KB; the 128 threads load a tile's
+// 256 columns in two halves), S and dP as SS m64n64 wgmma, p and ds in
+// their accumulators, dS rounded to bf16 in registers as the A operand of
+// dQ += dS K, an m64n256 product whose 128 accumulator registers hold the
+// whole dQ tile.  193 KB of shared memory, one block an SM; ptxas: 227
+// registers, no spill.  Bound at [2, 2048, 16, 256] causal: 0.1043 ms
+// (operations).  Measured (chip_smoke.py's flash_d256_ab, copies of this
+// file that differ in one choice, timed in turns in one call, medians of 4,
+// bf16 on an H100 80GB HBM3 at 700 W; PERF.md section 6): 0.3077-0.3107
+// ms, against 2.29 for the WMMA kernel it replaces and 0.65-0.77 for
+// SDPA's whole backward.  Rejected in the same calls: two warpgroups over
+// the 64 rows, warpgroup 0 handing p in f32 to warpgroup 1, which wrote
+// dS as an SW128 tile that each multiplied by half of K's columns (SS
+// m64n128, 217 KB), 0.3525-0.3526; two warpgroups each owning 64 rows of
+// a 128-row tile and sharing 32-key K/V tiles (m64n32 S and dP),
+// 0.3566-0.3586; this kernel with each dQ product left in flight under
+// the next tile's S and dP (255 registers), 0.3094, a tie.  What bounds
+// it, from copies with one phase removed (0.3077 as built): without dQ's
+// product 0.2175, without the K/V stream 0.2370, without the p and ds
+// arithmetic 0.2444, without S 0.2714, without dP 0.2770; the savings add
+// up to the whole, so one warpgroup runs its phases one after another.
+//
+// B3c is bwd_dkv_wide, on wgmma as bwd_dkv_wg is; at DP 256 an m64n256
+// accumulator is 128 registers a thread, so dK and dV cannot share a
+// warpgroup.  A block of two warpgroups owns 64 keys of a kv head: K and
 // V stay in shared memory (64 KB), the group's Q and dO tiles of 64 rows
 // with their lse and delta stream through two cp.async stages (2 x 64 KB).
 //   * Warpgroup 0 computes S^T = K Q^T and P^T from the f32 exp2 of
@@ -101,9 +126,7 @@
 // S^T and P^T itself (five products, no exchange tile) 0.5595.  Without the dK and dV products it takes 0.398 ms, without the
 // p and ds arithmetic 0.4185: neither alone bounds it.  Not built: the
 // head dim split over the two warpgroups (each holding half of dK and dV,
-// six products a tile).  B3b at these head dims keeps the WMMA kernel
-// bwd_dq_tc<32>: 16x16x16 fragments, 32-key tiles, S and dP through shared
-// memory in f32.
+// six products a tile).
 //
 // f32 (bwd_dq_tf32, bwd_dkv_tf32) runs on the tensor cores too, each f32
 // product as three TF32 products (mma_tf32.cuh: hi and lo parts of both
@@ -174,8 +197,6 @@
 // (4.81, 6.21); the head-dim loop of S and dP not unrolled (4.01, 5.15); at
 // ERNIE 3.0 base's [16, 512, 12, 64], 32-key tiles for B3b (0.377 against
 // 0.352 ms) and eight warps for B3c (0.496 against 0.482).
-#include <mma.h>
-
 #include "common.cuh"
 #include "flash_common.cuh"
 #include "mma_tf32.cuh"
@@ -623,218 +644,11 @@ int dispatch_tf32(const void* q, const void* k, const void* v, const void* o, co
                                              hkv, d, scale, causal, s);
 }
 
-// ---------------------------------------------------------------------------
-// bf16, 128 < head_dim <= 256, dQ: WMMA fragments (launch_dq_tc<32>)
-// ---------------------------------------------------------------------------
-namespace wm = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
-using Acc = wm::fragment<wm::accumulator, 16, 16, 16, float>;
-
-constexpr int kTcThreads = 128;  // four warps
-constexpr int kTcBQ = 64;        // query rows per tile, 16 per warp
-
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
-// Shared-memory layout for head_dim d padded to dp (a multiple of 16) and a
-// key tile of bk rows: the K, V, Q and dO tiles in bf16, S and dP in f32,
-// and one bf16 tile X for dS, the left operand of dQ += dS K.  The
-// accumulators live in registers; at d <= 256 with 32-key tiles a block
-// stays inside the SM's 227 KB.  Row strides are padded off a multiple of
-// 128 bytes against bank conflicts; every region starts on a 128-byte
-// boundary and every fragment on a 32-byte one, as WMMA loads require.  K
-// and V are adjacent, so the 64-row O tile fits over them while delta is
-// computed.
-struct TcLayout {
-  int dp, ldh, lds, ldp;
-  size_t k, v, q, dout, s, dp_, x, bytes;
-};
-
-__host__ __device__ inline TcLayout tc_layout(int d, int bk) {
-  TcLayout t;
-  t.dp = (d + 15) / 16 * 16;
-  t.ldh = t.dp + 8;
-  t.lds = bk + 4;
-  t.ldp = bk + 8;
-  size_t at = 0;
-  auto take = [&at](size_t bytes) {
-    const size_t here = at;
-    at = align128(at + bytes);
-    return here;
-  };
-  t.k = take(sizeof(bf16) * bk * t.ldh);
-  t.v = take(sizeof(bf16) * bk * t.ldh);
-  t.q = take(sizeof(bf16) * kTcBQ * t.ldh);
-  t.dout = take(sizeof(bf16) * kTcBQ * t.ldh);
-  t.s = take(sizeof(float) * kTcBQ * t.lds);
-  t.dp_ = take(sizeof(float) * kTcBQ * t.lds);
-  t.x = take(sizeof(bf16) * kTcBQ * t.ldp);
-  t.bytes = at;
-  return t;
-}
-
-// `rows` rows of d bf16 (row stride src_stride elements) into a [rows][ld]
-// tile, 16 bytes a thread per load; rows >= rows_valid and columns [d, dp)
-// are zero.
-__device__ inline void load_tile(bf16* dst, int ld, const bf16* src, int64_t src_stride,
-                                 int rows, int rows_valid, int d, int dp) {
-  const int vecs = dp / 8;
-  for (int e = threadIdx.x; e < rows * vecs; e += kTcThreads) {
-    const int r = e / vecs, c = (e - r * vecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid && c < d) val = *reinterpret_cast<const uint4*>(src + r * src_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-// out[16 rows of this warp][BK] = A[warp rows][dp] . B[BK][dp]^T, in f32
-template <int BK>
-__device__ inline void warp_abt(float* out, int lds, const bf16* A, const bf16* B, int ldh,
-                                int dp, int warp) {
-  Acc acc[BK / 16];
-#pragma unroll
-  for (int n = 0; n < BK / 16; ++n) wm::fill_fragment(acc[n], 0.f);
-  for (int kk = 0; kk < dp; kk += 16) {
-    wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> a;
-    wm::load_matrix_sync(a, A + warp * 16 * ldh + kk, ldh);
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major> bt;
-      wm::load_matrix_sync(bt, B + n * 16 * ldh + kk, ldh);
-      wm::mma_sync(acc[n], a, bt, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < BK / 16; ++n)
-    wm::store_matrix_sync(out + warp * 16 * lds + n * 16, acc[n], lds, wm::mem_row_major);
-}
-
-// Write a 16x16 f32 fragment as bf16 into rows [r0, r0 + 16) and columns
-// [c0, c0 + 16) of a [rows][d] global tensor with row stride `stride`,
-// through the warp's 16x16 staging area; rows >= rows_valid and columns
-// >= d are not written.
-__device__ inline void store_frag(const Acc& f, float* stage, bf16* dst, int64_t stride,
-                                  int r0, int c0, int rows_valid, int d, int lane) {
-  wm::store_matrix_sync(stage, f, 16, wm::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < 256; e += 32) {
-    const int r = r0 + (e >> 4), c = c0 + (e & 15);
-    if (r < rows_valid && c < d) dst[r * stride + c] = __float2bfloat16(stage[e]);
-  }
-  __syncwarp();
-}
-
-// ds of row r_loc of the 64-row query tile (row `row` of the sequence),
-// over the half `half` of the BK key columns starting at key `key0`, from S
-// and dP, written in bf16 to X.
-template <int BK>
-__device__ inline void probs_and_ds(const float* S, const float* dP, int lds, bf16* X, int ldp,
-                                    int r_loc, int half, int row, int sq, int key0, int sk,
-                                    float lse_r, float delta_r, float scale, int causal,
-                                    int offset) {
-  const int c0 = half * (BK / 2);
-  const float* srow = S + r_loc * lds + c0;
-  const float* dprow = dP + r_loc * lds + c0;
-  bf16* xrow = X + r_loc * ldp + c0;
-  const bool row_ok = row < sq && lse_r != -INFINITY;
-#pragma unroll 8
-  for (int j = 0; j < BK / 2; ++j) {
-    const int col = key0 + c0 + j;
-    const bool ok = row_ok && col < sk && (!causal || col <= row + offset);
-    const float p = ok ? expf(srow[j] * scale - lse_r) : 0.f;
-    xrow[j] = __float2bfloat16(p * (dprow[j] - delta_r) * scale);
-  }
-}
-
-template <int BK>
-__global__ void __launch_bounds__(kTcThreads)
-bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-          const bf16* __restrict__ o, const bf16* __restrict__ dout,
-          const float* __restrict__ lse, bf16* __restrict__ dq,
-          float* __restrict__ delta_out, int sq, int sk, int hq, int hkv, int d,
-          float scale, int causal) {
-  constexpr int kFrags = BK == 64 ? 8 : 16;  // dQ column tiles of a warp (dp <= 128 / 256)
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const TcLayout L = tc_layout(d, BK);
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + L.q);
-  bf16* dOs = reinterpret_cast<bf16*>(smem_raw + L.dout);
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw + L.k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem_raw + L.v);
-  float* Ss = reinterpret_cast<float*>(smem_raw + L.s);
-  float* dPs = reinterpret_cast<float*>(smem_raw + L.dp_);
-  bf16* dSs = reinterpret_cast<bf16*>(smem_raw + L.x);
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTcBQ;
-  const int hk = h / (hq / hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int offset = sk - sq;
-  const int64_t q_stride = static_cast<int64_t>(hq) * d;
-  const int64_t kv_stride = static_cast<int64_t>(hkv) * d;
-  const int64_t q_base = static_cast<int64_t>(b) * sq * q_stride + static_cast<int64_t>(h) * d;
-
-  load_tile(Qs, L.ldh, q + q_base + q0 * q_stride, q_stride, kTcBQ, sq - q0, d, L.dp);
-  load_tile(dOs, L.ldh, dout + q_base + q0 * q_stride, q_stride, kTcBQ, sq - q0, d, L.dp);
-  load_tile(Ks, L.ldh, o + q_base + q0 * q_stride, q_stride, kTcBQ, sq - q0, d, L.dp);  // O over K|V
-  __syncthreads();
-
-  // lanes 2i and 2i+1 of a warp share its query row i: half the columns each
-  const int r_loc = warp * 16 + (lane >> 1);
-  const int row = q0 + r_loc;
-  const int half = lane & 1;
-  float delta_r = 0.f;
-  for (int c = half; c < d; c += 2)
-    delta_r += __bfloat162float(dOs[r_loc * L.ldh + c]) * __bfloat162float(Ks[r_loc * L.ldh + c]);
-  delta_r += __shfl_xor_sync(0xffffffffu, delta_r, 1);
-  const int64_t lrow = (static_cast<int64_t>(b) * hq + h) * sq + row;
-  const float lse_r = row < sq ? lse[lrow] : 0.f;
-  if (row < sq && half == 0) delta_out[lrow] = delta_r;
-
-  Acc acc[kFrags];  // dQ of this warp's 16 rows, 16 columns each
-#pragma unroll
-  for (int n = 0; n < kFrags; ++n) wm::fill_fragment(acc[n], 0.f);
-
-  const int last_row = min(q0 + kTcBQ, sq) - 1;
-  const int k_end = causal ? min(sk, last_row + offset + 1) : sk;
-  const int64_t kv_base = static_cast<int64_t>(b) * sk * kv_stride + static_cast<int64_t>(hk) * d;
-  for (int t0 = 0; t0 < k_end; t0 += BK) {
-    __syncthreads();  // the previous tiles (and the O tile) are consumed
-    load_tile(Ks, L.ldh, k + kv_base + t0 * kv_stride, kv_stride, BK, sk - t0, d, L.dp);
-    load_tile(Vs, L.ldh, v + kv_base + t0 * kv_stride, kv_stride, BK, sk - t0, d, L.dp);
-    __syncthreads();
-    warp_abt<BK>(Ss, L.lds, Qs, Ks, L.ldh, L.dp, warp);   // S = Q K^T
-    warp_abt<BK>(dPs, L.lds, dOs, Vs, L.ldh, L.dp, warp); // dP = dO V^T
-    __syncwarp();
-    probs_and_ds<BK>(Ss, dPs, L.lds, dSs, L.ldp, r_loc, half, row, sq, t0, sk,
-                            lse_r, delta_r, scale, causal, offset);
-    __syncwarp();
-    // dQ += dS K for this warp's rows
-    wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> da[BK / 16];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      wm::load_matrix_sync(da[kk], dSs + warp * 16 * L.ldp + kk * 16, L.ldp);
-#pragma unroll
-    for (int n = 0; n < kFrags; ++n) {
-      if (n * 16 < L.dp) {
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> kf;
-          wm::load_matrix_sync(kf, Ks + kk * 16 * L.ldh + n * 16, L.ldh);
-          wm::mma_sync(acc[n], da[kk], kf, acc[n]);
-        }
-      }
-    }
-  }
-  // stage each fragment through this warp's own rows of S (no other warp
-  // reads them any more) and write dQ in bf16
-  float* stage = Ss + warp * 16 * L.lds;
-  __syncwarp();
-#pragma unroll
-  for (int n = 0; n < kFrags; ++n)
-    if (n * 16 < L.dp)
-      store_frag(acc[n], stage, dq + q_base, q_stride, q0 + warp * 16, n * 16, sq, d, lane);
-}
 
 // ---------------------------------------------------------------------------
-// bf16, head_dim <= 128: wgmma, S and dP in registers, cp.async tile ring
+// bf16, head_dim <= 128 (B3b also at 128 < d <= 256): wgmma, S and dP in
+// registers, cp.async tile ring
 // ---------------------------------------------------------------------------
 // One warpgroup of 128 threads a block; its accumulators' 64 rows (wgmma's
 // m) are the block's resident tile, and the streamed tiles are 64 rows too
@@ -1126,35 +940,42 @@ bwd_dkv_wg(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   hw::store_acc(dv_acc, dv + kv_base, kv_stride, k0 + r_lo, sk, d, quad);
 }
 
+// B3b; at DP 256 too (128 < d <= 256): Q, dO and the two stages of K, V
+// take 193 KB, one block an SM
 template <int DP>
-int launch_wg(const void* q, const void* k, const void* v, const void* o, const void* dout,
-              const void* lse, void* dq, void* dk, void* dv, void* delta, int b, int sq,
-              int sk, int hq, int hkv, int d, float scale, int causal, bool dq_pass,
-              cudaStream_t s) {
+int launch_dq_wg(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                 const void* lse, void* dq, void* delta, int b, int sq, int sk, int hq, int hkv,
+                 int d, float scale, int causal, cudaStream_t s) {
   constexpr size_t kTile = kBR * DP * sizeof(bf16);  // bytes of one tile
-  if (dq_pass) {
-    // Q, dO and the stages of K, V; 1024 bytes of alignment slack
-    const size_t smem = (2 + 2 * kStages) * kTile + 1024;
-    auto kernel = bwd_dq_wg<DP>;
-    cudaError_t e = set_smem(kernel, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<dim3((sq + kBR - 1) / kBR, hq, b), kWgThreads, smem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<bf16*>(dq), static_cast<float*>(delta),
-        sq, sk, hq, hkv, d, scale, causal);
-  } else {
-    // K, V, the stages of Q, dO and their lse, delta rows
-    const size_t smem = (2 + 2 * kStages) * kTile + 2 * kStages * kBR * sizeof(float) + 1024;
-    auto kernel = bwd_dkv_wg<DP>;
-    cudaError_t e = set_smem(kernel, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<dim3((sk + kBR - 1) / kBR, hkv, b), kWgThreads, smem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-        sq, sk, hq, hkv, d, scale, causal);
-  }
+  // Q, dO and the stages of K, V; 1024 bytes of alignment slack
+  const size_t smem = (2 + 2 * kStages) * kTile + 1024;
+  auto kernel = bwd_dq_wg<DP>;
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3((sq + kBR - 1) / kBR, hq, b), kWgThreads, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<bf16*>(dq), static_cast<float*>(delta),
+      sq, sk, hq, hkv, d, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B3c
+template <int DP>
+int launch_dkv_wg(const void* q, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* delta, void* dk, void* dv, int b, int sq, int sk,
+                  int hq, int hkv, int d, float scale, int causal, cudaStream_t s) {
+  constexpr size_t kTile = kBR * DP * sizeof(bf16);  // bytes of one tile
+  // K, V, the stages of Q, dO and their lse, delta rows
+  const size_t smem = (2 + 2 * kStages) * kTile + 2 * kStages * kBR * sizeof(float) + 1024;
+  auto kernel = bwd_dkv_wg<DP>;
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3((sk + kBR - 1) / kBR, hkv, b), kWgThreads, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      sq, sk, hq, hkv, d, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1357,22 +1178,6 @@ int launch_dkv_wide(const void* q, const void* k, const void* v, const void* dou
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BK>
-int launch_dq_tc(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                 const void* lse, void* dq, void* delta, int b, int sq, int sk, int hq, int hkv,
-                 int d, float scale, int causal, cudaStream_t s) {
-  const size_t smem = tc_layout(d, BK).bytes;
-  auto kernel = bwd_dq_tc<BK>;
-  cudaError_t e = set_smem(kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<dim3((sq + kTcBQ - 1) / kTcBQ, hq, b), kTcThreads, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<bf16*>(dq), static_cast<float*>(delta),
-      sq, sk, hq, hkv, d, scale, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
 int dispatch(const void* q, const void* k, const void* v, const void* o, const void* dout,
              const void* lse, void* dq, void* dk, void* dv, void* delta, int b, int sq,
              int sk, int hq, int hkv, int d, float scale, int causal, int dtype,
@@ -1382,15 +1187,22 @@ int dispatch(const void* q, const void* k, const void* v, const void* o, const v
   if (dtype != ptt::kBF16)
     return dispatch_tf32(q, k, v, o, dout, lse, dq, dk, dv, delta, b, sq, sk, hq, hkv, d,
                          scale, causal, dq_pass, s);
+  if (dq_pass) {
+    if (d <= 64)
+      return launch_dq_wg<64>(q, k, v, o, dout, lse, dq, delta, b, sq, sk, hq, hkv, d, scale,
+                              causal, s);
+    if (d <= 128)
+      return launch_dq_wg<128>(q, k, v, o, dout, lse, dq, delta, b, sq, sk, hq, hkv, d, scale,
+                               causal, s);
+    return launch_dq_wg<256>(q, k, v, o, dout, lse, dq, delta, b, sq, sk, hq, hkv, d, scale,
+                             causal, s);
+  }
   if (d <= 64)
-    return launch_wg<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, b, sq, sk, hq, hkv, d,
-                         scale, causal, dq_pass, s);
+    return launch_dkv_wg<64>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk, hq, hkv, d, scale,
+                             causal, s);
   if (d <= 128)
-    return launch_wg<128>(q, k, v, o, dout, lse, dq, dk, dv, delta, b, sq, sk, hq, hkv, d,
-                          scale, causal, dq_pass, s);
-  if (dq_pass)
-    return launch_dq_tc<32>(q, k, v, o, dout, lse, dq, delta, b, sq, sk, hq, hkv, d, scale,
-                            causal, s);
+    return launch_dkv_wg<128>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk, hq, hkv, d, scale,
+                              causal, s);
   return launch_dkv_wide<256>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk, hq, hkv, d, scale,
                               causal, s);
 }

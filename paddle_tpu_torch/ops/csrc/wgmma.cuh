@@ -63,13 +63,22 @@ __device__ __forceinline__ void cp_async_wait() {
 // rows >= rows_valid and columns >= d are zero.  THREADS threads share it,
 // 16 bytes each per copy, neighbouring threads on neighbouring chunks; a
 // thread keeps its chunk column and steps down the rows by a multiple of 8,
-// so its swizzle is the same for every copy.
+// so its swizzle is the same for every copy.  With fewer threads than DP
+// (fewer than 8 rows a step), the tile is loaded as two halves of DP / 2
+// columns, each whole 64-column blocks.
 template <int ROWS, int DP, int THREADS>
 __device__ __forceinline__ void load_tile_sw128(__nv_bfloat16* tile, const __nv_bfloat16* src,
                                                 int64_t stride, int rows_valid, int d, int tid) {
+  if constexpr (THREADS < DP) {
+    load_tile_sw128<ROWS, DP / 2, THREADS>(tile, src, stride, rows_valid, d, tid);
+    load_tile_sw128<ROWS, DP / 2, THREADS>(tile + ROWS * DP / 2, src + DP / 2, stride,
+                                           rows_valid, d - DP / 2, tid);
+    return;
+  }
   constexpr int kChunks = DP / 8;  // 16-byte chunks a row
   constexpr int kRowStep = THREADS / kChunks;
-  static_assert(THREADS % kChunks == 0 && kRowStep % 8 == 0 && ROWS % kRowStep == 0,
+  static_assert(THREADS < DP ||
+                    (THREADS % kChunks == 0 && kRowStep % 8 == 0 && ROWS % kRowStep == 0),
                 "whole rows a step, the swizzle fixed");
   const int c = tid % kChunks, r0 = tid / kChunks;
   const bool col_ok = c * 8 < d;

@@ -61,8 +61,20 @@ def _drive(package_tel, kw, calls, path, monkeypatch):
     return recs, lines, summary, meter
 
 
+@pytest.fixture
+def no_sdc_counters():
+    """The JAX summary reports the process's SDC monitor counters, which
+    an earlier test in the same worker may have bumped; they are set aside
+    for the test and put back after it."""
+    saved = {k: jruntime._counters.pop(k) for k in list(jruntime._counters)
+             if k.startswith("sdc_")}
+    yield
+    jruntime._counters.update(saved)
+
+
 @pytest.mark.parametrize("scenario", sorted(SCENARIOS))
-def test_records_jsonl_and_summary_match_reference(scenario, tmp_path, monkeypatch):
+def test_records_jsonl_and_summary_match_reference(scenario, tmp_path, monkeypatch,
+                                                   no_sdc_counters):
     kw, calls = SCENARIOS[scenario]
     jc0, tc0 = jruntime.counters(), runtime.counters()
     want = _drive(jtel, kw, calls, tmp_path / "jax.jsonl", monkeypatch)

@@ -207,6 +207,24 @@ class TestFlashBackward:
             for g, w in zip(got, want):
                 _close(g, w, ATTN)
 
+    # the d 256 dQ kernel's edges: sq < sk (the causal diagonal offset by
+    # sk - sq), GQA 8:1, d 160 padded to 256 and d 256; tiles of 16 rows
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("d", [160, 256])
+    def test_plain_matches_pallas_vjp_wide_heads_sq_lt_sk(self, causal, d):
+        b, sq, sk, hq, hkv = 1, 32, 64, 8, 1
+        q, k, v = _np(44, b, sq, hq, d), _np(45, b, sk, hkv, d), _np(46, b, sk, hkv, d)
+        do = _np(47, b, sq, hq, d)
+        _, vjp = jax.vjp(lambda a, c, e: jax_flash(a, c, e, None, causal, 16, 16, True),
+                         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want = vjp(jnp.asarray(do))
+        tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+        out, lse = flash_attention_plain(tq, tk, tv, causal)
+        for got in (flash_attention_bwd_plain(tq, tk, tv, out, lse, tdo, causal),
+                    flash_attention_bwd(tq, tk, tv, out, lse, tdo, causal)):
+            for g, w in zip(got, want):
+                _close(g, w, ATTN)
+
     # b, sq, sk, hq, hkv, d, causal: d 8 causal GQA, d 64 not causal, d 128
     # causal with sq < sk, d 256
     @pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal", [
