@@ -238,7 +238,24 @@ exits non-zero without them.  Phases, each raising on failure:
    causal), dq and delta bit-equal across two launches, delta against the
    plain rowsum;
    ``phase_train_d256`` held to ``gate_shallow``'s rule, with the q_proj
-   and k_proj grads' distances logged.
+   and k_proj grads' distances logged;
+21. the image layers (``phase_resnet``, after 16): ResNet-50 at its
+   published widths (bottlenecks [3, 4, 6, 3], 1000 classes, 25.56 M
+   parameters), random weights from seed 0, the batch norms' running
+   statistics set by one training forward at momentum 0, 224 x 224
+   images; gates, each raising: f32 logits at batch 4 on the card against
+   the same model on the CPU (relative L2 <= 1e-4), the NCHW and NHWC
+   internal layouts within 1e-4 of each other, bf16 under AMP O2 within
+   2e-2 of f32 or within 1.2 times the distance of an f32 run with bf16's
+   roundings put in by hand (a random-weight ResNet-50 magnifies them;
+   top-1 agreement printed), one case of each convolution,
+   pool, norm, resampling and padding functional in f32 against the CPU,
+   and LSTM and GRU (2 layers, bidirectional, hidden 512, batch 32, 128
+   steps, ragged lengths) against the CPU within 1e-5; no hand kernel is
+   launched; then images/s and ms a forward at batch 128 in bf16 and f32
+   in both layouts, the layout ``"auto"`` picks, device time by operation
+   and the idle share from ``torch.profiler``, launches and peak memory a
+   forward, and the bound from the multiply-adds the forward counts.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
@@ -3793,6 +3810,345 @@ def phase_ernie(torch, card, cfg=None, dev="cuda", batch=(ERNIE_BATCH, ERNIE_SEQ
     return counted
 
 
+RESNET_BATCH = 128                  # phase_resnet: the timed batch
+RESNET_GATE_BATCH = 4               # the f32 card-against-CPU gate
+RESNET_CALIB_BATCH = 32             # the training forward that sets the BN statistics
+RESNET_REL = 1e-4                   # f32 logits: card against CPU, NCHW against NHWC
+IMAGE_CASE_REL = 1e-5               # f32 functionals, card against CPU (sums of up to 432 terms)
+RNN_SHAPE = dict(batch=32, steps=128, input=256, hidden=512)
+
+
+def resnet_calibrated(torch, dev, fmt):
+    """ResNet-50 (1000 classes) on ``dev`` with weights from seed 0 and
+    each batch norm's running statistics those of one seeded batch: a
+    training forward under no_grad with momentum 0 (paddle's rule r = m·r +
+    (1 − m)·batch), then eval mode."""
+    from paddle_tpu_torch.nn.layer.norm import _BatchNormBase
+    from paddle_tpu_torch.vision.models import resnet50
+
+    model = resnet50(data_format=fmt, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    norms = [m for m in model.modules() if isinstance(m, _BatchNormBase)]
+    for m in norms:
+        m._momentum = 0.0
+    imgs = torch.randn(RESNET_CALIB_BATCH, 3, 224, 224, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(21))
+    with torch.no_grad():
+        model.train()(imgs)
+    for m in norms:
+        m._momentum = 0.9
+    return model.eval()
+
+
+def resnet_macs(torch, model, x) -> int:
+    """Multiply-adds of one forward of ``model`` on ``x``, counted from the
+    convolutions' and the classifier's output shapes."""
+    from paddle_tpu_torch.nn import Conv2D, Linear
+
+    total = [0]
+
+    def conv(m, _inp, out):
+        total[0] += out.numel() * (m._in_channels // m._groups) * math.prod(m._kernel_size)
+
+    def linear(m, _inp, out):
+        total[0] += out.numel() * m.in_features
+
+    hooks = [m.register_forward_post_hook(conv if isinstance(m, Conv2D) else linear)
+             for m in model.modules() if isinstance(m, (Conv2D, Linear))]
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def bf16_emulated(torch, model, x):
+    """``model`` (f32) with bf16's roundings put in by hand: the images and
+    the convolution and classifier weights rounded to bf16, and each
+    convolution's, batch norm's and the classifier's output rounded to
+    bf16, the arithmetic in f32.  A random-weight ResNet-50 magnifies a
+    perturbation from block to block (rounding only the images to bf16
+    moves its f32 logits by about 5%), so the bf16 path is held against
+    this run's distance from f32, not against a fixed bound."""
+    from paddle_tpu_torch.nn import Conv2D, Linear
+    from paddle_tpu_torch.nn.layer.norm import _BatchNormBase
+
+    emulated = copy.deepcopy(model)
+    with torch.no_grad():
+        for layer in emulated.modules():
+            if isinstance(layer, (Conv2D, Linear)):
+                layer.weight.copy_(layer.weight.bfloat16().float())
+            if isinstance(layer, (Conv2D, _BatchNormBase, Linear)):
+                layer.register_forward_post_hook(lambda _m, _i, out: out.bfloat16().float())
+        return emulated(x.bfloat16().float())
+
+
+def image_cases(torch):
+    """One f32 case of each convolution, pool, norm, resampling and padding
+    functional: (label, fn, CPU inputs)."""
+    import paddle_tpu_torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(31)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g)
+
+    x2 = r(8, 64, 57, 57)
+    small = r(4, 16, 37, 41)
+    cases = [
+        ("conv1d SAME stride 2 groups 2", lambda x, w, b: F.conv1d(x, w, b, 2, "SAME", 1, 2),
+         [r(8, 32, 500), r(64, 16, 5), r(64)]),
+        ("conv3d", lambda x, w, b: F.conv3d(x, w, b, 1, 1), [r(2, 16, 8, 32, 32),
+                                                             r(32, 16, 3, 3, 3), r(32)]),
+        ("conv2d SAME stride 2", lambda x, w: F.conv2d(x, w, None, 2, "SAME"),
+         [x2, r(128, 64, 3, 3)]),
+        ("conv2d NHWC (1, 0) pads", lambda x, w: F.conv2d(x, w, None, 2, [(1, 0), (0, 1)],
+                                                            data_format="NHWC"),
+         [x2.permute(0, 2, 3, 1).contiguous(), r(128, 64, 3, 3)]),
+        ("conv1d_transpose", lambda x, w, b: F.conv1d_transpose(x, w, b, 2, 1, 1),
+         [r(8, 32, 100), r(32, 16, 4), r(16)]),
+        ("conv2d_transpose", lambda x, w, b: F.conv2d_transpose(x, w, b, 2, [(1, 0), (0, 1)], 1,
+                                                                2),
+         [r(4, 64, 28, 28), r(64, 16, 3, 3), r(32)]),
+        ("conv3d_transpose", lambda x, w: F.conv3d_transpose(x, w, None, 2, 1, 1),
+         [r(2, 16, 4, 16, 16), r(16, 8, 3, 3, 3)]),
+        ("max_pool2d ceil_mode", lambda x: F.max_pool2d(x, 3, 2, 1, ceil_mode=True), [x2]),
+        ("avg_pool2d ceil_mode exclusive", lambda x: F.avg_pool2d(x, 3, 2, 1, ceil_mode=True),
+         [x2]),
+        ("avg_pool2d ceil_mode inclusive", lambda x: F.avg_pool2d(x, 3, 2, 1, ceil_mode=True,
+                                                                  exclusive=False), [x2]),
+        ("adaptive_avg_pool2d (5, 7)", lambda x: F.adaptive_avg_pool2d(x, (5, 7)), [x2]),
+        ("adaptive_max_pool2d (5, 7)", lambda x: F.adaptive_max_pool2d(x, (5, 7)), [x2]),
+        ("group_norm", lambda x, w, b: F.group_norm(x, 8, 1e-5, w, b), [x2, r(64), r(64)]),
+        ("instance_norm", lambda x, w, b: F.instance_norm(x, weight=w, bias=b),
+         [x2, r(64), r(64)]),
+        ("local_response_norm", lambda x: F.local_response_norm(x, 5), [x2]),
+        ("unfold", lambda x: F.unfold(x, 3, 2, 1), [r(4, 16, 28, 28)]),
+        ("pixel_shuffle", lambda x: F.pixel_shuffle(x, 2), [r(4, 64, 28, 28)]),
+    ]
+    for mode, ac, am in (("nearest", False, 0), ("nearest", True, 0), ("bilinear", False, 0),
+                         ("bilinear", True, 0), ("bilinear", False, 1), ("bicubic", False, 0),
+                         ("area", False, 0)):
+        for size in ((64, 50), (20, 23)):
+            cases.append((f"interpolate {mode} align_corners={ac} align_mode={am} to {size}",
+                          lambda x, mode=mode, ac=ac, am=am, size=size: F.interpolate(
+                              x, size, mode=mode, align_corners=ac, align_mode=am), [small]))
+    for mode in ("constant", "reflect", "replicate", "circular"):
+        cases.append((f"pad {mode}", lambda x, mode=mode: F.pad(x, [2, 3, 1, 4], mode=mode,
+                                                                 value=0.5), [small]))
+    return cases
+
+
+def rnn_gate(torch, dev):
+    """LSTM and GRU (2 layers, bidirectional) on the card against the
+    same layers on the CPU, ragged lengths: outputs and final states within
+    1e-5 relative L2; returns {name: forward ms on the card}."""
+    from paddle_tpu_torch import nn
+
+    b, t, n_in, hid = (RNN_SHAPE[k] for k in ("batch", "steps", "input", "hidden"))
+    g = torch.Generator().manual_seed(41)
+    x = torch.randn(b, t, n_in, generator=g)
+    lengths = torch.randint(1, t + 1, (b,), generator=g)
+    lengths[0] = t
+    times = {}
+    for cls in (nn.LSTM, nn.GRU):
+        layer = cls(n_in, hid, 2, "bidirect", device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(42))
+        cpu = copy.deepcopy(layer).to("cpu")
+        with torch.no_grad():
+            got = layer(x.to(dev), None, lengths.to(dev))
+            want = cpu(x, None, lengths)
+            times[cls.__name__] = time_ms(torch, lambda: layer(x.to(dev), None, lengths.to(dev)),
+                                          iters=2, repeats=3, warmup=1)
+        errs = [rel_l2(a.cpu(), w) for a, w in zip(_leaves(got), _leaves(want))]
+        if max(errs) > 1e-5:
+            raise AssertionError(f"{cls.__name__} card against CPU: relative L2 {errs}")
+        log(f"resnet phase: {cls.__name__} 2 layers bidirect hidden {hid} batch {b} x {t} "
+            f"steps, ragged lengths {int(lengths.min())}-{t}: outputs and final states "
+            f"within {max(errs):.3g} of the CPU; forward {times[cls.__name__]:.1f} ms")
+    return times
+
+
+def _leaves(value):
+    if isinstance(value, (tuple, list)):
+        return [t for v in value for t in _leaves(v)]
+    return [value]
+
+
+def resnet_profile(torch, model, x, n=3):
+    """Device time by operation over ``n`` forwards, the idle share, and
+    CUDA kernel launches a forward, from ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        model(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(n):
+                model(x)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3 / n
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no device time")
+    groups, other = {}, []
+    for e in kernels:
+        key, ms = e.key.lower(), e.self_device_time_total / 1e3 / n
+        kind = ("layout copy" if any(w in key for w in ("nchwtonhwc", "nhwctonchw", "transpose",
+                                                        "copy"))
+                else "batch norm" if any(w in key for w in ("bn_", "batch_norm", "batchnorm"))
+                else "pooling" if "pool" in key
+                else "convolution" if any(w in key for w in ("conv", "xmma", "implicit",
+                                                             "fprop", "cudnn", "cutlass"))
+                else "gemm" if "gemm" in key
+                else "elementwise" if "elementwise" in key
+                else "other")
+        groups[kind] = groups.get(kind, 0.0) + ms
+        if kind == "other":
+            other.append((ms, e.key))
+    busy = sum(groups.values())
+    launches = sum(e.count for e in kernels) / n
+    top = sorted(((e.self_device_time_total / 1e3 / n, e.key) for e in kernels), reverse=True)[:5]
+    return wall, busy, groups, launches, top + sorted(other, reverse=True)[:3]
+
+
+def phase_resnet(torch, card, dev="cuda"):
+    """ResNet-50 inference at its published widths (``resnet50()``: 1000
+    classes, 25.56 M parameters) on 224 x 224 images, the port's image
+    layers on the card.  Gates (each raising): f32 logits at batch 4
+    against the same model and images on the CPU, and the NCHW and NHWC
+    internal layouts against each other, within RESNET_REL relative L2;
+    bf16 under AMP O2 with bf16 images no farther from f32 than
+    LOGITS_REL_TOL, or than DEPTH_REL_MARGIN times ``bf16_emulated``'s
+    distance (the top-1 agreement logged); ``image_cases`` in f32 against the CPU within
+    the f32 attention row; ``rnn_gate``; no hand kernel launched on the
+    path.  Then, each beside the card: images/s and ms a forward at batch
+    128 in bf16 and f32 in both layouts (cuDNN's default algorithm choice),
+    the layout the bf16 run finds faster (``"auto"``'s on the card),
+    device time by operation, the idle share and CUDA launches a forward
+    from ``torch.profiler``, peak memory, and the bound: the counted
+    multiply-adds at the dtype's peak."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.incubate import autotune
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from paddle_tpu_torch.vision.models import resnet50
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_launch_counts()
+    nchw = resnet_calibrated(torch, dev, "NCHW")
+    nhwc = resnet_calibrated(torch, dev, "NHWC")
+    n_params = sum(p.numel() for p in nchw.parameters())
+    if n_params != 25_557_032 or len(nchw.state_dict()) != 267:
+        raise AssertionError(f"resnet50: {n_params} parameters, {len(nchw.state_dict())} "
+                             f"state entries")
+    log(f"resnet50(data_format='auto') on {dev} builds "
+        f"{resnet50(device=dev).data_format} (autotune.CARD_LAYOUT {autotune.CARD_LAYOUT})")
+    g = torch.Generator(device=dev).manual_seed(22)
+    images = torch.randn(RESNET_BATCH, 3, 224, 224, device=dev, generator=g)
+    gate_images = images[:RESNET_GATE_BATCH]
+
+    # (a) f32 on the card against the CPU, NCHW against NHWC, bf16 against f32
+    cpu = copy.deepcopy(nchw).to("cpu")
+    with torch.no_grad():
+        f32 = nchw(gate_images)
+        on_cpu = cpu(gate_images.cpu())
+        f32_nhwc = nhwc(gate_images)
+    del cpu
+    err_cpu, err_layout = rel_l2(f32.cpu(), on_cpu), rel_l2(f32_nhwc, f32)
+    if not bool(torch.isfinite(f32).all()) or err_cpu > RESNET_REL or err_layout > RESNET_REL:
+        raise AssertionError(f"resnet50 f32 logits: card against CPU {err_cpu:.3g}, NHWC "
+                             f"against NCHW {err_layout:.3g} (bound {RESNET_REL})")
+    log(f"resnet50 f32 logits {list(f32.shape)} at batch {RESNET_GATE_BATCH}: card against "
+        f"CPU {err_cpu:.3g}, NHWC against NCHW {err_layout:.3g} relative L2")
+    bf16 = {fmt: amp.decorate(copy.deepcopy(m), level="O2", dtype="bfloat16")
+            for fmt, m in (("NCHW", nchw), ("NHWC", nhwc))}
+    with torch.no_grad():
+        full32 = nchw(images)
+        rounded = rel_l2(bf16_emulated(torch, nchw, images), full32)
+        bound = max(LOGITS_REL_TOL, DEPTH_REL_MARGIN * rounded)
+        for fmt, m in bf16.items():
+            out = m(images.bfloat16())
+            err = rel_l2(out, full32)
+            agree = float((out.float().argmax(-1) == full32.argmax(-1)).float().mean())
+            if out.dtype != torch.bfloat16 or not bool(torch.isfinite(out).all()) \
+                    or err > bound:
+                raise AssertionError(f"resnet50 bf16 {fmt}: {out.dtype}, relative L2 to f32 "
+                                     f"{err:.3g} (bound {bound:.3g}: bf16's roundings in f32 "
+                                     f"give {rounded:.3g})")
+            log(f"resnet50 bf16 (AMP O2, batch norms f32) {fmt} at batch {RESNET_BATCH}: "
+                f"relative L2 to f32 {err:.3g} (bf16's roundings emulated in f32: "
+                f"{rounded:.3g}; bound {bound:.3g}), top-1 agreement {agree:.4f}")
+    del full32, out
+
+    # (b) the functionals and the recurrent layers against the CPU
+    worst, cases = (0.0, None), image_cases(torch)
+    for label, fn, inputs in cases:
+        with torch.no_grad():
+            got = fn(*[t.to(dev) for t in inputs])
+            want = fn(*inputs)
+        err = rel_l2(got.cpu(), want)
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()) \
+                or err > IMAGE_CASE_REL:
+            raise AssertionError(f"{label}: shape {list(got.shape)} against "
+                                 f"{list(want.shape)}, relative L2 {err:.3g} (bound "
+                                 f"{IMAGE_CASE_REL})")
+        worst = max(worst, (err, label), key=lambda e: e[0])
+    log(f"resnet phase: {len(cases)} convolution, pool, norm, resampling and "
+        f"padding cases in f32 within {worst[0]:.3g} relative L2 of the CPU ({worst[1]})")
+    rnn_ms = rnn_gate(torch, dev)
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"the image path launched hand kernels: {dict(LAUNCHES)}")
+
+    # (c) timings at batch 128
+    macs = resnet_macs(torch, nchw, images)
+    if abs(macs / RESNET_BATCH / 4.1e9 - 1) > 0.01:
+        raise AssertionError(f"resnet50: {macs / RESNET_BATCH:.4g} multiply-adds an image")
+    x16 = images.bfloat16()
+    runs = {}
+    for dtype, fmt, model, x in (("bf16", "NCHW", bf16["NCHW"], x16),
+                                 ("bf16", "NHWC", bf16["NHWC"], x16),
+                                 ("f32", "NCHW", nchw, images), ("f32", "NHWC", nhwc, images)):
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            ms = time_ms(torch, lambda: model(x), iters=10, repeats=3, warmup=3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        bound, by = bound_ms(0, 2 * macs, BF16_FLOPS if dtype == "bf16" else F32_FLOPS)
+        runs[dtype, fmt] = ms
+        log(f"resnet50 {dtype} {fmt} batch {RESNET_BATCH} on {card}: {ms:.2f} ms a forward, "
+            f"{RESNET_BATCH / ms * 1e3:.0f} images/s, peak {peak:.2f} GiB, bound {bound:.3f} ms "
+            f"({by}: {2 * macs / 1e12:.3f} TFLOP), {bound / ms:.3f} of the bound")
+    # cuDNN's own algorithm search (off by default; the port leaves it so)
+    torch.backends.cudnn.benchmark = True
+    searched = {}
+    for fmt in ("NCHW", "NHWC"):
+        with torch.no_grad():
+            searched[fmt] = time_ms(torch, lambda: bf16[fmt](x16), iters=10, repeats=3,
+                                    warmup=3)
+    torch.backends.cudnn.benchmark = False
+    log(f"resnet50 bf16 batch {RESNET_BATCH} with cudnn.benchmark on: NCHW "
+        f"{searched['NCHW']:.2f} ms, NHWC {searched['NHWC']:.2f} ms")
+    faster = min(("NCHW", "NHWC"), key=lambda f: runs["bf16", f])
+    log(f"resnet50 layout: bf16 NCHW {runs['bf16', 'NCHW']:.2f} ms, NHWC "
+        f"{runs['bf16', 'NHWC']:.2f} ms; faster {faster}; autotune.CARD_LAYOUT "
+        f"{autotune.CARD_LAYOUT} ({'agrees' if faster == autotune.CARD_LAYOUT else 'DIFFERS'})")
+    for fmt in ("NCHW", "NHWC"):
+        wall, busy, groups, launches, top = resnet_profile(torch, bf16[fmt], x16)
+        log(f"profile resnet50 bf16 {fmt} batch {RESNET_BATCH}: wall {wall:.2f} ms a forward "
+            f"(profiled), device busy {busy:.2f} ms, idle share {1 - busy / wall:.3f} "
+            f"(against the unprofiled {runs['bf16', fmt]:.2f} ms: "
+            f"{1 - busy / runs['bf16', fmt]:.3f}), {launches:.0f} CUDA launches a forward; "
+            f"by operation (ms): "
+            + "; ".join(f"{k} {v:.3f}" for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
+            + "; top kernels, then the top of other: "
+            + "; ".join(f"{name[:60]} {ms:.3f}" for ms, name in top))
+    del bf16, nchw, nhwc, images, x16
+    log(f"resnet phase: {time.perf_counter() - t_phase:.1f} s (RNN forwards {rnn_ms})")
+
+
 def train_batch(torch, vocab):
     """One TRAIN_BATCH x TRAIN_SEQ batch from a seed, labels rolled by one."""
     import numpy as np
@@ -6023,6 +6379,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches["ernie"] = phase_ernie(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_resnet(torch, card)
     gc.collect()         # the launcher's worker needs the memory this process cached
     torch.cuda.empty_cache()
     phase_dist(torch, card, train)

@@ -1,4 +1,4 @@
 """Fused operators outside the core API (port of the reference's
 ``incubate/``)."""
 
-from . import nn  # noqa: F401
+from . import autotune, nn  # noqa: F401

@@ -2,7 +2,11 @@
 ``nn/functional/__init__.py``): ``linear``, ``embedding``, ``rms_norm``,
 ``layer_norm``, ``dropout``, ``scaled_dot_product_attention``,
 ``gather_tree``, the activations, the losses with
-``fused_linear_cross_entropy``, and the distances.
+``fused_linear_cross_entropy``, the distances, and the image
+functionals: convolutions and their transposes, pools, the batch, group,
+instance and local-response norms, ``normalize``, ``interpolate``,
+``pad``, the pixel and channel shuffles, ``unfold``, ``bilinear`` and the
+image dropouts.
 
 ``rms_norm``, ``swiglu`` and ``scaled_dot_product_attention`` reach the hand kernels
 through the dispatch seam: without grad, :func:`~paddle_tpu_torch.ops.use_kernel`
@@ -12,9 +16,11 @@ card, the plain pair on the CPU).  A flag turned off gives the plain
 PyTorch ops, differentiated by autograd.  The activations and losses are
 plain PyTorch in the reference's formulas, as the reference leaves them
 to XLA; each computes in its input's dtype where the reference does, and
-in f32 where the reference casts.  The convolution, pooling,
-interpolation and vision functionals come with their layers (ROADMAP
-A3b).
+in f32 where the reference casts.  The image functionals have no
+kernel (the reference leaves them to XLA): they are torch's convolutions,
+pools and batch norm (cuDNN on the card) under the reference's rules for
+padding, windows, layouts, resampling weights and running statistics,
+which differ from torch's where each function says.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..framework.flags import get_flags
@@ -49,7 +56,16 @@ __all__ = ["linear", "embedding", "rms_norm", "layer_norm", "gelu", "swiglu",
            "ctc_loss", "gaussian_nll_loss", "poisson_nll_loss",
            "hinge_embedding_loss", "soft_margin_loss", "multi_label_soft_margin_loss",
            "multi_margin_loss", "triplet_margin_loss",
-           "triplet_margin_with_distance_loss", "pairwise_distance"]
+           "triplet_margin_with_distance_loss", "pairwise_distance",
+           # convolutions, pooling, the image norms and functionals
+           "conv1d", "conv2d", "conv3d", "conv1d_transpose", "conv2d_transpose",
+           "conv3d_transpose", "max_pool1d", "max_pool2d", "max_pool3d", "avg_pool1d",
+           "avg_pool2d", "avg_pool3d", "adaptive_avg_pool1d", "adaptive_avg_pool2d",
+           "adaptive_avg_pool3d", "adaptive_max_pool1d", "adaptive_max_pool2d",
+           "adaptive_max_pool3d", "batch_norm", "group_norm", "instance_norm", "normalize",
+           "local_response_norm", "interpolate", "upsample", "pixel_shuffle",
+           "pixel_unshuffle", "channel_shuffle", "unfold", "zeropad2d", "bilinear", "pad",
+           "dropout2d", "dropout3d", "alpha_dropout"]
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
@@ -643,3 +659,687 @@ def top_k_stable(x: torch.Tensor, k: int):
     the card): a stable descending sort."""
     values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return values[..., :k], idx[..., :k]
+
+
+# ---------------------------------------------------------------------------
+# dropout on image axes (identity where the reference's needs no mask)
+# ---------------------------------------------------------------------------
+def dropout2d(x: torch.Tensor, p: float = 0.5, training: bool = True,
+              data_format: str = "NCHW", name=None) -> torch.Tensor:
+    """Whole channels dropped: identity at p = 0 or outside training; p > 0
+    in training raises (ROADMAP A9)."""
+    return dropout(x, p, training=training)
+
+
+def dropout3d(x: torch.Tensor, p: float = 0.5, training: bool = True,
+              data_format: str = "NCDHW", name=None) -> torch.Tensor:
+    """As :func:`dropout2d`, on [N, C, D, H, W]."""
+    return dropout(x, p, training=training)
+
+
+def alpha_dropout(x: torch.Tensor, p: float = 0.5, training: bool = True,
+                  name=None) -> torch.Tensor:
+    """SELU-preserving dropout: identity at p = 0 or outside training; p > 0
+    in training raises (ROADMAP A9)."""
+    _no_dropout(p, training, "alpha_dropout")
+    return x
+
+
+# ---------------------------------------------------------------------------
+# convolutions
+#
+# The reference computes each with one ``lax.conv_general_dilated`` (XLA,
+# no Pallas kernel); here it is one torch convolution (cuDNN on the card).
+# Layouts: ``data_format`` "NC..." takes and gives channels-first tensors,
+# "N...C" channels-last ones, and the boundary form "IN:OUT" (say
+# "NCHW:NHWC") takes one and gives the other.  A channels-last tensor seen
+# through ``movedim(-1, 1)`` is a channels_last-strided NCHW tensor with no
+# copy, and cuDNN picks its NHWC kernels for it; at the boundary into NHWC
+# the weight is made channels_last so that the output comes out in that
+# memory order.  Padding pairs torch's convolution cannot take (unequal
+# sides, XLA's "SAME" at stride > 1) are applied by ``F.pad`` first.
+# ---------------------------------------------------------------------------
+_CONV = {1: torch.nn.functional.conv1d, 2: torch.nn.functional.conv2d,
+         3: torch.nn.functional.conv3d}
+_CONV_T = {1: torch.nn.functional.conv_transpose1d, 2: torch.nn.functional.conv_transpose2d,
+           3: torch.nn.functional.conv_transpose3d}
+_LAST = {2: torch.channels_last, 3: torch.channels_last_3d}
+
+
+def _tuple_n(v, n):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(i) for i in v)
+    return (int(v),) * n
+
+
+def _conv_padding(padding, nd):
+    """``padding`` as the reference reads it: a string (upper-cased), or
+    ``nd`` (low, high) pairs from an int, ``nd`` ints, ``2 nd`` ints or
+    pairs."""
+    if isinstance(padding, str):
+        return padding.upper()
+    if isinstance(padding, int):
+        return [(padding, padding)] * nd
+    padding = list(padding)
+    if len(padding) == nd and all(isinstance(p, int) for p in padding):
+        return [(p, p) for p in padding]
+    if len(padding) == 2 * nd:
+        return [(padding[2 * i], padding[2 * i + 1]) for i in range(nd)]
+    return [tuple(p) for p in padding]
+
+
+def _padtype_pairs(kind: str, sizes, windows, strides):
+    """XLA's pairs for string padding (``lax.padtype_to_pads``): "SAME"
+    gives ceil(n / s) outputs with the odd pad on the high side,
+    "SAME_LOWER" on the low side, "VALID" none.  ``windows`` are the
+    dilated window extents."""
+    if kind == "VALID":
+        return [(0, 0)] * len(sizes)
+    if kind not in ("SAME", "SAME_LOWER"):
+        raise ValueError(f"unknown padding {kind!r}: SAME, SAME_LOWER or VALID")
+    pairs = []
+    for n, k, s in zip(sizes, windows, strides):
+        total = max(0, (-(-n // s) - 1) * s + k - n)
+        lo = total // 2 if kind == "SAME" else total - total // 2
+        pairs.append((lo, total - lo))
+    return pairs
+
+
+def _flat_pad(pairs):
+    """(low, high) pairs of the leading spatial axis first, as F.pad's flat
+    list (last axis first)."""
+    return [int(v) for lo, hi in reversed(pairs) for v in (lo, hi)]
+
+
+def _channels_first(x: torch.Tensor, fmt: str) -> torch.Tensor:
+    return x if fmt.startswith("NC") else x.movedim(-1, 1)
+
+
+def _to_format(y: torch.Tensor, fmt: str) -> torch.Tensor:
+    return y if fmt.startswith("NC") else y.movedim(1, -1)
+
+
+def _convnd(x, weight, bias, stride, padding, dilation, groups, nd, data_format, name):
+    # the weight follows the input's dtype, as the reference's w.astype(v.dtype);
+    # the reference's O1 autocast of the pair ("conv") waits for ROADMAP A4
+    strides, dil = _tuple_n(stride, nd), _tuple_n(dilation, nd)
+    in_fmt, _, out_fmt = data_format.partition(":")
+    out_fmt = out_fmt or in_fmt
+    v = _channels_first(x, in_fmt)
+    w = weight.to(v.dtype)
+    if not out_fmt.startswith("NC") and in_fmt.startswith("NC") and nd in _LAST:
+        w = w.contiguous(memory_format=_LAST[nd])
+    pad = _conv_padding(padding, nd)
+    if isinstance(pad, str):
+        ks = w.shape[2:]
+        pad = _padtype_pairs(pad, v.shape[2:], [d * (k - 1) + 1 for k, d in zip(ks, dil)],
+                             strides)
+    if all(lo == hi >= 0 for lo, hi in pad):
+        torch_pad = [lo for lo, _ in pad]
+    else:
+        v = torch.nn.functional.pad(v, _flat_pad(pad))
+        torch_pad = 0
+    b = None if bias is None else bias.to(v.dtype)
+    return _to_format(_CONV[nd](v, w, b, strides, torch_pad, dil, groups), out_fmt)
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCL", name=None) -> torch.Tensor:
+    """1-D convolution, weight [out, in/groups, k]; see :func:`conv2d`."""
+    return _convnd(x, weight, bias, stride, padding, dilation, groups, 1, data_format,
+                   "conv1d")
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW", name=None) -> torch.Tensor:
+    """2-D convolution, weight [out, in/groups, kh, kw] in every layout.
+    ``padding``: an int, ints a side, (low, high) pairs, or "SAME"/"VALID"
+    as XLA pads them; ``data_format``: "NCHW", "NHWC" or "NCHW:NHWC"-style
+    boundaries."""
+    return _convnd(x, weight, bias, stride, padding, dilation, groups, 2, data_format,
+                   "conv2d")
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCDHW", name=None) -> torch.Tensor:
+    """3-D convolution, weight [out, in/groups, kd, kh, kw]; see :func:`conv2d`."""
+    return _convnd(x, weight, bias, stride, padding, dilation, groups, 3, data_format,
+                   "conv3d")
+
+
+def _convnd_transpose(x, weight, bias, stride, padding, output_padding, dilation, groups, nd,
+                      data_format, name):
+    """The reference's transpose: a convolution over the input dilated by
+    ``stride``, with the kernel flipped and padded by d·(k−1) − p and
+    ``output_padding`` more on the high side.  That is torch's transpose
+    without padding, cropped by p on each side and grown (zeros) by
+    ``output_padding`` on the high side, then the bias."""
+    strides, dil = _tuple_n(stride, nd), _tuple_n(dilation, nd)
+    opad = _tuple_n(output_padding, nd)
+    v = _channels_first(x, data_format)
+    w = weight.to(v.dtype)
+    ks = w.shape[2:]
+    pad = _conv_padding(padding, nd)
+    if isinstance(pad, str):
+        if any(s != 1 for s in strides):
+            raise ValueError("string padding is not implemented for a transposed "
+                             "convolution with stride > 1: give the padding pairs")
+        conv_pairs = _padtype_pairs(pad, v.shape[2:], [d * (k - 1) + 1 for k, d in
+                                                       zip(ks, dil)], strides)
+        crop = [(d * (k - 1) - lo, d * (k - 1) - hi) for (lo, hi), k, d in
+                zip(conv_pairs, ks, dil)]
+    else:
+        crop = [(lo, hi - o) for (lo, hi), o in zip(pad, opad)]
+    out = _CONV_T[nd](v, w, None, strides, 0, 0, groups, dil)
+    if any(c != (0, 0) for c in crop):
+        out = torch.nn.functional.pad(out, [-c for c in _flat_pad(crop)])
+    if bias is not None:
+        out = out + bias.to(v.dtype).reshape((-1,) + (1,) * nd)
+    return _to_format(out, data_format)
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0, output_padding=0,
+                     groups=1, dilation=1, output_size=None, data_format="NCL", name=None):
+    """Transposed 1-D convolution, weight [in, out/groups, k]; ``output_size``
+    is taken and not read, as in the reference."""
+    return _convnd_transpose(x, weight, bias, stride, padding, output_padding, dilation,
+                             groups, 1, data_format, "conv1d_transpose")
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0, output_padding=0,
+                     groups=1, dilation=1, output_size=None, data_format="NCHW", name=None):
+    """Transposed 2-D convolution, weight [in, out/groups, kh, kw];
+    ``output_size`` is taken and not read, as in the reference."""
+    return _convnd_transpose(x, weight, bias, stride, padding, output_padding, dilation,
+                             groups, 2, data_format, "conv2d_transpose")
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0, output_padding=0,
+                     groups=1, dilation=1, output_size=None, data_format="NCDHW", name=None):
+    """Transposed 3-D convolution, weight [in, out/groups, kd, kh, kw];
+    ``output_size`` is taken and not read, as in the reference."""
+    return _convnd_transpose(x, weight, bias, stride, padding, output_padding, dilation,
+                             groups, 3, data_format, "conv3d_transpose")
+
+
+# ---------------------------------------------------------------------------
+# pooling (the reference's ``reduce_window``; torch's pools here)
+# ---------------------------------------------------------------------------
+_MAX_POOL = {1: torch.nn.functional.max_pool1d, 2: torch.nn.functional.max_pool2d,
+             3: torch.nn.functional.max_pool3d}
+_AVG_POOL = {1: torch.nn.functional.avg_pool1d, 2: torch.nn.functional.avg_pool2d,
+             3: torch.nn.functional.avg_pool3d}
+
+
+def _ceil_extra(n: int, k: int, s: int, lo: int, hi: int) -> int:
+    """Extra high-side padding for ``ceil_mode``'s output size; the last
+    window must start inside the input or its low padding."""
+    out_ceil = math.ceil((n + lo + hi - k) / s) + 1
+    if (out_ceil - 1) * s >= n + lo:
+        out_ceil -= 1
+    return max(0, (out_ceil - 1) * s + k - (n + lo + hi))
+
+
+def _torch_pad_ok(pairs, ks) -> bool:
+    """Whether torch's pool takes ``pairs`` as its own padding (equal
+    sides, at most half the window)."""
+    return all(lo == hi and 0 <= lo <= k // 2 for (lo, hi), k in zip(pairs, ks))
+
+
+def _window_sum(v: torch.Tensor, ks, st) -> torch.Tensor:
+    """Sums over the windows of an unpadded channels-first tensor."""
+    if len(ks) == 1:
+        return torch.nn.functional.avg_pool2d(v.unsqueeze(-2), (1, ks[0]), (1, st[0]),
+                                              divisor_override=1).squeeze(-2)
+    return _AVG_POOL[len(ks)](v, ks, st, divisor_override=1)
+
+
+def _pool(x, kernel, stride, padding, nd, kind, data_format, ceil_mode=False,
+          count_include_pad=True):
+    """Max or average over windows, as the reference's ``_pool``: padding
+    read as the convolutions read it, ``ceil_mode`` as extra high-side
+    padding no window counts (``_ceil_extra``), the average's divisor the
+    window size (``count_include_pad``, or no padding at all) or the count
+    of input elements under it."""
+    ks = _tuple_n(kernel, nd)
+    st = _tuple_n(stride if stride is not None else kernel, nd)
+    v = _channels_first(x, data_format)
+    pad = _conv_padding(padding, nd)
+    from_str = isinstance(pad, str)
+    spatial = tuple(v.shape[2:])
+    pairs = _padtype_pairs(pad, spatial, ks, st) if from_str else [tuple(p) for p in pad]
+    extras = (0,) * nd
+    if ceil_mode and not from_str:
+        extras = tuple(_ceil_extra(n, k, s, lo, hi)
+                       for (lo, hi), n, k, s in zip(pairs, spatial, ks, st))
+    full = [(lo, hi + e) for (lo, hi), e in zip(pairs, extras)]
+    if kind == "max":
+        if _torch_pad_ok(full, ks):
+            return _to_format(_MAX_POOL[nd](v, ks, st, [lo for lo, _ in full]), data_format)
+        fill = -math.inf if v.is_floating_point() else torch.iinfo(v.dtype).min
+        v = torch.nn.functional.pad(v, _flat_pad(full), value=fill)
+        return _to_format(_MAX_POOL[nd](v, ks, st), data_format)
+    no_pad = not from_str and all(p == (0, 0) for p in full)
+    by_window = (count_include_pad and not any(extras)) or no_pad
+    if by_window and _torch_pad_ok(full, ks):
+        out = _AVG_POOL[nd](v, ks, st, [lo for lo, _ in full], count_include_pad=True)
+        return _to_format(out, data_format)
+    sums = _window_sum(torch.nn.functional.pad(v, _flat_pad(full)), ks, st)
+    if by_window:
+        return _to_format(sums / math.prod(ks), data_format)
+    ones = torch.ones((1, 1) + spatial, dtype=torch.float32, device=v.device)
+    if count_include_pad:   # the real padding counts, the ceil extension does not
+        ones = torch.nn.functional.pad(ones, _flat_pad(pairs), value=1.0)
+        ones = torch.nn.functional.pad(ones, _flat_pad([(0, e) for e in extras]))
+    else:
+        ones = torch.nn.functional.pad(ones, _flat_pad(full))
+    counts = _window_sum(ones, ks, st)
+    return _to_format(sums / counts.to(sums.dtype), data_format)
+
+
+def _check_no_mask(return_mask):
+    if return_mask:
+        raise NotImplementedError(
+            "return_mask=True (argmax indices for max_unpool) is not implemented: "
+            "the reference has none either")
+
+
+def max_pool1d(x, kernel_size, stride=None, padding=0, return_mask=False, ceil_mode=False,
+               data_format="NCL", name=None):
+    _check_no_mask(return_mask)
+    return _pool(x, kernel_size, stride, padding, 1, "max", data_format, ceil_mode)
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False, ceil_mode=False,
+               data_format="NCHW", name=None):
+    """Max over windows (-inf padding); ``return_mask`` raises."""
+    _check_no_mask(return_mask)
+    return _pool(x, kernel_size, stride, padding, 2, "max", data_format, ceil_mode)
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0, return_mask=False, ceil_mode=False,
+               data_format="NCDHW", name=None):
+    _check_no_mask(return_mask)
+    return _pool(x, kernel_size, stride, padding, 3, "max", data_format, ceil_mode)
+
+
+def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True, ceil_mode=False,
+               data_format="NCL", name=None):
+    return _pool(x, kernel_size, stride, padding, 1, "avg", data_format, ceil_mode,
+                 count_include_pad=not exclusive)
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False, exclusive=True,
+               divisor_override=None, data_format="NCHW", name=None):
+    """Mean over windows; ``exclusive`` divides by the input elements a
+    window covers (torch's ``count_include_pad=False``).
+    ``divisor_override`` is taken and not read, as in the reference."""
+    return _pool(x, kernel_size, stride, padding, 2, "avg", data_format, ceil_mode,
+                 count_include_pad=not exclusive)
+
+
+def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False, exclusive=True,
+               divisor_override=None, data_format="NCDHW", name=None):
+    return _pool(x, kernel_size, stride, padding, 3, "avg", data_format, ceil_mode,
+                 count_include_pad=not exclusive)
+
+
+_ADAPTIVE = {("avg", 1): torch.nn.functional.adaptive_avg_pool1d,
+             ("avg", 2): torch.nn.functional.adaptive_avg_pool2d,
+             ("avg", 3): torch.nn.functional.adaptive_avg_pool3d,
+             ("max", 1): torch.nn.functional.adaptive_max_pool1d,
+             ("max", 2): torch.nn.functional.adaptive_max_pool2d,
+             ("max", 3): torch.nn.functional.adaptive_max_pool3d}
+
+
+def _adaptive_pool(x, output_size, nd, mode, data_format):
+    """Adaptive pooling with the reference's bins: bin i of an axis of S
+    into O covers [floor(i·S/O), ceil((i+1)·S/O)), which are torch's; a
+    ``None`` size keeps its axis.  (Where every axis divides, the
+    reference takes a strided pool of the same windows.)"""
+    if output_size is None or isinstance(output_size, int):
+        output_size = (output_size,) * nd
+    v = _channels_first(x, data_format)
+    out = tuple(s if o is None else int(o) for s, o in zip(v.shape[2:], output_size))
+    return _to_format(_ADAPTIVE[mode, nd](v, out if nd > 1 else out[0]), data_format)
+
+
+def adaptive_avg_pool1d(x, output_size, name=None):
+    return _adaptive_pool(x, output_size, 1, "avg", "NCL")
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
+    """Mean over adaptive bins (see ``_adaptive_pool``)."""
+    return _adaptive_pool(x, output_size, 2, "avg", data_format)
+
+
+def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
+    return _adaptive_pool(x, output_size, 3, "avg", data_format)
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
+    """Max over adaptive bins; ``return_mask`` is taken and not read, as in
+    the reference."""
+    return _adaptive_pool(x, output_size, 1, "max", "NCL")
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
+    """Max over adaptive bins; ``return_mask`` is taken and not read, as in
+    the reference."""
+    return _adaptive_pool(x, output_size, 2, "max", "NCHW")
+
+
+def adaptive_max_pool3d(x, output_size, return_mask: bool = False, name=None):
+    if return_mask:
+        raise NotImplementedError("adaptive_max_pool3d return_mask: argmax indices are "
+                                  "not implemented, as in the reference")
+    return _adaptive_pool(x, output_size, 3, "max", "NCDHW")
+
+
+# ---------------------------------------------------------------------------
+# batch, group, instance and local-response norms, normalize
+# ---------------------------------------------------------------------------
+def _affine(out: torch.Tensor, weight, bias, shape) -> torch.Tensor:
+    """``out * weight + bias`` in f32, each reshaped to ``shape``."""
+    if weight is not None:
+        out = out * weight.float().reshape(shape)
+    if bias is not None:
+        out = out + bias.float().reshape(shape)
+    return out
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None, training: bool = False,
+               momentum: float = 0.9, epsilon: float = 1e-5, data_format: str = "NCHW",
+               use_global_stats=None, name=None) -> torch.Tensor:
+    """Batch norm over every axis but the channel's (1 for "NC...", the
+    last otherwise), in f32, the affine in f32, rounded once to x's dtype.
+
+    In training (unless ``use_global_stats``) it normalises with the
+    batch's mean and biased variance, differentiated through, and updates
+    the running buffers in place by paddle's rule ``r = m·r + (1 − m)·batch``
+    (m = ``momentum``, the biased variance).  torch's ``batch_norm`` in
+    training uses the momentum the other way round and the unbiased
+    variance, so it is given no buffers.  Otherwise it normalises with the
+    running statistics: torch's ``batch_norm`` in eval mode, the same
+    formula in f32 (cuDNN on the card, NHWC kernels for a channels-last
+    input)."""
+    c_axis = 1 if data_format.startswith("NC") else x.dim() - 1
+    if training and not use_global_stats:
+        dims = tuple(i for i in range(x.dim()) if i != c_axis)
+        shape = [1] * x.dim()
+        shape[c_axis] = x.shape[c_axis]
+        xf = x.float()
+        var, mean = torch.var_mean(xf, dims, correction=0)
+        out = (xf - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + epsilon)
+        if running_mean is not None:
+            with torch.no_grad():
+                running_mean.copy_(momentum * running_mean
+                                   + (1 - momentum) * mean.to(running_mean.dtype))
+                running_var.copy_(momentum * running_var
+                                  + (1 - momentum) * var.to(running_var.dtype))
+        return _affine(out, weight, bias, shape).to(x.dtype)
+    v = x if c_axis == 1 else x.movedim(-1, 1)
+    out = torch.nn.functional.batch_norm(
+        v, running_mean.float(), running_var.float(),
+        None if weight is None else weight.float(), None if bias is None else bias.float(),
+        training=False, eps=epsilon)
+    return out if c_axis == 1 else out.movedim(1, -1)
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None, data_format="NCHW",
+               name=None) -> torch.Tensor:
+    """Norm over each group of ``num_groups`` channel groups (and the
+    spatial axes), f32 inside; "NHWC" raises, as in the reference."""
+    if not data_format.startswith("NC"):
+        raise NotImplementedError("group_norm: NHWC not yet supported (as in the reference)")
+    n, c = x.shape[:2]
+    xf = x.float().reshape((n, num_groups, c // num_groups) + tuple(x.shape[2:]))
+    var, mean = torch.var_mean(xf, tuple(range(2, xf.dim())), correction=0, keepdim=True)
+    out = ((xf - mean) * torch.rsqrt(var + epsilon)).reshape(x.shape)
+    return _affine(out, weight, bias, [1, c] + [1] * (x.dim() - 2)).to(x.dtype)
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None, bias=None,
+                  use_input_stats=True, momentum=0.9, eps=1e-5, data_format="NCHW",
+                  name=None) -> torch.Tensor:
+    """Norm over each sample's channel (the axes after 1), f32 inside.  As
+    in the reference, the running statistics, ``use_input_stats``,
+    ``momentum`` and ``data_format`` are taken and not read."""
+    xf = x.float()
+    var, mean = torch.var_mean(xf, tuple(range(2, x.dim())), correction=0, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + eps)
+    return _affine(out, weight, bias, [1, x.shape[1]] + [1] * (x.dim() - 2)).to(x.dtype)
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12, name=None) -> torch.Tensor:
+    """x over its p-norm along ``axis``, the norm floored at ``epsilon``."""
+    n = torch.linalg.vector_norm(x, ord=p, dim=axis, keepdim=True)
+    return x / n.clamp(min=epsilon)
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0, data_format="NCHW",
+                        name=None) -> torch.Tensor:
+    """x / (k + alpha · (sum of squares over ``size`` channels) / size)^beta,
+    the channels (axis 1) padded (size//2, size − size//2 − 1); as in the
+    reference, ``data_format`` is not read."""
+    c = x.shape[1]
+    pads = [0, 0] * (x.dim() - 2) + [size // 2, size - size // 2 - 1]
+    sq = torch.nn.functional.pad(x.square(), pads)
+    acc = sum(sq[:, i:i + c] for i in range(size))
+    return x / (k + alpha * acc / size) ** beta
+
+
+# ---------------------------------------------------------------------------
+# resampling and the image functionals
+# ---------------------------------------------------------------------------
+def _interp_coords(n_in, n_out, align_corners, align_mode):
+    """Source coordinate of each output index (paddle's three rules)."""
+    if align_corners:
+        if n_out == 1:
+            return np.zeros(1)
+        return np.linspace(0.0, n_in - 1.0, n_out)
+    ratio = n_in / n_out
+    if align_mode == 1:  # asymmetric: src = i · ratio
+        return np.arange(n_out) * ratio
+    return (np.arange(n_out) + 0.5) * ratio - 0.5  # half-pixel
+
+
+def _interp_matrix(n_in, n_out, align_corners, align_mode):
+    """The (n_out, n_in) linear-interpolation weights of one axis."""
+    coords = np.clip(_interp_coords(n_in, n_out, align_corners, align_mode), 0.0, n_in - 1.0)
+    lo = np.floor(coords).astype(np.int64)
+    hi = np.minimum(lo + 1, n_in - 1)
+    w = coords - lo
+    mat = np.zeros((n_out, n_in), np.float32)
+    mat[np.arange(n_out), lo] += 1.0 - w
+    mat[np.arange(n_out), hi] += w
+    return mat
+
+
+def _triangle(x):
+    return np.maximum(0, 1 - np.abs(x))
+
+
+def _keys_cubic(x):
+    """Keys' cubic kernel with a = −0.5 (torch's bicubic uses −0.75)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out).astype(np.float32)
+
+
+def _resize_matrix(n_in, n_out, kernel):
+    """The (n_out, n_in) weights of ``jax.image.resize`` on one axis
+    (``scale_and_translate``): half-pixel centres, the kernel widened by
+    the scale when shrinking (antialias, JAX's default), each row
+    normalised over the taps inside the input, in f32."""
+    inv_scale = np.float32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    w = kernel(np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None])
+               / kernel_scale).astype(np.float32)
+    total = w.sum(0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1), 0).astype(np.float32)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0).T.astype(np.float32)
+
+
+def _resample(v: torch.Tensor, mats, first: int) -> torch.Tensor:
+    """Each spatial axis ``first + i`` multiplied by ``mats[i]`` (None:
+    the axis is kept)."""
+    for i, mat in enumerate(mats):
+        if mat is None:
+            continue
+        m = torch.from_numpy(mat).to(device=v.device, dtype=v.dtype)
+        v = torch.matmul(v.movedim(first + i, -1), m.T).movedim(-1, first + i)
+    return v
+
+
+def _take(v: torch.Tensor, idxs, first: int) -> torch.Tensor:
+    for i, idx in enumerate(idxs):
+        if idx is not None:
+            v = v.index_select(first + i, torch.from_numpy(idx).to(v.device))
+    return v
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest", align_corners=False,
+                align_mode=0, data_format="NCHW", name=None) -> torch.Tensor:
+    """Resize the spatial axes to ``size`` (or times ``scale_factor``,
+    floored), as the reference computes it:
+
+    - ``"area"``: the adaptive average pool;
+    - a linear mode with ``align_corners`` or ``align_mode=1``: separable
+      interpolation matrices (corner-aligned or src = i · in/out), in f32;
+    - ``"nearest"`` with ``align_corners``: the index floor(src + 0.5);
+    - otherwise ``jax.image.resize``'s rules: ``"nearest"`` takes index
+      floor((i + 0.5) · in/out) (torch's ``"nearest-exact"``, not its
+      ``"nearest"``); ``"linear"``/``"bilinear"``/``"trilinear"`` and
+      ``"bicubic"`` are the triangle and Keys (a = −0.5) kernels with
+      half-pixel centres, widened when shrinking (antialias).  torch's
+      modes differ (bicubic a = −0.75, no antialias by default), so the
+      weights are built here, one matrix an axis.
+
+    Another mode with ``align_corners`` raises, as in the reference."""
+    first = 2 if data_format.startswith("NC") else 1
+    spatial = tuple(x.shape[first:first + x.dim() - 2])
+    nd = len(spatial)
+    if size is None:
+        if isinstance(scale_factor, (int, float)):
+            scale_factor = [scale_factor] * nd
+        size = tuple(int(s * f) for s, f in zip(spatial, scale_factor))
+    else:
+        size = _tuple_n(size, nd)
+    if mode == "area":
+        return _adaptive_pool(x, size, nd, "avg", data_format)
+    linear = ("linear", "bilinear", "trilinear")
+    if (align_corners or align_mode == 1) and mode in linear:
+        mats = [_interp_matrix(s, o, align_corners, align_mode) for s, o in zip(spatial, size)]
+        return _resample(x.float(), mats, first).to(x.dtype)
+    if align_corners and mode == "nearest":
+        idxs = [np.floor(_interp_coords(s, o, True, 0) + 0.5).astype(np.int64).clip(0, s - 1)
+                for s, o in zip(spatial, size)]
+        return _take(x, idxs, first)
+    if align_corners:
+        raise NotImplementedError(
+            f"interpolate(mode={mode!r}, align_corners=True) is not supported, as in the "
+            f"reference")
+    kernel = {"nearest": None, "bilinear": _triangle, "linear": _triangle,
+              "bicubic": _keys_cubic, "trilinear": _triangle}[mode]
+    if kernel is None:
+        idxs = [None if s == o else np.floor(
+            (np.arange(o, dtype=np.float32) + np.float32(0.5)) * np.float32(s)
+            / np.float32(o)).astype(np.int64) for s, o in zip(spatial, size)]
+        return _take(x, idxs, first)
+    v = x if x.is_floating_point() else x.float()
+    mats = [None if s == o else _resize_matrix(s, o, kernel) for s, o in zip(spatial, size)]
+    return _resample(v, mats, first).to(x.dtype)
+
+
+upsample = interpolate
+
+
+def pixel_shuffle(x, upscale_factor, data_format="NCHW", name=None) -> torch.Tensor:
+    """[N, C·r², H, W] to [N, C, H·r, W·r]; reads NCHW whatever
+    ``data_format`` says, as the reference does."""
+    r = upscale_factor
+    n, c, h, w = x.shape
+    v = x.reshape(n, c // (r * r), r, r, h, w).permute(0, 1, 4, 2, 5, 3)
+    return v.reshape(n, c // (r * r), h * r, w * r)
+
+
+def pixel_unshuffle(x, downscale_factor: int, data_format: str = "NCHW",
+                    name=None) -> torch.Tensor:
+    """The inverse of :func:`pixel_shuffle`, in either layout (the channel
+    order (c, r, r) in both)."""
+    r = downscale_factor
+    if data_format == "NCHW":
+        n, c, h, w = x.shape
+        v = x.reshape(n, c, h // r, r, w // r, r).permute(0, 1, 3, 5, 2, 4)
+        return v.reshape(n, c * r * r, h // r, w // r)
+    n, h, w, c = x.shape
+    v = x.reshape(n, h // r, r, w // r, r, c).permute(0, 1, 3, 5, 2, 4)
+    return v.reshape(n, h // r, w // r, c * r * r)
+
+
+def channel_shuffle(x, groups: int, data_format: str = "NCHW", name=None) -> torch.Tensor:
+    """Channels regrouped: [g, c/g] read as [c/g, g]."""
+    if data_format == "NCHW":
+        n, c, h, w = x.shape
+        return x.reshape(n, groups, c // groups, h, w).transpose(1, 2).reshape(n, c, h, w)
+    n, h, w, c = x.shape
+    return x.reshape(n, h, w, groups, c // groups).transpose(3, 4).reshape(n, h, w, c)
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None) -> torch.Tensor:
+    """Sliding patches of [N, C, H, W] as [N, C·kh·kw, L] (the reference's
+    ``conv_general_dilated_patches``, channel-major as torch's ``unfold``);
+    ``paddings`` is one int or one int an axis."""
+    pd = _tuple_n(paddings, 2)
+    return torch.nn.functional.unfold(x, _tuple_n(kernel_sizes, 2), _tuple_n(dilations, 2),
+                                      pd[:2], _tuple_n(strides, 2))
+
+
+def zeropad2d(x, padding, data_format: str = "NCHW", name=None) -> torch.Tensor:
+    """Zeros around H and W; ``padding`` an int or [left, right, top, bottom]."""
+    if isinstance(padding, int):
+        padding = [padding] * 4
+    l, r, t, b = padding
+    if data_format == "NCHW":
+        return torch.nn.functional.pad(x, [l, r, t, b])
+    return torch.nn.functional.pad(x, [0, 0, l, r, t, b])
+
+
+def bilinear(x1, x2, weight, bias=None, name=None) -> torch.Tensor:
+    """out[b, o] = x1[b] @ W[o] @ x2[b] (+ bias)."""
+    out = torch.einsum("bi,oij,bj->bo", x1, weight, x2)
+    return out if bias is None else out + bias
+
+
+_PAD_MODES = {"reflect": "reflect", "replicate": "edge", "circular": "wrap"}
+
+
+def pad(x, pad, mode="constant", value=0.0, data_format="NCHW", name=None) -> torch.Tensor:
+    """Pad by (low, high) pairs: ``2·ndim`` numbers pair the axes in order;
+    fewer pad the trailing axes last axis first (torch's order), as in the
+    reference.  Modes "constant" (``value``), "reflect", "replicate",
+    "circular" (numpy's reflect, edge and wrap); ``data_format`` is not
+    read.  The non-constant modes gather each axis by numpy's padded index
+    (any rank, any axis)."""
+    if isinstance(pad, torch.Tensor):
+        pad = pad.reshape(-1).tolist()
+    nd = x.dim()
+    if len(pad) == 2 * nd:
+        width = [(int(pad[2 * i]), int(pad[2 * i + 1])) for i in range(nd)]
+    else:
+        npairs = len(pad) // 2
+        pairs = [(int(pad[2 * i]), int(pad[2 * i + 1])) for i in range(npairs)]
+        width = [(0, 0)] * (nd - npairs) + pairs[::-1]
+    if mode == "constant":
+        return torch.nn.functional.pad(x, [v for lo, hi in reversed(width) for v in (lo, hi)],
+                                       value=value)
+    np_mode = _PAD_MODES[mode]
+    for axis, (lo, hi) in enumerate(width):
+        if lo or hi:
+            idx = np.pad(np.arange(x.shape[axis]), (lo, hi), mode=np_mode)
+            x = x.index_select(axis, torch.from_numpy(idx).to(x.device))
+    return x

@@ -1,11 +1,21 @@
 """The port's layers, at the reference's module paths (``nn/layer/layers.py``,
-``common.py``, ``norm.py``, ``container.py``, ``activation.py``,
-``loss.py``, ``transformer.py``, ``rnn.py``)."""
+``common.py``, ``conv.py``, ``pooling.py``, ``norm.py``, ``container.py``,
+``activation.py``, ``loss.py``, ``transformer.py``, ``rnn.py``)."""
 
 from .layers import Layer  # noqa: F401
-from .common import (CosineSimilarity, Dropout, Embedding, Flatten,  # noqa: F401
-                     Identity, Linear, PairwiseDistance, Unflatten)
-from .norm import LayerNorm, RMSNorm  # noqa: F401
+from .common import (AlphaDropout, Bilinear, ChannelShuffle, CosineSimilarity,  # noqa: F401
+                     Dropout, Dropout2D, Dropout3D, Embedding, Flatten, Identity, Linear,
+                     Pad1D, Pad2D, Pad3D, PairwiseDistance, PixelShuffle, PixelUnshuffle,
+                     Unflatten, Unfold, Upsample, UpsamplingBilinear2D, UpsamplingNearest2D,
+                     ZeroPad2D)
+from .conv import (Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,  # noqa: F401
+                   Conv3DTranspose)
+from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,  # noqa: F401
+                      AdaptiveMaxPool1D, AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
+                      AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D)
+from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, GroupNorm,  # noqa: F401
+                   InstanceNorm1D, InstanceNorm2D, InstanceNorm3D, LayerNorm,
+                   LocalResponseNorm, RMSNorm, SpectralNorm, SyncBatchNorm)
 from .container import LayerDict, LayerList, ParameterList, Sequential  # noqa: F401
 from .activation import (CELU, ELU, GELU, GLU, Hardshrink, Hardsigmoid,  # noqa: F401
                          Hardswish, Hardtanh, LeakyReLU, LogSigmoid, LogSoftmax, Maxout,
@@ -20,4 +30,5 @@ from .loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,  # noqa: F40
 from .transformer import (MultiHeadAttention, Transformer,  # noqa: F401
                           TransformerDecoder, TransformerDecoderLayer,
                           TransformerEncoder, TransformerEncoderLayer)
-from .rnn import GRUCell, LSTMCell, RNNCellBase, SimpleRNNCell  # noqa: F401
+from .rnn import (GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell, RNNCellBase,  # noqa: F401
+                  SimpleRNN, SimpleRNNCell)

@@ -14,9 +14,12 @@ reference's (``Linear`` XavierNormal, ``Embedding`` N(0, 1), biases zero).
 
 ``Linear.weight`` keeps paddle's ``[in, out]`` layout and computes
 ``x @ W + b``, so weights cross between the two packages without
-transposes.  The image layers of ``common.py`` (Upsample, Pad*,
-PixelShuffle/Unshuffle, Unfold, ChannelShuffle, ZeroPad2D, Bilinear)
-come with the convolutions (ROADMAP A3b).
+transposes.  The image layers (``Dropout2D``, ``Dropout3D``,
+``AlphaDropout``, ``Upsample`` and its two fixed-mode forms, ``Pad1D``/
+``2D``/``3D``, ``Bilinear``, ``PixelShuffle``, ``PixelUnshuffle``,
+``Unfold``, ``ZeroPad2D``, ``ChannelShuffle``) wrap their functionals
+with the reference's arguments; the dropouts raise for p > 0 in training
+(ROADMAP A9), as ``Dropout`` does.
 """
 
 from __future__ import annotations
@@ -30,7 +33,10 @@ from .. import initializer as I
 from .layers import Layer
 
 __all__ = ["Linear", "Embedding", "Dropout", "Flatten", "Identity", "Unflatten",
-           "CosineSimilarity", "PairwiseDistance"]
+           "CosineSimilarity", "PairwiseDistance", "Dropout2D", "Dropout3D", "AlphaDropout",
+           "Upsample", "UpsamplingBilinear2D", "UpsamplingNearest2D", "Pad1D", "Pad2D",
+           "Pad3D", "Bilinear", "PixelShuffle", "Unfold", "ZeroPad2D", "PixelUnshuffle",
+           "ChannelShuffle"]
 
 
 def check_attr(attr, what: str, droppable: bool) -> bool:
@@ -175,3 +181,159 @@ class PairwiseDistance(Layer):
 
     def forward(self, x, y):
         return F.pairwise_distance(x, y, self.p, self.epsilon, self.keepdim)
+
+
+class Dropout2D(Layer):
+    """``F.dropout2d``: identity at p = 0 or in eval; p > 0 in training
+    raises (ROADMAP A9)."""
+
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, p=self.p, training=self.training, data_format=self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, p=self.p, training=self.training, data_format=self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.alpha_dropout(x, p=self.p, training=self.training)
+
+
+class Upsample(Layer):
+    """``F.interpolate`` with the layer's size or scale and mode; as in the
+    reference, ``align_mode`` is kept and not passed on (the functional's
+    default, 0, applies)."""
+
+    def __init__(self, size=None, scale_factor=None, mode="nearest", align_corners=False,
+                 align_mode=0, data_format="NCHW", name=None):
+        super().__init__()
+        self.size, self.scale_factor = size, scale_factor
+        self.mode, self.align_corners = mode, align_corners
+        self.align_mode, self.data_format = align_mode, data_format
+
+    def forward(self, x):
+        return F.interpolate(x, size=self.size, scale_factor=self.scale_factor,
+                             mode=self.mode, align_corners=self.align_corners,
+                             data_format=self.data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    """Bilinear, corners aligned."""
+
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW", name=None):
+        super().__init__(size, scale_factor, "bilinear", True, data_format=data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW", name=None):
+        super().__init__(size, scale_factor, "nearest", False, data_format=data_format)
+
+
+class _PadND(Layer):
+    """``F.pad`` by the layer's ``padding`` (an int pads the last axis on
+    both sides, as in the reference)."""
+
+    def __init__(self, padding, mode="constant", value=0.0, data_format="NCHW", name=None):
+        super().__init__()
+        self.padding = list(padding) if isinstance(padding, (list, tuple)) else [padding] * 2
+        self.mode, self.value, self.data_format = mode, value, data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, mode=self.mode, value=self.value,
+                     data_format=self.data_format)
+
+
+class Pad1D(_PadND):
+    def __init__(self, padding, mode="constant", value=0.0, data_format="NCL", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad2D(_PadND):
+    pass
+
+
+class Pad3D(_PadND):
+    def __init__(self, padding, mode="constant", value=0.0, data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Bilinear(Layer):
+    """out = x1 @ W[o] @ x2 + b, W [out, in1, in2] (XavierNormal) and b
+    [1, out] (zeros, ``bias_attr=False`` leaves it out)."""
+
+    def __init__(self, in1_features, in2_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *, generator=None, device=None,
+                 dtype=torch.float32):
+        super().__init__(dtype=dtype)
+        self._place(device, generator)
+        check_attr(weight_attr, "Bilinear weight", droppable=False)
+        self.weight = self.create_parameter([out_features, in1_features, in2_features],
+                                            attr=weight_attr)
+        self.bias = self.create_parameter([1, out_features], attr=bias_attr, is_bias=True) \
+            if check_attr(bias_attr, "Bilinear bias", droppable=True) else None
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.upscale_factor, self.data_format = upscale_factor, data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)
+
+
+class ZeroPad2D(Layer):
+    """Zeros around H and W; ``padding`` an int or [left, right, top,
+    bottom]."""
+
+    def __init__(self, padding, data_format: str = "NCHW", name=None):
+        super().__init__()
+        self.padding = [padding] * 4 if isinstance(padding, int) else list(padding)
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.zeropad2d(x, self.padding, self.data_format)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor: int, data_format: str = "NCHW", name=None):
+        super().__init__()
+        self.downscale_factor, self.data_format = downscale_factor, data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.downscale_factor, self.data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups: int, data_format: str = "NCHW", name=None):
+        super().__init__()
+        self.groups, self.data_format = groups, data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups, self.data_format)

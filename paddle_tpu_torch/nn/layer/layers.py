@@ -121,6 +121,13 @@ class Layer(nn.Module):
         if generator is not None:
             self._generator = generator
 
+    def _home(self) -> torch.device:
+        """The device the layer builds its tensors on: its own, else its
+        generator's, else the default device."""
+        gen = self._generator
+        return resolve_device(self._device if self._device is not None
+                              else None if gen is None else gen.device)
+
     # ------------------------------------------------------------------
     # parameter / buffer / sublayer registration
     # ------------------------------------------------------------------
@@ -132,9 +139,7 @@ class Layer(nn.Module):
         dtype = to_dtype(dtype) if dtype is not None else self._dtype
         init = attr.initializer or default_initializer or (
             I.Constant(0.0) if is_bias else I.XavierNormal())
-        gen = self._generator
-        device = resolve_device(self._device if self._device is not None
-                                else None if gen is None else gen.device)
+        device, gen = self._home(), self._generator
         if gen is not None and gen.device.type != device.type:
             gen = None   # the device's global generator
         value = init(tuple(int(s) for s in shape), dtype, gen, device)

@@ -56,6 +56,28 @@ KEYWORD_DEPARTURES = {
         "names the members, so several may share a card or the CPU (as "
         "fleet.init(devices=...) allows); the reference takes jax.devices() "
         "and refuses a mesh larger than them, as the port does without it"),
+    # the image layers and the recurrent layers (ROADMAP A3b) build on the
+    # default device, the card unless the caller asks for the CPU; each
+    # also takes the port's keyword-only dtype (and generator where it
+    # draws random weights)
+    **{f"paddle_tpu_torch.nn.layer.{mod}.{name}": (
+        "device", "the device the layer builds its parameters and buffers on")
+       for mod, names in (
+           ("conv", ("Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
+                     "Conv3DTranspose")),
+           ("norm", ("BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
+                     "SyncBatchNorm", "GroupNorm", "InstanceNorm1D", "InstanceNorm2D",
+                     "InstanceNorm3D")),
+           ("common", ("Bilinear",)),
+           ("rnn", ("SimpleRNN", "LSTM", "GRU")))
+       for name in names},
+    "paddle_tpu_torch.vision.models.resnet.ResNet": (
+        "device", "the device the model is built on, which also resolves "
+        "data_format='auto'; generator= draws its weights"),
+    "paddle_tpu_torch.incubate.autotune.resolve_conv_data_format": (
+        "device", "the layout is resolved for this device (the default device if "
+        "None): incubate.autotune.CARD_LAYOUT on the card, NCHW on the CPU; the "
+        "reference asks whether it runs on a TPU"),
 }
 
 
