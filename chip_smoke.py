@@ -6279,6 +6279,480 @@ def phase_auto(torch, card, train=None, cfg=None, dev="cuda", batch=None):
     return launches
 
 
+CORE_LAYERS = 2                     # phase_core: Llama-2-7B width, depth cut for time
+CORE_STEPS = 3                      # (a): eager steps, against as many TrainSteps
+CORE_RMS_SHAPE = (TRAIN_BATCH * TRAIN_SEQ, 4096)   # (b): B1/B1b's training rows
+GUMBEL_SAMPLES = 200000             # (d): gumbel_softmax(hard=True) draws
+CORE_KERNELS = frozenset({"rms_norm", "rms_norm_bwd", "rope", "rope_bwd", "flash_attention",
+                          "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "swiglu",
+                          "swiglu_bwd", "adamw"})
+
+
+def core_build(torch, make, clip):
+    """``make(CORE_LAYERS)`` after ``paddle.seed(0)``, with AdamW(1e-4) and
+    ``clip``, under AMP O2 bf16."""
+    import paddle_tpu_torch as paddle
+
+    paddle.seed(0)
+    model = make(CORE_LAYERS)
+    opt = paddle.optimizer.AdamW(1e-4, parameters=model.parameters(), grad_clip=clip)
+    return paddle.amp.decorate(model, opt, level="O2", dtype="bfloat16")
+
+
+def core_timed(torch, fn, n):
+    """``n`` calls of ``fn`` (each synchronised): their results, their
+    launch counts (one dict a call) and the ms of each call."""
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    outs, launches, ms = [], [], []
+    for _ in range(n):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(dict(LAUNCHES))
+    return outs, launches, ms
+
+
+def core_eager(torch, card, make=None, batch=None, dev="cuda"):
+    """(a) The reference's eager idiom at Llama-2-7B width (2 layers, AMP
+    O2, AdamW, ClipGradByGlobalNorm(1.0), LLAMA_ON): ``paddle.to_tensor``
+    batch, then ``loss = model(ids, labels=labels)[0]; loss.backward();
+    opt.step(); opt.clear_grad()`` CORE_STEPS times, then a forward under
+    ``paddle.no_grad()``; held bit-equal (losses and every kernel's
+    launches, step by step) to TrainStep on the same weights and batch.
+    Returns the eager run's launches (all its steps and the evaluation)."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    make = make or make_llama
+    ids, labels = batch or train_batch(torch, 32000)
+    ids_np, labels_np = ids[:1].cpu().numpy(), labels[:1].cpu().numpy()
+    with paddle.flag_guard(**LLAMA_ON):
+        model, opt = core_build(torch, make, paddle.nn.ClipGradByGlobalNorm(1.0))
+        step = TrainStep(model, lambda m, x, y: m(x, labels=y)[0], opt)
+        x, y = torch.as_tensor(ids_np, device=dev), torch.as_tensor(labels_np, device=dev)
+        want, want_launches, want_ms = core_timed(torch, lambda: float(step(x, y)), CORE_STEPS)
+        del model, opt, step
+        gc.collect()
+
+        model, opt = core_build(torch, make, paddle.nn.ClipGradByGlobalNorm(1.0))
+        place = paddle.CUDAPlace(0) if dev == "cuda" else paddle.CPUPlace()
+        x = paddle.to_tensor(ids_np, place=place)
+        y = paddle.to_tensor(labels_np, place=place)
+
+        def eager_step():
+            loss = model(x, labels=y)[0]
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return float(loss.detach())
+
+        got, got_launches, got_ms = core_timed(torch, eager_step, CORE_STEPS)
+        total = {k: sum(d[k] for d in got_launches) for k in got_launches[0]}
+        reset_launch_counts()
+        with paddle.no_grad():
+            eval_loss = model(x, labels=y)[0]
+        eval_launches = dict(LAUNCHES)
+        for k, v in eval_launches.items():
+            total[k] += v
+        del model, opt
+        gc.collect()
+    log(f"core eager loop {CORE_LAYERS}-layer 1x{TRAIN_SEQ} on {card}: losses "
+        f"{' '.join(repr(v) for v in got)}; TrainStep {' '.join(repr(v) for v in want)}; "
+        f"eval under no_grad {float(eval_loss)!r}")
+    if got != want or got_launches != want_launches:
+        raise AssertionError(f"core eager loop: losses {got} launches {got_launches}; "
+                             f"TrainStep {want} {want_launches}")
+    if not (np.isfinite(float(eval_loss)) and float(eval_loss) < got[0]):
+        raise AssertionError(f"core eager loop: evaluation loss {float(eval_loss)} after "
+                             f"losses {got}")
+    log(f"core eager loop launches a step (= TrainStep's): {got_launches[0]}; evaluation "
+        f"forward: {eval_launches}")
+    log(f"core eager loop ms a step (steps 2..{CORE_STEPS}, synchronised): eager "
+        f"{np.mean(got_ms[1:]):.2f} ({' '.join(f'{v:.2f}' for v in got_ms)}), TrainStep "
+        f"{np.mean(want_ms[1:]):.2f} ({' '.join(f'{v:.2f}' for v in want_ms)})")
+    return total
+
+
+def core_clips(torch, make=None, batch=None, dev="cuda"):
+    """(a) One eager step with ClipGradByNorm and one with ClipGradByValue:
+    finite losses, and the clipped gradients the optimizer received equal
+    to the formula on the gradients it passed in."""
+    import paddle_tpu_torch as paddle
+
+    make = make or make_llama
+    ids, labels = batch or train_batch(torch, 32000)
+    x, y = ids[:1].to(dev), labels[:1].to(dev)
+
+    class Recorder:
+        def __init__(self, clip):
+            self.clip, self.seen = clip, None
+
+        def __call__(self, params_grads):
+            out = self.clip(params_grads)
+            self.seen = ([g.clone() for _, g in params_grads], [g for _, g in out])
+            return out
+
+    norm_bound, value_bound = 0.5, 1e-3
+    formulas = {
+        "ClipGradByNorm": (paddle.nn.ClipGradByNorm(norm_bound), lambda g: g * torch.clamp(
+            norm_bound / torch.clamp(g.float().norm(), min=1e-12), max=1.0)),
+        "ClipGradByValue": (paddle.nn.ClipGradByValue(value_bound),
+                            lambda g: g.clamp(-value_bound, value_bound))}
+    with paddle.flag_guard(**LLAMA_ON):
+        for label, (clip, formula) in formulas.items():
+            rec = Recorder(clip)
+            model, opt = core_build(torch, make, rec)
+            loss = model(x, labels=y)[0]
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            with paddle.no_grad():
+                after = model(x, labels=y)[0]
+            ins, outs = rec.seen
+            err = max(check_close(torch, f"core {label}", o, formula(i), TOL["float32"])
+                      for i, o in zip(ins, outs))
+            clipped = sum(bool((o != i).any()) for i, o in zip(ins, outs))
+            loss, after = float(loss.detach()), float(after)
+            log(f"core {label}: loss {loss:.5f} then {after:.5f}; {clipped} of {len(ins)} "
+                f"gradients clipped; worst |clip - formula| {err:.3g}")
+            if not (math.isfinite(loss) and math.isfinite(after) and clipped):
+                raise AssertionError(f"core {label}: losses {loss} {after}, {clipped} clipped")
+            del model, opt, rec
+            gc.collect()
+
+
+def core_pylayer(torch, shape=CORE_RMS_SHAPE, dev="cuda"):
+    """(b) A PyLayer whose forward is B1 (``fused_rms_norm``) and whose
+    backward is B1b, in f32 and bf16 at ``shape``: the output and its
+    ``paddle.grad`` grads against torch autograd through
+    ``rms_norm_plain``, within the op_test rows (dw, a sum over the rows,
+    by ``check_sum_close``)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.fused_norm import (fused_rms_norm, fused_rms_norm_bwd,
+                                                 rms_norm_plain)
+
+    class RMSNorm(paddle.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, x, w, eps):
+            out, rstd = fused_rms_norm(x, w, eps)
+            ctx.save_for_backward(x, w, rstd)
+            return out
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, w, rstd = ctx.saved_tensor()
+            return fused_rms_norm_bwd(x, w, rstd, dy.contiguous())
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        w = (1 + 0.1 * torch.randn(shape[-1], generator=gen, device=dev)).to(dtype)
+        dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        xk, wk = paddle.to_tensor(x, stop_gradient=False), paddle.to_tensor(w, stop_gradient=False)
+        xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = RMSNorm.apply(xk, wk, 1e-6)
+        dx, dw = paddle.grad(out, [xk, wk], dy)
+        want = rms_norm_plain(xp, wp, 1e-6)[0]
+        pdx, pdw = torch.autograd.grad(want, (xp, wp), dy)
+        if xk.grad is not None or wk.grad is not None:
+            raise AssertionError("paddle.grad wrote .grad")
+        tol = TOL[str(dtype).split(".")[1]]
+        rstd = torch.rsqrt(x.float().square().mean(-1, keepdim=True) + 1e-6)
+        terms = (dy.float() * x.float() * rstd).abs().sum(0)
+        err = max(check_close(torch, "PyLayer B1 out", out, want, tol),
+                  check_close(torch, "PyLayer B1b dx", dx, pdx, tol),
+                  check_sum_close(torch, "PyLayer B1b dw", dw, pdw, terms))
+        log(f"core PyLayer over B1/B1b {dtype} x{list(shape)}: max_abs_err {err:.3g} against "
+            "torch autograd through rms_norm_plain")
+        del x, w, dy, xk, wk, xp, wp, out, dx, dw, want, pdx, pdw
+
+
+def core_higher_order(torch, dev="cuda"):
+    """(b) ``paddle.grad(create_graph=True)`` twice (a double backward), and
+    ``jacobian``/``hessian``/``vjp``/``jvp`` of small functions, on the card
+    against the CPU, within the f32 row."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.autograd import hessian, jacobian, jvp, vjp
+
+    g = torch.Generator().manual_seed(5)
+    x0, w0 = torch.randn(6, 5, generator=g), torch.randn(5, 4, generator=g)
+
+    def f(x):
+        return (paddle.tanh(paddle.matmul(x, w)) ** 3).sum()
+
+    results = {}
+    for where in ("cpu", dev):
+        w = w0.to(where)
+        x = paddle.to_tensor(x0, place=where, stop_gradient=False)
+        (gx,) = paddle.grad(f(x), x, create_graph=True)
+        (ggx,) = paddle.grad((gx * gx).sum(), x)
+        results[where] = dict(
+            grad=gx.detach(), double=ggx,
+            jacobian=jacobian(lambda v: paddle.sin(v) * v, x.detach()[0]),
+            jacobian_fwd=jacobian(lambda v: paddle.sin(v) * v, x.detach()[0], mode="fwd"),
+            jacobian_batched=jacobian(lambda v: v ** 3, x.detach(), batch_axis=0),
+            hessian=hessian(lambda v: f(v.reshape(6, 5)), x.detach().reshape(-1)),
+            vjp=vjp(lambda v: paddle.exp(v), x.detach(), paddle.ones_like(x.detach()))[1],
+            jvp=jvp(lambda v: paddle.exp(v), x.detach(), paddle.ones_like(x.detach()))[1])
+    worst = max(check_close(torch, f"core {k}", results[dev][k].cpu(), v, TOL["float32"])
+                for k, v in results["cpu"].items())
+    log(f"core double backward, jacobian (rev, fwd, batched), hessian [30, 30], vjp, jvp on "
+        f"the card against the CPU: max_abs_err {worst:.3g}")
+
+
+def core_cases(torch):
+    """Small cases of the tensor functions (creation, math, manipulation,
+    logic and search, linalg, einsum) and the nn.functional names this slice
+    adds: (family, label, fn, CPU inputs, whether bf16 is run too)."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(21)
+
+    def r(*shape, lo=-1.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(*shape, generator=g)
+
+    a, b, p = r(4, 8), r(4, 8), r(4, 8, lo=0.3, hi=2.0)
+    spd = (lambda m: m @ m.T + 4 * torch.eye(4))(r(4, 4))
+    idx = torch.tensor([0, 2, 3])
+    mask = torch.arange(32).reshape(4, 8) % 3 == 0
+    cat = [
+        ("creation", "zeros ones full", lambda: paddle.concat(
+            [paddle.zeros([2, 3]), paddle.ones([2, 3]), paddle.full([2, 3], 7.5)]), [], False),
+        ("creation", "arange linspace logspace", lambda: paddle.concat(
+            [paddle.arange(1, 10, 2, dtype="float32"), paddle.linspace(0, 1, 5),
+             paddle.logspace(0, 2, 3)]), [], False),
+        ("creation", "eye tril_indices", lambda: (paddle.eye(3, 4), paddle.tril_indices(4, 4)),
+         [], False),
+        ("creation", "*_like", lambda x: paddle.concat([paddle.zeros_like(x), paddle.ones_like(x),
+                                                        paddle.full_like(x, 2.0)]), [a], True),
+        ("creation", "diag diagflat diag_embed", lambda v, m: (
+            paddle.diag(v, 1, 3.0), paddle.diagflat(v), paddle.diag_embed(m), paddle.diag(m)),
+         [r(5), r(3, 3)], True),
+        ("creation", "tril triu meshgrid", lambda m, v: (
+            paddle.tril(m), paddle.triu(m, 1), *paddle.meshgrid(v, v)), [r(4, 4), r(3)], True),
+        ("creation", "to_tensor one_hot complex", lambda v: (
+            paddle.to_tensor([[1.0, 2.0]], dtype=v.dtype, place=v.device) * v[:1, :2],
+            paddle.one_hot(paddle.to_tensor([0, 3, 1], place=v.device), 4),
+            paddle.as_real(paddle.complex(v, v * 2))), [a], False),
+        ("math", "unary", lambda x, q: (
+            paddle.exp(x), paddle.log(q), paddle.sqrt(q), paddle.rsqrt(q), paddle.tanh(x),
+            paddle.erf(x), paddle.erfinv(x * 0.9), paddle.lgamma(q), paddle.digamma(q),
+            paddle.logit(x.abs() * 0.8 + 0.1), paddle.stanh(x), paddle.frac(x * 3)), [a, p], True),
+        ("math", "binary", lambda x, y, q: (
+            x + y, x * y, x / q, paddle.pow(q, y), paddle.mod(q, q.flip(0)), paddle.atan2(x, q),
+            paddle.maximum(x, y), paddle.fmin(x, y), paddle.logaddexp(x, y),
+            paddle.hypot(x, y), paddle.lerp(x, y, 0.3), paddle.scale(x, 2.0, 1.0),
+            paddle.clip(x, -0.5, 0.5), x + 2.0), [a, b, p], True),
+        ("math", "reductions", lambda x, q: (
+            paddle.sum(x, axis=-1), paddle.mean(x, axis=[0, 1]), paddle.prod(q, axis=-1),
+            paddle.max(x, axis=[0, 1]), paddle.amin(x, axis=0), paddle.logsumexp(x, axis=-1),
+            paddle.std(x, axis=-1), paddle.var(x, axis=0), paddle.median(x, axis=-1),
+            paddle.quantile(x, 0.3, axis=-1), paddle.nansum(x), paddle.count_nonzero(x > 0)),
+         [a, p], True),
+        ("math", "cumulative trace", lambda x, q: (
+            paddle.cumsum(x, axis=-1), paddle.cumprod(q, dim=-1), paddle.cummax(x, axis=-1)[0],
+            paddle.cummin(x, axis=0)[1], paddle.trace(x[:, :4]), paddle.diagonal(x)), [a, p],
+         True),
+        ("math", "products", lambda x, y: (
+            paddle.matmul(x, y, transpose_y=True), paddle.bmm(x[None], y.T[None]),
+            paddle.dot(x, y), paddle.outer(x[0], y[0]), paddle.kron(x[:2, :2], y[:2, :2]),
+            paddle.addmm(x[:, :4], x, y.T), paddle.inner(x, y),
+            paddle.einsum("ij,kj->ik", x, y)), [a, b], True),
+        ("manipulation", "shape", lambda x: (
+            paddle.reshape(x, [8, 4]), paddle.flatten(x[None]), paddle.transpose(x, [1, 0]),
+            paddle.squeeze(x[:, None], axis=1), paddle.unsqueeze(x, [0, 2]),
+            paddle.moveaxis(x[None], 0, 2), paddle.swapaxes(x[None], 0, 2),
+            paddle.reshape_(x.clone(), [2, 16])), [a], True),
+        ("manipulation", "join split", lambda x, y: (
+            paddle.concat([x, y], axis=1), paddle.stack([x, y], axis=0),
+            *paddle.split(x, [3, -1], axis=1), *paddle.chunk(x, 2, axis=0),
+            *paddle.unbind(x[:2], axis=0)), [a, b], True),
+        ("manipulation", "tile expand flip", lambda x: (
+            paddle.tile(x, [2, 1]), paddle.expand(x[:1], [4, 8]), paddle.broadcast_to(x[:1],
+                                                                                     [3, 8]),
+            paddle.flip(x, axis=1), paddle.rot90(x), paddle.roll(x, 2, axis=1),
+            paddle.repeat_interleave(x, 2, axis=1), paddle.pad(x, [1, 2]),
+            paddle.pad(x[None], [1, 1, 2, 2], mode="reflect"),
+            paddle.crop(x, [2, 3], [1, 2])), [a], True),
+        ("manipulation", "gather scatter", lambda x, y, i: (
+            paddle.gather(x, i, axis=0), paddle.index_select(x, i, axis=1),
+            paddle.take_along_axis(x, paddle.argsort(y, axis=1), axis=1),
+            paddle.put_along_axis(x, paddle.argsort(y, axis=1)[:, :2], 0.5, axis=1),
+            paddle.scatter(x, i[:2], y[:2]), paddle.scatter_nd_add(x, i[:2, None], y[:2]),
+            paddle.gather_nd(x, paddle.stack([i, i], 1)), paddle.index_add(x, i, 0, y[:3]),
+            paddle.strided_slice(x, [1], [7], [1], [-2]), paddle.masked_fill(x, x > 0, 0.25)),
+         [a, b, idx], True),
+        ("logic/search", "compare", lambda x, y: (
+            paddle.greater_than(x, y), paddle.less_equal(x, y), paddle.equal(x, x),
+            paddle.logical_and(x > 0, y > 0), paddle.logical_not(x > 0), paddle.isfinite(x),
+            paddle.isclose(x, y), paddle.allclose(x, x), paddle.equal_all(x, x)), [a, b], True),
+        ("logic/search", "sort search", lambda x, y, m: (
+            paddle.argmax(x, axis=-1), paddle.argmin(x), paddle.argsort(x, axis=-1),
+            paddle.sort(x, axis=-1, descending=True), *paddle.topk(x, 3),
+            *paddle.kthvalue(x, 2), paddle.where(m, x, y), paddle.nonzero(m),
+            paddle.masked_select(x, m), paddle.index_fill(x, paddle.to_tensor(
+                [1, 2], place=x.device), 1, 0.5), paddle.isin(x, x[0]),
+            paddle.searchsorted(paddle.sort(x[0]), x), paddle.bucketize(x, paddle.sort(y[0])),
+            paddle.masked_scatter(x, m, y)), [a, b, mask], True),
+        ("linalg", "decompositions", lambda s, y: (
+            paddle.linalg.inv(s), paddle.linalg.solve(s, y[:, :2]), paddle.linalg.det(s),
+            paddle.linalg.cholesky(s), paddle.linalg.slogdet(s), paddle.linalg.eigvalsh(s),
+            paddle.linalg.svdvals(s), paddle.linalg.matrix_power(s, 3),
+            paddle.linalg.pinv(y), paddle.linalg.cholesky_solve(y[:, :2], paddle.linalg.cholesky(s)),
+            paddle.linalg.triangular_solve(paddle.triu(s), y[:, :2])), [spd, b[:, :4]], False),
+        ("linalg", "norms stats", lambda x: (
+            paddle.linalg.norm(x), paddle.linalg.norm(x, p=1, axis=-1),
+            paddle.linalg.norm(x, p=float("inf"), axis=[0, 1]), paddle.linalg.vector_norm(x,
+                                                                                         axis=0),
+            paddle.linalg.matrix_norm(x), paddle.linalg.cov(x), paddle.linalg.corrcoef(x),
+            paddle.linalg.multi_dot([x, x.T, x])), [a], False),
+        ("functional", "one_hot label_smooth sequence_mask", lambda x: (
+            F.one_hot(paddle.to_tensor([0, 3, 5], place=x.device), 6),
+            F.label_smooth(F.softmax(x)), F.sequence_mask(paddle.to_tensor([1, 3, 4],
+                                                                            place=x.device), 5)),
+         [a], True),
+        ("functional", "affine_grid grid_sample temporal_shift", lambda t, im, v: (
+            F.affine_grid(t, [2, 3, 5, 6]), F.grid_sample(im, F.affine_grid(t, [2, 3, 5, 6])),
+            F.grid_sample(im, F.affine_grid(t, [2, 3, 5, 6], False), "nearest", "border",
+                          False), F.temporal_shift(v, 2, 0.25)),
+         [r(2, 2, 3) * 0.8, r(2, 3, 7, 9), r(4, 8, 3, 3)], False),
+        ("functional", "losses", lambda x, y, q: (
+            F.square_error_cost(x, y), F.log_loss(q.clamp(0.1, 0.9) * 0.5, (x > 0).to(x.dtype)),
+            F.dice_loss(F.softmax(x), paddle.to_tensor([[1], [3], [0], [7]], place=x.device)),
+            F.npair_loss(x, y, paddle.to_tensor([0, 1, 0, 2], place=x.device)),
+            F.sigmoid_focal_loss(x, (y > 0).to(x.dtype)),
+            F.softmax_with_cross_entropy(x, paddle.to_tensor([[1], [3], [0], [7]],
+                                                             place=x.device))), [a, b, p], True),
+        ("functional", "in-place activations", lambda x: (
+            F.relu_(x.clone()), F.elu_(x.clone()), F.leaky_relu_(x.clone()),
+            F.hardtanh_(x.clone() * 2), F.thresholded_relu_(x.clone() * 2),
+            F.softmax_(x.clone()), F.tanh_(x.clone())), [a], True),
+    ]
+    return cat
+
+
+def core_run_case(torch, fn, inputs, dev, dtype):
+    import paddle_tpu_torch as paddle
+
+    with paddle.DeviceGuard(dev):
+        out = fn(*[t.to(dev, dtype) if t.is_floating_point() else t.to(dev) for t in inputs])
+    return [o.detach() for o in (out if isinstance(out, (tuple, list)) else (out,))]
+
+
+def core_tensor_api(torch, dev="cuda"):
+    """(c) Every case of ``core_cases`` on the card against the CPU: f32
+    within the f32 row, bf16 (where the reference takes it) against the
+    CPU's bf16 within the bf16 row, integer and bool results equal.  One
+    log line per family with the worst relative L2 error."""
+    worst = {}
+    n = 0
+    for family, label, fn, inputs, bf16 in core_cases(torch):
+        for dtype in (torch.float32, torch.bfloat16) if bf16 else (torch.float32,):
+            want = core_run_case(torch, fn, inputs, "cpu", dtype)
+            got = core_run_case(torch, fn, inputs, dev, dtype)
+            if len(got) != len(want):
+                raise AssertionError(f"core {label}: {len(got)} results on {dev}, "
+                                     f"{len(want)} on the CPU")
+            for i, (gv, wv) in enumerate(zip(got, want)):
+                gv = gv.cpu()
+                if gv.shape != wv.shape or gv.dtype != wv.dtype:
+                    raise AssertionError(f"core {label} [{i}] {dtype}: {gv.dtype} "
+                                         f"{tuple(gv.shape)}, CPU {wv.dtype} {tuple(wv.shape)}")
+                if not (wv.is_floating_point() or wv.is_complex()):
+                    if not torch.equal(gv, wv):
+                        raise AssertionError(f"core {label} [{i}] {dtype}: not equal")
+                    continue
+                check_close(torch, f"core {label} [{i}] {dtype}", gv, wv,
+                            TOL[str(dtype).split(".")[1]])
+                rel = float((gv.float() - wv.float()).norm() / wv.float().norm().clamp(
+                    min=1e-30))
+                key = (family, str(dtype).split(".")[1])
+                worst[key] = max(worst.get(key, (0.0, ""))[0], rel), label
+                n += 1
+    for (family, dt), (rel, label) in sorted(worst.items()):
+        log(f"core tensor API {family} {dt}: worst relative L2 {rel:.3g} ({label})")
+    log(f"core tensor API: {n} results on the card within the op_test rows of the CPU")
+
+
+def core_generators(torch, dev="cuda"):
+    """(d) ``paddle.seed(42)`` twice replays every draw on the card; a
+    Generator's ``get_state``/``set_state`` and ``get_rng_state``/
+    ``set_rng_state`` replay theirs; ``gumbel_softmax(hard=True)``'s one-hot
+    frequencies lie within 4 standard errors of the softmax."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn.functional as F
+
+    def draws():
+        with paddle.DeviceGuard(dev):
+            p = paddle.rand([64])
+            return [paddle.rand([1000]), paddle.randn([1000]), paddle.randint(0, 10, [1000]),
+                    paddle.randperm(1000), paddle.multinomial(p / p.sum(), 8),
+                    paddle.bernoulli(p), paddle.uniform([100], min=-2.0, max=3.0),
+                    paddle.normal(0.0, 2.0, [100]), F.gumbel_softmax(p[None], hard=True)]
+
+    def same(label, x, y):
+        if not all(torch.equal(u, v) for u, v in zip(x, y)):
+            raise AssertionError(f"core generators: {label} does not replay")
+
+    paddle.seed(42)
+    first = draws()
+    paddle.seed(42)
+    same("paddle.seed(42)", first, draws())
+    gen = paddle.Generator(7)
+    state = gen.get_state()
+    a = torch.rand(100, generator=gen.generator(dev), device=dev)
+    gen.set_state(state)
+    same("Generator.set_state", [a], [torch.rand(100, generator=gen.generator(dev), device=dev)])
+    state = paddle.get_rng_state()
+    x = draws()
+    paddle.set_rng_state(state)
+    same("set_rng_state", x, draws())
+    with paddle.framework.key_scope(11):
+        k1 = draws()
+    with paddle.framework.key_scope(11):
+        same("key_scope(11)", k1, draws())
+    logits = torch.linspace(-1.0, 1.5, 8, device=dev)
+    probs = torch.softmax(logits, 0)
+    with paddle.DeviceGuard(dev):
+        hard = F.gumbel_softmax(logits.expand(GUMBEL_SAMPLES, 8), hard=True)
+    freq = (hard > 0.5).float().mean(0)
+    se = torch.sqrt(probs * (1 - probs) / GUMBEL_SAMPLES)
+    z = float(((freq - probs).abs() / se).max())
+    log(f"core generators on the card: paddle.seed, Generator and rng states and key_scope "
+        f"replay their draws; gumbel_softmax(hard=True) over {GUMBEL_SAMPLES} draws: worst "
+        f"|frequency - softmax| {z:.2f} standard errors (at most 4)")
+    if not (z <= 4.0 and bool(((hard > 0.5).sum(-1) == 1).all())):
+        raise AssertionError(f"core generators: gumbel_softmax frequencies {freq} vs {probs}")
+
+
+def phase_core(torch, card):
+    """The core's remainder on the card (ROADMAP A3c): (a) the reference's
+    eager training idiom at Llama-2-7B width against TrainStep, and one step
+    with each per-tensor clip; (b) a PyLayer over B1/B1b, a double backward
+    and jacobian/hessian; (c) the tensor API against the CPU; (d) the
+    generators.  Returns (a)'s launches (the ``core`` path)."""
+    t0 = time.perf_counter()
+    launches = core_eager(torch, card)
+    torch.cuda.empty_cache()
+    core_clips(torch)
+    torch.cuda.empty_cache()
+    core_pylayer(torch)
+    core_higher_order(torch)
+    core_tensor_api(torch)
+    core_generators(torch)
+    torch.cuda.empty_cache()
+    log(f"phase_core: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is counted on)
     "rms_norm": ("paddle_tpu_torch/ops/csrc/rms_norm.cu",
                  "paddle_tpu/ops/pallas/fused_norm.py:88", "serve"),
@@ -6323,14 +6797,15 @@ SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is count
 COUNTED_AS = {"ring_flash_attention": "flash_attention", "adamw_host": "adamw"}
 
 # the kernels of fleet's hybrid step, of auto_parallel's Engine step, of ERNIE's
-# inference, of the f32 Llama step and of the head_dim 256 step: their
-# launches add those paths
+# inference, of the f32 Llama step, of the head_dim 256 step and of the eager
+# idiom's loop (phase_core): their launches add those paths
 EXTRA_PATHS = {"hybrid": frozenset(hybrid_want(1, 1)), "auto": frozenset(hybrid_want(1, 1)),
                "ernie": frozenset({"flash_attention"}),
                "train_f32": frozenset({"flash_attention", "flash_attention_bwd_dq",
                                        "flash_attention_bwd_dkv"}),
                "train_d256": frozenset({"flash_attention", "flash_attention_bwd_dq",
-                                        "flash_attention_bwd_dkv"})}
+                                        "flash_attention_bwd_dkv"}),
+               "core": CORE_KERNELS}
 
 
 def main() -> int:
@@ -6363,6 +6838,9 @@ def main() -> int:
         f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
     train = phase_train(torch, card)
     launches["train"] = train[0]
+    torch.cuda.empty_cache()
+    launches["core"] = phase_core(torch, card)
+    gc.collect()
     torch.cuda.empty_cache()
     launches["train_f32"] = phase_train_f32(torch, card)
     gc.collect()

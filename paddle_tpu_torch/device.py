@@ -5,6 +5,14 @@ resolves to ``cuda``.  The CPU is used only when the caller asks for it,
 with :func:`set_device` or a ``device="cpu"`` argument.  Without a CUDA
 device and without that request an entry point raises; it never runs on the
 CPU quietly, so a missing card cannot pass for a slow one.
+
+The reference's device names are here too: :class:`Place` (a device
+handle over ``torch.device``; paddle's ``gpu`` names the card),
+:func:`CPUPlace`, :func:`CUDAPlace`, :class:`DeviceGuard`,
+:func:`device_count`, :func:`synchronize`, :func:`current_device` and
+:func:`get_all_devices`.  The reference's ``TPUPlace`` and ``XPUPlace`` name
+its accelerator, so here they give the card's place.  Streams, events and
+memory statistics wait for ROADMAP A10 and raise on use.
 """
 
 from __future__ import annotations
@@ -15,9 +23,53 @@ from typing import List, Optional, Sequence, Union
 
 import torch
 
-__all__ = ["set_device", "get_device", "resolve_device", "devices", "HostArena"]
+__all__ = ["set_device", "get_device", "resolve_device", "devices", "HostArena", "Place",
+           "CPUPlace", "CUDAPlace", "TPUPlace", "XPUPlace", "DeviceGuard", "device_count",
+           "synchronize", "current_device", "get_all_devices", "is_compiled_with_tpu"]
 
-DeviceLike = Union[str, torch.device, None]
+
+class Place:
+    """A device handle (the reference's ``Place``) over a ``torch.device``:
+    ``platform`` is ``"gpu"`` for the card, ``"cpu"`` for the CPU."""
+
+    def __init__(self, device):
+        self._device = resolve_device(device)
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def platform(self) -> str:
+        return "gpu" if self._device.type == "cuda" else self._device.type
+
+    @property
+    def index(self) -> int:
+        return self._device.index or 0
+
+    def __repr__(self) -> str:
+        return f"Place({self.platform}:{self.index})"
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Place) and (self.platform, self.index) == \
+            (other.platform, other.index)
+
+    def __hash__(self) -> int:
+        return hash((self.platform, self.index))
+
+
+def CPUPlace(idx: int = 0) -> Place:
+    return Place("cpu")
+
+
+def CUDAPlace(idx: int = 0) -> Place:
+    return Place(torch.device("cuda", idx))
+
+
+TPUPlace = XPUPlace = CUDAPlace     # the reference's accelerator: the card here
+
+
+DeviceLike = Union[str, torch.device, Place, None]
 
 _default: Optional[torch.device] = None   # set_device's choice; None = cuda
 
@@ -37,7 +89,12 @@ def get_device() -> torch.device:
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``device`` if given, else the default; a CUDA device must exist."""
+    """``device`` if given, else the default; a CUDA device must exist.
+    A :class:`Place` or paddle's ``"gpu"``/``"gpu:N"`` names are taken too."""
+    if isinstance(device, Place):
+        device = device.device
+    if isinstance(device, str) and device.startswith("gpu"):
+        device = "cuda" + device[3:]
     if device is not None:
         dev = torch.device(device)
     else:
@@ -60,6 +117,68 @@ def devices(kind: Optional[str] = None) -> List[torch.device]:
         return [torch.device("cpu")]
     resolve_device(kind)
     return [torch.device(kind, i) for i in range(torch.cuda.device_count())]
+
+
+def current_device() -> Place:
+    """The default device's :class:`Place`."""
+    return Place(get_device())
+
+
+def get_all_devices() -> List[str]:
+    """``gpu:N`` for every visible card, then ``cpu:0``."""
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return [f"gpu:{i}" for i in range(cards)] + ["cpu:0"]
+
+
+def device_count(platform: Optional[str] = None) -> int:
+    """The visible cards (``platform`` ``"gpu"``/``"cuda"``, or None when
+    there are cards), or 1 for the CPU."""
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if platform in ("gpu", "cuda") or (platform is None and cards):
+        return cards
+    return 1
+
+
+def is_compiled_with_tpu() -> bool:
+    return False
+
+
+class DeviceGuard:
+    """Switch the default device inside a ``with`` block."""
+
+    def __init__(self, device: DeviceLike):
+        self._device = device
+        self._saved: Optional[torch.device] = None
+
+    def __enter__(self):
+        self._saved = _default
+        set_device(self._device)
+        return self
+
+    def __exit__(self, *exc):
+        global _default
+        _default = self._saved
+
+
+def synchronize(device: DeviceLike = None) -> None:
+    """Wait for the work queued on ``device`` (default: the default
+    device); nothing to wait for on the CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+_UNPORTED = frozenset({"Stream", "Event", "memory_stats", "memory_allocated",
+                       "max_memory_allocated", "memory_reserved", "max_memory_reserved",
+                       "empty_cache", "cuda"})
+
+
+def __getattr__(name):
+    if name in _UNPORTED:
+        raise NotImplementedError(
+            f"device.{name} is not ported yet (ROADMAP A10: streams, events and "
+            "memory statistics)")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 class HostArena:

@@ -36,12 +36,16 @@ is held whole, once.  Above the ring gate (``overlap.should_decompose``:
 ring-chunk rows a member, pipe degree 1) the column and row linears take
 the reference's collective-matmul ring (``overlap/collective_matmul.py``):
 the same product as a ring of partial matmuls, with the mirrored ring as
-its backward; below it, the fused form above.  Weights are drawn from N(0, ``std``) with
-the caller's generator at the global shape (the port's initializer for
-every Linear; ``ParamAttr`` and initializers on these layers wait for
-ROADMAP A3c, which rebases them on ``nn.Layer``), so a process
-of a multi-process job holds the same values as the global weight's
-shard.
+its backward; below it, the fused form above.  The layers are
+``nn.Layer``s: ``weight_attr`` takes a ``ParamAttr``, an initializer or a
+name, as in the reference (``False`` refuses: a weight cannot be left
+out).  A weight is drawn at its global shape, on the layer's device, with
+its generator (the constructor's ``device=``/``generator=`` or the
+enclosing ``placement``), by the attribute's initializer, else from N(0,
+``std``) (the port's default for every Linear), so a process of a
+multi-process job holds the same values as the global weight's shard; the
+parameter carries the attribute's name (``param_name``), learning-rate
+multiplier, regularizer, ``need_clip`` and ``trainable``.
 """
 
 from __future__ import annotations
@@ -52,29 +56,15 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ...framework.param_attr import ParamAttr
 from ...nn import functional as F
+from ...nn import initializer as I
+from ...nn.layer.layers import Layer
 from ..overlap import all_gather_matmul, matmul_reduce_scatter, should_decompose
 from ..topology import CommGroup, get_hybrid_communicate_group, process_mesh_coords
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear", "RowParallelLinear",
            "ParallelCrossEntropy"]
-
-
-def _check_attr(attr, what: str, droppable: bool) -> bool:
-    """Whether the parameter ``what`` exists under ``attr`` (None: yes;
-    False: no, where the layer can drop it).  ``ParamAttr``, initializers
-    and names raise: these layers are not ``nn.Layer``s yet (ROADMAP
-    A3c)."""
-    if attr is None:
-        return True
-    if attr is False:
-        if droppable:
-            return False
-        raise ValueError("attr=False is handled by the calling layer (means: no "
-                         f"parameter), and {what} cannot be left out")
-    raise NotImplementedError(
-        f"{what}: parameter attributes (ParamAttr, initializers, names) on the "
-        "model-parallel layers are not ported yet (ROADMAP A3c); pass None or False")
 
 
 def _mesh():
@@ -113,19 +103,33 @@ class _Model:
         return full.narrow(axis, self.rank * w, w).contiguous()
 
 
-def _param(shape, std, generator, device, dtype, model: _Model, axis: Optional[int]):
-    """A weight drawn at its global ``shape``; a process of a multi-process
-    mesh keeps its shard along ``axis``."""
-    w = torch.empty(shape, device=device, dtype=dtype)
-    w.normal_(0.0, std, generator=generator)
+def _weight(layer: Layer, shape, attr, what: str, std: float, dtype, model: _Model,
+            axis: Optional[int]) -> nn.Parameter:
+    """The weight of ``layer`` under ``attr``, drawn at its global
+    ``shape``; a process of a multi-process mesh keeps its shard along
+    ``axis``."""
+    attr = ParamAttr._to_attr(attr)
+    if attr is None:
+        raise ValueError("attr=False is handled by the calling layer (means: no "
+                         f"parameter), and {what} cannot be left out")
+    init = attr.initializer or I.Normal(0.0, std)
+    device, gen = layer._home(), layer._generator
+    if gen is not None and gen.device.type != device.type:
+        gen = None   # the device's global generator
+    w = init(tuple(shape), dtype, gen, device)
     if model.multi and axis is not None:
         w = model.local(w, axis)
-    return _mark(nn.Parameter(w), axis)
+    p = nn.Parameter(w, requires_grad=bool(attr.trainable))
+    p.optimize_attr = {"learning_rate": attr.learning_rate}
+    p.regularizer = attr.regularizer
+    p.need_clip = attr.need_clip
+    p.param_name = attr.name
+    return _mark(p, axis)
 
 
-def _zeros(n, device, dtype, model: _Model, axis: Optional[int]):
+def _zeros(n, layer: Layer, dtype, model: _Model, axis: Optional[int]):
     size = n // model.n if model.multi and axis is not None else n
-    return _mark(nn.Parameter(torch.zeros(size, device=device, dtype=dtype)), axis)
+    return _mark(nn.Parameter(torch.zeros(size, device=layer._home(), dtype=dtype)), axis)
 
 
 def _mark(p: nn.Parameter, axis: Optional[int]) -> nn.Parameter:
@@ -231,7 +235,7 @@ class _Split(torch.autograd.Function):
         return _all_gather(dy, ctx.group, ctx.dim), None, None, None, None
 
 
-class VocabParallelEmbedding(nn.Module):
+class VocabParallelEmbedding(Layer):
     """Embedding with the vocab dim split over ``model`` (``split_axis``
     0): each member looks up the ids in its vocab range (zero rows
     elsewhere) and the members' rows are summed, the reference's masked
@@ -242,12 +246,12 @@ class VocabParallelEmbedding(nn.Module):
                  generator: Optional[torch.Generator] = None, device=None,
                  dtype=torch.float32):
         super().__init__()
-        _check_attr(weight_attr, "VocabParallelEmbedding weight", droppable=False)
+        self._place(device, generator)
         self._model = _Model(_mesh())
         self._model.check("vocab size", num_embeddings)
         self._num_embeddings = num_embeddings
-        self.weight = _param((num_embeddings, embedding_dim), std, generator, device,
-                             dtype, self._model, 0)
+        self.weight = _weight(self, (num_embeddings, embedding_dim), weight_attr,
+                              "VocabParallelEmbedding weight", std, dtype, self._model, 0)
 
     def _lookup(self, ids: torch.Tensor, w: torch.Tensor, lo: int) -> torch.Tensor:
         local = ids.long().to(w.device) - lo
@@ -263,7 +267,7 @@ class VocabParallelEmbedding(nn.Module):
                      for j, w in enumerate(m.shards(self.weight, 0))], x.device)
 
 
-class ColumnParallelLinear(nn.Module):
+class ColumnParallelLinear(Layer):
     """Linear with the out features split over ``model`` (weight
     ``split_axis`` 1, bias 0).  Single controller: the output is the
     members' column blocks joined, whatever ``gather_output``; across
@@ -276,13 +280,13 @@ class ColumnParallelLinear(nn.Module):
                  generator: Optional[torch.Generator] = None, device=None,
                  dtype=torch.float32):
         super().__init__()
-        _check_attr(weight_attr, "ColumnParallelLinear weight", droppable=False)
+        self._place(device, generator)
         self._model = _Model(_mesh())
         self._model.check("out_features", out_features)
         self.gather_output = gather_output
-        self.weight = _param((in_features, out_features), std, generator, device, dtype,
-                             self._model, 1)
-        self.bias = _zeros(out_features, device, dtype, self._model, 0) if has_bias else None
+        self.weight = _weight(self, (in_features, out_features), weight_attr,
+                              "ColumnParallelLinear weight", std, dtype, self._model, 1)
+        self.bias = _zeros(out_features, self, dtype, self._model, 0) if has_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         m = self._model
@@ -310,7 +314,7 @@ class ColumnParallelLinear(nn.Module):
         return torch.cat(outs, -1)
 
 
-class RowParallelLinear(nn.Module):
+class RowParallelLinear(Layer):
     """Linear with the in features split over ``model`` (weight
     ``split_axis`` 0): each member multiplies its slice of the input by its
     rows, the partials are summed over the members, and the replicated bias
@@ -324,13 +328,13 @@ class RowParallelLinear(nn.Module):
                  generator: Optional[torch.Generator] = None, device=None,
                  dtype=torch.float32):
         super().__init__()
-        _check_attr(weight_attr, "RowParallelLinear weight", droppable=False)
+        self._place(device, generator)
         self._model = _Model(_mesh())
         self._model.check("in_features", in_features)
         self.input_is_parallel = input_is_parallel
-        self.weight = _param((in_features, out_features), std, generator, device, dtype,
-                             self._model, 0)
-        self.bias = _zeros(out_features, device, dtype, self._model, None) \
+        self.weight = _weight(self, (in_features, out_features), weight_attr,
+                              "RowParallelLinear weight", std, dtype, self._model, 0)
+        self.bias = _zeros(out_features, self, dtype, self._model, None) \
             if has_bias else None
 
     def _partial(self, x: torch.Tensor) -> torch.Tensor:
@@ -364,7 +368,7 @@ class RowParallelLinear(nn.Module):
         return _bias(self._partial(x), self.bias)
 
 
-class ParallelCrossEntropy(nn.Module):
+class ParallelCrossEntropy(Layer):
     """Softmax cross entropy over logits whose class dim is split over
     ``model`` (reference: local max + all-reduce max, local exp-sum +
     all-reduce sum, the gold logit picked where it lies + all-reduce sum),

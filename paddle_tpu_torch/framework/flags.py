@@ -152,8 +152,9 @@ define_flag("generate_cache_size", 32,
             "Reference name only: the JAX package's bound on compiled "
             "generate programs. The eager port compiles none.")
 define_flag("check_nan_inf", False,
-            "Reference name: scan eager op outputs for NaN/Inf. Not read by the "
-            "port yet (the health guards, ROADMAP A5).")
+            "Scan the outputs of the tensor functions (tensor/) for NaN/Inf and "
+            "raise FloatingPointError naming the function, as the reference's "
+            "eager ops do.")
 define_flag("benchmark", False,
             "Reference name: synchronise after every eager op. Not read by the "
             "port.")

@@ -1,5 +1,6 @@
 """``fused_layer_norm`` (port of the reference's
-``incubate/nn/functional/__init__.py:56-92``).
+``incubate/nn/functional/__init__.py:56-92``), and ``swiglu``, which is
+``nn.functional.swiglu`` (reference ``:29``, ``:33``).
 
 ``fused_layer_norm`` with a residual, a bias and ``use_fused_layernorm`` on
 is the fused residual-add + LayerNorm (B11 forward, B11b backward: the hand
@@ -21,7 +22,10 @@ from ...nn import functional as F
 from ...ops import use_function
 from ...ops.fused_ln_swiglu import AddLayerNormFunction, fused_add_layer_norm
 
-__all__ = ["fused_layer_norm"]
+__all__ = ["fused_layer_norm", "swiglu"]
+
+# re-export: the core functional dispatches swiglu to B4
+swiglu = F.swiglu
 
 
 def fused_layer_norm(x: torch.Tensor, norm_weight: torch.Tensor,
@@ -54,3 +58,18 @@ def fused_layer_norm(x: torch.Tensor, norm_weight: torch.Tensor,
         return out, pre
     pre = pre + residual
     return F.layer_norm(pre, pre.shape[-1], norm_weight, norm_bias, epsilon), pre
+
+
+# the reference's fused functionals that wait for ROADMAP A9
+_UNPORTED = frozenset({
+    "fused_rms_norm", "fused_rotary_position_embedding", "fused_matmul_bias", "fused_linear",
+    "fused_linear_activation", "fused_bias_act", "fused_dropout_add",
+    "fused_dot_product_attention", "fused_multi_head_attention", "fused_feedforward"})
+
+
+def __getattr__(name):
+    if name in _UNPORTED:
+        raise NotImplementedError(
+            f"incubate.nn.functional.{name} is not ported yet (ROADMAP A9: the rest of "
+            "incubate)")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -6,7 +6,8 @@ the decoding API, the functional operators and gradient clipping."""
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
 from ..framework.param_attr import ParamAttr  # noqa: F401
-from .clip import ClipGradByGlobalNorm  # noqa: F401
+from .clip import (ClipGradBase, ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
+                   ClipGradByValue, clip_grad_norm_)
 from .decode import BeamSearchDecoder, Decoder, dynamic_decode  # noqa: F401
 from .layer import (CELU, ELU, GELU, GLU, GRU, LSTM, RNN,  # noqa: F401
                     AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,

@@ -31,12 +31,16 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..framework.dtype import convert_dtype
 from ..framework.flags import get_flags
+from ..framework.random import bulk_key, next_key  # noqa: F401 (the reference's names here)
 from ..ops import use_function, use_kernel
 from ..ops.attention import sdpa_reference
 from ..ops.flash_attention import FlashAttentionFunction, flash_attention_fwd
 from ..ops.fused_ln_swiglu import SwiGLUFunction, fused_swiglu
 from ..ops.fused_norm import RMSNormFunction, fused_rms_norm, rms_norm_plain
+from ..tensor import Parameter, apply_op, ensure_tensor  # noqa: F401 (the reference's names here)
+from ..tensor.creation import one_hot
 from ..ops.sharded import (mesh_flash_attention, mesh_flash_supported, mesh_rms_norm,
                            mesh_rms_norm_supported, mesh_route)
 
@@ -1343,3 +1347,173 @@ def pad(x, pad, mode="constant", value=0.0, data_format="NCHW", name=None) -> to
             idx = np.pad(np.arange(x.shape[axis]), (lo, hi), mode=np_mode)
             x = x.index_select(axis, torch.from_numpy(idx).to(x.device))
     return x
+
+
+# ---------------------------------------------------------------------------
+# the remaining functionals (reference nn/functional/__init__.py), ROADMAP A3c
+# ---------------------------------------------------------------------------
+def label_smooth(label: torch.Tensor, prior_dist=None, epsilon: float = 0.1,
+                 name=None) -> torch.Tensor:
+    """``(1 - epsilon) * label + epsilon * prior`` (uniform prior by
+    default)."""
+    if prior_dist is not None:
+        return (1 - epsilon) * label + epsilon * torch.as_tensor(prior_dist, device=label.device)
+    return (1 - epsilon) * label + epsilon / label.shape[-1]
+
+
+def square_error_cost(input: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    return torch.square(input - label)
+
+
+def softmax_with_cross_entropy(logits: torch.Tensor, label: torch.Tensor, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    """The per-example loss, kept on a size-1 ``axis`` (and the softmax with
+    ``return_softmax``)."""
+    loss = cross_entropy(logits, label, soft_label=soft_label, ignore_index=ignore_index,
+                         reduction="none", axis=axis)
+    loss = loss.unsqueeze(axis)
+    if return_softmax:
+        return loss, softmax(logits, axis=axis)
+    return loss
+
+
+def sequence_mask(x: torch.Tensor, maxlen=None, dtype="int64", name=None) -> torch.Tensor:
+    """``mask[..., j] = j < x[...]`` over ``maxlen`` columns (``x.max()`` by
+    default)."""
+    m = int(x.max()) if maxlen is None else int(maxlen)
+    return (torch.arange(m, device=x.device) < x[..., None]).to(convert_dtype(dtype))
+
+
+def log_loss(input: torch.Tensor, label: torch.Tensor, epsilon: float = 1e-4,
+             name=None) -> torch.Tensor:
+    """Elementwise negative log likelihood of the probabilities ``input``."""
+    return -(label * torch.log(input + epsilon) + (1 - label) * torch.log1p(epsilon - input))
+
+
+def dice_loss(input: torch.Tensor, label: torch.Tensor, epsilon: float = 1e-5,
+              name=None) -> torch.Tensor:
+    """1 − the Dice coefficient of the class probabilities ``input`` [N, ...,
+    C] and the labels [N, ..., 1], averaged over N."""
+    oh = torch.nn.functional.one_hot(label[..., 0].long(), input.shape[-1]).to(input.dtype)
+    dims = tuple(range(1, input.dim()))
+    inter = torch.sum(input * oh, dims)
+    union = torch.sum(input, dims) + torch.sum(oh, dims)
+    return torch.mean(1 - (2 * inter + epsilon) / (union + epsilon))
+
+
+def npair_loss(anchor: torch.Tensor, positive: torch.Tensor, labels: torch.Tensor,
+               l2_reg: float = 0.002, name=None) -> torch.Tensor:
+    """The N-pair metric loss: softmax cross entropy of anchor·positiveᵀ
+    against the same-label targets, plus the L2 term."""
+    reg = l2_reg * (torch.mean(torch.sum(torch.square(anchor), 1)) +
+                    torch.mean(torch.sum(torch.square(positive), 1))) * 0.25
+    sim = anchor @ positive.T
+    lab = labels.reshape(-1)
+    targets = (lab[:, None] == lab[None, :]).to(sim.dtype)
+    targets = targets / torch.sum(targets, 1, keepdim=True)
+    return torch.mean(-torch.sum(targets * torch.log_softmax(sim, 1), 1)) + reg
+
+
+def sigmoid_focal_loss(logit: torch.Tensor, label: torch.Tensor, normalizer=None,
+                       alpha: float = 0.25, gamma: float = 2.0, reduction: str = "sum",
+                       name=None) -> torch.Tensor:
+    """The focal loss of the logits ``logit`` against 0/1 ``label``."""
+    p = torch.sigmoid(logit)
+    ce = -(label * torch.nn.functional.logsigmoid(logit)
+           + (1 - label) * torch.nn.functional.logsigmoid(-logit))
+    p_t = p * label + (1 - p) * (1 - label)
+    a_t = alpha * label + (1 - alpha) * (1 - label)
+    loss = a_t * ((1 - p_t) ** gamma) * ce
+    if normalizer is not None:
+        loss = loss / normalizer
+    return _reduce_loss(loss, reduction)
+
+
+def temporal_shift(x: torch.Tensor, seg_num: int, shift_ratio: float = 0.25,
+                   data_format: str = "NCHW", name=None) -> torch.Tensor:
+    """The TSM shift: of each segment's channels, the first ``shift_ratio``
+    come from the next frame, the next ``shift_ratio`` from the previous
+    one (zeros past the ends)."""
+    v = x.permute(0, 3, 1, 2) if data_format == "NHWC" else x
+    nt, c, h, w = v.shape
+    v = v.reshape(nt // seg_num, seg_num, c, h, w)
+    fold = int(c * shift_ratio)
+    back = torch.cat([v[:, 1:, :fold], torch.zeros_like(v[:, :1, :fold])], 1)
+    fwd = torch.cat([torch.zeros_like(v[:, :1, fold:2 * fold]), v[:, :-1, fold:2 * fold]], 1)
+    out = torch.cat([back, fwd, v[:, :, 2 * fold:]], 2).reshape(nt, c, h, w)
+    return out.permute(0, 2, 3, 1) if data_format == "NHWC" else out
+
+
+def affine_grid(theta: torch.Tensor, out_shape, align_corners: bool = True,
+                name=None) -> torch.Tensor:
+    """The sampling grid [N, H, W, 2] (x, y in [-1, 1]) of the 2x3 affine
+    matrices ``theta`` [N, 2, 3] over ``out_shape`` [N, C, H, W]."""
+    shape = out_shape.tolist() if isinstance(out_shape, torch.Tensor) else out_shape
+    _, _, h, w = (int(s) for s in shape)
+    dev = theta.device
+    if align_corners:
+        ys, xs = torch.linspace(-1, 1, h, device=dev), torch.linspace(-1, 1, w, device=dev)
+    else:
+        ys = (torch.arange(h, device=dev) * 2 + 1) / h - 1
+        xs = (torch.arange(w, device=dev) * 2 + 1) / w - 1
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    base = torch.stack([gx, gy, torch.ones_like(gx)], -1)
+    return torch.einsum("nij,hwj->nhwi", theta.float(), base)
+
+
+def grid_sample(x: torch.Tensor, grid: torch.Tensor, mode: str = "bilinear",
+                padding_mode: str = "zeros", align_corners: bool = True,
+                name=None) -> torch.Tensor:
+    """``x`` [N, C, H, W] sampled at ``grid`` [N, Hg, Wg, 2] (x, y in
+    [-1, 1]): bilinear or nearest, zeros or border padding (reflection
+    raises, as in the reference)."""
+    if mode not in ("bilinear", "nearest"):
+        raise ValueError("mode must be bilinear or nearest")
+    if padding_mode not in ("zeros", "border"):
+        raise NotImplementedError("padding_mode reflection is not supported")
+    return torch.nn.functional.grid_sample(x, grid.to(x.dtype), mode=mode,
+                                           padding_mode=padding_mode,
+                                           align_corners=align_corners)
+
+
+def gumbel_softmax(x: torch.Tensor, temperature: float = 1.0, hard: bool = False,
+                   axis: int = -1, name=None) -> torch.Tensor:
+    """``softmax((x + g) / temperature)`` with Gumbel noise g drawn from the
+    device's generator (``framework.random``); ``hard`` gives the one-hot of
+    the argmax with the soft sample's gradient."""
+    from ..framework.random import generator_for
+
+    u = torch.empty_like(x).exponential_(generator=generator_for(x.device))
+    y = torch.softmax((x - u.log()) / temperature, dim=axis)
+    if hard:
+        index = y.argmax(axis, keepdim=True)
+        y_hard = torch.zeros_like(y).scatter_(axis, index, 1.0)
+        y = y_hard + y - y.detach()
+    return y
+
+
+def _inplace(op_fn: Callable) -> Callable:
+    def wrapper(x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+        # the op runs on a copy, so that writing ``x`` cannot invalidate a
+        # value the op saved for its backward
+        return x.copy_(op_fn(x.clone(), *args, **kwargs))
+
+    wrapper.__name__ = op_fn.__name__ + "_"
+    wrapper.__qualname__ = wrapper.__name__
+    wrapper.__doc__ = f"In-place {op_fn.__name__}: writes the result into ``x`` and returns it."
+    return wrapper
+
+
+relu_ = _inplace(relu)
+tanh_ = _inplace(tanh)
+softmax_ = _inplace(softmax)
+elu_ = _inplace(elu)
+hardtanh_ = _inplace(hardtanh)
+leaky_relu_ = _inplace(leaky_relu)
+thresholded_relu_ = _inplace(thresholded_relu)
+
+__all__ += ["one_hot", "label_smooth", "square_error_cost", "softmax_with_cross_entropy",
+            "sequence_mask", "log_loss", "dice_loss", "npair_loss", "sigmoid_focal_loss",
+            "temporal_shift", "affine_grid", "grid_sample", "gumbel_softmax", "relu_",
+            "tanh_", "softmax_", "elu_", "hardtanh_", "leaky_relu_", "thresholded_relu_"]

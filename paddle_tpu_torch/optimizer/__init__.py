@@ -37,7 +37,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..framework.flags import get_flags
-from ..nn.clip import ClipGradByGlobalNorm
+from ..nn.clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue  # noqa: F401
 from ..ops.fused_ln_swiglu import fused_adamw
 from . import lr as lr_module
 from .lr import LRScheduler

@@ -28,11 +28,14 @@ environment variable:
   writes.
 
 The engine runs where the model lies: the card, or the CPU for a model
-made with ``device="cpu"``.  The fleet, the router, the autoscaler and
-disaggregated prefill are not ported yet (ROADMAP A8), nor
-tensor-parallel decode (A6b).
+made with ``device="cpu"``.  Tensor-parallel decode is
+``ServingEngine(model, tp=2)`` over ``decode_mesh``, ``shard_arenas`` and
+``shard_llama_params`` (``disagg.py``).  The fleet, the router, the
+autoscaler and the rest of disaggregated prefill are not ported yet
+(ROADMAP A8) and raise on use.
 """
 
+from .disagg import decode_mesh, shard_arenas, shard_llama_params  # noqa: F401
 from .admission import (AdmissionController, CircuitBreaker, Deadline,  # noqa: F401
                         Overloaded, warming_retry_hint)
 from .engine import Request, ServingEngine  # noqa: F401
@@ -55,5 +58,22 @@ __all__ = [
     "RequestClock", "SLOMeter", "PrefixCache", "default_prefix_pages",
     "ServingJournal", "JournalState", "TokenSink",
     "AdmissionController", "CircuitBreaker", "Deadline", "Overloaded",
-    "warming_retry_hint", "Request", "ServingEngine",
+    "warming_retry_hint", "Request", "ServingEngine", "decode_mesh", "shard_arenas",
+    "shard_llama_params",
 ]
+
+# the reference's exports that wait for the serving fleet (ROADMAP A8)
+_UNPORTED = frozenset({
+    "FleetMeter", "check_decode_donation", "ReplicaStatus", "Router", "EngineReplica",
+    "LocalKV", "RemoteReplica", "ReplicaFlags", "ReplicaServer", "ServingFrontend",
+    "TokenCollector", "fold_depot_journal", "run_replica", "Autoscaler", "AutoscalePolicy",
+    "FleetSignals", "DisaggCoordinator", "PrefillWorker", "default_min_prompt",
+    "pack_kv_frame", "take_prefilled", "unpack_kv_frame"})
+
+
+def __getattr__(name):
+    if name in _UNPORTED:
+        raise NotImplementedError(
+            f"serving.{name} is not ported yet (ROADMAP A8: the serving fleet, the router, "
+            "the autoscaler and disaggregated prefill)")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

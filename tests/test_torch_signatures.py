@@ -16,8 +16,10 @@ and keyword-only additions that change what a call does in
 """
 
 import importlib
+import importlib.util
 import inspect
 import pkgutil
+import types
 
 import numpy as np
 import pytest
@@ -45,6 +47,16 @@ DEPARTURES = {
     "paddle_tpu_torch.inference.Predictor":
         "built from a model (Predictor.from_model); the handle-based "
         "Predictor(Config) over a saved program waits for ROADMAP A3",
+    # the core (ROADMAP A3c, §C)
+    "paddle_tpu_torch.tensor.Tensor": "is torch.Tensor, built by torch's own constructors "
+        "(paddle.to_tensor(value, stop_gradient=...) takes the reference's arguments)",
+    "paddle_tpu_torch.tensor.tensor.Tensor": "is torch.Tensor (as paddle_tpu_torch.tensor.Tensor)",
+    "paddle_tpu_torch.device.Place": "wraps a torch.device (or its name), not a jax.Device",
+    **{f"paddle_tpu_torch.tensor._op_utils.{name}": "builds an op from a torch function "
+       "(fn), where the reference's takes a jnp one (jfn)"
+       for name in ("unary_op", "binary_op", "nondiff")},
+    **{f"paddle_tpu_torch.tensor.{name}": "as paddle_tpu_torch.tensor._op_utils's"
+       for name in ("unary_op", "binary_op", "nondiff")},
 }
 
 # keyword-only parameters only the port has that change what a call does
@@ -78,6 +90,45 @@ KEYWORD_DEPARTURES = {
         "device", "the layout is resolved for this device (the default device if "
         "None): incubate.autotune.CARD_LAYOUT on the card, NCHW on the CPU; the "
         "reference asks whether it runs on a TPU"),
+}
+
+
+# torch.Tensor's own methods of the reference's method table whose torch
+# meaning differs from the reference's (ROADMAP §C): ``Tensor`` is
+# torch.Tensor, so these keep torch's meaning; the free functions
+# (paddle.transpose(x, perm), ...) take the reference's signatures
+METHOD_DEPARTURES = {
+    "transpose": "torch swaps two dims (x.transpose(0, 1)); paddle.transpose(x, perm) permutes",
+    "max": "torch's x.max(dim) returns (values, indices) and takes one dim; paddle.max(x, axis)",
+    "min": "as max",
+    "split": "torch's split takes the size of each part; paddle.split(x, num_or_sections, axis)",
+    "numpy": "torch's numpy() refuses a card tensor and one that requires grad; "
+             "x.detach().cpu().numpy()",
+    "gather": "torch gathers along dim by an index of x's rank; paddle.gather(x, index, axis) "
+              "takes slices",
+    "scatter": "torch's scatter(dim, index, src); paddle.scatter(x, index, updates) sets rows",
+    "scatter_": "as scatter",
+    "index_select": "torch's index_select(dim, index); paddle.index_select(x, index, axis)",
+    "index_add": "torch's index_add(dim, index, source); paddle.index_add(x, index, axis, value)",
+    "index_fill": "torch's index_fill(dim, index, value); paddle.index_fill(x, index, axis, value)",
+    "index_put": "torch's index_put(indices, values) matches; kept for the list's completeness",
+    "sort": "torch's sort returns (values, indices); paddle.sort(x, axis) returns values",
+    "median": "torch's median takes the lower middle and, with dim, returns indices too; "
+              "paddle.median averages the two middles",
+    "mode": "torch's mode returns (values, indices); paddle.mode returns (values, counts)",
+    "unique": "torch's unique(sorted, return_inverse, return_counts, dim); paddle.unique's "
+              "flags follow numpy's",
+    "where": "torch's x.where(condition, y) takes x where condition holds; "
+             "paddle.where(condition, x, y)",
+    "norm": "torch's norm(p, dim); paddle.linalg.norm(x, p, axis)",
+    "svd": "torch's Tensor.svd returns V, not V^H; paddle.linalg.svd returns (U, S, VH)",
+    "triangular_solve": "torch's triangular_solve(A) solves with self as b; "
+                        "paddle.linalg.triangular_solve(x, y)",
+    "histogram": "torch's histogram returns (counts, edges); paddle.histogram returns counts",
+    "cov": "torch's cov(correction=); paddle.linalg.cov(x, rowvar, ddof)",
+    "expand": "torch's expand(*sizes); paddle.expand(x, shape) (x.expand([4, 8]) works in both)",
+    "flip": "torch's flip(dims) needs dims; paddle.flip(x, axis)",
+    "view": "torch's view(*shape) or view(dtype): the same calls work",
 }
 
 
@@ -279,3 +330,161 @@ def test_unported_arguments_raise_with_their_queue_item():
     q = torch.zeros(1, 4, 2, 8)
     with pytest.raises(NotImplementedError, match="scale"):
         mesh_flash_attention(q, q, q, None, scale=0.5)
+
+
+# ---------------------------------------------------------------------------
+# C3: the ported names at the reference's paths (ROADMAP §C)
+# ---------------------------------------------------------------------------
+# a reference name the port defines elsewhere as another object (the same
+# word for a different function), which waits for its own item here
+NAME_CLASHES = {
+    ("paddle_tpu_torch.incubate.nn.functional", "fused_rms_norm"):
+        "the port's fused_rms_norm is B1's wrapper (ops.fused_norm); the reference's "
+        "residual API waits for ROADMAP A9 and raises",
+    ("paddle_tpu_torch.jit", "save"): "framework.io.save; jit.save waits for A3d and raises",
+    ("paddle_tpu_torch.jit", "load"): "framework.io.load; jit.load waits for A3d and raises",
+}
+
+
+def _port_modules():
+    return ["paddle_tpu_torch"] + [
+        info.name for info in pkgutil.walk_packages(paddle_tpu_torch.__path__,
+                                                    "paddle_tpu_torch.")
+        if not info.name.endswith("__main__") and info.name not in NO_TWIN]
+
+
+def _port_defined():
+    """Every public name the port defines (a function or class of the port,
+    under any module)."""
+    names = set()
+    for mod_name in _port_modules():
+        for n, v in vars(importlib.import_module(mod_name)).items():
+            if not n.startswith("_") and not isinstance(v, types.ModuleType) and \
+                    str(getattr(v, "__module__", "") or "").startswith("paddle_tpu_torch"):
+                names.add(n)
+    return names
+
+
+def _reference_public(ref):
+    """The public names of a reference module: its ``__all__``, else every
+    name of it that holds an object of the reference package."""
+    names = getattr(ref, "__all__", None)
+    if names is not None:
+        return list(names)
+    return [n for n, v in vars(ref).items() if not n.startswith("_") and (
+        (isinstance(v, types.ModuleType) and v.__name__.startswith("paddle_tpu.")) or
+        str(getattr(v, "__module__", "") or "").startswith("paddle_tpu"))]
+
+
+def _has_module(name):
+    try:
+        return importlib.util.find_spec(name) is not None
+    except ModuleNotFoundError:     # its parent package is not there
+        return False
+
+
+def _c3_cases():
+    """(port module, name) pairs, sorted: every module of both packages is
+    imported first, so that the list does not hang on what a worker
+    imported before."""
+    defined = _port_defined()
+    pairs = []
+    for mod_name in _port_modules():
+        ref_name = "paddle_tpu" + mod_name[len("paddle_tpu_torch"):]
+        if _has_module(ref_name):
+            pairs.append((mod_name, importlib.import_module(ref_name)))
+    cases = set()
+    for mod_name, ref in pairs:
+        for n in _reference_public(ref):
+            v = getattr(ref, n, None)
+            if isinstance(v, types.ModuleType):
+                # a submodule: reachable where the port has its twin
+                twin = "paddle_tpu_torch" + v.__name__[len("paddle_tpu"):]
+                if v.__name__.startswith("paddle_tpu.") and _has_module(twin):
+                    cases.add((mod_name, n))
+            elif n in defined and (mod_name, n) not in NAME_CLASHES:
+                cases.add((mod_name, n))
+    return sorted(cases)
+
+
+C3_CASES = _c3_cases()
+
+
+def test_c3_walk_covers_the_core():
+    paths = {f"{m}.{n}" for m, n in C3_CASES}
+    assert len(C3_CASES) > 800
+    for path in ("paddle_tpu_torch.seed", "paddle_tpu_torch.to_tensor",
+                 "paddle_tpu_torch.no_grad", "paddle_tpu_torch.grad",
+                 "paddle_tpu_torch.Generator", "paddle_tpu_torch.save", "paddle_tpu_torch.io",
+                 "paddle_tpu_torch.distributed", "paddle_tpu_torch.framework.set_flags",
+                 "paddle_tpu_torch.serving.decode_mesh",
+                 "paddle_tpu_torch.incubate.nn.functional.swiglu"):
+        assert path in paths, path
+
+
+@pytest.mark.parametrize("mod_name,name", C3_CASES, ids=[f"{m}.{n}" for m, n in C3_CASES])
+def test_reference_name_reachable_at_its_path(mod_name, name):
+    """A name the port has is reachable where the reference exports it."""
+    getattr(importlib.import_module(mod_name), name)
+
+
+def test_c3_calls():
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import seed, set_flags  # noqa: F401
+    from paddle_tpu_torch.incubate.nn.functional import swiglu
+    from paddle_tpu_torch.serving import decode_mesh, shard_arenas, shard_llama_params  # noqa
+
+    assert swiglu is paddle.nn.functional.swiglu
+    assert isinstance(paddle.seed(0), paddle.Generator)
+    for name in ("io", "distributed", "vision", "metric", "incubate", "telemetry",
+                 "inference", "generation", "models", "serving"):
+        assert isinstance(getattr(paddle, name), types.ModuleType), name
+    for name in ("to_tensor", "Tensor", "no_grad", "grad", "float32", "Generator", "save",
+                 "load", "Parameter", "is_tensor", "enable_grad", "set_grad_enabled",
+                 "is_grad_enabled", "finfo", "iinfo", "Place", "CPUPlace", "DeviceGuard",
+                 "device_count", "synchronize", "is_compiled_with_cuda", "in_dynamic_mode",
+                 "linalg", "autograd"):
+        assert getattr(paddle, name) is not None, name
+
+
+@pytest.mark.parametrize("path,item", [
+    ("paddle_tpu_torch.profiler", "A10"), ("paddle_tpu_torch.hapi", "A10"),
+    ("paddle_tpu_torch.Model", "A10"), ("paddle_tpu_torch.fft", "A10"),
+    ("paddle_tpu_torch.sparse", "A10"), ("paddle_tpu_torch.onnx", "A10"),
+    ("paddle_tpu_torch.quantization", "A10"), ("paddle_tpu_torch.static", "A10"),
+    ("paddle_tpu_torch.jit.to_static", "A3d"), ("paddle_tpu_torch.jit.save", "A3d"),
+    ("paddle_tpu_torch.incubate.nn.functional.fused_rms_norm", "A9"),
+    ("paddle_tpu_torch.incubate.distributed", "A9"), ("paddle_tpu_torch.vision.ops", "A10"),
+    ("paddle_tpu_torch.serving.Router", "A8"), ("paddle_tpu_torch.device.Stream", "A10"),
+    ("paddle_tpu_torch.telemetry.prometheus_text", "A8")])
+def test_unported_name_raises_with_its_item(path, item):
+    mod_name, name = path.rsplit(".", 1)
+    mod = importlib.import_module(mod_name)
+    with pytest.raises(NotImplementedError, match=item):
+        getattr(mod, name)
+    with pytest.raises(AttributeError):
+        getattr(mod, "no_such_name_anywhere")
+
+
+@pytest.mark.parametrize("name", sorted(METHOD_DEPARTURES))
+def test_method_departures_keep_torch_meaning(name):
+    import paddle_tpu as jpaddle
+    import torch
+
+    from paddle_tpu_torch import tensor as T
+
+    assert name in T.TORCH_METHODS or name == "numpy"
+    assert getattr(torch.Tensor, name) is getattr(torch._C.TensorBase, name, None) or \
+        getattr(torch.Tensor, name).__qualname__.startswith(("Tensor.", "_TensorBase.",
+                                                             "TensorBase."))
+    assert hasattr(jpaddle.Tensor, name)
+
+
+def test_attached_methods_are_the_port_functions():
+    import torch
+
+    from paddle_tpu_torch import tensor as T
+
+    for name in sorted(T.METHODS - T.TORCH_METHODS):
+        fn = getattr(torch.Tensor, name)
+        assert fn.__module__.startswith("paddle_tpu_torch.tensor"), name
