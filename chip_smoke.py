@@ -255,7 +255,26 @@ exits non-zero without them.  Phases, each raising on failure:
    launched; then images/s and ms a forward at batch 128 in bf16 and f32
    in both layouts, the layout ``"auto"`` picks, device time by operation
    and the idle share from ``torch.profiler``, launches and peak memory a
-   forward, and the bound from the multiply-adds the forward counts.
+   forward, and the bound from the multiply-adds the forward counts;
+22. ResNet-50 training, the optimizer and amp remainder and the vision zoo
+   (``phase_resnet_train``, after 21): (a1) f32, two ``Momentum(0.01)``
+   TrainSteps at batch 4 on the card, no farther from a CPU f64 run than
+   three times a CPU f32 run is (a step through fifty batch norms at init
+   magnifies f32 rounding); (a2) bf16 O2 memorising one batch of 32;
+   (a) ladder row 1 as ``bench.py`` sets it up (``resnet50()``, batch 256
+   at 224², Momentum, AMP O2, TrainStep; 2 warm-up and 12 counted steps):
+   ms a step, images/s, MFU against 989 TFLOP/s by ``bench.py``'s 3 x
+   4.089 GFLOP an image, peak, a profiled step by operation, (a3) no hand
+   kernel launched, (a4) a velocity for each trainable tensor and an f32
+   master for each bf16 one; (b) the eager O1 idiom (``auto_cast`` O1
+   bf16, ``GradScaler``) on f32 weights: conv and head outputs bf16, the
+   norms' weights f32, finite losses, every step moving the parameters,
+   and one inf gradient skipping the update, halving the scale with one
+   host synchronisation; (b4) ERNIE 3.0 base under O1 (its SDPA cast
+   sends bf16 to B3: 12 launches, the ``ernie_o1`` path) within 2e-2 of
+   f32; (c) one model a zoo family at its published widths, batch 8, f32
+   against the CPU within 1e-4 and finite in bf16 O2, and one bf16 O2
+   Momentum step each of LeNet, ShuffleNetV2 x1.0 and DenseNet-121.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
@@ -3700,6 +3719,7 @@ def phase_gpt_generate(torch, card):
 
 
 ERNIE_TIMED = 3                     # phase_ernie: forwards timed a configuration
+ERNIE_MS = {}                       # phase_ernie's ms a forward: (model, dtype, path) -> ms
 
 
 def ernie_forward(torch, model, ids, segments, mask=None):
@@ -3773,6 +3793,7 @@ def phase_ernie(torch, card, cfg=None, dev="cuda", batch=(ERNIE_BATCH, ERNIE_SEQ
                         log(f"profile ernie {name} float32 kernel: device {dev_ms:.3f} ms a "
                             f"forward; {split_line(top)}")
                 ms = sorted(times)[ERNIE_TIMED // 2] * 1e3
+                ERNIE_MS[name, dtype, path] = ms
                 expect = dict(want, flash_attention=cfg.num_hidden_layers if path == "kernel"
                               else 0)
                 if launches != expect:
@@ -3978,18 +3999,25 @@ def _leaves(value):
 def resnet_profile(torch, model, x, n=3):
     """Device time by operation over ``n`` forwards, the idle share, and
     CUDA kernel launches a forward, from ``torch.profiler``."""
+    with torch.no_grad():
+        model(x)
+        return ops_profile(torch, lambda: model(x), n)
+
+
+def ops_profile(torch, fn, n):
+    """Over ``n`` calls of ``fn`` (warm), from ``torch.profiler``: the wall
+    ms a call (profiled), device busy ms a call, {operation kind: device
+    ms a call}, CUDA launches a call, and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
-        model(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            for _ in range(n):
-                model(x)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3 / n
+        wall = (time.perf_counter() - t) * 1e3 / n
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     if not kernels:
         raise AssertionError("torch.profiler recorded no device time")
@@ -4147,6 +4175,431 @@ def phase_resnet(torch, card, dev="cuda"):
             + "; ".join(f"{name[:60]} {ms:.3f}" for ms, name in top))
     del bf16, nchw, nhwc, images, x16
     log(f"resnet phase: {time.perf_counter() - t_phase:.1f} s (RNN forwards {rnn_ms})")
+
+
+RESNET_TRAIN_BATCH = 256            # phase_resnet_train: ladder row 1's batch (bench.py's)
+RESNET_TRAIN_HW = 224               # its images' side
+RESNET_TRAIN_WARMUP, RESNET_TRAIN_STEPS = 2, 12
+RESNET_TRAIN_LR = 0.01              # Momentum's learning rate (bench.py's)
+RESNET_FLOP_IMAGE = 3 * 4.089e9     # bench.py's count of a training step's work an image
+RESNET_F32_BATCH = 4                # (a1): f32 on the card against the CPU, two steps
+RESNET_MEMO_BATCH, RESNET_MEMO_STEPS = 32, 6     # (a2): memorising one batch
+RESNET_O1_BATCH, RESNET_O1_STEPS = 32, 3         # (b): the eager O1 idiom with GradScaler
+ZOO_BATCH = 8                       # (c): the zoo's eval forward
+ZOO_TRAIN = ("lenet", "shufflenet_v2_x1_0", "densenet121")   # (c2): dropout-free training
+
+
+def zoo_families():
+    """(c): one constructor of each new family at its published widths and
+    its input side; LeNet's input has one channel."""
+    from paddle_tpu_torch.vision import models as M
+
+    return [("lenet", M.LeNet, 28), ("alexnet", M.alexnet, 224), ("vgg16", M.vgg16, 224),
+            ("squeezenet1_1", M.squeezenet1_1, 224), ("mobilenet_v1", M.mobilenet_v1, 224),
+            ("mobilenet_v2", M.mobilenet_v2, 224),
+            ("mobilenet_v3_large", M.mobilenet_v3_large, 224),
+            ("shufflenet_v2_x1_0", M.shufflenet_v2_x1_0, 224),
+            ("densenet121", M.densenet121, 224), ("googlenet", M.googlenet, 224),
+            ("inception_v3", M.inception_v3, 299)]
+
+
+def image_batch(torch, n, hw, seed, dev, channels=3, classes=1000):
+    """``n`` seeded noise images [n, channels, hw, hw] and labels in
+    [0, classes) on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, channels, hw, hw, device=dev, generator=g)
+    y = torch.randint(0, classes, (n,), device=dev, generator=g)
+    return x, y
+
+
+def moved(torch, opt, params, before) -> int:
+    """How many of ``params`` changed since ``before`` (their f32 values),
+    read where the update runs: a bf16 parameter's f32 master (a step
+    smaller than half a bf16 ulp leaves the bf16 copy as it was)."""
+    return sum(not torch.equal(b, opt._master_weights.get(id(p), p).float())
+               for b, p in zip(before, params))
+
+
+def resnet_train_step(torch, model, opt):
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.jit import TrainStep
+
+    return TrainStep(model, lambda m, x, y: F.cross_entropy(m(x), y).mean(), opt)
+
+
+def count_syncs(torch, fn):
+    """(result of ``fn()``, host reads of a tensor during it): calls of
+    ``Tensor.item``, ``__bool__``, ``__float__``, ``__int__`` and ``tolist``,
+    each a host synchronisation on a card tensor."""
+    names = ("item", "__bool__", "__float__", "__int__", "tolist")
+    saved = {n: torch.Tensor.__dict__.get(n) for n in names}
+    count = [0]
+
+    def spy(name):
+        orig = getattr(torch.Tensor, name)
+
+        def wrapper(self, *a, **k):
+            count[0] += 1
+            return orig(self, *a, **k)
+        return wrapper
+
+    for n in names:
+        setattr(torch.Tensor, n, spy(n))
+    try:
+        out = fn()
+    finally:
+        for n, v in saved.items():
+            if v is None:
+                delattr(torch.Tensor, n)
+            else:
+                setattr(torch.Tensor, n, v)
+    return out, count[0]
+
+
+def resnet_f32_gate(torch, dev):
+    """(a1) ResNet-50 in f32 (no ``decorate``) on ``dev``, a copy on the CPU
+    and one in f64 on the CPU, two Momentum TrainSteps on one seeded batch.
+    The first loss (a training forward) within the f32 gradient row of
+    ``tests/op_test.py`` of the CPU's; then, as ``tests/test_torch_resnet.py``
+    holds ResNet's training gradients: a training step through fifty batch
+    norms at init magnifies f32 rounding (two f32 runs of the same step in
+    two layouts part by up to 70% in the stem's weights), so the second loss,
+    every parameter and every running statistic must lie no farther from the
+    f64 run than three times the CPU f32 run's distance from it."""
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    model = resnet50(device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    cpu = copy.deepcopy(model).to("cpu")
+    f64 = copy.deepcopy(cpu).double()
+    x, y = image_batch(torch, RESNET_F32_BATCH, RESNET_TRAIN_HW, 61, dev)
+    losses = {}
+    for where, m, xx in (("card", model, x), ("cpu", cpu, x.cpu()),
+                         ("f64", f64, x.cpu().double())):
+        step = resnet_train_step(torch, m, Momentum(RESNET_TRAIN_LR,
+                                                    parameters=m.parameters()))
+        yy = y.to(xx.device)
+        losses[where] = [float(step(xx, yy)) for _ in range(2)]
+    card, cpu32, ref = losses["card"], losses["cpu"], losses["f64"]
+    if abs(card[0] - cpu32[0]) > 1e-4 + 5e-3 * abs(cpu32[0]) or \
+            abs(card[1] - ref[1]) > 3 * abs(cpu32[1] - ref[1]) + 1e-6:
+        raise AssertionError(f"(a1) resnet50 f32 losses: card {card}, CPU {cpu32}, f64 {ref}")
+    worst = (0.0, "")
+    for (name, got), want, exact in zip(model.state_dict().items(), cpu.state_dict().values(),
+                                        f64.state_dict().values()):
+        if not got.is_floating_point():
+            continue
+        exact = exact.float()
+        mine, spread = rel_l2(got.cpu(), exact), rel_l2(want, exact)
+        if mine > 3 * spread + 1e-6:
+            raise AssertionError(f"(a1) resnet50 f32 after 2 steps, {name}: card {mine:.3g} "
+                                 f"from f64 against the CPU f32 run's {spread:.3g}")
+        worst = max(worst, (mine / (spread + 1e-12), name))
+    log(f"resnet train (a1) f32 Momentum({RESNET_TRAIN_LR}), batch {RESNET_F32_BATCH}, 2 steps: "
+        f"losses card {card}, CPU {cpu32}, CPU f64 {ref}; every parameter and running "
+        f"statistic within 3x the CPU f32 run's distance from f64, worst {worst[0]:.3f}x "
+        f"({worst[1]})")
+    del model, cpu, f64
+
+
+def resnet_memorise(torch, dev):
+    """(a2) bf16 O2 Momentum training on one fixed seeded batch: every loss
+    finite and the last below the first."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    model = resnet50(device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    opt = Momentum(RESNET_TRAIN_LR, parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    step = resnet_train_step(torch, model, opt)
+    x, y = image_batch(torch, RESNET_MEMO_BATCH, RESNET_TRAIN_HW, 62, dev)
+    losses = [float(step(x, y)) for _ in range(RESNET_MEMO_STEPS)]
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"resnet50 bf16 memorising one batch of {RESNET_MEMO_BATCH}: "
+                             f"losses {losses}")
+    log(f"resnet train (a2) bf16 O2 on one batch of {RESNET_MEMO_BATCH}, "
+        f"{RESNET_MEMO_STEPS} steps: losses {[round(v, 4) for v in losses]}")
+    del model, opt, step
+
+
+def resnet_ladder(torch, card, dev):
+    """(a) ladder row 1 as ``bench.py`` sets it up: ``resnet50()``, batch
+    RESNET_TRAIN_BATCH at 224², Momentum(0.01), AMP O2 bf16, TrainStep;
+    RESNET_TRAIN_WARMUP + RESNET_TRAIN_STEPS steps, each on its own seeded
+    batch.  Gates (a3) no hand kernel launched, (a4) Momentum's state."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    model = resnet50(device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    trainable = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    if n_params != 25_557_032 or len(trainable) != 161:
+        raise AssertionError(f"resnet50: {n_params} parameters in {len(trainable)} tensors")
+    opt = Momentum(RESNET_TRAIN_LR, parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    step = resnet_train_step(torch, model, opt)
+    n = RESNET_TRAIN_WARMUP + RESNET_TRAIN_STEPS
+    batches = [image_batch(torch, RESNET_TRAIN_BATCH, RESNET_TRAIN_HW, 100 + i, dev)
+               for i in range(n)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses = [step(*b) for b in batches[:RESNET_TRAIN_WARMUP]]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses += [step(*b) for b in batches[RESNET_TRAIN_WARMUP:]]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / RESNET_TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"(a3) resnet50 training launched hand kernels: {dict(LAUNCHES)}")
+    losses = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"resnet50 training losses {losses}")
+    flop = RESNET_FLOP_IMAGE * RESNET_TRAIN_BATCH
+    log(f"resnet train (a) resnet50 bf16 O2 Momentum TrainStep batch {RESNET_TRAIN_BATCH} "
+        f"at {RESNET_TRAIN_HW}² ({model.data_format} inside) on {card}: {ms:.2f} ms a step "
+        f"over {RESNET_TRAIN_STEPS} counted steps, {RESNET_TRAIN_BATCH / ms * 1e3:.1f} "
+        f"images/s, MFU {flop / (ms * 1e-3) / BF16_FLOPS:.4f} (bench.py's 3 x 4.089 GFLOP an "
+        f"image against {BF16_FLOPS / 1e12:.0f} TFLOP/s; {2 * flop / (ms * 1e-3) / BF16_FLOPS:.4f} "
+        f"at 2 FLOP a multiply-add), peak {peak:.2f} GiB, loss {losses[0]:.4f} first, "
+        f"{losses[-1]:.4f} last; hand-kernel launches 0")
+    # (a4) Momentum's state: a velocity for every trainable tensor, a master
+    # for every bf16 one (the batch norms stay f32 and keep none), the bf16
+    # parameter its master rounded
+    sd = opt.state_dict()
+    names = {id(p): opt._names[id(p)] for p in opt._parameter_list}
+    masters = 0
+    for _, p in trainable:
+        key = names[id(p)]
+        if f"{key}.velocity" not in sd:
+            raise AssertionError(f"(a4) no velocity for {key}")
+        if p.dtype == torch.bfloat16:
+            mw = sd.get(f"{key}.master_weight")
+            if mw is None or mw.dtype != torch.float32 or not torch.equal(mw.bfloat16(), p):
+                raise AssertionError(f"(a4) {key}: master weight missing or not rounding to "
+                                     f"the parameter")
+            masters += 1
+        elif f"{key}.master_weight" in sd:
+            raise AssertionError(f"(a4) f32 parameter {key} has a master weight")
+    log(f"resnet train (a4) state_dict: {len(trainable)} velocities, {masters} f32 master "
+        f"weights (the bf16 tensors; the {len(trainable) - masters} f32 batch-norm tensors "
+        f"keep none), each bf16 parameter equal to its master rounded")
+    x, y = batches[-1]
+    wall, busy, groups, launches, top = ops_profile(torch, lambda: step(x, y), 1)
+    log(f"profile resnet50 train step batch {RESNET_TRAIN_BATCH}: wall {wall:.2f} ms "
+        f"(profiled), device busy {busy:.2f} ms, idle share {1 - busy / wall:.3f} (against "
+        f"the unprofiled {ms:.2f} ms: {1 - busy / ms:.3f}), {launches:.0f} CUDA launches; by "
+        f"operation (ms): "
+        + "; ".join(f"{k} {v:.3f}" for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
+        + "; top kernels, then the top of other: "
+        + "; ".join(f"{name[:60]} {v:.3f}" for v, name in top))
+    del model, opt, step, batches, x, y
+    return ms
+
+
+def resnet_o1(torch, dev):
+    """(b) the reference's eager O1 idiom on an f32 ResNet-50: ``auto_cast``
+    O1 bf16 around the forward, ``GradScaler`` scale/step/update, Momentum.
+    Gates: (b1) the convolutions' and the head's outputs bf16, the batch
+    norms' parameters f32; (b2) finite losses, every step moves the
+    parameters; (b3) one inf gradient: the update skipped (every parameter
+    unchanged), the scale halved, one host synchronisation in the unscale."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    model = resnet50(device=dev, generator=torch.Generator(device=dev).manual_seed(2))
+    opt = Momentum(RESNET_TRAIN_LR, parameters=model.parameters())
+    scaler = amp.GradScaler()
+    seen = {}
+    hooks = [layer.register_forward_post_hook(
+        lambda m, _i, out, key=key: seen.__setitem__(key, (out.dtype, m.weight.dtype)))
+        for key, layer in (("conv", model.conv1), ("norm", model.bn1), ("fc", model.fc))]
+    x, y = image_batch(torch, RESNET_O1_BATCH, RESNET_TRAIN_HW, 63, dev)
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def backward():
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = F.cross_entropy(model(x), y).mean()
+        scaler.scale(loss).backward()
+        return loss
+
+    losses = []
+    for i in range(RESNET_O1_STEPS):
+        before = [p.detach().clone() for p in params]
+        losses.append(float(backward().detach()))
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        n = moved(torch, opt, params, before)
+        if not math.isfinite(losses[-1]) or n != len(params):
+            raise AssertionError(f"(b2) O1 step {i}: loss {losses[-1]}, {n} of "
+                                 f"{len(params)} parameters moved")
+    for h in hooks:
+        h.remove()
+    bf16, f32 = torch.bfloat16, torch.float32
+    if seen != {"conv": (bf16, f32), "norm": (bf16, f32), "fc": (bf16, f32)}:
+        raise AssertionError(f"(b1) O1 dtypes (output, weight): {seen}")
+    log(f"resnet train (b) O1 bf16 + GradScaler, f32 weights, batch {RESNET_O1_BATCH}: "
+        f"losses {[round(v, 4) for v in losses]}, every parameter moved each step; "
+        f"(output, weight) dtypes conv1 {seen['conv']}, bn1 {seen['norm']}, fc {seen['fc']}")
+    backward()
+    with torch.no_grad():
+        params[0].grad.view(-1)[0] = float("inf")
+    before = [p.detach().clone() for p in params]
+    scale = scaler.get_loss_scaling()
+    _, syncs = count_syncs(torch, lambda: scaler.step(opt))
+    scaler.update()
+    opt.clear_grad()
+    unchanged = all(torch.equal(b, p) for b, p in zip(before, params))
+    if not unchanged or scaler.get_loss_scaling() != scale / 2 or syncs != 1:
+        raise AssertionError(f"(b3) an inf gradient: parameters unchanged {unchanged}, scale "
+                             f"{scale} -> {scaler.get_loss_scaling()}, {syncs} host syncs")
+    log(f"resnet train (b3) one inf gradient: the update skipped ({len(params)} parameters "
+        f"unchanged), scale {scale:g} -> {scaler.get_loss_scaling():g}, {syncs} host "
+        f"synchronisation in the unscale of {len(params)} gradients")
+    del model, opt, params, before
+
+
+def ernie_o1(torch, card, dev, cfg=None, batch=(ERNIE_BATCH, ERNIE_SEQ)):
+    """(b4) ERNIE 3.0 base (``phase_ernie``'s classification model and
+    inputs) with f32 weights under ``auto_cast`` O1 bf16: the SDPA cast
+    sends bf16 q/k/v to B3 (one launch a layer), the logits within
+    LOGITS_REL_TOL of the f32 forward; ms a forward beside phase_ernie's.
+    Returns the counted O1 forward's launches."""
+    import numpy as np
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import ErnieConfig, ErnieForSequenceClassification
+
+    cfg = cfg or ErnieConfig()
+    b, s = batch
+    rng = np.random.default_rng(12)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)), device=dev)
+    segments = torch.as_tensor(rng.integers(0, 2, (b, s)), device=dev)
+    model = ErnieForSequenceClassification(cfg, device=dev, seed=0).eval()
+    ref, _ = ernie_forward(torch, model, ids, segments)
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        out, launches = ernie_forward(torch, model, ids, segments)
+        times = []
+        for _ in range(ERNIE_TIMED):
+            t = time.perf_counter()
+            ernie_forward(torch, model, ids, segments)
+            times.append(time.perf_counter() - t)
+    ms = sorted(times)[ERNIE_TIMED // 2] * 1e3
+    err = rel_l2(out, ref)
+    want = cfg.num_hidden_layers
+    if launches.get("flash_attention") != want or any(
+            v for k, v in launches.items() if k != "flash_attention") \
+            or not bool(torch.isfinite(out).all()) or err > LOGITS_REL_TOL:
+        raise AssertionError(f"(b4) ERNIE O1: launches {launches} (want {want} B3), relative "
+                             f"L2 to f32 {err:.3g} (bound {LOGITS_REL_TOL}), {out.dtype}")
+    others = ", ".join(f"{dtype} {path} {v:.2f} ms" for (name, dtype, path), v in
+                       ERNIE_MS.items() if name == "SequenceClassification")
+    log(f"resnet train (b4) ERNIE SequenceClassification {b}x{s} f32 weights under O1 bf16 "
+        f"on {card}: {ms:.2f} ms a forward ({b * s / ms * 1e3:.0f} tokens/s), logits "
+        f"{out.dtype} relative L2 to the f32 forward {err:.3g}, {launches['flash_attention']} "
+        f"B3 launches; phase_ernie: {others or 'not run'}")
+    del model, ref, out
+    return launches
+
+
+def zoo_eval(torch, card, dev):
+    """(c1) each new family at its published widths, batch ZOO_BATCH, f32
+    eval on ``dev`` against the same model and images on the CPU within
+    RESNET_REL, and finite under bf16 O2; ms a forward in both dtypes,
+    parameters and peak memory."""
+    from paddle_tpu_torch import amp
+
+    for name, ctor, hw in zoo_families():
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = ctor(device=dev, generator=torch.Generator(device=dev).manual_seed(3)).eval()
+        x, _ = image_batch(torch, ZOO_BATCH, hw, 64, dev, channels=1 if name == "lenet" else 3)
+        cpu = copy.deepcopy(model).to("cpu")
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            got = _leaves(model(x))[0]
+            want = _leaves(cpu(x.cpu()))[0]
+            ms = time_ms(torch, lambda: model(x), iters=3, repeats=3, warmup=1)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            half = amp.decorate(copy.deepcopy(model), level="O2", dtype="bfloat16")
+            out16 = _leaves(half(x))[0]
+            ms16 = time_ms(torch, lambda: half(x), iters=3, repeats=3, warmup=1)
+        err = rel_l2(got.cpu(), want)
+        if not bool(torch.isfinite(got).all()) or err > RESNET_REL \
+                or out16.dtype != torch.bfloat16 or not bool(torch.isfinite(out16).all()):
+            raise AssertionError(f"(c1) {name}: card against CPU {err:.3g} (bound "
+                                 f"{RESNET_REL}), bf16 {out16.dtype} finite "
+                                 f"{bool(torch.isfinite(out16).all())}")
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"zoo (c1) {name} batch {ZOO_BATCH} at {hw}² ({getattr(model, 'data_format', 'NCHW')}"
+            f" inside) on {card}: {n_params} parameters, f32 {ms:.2f} ms a forward, bf16 O2 "
+            f"{ms16:.2f} ms, peak {peak:.2f} GiB, f32 logits {list(got.shape)} within "
+            f"{err:.3g} of the CPU, bf16 finite")
+        del model, cpu, half, got, want, out16
+
+
+def zoo_train(torch, dev):
+    """(c2) one bf16 O2 Momentum TrainStep each for the dropout-free
+    models: a finite loss and every parameter moved."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import Momentum
+
+    ctors = {name: (ctor, hw) for name, ctor, hw in zoo_families()}
+    for name in ZOO_TRAIN:
+        ctor, hw = ctors[name]
+        model = ctor(device=dev, generator=torch.Generator(device=dev).manual_seed(4))
+        opt = Momentum(RESNET_TRAIN_LR, parameters=model.parameters())
+        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+        classes = 10 if name == "lenet" else 1000
+        x, y = image_batch(torch, ZOO_BATCH, hw, 65, dev, channels=1 if name == "lenet" else 3,
+                           classes=classes)
+        params = [p for p in model.parameters() if p.requires_grad]
+        before = [p.detach().float().clone() for p in params]
+        loss = float(resnet_train_step(torch, model, opt)(x, y))
+        n = moved(torch, opt, params, before)
+        if not math.isfinite(loss) or n != len(params):
+            raise AssertionError(f"(c2) {name}: loss {loss}, {n} of {len(params)} moved")
+        log(f"zoo (c2) {name} bf16 O2 Momentum TrainStep batch {ZOO_BATCH}: loss {loss:.4f}, "
+            f"all {len(params)} parameter tensors moved")
+        del model, opt, params, before
+
+
+def phase_resnet_train(torch, card, dev="cuda"):
+    """Ladder row 1, ResNet-50 training on the card, with the optimizer and
+    amp remainder and the rest of the vision zoo: (a1) f32 against the CPU,
+    (a2) memorising a batch, (a) ``bench.py``'s step at batch 256 (ms,
+    images/s, MFU, peak, a profiled step; (a3) no hand kernel, (a4)
+    Momentum's state), (b) the eager O1 idiom with GradScaler ((b1)-(b3)),
+    (b4) ERNIE under O1 through B3, (c) the zoo in eval and three models
+    training.  Returns (b4)'s launches."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    resnet_f32_gate(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_memorise(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_ladder(torch, card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_o1(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = ernie_o1(torch, card, dev)
+    zoo_eval(torch, card, dev)
+    zoo_train(torch, dev)
+    log(f"resnet train phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def train_batch(torch, vocab):
@@ -6797,15 +7250,16 @@ SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is count
 COUNTED_AS = {"ring_flash_attention": "flash_attention", "adamw_host": "adamw"}
 
 # the kernels of fleet's hybrid step, of auto_parallel's Engine step, of ERNIE's
-# inference, of the f32 Llama step, of the head_dim 256 step and of the eager
-# idiom's loop (phase_core): their launches add those paths
+# inference (also under O1 autocast, phase_resnet_train), of the f32 Llama
+# step, of the head_dim 256 step and of the eager idiom's loop (phase_core):
+# their launches add those paths
 EXTRA_PATHS = {"hybrid": frozenset(hybrid_want(1, 1)), "auto": frozenset(hybrid_want(1, 1)),
                "ernie": frozenset({"flash_attention"}),
                "train_f32": frozenset({"flash_attention", "flash_attention_bwd_dq",
                                        "flash_attention_bwd_dkv"}),
                "train_d256": frozenset({"flash_attention", "flash_attention_bwd_dq",
                                         "flash_attention_bwd_dkv"}),
-               "core": CORE_KERNELS}
+               "core": CORE_KERNELS, "ernie_o1": frozenset({"flash_attention"})}
 
 
 def main() -> int:
@@ -6860,6 +7314,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_resnet(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["ernie_o1"] = phase_resnet_train(torch, card)
     gc.collect()         # the launcher's worker needs the memory this process cached
     torch.cuda.empty_cache()
     phase_dist(torch, card, train)

@@ -289,8 +289,9 @@ class DistributedTrainStep(TrainStep):
 
             st = opt._accumulators.get(id(p))
             if st is None:
-                st = {s: torch.zeros(shape, dtype=dtype, device=p.device) if arena is None
-                      else arena.take(shape, dtype).zero_() for s in opt._slot_names}
+                st = {s: torch.full(shape, opt._slot_init(s), dtype=dtype, device=p.device)
+                      if arena is None else arena.take(shape, dtype).fill_(opt._slot_init(s))
+                      for s in opt._slot_names}
                 st["@t"] = 0
             else:
                 st = {k: v if isinstance(v, int) else put(v) for k, v in st.items()}
@@ -397,6 +398,9 @@ class DistributedTrainStep(TrainStep):
             dim, n = layout
             master = opt._master_weights.get(id(p))
             views = _blocks(p, dim, n)
+            if opt._whole_tensor and member is None:
+                self._apply_whole(p, grad_blocks(p, g, dim, n), st, master, views, lr)
+                continue
             members = range(n) if member is None else [member]
             for k, (j, gb) in enumerate(zip(members, grad_blocks(p, g, dim, n))):
                 slots = {s: st[s][k] for s in opt._slot_names}
@@ -419,8 +423,24 @@ class DistributedTrainStep(TrainStep):
                         view.copy_(out)
                 elif work is not view:
                     view.copy_(work)
-            st["@t"] = new_st["@t"]
+            st["@t"] = new_st.get("@t", st["@t"])
         opt._step_count += 1
+
+    def _apply_whole(self, p, grad_blocks, st, master, views, lr) -> None:
+        """A rule that reads the whole parameter (Lamb's trust ratio) on one
+        controller: one update of the members' blocks stacked [n, *block]."""
+        opt = self.optimizer
+        work = master if master is not None else torch.stack(views)
+        slots = {s: st[s] for s in opt._slot_names}
+        new_w, new_st = opt._update_rule(work, torch.stack(grad_blocks), {**slots, "@t": st["@t"]},
+                                         lr, p)
+        for s, v in slots.items():
+            v.copy_(new_st[s])
+        if master is not None:
+            master.copy_(new_w)
+        for j, view in enumerate(views):
+            view.copy_(new_w[j])
+        st["@t"] = new_st.get("@t", st["@t"])
 
     def _update_processes(self, grads) -> None:
         """Across processes: average over ``data``, reduce-scatter the
@@ -432,6 +452,11 @@ class DistributedTrainStep(TrainStep):
         data, shard = CommGroup(mesh, ("data",)), CommGroup(mesh, ("sharding",))
         both = CommGroup(mesh, ("data", "sharding"))
         me = process_mesh_coords(mesh)["sharding"]
+        if opt._whole_tensor and shard.nranks > 1:
+            raise NotImplementedError(
+                f"{type(opt).__name__} reads each whole parameter (Lamb's trust ratio), which "
+                "ZeRO splits across processes here: run it on one controller "
+                "(devices=[...]) or without a sharding degree")
         grads = [(p, g.to(torch.float32 if opt._has_master(p) else p.dtype).contiguous())
                  for p, g in grads]
         by_id = {id(p): g for p, g in grads}

@@ -56,6 +56,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ...amp import maybe_autocast_tensors
 from ...framework.param_attr import ParamAttr
 from ...nn import functional as F
 from ...nn import initializer as I
@@ -140,7 +141,12 @@ def _mark(p: nn.Parameter, axis: Optional[int]) -> nn.Parameter:
 
 
 def _bias(out: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
-    return out if bias is None else out + bias
+    """``out + bias``; under ``amp.auto_cast`` the bias in the amp dtype, as
+    the reference's linears cast it ("linear")."""
+    if bias is None:
+        return out
+    (bias,) = maybe_autocast_tensors("linear", bias)
+    return out + bias
 
 
 def member_sum(parts: List[torch.Tensor], device: torch.device) -> torch.Tensor:
@@ -294,15 +300,17 @@ class ColumnParallelLinear(Layer):
         if m.multi:
             if ring:   # this process's row chunk through the ring
                 chunk = _Split.apply(x.reshape(-1, x.shape[-1]), m.group, m.rank, 0)
-                out = _bias(all_gather_matmul(chunk, self.weight, m.mesh)
-                            .reshape(*x.shape[:-1], -1), self.bias)
+                chunk, w = maybe_autocast_tensors("linear", chunk, self.weight)
+                out = _bias(all_gather_matmul(chunk, w, m.mesh).reshape(*x.shape[:-1], -1),
+                            self.bias)
             else:
                 out = F.linear(_CIdentity.apply(x, m.group), self.weight, self.bias)
             return _Gather.apply(out, m.group, m.rank, out.dim() - 1) \
                 if self.gather_output else out
         if ring:
-            return _bias(all_gather_matmul(x.reshape(-1, x.shape[-1]), self.weight, m.mesh)
-                         .reshape(*x.shape[:-1], -1), self.bias)
+            rows, w = maybe_autocast_tensors("linear", x.reshape(-1, x.shape[-1]), self.weight)
+            return _bias(all_gather_matmul(rows, w, m.mesh).reshape(*x.shape[:-1], -1),
+                         self.bias)
         return self._fused(x)
 
     def _fused(self, x: torch.Tensor) -> torch.Tensor:
@@ -347,14 +355,15 @@ class RowParallelLinear(Layer):
             if not self.input_is_parallel:
                 x = _Split.apply(x, m.group, m.rank, x.dim() - 1)
             if ring:
-                rows = matmul_reduce_scatter(x.reshape(-1, x.shape[-1]), self.weight, m.mesh)
+                rows = matmul_reduce_scatter(*maybe_autocast_tensors(
+                    "linear", x.reshape(-1, x.shape[-1]), self.weight), m.mesh)
                 return _Gather.apply(rows, m.group, m.rank, 0).reshape(*x.shape[:-1], -1)
             return _MpAllReduce.apply(F.linear(x, self.weight), m.group)
         if x.shape[-1] % m.n:
             raise ValueError(f"input features {x.shape[-1]} not divisible by mp degree {m.n}")
         if ring:
-            return matmul_reduce_scatter(x.reshape(-1, x.shape[-1]), self.weight,
-                                         m.mesh).reshape(*x.shape[:-1], -1)
+            rows, w = maybe_autocast_tensors("linear", x.reshape(-1, x.shape[-1]), self.weight)
+            return matmul_reduce_scatter(rows, w, m.mesh).reshape(*x.shape[:-1], -1)
         return self._fused(x)
 
     def _fused(self, x: torch.Tensor) -> torch.Tensor:

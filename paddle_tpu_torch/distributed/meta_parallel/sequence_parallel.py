@@ -40,6 +40,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ...amp import maybe_autocast_tensors
 from ...nn import functional as F
 from ..topology import get_hybrid_communicate_group
 from ..overlap import all_gather_matmul_seq, matmul_reduce_scatter_seq, should_decompose_seq
@@ -193,7 +194,8 @@ class ColumnSequenceParallelLinear(ColumnParallelLinear):
             seq[1] *= m.n      # the gate reads the global sequence
         ring = x.dim() == 3 and should_decompose_seq(tuple(seq), m.mesh)
         if ring:
-            out = _bias(all_gather_matmul_seq(x, self.weight, m.mesh), self.bias)
+            xc, w = maybe_autocast_tensors("linear", x, self.weight)
+            out = _bias(all_gather_matmul_seq(xc, w, m.mesh), self.bias)
         elif not m.multi:
             return self._fused(x)
         else:
@@ -224,7 +226,8 @@ class RowSequenceParallelLinear(RowParallelLinear):
         if m.multi and not self.input_is_parallel:
             x = _Split.apply(x, m.group, m.rank, x.dim() - 1)
         if seq_dim % x.dim() == x.dim() - 2 and should_decompose_seq(tuple(x.shape), m.mesh):
-            return _bias(matmul_reduce_scatter_seq(x, self.weight, m.mesh), self.bias)
+            xc, w = maybe_autocast_tensors("linear", x, self.weight)
+            return _bias(matmul_reduce_scatter_seq(xc, w, m.mesh), self.bias)
         if not m.multi:
             if x.shape[-1] % m.n:
                 raise ValueError(f"input features {x.shape[-1]} not divisible by mp "

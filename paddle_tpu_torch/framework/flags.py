@@ -159,8 +159,8 @@ define_flag("benchmark", False,
             "Reference name: synchronise after every eager op. Not read by the "
             "port.")
 define_flag("use_bf16_default", True,
-            "Reference name: AMP's 'half' means bfloat16. Not read by the port: "
-            "amp.decorate takes its dtype explicitly.")
+            "AMP's 'half' means bfloat16: amp.auto_cast(dtype='float16') casts to "
+            "bfloat16 while it is on. amp.decorate takes its dtype as given.")
 define_flag("eager_op_jit_cache", True,
             "Reference name: the per-op compiled-callable cache. No counterpart: "
             "the port's eager ops compile nothing.")

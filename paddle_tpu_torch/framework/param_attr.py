@@ -7,8 +7,9 @@ value, ``trainable=False`` gives a parameter without grad, and the
 parameter carries ``optimize_attr["learning_rate"]`` (the optimizers'
 learning-rate multiplier), ``regularizer`` and ``need_clip`` (the
 gradient clips leave such a parameter out), as in the reference.  The
-reference's optimizers read ``regularizer`` only in the SGD family's
-coupled decay, which waits for ROADMAP A4; until then it is stored.
+optimizers' coupled decay leaves out a parameter whose ``regularizer`` is
+set (the optimizer's ``weight_decay`` does not apply to it), as the
+reference's ``_coupled_decay`` does.
 """
 
 from __future__ import annotations

@@ -31,6 +31,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..amp import maybe_autocast_tensors
 from ..framework.dtype import convert_dtype
 from ..framework.flags import get_flags
 from ..framework.random import bulk_key, next_key  # noqa: F401 (the reference's names here)
@@ -74,7 +75,11 @@ __all__ = ["linear", "embedding", "rms_norm", "layer_norm", "gelu", "swiglu",
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, name=None) -> torch.Tensor:
-    """x [..., in] @ weight [in, out] (paddle's layout), + bias [out]."""
+    """x [..., in] @ weight [in, out] (paddle's layout), + bias [out];
+    under ``amp.auto_cast`` the three in the amp dtype ("linear")."""
+    x, weight = maybe_autocast_tensors("linear", x, weight)
+    if bias is not None:
+        (bias,) = maybe_autocast_tensors("linear", bias)
     out = torch.matmul(x, weight)
     return out if bias is None else out + bias
 
@@ -188,8 +193,10 @@ def scaled_dot_product_attention(query: torch.Tensor, key: torch.Tensor,
     through ``mesh_flash_attention`` under a live single-controller mesh
     whose gate takes the shapes, as in the reference; with a mask it is the
     composite ``sdpa_reference``, whose masked form has no kernel yet.  A
-    non-zero ``dropout_p`` in training raises."""
+    non-zero ``dropout_p`` in training raises.  Under ``amp.auto_cast``
+    q, k and v are cast to the amp dtype first ("sdpa")."""
     _no_dropout(dropout_p, training, "attention dropout")
+    query, key, value = maybe_autocast_tensors("sdpa", query, key, value)
     if attn_mask is None:
         mesh = mesh_route("use_flash_attention")
         if mesh is not None and mesh_flash_supported(mesh, query.shape, key.shape,
@@ -764,8 +771,9 @@ def _to_format(y: torch.Tensor, fmt: str) -> torch.Tensor:
 
 
 def _convnd(x, weight, bias, stride, padding, dilation, groups, nd, data_format, name):
-    # the weight follows the input's dtype, as the reference's w.astype(v.dtype);
-    # the reference's O1 autocast of the pair ("conv") waits for ROADMAP A4
+    # under amp.auto_cast the pair in the amp dtype ("conv"); the weight and
+    # bias then follow the input's dtype, as the reference's w.astype(v.dtype)
+    x, weight = maybe_autocast_tensors("conv", x, weight)
     strides, dil = _tuple_n(stride, nd), _tuple_n(dilation, nd)
     in_fmt, _, out_fmt = data_format.partition(":")
     out_fmt = out_fmt or in_fmt

@@ -320,7 +320,11 @@ def diagonal(x, offset=0, axis1=0, axis2=1, name=None):
 # matrix products (also exposed via linalg)
 # ---------------------------------------------------------------------------
 def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
-    x, y = ensure_tensor(x), ensure_tensor(y)
+    """``x @ y`` (either transposed first); under ``amp.auto_cast`` both in
+    the amp dtype ("matmul")."""
+    from ..amp import maybe_autocast_tensors
+
+    x, y = maybe_autocast_tensors("matmul", ensure_tensor(x), ensure_tensor(y))
 
     def fn(a, b):
         if transpose_x and a.dim() > 1:

@@ -25,10 +25,11 @@ that requires grad, ``shape`` a ``torch.Size``, ...); the list is
 functions (``paddle.transpose(x, perm)``, ``paddle.max(x, axis)``,
 ``paddle.split(x, n, axis)``) take the reference's signatures.
 
-:func:`apply_op` is the funnel of the tensor functions: it runs the function
-(torch records the graph) and, with the ``check_nan_inf`` flag on, raises
-``FloatingPointError`` on a non-finite floating output, as the reference's
-eager ops do.
+:func:`apply_op` is the funnel of the tensor functions: it casts the inputs
+of an op that ``amp.auto_cast``'s ``custom_white_list`` names, runs the
+function (torch records the graph) and, with the ``check_nan_inf`` flag on,
+raises ``FloatingPointError`` on a non-finite floating output, as the
+reference's eager ops do.
 """
 
 from __future__ import annotations
@@ -59,7 +60,15 @@ def _maybe_check_nan(name: str, out) -> None:
 def apply_op(name: str, fn: Callable, tensor_inputs: Sequence[torch.Tensor],
              multi_out: bool = False):
     """``fn(*tensor_inputs)``, checked for NaN/Inf under ``check_nan_inf``;
-    a tuple when ``multi_out`` or when ``fn`` returns several tensors."""
+    a tuple when ``multi_out`` or when ``fn`` returns several tensors.  An
+    op ``name`` on ``amp.auto_cast``'s ``custom_white_list`` gets its
+    floating-point inputs in the amp dtype."""
+    from ..amp import amp_white_listed
+
+    wl_dtype = amp_white_listed(name)
+    if wl_dtype is not None:
+        tensor_inputs = [t.to(wl_dtype) if isinstance(t, torch.Tensor) and t.is_floating_point()
+                         and t.dtype != wl_dtype else t for t in tensor_inputs]
     out = fn(*tensor_inputs)
     _maybe_check_nan(name, out)
     if multi_out or isinstance(out, (tuple, list)):

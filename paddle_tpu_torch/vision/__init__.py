@@ -1,6 +1,6 @@
-"""Vision (port of the reference's ``vision/``): the ResNet family of the
-model zoo.  The rest of the zoo is ROADMAP A9; the datasets, transforms and
-vision ops are A10 and raise on use."""
+"""Vision (port of the reference's ``vision/``): the model zoo
+(``vision.models``, every model of the reference).  The datasets,
+transforms and vision ops are ROADMAP A10 and raise on use."""
 
 from . import models  # noqa: F401
 

@@ -41,6 +41,8 @@ NO_TWIN = {
     "paddle_tpu_torch.ops.fused_norm": "kernel module; reference ops/pallas/",
     "paddle_tpu_torch.ops.ring_flash": "kernel module; reference ops/pallas/",
     "paddle_tpu_torch.ops.rope": "kernel module; reference ops/pallas/",
+    "paddle_tpu_torch.vision.models._common": "the zoo's shared layout and device helpers; "
+                                              "the reference repeats them in each model file",
 }
 
 DEPARTURES = {
@@ -86,6 +88,17 @@ KEYWORD_DEPARTURES = {
     "paddle_tpu_torch.vision.models.resnet.ResNet": (
         "device", "the device the model is built on, which also resolves "
         "data_format='auto'; generator= draws its weights"),
+    # the rest of the zoo (ROADMAP A9's first item), as ResNet
+    **{f"paddle_tpu_torch.vision.models.{mod}.{name}": (
+        "device", "the device the model is built on, which also resolves "
+        "data_format='auto'; generator= draws its weights")
+       for mod, names in (("lenet", ("LeNet",)), ("alexnet", ("AlexNet",)), ("vgg", ("VGG",)),
+                          ("squeezenet", ("SqueezeNet",)),
+                          ("mobilenet", ("MobileNetV1", "MobileNetV2")),
+                          ("mobilenetv3", ("MobileNetV3Small", "MobileNetV3Large")),
+                          ("shufflenetv2", ("ShuffleNetV2",)), ("densenet", ("DenseNet",)),
+                          ("googlenet", ("GoogLeNet",)), ("inceptionv3", ("InceptionV3",)))
+       for name in names},
     "paddle_tpu_torch.incubate.autotune.resolve_conv_data_format": (
         "device", "the layout is resolved for this device (the default device if "
         "None): incubate.autotune.CARD_LAYOUT on the card, NCHW on the CPU; the "
@@ -317,13 +330,14 @@ def test_unported_arguments_raise_with_their_queue_item():
     from paddle_tpu_torch.ops.sharded import mesh_flash_attention
     from paddle_tpu_torch.optimizer import Adam, AdamW
 
+    # ROADMAP A4 ported these: they are taken now, as in the reference
     params = [torch.nn.Parameter(torch.zeros(2))]
     for cls, kw in ((Adam, dict(amsgrad=True)), (Adam, dict(lazy_mode=True)),
                     (Adam, dict(use_multi_tensor=True)), (AdamW, dict(amsgrad=True))):
-        with pytest.raises(NotImplementedError, match="A4"):
-            cls(parameters=params, **kw)
-    with pytest.raises(NotImplementedError, match="A4"):
-        amp.decorate(torch.nn.Linear(2, 2), save_dtype="float32")
+        cls(parameters=params, **kw)
+    amp.decorate(torch.nn.Linear(2, 2), save_dtype="float32")
+    with pytest.raises(NotImplementedError, match="A7"):
+        amp.GradScaler().attach_health_guard(None)
     x = torch.zeros(2, 4)
     with pytest.raises(NotImplementedError, match="quantized"):
         fused_layer_norm(x, torch.ones(4), torch.zeros(4), quant_scale=1.0)
