@@ -274,7 +274,30 @@ exits non-zero without them.  Phases, each raising on failure:
    sends bf16 to B3: 12 launches, the ``ernie_o1`` path) within 2e-2 of
    f32; (c) one model a zoo family at its published widths, batch 8, f32
    against the CPU within 1e-4 and finite in bf16 O2, and one bf16 O2
-   Momentum step each of LeNet, ShuffleNetV2 x1.0 and DenseNet-121.
+   Momentum step each of LeNet, ShuffleNetV2 x1.0 and DenseNet-121;
+23. dropout (``phase_ernie_ft``, after 22): ladder row 2, the ERNIE 3.0
+   base fine-tune as ``bench.py`` sets it up (12 layers, hidden 768,
+   vocab 40000, 2 classes, dropout 0.1, batch 256 x 128, bf16 O2,
+   ``AdamW(2e-5)`` with ``ClipGradByGlobalNorm(1.0)``, ``TrainStep``),
+   with ``use_fused_adamw`` off and on: (a) at 2 layers in f32 the card's
+   loss and grads within 1e-4 of the CPU's with the masks the card drew
+   fed through the seam, (b) bf16 O2 with the same masks: the loss within
+   2e-2 of that f32 run, all gradients together within 2e-2 of it or 1.2x
+   the same model's CPU bf16 run's distance from its f32 run, (c) the card's
+   masks: keep share within binomial bounds,
+   a seed replays them, the next forward draws others; at full depth 3
+   warm-up and 10 counted steps: ms a step, samples/s, MFU by bench.py's
+   6 N x 128 FLOP a sample, peak memory, device time by operation and the
+   idle share of one profiled step, (d) no synchronising CUDA call in a
+   step (``torch.cuda.set_sync_debug_mode``), (e) finite losses falling, (f)
+   B5 once a step for each parameter tensor with a gradient with the
+   flag, no other launch (the attention under dropout takes the
+   composite, as the reference's);
+   then ``phase_a9``: one bf16 O2 step each of the zoo's dropout families
+   at batch 8, a GPT-3 1.3B block with dropout (bf16 against f32 with the
+   same masks), ``FusedMultiHeadAttention`` + ``FusedFeedForward`` at
+   ERNIE's width (one B3, B3b and B3c a step) and ``incubate``'s
+   residual norms on B11/B11b and B1/B1b against their plain twins.
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
@@ -283,6 +306,7 @@ non-zero before the last line.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -4004,10 +4028,41 @@ def resnet_profile(torch, model, x, n=3):
         return ops_profile(torch, lambda: model(x), n)
 
 
-def ops_profile(torch, fn, n):
+def conv_kind(key):
+    """The operation kind of a convolutional model's kernel ``key``
+    (lower case)."""
+    return ("layout copy" if any(w in key for w in ("nchwtonhwc", "nhwctonchw", "transpose",
+                                                    "copy"))
+            else "batch norm" if any(w in key for w in ("bn_", "batch_norm", "batchnorm"))
+            else "pooling" if "pool" in key
+            else "convolution" if any(w in key for w in ("conv", "xmma", "implicit",
+                                                         "fprop", "cudnn", "cutlass"))
+            else "gemm" if "gemm" in key
+            else "elementwise" if "elementwise" in key
+            else "other")
+
+
+def transformer_kind(key):
+    """The operation kind of a transformer training step's kernel ``key``
+    (lower case)."""
+    return ("adamw (B5)" if "adamw" in key
+            else "gemm" if any(w in key for w in ("gemm", "cutlass", "xmma", "sm90_", "cublas",
+                                                  "matmul", "nvjet"))
+            else "mask draw" if any(w in key for w in ("distribution", "philox", "uniform",
+                                                       "rand"))
+            else "softmax" if "softmax" in key
+            else "layer norm" if "layer_norm" in key or "layernorm" in key
+            else "reduction" if "reduce" in key
+            else "copy and cast" if "copy" in key or "cat" in key
+            else "elementwise" if "elementwise" in key or "vectorized" in key
+            else "other")
+
+
+def ops_profile(torch, fn, n, kind_of=conv_kind):
     """Over ``n`` calls of ``fn`` (warm), from ``torch.profiler``: the wall
-    ms a call (profiled), device busy ms a call, {operation kind: device
-    ms a call}, CUDA launches a call, and the top kernels."""
+    ms a call (profiled), device busy ms a call, {operation kind (by
+    ``kind_of``): device ms a call}, CUDA launches a call, and the top
+    kernels, then the top of "other"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4024,15 +4079,7 @@ def ops_profile(torch, fn, n):
     groups, other = {}, []
     for e in kernels:
         key, ms = e.key.lower(), e.self_device_time_total / 1e3 / n
-        kind = ("layout copy" if any(w in key for w in ("nchwtonhwc", "nhwctonchw", "transpose",
-                                                        "copy"))
-                else "batch norm" if any(w in key for w in ("bn_", "batch_norm", "batchnorm"))
-                else "pooling" if "pool" in key
-                else "convolution" if any(w in key for w in ("conv", "xmma", "implicit",
-                                                             "fprop", "cudnn", "cutlass"))
-                else "gemm" if "gemm" in key
-                else "elementwise" if "elementwise" in key
-                else "other")
+        kind = kind_of(key)
         groups[kind] = groups.get(kind, 0.0) + ms
         if kind == "other":
             other.append((ms, e.key))
@@ -4599,6 +4646,547 @@ def phase_resnet_train(torch, card, dev="cuda"):
     zoo_eval(torch, card, dev)
     zoo_train(torch, dev)
     log(f"resnet train phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+ERNIE_FT_BATCH, ERNIE_FT_SEQ = 256, 128    # phase_ernie_ft: ladder row 2 (bench.py's)
+ERNIE_FT_WARMUP, ERNIE_FT_STEPS = 3, 10
+ERNIE_FT_LR = 2e-5                         # AdamW's learning rate (bench.py's)
+ERNIE_FT_DROPOUT = 0.1                     # ErnieConfig's hidden_dropout_prob
+ERNIE_FT_GATE = (2, 16)                    # gates (a)-(c): layers, rows of 128 tokens
+ERNIE_FT_F32_REL = 1e-4                    # (a): card against CPU in f32, relative L2
+# the key projection's bias moves no logit (softmax ignores a constant a
+# row): its gradient is rounding, left out of the gradient gates and logged
+ERNIE_FT_NOISE = re.compile(r"k_proj\.bias$")
+
+
+class MaskTape:
+    """Wraps the port's mask seam (``framework.random._keep_mask``):
+    ``record`` draws through the seam and keeps each mask, ``replay``
+    hands back the recorded masks in order (moved to the device asked
+    for, the shapes checked), ``count`` keeps the number of draws, each
+    mask's kept count (a card tensor, read after) and the host reads
+    made inside the seam.  Install with :func:`mask_tape`."""
+
+    def __init__(self, seam, mode, masks=None):
+        self.seam, self.mode = seam, mode
+        self.masks = [] if masks is None else list(masks)
+        self.shapes, self.kept = [], []
+        self.syncs = 0
+        self._i = 0
+
+    def __call__(self, shape, keep_prob, device, generator=None):
+        shape = tuple(int(s) for s in shape)
+        self.shapes.append(shape)
+        if self.mode == "replay":
+            m = self.masks[self._i]
+            self._i += 1
+            if tuple(m.shape) != shape:
+                raise AssertionError(f"replayed mask {tuple(m.shape)} where {shape} is drawn")
+            return m.to(device)
+        m = self.seam(shape, keep_prob, device, generator)
+        if self.mode == "record":
+            self.masks.append(m)
+        else:
+            self.kept.append(m.sum())
+        return m
+
+
+@contextlib.contextmanager
+def mask_tape(mode, masks=None):
+    """The seam replaced by a :class:`MaskTape` inside, restored after."""
+    from paddle_tpu_torch.framework import random as R
+
+    seam = R._keep_mask
+    tape = MaskTape(seam, mode, masks)
+    R._keep_mask = tape
+    try:
+        yield tape
+    finally:
+        R._keep_mask = seam
+
+
+def ernie_ft_model(torch, layers, dev, dtype=None):
+    """``ErnieForSequenceClassification`` at ERNIE 3.0 base's width with
+    ``layers`` layers, dropout 0.1, 2 classes, random weights from seed 0;
+    bf16 O2 through ``amp.decorate`` when ``dtype`` is bf16."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import ErnieForSequenceClassification, ernie3_base
+
+    model = ErnieForSequenceClassification(
+        ernie3_base(num_hidden_layers=layers, hidden_dropout_prob=ERNIE_FT_DROPOUT),
+        2, device=dev, seed=0)
+    if dtype == "bfloat16":
+        model = ptt.amp.decorate(model, level="O2", dtype="bfloat16")
+    return model
+
+
+def ernie_ft_batch(torch, rows, dev, vocab, seed=4):
+    """``bench.py``'s batch: ids over the vocabulary and 0/1 labels from
+    ``default_rng(seed)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (rows, ERNIE_FT_SEQ)).astype("int32")
+    labels = rng.integers(0, 2, (rows,)).astype("int64")
+    return torch.as_tensor(ids, device=dev), torch.as_tensor(labels, device=dev)
+
+
+def ernie_ft_grads(torch, model, ids, labels, tape_mode, masks=None):
+    """One training loss and backward with the seam taped: (loss, {name:
+    f32 grad} of the parameters that get one (no segment ids: the segment
+    embeddings get none), the tape)."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    with mask_tape(tape_mode, masks) as tape:
+        loss = model(ids, labels=labels)[0].float()
+        loss.backward()
+    grads = {n: p.grad.float().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads, tape
+
+
+def ernie_ft_gates(torch, card, dev="cuda"):
+    """(a) f32 at ERNIE_FT_GATE's depth and rows, full width: the card's
+    loss and every gradient within 1e-4 relative L2 of the same model on
+    the CPU, fed the masks the card drew; (b) bf16 O2 with the same masks:
+    the loss within LOGITS_REL_TOL of that f32 run, and all gradients
+    together within LOGITS_REL_TOL of it or no farther from it than
+    DEPTH_REL_MARGIN times the same bf16 model on the CPU is from the
+    CPU's f32 run (the fine-tune's forward and backward launch no kernel,
+    so its bf16 path is the plain one); one gradient's distance is logged,
+    not gated: the classifier's lies in the span of the batch's 16 rows,
+    and two bf16 runs' distances there part by 1.2x to 3.2x between mask
+    draws; (c) the laws of the card's masks: the attention masks' keep
+    share within binomial bounds, the same seed giving bit-equal masks,
+    consecutive steps different ones."""
+    import paddle_tpu_torch as ptt
+
+    layers, rows = ERNIE_FT_GATE
+    model = ernie_ft_model(torch, layers, dev)
+    cfg, s = model.ernie.config, ERNIE_FT_SEQ
+    ids, labels = ernie_ft_batch(torch, rows, dev, cfg.vocab_size)
+    loss32, g32, tape = ernie_ft_grads(torch, model, ids, labels, "record")
+    h = cfg.hidden_size
+    want_shapes = [(rows, s, h)] + [
+        (rows, cfg.num_attention_heads, s, s), (rows, s, h), (rows, s, cfg.intermediate_size),
+        (rows, s, h)] * layers + [(rows, h)]
+    if tape.shapes != want_shapes:
+        raise AssertionError(f"(a) ERNIE fine-tune draws {tape.shapes}, want {want_shapes}")
+    masks = tape.masks
+    cpu = copy.deepcopy(model).to("cpu")
+    lossc, gc_, _ = ernie_ft_grads(torch, cpu, ids.cpu(), labels.cpu(), "replay",
+                                   [m.cpu() for m in masks])
+    errs = {n: rel_l2(g32[n].cpu(), gc_[n]) for n in gc_}
+    noise = {n: e for n, e in errs.items() if ERNIE_FT_NOISE.search(n)}
+    worst = sorted(((e, n) for n, e in errs.items() if n not in noise), reverse=True)
+    loss_err = abs(float(loss32) - float(lossc)) / abs(float(lossc))
+    log(f"ernie ft (a) f32 {layers} layers {rows}x{ERNIE_FT_SEQ} on {card}: loss "
+        f"{float(loss32):.6f} card, {float(lossc):.6f} CPU (relative {loss_err:.3g}); "
+        f"{len(masks)} masks drawn on the card, fed to the CPU; grad relative L2 card "
+        f"against CPU, worst three: " + "; ".join(f"{n} {e:.3g}" for e, n in worst[:3])
+        + f"; the key biases (rounding only): "
+        + ", ".join(f"{n} {e:.3g}" for n, e in noise.items()))
+    if loss_err > ERNIE_FT_F32_REL or worst[0][0] > ERNIE_FT_F32_REL:
+        raise AssertionError(f"(a) ERNIE fine-tune f32 card against CPU: loss {loss_err}, "
+                             f"grads {worst[:3]}")
+    del cpu
+    half = ptt.amp.decorate(copy.deepcopy(model), level="O2", dtype="bfloat16")
+    loss16, g16, _ = ernie_ft_grads(torch, half, ids, labels, "replay", masks)
+    half_cpu = copy.deepcopy(half).to("cpu")
+    _, g16c, _ = ernie_ft_grads(torch, half_cpu, ids.cpu(), labels.cpu(), "replay",
+                                [m.cpu() for m in masks])
+    every = [n for n in g32 if not ERNIE_FT_NOISE.search(n)]
+
+    def cat(g):
+        return torch.cat([g[n].reshape(-1) for n in every])
+
+    rows16 = sorted(((rel_l2(g16[n], g32[n]), rel_l2(g16c[n], gc_[n]), n) for n in every),
+                    reverse=True)
+    whole = (rel_l2(cat(g16), cat(g32)), rel_l2(cat(g16c), cat(gc_)))
+    loss_err16 = abs(float(loss16) - float(loss32)) / abs(float(loss32))
+    log(f"ernie ft (b) bf16 O2 {layers} layers, the same masks: loss {float(loss16):.5f} "
+        f"against f32 {float(loss32):.5f} (relative {loss_err16:.3g}); all gradients "
+        f"{whole[0]:.4g} relative L2 to f32 (the CPU's bf16 to its f32 {whole[1]:.4g}); "
+        f"one gradient's, worst three (the CPU's): "
+        + "; ".join(f"{n} {e:.3g} ({ec:.3g})" for e, ec, n in rows16[:3])
+        + f"; median {rows16[len(rows16) // 2][0]:.3g}")
+    if loss_err16 > LOGITS_REL_TOL or (whole[0] > LOGITS_REL_TOL
+                                       and whole[0] > DEPTH_REL_MARGIN * whole[1]):
+        raise AssertionError(f"(b) ERNIE fine-tune bf16 against f32: loss {loss_err16}, "
+                             f"all gradients {whole[0]} (the CPU's bf16 {whole[1]})")
+    del half, half_cpu, g16, g16c, g32, gc_, masks
+    # (c) the laws of the card's own draws
+    attn = [i for i, s in enumerate(want_shapes) if len(s) == 4]
+    with torch.no_grad():
+        draws = []
+        for seed in (77, 77, None):
+            if seed is not None:
+                ptt.seed(seed)
+            with mask_tape("record") as t:
+                model.train()(ids, labels=labels)
+            draws.append(t.masks)
+    same = all(torch.equal(a, b) for a, b in zip(draws[0], draws[1]))
+    differ = all(not torch.equal(a, b) for a, b in zip(draws[1], draws[2]))
+    n = sum(draws[0][i].numel() for i in attn)
+    kept = int(sum(draws[0][i].sum() for i in attn))
+    sigma = math.sqrt(n * (1 - ERNIE_FT_DROPOUT) * ERNIE_FT_DROPOUT)
+    z = (kept - n * (1 - ERNIE_FT_DROPOUT)) / sigma
+    log(f"ernie ft (c) the card's masks: attention keep share {kept / n:.6f} over {n} "
+        f"draws ({z:+.2f} sigma from {1 - ERNIE_FT_DROPOUT}); seed 77 twice bit-equal "
+        f"{same}; the next forward's masks all different {differ}")
+    if abs(z) > 6 or not same or not differ:
+        raise AssertionError(f"(c) ERNIE fine-tune masks: keep share z {z}, same seed equal "
+                             f"{same}, consecutive draws different {differ}")
+    del draws, model
+
+
+DROPOUT_CODE = re.compile(r"framework/random\.py$|dropout|rrelu|attention|sdpa")
+
+
+def device_syncs(torch, fn, dev="cuda"):
+    """(result of ``fn()``, one entry a synchronising CUDA call during it):
+    ``fn`` runs under ``torch.cuda.set_sync_debug_mode("warn")``, which
+    warns at every call that waits for the card (a host read, a copy from
+    pageable memory to the card, a stream synchronisation), and each
+    warning is traced to its Python stack.  An entry is (the innermost
+    frame of this repo as ``file:line function``, whether a frame of the
+    stack lies in the dropout or attention code: ``framework/random.py``
+    or a function named for dropout, RReLU or attention).  Checks first
+    that the counter sees the sync of a card tensor made from a Python
+    number (a host-to-device copy)."""
+    import traceback
+    import warnings
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def run(f):
+        sites = []
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" not in str(message):
+                return other(message, category, filename, lineno, file, line)
+            stack = [fr for fr in traceback.extract_stack()[:-1]
+                     if os.path.abspath(fr.filename).startswith(root)]
+            where = (f"{os.path.relpath(stack[-1].filename, root)}:{stack[-1].lineno} "
+                     f"{stack[-1].name}" if stack else "outside the repo")
+            hit = any(DROPOUT_CODE.search(fr.filename) or DROPOUT_CODE.search(fr.name)
+                      for fr in stack if fr.filename != __file__)
+            sites.append((where, hit))
+
+        mode = torch.cuda.get_sync_debug_mode()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            other, warnings.showwarning = warnings.showwarning, show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = f()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return out, sites
+
+    _, probe = run(lambda: torch.tensor(0.9, device=dev))
+    if not probe:
+        raise AssertionError("the sync counter missed a host-to-device copy")
+    return run(fn)
+
+
+def ernie_ft_run(torch, card, flags, dev="cuda"):
+    """Ladder row 2 as ``bench.py`` sets it up, at full depth, with
+    ``flags``: ERNIE_FT_WARMUP then ERNIE_FT_STEPS TrainSteps on one batch
+    of ERNIE_FT_BATCH x ERNIE_FT_SEQ; gates (d) no synchronising CUDA call
+    in a counted step (``device_syncs``), (e) finite losses falling over the
+    counted steps, (f) exact launches (B5 once a step for each parameter
+    tensor with a gradient, with ``use_fused_adamw``; no B3).  Returns (the counted steps'
+    launches, ms a step)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = ernie_ft_model(torch, 12, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = len(list(model.parameters()))
+    opt = AdamW(ERNIE_FT_LR, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = ptt.amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    step = TrainStep(model, lambda m, x, y: m(x, labels=y)[0], opt)
+    ids, labels = ernie_ft_batch(torch, ERNIE_FT_BATCH, dev, model.ernie.config.vocab_size)
+    flop = 6 * n_params * ERNIE_FT_SEQ * ERNIE_FT_BATCH     # bench.py's count
+    label = "B5 on" if flags.get("use_fused_adamw") else "flags off"
+    with ptt.flag_guard(**flags):
+        losses = [step(ids, labels) for _ in range(ERNIE_FT_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t = time.perf_counter()
+        losses += [step(ids, labels) for _ in range(ERNIE_FT_STEPS)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / ERNIE_FT_STEPS
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _, sites = device_syncs(torch, lambda: step(ids, labels), dev)
+        wall, busy, groups, n_launches, top = ops_profile(
+            torch, lambda: step(ids, labels), 1, transformer_kind)
+    losses = [float(v) for v in losses]
+    # every tensor with a gradient (the segment embeddings get none: no segment ids)
+    updated = sum(p.grad is not None for p in model.parameters())
+    want = dict.fromkeys(LAUNCHES, 0)
+    if flags.get("use_fused_adamw"):
+        want["adamw"] = updated * ERNIE_FT_STEPS
+    counted = losses[ERNIE_FT_WARMUP:]
+    falling = sum(counted[-3:]) < sum(counted[:3])
+    log(f"ernie ft row 2 ({label}) ERNIE 3.0 base {n_params / 1e6:.3f} M parameters in "
+        f"{n_tensors} tensors, bf16 O2 AdamW({ERNIE_FT_LR}) + clip TrainStep, dropout "
+        f"{ERNIE_FT_DROPOUT}, batch {ERNIE_FT_BATCH}x{ERNIE_FT_SEQ} on {card}: {ms:.2f} ms a "
+        f"step over {ERNIE_FT_STEPS} counted steps, {ERNIE_FT_BATCH / ms * 1e3:.1f} samples/s, "
+        f"MFU {flop / (ms * 1e-3) / BF16_FLOPS:.4f} (bench.py's 6 N x {ERNIE_FT_SEQ} FLOP a "
+        f"sample, {flop / 1e12:.2f} TFLOP a step, against {BF16_FLOPS / 1e12:.0f} TFLOP/s: "
+        f"{flop / BF16_FLOPS * 1e3:.2f} ms at the peak), peak {peak:.2f} GiB; launches "
+        f"{ {k: v for k, v in launches.items() if v} } ({launches['adamw'] / ERNIE_FT_STEPS:.0f}"
+        f" B5 a step); synchronising CUDA calls in one step {len(sites)} (in dropout or "
+        f"attention code {sum(h for _, h in sites)}; sites {sorted(set(w for w, _ in sites))});"
+        f" losses " + " ".join(f"{v:.4f}" for v in losses))
+    log(f"profile ernie ft step ({label}): wall {wall:.2f} ms (profiled), device busy "
+        f"{busy:.2f} ms, idle share {1 - busy / wall:.3f} (against the unprofiled {ms:.2f} "
+        f"ms: {1 - busy / ms:.3f}), {n_launches:.0f} CUDA launches; by operation (ms): "
+        + "; ".join(f"{k} {v:.3f}" for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
+        + "; top kernels, then the top of other: "
+        + "; ".join(f"{name[:60]} {v:.3f}" for v, name in top))
+    if sites:
+        raise AssertionError(f"(d) {len(sites)} synchronising CUDA calls in one step: {sites}")
+    if not all(math.isfinite(v) for v in losses) or not falling:
+        raise AssertionError(f"(e) ERNIE fine-tune losses {losses}")
+    if launches != want:
+        raise AssertionError(f"(f) ERNIE fine-tune ({label}): launches {launches}, want {want}")
+    del model, opt, step
+    return launches, ms
+
+
+def phase_ernie_ft(torch, card, dev="cuda"):
+    """Ladder row 2, the ERNIE 3.0 base fine-tune with dropout: the gates
+    (a)-(c) at 2 layers (``ernie_ft_gates``), then ``bench.py``'s steps at
+    full depth with ``use_fused_adamw`` off (the reference's default) and
+    on (``ernie_ft_run``: (d)-(f)).  Returns the flag-on run's launches."""
+    t0 = time.perf_counter()
+    ernie_ft_gates(torch, card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    _, off_ms = ernie_ft_run(torch, card, {"use_fused_adamw": False}, dev)
+    launches, on_ms = ernie_ft_run(torch, card, {"use_fused_adamw": True}, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"ernie ft: {off_ms:.2f} ms a step with the flags off, {on_ms:.2f} ms with B5; "
+        f"phase {time.perf_counter() - t0:.1f} s (gates {t1 - t0:.1f} s)")
+    return launches
+
+
+A9_ZOO = (("alexnet", {}, 224), ("vgg16", {}, 224), ("squeezenet1_1", {}, 224),
+          ("mobilenet_v2", {}, 224), ("mobilenet_v3_large", {}, 224), ("googlenet", {}, 224),
+          ("inception_v3", {}, 299), ("densenet121", {"dropout": 0.2}, 224))
+A9_GPT_SHAPE = (4, 2048)           # (b): a GPT-3 1.3B block's rows
+A9_FUSED_SHAPE = (16, 512)         # (c): ERNIE's inference batch through the fused layers
+A9_NORM_ROWS = 8192                # (d): the residual norms' rows at ERNIE's width
+
+
+def a9_zoo(torch, dev):
+    """(a) one bf16 O2 Momentum TrainStep each for the zoo's dropout
+    families at their published widths, batch ZOO_BATCH, the loss summed
+    over every head a model trains (GoogLeNet's two auxiliary heads too):
+    a finite loss, the masks drawn, no master moved without a gradient and
+    nine in ten of the others moved."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import models as M
+
+    def loss_fn(m, x, y):
+        return sum(F.cross_entropy(out, y).mean() for out in _leaves(m(x)))
+
+    for name, kw, hw in A9_ZOO:
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = getattr(M, name)(device=dev, generator=torch.Generator(device=dev)
+                                 .manual_seed(5), **kw)
+        opt = Momentum(RESNET_TRAIN_LR, parameters=model.parameters())
+        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+        x, y = image_batch(torch, ZOO_BATCH, hw, 66, dev)
+        params = [p for p in model.parameters() if p.requires_grad]
+        before = [p.detach().float().clone() for p in params]
+        with mask_tape("count") as tape:
+            loss = float(TrainStep(model, loss_fn, opt)(x, y))
+        live = sum(p.grad is not None and bool(p.grad.any()) for p in params)
+        n = moved(torch, opt, params, before)
+        if not math.isfinite(loss) or not tape.shapes or n > live or n < 0.9 * live:
+            raise AssertionError(f"a9 (a) {name}: loss {loss}, {len(tape.shapes)} masks, "
+                                 f"{n} moved of {live} with a gradient")
+        log(f"a9 (a) {name} bf16 O2 Momentum TrainStep batch {ZOO_BATCH} at {hw}² with "
+            f"dropout: loss {loss:.4f}, {len(tape.shapes)} masks drawn, {n} of {live} "
+            f"tensors with a gradient moved")
+        del model, opt, params, before
+
+
+def a9_gpt_block(torch, card, dev):
+    """(b) one GPT-3 1.3B block (hidden 2048, 16 heads) with dropout 0.1
+    on A9_GPT_SHAPE tokens, training forward and backward in bf16 with the
+    masks recorded, then in f32 with them replayed: the composite causal
+    attention (no B3 launch), 3 masks, the bf16 output and input gradient
+    within LOGITS_REL_TOL of the f32 ones; ms of the bf16 step."""
+    from paddle_tpu_torch.models.gpt import GPTBlock, gpt3_1p3b
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    cfg = gpt3_1p3b(dropout=0.1)
+    b, s = A9_GPT_SHAPE
+    block = GPTBlock(cfg, std=cfg.initializer_range, device=dev, dtype=torch.bfloat16,
+                     generator=torch.Generator(device=dev).manual_seed(6)).train()
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(b, s, cfg.hidden_size, device=dev, generator=g)
+    cot = torch.randn(b, s, cfg.hidden_size, device=dev, generator=g)
+
+    def step(blk, dtype):
+        xi = x.detach().to(dtype, copy=True).requires_grad_()
+        out = blk(xi)
+        (out.float() * cot).sum().backward()
+        return out.detach().float(), xi.grad.float()
+
+    def run(blk, dtype, mode, masks=None):
+        with mask_tape(mode, masks) as tape:
+            return (*step(blk, dtype), tape)
+
+    reset_launch_counts()
+    out16, dx16, tape = run(block, torch.bfloat16, "record")
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    f32 = copy.deepcopy(block).float()
+    out32, dx32, _ = run(f32, torch.float32, "replay", tape.masks)
+    e_out, e_dx = rel_l2(out16, out32), rel_l2(dx16, dx32)
+    ms = time_ms(torch, lambda: step(block, torch.bfloat16), iters=3, repeats=3, warmup=1)
+    log(f"a9 (b) GPT-3 1.3B block, dropout 0.1, {b}x{s} on {card}: {len(tape.shapes)} masks "
+        f"{tape.shapes[0]} first, launches {launches or 'none'}, bf16 against f32 with the "
+        f"same masks: output {e_out:.3g}, input grad {e_dx:.3g}; {ms:.2f} ms a forward and "
+        f"backward")
+    if len(tape.shapes) != 3 or launches or e_out > LOGITS_REL_TOL or e_dx > LOGITS_REL_TOL:
+        raise AssertionError(f"a9 (b) GPT block: masks {tape.shapes}, launches {launches}, "
+                             f"errors {e_out}, {e_dx}")
+    del block, f32
+
+
+def a9_fused_layers(torch, card, dev):
+    """(c) ``FusedMultiHeadAttention`` + ``FusedFeedForward`` at ERNIE's
+    width (768, 12 heads, FFN 3072), ``attn_dropout_rate`` 0 and
+    ``dropout_rate`` 0.1, on A9_FUSED_SHAPE tokens: two bf16 O2 AdamW
+    TrainSteps, finite losses, 3 masks a step and exactly one B3, one B3b
+    and one B3c launch a step.  Returns the counted step's launches."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.incubate.nn import FusedFeedForward, FusedMultiHeadAttention
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn.layer.layers import placement
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from paddle_tpu_torch.optimizer import AdamW
+
+    with placement(dev, torch.Generator(device=dev).manual_seed(8)):
+        model = ptt.nn.Sequential(
+            FusedMultiHeadAttention(768, 12, dropout_rate=0.1, attn_dropout_rate=0.0),
+            FusedFeedForward(768, 3072, dropout_rate=0.1, activation="gelu"))
+    opt = AdamW(1e-4, parameters=model.parameters())
+    model, opt = ptt.amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    step = TrainStep(model, lambda m, a, t: ((m(a).float() - t) ** 2).mean(), opt)
+    b, s = A9_FUSED_SHAPE
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(b, s, 768, device=dev, generator=g).bfloat16()
+    target = torch.randn(b, s, 768, device=dev, generator=g)
+    step(x, target)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with mask_tape("count") as tape:
+        loss = float(step(x, target))
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    want = {"flash_attention": 1, "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1}
+    ms = time_ms(torch, lambda: step(x, target), iters=3, repeats=3, warmup=1)
+    log(f"a9 (c) FusedMultiHeadAttention + FusedFeedForward bf16 O2 TrainStep {b}x{s} at "
+        f"ERNIE's width on {card}: loss {loss:.4f}, {len(tape.shapes)} masks, launches "
+        f"{launches}, {ms:.2f} ms a step")
+    if not math.isfinite(loss) or len(tape.shapes) != 3 or launches != want:
+        raise AssertionError(f"a9 (c) fused layers: loss {loss}, masks {tape.shapes}, "
+                             f"launches {launches}, want {want}")
+    del model, opt, step
+    return dict(LAUNCHES, **launches)
+
+
+def a9_residual_norms(torch, card, dev):
+    """(d) ``incubate`` ``fused_layer_norm(residual=...)`` (B11, B11b with
+    ``use_fused_layernorm``; bf16 x with f32 weights, as GPT's under O2)
+    and ``fused_rms_norm(residual=...)`` (B1, B1b; bf16 x and weight, as
+    Llama's under O2) at [A9_NORM_ROWS, 768], forward and backward against
+    their plain twins (the flags off) within the bf16 row; each kernel
+    launched once a call.  Returns the launches."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.incubate.nn.functional import fused_layer_norm, fused_rms_norm
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn(A9_NORM_ROWS, 768, device=dev, generator=g).bfloat16()
+    r = torch.randn(A9_NORM_ROWS, 768, device=dev, generator=g).bfloat16()
+    w = 1 + 0.1 * torch.randn(768, device=dev, generator=g)
+    bias = 0.1 * torch.randn(768, device=dev, generator=g)
+    cot = torch.randn(A9_NORM_ROWS, 768, device=dev, generator=g)
+    counted = dict.fromkeys(LAUNCHES, 0)
+    cases = (("fused_layer_norm", lambda *t: fused_layer_norm(t[0], t[2], t[3], 1e-5,
+                                                              residual=t[1]),
+              w, dict(use_fused_layernorm=True), dict(use_fused_layernorm=False),
+              {"add_layer_norm": 1, "add_layer_norm_bwd": 1}),
+             ("fused_rms_norm", lambda *t: fused_rms_norm(t[0], t[2], epsilon=1e-6,
+                                                          residual=t[1]),
+              w.bfloat16(), dict(use_fused_rms_norm=True), dict(use_fused_rms_norm=False),
+              {"rms_norm": 1, "rms_norm_bwd": 1}))
+    for name, fn, weight, on, off, want in cases:
+        results = []
+        for flags in (on, off):
+            leaves = [t.clone().requires_grad_() for t in (x, r, weight, bias)]
+            reset_launch_counts()
+            with ptt.flag_guard(**flags):
+                out, pre = fn(*leaves)
+                ((out.float() * cot).sum() + (pre.float() * cot).sum()).backward()
+            torch.cuda.synchronize()
+            results.append(([out.detach(), pre.detach()] + [t.grad for t in leaves[:3]],
+                            {k: v for k, v in LAUNCHES.items() if v}))
+        (kern, launches), (plain, plain_launches) = results
+        errs = [rel_l2(a, b) for a, b in zip(kern, plain)]
+        log(f"a9 (d) {name}(residual=...) [{A9_NORM_ROWS}, 768] bf16 x, {weight.dtype} "
+            f"weight on {card}: kernels against the plain twins, relative L2 out {errs[0]:.3g}, pre "
+            f"{errs[1]:.3g}, dx {errs[2]:.3g}, dresidual {errs[3]:.3g}, dw {errs[4]:.3g}; "
+            f"launches {launches}")
+        if launches != want or plain_launches or max(errs) > TOL["bfloat16"]["rtol"]:
+            raise AssertionError(f"a9 (d) {name}: launches {launches} (plain "
+                                 f"{plain_launches}), errors {errs}")
+        counted.update(launches)
+    return counted
+
+
+def phase_a9(torch, card, dev="cuda"):
+    """The rest of A9's paths on the card: (a) the zoo's dropout families
+    training, (b) a GPT-3 1.3B block with dropout, (c) the fused layers at
+    ERNIE's width through B3/B3b/B3c, (d) the residual norms of
+    ``incubate`` on B11/B11b and B1/B1b.  Returns the launches of (c) and
+    (d)."""
+    t0 = time.perf_counter()
+    a9_zoo(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"a9 (a): {time.perf_counter() - t0:.1f} s")
+    a9_gpt_block(torch, card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = a9_fused_layers(torch, card, dev)
+    norms = a9_residual_norms(torch, card, dev)
+    launches.update({k: v for k, v in norms.items() if v})
+    log(f"a9 phase: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -7251,7 +7839,8 @@ COUNTED_AS = {"ring_flash_attention": "flash_attention", "adamw_host": "adamw"}
 
 # the kernels of fleet's hybrid step, of auto_parallel's Engine step, of ERNIE's
 # inference (also under O1 autocast, phase_resnet_train), of the f32 Llama
-# step, of the head_dim 256 step and of the eager idiom's loop (phase_core):
+# step, of the head_dim 256 step, of the eager idiom's loop (phase_core), of
+# the ERNIE fine-tune (B5) and of phase_a9's fused layers and residual norms:
 # their launches add those paths
 EXTRA_PATHS = {"hybrid": frozenset(hybrid_want(1, 1)), "auto": frozenset(hybrid_want(1, 1)),
                "ernie": frozenset({"flash_attention"}),
@@ -7259,7 +7848,11 @@ EXTRA_PATHS = {"hybrid": frozenset(hybrid_want(1, 1)), "auto": frozenset(hybrid_
                                        "flash_attention_bwd_dkv"}),
                "train_d256": frozenset({"flash_attention", "flash_attention_bwd_dq",
                                         "flash_attention_bwd_dkv"}),
-               "core": CORE_KERNELS, "ernie_o1": frozenset({"flash_attention"})}
+               "core": CORE_KERNELS, "ernie_o1": frozenset({"flash_attention"}),
+               "ernie_ft": frozenset({"adamw"}),
+               "a9": frozenset({"flash_attention", "flash_attention_bwd_dq",
+                                "flash_attention_bwd_dkv", "rms_norm", "rms_norm_bwd",
+                                "add_layer_norm", "add_layer_norm_bwd"})}
 
 
 def main() -> int:
@@ -7317,6 +7910,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches["ernie_o1"] = phase_resnet_train(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["ernie_ft"] = phase_ernie_ft(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["a9"] = phase_a9(torch, card)
     gc.collect()         # the launcher's worker needs the memory this process cached
     torch.cuda.empty_cache()
     phase_dist(torch, card, train)

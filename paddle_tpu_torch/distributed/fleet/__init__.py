@@ -19,8 +19,8 @@ sharding stage (read by ``DistributedTrainStep``), master weights under
 amp, and gradient merge's k and averaging (read by ``TrainStep``).  The
 strategy's knob audit is the reference's: a reference knob the port does
 not honor raises when set away from its default, an unknown knob or config
-key raises.  ``strategy.asp`` (2:4 sparsity, ``incubate.asp``) waits for
-ROADMAP A9 and raises at ``init``; ``sharding_configs["offload"]`` tags
+key raises.  ``strategy.asp`` (2:4 sparsity) wraps the optimizer in
+``incubate.asp.decorate``; ``sharding_configs["offload"]`` tags
 the optimizer, whose ``DistributedTrainStep`` then holds masters and
 moments in pinned host memory.  The fault domain and elastic
 training (``fault_domain``, ``elastic``, ``FaultDomain``,
@@ -111,7 +111,7 @@ class DistributedStrategy:
     pipeline_configs: Dict[str, Any] = field(default_factory=dict)
     gradient_merge: bool = False
     gradient_merge_configs: Dict[str, Any] = field(default_factory=dict)
-    asp: bool = False  # 2:4 sparsity (incubate.asp): True raises at init (A9)
+    asp: bool = False  # 2:4 sparsity: distributed_optimizer applies incubate.asp.decorate
     find_unused_parameters: bool = False
 
     def __setattr__(self, name: str, value: Any) -> None:
@@ -158,15 +158,11 @@ class Fleet:
              strategy: Optional[DistributedStrategy] = None, log_level="INFO", *,
              devices=None) -> "Fleet":
         """Build and set the hybrid group (module docstring); unknown config
-        keys and ``strategy.asp`` raise here."""
+        keys raise here."""
         from ..parallel import init_parallel_env, is_initialized
 
         self._strategy = strategy or DistributedStrategy()
         self._strategy._validate()
-        if self._strategy.asp:
-            raise NotImplementedError(
-                "DistributedStrategy.asp (2:4 structured sparsity, incubate.asp) is not "
-                "ported yet (ROADMAP A9); leave it False")
         hc = self._strategy.hybrid_configs
         degrees = dict(dp=hc.get("dp_degree", 1), pp=hc.get("pp_degree", 1),
                        sharding=hc.get("sharding_degree", 1), sep=hc.get("sep_degree", 1),
@@ -225,8 +221,9 @@ class Fleet:
     def distributed_optimizer(self, optimizer, strategy=None):
         """Tag ``optimizer`` with the hybrid group, the sharding stage and
         offload (read by ``DistributedTrainStep``), f32 master weights under
-        amp, and gradient merge's k and averaging (read by ``TrainStep``; the
-        reference's default k is 1)."""
+        amp, gradient merge's k and averaging (read by ``TrainStep``; the
+        reference's default k is 1), and with ``asp`` wraps it in
+        ``incubate.asp.decorate``."""
         optimizer._hcg = self._hcg
         st = strategy or self._strategy
         optimizer._sharding_stage = st.sharding_stage if st else 0
@@ -234,6 +231,10 @@ class Fleet:
             optimizer._multi_precision = True
         if st and st.sharding and st.sharding_configs.get("offload"):
             optimizer._sharding_offload = True
+        if st and st.asp:
+            from ...incubate.asp import decorate as _asp_decorate
+
+            optimizer = _asp_decorate(optimizer)
         if st and st.gradient_merge:
             cfg = st.gradient_merge_configs or {}
             optimizer._gradient_merge_k = int(cfg.get("k_steps", 1))

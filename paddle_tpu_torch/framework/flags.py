@@ -183,5 +183,6 @@ define_flag("seed_offset_by_rank", True,
             "Offset the global seed (framework.random.seed) by the process rank "
             "of torch.distributed, when it is initialized.")
 define_flag("fast_dropout_rng", True,
-            "Reference name: the TPU's 'rbg' dropout PRNG. Means nothing on the "
-            "card; dropout in training waits for a Philox generator (ROADMAP A9).")
+            "Reference name: the TPU's 'rbg' dropout PRNG. On or off, the port "
+            "draws dropout masks from torch's generators (Philox on the card), "
+            "which are counter-based already: there is nothing to swap.")

@@ -19,7 +19,13 @@ eagerly on torch's generators, one a device:
   forked from the scope's generator (or the given one, or the default);
 - :func:`bulk_key` returns its key: the reference swaps in the TPU's
   ``rbg`` generator for dropout masks, and torch's CUDA generator is
-  already counter-based (Philox), so there is nothing to swap.
+  already counter-based (Philox), so there is nothing to swap;
+- :func:`_keep_mask` and :func:`_uniform` are the one seam every dropout
+  mask and RReLU slope of the port is drawn through.  They draw from the
+  generator :func:`generator_for` resolves (the caller's, the scope's, or
+  the device's global one) without forking it: a fork reads a seed back to
+  the host, a device-to-host sync on the card, where drawing from the
+  generator itself only advances its Philox offset on the host.
 
 JAX's and torch's bits differ, so a seed fixes the port's draws, not the
 reference's: tests hold the laws, and weights cross between the packages
@@ -208,6 +214,23 @@ def generator_for(device, generator: Optional[KeyLike] = None) -> Optional[torch
             raise ValueError(f"a {src.device} generator cannot draw on {device}")
         return src
     return src.generator(device)
+
+
+def _keep_mask(shape, keep_prob: float, device, generator: Optional[KeyLike] = None
+               ) -> torch.Tensor:
+    """A bool mask of ``shape`` on ``device``, each element True with
+    probability ``keep_prob``, drawn from :func:`generator_for`'s generator
+    (a uniform draw below ``keep_prob``; Philox on the card)."""
+    gen = generator_for(device, generator)
+    return torch.rand(tuple(shape), device=device, generator=gen) < keep_prob
+
+
+def _uniform(shape, low: float, high: float, device,
+             generator: Optional[KeyLike] = None) -> torch.Tensor:
+    """f32 values of ``shape`` on ``device``, uniform in [low, high), drawn
+    as :func:`_keep_mask` draws."""
+    gen = generator_for(device, generator)
+    return torch.empty(tuple(shape), device=device).uniform_(low, high, generator=gen)
 
 
 def seed(value: int) -> Generator:

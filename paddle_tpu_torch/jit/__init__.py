@@ -125,8 +125,13 @@ class TrainStep:
                               if id(p) in merged]
 
     def _update(self, grads) -> None:
-        """Clip and update (the optimizer's ``_apply``)."""
+        """Clip and update (the optimizer's ``_apply``), then re-apply the
+        ``incubate.asp`` masks of pruned parameters, as the reference's
+        step does."""
+        from ..incubate.asp import ASPHelper
+
         self.optimizer._apply(grads)
+        ASPHelper.apply_masks(self.optimizer)
 
 
 # the reference's exports that wait for ROADMAP A3d

@@ -1,5 +1,5 @@
-"""ERNIE 3.0, a bidirectional encoder, for inference (port of the
-reference's ``models/ernie.py``).
+"""ERNIE 3.0, a bidirectional encoder, for inference and fine-tuning (port
+of the reference's ``models/ernie.py``).
 
 Token, position and segment embeddings, a post-norm
 ``nn.TransformerEncoder`` with GELU, and a tanh pooler; heads for sequence
@@ -15,9 +15,13 @@ reference's additive mask (``(1 - m) * f32 min`` over the keys) and takes
 the composite attention, as in the reference.  The models are built on
 ``device`` (the card unless the caller asks for the CPU) with weights
 drawn from a ``torch.Generator`` seeded with ``seed``, and cast with
-``Layer.to(dtype=...)``.  In eval mode dropout is the identity; training
-with ``hidden_dropout_prob > 0`` raises, since dropout waits for the
-counter-based generator of ROADMAP A9.
+``Layer.to(dtype=...)``.  In eval mode dropout is the identity; in
+training ``hidden_dropout_prob`` drops the embeddings, the attention
+probabilities (which then take the composite attention, as the
+reference's flash gate refuses dropout), each layer's two residual
+branches and its FFN activation, and the pooled output: 50 masks a
+step at 12 layers (1 + 4 a layer + 1), drawn from torch's generators
+(Philox on the card) without a host sync.
 """
 
 from __future__ import annotations

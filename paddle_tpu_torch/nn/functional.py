@@ -34,6 +34,7 @@ import torch
 from ..amp import maybe_autocast_tensors
 from ..framework.dtype import convert_dtype
 from ..framework.flags import get_flags
+from ..framework import random as _random
 from ..framework.random import bulk_key, next_key  # noqa: F401 (the reference's names here)
 from ..ops import use_function, use_kernel
 from ..ops.attention import sdpa_reference
@@ -164,23 +165,36 @@ def swiglu(x: torch.Tensor, y: Optional[torch.Tensor] = None, name=None) -> torc
     return torch.nn.functional.silu(x) * y
 
 
-def _no_dropout(p: float, training: bool, what: str) -> None:
-    if training and p > 0.0:
-        raise NotImplementedError(
-            f"{what} with p = {p} in training: dropout needs a counter-based "
-            f"generator (Philox) the port does not have yet (ROADMAP A9); use "
-            f"p = 0 or eval mode")
-
-
 def dropout(x: torch.Tensor, p: float = 0.5, axis=None, training: bool = True,
             mode: str = "upscale_in_train", name=None) -> torch.Tensor:
-    """Identity at p = 0 or outside training (times 1 − p for
-    ``downscale_in_infer`` in eval); p > 0 in training raises.  ``axis``
-    (the axes a mask would vary along) matters only where it raises."""
-    _no_dropout(p, training, "dropout")
-    if not training and mode == "downscale_in_infer":
-        return x * (1.0 - p)
-    return x
+    """Each element (or each slice along ``axis``) zeroed with probability
+    ``p`` in training, the mask drawn through the seam
+    (``framework.random._keep_mask``).  ``upscale_in_train`` divides the
+    kept values by 1 − p in the form the reference's compiled step takes
+    on XLA: an f32 tensor times the reciprocal (XLA folds the division by
+    a constant), a half tensor divided by 1 − p rounded to its dtype (the
+    weak-typed scalar).  ``downscale_in_infer`` keeps them and multiplies
+    by 1 − p in eval.  Identity at p = 0 or in eval (``upscale_in_train``);
+    zeros at p = 1."""
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * (1.0 - p)
+        return x
+    if p == 1.0:
+        return torch.zeros_like(x)
+    shape = tuple(x.shape)
+    if axis is not None:
+        axes = [axis] if isinstance(axis, int) else list(axis)
+        shape = tuple(s if i in axes else 1 for i, s in enumerate(shape))
+    keep = _random._keep_mask(shape, 1.0 - p, x.device)
+    if mode == "upscale_in_train":
+        if x.dtype in (torch.float16, torch.bfloat16):
+            # 1 - p rounded on the host: a card tensor made from a Python
+            # number is a host-to-device copy, which syncs
+            x = x / float(torch.tensor(1.0 - p, dtype=x.dtype))
+        else:
+            x = x * (1.0 / (1.0 - p))
+    return torch.where(keep, x, 0.0)
 
 
 def scaled_dot_product_attention(query: torch.Tensor, key: torch.Tensor,
@@ -193,10 +207,16 @@ def scaled_dot_product_attention(query: torch.Tensor, key: torch.Tensor,
     through ``mesh_flash_attention`` under a live single-controller mesh
     whose gate takes the shapes, as in the reference; with a mask it is the
     composite ``sdpa_reference``, whose masked form has no kernel yet.  A
-    non-zero ``dropout_p`` in training raises.  Under ``amp.auto_cast``
-    q, k and v are cast to the amp dtype first ("sdpa")."""
-    _no_dropout(dropout_p, training, "attention dropout")
+    non-zero ``dropout_p`` in training also takes the composite, which
+    drops the f32 probabilities with a mask drawn through the seam, as the
+    reference's flash gate refuses dropout.  Under ``amp.auto_cast`` q, k
+    and v are cast to the amp dtype first ("sdpa")."""
     query, key, value = maybe_autocast_tensors("sdpa", query, key, value)
+    p = dropout_p if training else 0.0
+    if p > 0.0:
+        return sdpa_reference(query, key, value, mask=attn_mask, is_causal=is_causal,
+                              dropout_p=p,
+                              dropout_key=_random._scoped() or _random.default_generator)
     if attn_mask is None:
         mesh = mesh_route("use_flash_attention")
         if mesh is not None and mesh_flash_supported(mesh, query.shape, key.shape,
@@ -362,8 +382,10 @@ hardswish = _unary("hardswish", lambda v: v * torch.nn.functional.relu6(v + 3.0)
 hardsigmoid = _unary("hardsigmoid", lambda v: (v / 6.0 + 0.5).clamp(0.0, 1.0))
 hardtanh = _unary("hardtanh", lambda v, min=-1.0, max=1.0: v.clamp(min, max))
 elu = _unary("elu", lambda v, alpha=1.0: torch.where(v > 0, v, alpha * torch.expm1(v)))
-selu = _unary("selu", lambda v: 1.0507009873554805 * torch.where(
-    v > 0, v, 1.6732632423543772 * torch.expm1(v)))
+_SELU_ALPHA = 1.6732632423543772
+_SELU_SCALE = 1.0507009873554805
+selu = _unary("selu", lambda v: _SELU_SCALE * torch.where(
+    v > 0, v, _SELU_ALPHA * torch.expm1(v)))
 celu = _unary("celu", lambda v, alpha=1.0: v.clamp(min=0)
               + alpha * torch.expm1(v.clamp(max=0) / alpha))
 tanhshrink = _unary("tanhshrink", lambda v: v - torch.tanh(v))
@@ -424,16 +446,15 @@ def maxout(x: torch.Tensor, groups: int, axis: int = 1, name=None) -> torch.Tens
 def rrelu(x: torch.Tensor, lower: float = 1.0 / 8.0, upper: float = 1.0 / 3.0,
           training: bool = True, name=None) -> torch.Tensor:
     """Leaky ReLU whose slope is the mean of [lower, upper] outside
-    training; in training the slope is drawn at random, which needs the
-    counter-based generator of ROADMAP A9, and raises."""
+    training; in training each element's slope is drawn uniform in
+    [lower, upper) in f32 through the seam (``framework.random._uniform``)
+    and cast to x's dtype."""
     if not 0 <= lower <= upper <= 1:
         raise ValueError(f"rrelu requires 0 <= lower <= upper <= 1, got [{lower}, {upper}]")
-    if training:
-        raise NotImplementedError(
-            "rrelu in training draws a random slope a element: that needs a "
-            "counter-based generator (Philox) the port does not have yet "
-            "(ROADMAP A9); use training=False")
-    return torch.where(x >= 0, x, (lower + upper) / 2 * x)
+    if not training:
+        return torch.where(x >= 0, x, (lower + upper) / 2 * x)
+    slope = _random._uniform(x.shape, lower, upper, x.device).to(x.dtype)
+    return torch.where(x >= 0, x, slope * x)
 
 
 # ---------------------------------------------------------------------------
@@ -673,27 +694,37 @@ def top_k_stable(x: torch.Tensor, k: int):
 
 
 # ---------------------------------------------------------------------------
-# dropout on image axes (identity where the reference's needs no mask)
+# dropout on image axes
 # ---------------------------------------------------------------------------
 def dropout2d(x: torch.Tensor, p: float = 0.5, training: bool = True,
               data_format: str = "NCHW", name=None) -> torch.Tensor:
-    """Whole channels dropped: identity at p = 0 or outside training; p > 0
-    in training raises (ROADMAP A9)."""
-    return dropout(x, p, training=training)
+    """Whole channels dropped: :func:`dropout` with a mask over the batch
+    and channel axes of [N, C, H, W] (``NHWC``: [N, H, W, C])."""
+    axis = [0, 1] if data_format == "NCHW" else [0, 3]
+    return dropout(x, p=p, axis=axis, training=training)
 
 
 def dropout3d(x: torch.Tensor, p: float = 0.5, training: bool = True,
               data_format: str = "NCDHW", name=None) -> torch.Tensor:
-    """As :func:`dropout2d`, on [N, C, D, H, W]."""
-    return dropout(x, p, training=training)
+    """As :func:`dropout2d`, on [N, C, D, H, W] (``NDHWC``)."""
+    axis = [0, 1] if data_format == "NCDHW" else [0, 4]
+    return dropout(x, p=p, axis=axis, training=training)
 
 
 def alpha_dropout(x: torch.Tensor, p: float = 0.5, training: bool = True,
                   name=None) -> torch.Tensor:
-    """SELU-preserving dropout: identity at p = 0 or outside training; p > 0
-    in training raises (ROADMAP A9)."""
-    _no_dropout(p, training, "alpha_dropout")
-    return x
+    """SELU-preserving dropout: dropped elements take SELU's negative
+    saturation, then an affine map keeps the mean and variance (the
+    reference's constants; the map in f32, out in x's dtype).  Identity at
+    p = 0 or outside training."""
+    if not training or p == 0.0:
+        return x
+    alpha_p = -_SELU_ALPHA * _SELU_SCALE
+    keep = _random._keep_mask(x.shape, 1.0 - p, x.device)
+    a = 1.0 / math.sqrt((1 - p) * (1 + p * alpha_p ** 2))
+    b = -a * alpha_p * p
+    kept = torch.where(keep, x, alpha_p)
+    return (a * kept.to(torch.promote_types(x.dtype, torch.float32)) + b).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,9 @@
 The ``_act`` family wraps a functional of :mod:`..functional` with the
 reference's positional arguments (``Softmax(axis)``, ``LeakyReLU(
 negative_slope)``, ``Hardtanh(min, max)``, ...); ``PReLU`` holds its slope
-as a parameter.  ``RReLU`` draws random slopes in training, which needs
-the counter-based generator of ROADMAP A9: there it raises, and in eval it
-uses the mean slope, as in the reference.
+as a parameter.  ``RReLU`` draws random slopes in training (through the
+port's dropout seam, ``framework.random._uniform``) and uses the mean
+slope in eval, as in the reference.
 """
 
 from __future__ import annotations
@@ -119,8 +119,8 @@ class Softmax2D(Layer):
 
 
 class RReLU(Layer):
-    """``F.rrelu`` in the layer's mode: the mean slope in eval; training
-    raises (ROADMAP A9)."""
+    """``F.rrelu`` in the layer's mode: random slopes in training, the mean
+    slope in eval."""
 
     def __init__(self, lower: float = 1.0 / 8.0, upper: float = 1.0 / 3.0, name=None):
         super().__init__()

@@ -18,8 +18,9 @@ transposes.  The image layers (``Dropout2D``, ``Dropout3D``,
 ``AlphaDropout``, ``Upsample`` and its two fixed-mode forms, ``Pad1D``/
 ``2D``/``3D``, ``Bilinear``, ``PixelShuffle``, ``PixelUnshuffle``,
 ``Unfold``, ``ZeroPad2D``, ``ChannelShuffle``) wrap their functionals
-with the reference's arguments; the dropouts raise for p > 0 in training
-(ROADMAP A9), as ``Dropout`` does.
+with the reference's arguments; the dropouts draw their masks through
+the port's one seam (``framework.random._keep_mask``), as ``Dropout``
+does.
 """
 
 from __future__ import annotations
@@ -115,8 +116,7 @@ class Embedding(Layer):
 
 class Dropout(Layer):
     """``F.dropout`` in the layer's training mode: identity at p = 0 or in
-    eval mode; p > 0 in training raises (no Philox generator yet, ROADMAP
-    A9)."""
+    eval mode (times 1 − p for ``downscale_in_infer``)."""
 
     def __init__(self, p: float = 0.5, axis=None, mode: str = "upscale_in_train",
                  name=None):
@@ -184,8 +184,7 @@ class PairwiseDistance(Layer):
 
 
 class Dropout2D(Layer):
-    """``F.dropout2d``: identity at p = 0 or in eval; p > 0 in training
-    raises (ROADMAP A9)."""
+    """``F.dropout2d``: whole channels dropped in training."""
 
     def __init__(self, p=0.5, data_format="NCHW", name=None):
         super().__init__()

@@ -6,8 +6,11 @@
 Attention keeps paddle's [batch, seq, heads, head_dim] layout and goes
 through ``F.scaled_dot_product_attention``, as the reference's does: with
 no mask it is the flash function (B3 forward, B3b/B3c backward on the
-card), with an additive mask the composite ``sdpa_reference``.  Dropout
-above 0 in training raises (ROADMAP A9); in eval it is the identity.  The
+card), with an additive mask or attention dropout in training the
+composite ``sdpa_reference``, as the reference's flash gate refuses both.
+The dropouts come in the reference's order (``dropout1`` after attention,
+``act_dropout`` inside the feed-forward block, ``dropout2`` after it) and
+draw their masks in that order; in eval they are the identity.  The
 layers are built on the enclosing placement's device, else the default
 device (:func:`~paddle_tpu_torch.nn.layer.layers.placement`).  The
 encoder and decoder stack deep copies of the layer they are given, so

@@ -9,6 +9,8 @@ from typing import Optional
 
 import torch
 
+from ..framework import random as _random
+
 __all__ = ["sdpa_reference"]
 
 
@@ -19,13 +21,12 @@ def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [b, sq, hq, d]; k/v [b, sk, hkv, d]; additive ``mask``
     broadcastable to [b, hq, sq, sk]; causal masking bottom-right aligned.
     Scores (scaled by ``scale``, default 1/sqrt(d)) and softmax in f32;
-    returns [b, sq, hq, d] in v's dtype.  Dropout on the probabilities
-    needs the counter-based generator of ROADMAP A9: ``dropout_p > 0`` with
-    a ``dropout_key`` raises (the reference drops nothing without a key)."""
-    if dropout_p > 0.0 and dropout_key is not None:
-        raise NotImplementedError(
-            "sdpa_reference: attention dropout needs a counter-based generator "
-            "(Philox) the port does not have yet (ROADMAP A9)")
+    returns [b, sq, hq, d] in v's dtype.  With ``dropout_p > 0`` and a
+    ``dropout_key`` (a generator or a ``framework.random`` key) the f32
+    probabilities are dropped by a mask drawn through the seam
+    (``framework.random._keep_mask``) and the kept ones divided by
+    1 − ``dropout_p`` (times its reciprocal) before the cast; without a
+    key nothing is dropped, as in the reference."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
@@ -41,5 +42,11 @@ def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if is_causal:
         keep = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(sk - sq)
         logits = logits.masked_fill(~keep, torch.finfo(torch.float32).min)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    probs = torch.softmax(logits, dim=-1)
+    if dropout_p > 0.0 and dropout_key is not None:
+        keep = _random._keep_mask(probs.shape, 1.0 - dropout_p, probs.device,
+                                  generator=dropout_key)
+        # times the reciprocal: XLA folds the reference's division by a constant
+        probs = torch.where(keep, probs * (1.0 / (1.0 - dropout_p)), 0.0)
+    probs = probs.to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)

@@ -3,8 +3,7 @@ pre-activation dense layers (BN, ReLU, 1x1 conv, then BN, ReLU, 3x3
 conv) whose outputs are concatenated, half-width transitions, the depth
 table of 121/161/169/201/264.  ``data_format`` is the internal layout
 ("auto": NHWC on the card); the forward takes NCHW.  ``dropout`` > 0 puts
-a dropout after each dense layer (dropout in training waits for ROADMAP
-A9's generator and raises there)."""
+a dropout after each dense layer."""
 
 from __future__ import annotations
 

@@ -21,6 +21,7 @@ import paddle_tpu.nn.functional as JF
 
 import paddle_tpu_torch as ptt
 import paddle_tpu_torch.nn.functional as F
+from test_torch_dropout import FedMasks
 
 torch.set_num_threads(1)
 
@@ -435,9 +436,13 @@ def test_bilinear_functional():
 
 
 @pytest.mark.parametrize("fn", ["dropout2d", "dropout3d", "alpha_dropout"])
-def test_image_dropouts(fn):
+def test_image_dropouts(fn, monkeypatch):
+    """Identity at p = 0 and in eval; in training, with the same masks fed
+    to both packages, the JAX package's values and gradients."""
     x = torch.from_numpy(_np(69, 2, 3, 4, 5, 6))
     port = getattr(F, fn)
     assert port(x, 0.5, training=False) is x and port(x, 0.0) is x
-    with pytest.raises(NotImplementedError, match="A9"):
-        port(x, 0.5)
+    fed = FedMasks(monkeypatch, seed=69)
+    a = _np(69, 2, 3, 4, 5) if fn == "dropout2d" else _np(69, 2, 3, 4, 5, 6)
+    _check(lambda t: port(t, 0.5), lambda j: getattr(JF, fn)(j, 0.5), [a])
+    fed.check_same_draws()

@@ -2,8 +2,9 @@
 tiny config, in eval mode, with the JAX model's weights carried across:
 the encoder, the sequence-classification and the masked-LM models, with
 and without a padding mask and segment ids, their losses, the gradients
-of a dropout-free training step, bf16 weights, and training with dropout
-refused (ROADMAP A9).  Tolerances are the rows of ``tests/op_test.py``.
+of a dropout-free training step, bf16 weights, and a training forward
+with dropout, both packages fed the same masks
+(``test_torch_dropout.FedMasks``).  Tolerances are the rows of ``tests/op_test.py``.
 """
 
 import numpy as np
@@ -17,6 +18,7 @@ import paddle_tpu_torch as ptt
 from paddle_tpu_torch.convert import load_numpy_state_dict
 from paddle_tpu_torch.models import ernie
 from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+from test_torch_dropout import FedMasks
 
 torch.set_num_threads(1)
 
@@ -35,7 +37,7 @@ MODELS = {  # port class, reference class, extra constructor args
 
 def _pair(kind, seed=0, **cfg):
     cls, jcls, args = MODELS[kind]
-    config = dict(hidden_dropout_prob=0.0, **cfg)
+    config = {"hidden_dropout_prob": 0.0, **cfg}
     paddle.seed(seed)
     jm = jcls(jernie.ernie_tiny(**config), *args)
     jm.eval()
@@ -132,12 +134,21 @@ def test_bf16_weights_within_the_bf16_row():
     np.testing.assert_allclose(_np(got), _np(want), **BF16)
 
 
-def test_training_with_dropout_raises_a9():
-    tm = ernie.ErnieForSequenceClassification(ernie.ernie_tiny(), device="cpu")
-    ids, _, _ = _inputs(10)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tm(ids)
-    assert tuple(tm.eval()(ids).shape) == (B, 2)
+def test_training_with_dropout_raises_a9(monkeypatch):
+    """Training with dropout (no longer refused): with the masks fed to
+    both packages, the logits with a padding mask and segment ids match
+    the JAX model's, and eval draws nothing."""
+    jm, tm = _pair("classifier", seed=10, hidden_dropout_prob=0.1)
+    jm.train()
+    tm.train()
+    fed = FedMasks(monkeypatch, seed=10)
+    ids, seg, mask = _inputs(10)
+    got = tm(ids, seg, mask)
+    want = jm(paddle.to_tensor(ids), paddle.to_tensor(seg), paddle.to_tensor(mask))
+    np.testing.assert_allclose(_np(got), _np(want), **ATTN)
+    fed.check_same_draws(2 + 4 * ernie.ernie_tiny().num_hidden_layers)
+    assert tuple(tm.eval()(ids).shape) == (B, 3)
+    fed.check_same_draws(2 + 4 * ernie.ernie_tiny().num_hidden_layers)
 
 
 def test_sequence_longer_than_positions_and_default_device():

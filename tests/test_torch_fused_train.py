@@ -54,6 +54,7 @@ from paddle_tpu_torch.ops.fused_ln_swiglu import (
     fused_add_layer_norm, fused_add_layer_norm_bwd, fused_swiglu, fused_swiglu_bwd,
     swiglu_bwd_plain, swiglu_plain)
 from paddle_tpu_torch.optimizer import AdamW
+from test_torch_dropout import FedMasks
 
 torch.set_num_threads(1)
 
@@ -395,29 +396,41 @@ class TestFunctionalAndLayers:
         ln = LayerNorm(6, device="cpu")
         assert ln.weight.eq(1).all() and ln.bias.eq(0).all()
 
-    def test_dropout_identity_and_refusals(self):
+    def test_dropout_identity_and_refusals(self, monkeypatch):
+        """Identity at p = 0 and in eval; in training the layer, the
+        functional and the attention drop what the JAX package drops with
+        the same masks."""
         x = torch.from_numpy(_np(104, 4, 5))
         assert F.dropout(x, 0.0) is x and F.dropout(x, 0.5, training=False) is x
         torch.testing.assert_close(F.dropout(x, 0.25, training=False,
                                              mode="downscale_in_infer"), x * 0.75)
         drop = Dropout(0.1)
         assert drop.eval()(x) is x
-        with pytest.raises(NotImplementedError, match="Philox"):
-            drop.train()(x)
-        with pytest.raises(NotImplementedError, match="Philox"):
-            F.dropout(x, 0.1)
-        q = torch.zeros(1, 4, 2, 8)
-        with pytest.raises(NotImplementedError, match="Philox"):
-            F.scaled_dot_product_attention(q, q, q, dropout_p=0.1, is_causal=True)
+        fed = FedMasks(monkeypatch, seed=104)
+        _close(drop.train()(x), JF.dropout(paddle.to_tensor(x.numpy()), 0.1).numpy(), F32)
+        _close(F.dropout(x, 0.1), JF.dropout(paddle.to_tensor(x.numpy()), 0.1).numpy(), F32)
+        q = torch.from_numpy(_np(105, 1, 4, 2, 8))
+        jq = paddle.to_tensor(q.numpy())
+        _close(F.scaled_dot_product_attention(q, q, q, dropout_p=0.1, is_causal=True),
+               JF.scaled_dot_product_attention(jq, jq, jq, dropout_p=0.1,
+                                               is_causal=True).numpy(), LOGITS)
+        fed.check_same_draws(3)
         F.scaled_dot_product_attention(q, q, q, dropout_p=0.1, training=False)
+        fed.check_same_draws(3)
 
-    def test_gpt_with_dropout_raises_in_training_only(self):
-        tm = GPTForCausalLM(gpt_tiny(dropout=0.1), device="cpu")
-        ids = torch.from_numpy(_ids(105, (1, 8)))
-        with pytest.raises(NotImplementedError, match="Philox"):
-            tm(ids)
+    def test_gpt_with_dropout_raises_in_training_only(self, monkeypatch):
+        """GPT with dropout 0.1 in training: loss, logits and every grad
+        against the JAX model with the same masks (its attention and
+        residuals take the composite, unfused path); eval draws none."""
+        jm, tm = _gpt_pair(105, dropout=0.1)
+        fed = FedMasks(monkeypatch, seed=105)
+        ids, labels = _batch(106, b=2, s=8)
+        _grads_match(jm, tm, ids, labels)
+        # the embeddings' dropout, then attention, two residual branches a block
+        fed.check_same_draws(1 + 3 * gpt_tiny().num_hidden_layers)
         with torch.no_grad():
-            assert tm.eval()(ids).shape == (1, 8, 256)
+            assert tm.eval()(torch.from_numpy(ids)).shape == (2, 8, 256)
+        fed.check_same_draws(1 + 3 * gpt_tiny().num_hidden_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -474,15 +487,22 @@ def _jax_train(jm, batches, amp=False):
     return jm, [float(step(paddle.to_tensor(x), paddle.to_tensor(y))) for x, y in batches]
 
 
-def _torch_train(tm, batches, amp=False):
+def _torch_train(tm, batches, amp=False, fed=None):
+    """The port's steps; with ``fed`` masks, each step is fed the masks
+    the JAX step drew once, while it was traced."""
     opt = AdamW(1e-3, parameters=tm.parameters(), grad_clip=ClipGradByGlobalNorm(1.0))
     if amp:
         tm, opt = ptt.amp.decorate(tm, opt, level="O2", dtype="bfloat16")
     step = TrainStep(tm, lambda m, x, y: m(x, labels=y)[0], opt)
-    return tm, opt, [float(step(x, y)) for x, y in batches]
+    losses = []
+    for x, y in batches:
+        if fed is not None:
+            fed.rewind()
+        losses.append(float(step(x, y)))
+    return tm, opt, losses
 
 
-def _trajectories_match(jm, tm, batches):
+def _trajectories_match(jm, tm, batches, fed=None):
     """Losses within rtol 1e-4; parameters as ``tests/test_torch_train.py``
     holds them (Adam's first step may move a near-zero-gradient component
     by ±lr, so within 2·lr·steps absolute and 99% within rtol 1e-3).  The
@@ -490,7 +510,9 @@ def _trajectories_match(jm, tm, batches):
     constant added to a row of scores, so its gradient is zero but for
     rounding, and Adam moves it by that rounding's sign."""
     jm, jl = _jax_train(jm, batches)
-    tm, opt, tl = _torch_train(tm, batches)
+    tm, opt, tl = _torch_train(tm, batches, fed=fed)
+    if fed is not None:
+        assert fed.port == fed.ref * len(batches)
     np.testing.assert_allclose(tl, jl, **LOSS)
     assert tl[-1] < tl[0] and opt._step_count == len(batches)
     jparams = dict(jm.named_parameters())
@@ -534,6 +556,14 @@ class TestGPTSlice:
         jm, tm = _gpt_pair(140)
         _trajectories_match(jm, tm, [_batch(141)] * 5)
         assert jax_calls["fused_add_layer_norm"] > 0 and jax_calls["fused_adamw"] > 0
+
+    def test_dropout_steps_follow_jax(self, monkeypatch):
+        """Dropout 0.1: the composite attention and the unfused residuals,
+        three TrainSteps against the JAX step with the same masks."""
+        jm, tm = _gpt_pair(135, dropout=0.1)
+        fed = FedMasks(monkeypatch, seed=135)
+        _trajectories_match(jm, tm, [_batch(136)] * 3, fed=fed)
+        assert len(fed.ref) == 1 + 3 * gpt_tiny().num_hidden_layers
 
     def test_amp_o2_follows_jax_and_keeps_layer_norm_f32(self, gpt_fused, jax_calls):
         jm, tm = _gpt_pair(150)

@@ -9,7 +9,7 @@ from a seed and the weights cross by ``convert.py``.  Cases:
   fleet facade: ``fleet.init`` with all four degrees, the hybrid group's
   degrees and groups against the JAX group's, ``distributed_model`` (amp
   O2, recompute, a ``PipelineLayer``), ``distributed_optimizer`` (stage,
-  master weights, gradient merge), the A7 and A9 refusals;
+  master weights, gradient merge, ``asp``), the A7 refusals;
 - ``DistributedTrainStep`` at stages 0-3 on the reference's small model
   (dp 2 x sharding 2 x model 2): 5 steps' losses and the final weights
   against the JAX step, and the spec bookkeeping against the JAX step's
@@ -123,10 +123,26 @@ class TestStrategyKnobAudit:
             dist.fleet.init(is_collective=True, strategy=s, devices=["cpu"])
 
     def test_asp_waits_for_a9(self):
+        """``strategy.asp`` (no longer refused) wraps the optimizer in
+        ``incubate.asp.decorate``: pruned weights stay 2:4 through eager
+        steps."""
+        from paddle_tpu_torch.incubate import asp
+
         s = dist.fleet.DistributedStrategy()
         s.asp = True
-        with pytest.raises(NotImplementedError, match="A9"):
-            dist.fleet.init(is_collective=True, strategy=s, devices=["cpu"])
+        dist.fleet.init(is_collective=True, strategy=s, devices=["cpu"])
+        model = torch.nn.Sequential(ptt.nn.Linear(8, 8, device="cpu"))
+        asp.prune_model(model)
+        opt = dist.fleet.distributed_optimizer(
+            ptt.optimizer.SGD(0.1, parameters=model.parameters()))
+        assert opt._asp_decorated
+        for _ in range(2):
+            model(torch.ones(2, 8)).sum().backward()
+            opt.step()
+            opt.clear_grad()
+        assert asp.check_mask_1d(model[0].weight) and \
+            asp.calculate_density(model[0].weight) == 0.5
+        asp.ASPHelper.reset()
 
     def test_sharding_offload_knob_wires_through_and_is_refused(self, caplog):
         s = dist.fleet.DistributedStrategy()

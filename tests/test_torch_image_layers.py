@@ -21,6 +21,7 @@ import paddle_tpu_torch.nn as nn
 from paddle_tpu_torch.convert import load_numpy_state_dict
 
 from test_torch_conv import F32, GRAD, _check_jnp, _np, _ref_transpose
+from test_torch_dropout import FedMasks
 
 torch.set_num_threads(1)
 
@@ -134,11 +135,15 @@ def test_bilinear_layer_and_nhwc_layers():
                                    err_msg=cls)
 
 
-def test_layer_refusals_and_sync_batch_norm():
+def test_layer_refusals_and_sync_batch_norm(monkeypatch):
     with pytest.raises(NotImplementedError):
         nn.SpectralNorm()
-    with pytest.raises(NotImplementedError, match="A9"):
-        nn.Dropout2D(0.5)(torch.ones(1, 2, 3, 3))
+    fed = FedMasks(monkeypatch, seed=140)   # Dropout2D trains: the reference's channels
+    x = np.arange(1, 37, dtype=np.float32).reshape(2, 2, 3, 3)
+    np.testing.assert_allclose(nn.Dropout2D(0.5)(torch.from_numpy(x)).numpy(),
+                               np.asarray(jnn.Dropout2D(0.5)(paddle.to_tensor(x)).numpy()),
+                               **F32)
+    fed.check_same_draws(1)
     with pytest.raises(NotImplementedError, match="NCHW only"):
         nn.AdaptiveMaxPool2D(2, data_format="NHWC")(torch.ones(1, 3, 3, 2))
     model = nn.Sequential(nn.Conv2D(3, 4, 3), nn.BatchNorm2D(4, momentum=0.5))

@@ -29,6 +29,7 @@ from paddle_tpu_torch.convert import load_numpy_state_dict
 from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.nn.initializer import _fans
 from paddle_tpu_torch.optimizer import AdamW
+from test_torch_dropout import FedMasks
 
 torch.set_num_threads(1)
 
@@ -478,14 +479,15 @@ def test_activation_functional_matches_reference(name, kw):
     _close(getattr(F, name)(_t(x), **kw), getattr(JF, name)(_j(x), **kw))
 
 
-def test_prelu_functional_and_rrelu_training():
+def test_prelu_functional_and_rrelu_training(monkeypatch):
     x = _np(5, 2, 3, 4)
     for w in (np.array([0.2], np.float32), np.array([0.1, 0.2, 0.3], np.float32)):
         _close(F.prelu(_t(x), _t(w)), JF.prelu(_j(x), _j(w)))
     w4 = np.array([0.1, 0.2, 0.3, 0.4], np.float32)
     _close(F.prelu(_t(x), _t(w4), data_format="NHWC"), JF.prelu(_j(x), _j(w4), data_format="NHWC"))
-    with pytest.raises(NotImplementedError, match="A9"):
-        F.rrelu(_t(x))
+    fed = FedMasks(monkeypatch, seed=5, uniform=True)   # the same slopes to both
+    _close(F.rrelu(_t(x)), JF.rrelu(_j(x)))
+    fed.check_same_draws(1)
     with pytest.raises(ValueError):
         F.rrelu(_t(x), 0.5, 0.2, training=False)
 
@@ -507,15 +509,17 @@ def test_activation_layer_matches_reference(name, args):
     _close(getattr(nn, name)(*args)(_t(x)), getattr(jnn, name)(*args)(_j(x)))
 
 
-def test_prelu_and_rrelu_layers():
+def test_prelu_and_rrelu_layers(monkeypatch):
     x = _np(7, 2, 4, 3)
     _close(_carry(jnn.PReLU(4, 0.1), nn.PReLU(4, 0.1))(_t(x)), jnn.PReLU(4, 0.1)(_j(x)))
     assert nn.PReLU(3, 0.2).weight.eq(0.2).all()
     r, jr = nn.RReLU(0.1, 0.3).eval(), jnn.RReLU(0.1, 0.3)
     jr.eval()
     _close(r(_t(x)), jr(_j(x)))
-    with pytest.raises(NotImplementedError, match="A9"):
-        r.train()(_t(x))
+    fed = FedMasks(monkeypatch, seed=7, uniform=True)
+    jr.train()
+    _close(r.train()(_t(x)), jr(_j(x)))
+    fed.check_same_draws(1)
     with pytest.raises(ValueError, match="3-D or 4-D"):
         nn.Softmax2D()(_t(x[0, 0]))
 
@@ -765,16 +769,34 @@ def test_decoder_and_transformer_match_reference(normalize_before):
     _close(tdec(_t(tgt), _t(mem), tmask), jdec(_j(tgt), _j(mem), jmask), ATTN)
 
 
-def test_transformer_dropout_in_training_raises_a9():
-    layer = nn.TransformerEncoderLayer(D, HEADS, FF)   # dropout 0.1
-    x = _t(_np(84, B, S, D))
-    with pytest.raises(NotImplementedError, match="A9"):
-        layer(x)
-    layer.eval()
-    assert tuple(layer(x).shape) == (B, S, D)
-    attn = nn.MultiHeadAttention(D, HEADS, dropout=0.1)
-    with pytest.raises(NotImplementedError, match="A9"):
-        attn(x)
+def test_transformer_dropout_in_training_raises_a9(monkeypatch):
+    """Dropout 0.1 in training (no longer refused): the encoder and
+    decoder layers (post- and pre-norm) and attention against the
+    reference's with the same masks, drawn in the reference's order; eval
+    draws none."""
+    x, mem = _np(84, B, S, D), _np(85, B, S + 2, D)
+    mask = _pad_mask([S, 3], S)
+    for normalize_before in (False, True):
+        paddle.seed(84)
+        kw = dict(normalize_before=normalize_before)
+        jenc, jdec = jnn.TransformerEncoderLayer(D, HEADS, FF, **kw), \
+            jnn.TransformerDecoderLayer(D, HEADS, FF, **kw)
+        enc = _carry(jenc, nn.TransformerEncoderLayer(D, HEADS, FF, **kw))
+        dec = _carry(jdec, nn.TransformerDecoderLayer(D, HEADS, FF, **kw))
+        fed = FedMasks(monkeypatch, seed=84)
+        _close(enc(_t(x), _t(mask)), jenc(_j(x), _j(mask)), ATTN)
+        # attention probabilities, dropout1, act_dropout, dropout2
+        assert [shape for _, shape, _ in fed.port] == [(B, HEADS, S, S), (B, S, D),
+                                                       (B, S, FF), (B, S, D)]
+        _close(dec(_t(x), _t(mem)), jdec(_j(x), _j(mem)), ATTN)
+        fed.check_same_draws(4 + 6)
+    jattn = jnn.MultiHeadAttention(D, HEADS, dropout=0.1)
+    attn = _carry(jattn, nn.MultiHeadAttention(D, HEADS, dropout=0.1))
+    _close(attn(_t(x)), jattn(_j(x)), ATTN)
+    fed.check_same_draws(11)
+    enc.eval()
+    assert tuple(enc(_t(x)).shape) == (B, S, D)
+    fed.check_same_draws(11)
 
 
 def test_layers_are_built_on_the_default_device():

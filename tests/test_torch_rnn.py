@@ -19,6 +19,7 @@ import paddle_tpu.nn as jnn
 import paddle_tpu_torch as ptt
 import paddle_tpu_torch.nn as nn
 from paddle_tpu_torch.convert import load_numpy_state_dict
+from test_torch_dropout import FedMasks
 
 torch.set_num_threads(1)
 
@@ -163,12 +164,21 @@ def test_birnn():
              [tx, h0[0], hc[0][0], hc[1][0]], [jx, h0[1], hc[0][1], hc[1][1]])
 
 
-def test_dropout_between_layers_and_bad_direction():
-    port = nn.GRU(IN, HID, 2, dropout=0.5)
-    x = torch.from_numpy(_np(13, B, T, IN))
-    with pytest.raises(NotImplementedError, match="A9"):
-        port(x)
-    assert port.eval()(x)[0].shape == (B, T, HID)
+def test_dropout_between_layers_and_bad_direction(monkeypatch):
+    """Dropout 0.5 between the layers in training (a GRU, a bidirectional
+    LSTM): with the same masks fed to both packages, outputs, states and
+    every gradient match; eval draws none."""
+    x = _np(13, B, T, IN)
+    for cls, direction in (("GRU", "forward"), ("LSTM", "bidirect")):
+        port, ref = _pair(cls, IN, HID, 2, direction, seed=13, dropout=0.5)
+        fed = FedMasks(monkeypatch, seed=13)
+        tx, jx = _leaf(x)
+        _compare(port, ref, [tx], [jx], [tx], [jx])
+        dirs = 2 if direction == "bidirect" else 1
+        assert fed.port == [("mask", (B, T, dirs * HID), 0.5)]
+        fed.check_same_draws(1)
+        assert port.eval()(torch.from_numpy(x))[0].shape == (B, T, dirs * HID)
+        fed.check_same_draws(1)
     with pytest.raises(ValueError, match="direction"):
         nn.LSTM(IN, HID, direction="backward")
     ptt.set_device(None)

@@ -352,9 +352,6 @@ def test_unported_arguments_raise_with_their_queue_item():
 # a reference name the port defines elsewhere as another object (the same
 # word for a different function), which waits for its own item here
 NAME_CLASHES = {
-    ("paddle_tpu_torch.incubate.nn.functional", "fused_rms_norm"):
-        "the port's fused_rms_norm is B1's wrapper (ops.fused_norm); the reference's "
-        "residual API waits for ROADMAP A9 and raises",
     ("paddle_tpu_torch.jit", "save"): "framework.io.save; jit.save waits for A3d and raises",
     ("paddle_tpu_torch.jit", "load"): "framework.io.load; jit.load waits for A3d and raises",
 }
@@ -467,7 +464,6 @@ def test_c3_calls():
     ("paddle_tpu_torch.sparse", "A10"), ("paddle_tpu_torch.onnx", "A10"),
     ("paddle_tpu_torch.quantization", "A10"), ("paddle_tpu_torch.static", "A10"),
     ("paddle_tpu_torch.jit.to_static", "A3d"), ("paddle_tpu_torch.jit.save", "A3d"),
-    ("paddle_tpu_torch.incubate.nn.functional.fused_rms_norm", "A9"),
     ("paddle_tpu_torch.incubate.distributed", "A9"), ("paddle_tpu_torch.vision.ops", "A10"),
     ("paddle_tpu_torch.serving.Router", "A8"), ("paddle_tpu_torch.device.Stream", "A10"),
     ("paddle_tpu_torch.telemetry.prometheus_text", "A8")])
