@@ -297,7 +297,25 @@ exits non-zero without them.  Phases, each raising on failure:
    at batch 8, a GPT-3 1.3B block with dropout (bf16 against f32 with the
    same masks), ``FusedMultiHeadAttention`` + ``FusedFeedForward`` at
    ERNIE's width (one B3, B3b and B3c a step) and ``incubate``'s
-   residual norms on B11/B11b and B1/B1b against their plain twins.
+   residual norms on B11/B11b and B1/B1b against their plain twins;
+24. MoE Llama (``phase_moe``, after 23), at Mixtral-8x7B's widths (d 4096,
+   h 14336, 8 experts, top-2, GQA 32:8): (a) one ``ExpertParallelMLP`` on
+   512 tokens, f32 on the card against the CPU (the routing equal but for
+   certified near-ties, the other tokens within 1e-4), bf16 within 2e-2
+   of f32 over the tokens routed alike, the experts split over a 2-member
+   mesh on cuda:0 bit-equal to one block; (b) 16 of its 32 layers in bf16
+   (the 32 need 93.4 GB): ``generate_batch`` on 8 ragged prompts with the
+   kernels (launches counted) and with their plain twins, token-exact up
+   to certified near-ties, the assignments dropped by capacity logged;
+   ``generate`` at 8 x 512 + 32 (prefill, decode, peak) with a decode step
+   and a prefill profiled by MoE part; the ``ServingEngine`` on the same
+   prompts against ``generate_batch``: token-exact, parted after a drop on
+   either path (logged), or at a certified near-tie; (c) training: the
+   f32 gate at 1 layer, 2 x 128, card against CPU within 1e-4 (loss and
+   every gradient), the bf16 O2 rule at 2 layers, and 3 warm-up and 10
+   counted ``TrainStep``s at 2 layers, 4 x 2048, AdamW + clip with B5:
+   ms a step, tokens/s, MFU by the active parameters (the top-2 experts),
+   peak (above 75 GiB the batch halves).
 
 The last lines are the ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
@@ -5292,12 +5310,14 @@ def train_steps(torch, card, make, layers, flags, ids, labels):
     model = make(layers)
     cfg, label = model.config, f"{make.__name__[5:]} {flags}"
     n_params, n_tensors = model.num_params(), len(list(model.parameters()))
+    n_active = active_params(model)
     opt = AdamW(1e-4, parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(1.0))
     model, opt = ptt.amp.decorate(model, opt, level="O2", dtype="bfloat16")
     step = TrainStep(model, lambda m, x, y: m(x, labels=y)[0], opt)
-    L, tokens = layers, TRAIN_BATCH * TRAIN_SEQ
-    flops = 6 * n_params * tokens + L * 7 * TRAIN_BATCH * cfg.num_attention_heads \
-        * TRAIN_SEQ ** 2 * cfg.head_dim
+    (rows, seq), L = ids.shape, layers
+    tokens = rows * seq
+    flops = 6 * n_active * tokens + L * 7 * rows * cfg.num_attention_heads \
+        * seq ** 2 * cfg.head_dim
     with ptt.flag_guard(**flags):
         losses = [float(step(ids, labels)) for _ in range(TRAIN_WARMUP)]
         torch.cuda.synchronize()
@@ -5335,12 +5355,24 @@ def train_steps(torch, card, make, layers, flags, ids, labels):
         step_s = took / TRAIN_STEPS
         log(f"train {label} throughput on {card}: {tokens / step_s:.1f} tokens/s, "
             f"{step_s * 1e3:.1f} ms a step ({n_params / 1e9:.3f} B params in {n_tensors} "
-            f"tensors, {L} layers, {TRAIN_BATCH}x{TRAIN_SEQ}), MFU "
+            f"tensors, {n_active / 1e9:.3f} B active a token, {L} layers, {rows}x{seq}), MFU "
             f"{flops / step_s / BF16_FLOPS:.4f} of {flops / 1e12:.2f} TFLOP a step at 989 "
             f"TFLOP/s; peak memory {peak / 2**30:.2f} GiB; StepMeter: {summary}")
         profile_step(torch, f"train step {label}", lambda: step(ids, labels))
     del model, opt, step
     return launches, losses, step_s * 1e3
+
+
+def active_params(model) -> int:
+    """The parameters one token passes through: all of them, less in each
+    MoE layer the E - k experts its router does not choose."""
+    cfg = model.config
+    n = model.num_params()
+    for layer in getattr(getattr(model, "llama", None), "layers", ()):
+        if hasattr(layer.mlp, "w1"):
+            experts = sum(p.numel() for p in (layer.mlp.w1, layer.mlp.w_gate, layer.mlp.w2))
+            n -= experts * (cfg.moe_num_experts - cfg.moe_top_k) // cfg.moe_num_experts
+    return n
 
 
 def step_launches(cfg, L, n_tensors):
@@ -5359,9 +5391,12 @@ def step_launches(cfg, L, n_tensors):
     if not isinstance(cfg, (LlamaConfig, GPTConfig)):
         raise TypeError(f"no launch count for a {type(cfg).__name__} model")
     if isinstance(cfg, LlamaConfig):
+        # an MoE layer's expert SwiGLU is plain, as the reference's
+        dense = sum(1 for i in range(L)
+                    if not (cfg.moe_num_experts > 0 and i % cfg.moe_every == 0))
         per_step.update(rms_norm=2 * L + 1, rope=L, rms_norm_bwd=2 * L + 1, rope_bwd=L,
-                        swiglu=L if on["use_fused_swiglu"] else 0,
-                        swiglu_bwd=L if on["use_fused_swiglu"] else 0)
+                        swiglu=dense if on["use_fused_swiglu"] else 0,
+                        swiglu_bwd=dense if on["use_fused_swiglu"] else 0)
     else:
         per_step.update(add_layer_norm=L if on["use_fused_layernorm"] else 0,
                         add_layer_norm_bwd=L if on["use_fused_layernorm"] else 0)
@@ -7794,6 +7829,594 @@ def phase_core(torch, card):
     return launches
 
 
+MOE_SERVE_LAYERS = 16      # phase_moe (b): 23.48 B parameters, 46.96 GB in bf16 (32 need 93.4)
+MOE_TRAIN_LAYERS = 2       # (c): 3.17 B parameters under O2 AdamW (about 51 GB of states)
+MOE_LAYER_TOKENS = 512     # (a): the layer's tokens
+MOE_NEAR_TIE = 1e-5        # a routing may part where the k-th and (k+1)-th probabilities are closer
+MOE_F32_REL = 1e-4         # (a), (c): f32 card against the CPU, relative L2
+MOE_TRAIN_GATE = (1, 2, 128)   # (c): the f32 gate's layers, rows and tokens a row
+MOE_PEAK_GIB = 75.0        # (c): a peak above it halves the batch
+MOE_DEPTH_REL = 0.1        # (b): two bf16 paths' logits at 16 layers (PR 1-15: 0.05 apart at 32)
+MOE_KERNELS = frozenset({"rms_norm", "rms_norm_bwd", "rope", "rope_bwd", "flash_attention",
+                         "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "adamw",
+                         "decode_attention"})
+MOE_PARTS = ("_router_logits", "_route", "_dispatch", "_combine")
+
+
+def make_mixtral(layers: int, seed: int = 0):
+    from paddle_tpu_torch.models import LlamaForCausalLM, mixtral_8x7b
+
+    return LlamaForCausalLM(mixtral_8x7b(num_hidden_layers=layers), device="cuda", seed=seed)
+
+
+@contextlib.contextmanager
+def moe_routings(torch, tag=None):
+    """Every routing of the port's MoE layers inside, recorded on the host
+    into the yielded list, in call order: (a copy of ``tag``, the caller's
+    context at that call; the router logits in f32; the Routing)."""
+    from paddle_tpu_torch.incubate.distributed.models import moe
+
+    seen, real = [], moe._route
+
+    def spy(logits, k, capacity, *a):
+        r = real(logits, k, capacity, *a)
+        seen.append((dict(tag or {}), logits.detach().float().cpu(), moe.Routing(*(
+            t.detach().cpu() if isinstance(t, torch.Tensor) else t for t in r))))
+        return r
+
+    moe._route = spy
+    try:
+        yield seen
+    finally:
+        moe._route = real
+
+
+def dropped(r):
+    """A Routing's dropped assignments and the tokens that lost one."""
+    return int((~r.keep).sum()), (~r.keep).any(0).nonzero().flatten().tolist()
+
+
+def moe_gap(torch, logits, k):
+    """Each token's smallest gap between neighbours among its k + 1 largest
+    router probabilities: under it, rounding may swap two choices (their
+    order too, which sets the priority round) or a choice and the next."""
+    top = torch.softmax(logits.float(), dim=-1).sort(dim=-1, descending=True).values
+    return (top[:, :k] - top[:, 1:k + 1]).min(dim=-1).values
+
+
+def moe_route_diff(torch, label, a, b):
+    """Two routings of the same tokens ((logits, Routing) pairs): every
+    token whose experts differ must be a near-tie (gap under MOE_NEAR_TIE
+    on both sides); returns the tokens whose expert, slot or keep differ
+    (the parting tokens and those their claims moved), logged."""
+    (la, ra), (lb, rb) = a, b
+    k = ra.expert.shape[0]
+    moved = (ra.expert != rb.expert).any(0)
+    gaps = torch.minimum(moe_gap(torch, la, k), moe_gap(torch, lb, k))
+    if bool((gaps[moved] >= MOE_NEAR_TIE).any()):
+        raise AssertionError(f"{label}: tokens {moved.nonzero().flatten().tolist()} route "
+                             f"differently at probability gaps {gaps[moved].tolist()}")
+    differ = moved | (ra.slot != rb.slot).any(0) | (ra.keep != rb.keep).any(0)
+    log(f"moe {label}: {int(moved.sum())} of {moved.numel()} tokens route to other experts "
+        f"(certified near-ties, gaps {[f'{g:.2e}' for g in gaps[moved].tolist()]}); "
+        f"{int(differ.sum())} tokens' slots differ; {int((~ra.keep).sum())} / "
+        f"{int((~rb.keep).sum())} assignments dropped")
+    return differ
+
+
+@contextlib.contextmanager
+def moe_ranges(torch):
+    """The MoE layer's parts (router, routing, dispatch, experts, combine),
+    each inside a ``torch.profiler`` range ``moe.<part>``."""
+    from paddle_tpu_torch.incubate.distributed.models import moe
+
+    saved = {n: getattr(moe, n) for n in MOE_PARTS}
+    experts = moe.ExpertParallelMLP._experts
+
+    def ranged(name, fn):
+        def inner(*a, **kw):
+            with torch.profiler.record_function(f"moe.{name.strip('_')}"):
+                return fn(*a, **kw)
+        return inner
+
+    for n, f in saved.items():
+        setattr(moe, n, ranged(n, f))
+    moe.ExpertParallelMLP._experts = ranged("experts", experts)
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(moe, n, f)
+        moe.ExpertParallelMLP._experts = experts
+
+
+def moe_profile(torch, label, fn, n=3):
+    """Over ``n`` warm calls of ``fn``, from ``torch.profiler``'s events:
+    the device's busy time (the union of the kernels' intervals: cuBLAS's
+    kernels on this card may overlap their neighbours, so their durations
+    summed exceed the wall) and idle share, the kernels' time by MoE part
+    (the kernels launched inside each range; the ranges' own device-side
+    spans are left out, as they count the gaps between kernels), the
+    attention kernels (B3, B6), the rest, and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with moe_ranges(torch), profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / n
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("moe.")]
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no device time")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy /= 1e3 * n
+    summed = sum(e.device_time_total for e in kernels) / 1e3 / n
+    parts = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith("moe."):
+            parts[e.name[4:]] = parts.get(e.name[4:], 0.0) + e.device_time_total / 1e3 / n
+    attn = sum(e.device_time_total for e in kernels
+               if "attention" in e.name.lower() or "flash" in e.name.lower()) / 1e3 / n
+    top = {}
+    for e in kernels:
+        top[e.name] = top.get(e.name, 0.0) + e.device_time_total / 1e3 / n
+    log(f"profile moe {label}: wall {wall:.2f} ms (profiled), device busy {busy:.2f} ms "
+        f"(kernels summed {summed:.2f}), idle share {1 - busy / wall:.3f}; kernel ms by part: "
+        + "; ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; attention {attn:.3f}; the rest {summed - sum(parts.values()) - attn:.3f}; "
+        f"launches a call {len(kernels) / n:.0f}; top: "
+        + "; ".join(f"{k[:40]} {v:.3f}" for k, v in sorted(top.items(), key=lambda kv: -kv[1])[:5]))
+    return parts
+
+
+def moe_layer(torch, card, dev="cuda"):
+    """(a) ``ExpertParallelMLP`` at Mixtral's widths on 512 tokens: f32 on
+    the card against the CPU (the routing equal but for certified
+    near-ties; the other tokens' outputs within MOE_F32_REL), bf16 within
+    LOGITS_REL_TOL of the card's f32 over the tokens routed alike, the
+    experts split over a 2-member mesh on cuda:0 bit-equal to one block;
+    ms a call and device time by part."""
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.incubate.distributed.models import moe
+    from paddle_tpu_torch.models import mixtral_8x7b
+
+    cfg = mixtral_8x7b()
+    d, h, E, k = cfg.hidden_size, cfg.intermediate_size, cfg.moe_num_experts, cfg.moe_top_k
+    gen = torch.Generator(device=dev).manual_seed(7)
+    layer = moe.ExpertParallelMLP(d, h, E, top_k=k, capacity_factor=cfg.moe_capacity_factor,
+                                  device=dev, generator=gen)
+    x = torch.randn(MOE_LAYER_TOKENS, d, device=dev, generator=gen)
+    cpu = copy.deepcopy(layer).to("cpu")
+    cap = moe._capacity(MOE_LAYER_TOKENS, E, k, cfg.moe_capacity_factor)
+
+    def route(m, t):
+        lg = moe._router_logits(t, m.gate_weight)
+        r = moe._route(lg, k, cap)
+        return lg.cpu(), moe.Routing(*(v.cpu() if isinstance(v, torch.Tensor) else v
+                                       for v in r))
+
+    with torch.no_grad():
+        out, r_card = layer(x), route(layer, x)
+        t = time.perf_counter()
+        out_cpu, r_cpu = cpu(x.cpu()), route(cpu, x.cpu())
+        cpu_s = time.perf_counter() - t
+        differ = moe_route_diff(torch, "(a) f32 card vs CPU", r_card, r_cpu)
+        same = ~differ
+        rel = rel_l2(out.cpu()[same], out_cpu[same])
+        log(f"moe (a) layer d {d}, h {h}, E {E}, top-{k}, {MOE_LAYER_TOKENS} tokens, capacity "
+            f"{cap}: f32 card vs CPU relative L2 {rel:.3g} over {int(same.sum())} tokens "
+            f"(bound {MOE_F32_REL}; the CPU's call {cpu_s:.1f} s)")
+        if not rel <= MOE_F32_REL:
+            raise AssertionError(f"moe (a): f32 card against the CPU {rel} > {MOE_F32_REL}")
+        del cpu, out_cpu
+        lb = copy.deepcopy(layer).bfloat16()
+        xb = x.bfloat16()
+        out_b, r_b = lb(xb), route(lb, xb)
+        moved = (r_b[1].expert != r_card[1].expert).any(0) | \
+            (r_b[1].keep != r_card[1].keep).any(0)
+        rel_b = rel_l2(out_b.float().cpu()[~moved], out.cpu()[~moved])
+        log(f"moe (a) bf16 vs the card's f32: relative L2 {rel_b:.4g} over {int((~moved).sum())} "
+            f"tokens routed alike ({int(moved.sum())} route otherwise in bf16: gaps "
+            f"{[f'{g:.2e}' for g in moe_gap(torch, r_card[0], k)[moved].tolist()][:8]})")
+        if not rel_b <= LOGITS_REL_TOL:
+            raise AssertionError(f"moe (a): bf16 {rel_b} from f32 > {LOGITS_REL_TOL}")
+        ms32 = time_ms(torch, lambda: layer(x), iters=3, repeats=3, warmup=1)
+        ms16 = time_ms(torch, lambda: lb(xb), iters=3, repeats=3, warmup=1)
+        log(f"moe (a) layer on {card}: f32 {ms32:.3f} ms, bf16 {ms16:.3f} ms a call")
+        moe_profile(torch, f"(a) bf16 layer, {MOE_LAYER_TOKENS} tokens", lambda: lb(xb))
+        del lb, out_b
+        mesh = topology.build_mesh(dp=2, devices=[torch.device(dev, 0)] * 2)
+        topology.set_hybrid_communicate_group(topology.HybridCommunicateGroup(mesh=mesh))
+        layer.expert_axes = ("data",)
+        try:
+            if layer._expert_mesh() is not mesh:
+                raise AssertionError("moe (a): the experts do not split over the mesh")
+            split = layer(x)
+        finally:
+            topology.set_hybrid_communicate_group(None)
+        if not torch.equal(split, out):
+            raise AssertionError("moe (a): the 2-member expert split is not bit-equal "
+                                 "to one block")
+        log("moe (a) experts split over a 2-member mesh on cuda:0: bit-equal to one block")
+
+
+def moe_record(torch, model, fn):
+    """``fn()`` with the last position's f32 logits of every forward of
+    ``model`` and the ids of every ``generate`` call kept on the host:
+    returns (result, [logits [b, V] per forward], [ids per generate])."""
+    import numpy as np
+
+    logits, rows = [], []
+    fwd, gen = model.forward, model.generate
+
+    def spy_fwd(*a, **k):
+        out = fwd(*a, **k)
+        logits.append((out[0] if isinstance(out, tuple) else out)[:, -1].float().cpu())
+        return out
+
+    def spy_gen(ids, *a, **k):
+        rows.append(np.asarray(ids.cpu() if hasattr(ids, "cpu") else ids))
+        return gen(ids, *a, **k)
+
+    model.forward, model.generate = spy_fwd, spy_gen
+    try:
+        result = fn()
+    finally:
+        del model.forward, model.generate
+    return result, logits, rows
+
+
+def moe_rows_of(prompts, rows):
+    """The batch row of each prompt in the left-padded ``rows`` [b, s]."""
+    out = []
+    for p in prompts:
+        hits = [r for r in range(rows.shape[0]) if (rows[r, -len(p):] == p).all()
+                and not rows[r, :-len(p)].any()]
+        if not hits:
+            raise AssertionError(f"prompt of {len(p)} tokens not in the batch")
+        out.append(hits[0])
+    return out
+
+
+def moe_certify(torch, label, got, want, got_logits, want_logits):
+    """Where two greedy bf16 streams part (token i), a near-tie: each
+    path's logits there choose its own token, by a margin over the other
+    token no larger than the largest difference between the two paths'
+    logits, and the paths lie within MOE_DEPTH_REL of each other.
+    Returns the index (len if none) and a note."""
+    i = first_diff(got, want)
+    if i is None:
+        return len(want), "token-exact"
+    g, w = int(got[i]), int(want[i])
+    a, b = got_logits[i].float(), want_logits[i].float()
+    r, gap = rel_l2(a, b), float((a - b).abs().max())
+    margin = max(float(a[g] - a[w]), float(b[w] - b[g]))
+    note = (f"part at token {i}: {g} / {w}, margins {float(a[g] - a[w]):.4f} / "
+            f"{float(b[w] - b[g]):.4f} within the paths' largest logit difference {gap:.4f}, "
+            f"{r:.4g} relative L2 apart")
+    if int(a.argmax()) != g or int(b.argmax()) != w or margin > gap or not r <= MOE_DEPTH_REL:
+        raise AssertionError(f"moe {label}: not a near-tie: {note}")
+    return i, note
+
+
+def moe_serve(torch, card, dev="cuda"):
+    """(b) Mixtral-8x7B at MOE_SERVE_LAYERS layers in bf16: generate_batch
+    on 8 ragged prompts with the kernels (launches counted) and with their
+    plain twins (flags off), token-exact up to certified near-ties;
+    generate at 8 x 512 timed, a decode step and a prefill profiled by
+    part; the ServingEngine on the same prompts against generate_batch:
+    token-exact, or parted after an assignment of the request dropped by
+    capacity on either path (logged), or at a certified near-tie.  Returns
+    generate_batch's launches."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.inference import Predictor
+    from paddle_tpu_torch.models import LlamaForCausalLM, mixtral_8x7b
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = mixtral_8x7b(num_hidden_layers=MOE_SERVE_LAYERS)
+    L, T, V, P = cfg.num_hidden_layers, MAX_NEW, cfg.vocab_size, ENGINE_KW["page_tokens"]
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0).eval()
+    torch.cuda.synchronize()
+    log(f"moe (b) mixtral_8x7b at {L} layers: {model.num_params() / 1e9:.2f} B params "
+        f"({active_params(model) / 1e9:.2f} B active a token) bf16 on {card}, made in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, V, n).astype(np.int32) for n in ENGINE_PROMPT_LENS]
+    pred = Predictor.from_model(model)
+    want = {"rms_norm": (2 * L + 1) * T, "rope": L * T, "flash_attention": L,
+            "decode_attention": L * (T - 1)}
+
+    def batch(flags):
+        with ptt.flag_guard(**flags), moe_routings(torch) as seen:
+            result = moe_record(torch, model, lambda: counted_launches(
+                torch, lambda: pred.generate_batch(prompts, max_batch=BATCH,
+                                                   max_new_tokens=T)))
+        return result, seen
+
+    t = time.perf_counter()
+    ((outs, launches), klog, krows), kdrops = batch({})
+    log(f"moe (b) generate_batch: {time.perf_counter() - t:.1f} s with the recorders, "
+        f"launches {launches}")
+    if launches != want or len(krows) != 1 or len(klog) != T or len(kdrops) != L * T:
+        raise AssertionError(f"moe (b) generate_batch: launches {launches} (want {want}), "
+                             f"{len(krows)} batches, {len(klog)} forwards, {len(kdrops)} "
+                             f"routings")
+    ((plain, _), plog, prows), _ = batch(OFF_FLAGS)
+    krow, prow = moe_rows_of(prompts, krows[0]), moe_rows_of(prompts, prows[0])
+    klog_of = {i: [lg[krow[i]] for lg in klog] for i in range(len(prompts))}
+    notes = []
+    for i, p in enumerate(prompts):
+        ids = outs[i][0]
+        if ids.shape != (T,) or ids.min() < 0 or ids.max() >= V:
+            raise AssertionError(f"moe (b): bad output for the prompt of {len(p)}: {ids}")
+        notes.append(moe_certify(torch, f"(b) kernels vs plain, prompt {i}", ids,
+                                 plain[i][0], klog_of[i], [lg[prow[i]] for lg in plog])[1])
+    log(f"moe (b) {L}-layer generate_batch, kernels vs plain twins: " + "; ".join(
+        f"{len(p)}: {n}" for p, n in zip(prompts, notes)))
+    del plog, plain
+    # generate_batch's dropped assignments of real tokens, by prompt: the
+    # forward that makes token f is routings f*L .. f*L + L - 1
+    s_pad = krows[0].shape[1]
+    pad_of = {krow[i]: s_pad - len(p) for i, p in enumerate(prompts)}
+    batch_drops = {i: [] for i in range(len(prompts))}
+    for c, (_, lg, r) in enumerate(kdrops):
+        n = lg.shape[0]
+        for tok in dropped(r)[1]:
+            row, pos = (tok // s_pad, tok % s_pad) if n == BATCH * s_pad else (tok, s_pad)
+            if pos >= pad_of[row]:
+                batch_drops[krow.index(row)].append(c // L)
+    by_layer = [dropped(r)[0] for _, _, r in kdrops[:L]]
+    log(f"moe (b) generate_batch prefill ({BATCH}x{s_pad} tokens, capacity "
+        f"{kdrops[0][2].capacity}): {sum(by_layer)} assignments dropped over {L} layers, by "
+        f"layer {by_layer}; decode (capacity {kdrops[-1][2].capacity}): "
+        f"{sum(dropped(r)[0] for _, _, r in kdrops[L:])} dropped; prompts with a real "
+        f"token's assignment "
+        f"dropped: {sorted(i for i, d in batch_drops.items() if d)}")
+
+    # generate on the unpadded batch: prefill and decode times, peak, profiles
+    ids_b = torch.as_tensor(rng.integers(1, V, (BATCH, 512)), device=dev)
+
+    def timed(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.generate(ids_b, max_new_tokens=n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    t1, tn = timed(1), timed(T)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"moe (b) generate {BATCH}x512+{T} on {card}: prefill {t1 * 1e3:.1f} ms "
+        f"({BATCH * 512 / t1:.1f} tokens/s), decode {(tn - t1) / (T - 1) * 1e3:.2f} ms a step "
+        f"({BATCH * (T - 1) / (tn - t1):.1f} tokens/s), peak {peak:.2f} GiB")
+    with torch.inference_mode():
+        caches = model.new_kv_cache(BATCH, 512 + T)
+        logits, _ = model(ids_b, kv_cache=caches, position_offset=0)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        del logits
+        moe_profile(torch, f"(b) generate decode step, batch {BATCH}",
+                    lambda: model(tok, kv_cache=caches, position_offset=512))
+        moe_profile(torch, f"(b) generate prefill {BATCH}x512", lambda: model(
+            ids_b, kv_cache=caches, position_offset=0), n=1)
+        del caches
+
+    # the engine on the same prompts, stepped; its logits and drops by request
+    eng = ServingEngine(model, **ENGINE_KW)
+    rids = [eng.submit(p, max_new_tokens=T) for p in prompts]
+    length = dict(zip(rids, ENGINE_PROMPT_LENS))
+    by_rid = {rid: [] for rid in rids}
+    tag = {"rid": None, "rows": None, "step": 0}
+    chunks_fn, prefill_fn, forward_fn = eng._prefill_chunks, eng._prefill, eng._forward
+
+    def spy_chunks(*a, **k):
+        lg = chunks_fn(*a, **k)
+        by_rid[tag["rid"]].append(torch.from_numpy(lg))
+        return lg
+
+    def spy_prefill(r):
+        tag["rid"] = r.rid
+        try:
+            return prefill_fn(r)
+        finally:
+            tag["rid"] = None
+
+    def spy_forward(tokens, positions, tables, n_tok, take=None):
+        if take is not None:
+            return forward_fn(tokens, positions, tables, n_tok, take)
+        rows = {row: r for row, r in eng._active.items() if int(n_tok[row]) > 0}
+        tag["rows"] = {row: r.rid for row, r in rows.items()}
+        tag["step"] = {r.rid: len(r.generated) for r in rows.values()}
+        try:
+            out = forward_fn(tokens, positions, tables, n_tok)
+        finally:
+            tag["rows"] = None
+        for row, r in rows.items():
+            by_rid[r.rid].append(out[row, 0].float().cpu())
+        return out
+
+    eng._prefill_chunks, eng._prefill, eng._forward = spy_chunks, spy_prefill, spy_forward
+    step_s, n_launch = [], {}
+    with moe_routings(torch, tag) as edrops:
+        while eng._queue or eng._active:
+            t = time.perf_counter()
+            _, counts = counted_launches(torch, eng.step)
+            step_s.append(time.perf_counter() - t)
+            for key, c in counts.items():
+                n_launch[key] = n_launch.get(key, 0) + c
+    outs_e = eng.run()
+    del eng._prefill_chunks, eng._prefill, eng._forward
+    eng.pool.check_leaks()
+    chunks = sum(-(-n // P) for n in ENGINE_PROMPT_LENS)
+    want_e = {"rms_norm": (2 * L + 1) * (chunks + T - 1), "rope": L * (chunks + T - 1)}
+    if n_launch != want_e:
+        raise AssertionError(f"moe (b) engine: launches {n_launch}, want {want_e}")
+    # the engine's dropped assignments of real tokens, by request and token
+    eng_drops = {rid: [] for rid in rids}
+    seen_chunks = {rid: 0 for rid in rids}
+    for ctx, _, r in edrops:
+        toks = dropped(r)[1]
+        if ctx["rid"] is not None:          # a prefill chunk: token 0 of the request
+            c = seen_chunks[ctx["rid"]] // L
+            seen_chunks[ctx["rid"]] += 1
+            if any(tok < length[ctx["rid"]] - c * P for tok in toks):
+                eng_drops[ctx["rid"]].append(0)
+        else:                               # a decode step: one token a live row
+            for tok in toks:
+                rid = ctx["rows"].get(tok)
+                if rid is not None:
+                    eng_drops[rid].append(ctx["step"][rid])
+    chunk_drops = sum(dropped(r)[0] for ctx, _, r in edrops if ctx["rid"] is not None)
+    log(f"moe (b) engine on {card}: first step (the {len(prompts)} prefills, {chunks} chunks) "
+        f"{step_s[0] * 1e3:.1f} ms, decode {np.mean(step_s[1:]) * 1e3:.2f} ms a step at batch "
+        f"{BATCH} (recorders on), {BATCH * T / sum(step_s):.1f} tokens/s over the run; "
+        f"{chunk_drops} assignments dropped in the prefill chunks (capacity 8 of {P} "
+        f"tokens), {sum(dropped(r)[0] for ctx, _, r in edrops if ctx['rid'] is None)} in "
+        f"decode; launches "
+        f"{n_launch}")
+    lines = []
+    for i, (rid, p) in enumerate(zip(rids, prompts)):
+        got, ref = outs_e[rid], outs[i][0]
+        j = first_diff(got, ref)
+        drops = [s for s in batch_drops[i] + eng_drops[rid] if j is not None and s <= j]
+        if j is None:
+            lines.append(f"{len(p)}: token-exact")
+        elif drops:
+            lines.append(f"{len(p)}: part at token {j} after {len(drops)} dropped assignments "
+                         f"of the request (generate_batch at tokens {sorted(set(batch_drops[i]))[:6]}, "
+                         f"engine at {sorted(set(eng_drops[rid]))[:6]}): the drops explain it")
+        else:
+            lines.append(f"{len(p)}: " + moe_certify(
+                torch, f"(b) engine vs generate_batch, prompt {i}", got, ref, by_rid[rid],
+                klog_of[i])[1])
+    log("moe (b) engine vs generate_batch: " + "; ".join(lines))
+    del eng, pred, model, klog, klog_of
+    return launches
+
+
+def moe_train(torch, card, dev="cuda"):
+    """(c) Mixtral-8x7B training: the f32 gate (MOE_TRAIN_GATE: one layer,
+    2 x 128 tokens) card against the CPU within MOE_F32_REL for the loss
+    and every gradient, the routing equal but for certified near-ties;
+    the bf16 O2 rule at 2 layers on 1 x 2048 (``grads_against_f32``: the
+    loss and all gradients together within LOGITS_REL_TOL of the plain
+    path or no farther from f32, and at most DEPTH_REL_MARGIN times the
+    plain path's distance); then ``train_steps`` at MOE_TRAIN_LAYERS and
+    4 x 2048 (halved if the peak passes MOE_PEAK_GIB).  Returns the counted
+    steps' launches."""
+    import numpy as np
+
+    layers, rows, seq = MOE_TRAIN_GATE
+    model = make_mixtral(layers)
+    vocab = model.config.vocab_size
+    ids = torch.as_tensor(np.random.default_rng(9).integers(0, vocab, (rows, seq)), device=dev)
+    labels = torch.roll(ids, -1, dims=1)
+    cpu = copy.deepcopy(model).to("cpu")
+    with moe_routings(torch) as card_routes:
+        card_loss, card_grads = loss_and_grads(torch, model, ids, labels)
+    t = time.perf_counter()
+    with moe_routings(torch) as cpu_routes:
+        cpu_loss, cpu_grads = loss_and_grads(torch, cpu, ids.cpu(), labels.cpu())
+    cpu_s = time.perf_counter() - t
+    del model, cpu
+    differ = moe_route_diff(torch, "(c) f32 gate, card vs CPU", card_routes[0][1:],
+                            cpu_routes[0][1:])
+    r_loss = abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    worst = sorted(((rel_l2(card_grads[n].cpu(), g), n) for n, g in cpu_grads.items()),
+                   reverse=True)
+    log(f"moe (c) f32 gate, {layers} layer, {rows}x{seq}: loss card {float(card_loss):.6f} CPU "
+        f"{float(cpu_loss):.6f} ({r_loss:.3g}); grads relative L2, worst three: "
+        + "; ".join(f"{n} {r:.3g}" for r, n in worst[:3]) + f" (bound {MOE_F32_REL}; the "
+        f"CPU's step {cpu_s:.1f} s)")
+    # a certified near-tie moves a token's claim between rounds: with no
+    # drop on either side each token still sums the same expert rows, and
+    # only the aux loss's top-1 share (the routers' gradients) sees it
+    drops = bool(dropped(card_routes[0][2])[0] or dropped(cpu_routes[0][2])[0])
+    if bool(differ.any()) and drops:
+        log(f"moe (c) f32 gate: {int(differ.sum())} tokens routed otherwise at certified "
+            f"near-ties beside dropped assignments; the gradients are not compared")
+        worst = []
+    elif bool(differ.any()):
+        worst = [w for w in worst if not w[1].endswith("mlp.gate_weight")]
+        log(f"moe (c) f32 gate: {int(differ.sum())} tokens routed otherwise at certified "
+            f"near-ties, none dropped: the routers' gradients are not compared")
+    if r_loss > MOE_F32_REL or (worst and worst[0][0] > MOE_F32_REL):
+        raise AssertionError(f"moe (c) f32 gate: loss {r_loss}, {worst[:3]}")
+    del card_grads, cpu_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ids, labels = train_batch(torch, vocab)
+    (lk, gk), (lp, gp), (lf, gf) = grads_against_f32(torch, make_mixtral, MOE_TRAIN_LAYERS,
+                                                     LLAMA_ON, ids[:1], labels[:1])
+
+    def together(a, b):
+        num = sum(float((a[n].float() - b[n].float()).norm()) ** 2 for n in gf)
+        return math.sqrt(num) / math.sqrt(sum(float(b[n].float().norm()) ** 2 for n in gf))
+
+    r_kp = abs(float(lk) - float(lp)) / abs(float(lp))
+    kp, kf, pf = together(gk, gp), together(gk, gf), together(gp, gf)
+    per = sorted(((rel_l2(gk[n], gp[n]), n) for n in gf), reverse=True)
+    log(f"moe (c) bf16 O2 {MOE_TRAIN_LAYERS} layers 1x{TRAIN_SEQ}: loss kernels {float(lk):.5f} "
+        f"plain {float(lp):.5f} f32 {float(lf):.5f} ({r_kp:.3g}); all grads together kernels "
+        f"vs plain {kp:.4g}, to f32 kernels {kf:.4g}, plain {pf:.4g}; worst three kernels vs "
+        f"plain: " + "; ".join(f"{n} {r:.4g}" for r, n in per[:3]))
+    if r_kp > LOGITS_REL_TOL or (kp > LOGITS_REL_TOL and kf > pf) or kf > DEPTH_REL_MARGIN * pf:
+        raise AssertionError(f"moe (c) bf16 rule: loss {r_kp}, grads {kp} ({kf} / {pf})")
+    del gk, gp, gf
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, losses, step_ms = train_steps(torch, card, make_mixtral, MOE_TRAIN_LAYERS,
+                                            LLAMA_ON, ids, labels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if peak > MOE_PEAK_GIB:
+        log(f"moe (c): peak {peak:.2f} GiB > {MOE_PEAK_GIB}: the batch halves to "
+            f"{TRAIN_BATCH // 2}x{TRAIN_SEQ}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches, losses, step_ms = train_steps(torch, card, make_mixtral, MOE_TRAIN_LAYERS,
+                                                LLAMA_ON, ids[:TRAIN_BATCH // 2],
+                                                labels[:TRAIN_BATCH // 2])
+    log(f"moe (c) the MFU above counts 6 N_active tokens + 7 L b h s^2 d FLOP a step, "
+        f"N_active with the top-k experts of each layer's E (active_params)")
+    return launches
+
+
+def phase_moe(torch, card):
+    """MoE Llama at Mixtral-8x7B's widths (ROADMAP A9): (a) the layer, (b)
+    serving at MOE_SERVE_LAYERS layers, (c) training at MOE_TRAIN_LAYERS.
+    Returns the launches of (b)'s generate_batch and (c)'s counted steps
+    (the ``moe`` path)."""
+    t0 = time.perf_counter()
+    moe_layer(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"moe (a): {time.perf_counter() - t0:.1f} s")
+    launches = dict(moe_serve(torch, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"moe (b): {time.perf_counter() - t0:.1f} s")
+    for key, n in moe_train(torch, card).items():
+        launches[key] = launches.get(key, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"moe phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is counted on)
     "rms_norm": ("paddle_tpu_torch/ops/csrc/rms_norm.cu",
                  "paddle_tpu/ops/pallas/fused_norm.py:88", "serve"),
@@ -7840,8 +8463,9 @@ COUNTED_AS = {"ring_flash_attention": "flash_attention", "adamw_host": "adamw"}
 # the kernels of fleet's hybrid step, of auto_parallel's Engine step, of ERNIE's
 # inference (also under O1 autocast, phase_resnet_train), of the f32 Llama
 # step, of the head_dim 256 step, of the eager idiom's loop (phase_core), of
-# the ERNIE fine-tune (B5) and of phase_a9's fused layers and residual norms:
-# their launches add those paths
+# the ERNIE fine-tune (B5), of phase_a9's fused layers and residual norms and
+# of phase_moe's MoE Llama (generate_batch and training): their launches add
+# those paths
 EXTRA_PATHS = {"hybrid": frozenset(hybrid_want(1, 1)), "auto": frozenset(hybrid_want(1, 1)),
                "ernie": frozenset({"flash_attention"}),
                "train_f32": frozenset({"flash_attention", "flash_attention_bwd_dq",
@@ -7852,7 +8476,8 @@ EXTRA_PATHS = {"hybrid": frozenset(hybrid_want(1, 1)), "auto": frozenset(hybrid_
                "ernie_ft": frozenset({"adamw"}),
                "a9": frozenset({"flash_attention", "flash_attention_bwd_dq",
                                 "flash_attention_bwd_dkv", "rms_norm", "rms_norm_bwd",
-                                "add_layer_norm", "add_layer_norm_bwd"})}
+                                "add_layer_norm", "add_layer_norm_bwd"}),
+               "moe": MOE_KERNELS}
 
 
 def main() -> int:
@@ -7916,6 +8541,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches["a9"] = phase_a9(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["moe"] = phase_moe(torch, card)
     gc.collect()         # the launcher's worker needs the memory this process cached
     torch.cuda.empty_cache()
     phase_dist(torch, card, train)

@@ -1,15 +1,6 @@
 """Fused operators outside the core API (port of the reference's
 ``incubate/``): the fused functionals and layers (``incubate.nn``), n:m
-sparsity (``incubate.asp``) and the layout autotuner.  MoE
-(``incubate.distributed``) is not ported yet."""
+sparsity (``incubate.asp``), the layout autotuner and the MoE layers,
+gates and dispatch utilities (``incubate.distributed``)."""
 
-from . import asp, autotune, nn  # noqa: F401
-
-_UNPORTED = frozenset({"distributed"})
-
-
-def __getattr__(name):
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"incubate.{name} is not ported yet (ROADMAP A9: MoE Llama and its expert axis)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+from . import asp, autotune, distributed, nn  # noqa: F401

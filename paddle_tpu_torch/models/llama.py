@@ -1,5 +1,7 @@
 """The Llama family for serving and training (port of the reference's
-``models/llama.py``, without MoE).
+``models/llama.py``), MoE variants included: every ``moe_every``-th
+decoder layer's MLP is an ``ExpertParallelMLP`` when ``moe_num_experts >
+0``, and the training loss adds 0.01 × :meth:`LlamaForCausalLM.moe_aux_loss`.
 
 Parameter names and layouts are those of the JAX model (paddle ``[in, out]``
 Linear weights), so its ``state_dict`` loads through
@@ -20,14 +22,17 @@ from torch import nn
 from ..device import resolve_device
 from ..distributed.fleet_utils import recompute
 from ..generation import GenerationMixin, cached_attention
+from ..incubate.distributed.models.moe import ExpertParallelMLP
 from ..nn import Embedding, Linear, RMSNorm
 from ..nn import functional as F
 from ..ops.rope import rotate
 from ..ops.sharded import mesh_route, mesh_rope, mesh_rope_supported
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
-           "llama2_7b", "llama2_13b", "llama2_70b", "apply_rotary_pos_emb",
-           "apply_rotary_at_positions"]
+           "llama2_7b", "llama2_13b", "llama2_70b", "llama_moe_tiny", "mixtral_8x7b",
+           "apply_rotary_pos_emb", "apply_rotary_at_positions"]
+
+MOE_AUX_WEIGHT = 0.01   # the routers' aux loss in the training loss
 
 KVCache = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -46,11 +51,12 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     initializer_range: float = 0.02
     recompute: bool = False  # rematerialize each decoder layer in backward
-    moe_num_experts: int = 0  # MoE is not ported (ROADMAP A9): > 0 raises
-    moe_top_k: int = 2        # the reference's MoE fields, read by nothing yet
+    # MoE: an ExpertParallelMLP in every moe_every-th layer
+    moe_num_experts: int = 0
+    moe_top_k: int = 2
     moe_capacity_factor: float = 2.0
     moe_every: int = 1
-    moe_expert_axes: tuple = None
+    moe_expert_axes: tuple = None  # mesh axes the experts split over
     # > 0: training loss by F.fused_linear_cross_entropy in chunks of this
     # many tokens, returning (loss, None)
     fused_ce_chunk: int = 0
@@ -80,6 +86,26 @@ def llama2_7b(**kw) -> LlamaConfig:
 def llama2_13b(**kw) -> LlamaConfig:
     base = dict(hidden_size=5120, intermediate_size=13824, num_hidden_layers=40,
                 num_attention_heads=40, num_key_value_heads=40)
+    base.update(kw)
+    return LlamaConfig(**base)
+
+
+def llama_moe_tiny(**kw) -> LlamaConfig:
+    """Test-scale MoE config: 4 experts, top-2, every layer."""
+    base = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+                num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                max_position_embeddings=128, moe_num_experts=4, moe_top_k=2)
+    base.update(kw)
+    return LlamaConfig(**base)
+
+
+def mixtral_8x7b(**kw) -> LlamaConfig:
+    """Mixtral-8x7B's widths (8 experts, top-2, GQA 32:8), as the
+    reference's config has them."""
+    base = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                num_hidden_layers=32, num_attention_heads=32,
+                num_key_value_heads=8, max_position_embeddings=4096,
+                moe_num_experts=8, moe_top_k=2)
     base.update(kw)
     return LlamaConfig(**base)
 
@@ -191,11 +217,19 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, config: LlamaConfig, **init):
+    def __init__(self, config: LlamaConfig, use_moe: bool = False, **init):
         super().__init__()
         place = dict(device=init["device"], dtype=init["dtype"])
         self.self_attn = LlamaAttention(config, **init)
-        self.mlp = LlamaMLP(config, **init)
+        if use_moe:
+            self.mlp = ExpertParallelMLP(
+                config.hidden_size, config.intermediate_size,
+                num_experts=config.moe_num_experts, top_k=config.moe_top_k,
+                capacity_factor=config.moe_capacity_factor, activation="swiglu",
+                expert_axes=config.moe_expert_axes, param_dtype=init["dtype"],
+                device=init["device"], generator=init["generator"])
+        else:
+            self.mlp = LlamaMLP(config, **init)
         self.input_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps, **place)
         self.post_attention_layernorm = RMSNorm(config.hidden_size,
                                                 config.rms_norm_eps, **place)
@@ -219,8 +253,10 @@ class LlamaModel(nn.Module):
         super().__init__()
         self.config = config
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size, **init)
-        self.layers = nn.ModuleList([LlamaDecoderLayer(config, **init)
-                                     for _ in range(config.num_hidden_layers)])
+        self.layers = nn.ModuleList([
+            LlamaDecoderLayer(config, use_moe=config.moe_num_experts > 0
+                              and i % config.moe_every == 0, **init)
+            for i in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             device=init["device"], dtype=init["dtype"])
         cos, sin = _rope_tables(config.head_dim, config.max_position_embeddings,
@@ -251,7 +287,9 @@ class LlamaModel(nn.Module):
                 new_caches.append(nc)
             return self.norm(x), new_caches
         for layer in self.layers:
-            if self.config.recompute:
+            # MoE layers run un-checkpointed, as the reference's: their
+            # aux loss leaves the layer as a side channel (l_aux)
+            if self.config.recompute and not isinstance(layer.mlp, ExpertParallelMLP):
                 x = recompute(layer, x, cos, sin, attn_mask, position_offset)
             else:
                 x = layer(x, cos, sin, attn_mask, position_offset)
@@ -260,16 +298,14 @@ class LlamaModel(nn.Module):
 
 class LlamaForCausalLM(nn.Module, GenerationMixin):
     """Llama with its LM head.  Weights are drawn from N(0,
-    ``initializer_range``) by a ``torch.Generator`` seeded with ``seed`` on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    ``initializer_range``) (an MoE layer's XavierUniform, as the
+    reference's), directly in ``dtype``, by a ``torch.Generator`` seeded
+    with ``seed`` on ``device`` (the card unless the caller asks for the
+    CPU)."""
 
     def __init__(self, config: LlamaConfig, *, device=None,
                  dtype: torch.dtype = torch.float32, seed: int = 0):
         super().__init__()
-        if config.moe_num_experts > 0:
-            raise NotImplementedError(
-                "MoE Llama (ExpertParallelMLP) is not ported yet: ROADMAP "
-                "queue A, model ladder")
         device = resolve_device(device)
         self.config = config
         init = dict(std=config.initializer_range, device=device, dtype=dtype,
@@ -298,13 +334,30 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
                 hidden.reshape(-1, self.config.hidden_size), head_w,
                 torch.as_tensor(labels, device=hidden.device).reshape(-1),
                 chunk_size=self.config.fused_ce_chunk)
-            return loss, None
+            return self._with_aux(loss), None
         logits = self._logits(hidden)
         if labels is None:
             return logits
         loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
                                torch.as_tensor(labels, device=logits.device).reshape(-1))
-        return loss, logits
+        return self._with_aux(loss), logits
+
+    def _with_aux(self, loss):
+        if self.config.moe_num_experts > 0:
+            loss = loss + MOE_AUX_WEIGHT * self.moe_aux_loss()
+        return loss
+
+    def moe_aux_loss(self):
+        """The sum of the routers' load-balance losses of the last forward
+        (the GShard aux loss), in layer order."""
+        aux = None
+        for layer in self.llama.layers:
+            la = getattr(layer.mlp, "l_aux", None)
+            if la is not None:
+                aux = la if aux is None else aux + la
+        if aux is None:
+            raise RuntimeError("moe_aux_loss: no MoE layers or no forward yet")
+        return aux
 
     def _logits(self, hidden):
         if self.lm_head is not None:

@@ -293,13 +293,14 @@ class ServingEngine:
             shard_llama_params(model, self._mesh)
         self.tp_devices = self._mesh.axis_devices("model") if tp > 1 else [self.device]
         # each layer's projection weights, one a member (the engine keeps
-        # the shards it was built with)
+        # the shards it was built with); an MoE layer's MLP keeps its own,
+        # whole on the model's device (they are no projection to split)
         self._weights = [
             {key: (proj.weight.shards if tp > 1 else [proj.weight]) for key, proj in (
                 ("q", ly.self_attn.q_proj), ("k", ly.self_attn.k_proj),
                 ("v", ly.self_attn.v_proj), ("o", ly.self_attn.o_proj),
-                ("gate", ly.mlp.gate_proj), ("up", ly.mlp.up_proj),
-                ("down", ly.mlp.down_proj))}
+                *((("gate", ly.mlp.gate_proj), ("up", ly.mlp.up_proj),
+                   ("down", ly.mlp.down_proj)) if hasattr(ly.mlp, "gate_proj") else ()))}
             for ly in model.llama.layers]
         self._arena_shape = (N, P, kv_heads, head_dim)
         self.kv_dtype = kv_cache_dtype(kv_dtype)
@@ -1236,7 +1237,8 @@ class ServingEngine:
         every position or of ``take`` only.  The projections, rope and
         attention run on each member (one when ``tp`` == 1); the
         row-parallel outputs are summed over the members in member order, in
-        f32 (``member_sum``); the rest runs once on the model's device."""
+        f32 (``member_sum``); the rest, an MoE layer's MLP included, runs
+        once on the model's device."""
         model = self.model
         base = model.llama
         R, s = tokens.shape
@@ -1260,6 +1262,12 @@ class ServingEngine:
                 parts.append(F.linear(out.reshape(R, s, h * d), w["o"][j]))
             x = x + member_sum(parts, x.device)
             x2 = layer.post_attention_layernorm(x)
+            if "gate" not in w:
+                # an MoE layer: its MLP once, on the model's device, over
+                # the whole block (the routing couples every token of it,
+                # pads and idle rows included, as in the reference)
+                x = x + layer.mlp(x2)
+                continue
             parts = []
             for j, dev in enumerate(self.tp_devices):
                 xj = x2.to(dev)

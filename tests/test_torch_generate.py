@@ -20,7 +20,7 @@ from paddle_tpu.models import llama_tiny as jax_llama_tiny
 
 from paddle_tpu_torch.convert import load_numpy_state_dict
 from paddle_tpu_torch.inference import Predictor
-from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+from paddle_tpu_torch.models import LlamaForCausalLM, llama_moe_tiny, llama_tiny
 
 torch.set_num_threads(1)
 
@@ -218,11 +218,13 @@ class TestRefusals:
         assert tuple(ids.shape) == (1, 2) and tuple(scores.shape) == (1,)
 
     def test_moe_and_labels_not_ported(self, tiny):
-        """MoE is not ported; the labels path is whole: the chunked fused
-        loss (``fused_ce_chunk > 0``) gives ``(loss, None)``
+        """MoE is ported (tests/test_torch_moe_llama.py holds it against
+        the reference): ``llama_moe_tiny`` builds on the CPU and gives
+        logits of the reference's shape.  The labels path is whole: the
+        chunked fused loss (``fused_ce_chunk > 0``) gives ``(loss, None)``
         (tests/test_torch_fused_ce.py holds its values)."""
-        with pytest.raises(NotImplementedError, match="MoE"):
-            LlamaForCausalLM(llama_tiny(moe_num_experts=4), device="cpu")
+        moe = LlamaForCausalLM(llama_moe_tiny(), device="cpu")
+        assert tuple(moe(torch.ones(2, 5, dtype=torch.long)).shape) == (2, 5, 256)
         loss, logits = LlamaForCausalLM(llama_tiny(fused_ce_chunk=4), device="cpu")(
             torch.ones(1, 2, dtype=torch.long), labels=torch.ones(1, 2, dtype=torch.long))
         assert logits is None and loss.shape == () and torch.isfinite(loss)

@@ -428,8 +428,11 @@ def test_asp_masks_drop_with_their_parameter():
 
 
 def test_incubate_names():
+    """``incubate.distributed`` resolves (MoE is ported:
+    tests/test_torch_moe.py holds it against the reference)."""
     import paddle_tpu_torch.incubate as pinc
+    from paddle_tpu_torch.incubate.distributed.models import moe
+    from paddle_tpu_torch.incubate.distributed.utils import moe_utils
 
     assert pinc.asp is asp
-    with pytest.raises(NotImplementedError, match="A9"):
-        pinc.distributed
+    assert pinc.distributed.models.moe is moe and pinc.distributed.utils.moe_utils is moe_utils

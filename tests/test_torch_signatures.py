@@ -99,6 +99,11 @@ KEYWORD_DEPARTURES = {
                           ("shufflenetv2", ("ShuffleNetV2",)), ("densenet", ("DenseNet",)),
                           ("googlenet", ("GoogLeNet",)), ("inceptionv3", ("InceptionV3",)))
        for name in names},
+    # the MoE layer and gates with weights of their own (ROADMAP A9's MoE)
+    **{f"paddle_tpu_torch.incubate.distributed.models.moe.{name}": (
+        "device", "the device the layer draws its weights on (the enclosing "
+        "placement's, else the default device, if None); generator= draws them")
+       for name in ("ExpertParallelMLP", "NaiveGate", "GShardGate", "SwitchGate")},
     "paddle_tpu_torch.incubate.autotune.resolve_conv_data_format": (
         "device", "the layout is resolved for this device (the default device if "
         "None): incubate.autotune.CARD_LAYOUT on the card, NCHW on the CPU; the "
@@ -464,7 +469,7 @@ def test_c3_calls():
     ("paddle_tpu_torch.sparse", "A10"), ("paddle_tpu_torch.onnx", "A10"),
     ("paddle_tpu_torch.quantization", "A10"), ("paddle_tpu_torch.static", "A10"),
     ("paddle_tpu_torch.jit.to_static", "A3d"), ("paddle_tpu_torch.jit.save", "A3d"),
-    ("paddle_tpu_torch.incubate.distributed", "A9"), ("paddle_tpu_torch.vision.ops", "A10"),
+    ("paddle_tpu_torch.vision.ops", "A10"),
     ("paddle_tpu_torch.serving.Router", "A8"), ("paddle_tpu_torch.device.Stream", "A10"),
     ("paddle_tpu_torch.telemetry.prometheus_text", "A8")])
 def test_unported_name_raises_with_its_item(path, item):
