@@ -8417,6 +8417,407 @@ def phase_moe(torch, card):
     return launches
 
 
+EXPORT_ERNIE_BATCHES = ((16, 512), (8, 128))   # phase_export (a): batches through one program
+EXPORT_LLAMA = (2, 8, 512)          # (b): Llama-2-7B width: layers, rows, tokens a row
+EXPORT_TIMED = 3                    # runs timed a configuration (the median is kept)
+EXPORT_KERNELS = frozenset({"rms_norm", "rope", "flash_attention"})
+CKPT_BATCH = 32                     # phase_ckpt: rows of ERNIE_FT_SEQ tokens a step
+CKPT_SEED = 1234                    # the card generator's seed before a run's first step
+
+
+def median_ms(torch, fn, n=EXPORT_TIMED):
+    """The median wall ms of ``n`` synchronised calls."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)[n // 2]
+
+
+def counted(torch, fn):
+    """(fn(), the kernel launches it made), synchronised."""
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in LAUNCHES.items() if v}
+
+
+def file_bytes(path) -> int:
+    return os.path.getsize(path) if os.path.exists(path) else 0
+
+
+def export_serve(torch, card, label, model, specs, batches, want, workdir, gate):
+    """``jit.save`` ``model`` with ``specs``, ``create_predictor(Config(path))``,
+    and run each of ``batches`` (tuples of host int64 arrays) through the one
+    program by the handles: the launches of each run must be ``want``, the
+    outputs pass ``gate(i, predicted, eager)`` against the eager forward on
+    the card.  Logs export, save and load s, the files' bytes, run ms
+    against eager ms and the handles' copy ms.  Returns the first run's
+    launches."""
+    import numpy as np
+
+    from paddle_tpu_torch import inference, jit
+
+    path = os.path.join(workdir, label)
+    t0 = time.perf_counter()
+    jit.save(model, path, input_spec=specs)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = inference.create_predictor(inference.Config(path + ".pdmodel"))
+    load_s = time.perf_counter() - t0
+    names = pred.get_input_names()
+    if len(names) != len(specs):
+        raise AssertionError(f"export {label}: input names {names} for {len(specs)} specs")
+    first = None
+    for i, arrays in enumerate(batches):
+        def run():
+            for n, a in zip(names, arrays):
+                pred.get_input_handle(n).copy_from_cpu(a)
+            pred.run()
+            return pred.get_output_handle(pred.get_output_names()[0]).copy_to_cpu()
+
+        got, launches = counted(torch, run)
+        if launches != want:
+            raise AssertionError(f"export {label} {arrays[0].shape}: launches {launches}, "
+                                 f"want {want}")
+        first = first or launches
+        dev = next(iter(model.parameters())).device
+        dev_args = [torch.as_tensor(a, device=dev) for a in arrays]
+        with torch.no_grad():
+            eager = model(*dev_args)
+        eager = eager[0] if isinstance(eager, tuple) else eager
+        if not np.isfinite(got).all() or list(got.shape) != list(eager.shape):
+            raise AssertionError(f"export {label}: output {got.shape} finite "
+                                 f"{np.isfinite(got).all()}, eager {list(eager.shape)}")
+        got_t = torch.as_tensor(got, device=dev)
+        diff = float((got_t - eager.float()).abs().max())
+        detail = gate(i, got_t, eager)
+        run_ms = median_ms(torch, run)
+        copy_in_ms = median_ms(torch, lambda: [pred.get_input_handle(n).copy_from_cpu(a)
+                                               for n, a in zip(names, arrays)])
+        program_ms = median_ms(torch, lambda: pred._layer(*dev_args))
+        with torch.no_grad():
+            eager_ms = median_ms(torch, lambda: model(*dev_args))
+        log(f"export {label} {'x'.join(map(str, arrays[0].shape))} on {card}: predictor run "
+            f"{run_ms:.2f} ms (the program alone on card tensors {program_ms:.2f} ms, the "
+            f"eager forward {eager_ms:.2f} ms; the handles' copies and transfers "
+            f"{run_ms - program_ms:.2f} ms, copy_from_cpu {copy_in_ms:.3f} ms), launches "
+            f"{launches}, largest |predicted - eager| {diff:.4g} (bit-equal "
+            f"{diff == 0.0}); {detail}")
+        del got_t, eager, dev_args
+    log(f"export {label}: jit.save {save_s:.2f} s (export and both files), .pdmodel "
+        f"{file_bytes(path + '.pdmodel') / 2**20:.1f} MiB, .pdiparams "
+        f"{file_bytes(path + '.pdiparams') / 2**20:.1f} MiB; create_predictor (jit.load) "
+        f"{load_s:.2f} s")
+    del pred
+    for suffix in (".pdmodel", ".pdiparams"):
+        if os.path.exists(path + suffix):
+            os.remove(path + suffix)
+    return first
+
+
+def export_ernie(torch, card, workdir, cfg=None, dev="cuda", batches=EXPORT_ERNIE_BATCHES):
+    """(a) ERNIE 3.0 base at its published widths and depth, bf16, eval,
+    saved with a dynamic batch and sequence (``input_ids``,
+    ``token_type_ids``) and served at each of ``batches`` through one
+    program; the logits under the ERNIE phase's bf16 rule (within
+    LOGITS_REL_TOL of the f32 plain path, or no further than
+    DEPTH_REL_MARGIN times the plain bf16 path); 12 B3 a run.  Then
+    ``jit.to_static`` of the same model: bit-equal to eager with the same
+    launches.  Returns the first run's launches."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import ErnieConfig, ErnieForSequenceClassification
+
+    cfg = cfg or ErnieConfig()
+    model = ErnieForSequenceClassification(cfg, device=dev, seed=0).eval()
+    rng = np.random.default_rng(25)
+    arrays = [(rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int64),
+               rng.integers(0, 2, (b, s)).astype(np.int64)) for b, s in batches]
+    refs, plains = [], []
+    for ids, seg in arrays:
+        args = [torch.as_tensor(a, device=dev) for a in (ids, seg)]
+        with torch.no_grad(), ptt.flag_guard(**OFF_FLAGS):
+            refs.append(model(*args).float())
+    model.to(dtype="bfloat16")
+    for ids, seg in arrays:
+        args = [torch.as_tensor(a, device=dev) for a in (ids, seg)]
+        with torch.no_grad(), ptt.flag_guard(**OFF_FLAGS):
+            plains.append(model(*args).float())
+
+    def gate(i, got, eager):
+        err, plain = rel_l2(got, refs[i]), rel_l2(plains[i], refs[i])
+        if not (err <= LOGITS_REL_TOL or err <= DEPTH_REL_MARGIN * plain):
+            raise AssertionError(f"export ernie: predicted logits {err} from the f32 plain "
+                                 f"path, plain bf16 {plain}")
+        return (f"relative L2 to the f32 plain path {err:.3g} (plain bf16 {plain:.3g}, "
+                f"eager bf16 kernel {rel_l2(eager, refs[i]):.3g})")
+
+    specs = [jit.InputSpec([None, "seq"], "int64", "input_ids"),
+             jit.InputSpec([None, "seq"], "int64", "token_type_ids")]
+    want = {"flash_attention": cfg.num_hidden_layers}
+    launches = export_serve(torch, card, "ernie", model, specs, arrays, want, workdir, gate)
+    # to_static runs eagerly: bit-equal, the same launches
+    args = [torch.as_tensor(a, device=dev) for a in arrays[0]]
+    with torch.no_grad():
+        eager, eager_launches = counted(torch, lambda: model(*args))
+        jit.to_static(model)
+        static, static_launches = counted(torch, lambda: model(*args))
+    if not torch.equal(static, eager) or static_launches != eager_launches:
+        raise AssertionError(f"to_static: equal {torch.equal(static, eager)}, launches "
+                             f"{static_launches} against {eager_launches}")
+    log(f"export ernie: to_static bit-equal to eager, launches {static_launches}")
+    del model, refs, plains, eager, static
+    return launches
+
+
+def export_llama(torch, card, workdir, make=None, shape=EXPORT_LLAMA, vocab=None):
+    """(b) Llama-2-7B width at ``shape[0]`` layers, bf16, saved with a
+    dynamic batch and sequence and served at ``shape[1]`` x ``shape[2]``:
+    within LOGITS_REL_TOL of the eager forward on the card, B1 2L+1, B2 L and
+    B3 L launches a run.  Returns the run's launches."""
+    import numpy as np
+
+    from paddle_tpu_torch import jit
+
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+
+    layers, rows, seq = shape
+    model = (make(layers) if make else LlamaForCausalLM(
+        llama2_7b(num_hidden_layers=layers), device="cuda", dtype=torch.bfloat16,
+        seed=0)).eval()
+    vocab = vocab or model.config.vocab_size
+    ids = np.random.default_rng(26).integers(0, vocab, (rows, seq)).astype(np.int64)
+
+    def gate(i, got, eager):
+        err = rel_l2(got, eager)
+        if err > LOGITS_REL_TOL:
+            raise AssertionError(f"export llama: predicted logits {err} from eager")
+        return f"relative L2 to eager {err:.3g}"
+
+    want = {"rms_norm": 2 * layers + 1, "rope": layers, "flash_attention": layers}
+    launches = export_serve(torch, card, "llama", model,
+                            [jit.InputSpec([None, None], "int64", "input_ids")], [(ids,)],
+                            want, workdir, gate)
+    del model
+    return launches
+
+
+def phase_export(torch, card):
+    """The saved program (ROADMAP A3d): ``jit.save`` with an ``InputSpec``,
+    ``create_predictor(Config(path))`` and the handles, (a) ERNIE 3.0 base,
+    (b) Llama-2-7B width at 2 layers; B1, B2 and B3 run from inside the
+    loaded program.  Returns the counted runs' launches (the ``export``
+    path)."""
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="ptt_export_")
+    try:
+        launches = dict(export_ernie(torch, card, workdir))
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k, v in export_llama(torch, card, workdir).items():
+            launches[k] = launches.get(k, 0) + v
+    finally:
+        import shutil
+
+        shutil.rmtree(workdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"export phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def ckpt_trainer(torch, dev, make=None, snapshotter=None):
+    """Ladder row 2's trainer (bf16 O2, AdamW(ERNIE_FT_LR) + clip, dropout
+    0.1): (model, optimizer, TrainStep); B5 runs where the caller turns
+    ``use_fused_adamw`` on."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = (make or (lambda: ernie_ft_model(torch, 12, dev)))()
+    opt = AdamW(ERNIE_FT_LR, parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = ptt.amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    step = TrainStep(model, lambda m, x, y: m(x, labels=y)[0], opt, snapshotter=snapshotter)
+    return model, opt, step
+
+
+def ckpt_state(torch, model, opt, dev="cuda"):
+    """What a resume needs: the model's and optimizer's state dicts and the
+    card generator's state (the dropout masks)."""
+    rng = torch.cuda.get_rng_state() if dev == "cuda" else torch.get_rng_state()
+    return {"model": model.state_dict(), "opt": opt.state_dict(), "rng": rng}
+
+
+def ckpt_restore(torch, model, opt, state, dev="cuda"):
+    """Put a loaded ``ckpt_state`` into effect."""
+    opt.set_state_dict(state["opt"])
+    if dev == "cuda":
+        torch.cuda.set_rng_state(state["rng"])
+    else:
+        torch.set_rng_state(state["rng"])
+
+
+def ckpt_seed(torch, dev):
+    if dev == "cuda":
+        torch.cuda.manual_seed(CKPT_SEED)
+    else:
+        torch.manual_seed(CKPT_SEED)
+
+
+def ckpt_losses(torch, step, batch, n, times=None):
+    """``n`` steps' losses; each step's synchronised ms appended to
+    ``times`` when given (``float`` of the loss synchronises)."""
+    out = []
+    for _ in range(n):
+        t = time.perf_counter()
+        out.append(float(step(*batch)))
+        if times is not None:
+            times.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def state_bytes(torch, state) -> int:
+    from paddle_tpu_torch.distributed.checkpoint.utils import flatten_state_dict
+
+    flat, _ = flatten_state_dict(state)
+    return sum(v.numel() * v.element_size() for v in flat.values()
+               if isinstance(v, torch.Tensor))
+
+
+def phase_ckpt(torch, card, dev="cuda", make=None, batch=None):
+    """The distributed checkpoint and the in-memory snapshots (ROADMAP A7a)
+    on ladder row 2's model at CKPT_BATCH x ERNIE_FT_SEQ: 4 steps straight;
+    2 steps, ``save_state_dict`` (model, optimizer, card generator), a fresh
+    trainer ``load_state_dict``-ed, 2 more steps, bit-equal to the straight
+    steps 3-4; the same with ``async_save=True`` and a step at once after
+    the save (the checkpoint holds the values from before it); a
+    ``Snapshotter`` every 2 steps through ``TrainStep(snapshotter=)``, its
+    capture ms against the steps without one, and ``resume`` from memory
+    bit-equal (the state, then the next loss).  Logs the state's GiB, save s
+    and GB/s, load s, capture ms and the peak."""
+    import shutil
+
+    import paddle_tpu_torch as ptt
+
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="ptt_ckpt_")
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        with ptt.flag_guard(use_fused_adamw=True):
+            ckpt_runs(torch, card, dev, make, batch, workdir, t0)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
+def ckpt_runs(torch, card, dev, make, batch, workdir, t0):
+    """``phase_ckpt``'s runs, in ``workdir``."""
+    from paddle_tpu_torch.distributed.checkpoint import (Snapshotter, load_state_dict,
+                                                         resume, save_state_dict)
+    from paddle_tpu_torch.distributed.checkpoint.save_state_dict import _wait_pending
+
+    def fresh(snapshotter=None):
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        return ckpt_trainer(torch, dev, make, snapshotter)
+
+    model, opt, step = fresh()
+    if batch is None:
+        batch = ernie_ft_batch(torch, CKPT_BATCH, dev, model.ernie.config.vocab_size)
+    ckpt_seed(torch, dev)
+    plain_ms = []
+    straight = ckpt_losses(torch, step, batch, 4, plain_ms)
+    del model, opt, step
+
+    results = {}
+    for mode in ("sync", "async"):
+        model, opt, step = fresh()
+        ckpt_seed(torch, dev)
+        first = ckpt_losses(torch, step, batch, 2)
+        state = ckpt_state(torch, model, opt, dev)
+        nbytes = state_bytes(torch, state)
+        path = os.path.join(workdir, mode)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        save_state_dict(state, path, async_save=mode == "async")
+        save_s = time.perf_counter() - t
+        after = ckpt_losses(torch, step, batch, 1) if mode == "async" else []
+        t = time.perf_counter()
+        _wait_pending()
+        drain_s = time.perf_counter() - t
+        del model, opt, step, state
+        model, opt, step = fresh()
+        target = ckpt_state(torch, model, opt, dev)
+        t = time.perf_counter()
+        load_state_dict(target, path)
+        ckpt_restore(torch, model, opt, target, dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        resumed = ckpt_losses(torch, step, batch, 2)
+        if first != straight[:2] or resumed != straight[2:] or \
+                (after and after != straight[2:3]):
+            raise AssertionError(f"ckpt {mode}: straight {straight}, first {first}, "
+                                 f"resumed {resumed}, the step after the save {after}")
+        results[mode] = (nbytes, save_s, drain_s, load_s)
+        del model, opt, step, target
+    nbytes, save_s, _, load_s = results["sync"]
+    _, async_s, drain_s, async_load_s = results["async"]
+    log(f"ckpt on {card}: ERNIE 3.0 base row 2 state {nbytes / 2**30:.3f} GiB (bf16 "
+        f"parameters, f32 masters and moments, the generator); save_state_dict "
+        f"{save_s:.2f} s ({nbytes / save_s / 1e9:.2f} GB/s), load_state_dict {load_s:.2f} s "
+        f"({async_load_s:.2f} s of the async one); "
+        f"async_save returned in {async_s:.2f} s (the host copy) and drained "
+        f"{drain_s:.2f} s later, behind a step; resumed losses bit-equal to the straight "
+        f"run's steps 3-4 (sync and async): " + " ".join(f"{v:.6f}" for v in straight))
+
+    snap = Snapshotter(lambda: ckpt_state(torch, model, opt, dev), every=2,
+                       transport=None, rank=0, world_size=1)
+    model, opt, step = fresh(snap)
+    ckpt_seed(torch, dev)
+    snap_ms = []
+    snapped = ckpt_losses(torch, step, batch, 4, snap_ms)
+    if snapped != straight or snap.captures != 2 or snap.latest_step() != 4:
+        raise AssertionError(f"snapshot run: losses {snapped} against {straight}, "
+                             f"captures {snap.captures}, latest {snap.latest_step()}")
+    capture_ms = snap.capture_seconds_total / snap.captures * 1e3
+    want_state = {k: v.clone() for k, v in model.state_dict().items()}
+    want_next = ckpt_losses(torch, step, batch, 1)
+    model2, opt2, step2 = fresh()
+    target = ckpt_state(torch, model2, opt2, dev)
+    info = resume(target, snapshotter=snap, transport=None, rank=0, world_size=1)
+    ckpt_restore(torch, model2, opt2, target, dev)
+    same = all(torch.equal(v, want_state[k]) for k, v in model2.state_dict().items())
+    got_next = ckpt_losses(torch, step2, batch, 1)
+    if info.source != "memory" or info.step != 4 or not same or got_next != want_next:
+        raise AssertionError(f"resume: {info}, state equal {same}, next loss {got_next} "
+                             f"against {want_next}")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else 0.0
+    log(f"ckpt snapshots every 2 steps: capture {capture_ms:.1f} ms a snapshot "
+        f"({capture_ms / 2:.1f} ms a step); steps 2-4 " + " ".join(
+            f"{v:.2f}" for v in snap_ms[1:]) + " ms with the snapshotter (captures at 2 "
+        "and 4) against " + " ".join(f"{v:.2f}" for v in plain_ms[1:]) + " ms without "
+        f"(the first step {snap_ms[0]:.2f}, {plain_ms[0]:.2f}); resume from {info.source} at step "
+        f"{info.step}, state bit-equal, next loss bit-equal ({got_next[0]:.6f}); peak "
+        f"{peak:.2f} GiB; phase {time.perf_counter() - t0:.1f} s")
+    del model, opt, step, model2, opt2, step2, snap, target
+
+
 SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is counted on)
     "rms_norm": ("paddle_tpu_torch/ops/csrc/rms_norm.cu",
                  "paddle_tpu/ops/pallas/fused_norm.py:88", "serve"),
@@ -8464,8 +8865,9 @@ COUNTED_AS = {"ring_flash_attention": "flash_attention", "adamw_host": "adamw"}
 # inference (also under O1 autocast, phase_resnet_train), of the f32 Llama
 # step, of the head_dim 256 step, of the eager idiom's loop (phase_core), of
 # the ERNIE fine-tune (B5), of phase_a9's fused layers and residual norms and
-# of phase_moe's MoE Llama (generate_batch and training): their launches add
-# those paths
+# of phase_moe's MoE Llama (generate_batch and training) and of phase_export's
+# saved programs (B1, B2, B3 run from inside a loaded program): their launches
+# add those paths
 EXTRA_PATHS = {"hybrid": frozenset(hybrid_want(1, 1)), "auto": frozenset(hybrid_want(1, 1)),
                "ernie": frozenset({"flash_attention"}),
                "train_f32": frozenset({"flash_attention", "flash_attention_bwd_dq",
@@ -8477,7 +8879,7 @@ EXTRA_PATHS = {"hybrid": frozenset(hybrid_want(1, 1)), "auto": frozenset(hybrid_
                "a9": frozenset({"flash_attention", "flash_attention_bwd_dq",
                                 "flash_attention_bwd_dkv", "rms_norm", "rms_norm_bwd",
                                 "add_layer_norm", "add_layer_norm_bwd"}),
-               "moe": MOE_KERNELS}
+               "moe": MOE_KERNELS, "export": EXPORT_KERNELS}
 
 
 def main() -> int:
@@ -8544,6 +8946,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches["moe"] = phase_moe(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["export"] = phase_export(torch, card)
+    phase_ckpt(torch, card)
     gc.collect()         # the launcher's worker needs the memory this process cached
     torch.cuda.empty_cache()
     phase_dist(torch, card, train)

@@ -21,7 +21,7 @@ f32 (back to its dtype) and folds their finiteness into one flag on the
 device, read once: one host synchronisation for the whole parameter list.
 ``step`` skips the update on a non-finite gradient and, as the
 reference's, also runs ``update()``.  ``attach_health_guard`` waits for
-the health layer (ROADMAP A7) and raises.
+the health layer (ROADMAP A7b) and raises.
 
 O2 (``decorate``) is pure half precision: every floating-point parameter
 is cast to the half dtype in place (the Parameter objects stay, so
@@ -166,7 +166,7 @@ class AmpScaler:
     def attach_health_guard(self, guard) -> None:
         raise NotImplementedError(
             "AmpScaler.attach_health_guard routes skips into a HealthGuard, which is "
-            "not ported yet (ROADMAP A7)")
+            "not ported yet (ROADMAP A7b)")
 
     def is_enable(self) -> bool:
         return self._enable

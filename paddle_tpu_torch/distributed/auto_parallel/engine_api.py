@@ -14,12 +14,13 @@ device.  As in the reference::
     engine.fit(train_dataset, epochs=2, batch_size=64)
     engine.evaluate(eval_dataset)
 
-``save`` and ``load`` write the distributed checkpoint, which waits for
-ROADMAP A7, and raise.
+``save`` and ``load`` write and read the distributed checkpoint
+(``distributed.checkpoint``), which reshards on load.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -174,17 +175,37 @@ class Engine:
 
     # -- persistence --------------------------------------------------------
     def save(self, path: str, training: bool = True) -> None:
-        """The distributed checkpoint waits for ROADMAP A7."""
-        raise NotImplementedError(
-            "Engine.save writes the distributed checkpoint (checkpoint.save_state_dict), "
-            "which is not ported yet (ROADMAP A7); save model.state_dict() and the "
-            "optimizer's with framework.io.save meanwhile")
+        """The model's state dict as a distributed checkpoint at ``path``
+        (``checkpoint.save_state_dict``: per-rank shard files and metadata,
+        committed atomically, loadable under another layout); with
+        ``training``, the optimizer's state dict beside it as
+        ``optimizer.pdopt`` (``framework.io``), written after the commit so
+        the commit's directory rotation keeps it."""
+        from ...framework.io import save as _save
+        from ..checkpoint import save_state_dict
+
+        save_state_dict(dict(self._model.state_dict()), path)
+        if training and self._optimizer is not None and \
+                hasattr(self._optimizer, "state_dict"):
+            _save(self._optimizer.state_dict(), os.path.join(path, "optimizer.pdopt"))
 
     def load(self, path: str, strict: bool = True, load_optimizer: bool = True):
-        """The distributed checkpoint waits for ROADMAP A7."""
-        raise NotImplementedError(
-            "Engine.load reads the distributed checkpoint (checkpoint.load_state_dict), "
-            "which is not ported yet (ROADMAP A7); load with framework.io.load meanwhile")
+        """Fill the model's parameters and buffers in place from the
+        checkpoint at ``path`` (with ``strict`` False, only the keys it
+        holds), and the optimizer from ``optimizer.pdopt`` when present."""
+        from ...framework.io import load as _load
+        from ..checkpoint import load_state_dict
+        from ..checkpoint.load_state_dict import read_metadata
+
+        state = dict(self._model.state_dict())
+        if not strict:
+            saved = set(read_metadata(path).state_dict_metadata)
+            state = {k: v for k, v in state.items() if k in saved}
+        load_state_dict(state, path)
+        opt_path = os.path.join(path, "optimizer.pdopt")
+        if load_optimizer and self._optimizer is not None and os.path.exists(opt_path):
+            self._optimizer.set_state_dict(_load(opt_path))
+        return self
 
 
 def _tup(x):

@@ -22,9 +22,10 @@ not honor raises when set away from its default, an unknown knob or config
 key raises.  ``strategy.asp`` (2:4 sparsity) wraps the optimizer in
 ``incubate.asp.decorate``; ``sharding_configs["offload"]`` tags
 the optimizer, whose ``DistributedTrainStep`` then holds masters and
-moments in pinned host memory.  The fault domain and elastic
-training (``fault_domain``, ``elastic``, ``FaultDomain``,
-``HeartbeatLease``, ``LeaseMonitor``) import and raise naming ROADMAP A7.
+moments in pinned host memory.  ``elastic`` holds the preemption guard;
+the fault domain and the rest of elastic training (``fault_domain``,
+``FaultDomain``, ``HeartbeatLease``, ``LeaseMonitor``) import and raise
+naming ROADMAP A7b.
 """
 
 from __future__ import annotations
@@ -263,11 +264,11 @@ worker_num = fleet.worker_num
 
 def _waits_a7(what: str) -> NotImplementedError:
     return NotImplementedError(f"fleet {what}: the fleet fault domain and elastic training "
-                               "are not ported yet (ROADMAP A7)")
+                               "are not ported yet (ROADMAP A7b: the fault domain)")
 
 
 class _WaitingModule(types.ModuleType):
-    """A submodule of the reference that waits for A7: it imports, and any
+    """A submodule of the reference that waits for A7b: it imports, and any
     name taken from it raises."""
 
     def __getattr__(self, name):
@@ -277,11 +278,11 @@ class _WaitingModule(types.ModuleType):
 
 
 fault_domain = _WaitingModule("fault_domain")
-elastic = _WaitingModule("elastic")
+from . import elastic  # noqa: E402,F401  (the preemption guard; the rest waits for A7b)
 
 
 class HeartbeatLease:
-    """A rank's heartbeat lease: waits for ROADMAP A7."""
+    """A rank's heartbeat lease: waits for ROADMAP A7b."""
 
     def __init__(self, kv, key: str, ttl: Optional[float] = None,
                  interval: Optional[float] = None, payload: Optional[Dict[str, Any]] = None,
@@ -291,7 +292,7 @@ class HeartbeatLease:
 
 
 class LeaseMonitor:
-    """The leases' watcher: waits for ROADMAP A7."""
+    """The leases' watcher: waits for ROADMAP A7b."""
 
     def __init__(self, kv, world_size: int, *, ttl: Optional[float] = None,
                  interval: Optional[float] = None, straggler_after: Optional[float] = None,
@@ -303,7 +304,7 @@ class LeaseMonitor:
 
 class FaultDomain:
     """The job's fault domain (leases, coordinated abort, gang epoch):
-    waits for ROADMAP A7."""
+    waits for ROADMAP A7b."""
 
     def __init__(self, store, rank: Optional[int], world_size: int, *,
                  job_id: str = "default", epoch: int = 0,

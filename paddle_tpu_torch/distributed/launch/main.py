@@ -19,15 +19,26 @@ The launcher does not choose the backend: a worker on the card gets NCCL,
 one rank per card, and one that called ``set_device("cpu")`` gets gloo
 (``init_parallel_env``).
 
+In-memory snapshots (``PADDLE_TPU_SNAP``, on unless ``0``/``false``, as
+in the reference): the launcher hosts the snapshot depot
+(``checkpoint.replicator.SnapshotStore``, standing in for per-host RAM, so
+a worker's snapshot copies survive a SIGKILL'd rank) and exports
+``PADDLE_TPU_SNAP_STORE`` so that every rank's ``Snapshotter`` ships its
+own copy and its ring neighbour's replica there.  A worker that dies
+uncoordinated (a signal, or an exit other than 0 and 101) has the copies
+it held dropped, which is what makes the double fault (a rank and its
+replica holder lost together) fall back to the disk checkpoint.  With
+several nodes the master's pod hosts the one depot and publishes its
+address through the job's store.
+
 Left for later queue items, each refusing to start rather than running
 without it: the fleet fault domain with its heartbeat leases, lease
-monitor and poison-aware watch loop (``--fault_domain on``, ROADMAP A7;
-the port's default is ``off``, a departure from the reference's ``on``),
-the in-memory snapshot depot (``PADDLE_TPU_SNAP=1``, A7) and serving mode
-(``--mode serve``, A8).  The reference's observability epilogue (the
-flight-recorder dump, metrics roll-up and black-box merge, A8) has no
-switch: it is left out, as is the ring remap its fleet supervisor
-exports (``PADDLE_TPU_DEVICE_ORDER``, A7).
+monitor and poison-aware watch loop (``--fault_domain on``, ROADMAP A7b;
+the port's default is ``off``, a departure from the reference's ``on``)
+and serving mode (``--mode serve``, A8).  The reference's observability
+epilogue (the flight-recorder dump, metrics roll-up and black-box merge,
+A8) has no switch: it is left out, as is the ring remap its fleet
+supervisor exports (``PADDLE_TPU_DEVICE_ORDER``, A7b).
 """
 
 from __future__ import annotations
@@ -39,7 +50,7 @@ import socket
 import subprocess
 import sys
 import time
-from typing import List
+from typing import List, Optional
 
 __all__ = ["launch", "main"]
 
@@ -82,7 +93,7 @@ def _parse(argv):
                    default=("on" if os.environ.get("PADDLE_TPU_FAULT_DOMAIN", "0")
                             in ("1", "true", "on") else "off"),
                    help="heartbeat-lease/poison fault domain over the job store "
-                        "(default off: not ported yet, ROADMAP A7; env "
+                        "(default off: not ported yet, ROADMAP A7b; env "
                         "PADDLE_TPU_FAULT_DOMAIN)")
     p.add_argument("script", type=str, help="training script")
     p.add_argument("script_args", nargs=argparse.REMAINDER)
@@ -96,10 +107,53 @@ def _refuse_unported(args) -> None:
     if args.fault_domain == "on":
         raise NotImplementedError("launch --fault_domain on (heartbeat leases, the "
                                   "lease monitor and the poison-aware watch loop) is "
-                                  "not ported yet (ROADMAP A7); use --fault_domain off")
-    if os.environ.get("PADDLE_TPU_SNAP", "0") not in ("0", "false", ""):
-        raise NotImplementedError("PADDLE_TPU_SNAP: the in-memory snapshot depot is "
-                                  "not ported yet (ROADMAP A7)")
+                                  "not ported yet (ROADMAP A7b); use --fault_domain off")
+
+
+class _SnapWatch:
+    """The launcher's part in the snapshot depot: host it (or take the
+    address already exported) and turn a worker's uncoordinated death into
+    dropping the copies it held."""
+
+    def __init__(self, fleet_kv=None, advertise_host: Optional[str] = None):
+        from ..checkpoint import replicator
+
+        self.addr = os.environ.get("PADDLE_TPU_SNAP_STORE")
+        if not self.addr and fleet_kv is not None:
+            # several nodes: one depot for the gang, hosted by the pod of
+            # the master host and published through the job's store
+            if getattr(fleet_kv, "is_master", False):
+                depot, local = replicator.ensure_host_store()
+                self.addr = f"{advertise_host}:{depot.port}" if advertise_host else local
+                fleet_kv.set("snap/store", self.addr)
+            else:
+                self.addr = fleet_kv.get("snap/store", timeout=60.0).decode()
+        if not self.addr:
+            # one node: the process's own depot, which outlives this launch
+            _, self.addr = replicator.ensure_host_store()
+        self._client = replicator.SnapshotClient.from_address(self.addr)
+
+    def note_child_exit(self, rank: Optional[int], code: int) -> None:
+        """Exit 0 (done) or 101 (a coordinated abort) keeps the copies the
+        rank held; any other exit models the loss of its host's RAM."""
+        if rank is None or code in (0, 101):
+            return
+        try:
+            dropped = self._client.drop_holder(rank)
+        except OSError:
+            return
+        if dropped:
+            from ... import telemetry
+
+            telemetry.record_event("snapshot_holder_dropped", "launch", rank=rank,
+                                   exit_code=code, copies_dropped=dropped)
+
+    def stop(self) -> None:
+        # the depot itself stays up: a relaunch in this process finds it
+        try:
+            self._client.close()
+        except OSError:
+            pass
 
 
 def _slots(nnodes: int, nproc: int):
@@ -147,6 +201,14 @@ def launch(argv=None) -> int:
         coordinator = f"{mhost}:{int(mport) + 1}"
     elif node_rank < 0:
         node_rank = 0
+    snap: Optional[_SnapWatch] = None
+    if os.environ.get("PADDLE_TPU_SNAP", "1") not in ("0", "false"):
+        try:
+            snap = _SnapWatch(fleet_kv=store if args.nnodes > 1 else None,
+                              advertise_host=master.rsplit(":", 1)[0]
+                              if args.nnodes > 1 else None)
+        except OSError as e:  # snapshots degrade; the job still runs
+            sys.stderr.write(f"[launch] snapshot store unavailable: {e!r}\n")
     os.makedirs(args.log_dir, exist_ok=True)
 
     grace = 10.0
@@ -156,6 +218,7 @@ def launch(argv=None) -> int:
         pass
 
     procs: List[subprocess.Popen] = []
+    ranks = {}
     logs = []
     try:
         for local in range(nproc):
@@ -174,6 +237,7 @@ def launch(argv=None) -> int:
                 "PADDLE_NNODES": str(args.nnodes),
                 "PADDLE_NODE_RANK": str(node_rank),
                 **({"PADDLE_COORDINATOR": coordinator} if coordinator else {}),
+                **({"PADDLE_TPU_SNAP_STORE": snap.addr} if snap else {}),
                 "PADDLE_NPROC_PER_NODE": str(nproc),
             })
             log_f = open(os.path.join(args.log_dir, f"workerlog.{rank}"), "w")
@@ -181,6 +245,7 @@ def launch(argv=None) -> int:
             procs.append(subprocess.Popen(
                 [sys.executable, "-u", args.script, *args.script_args],
                 env=env, stdout=log_f, stderr=subprocess.STDOUT))
+            ranks[procs[-1].pid] = rank
     except BaseException:
         # a failed spawn must not leave earlier workers blocked on a
         # rendezvous that will never complete
@@ -188,6 +253,8 @@ def launch(argv=None) -> int:
             pr.kill()
         for f in logs:
             f.close()
+        if snap is not None:
+            snap.stop()
         if store is not None:
             store.close()
         raise
@@ -213,7 +280,18 @@ def launch(argv=None) -> int:
                 if code is None or pr not in procs:
                     continue
                 procs.remove(pr)
+                if snap is not None:
+                    # spontaneous deaths only: the teardowns below are
+                    # the launcher's own, and the host RAM stays
+                    snap.note_child_exit(ranks.get(pr.pid), code)
                 if code != 0:
+                    if snap is not None:
+                        # siblings that died in the same window lose their
+                        # holdings too (a rank and its replica holder)
+                        for other in procs:
+                            oc = other.poll()
+                            if oc is not None:
+                                snap.note_child_exit(ranks.get(other.pid), oc)
                     # the first failure tears down the pod (reference
                     # CollectiveController watch loop)
                     rc = code
@@ -227,6 +305,8 @@ def launch(argv=None) -> int:
     finally:
         for f in logs:
             f.close()
+        if snap is not None:
+            snap.stop()
         if store is not None:
             store.close()
     return rc

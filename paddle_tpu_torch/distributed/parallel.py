@@ -13,7 +13,7 @@ cards raise; nothing falls back to gloo or to the CPU.  Then it sets the
 default ``HybridCommunicateGroup(dp=world)``, one member a process.
 
 Joining the fleet fault domain (``PADDLE_TPU_FLEET_STORE``) waits for
-ROADMAP A7 and raises.
+ROADMAP A7b and raises.
 """
 
 from __future__ import annotations
@@ -67,7 +67,7 @@ def init_parallel_env(strategy=None) -> "ParallelEnv":
     if os.environ.get("PADDLE_TPU_FLEET_STORE"):
         raise NotImplementedError(
             "init_parallel_env: joining the fleet fault domain (PADDLE_TPU_FLEET_STORE) "
-            "is not ported yet (ROADMAP A7)")
+            "is not ported yet (ROADMAP A7b)")
     rank = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
     nprocs = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
     # PADDLE_COORDINATOR: on several nodes the launcher's rendezvous store

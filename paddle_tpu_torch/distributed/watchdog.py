@@ -12,7 +12,7 @@ logs; pass e.g. ``lambda info: os._exit(101)`` to end the rank.
 Left for later queue items: the flight-recorder events and dump of the
 reference's telemetry (ROADMAP A8; ``flight_recorder_dump`` is ``''``, as
 the reference's is with telemetry off), and resolving the process-global
-fault domain with ``fault_domain="current"`` (ROADMAP A7; it raises).  A
+fault domain with ``fault_domain="current"`` (ROADMAP A7b; it raises).  A
 fault domain object passed in (``poll_once``, ``poison``, ``rank``) is
 polled and poisoned as in the reference.
 """
@@ -41,7 +41,7 @@ def _check_domain(domain) -> None:
     if domain == "current":
         raise NotImplementedError(
             "CommWatchdog(fault_domain='current'): the process-global fault "
-            "domain is not ported yet (ROADMAP A7); pass a domain object")
+            "domain is not ported yet (ROADMAP A7b); pass a domain object")
 
 
 class CommWatchdog:

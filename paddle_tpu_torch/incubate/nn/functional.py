@@ -32,7 +32,7 @@ import torch
 
 from ...framework.flags import get_flags
 from ...nn import functional as F
-from ...ops import use_function
+from ...ops import export_route, exported_op, use_function
 from ...ops.fused_ln_swiglu import AddLayerNormFunction, fused_add_layer_norm
 
 __all__ = [
@@ -68,6 +68,10 @@ def fused_layer_norm(x: torch.Tensor, norm_weight: torch.Tensor,
         return F.layer_norm(pre, pre.shape[-1], norm_weight, norm_bias, epsilon)
     if norm_bias is not None and residual.shape == pre.shape and \
             get_flags("use_fused_layernorm")["use_fused_layernorm"]:
+        if export_route("use_fused_layernorm"):
+            out, pre, _, _ = exported_op("add_layer_norm")(pre, residual, norm_weight,
+                                                           norm_bias, epsilon)
+            return out, pre
         if use_function("use_fused_layernorm", pre, residual, norm_weight, norm_bias):
             return AddLayerNormFunction.apply(pre, residual, norm_weight, norm_bias,
                                               epsilon)

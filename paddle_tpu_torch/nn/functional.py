@@ -36,7 +36,7 @@ from ..framework.dtype import convert_dtype
 from ..framework.flags import get_flags
 from ..framework import random as _random
 from ..framework.random import bulk_key, next_key  # noqa: F401 (the reference's names here)
-from ..ops import use_function, use_kernel
+from ..ops import export_route, exported_op, use_function, use_kernel
 from ..ops.attention import sdpa_reference
 from ..ops.flash_attention import FlashAttentionFunction, flash_attention_fwd
 from ..ops.fused_ln_swiglu import SwiGLUFunction, fused_swiglu
@@ -116,7 +116,10 @@ def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
 def _rms_norm(x: torch.Tensor, weight: torch.Tensor, epsilon: float) -> torch.Tensor:
     """RMSNorm on one device: the autograd Function (B1 and B1b on the
     card) with grad, B1 without, the plain version on the CPU or with the
-    flag off."""
+    flag off.  While a program is exported, the flag-on call is traced as
+    the ``paddle_tpu_torch::rms_norm`` operator."""
+    if export_route("use_fused_rms_norm"):
+        return exported_op("rms_norm")(x, weight, epsilon)[0]
     if use_function("use_fused_rms_norm", x, weight):
         return RMSNormFunction.apply(x, weight, epsilon)
     if use_kernel("use_fused_rms_norm", x):
@@ -159,6 +162,8 @@ def swiglu(x: torch.Tensor, y: Optional[torch.Tensor] = None, name=None) -> torc
         half = x.shape[-1] // 2
         return torch.nn.functional.silu(x[..., :half]) * x[..., half:]
     if x.shape == y.shape and get_flags("use_fused_swiglu")["use_fused_swiglu"]:
+        if export_route("use_fused_swiglu"):
+            return exported_op("swiglu")(x, y)
         if use_function("use_fused_swiglu", x, y):
             return SwiGLUFunction.apply(x, y)
         return fused_swiglu(x, y)
@@ -231,7 +236,10 @@ def _attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
                is_causal: bool) -> torch.Tensor:
     """Unmasked attention on one device: the flash Function (B3, B3b/B3c)
     with grad, B3 without, ``sdpa_reference`` on the CPU or with the flag
-    off."""
+    off.  While a program is exported, the flag-on call is traced as the
+    ``paddle_tpu_torch::flash_attention`` operator."""
+    if export_route("use_flash_attention"):
+        return exported_op("flash_attention")(query, key, value, is_causal)[0]
     if use_function("use_flash_attention", query, key, value):
         return FlashAttentionFunction.apply(query, key, value, is_causal)
     if use_kernel("use_flash_attention", query):

@@ -19,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from . import LAUNCHES, _build, use_function, use_kernel
+from . import LAUNCHES, _build, export_route, exported_op, use_function, use_kernel
 
 __all__ = ["rope_plain", "fused_rope", "fused_rope_bwd", "RopeFunction", "rotate"]
 
@@ -124,7 +124,10 @@ def rotate(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tenso
            pos_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The rope seam: :class:`RopeFunction` when a gradient is wanted and
     ``use_fused_rope`` is on, B2 on the card with the flag on, the plain
-    version otherwise."""
+    version otherwise; while a program is exported, the flag-on call is
+    traced as the ``paddle_tpu_torch::rope`` operator."""
+    if export_route("use_fused_rope"):
+        return exported_op("rope")(q, k, cos, sin, pos_ids)
     if use_function("use_fused_rope", q, k):
         return RopeFunction.apply(q, k, cos, sin, pos_ids)
     if use_kernel("use_fused_rope", q):

@@ -74,8 +74,8 @@
 
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
 item: disaggregated prefill (``submit_prefilled``, ``prefill_export``, A8) and
-the decode-loop watchdog (A7).  The reference's chaos seams
-(``_faults.fire``) and telemetry events wait for A7 and A8.
+the decode-loop watchdog (A7b).  The reference's chaos seams
+(``_faults.fire``) and telemetry events wait for A7b and A8.
 
 Env knobs: ``PADDLE_TPU_SERVE_MAX_BATCH`` (rows, default 4),
 ``PADDLE_TPU_PAGE_TOKENS`` (page size, default 16),
@@ -539,7 +539,7 @@ class ServingEngine:
         if watchdog_s is None:
             watchdog_s = _env_float("PADDLE_TPU_SERVE_WATCHDOG_S", 0.0)
         if watchdog_s and watchdog_s > 0:
-            raise _not_ported("the decode-loop watchdog (watchdog_s > 0)", "A7")
+            raise _not_ported("the decode-loop watchdog (watchdog_s > 0)", "A7b")
         steps = 0
         self._stop_flag = False
         while True:

@@ -8,9 +8,10 @@ plain dicts appended to a ``deque(maxlen=N)``; ``dump()`` writes them as
 JSON on demand (``dump_flight_recorder()``) and on an unhandled exception
 (a chaining ``sys.excepthook``, installed at the first recorded event;
 ``PADDLE_TPU_FLIGHT_RECORDER=0`` opts out).  The port's ``StepMeter``
-records a ``step`` event a step; the other producers (collectives,
-checkpoints, the elastic and health layers) arrive with ROADMAP A7 and
-A8.
+records a ``step`` event a step, and the checkpoint (saves, loads,
+retries, injected faults, snapshots, resumes, preemption exits) records
+its own; the other producers (collectives, the elastic and health
+layers) arrive with ROADMAP A7b and A8.
 
 Ring size: ``PADDLE_TPU_FLIGHT_RECORDER_SIZE`` (default 512). Dump dir:
 ``PADDLE_TPU_FLIGHT_RECORDER_DIR``, else ``PADDLE_TPU_EPOCH_DIR``, else

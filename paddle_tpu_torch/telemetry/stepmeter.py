@@ -25,7 +25,7 @@ come from the chip tables by the default device's name (an H100 reads
 its own row; without a card, the nominal CPU row).  The step time is the
 host's clock between two ``step()`` calls: a loop that wants device time
 synchronises before it calls ``step()``.  ``health_guard`` (the spike
-detector of the health layer) waits for ROADMAP A7 and raises.  The
+detector of the health layer) waits for ROADMAP A7b and raises.  The
 summary's ``overlap_fraction`` (the measured overlap of the traced
 programs, which ``distributed/overlap/measure.py`` measures) waits for
 the traced programs of ROADMAP A8; until then the summary has none, as
@@ -84,7 +84,7 @@ class StepMeter:
         if health_guard is not None:
             raise NotImplementedError(
                 "StepMeter health_guard= (the health layer's spike detector) is "
-                "not ported yet (ROADMAP A7)")
+                "not ported yet (ROADMAP A7b)")
         self.name = name
         self.health_guard = None
         self.steps_skipped = 0

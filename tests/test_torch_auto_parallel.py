@@ -375,6 +375,8 @@ def test_engine_on_a_dataset_through_the_distributed_sampler():
 
 
 def test_engine_prepare_errors_and_the_a7_refusals(tmp_path):
+    """The prepare errors; ``save``/``load``, which raised until the
+    distributed checkpoint (A7a), now write and read it."""
     with pytest.raises(RuntimeError, match="model and loss"):
         ap.Engine().prepare()
     net = torch.nn.Linear(2, 2)
@@ -383,9 +385,37 @@ def test_engine_prepare_errors_and_the_a7_refusals(tmp_path):
     with pytest.raises(TypeError, match="Metric"):
         ap.Engine(net, lambda out, y: out.sum(), metrics=[object()])
     eng = ap.Engine(net, lambda out, y: out.sum(), AdamW(1e-3, parameters=net.parameters()))
-    for call in (lambda: eng.save(str(tmp_path / "ck")), lambda: eng.load(str(tmp_path))):
-        with pytest.raises(NotImplementedError, match="A7"):
-            call()
+    eng.save(str(tmp_path / "ck"))
+    assert (tmp_path / "ck" / "COMMITTED").exists()
+    with pytest.raises(FileNotFoundError):
+        eng.load(str(tmp_path / "missing"))
+
+
+def test_engine_save_load_reshards_the_training_state(tmp_path):
+    """``Engine.save`` at dp 2 x sharding 4 after a fit, ``Engine.load`` into
+    a fresh engine at dp 4 x sharding 2: the weights and the optimizer
+    state come back, and the next fit's losses equal the first engine's and
+    the JAX Engine's continuing from the same point."""
+    jhcg, hcg = _hcgs(dp=2, sharding=4)
+    jm, tm = _llamas()
+    jeng = jap.Engine(jm, _ce(jap), paddle.optimizer.AdamW(1e-3, parameters=jm.parameters()))
+    eng = ap.Engine(tm, _ce(ap), AdamW(1e-3, parameters=tm.parameters()))
+    batches = _llama_batches(2, rows=8)
+    jeng.fit(batches, epochs=1, verbose=0)
+    eng.fit(batches, epochs=1, verbose=0)
+    eng.save(str(tmp_path / "ck"))
+    assert (tmp_path / "ck" / "optimizer.pdopt").exists()
+    want = eng.fit(batches, epochs=1, verbose=0)["loss"]
+    jwant = jeng.fit(batches, epochs=1, verbose=0)["loss"]
+    jtopo.set_hybrid_communicate_group(None)
+    topology.set_hybrid_communicate_group(None)
+    _hcgs(dp=4, sharding=2)
+    fresh = LlamaForCausalLM(llama_tiny(**KW), device="cpu", seed=9)
+    eng2 = ap.Engine(fresh, _ce(ap), AdamW(1e-3, parameters=fresh.parameters()))
+    eng2.load(str(tmp_path / "ck"))
+    got = eng2.fit(batches, epochs=1, verbose=0)["loss"][-1]   # the histories run on
+    np.testing.assert_allclose(got, want[-1], rtol=1e-5)
+    np.testing.assert_allclose(got, jwant[-1], rtol=1e-4)
 
 
 def test_engine_default_strategy_is_data_parallel_over_the_devices():

@@ -477,11 +477,56 @@ class TestUnported:
         (["--mode", "serve", "x.py"], {}, "A8"),
         (["--fault_domain", "on", "x.py"], {}, "A7"),
         (["x.py"], {"PADDLE_TPU_FAULT_DOMAIN": "1"}, "A7"),
-        (["x.py"], {"PADDLE_TPU_SNAP": "1"}, "A7"),
-    ], ids=["serve", "fault_domain", "fault_domain_env", "snapshot_depot"])
+    ], ids=["serve", "fault_domain", "fault_domain_env"])
     def test_refused(self, monkeypatch, tmp_path, argv, env, item):
         for k, v in env.items():
             monkeypatch.setenv(k, v)
         with pytest.raises(NotImplementedError, match=item):
             launch(["--log_dir", str(tmp_path / "log"), *argv])
         assert not (tmp_path / "log").exists()
+
+
+_SNAP_PAYLOAD = textwrap.dedent("""
+    import os, sys, time
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed.checkpoint import Snapshotter, resume
+    from paddle_tpu_torch.distributed.checkpoint.replicator import transport_from_env
+
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    assert os.environ.get("PADDLE_TPU_SNAP_STORE"), "no depot exported"
+    acc = torch.full((4,), float(rank + 1))
+    snap = Snapshotter(lambda: {"acc": acc}, every=2, sync=True)
+    assert snap.transport is not None and snap.world_size == 2
+    assert snap.on_step(2)                      # captured and shipped
+    tr = transport_from_env()
+    deadline = time.time() + 60
+    while not tr.complete_generations(2):       # the other rank's copy
+        assert time.time() < deadline, "generation 2 never completed"
+        time.sleep(0.1)
+    got = {"acc": torch.zeros(4)}
+    info = resume(got, None, transport=tr, ledger=None)
+    assert info.source == "memory" and info.step == 2, info
+    assert torch.equal(got["acc"], acc)
+    holders = sorted((e["src"], e["holder"]) for e in tr.index() if e["src"] == rank)
+    assert holders == sorted([(rank, rank), (rank, (rank + 1) % 2)]), holders
+    print("SNAP PAYLOAD OK rank", rank, flush=True)
+""")
+
+
+class TestSnapshotDepot:
+    def test_launcher_hosts_the_depot(self, tmp_path):
+        """``PADDLE_TPU_SNAP`` on by default: the launcher hosts the depot
+        and exports ``PADDLE_TPU_SNAP_STORE``; each rank ships its own copy
+        and its ring neighbour's replica, and resumes from the depot."""
+        proc, logs = _run_launch(tmp_path, _SNAP_PAYLOAD, timeout=120)
+        assert proc.returncode == 0, f"launch failed: {proc.stderr}\n{logs}"
+        for name, text in logs.items():
+            assert "SNAP PAYLOAD OK rank" in text, f"{name}: {text[-2000:]}"
+
+    def test_snapshots_off_exports_no_depot(self, tmp_path):
+        show = "import os; print(os.environ.get('PADDLE_TPU_SNAP_STORE'), flush=True)\n"
+        proc, logs = _run_launch(tmp_path, show, nproc=1, timeout=60,
+                                 extra_env={"PADDLE_TPU_SNAP": "0"})
+        assert proc.returncode == 0, proc.stderr
+        assert logs["workerlog.0"].split() == ["None"]

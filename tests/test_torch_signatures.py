@@ -35,6 +35,8 @@ NO_TWIN = {
     "paddle_tpu_torch.nn.layers": "old path of nn.layer.common/norm, kept importable",
     "paddle_tpu_torch.nn.rnn": "old path of nn.layer.rnn, kept importable",
     "paddle_tpu_torch.ops._build": "builds the CUDA kernels; the reference has Pallas",
+    "paddle_tpu_torch.ops.custom_ops": "the kernels as torch.library operators for "
+                                       "torch.export; the reference exports StableHLO",
     "paddle_tpu_torch.ops.decode_attention": "kernel module; reference ops/pallas/",
     "paddle_tpu_torch.ops.flash_attention": "kernel module; reference ops/pallas/",
     "paddle_tpu_torch.ops.fused_ln_swiglu": "kernel module; reference ops/pallas/",
@@ -46,9 +48,6 @@ NO_TWIN = {
 }
 
 DEPARTURES = {
-    "paddle_tpu_torch.inference.Predictor":
-        "built from a model (Predictor.from_model); the handle-based "
-        "Predictor(Config) over a saved program waits for ROADMAP A3",
     # the core (ROADMAP A3c, §C)
     "paddle_tpu_torch.tensor.Tensor": "is torch.Tensor, built by torch's own constructors "
         "(paddle.to_tensor(value, stop_gradient=...) takes the reference's arguments)",
@@ -356,10 +355,7 @@ def test_unported_arguments_raise_with_their_queue_item():
 # ---------------------------------------------------------------------------
 # a reference name the port defines elsewhere as another object (the same
 # word for a different function), which waits for its own item here
-NAME_CLASHES = {
-    ("paddle_tpu_torch.jit", "save"): "framework.io.save; jit.save waits for A3d and raises",
-    ("paddle_tpu_torch.jit", "load"): "framework.io.load; jit.load waits for A3d and raises",
-}
+NAME_CLASHES = {}
 
 
 def _port_modules():
@@ -434,7 +430,20 @@ def test_c3_walk_covers_the_core():
                  "paddle_tpu_torch.Generator", "paddle_tpu_torch.save", "paddle_tpu_torch.io",
                  "paddle_tpu_torch.distributed", "paddle_tpu_torch.framework.set_flags",
                  "paddle_tpu_torch.serving.decode_mesh",
-                 "paddle_tpu_torch.incubate.nn.functional.swiglu"):
+                 "paddle_tpu_torch.incubate.nn.functional.swiglu",
+                 # ROADMAP A3d and A7a
+                 "paddle_tpu_torch.jit.to_static", "paddle_tpu_torch.jit.save",
+                 "paddle_tpu_torch.jit.load", "paddle_tpu_torch.jit.InputSpec",
+                 "paddle_tpu_torch.jit.TranslatedLayer",
+                 "paddle_tpu_torch.inference.Config",
+                 "paddle_tpu_torch.inference.create_predictor",
+                 "paddle_tpu_torch.distributed.checkpoint.save_state_dict",
+                 "paddle_tpu_torch.distributed.checkpoint.load_state_dict",
+                 "paddle_tpu_torch.distributed.checkpoint.Snapshotter",
+                 "paddle_tpu_torch.distributed.checkpoint.resume",
+                 "paddle_tpu_torch.distributed.checkpoint.latest_checkpoint",
+                 "paddle_tpu_torch.distributed.fleet.elastic.PreemptionGuard",
+                 "paddle_tpu_torch.distributed.health.host_fingerprint"):
         assert path in paths, path
 
 
@@ -468,7 +477,8 @@ def test_c3_calls():
     ("paddle_tpu_torch.Model", "A10"), ("paddle_tpu_torch.fft", "A10"),
     ("paddle_tpu_torch.sparse", "A10"), ("paddle_tpu_torch.onnx", "A10"),
     ("paddle_tpu_torch.quantization", "A10"), ("paddle_tpu_torch.static", "A10"),
-    ("paddle_tpu_torch.jit.to_static", "A3d"), ("paddle_tpu_torch.jit.save", "A3d"),
+    ("paddle_tpu_torch.distributed.health.HealthGuard", "A7b"),
+    ("paddle_tpu_torch.distributed.fleet.elastic.Supervisor", "A7b"),
     ("paddle_tpu_torch.vision.ops", "A10"),
     ("paddle_tpu_torch.serving.Router", "A8"), ("paddle_tpu_torch.device.Stream", "A10"),
     ("paddle_tpu_torch.telemetry.prometheus_text", "A8")])

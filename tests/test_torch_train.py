@@ -565,6 +565,15 @@ class TestRefusals:
 
     @pytest.mark.parametrize("arg", ["health_guard", "persistent_cache", "snapshotter"])
     def test_train_step_guards_raise(self, arg):
+        """``health_guard`` (ROADMAP A7b) and ``persistent_cache`` (A10)
+        raise; ``snapshotter`` is taken since the checkpoint (A7a) is
+        ported (``tests/test_torch_snapshot.py`` drives it)."""
+        if arg == "snapshotter":
+            snap = object()
+            step = TrainStep(torch.nn.Linear(2, 2), lambda m, x: m(x).sum(), None,
+                             snapshotter=snap)
+            assert step._snapshotter is snap
+            return
         with pytest.raises(NotImplementedError, match=arg):
             TrainStep(torch.nn.Linear(2, 2), lambda m, x: m(x).sum(), None, **{arg: True})
 
