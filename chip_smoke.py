@@ -366,7 +366,14 @@ LLAMA_ON = dict(use_fused_swiglu=True, use_fused_adamw=True)   # and the default
 GPT_ON = dict(use_fused_layernorm=True, use_fused_adamw=True)
 
 
+_START = [None]    # main()'s start on the host clock
+
+
 def log(msg: str) -> None:
+    """A line of the run's log, behind main()'s elapsed seconds once it
+    runs (the phases' parts can be timed from the log alone)."""
+    if _START[0] is not None:
+        msg = f"[{time.perf_counter() - _START[0]:7.1f} s] {msg}"
     print(msg, flush=True)
 
 
@@ -2087,14 +2094,19 @@ def phase_fused_parity(torch):
         for p, g, m, v in zip(ps, gs, ms, vs):
             adamw_plain(p, g, m, v, sc[0], sc[1], sc[2], 0.9, 0.999, 1e-8, 0.1, True)
 
+    guarded_sweep = b5_guarded_parity(torch, randn, ps, gs, ms, vs)
     rows["adamw"] = dict(
         max_abs_err=main_err, ms=time_ms(torch, sweep, iters=3, repeats=3),
         plain_ms=time_ms(torch, plain_sweep, iters=1, repeats=3),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(torch, lambda: torch._fused_adamw_(
             ps, gs, ms, vs, [], steps, lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=0.1,
-            eps=1e-8, amsgrad=False, maximize=False), iters=3, repeats=3))
-    log(f"adamw sweep: {len(ps)} tensors, {n / 1e9:.3f} B f32 parameters")
+            eps=1e-8, amsgrad=False, maximize=False), iters=3, repeats=3),
+        guarded_ms=time_ms(torch, guarded_sweep, iters=3, repeats=3))
+    log(f"adamw sweep: {len(ps)} tensors, {n / 1e9:.3f} B f32 parameters; host-scalar form "
+        f"{rows['adamw']['ms']:.4f} ms, guarded form (ok = 1) {rows['adamw']['guarded_ms']:.4f} "
+        f"ms ({rows['adamw']['guarded_ms'] / rows['adamw']['ms']:.4f} of the host form), bound "
+        f"{b_ms:.4f} ms")
     del ps, gs, ms, vs, steps
     torch.cuda.empty_cache()
 
@@ -2103,6 +2115,68 @@ def phase_fused_parity(torch):
         log(f"time {name}: kernel {r_['ms']:.4f} ms, plain {r_['plain_ms']:.4f} ms, "
             f"library {r_['library_ms']}, bound {r_['bound_ms']:.4f} ms ({r_['bound_by']})")
     return rows
+
+
+def _bits(torch, t):
+    """``t``'s bits as integers (bitwise comparison: -0.0 is not 0.0)."""
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def b5_guarded_parity(torch, randn, ps, gs, ms, vs):
+    """B5's guarded form (``fused_adamw_guarded``: bias corrections from a
+    device table at the device count, a device predicate) against the
+    host-scalar form: at ok = 1 bit-equal (p, m, v and the bf16 ``out``
+    beside an f32 master), at ok = 0 every tensor bitwise unchanged; at a
+    7B MLP weight (f32 p with bf16 out, and bf16 p) and an off-size flat
+    length.  Returns the guarded sweep over the row's tensors (``ps``...),
+    for timing beside the host form."""
+    from paddle_tpu_torch.ops.fused_ln_swiglu import (adamw_bc_table, fused_adamw,
+                                                      fused_adamw_guarded)
+
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    bc = adamw_bc_table(0.9, 0.999, 1024, dev)
+    t6 = torch.full((), 6, dtype=torch.int32, device=dev)     # six updates before: step 7
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    hp = (0.9, 0.999, 1e-8, 0.1, True)
+    for shape, dtype in (((4096, 11008), f32), ((4096, 11008), bf16), ((1_000_003,), f32)):
+        p, g = randn(*shape, dtype=dtype), (0.1 * randn(*shape)).to(dtype)
+        m, v = 0.01 * randn(*shape), (0.01 * randn(*shape)).abs()
+        out = p.to(bf16) if dtype == f32 else None
+        state = [x.clone() for x in (p, m, v)] + ([out.clone()] if out is not None else [])
+        host = [x.clone() for x in state]
+        fused_adamw(host[0], g, host[1], host[2], 1e-3, 7, *hp,
+                    out=host[3] if out is not None else None)
+        guarded = [x.clone() for x in state]
+        fused_adamw_guarded(guarded[0], g, guarded[1], guarded[2], 1e-3, t6, bc, one,
+                            0.9, 0.999, 1e-8, 0.1, True,
+                            out=guarded[3] if out is not None else None)
+        skipped = [x.clone() for x in state]
+        fused_adamw_guarded(skipped[0], g, skipped[1], skipped[2], 1e-3, t6, bc, zero,
+                            0.9, 0.999, 1e-8, 0.1, True,
+                            out=skipped[3] if out is not None else None)
+        names = "pmvo"[:len(state)]
+        diff = [nm for nm, a, b in zip(names, host, guarded)
+                if not torch.equal(_bits(torch, a), _bits(torch, b))]
+        moved = [nm for nm, a, b in zip(names, state, skipped)
+                 if not torch.equal(_bits(torch, a), _bits(torch, b))]
+        changed = [nm for nm, a, b in zip(names, state, host)
+                   if torch.equal(_bits(torch, a), _bits(torch, b))]
+        log(f"parity adamw guarded {dtype} {list(shape)}{' + bf16 out' if out is not None else ''}"
+            f": ok = 1 bit-equal to the host-scalar form (differs in {diff or 'nothing'}), "
+            f"ok = 0 left every tensor as it was (moved {moved or 'nothing'})")
+        if diff or moved or changed:
+            raise AssertionError(f"adamw guarded {dtype} {shape}: differs {diff}, moved at "
+                                 f"ok = 0 {moved}, the host step left {changed} unchanged")
+        del p, g, m, v, out, state, host, guarded, skipped
+    ts = [t6.clone() for _ in ps]
+
+    def guarded_sweep():
+        for p, g, m, v, t in zip(ps, gs, ms, vs, ts):
+            fused_adamw_guarded(p, g, m, v, 1e-3, t, bc, one, 0.9, 0.999, 1e-8, 0.1, True)
+
+    return guarded_sweep
 
 
 def phase_e2e(torch, card):
@@ -2451,7 +2525,15 @@ def phase_engine(torch, card, model):
     reqs, worst, compared, step_s, launches = engine_lockstep(
         torch, engines, prompts, T, profile_at=ENGINE_PROFILE_STEP, on_step=on_step)
     peak = torch.cuda.max_memory_allocated()
-    outs = {k: e.run() for k, e in engines.items()}   # drained: returns, leak-checked
+    # drained: returns, leak-checked; the bf16 engine's run under the
+    # decode-loop watchdog (it must not fire, and its tokens stay the same)
+    wedged = []
+    outs = {k: e.run(**(dict(watchdog_s=60.0, on_wedge=wedged.append) if k == "bf16" else {}))
+            for k, e in engines.items()}
+    if wedged or any(not np.array_equal(outs["bf16"][r.rid], np.asarray(r.generated))
+                     for r in reqs["bf16"]):
+        raise AssertionError(f"engine run(watchdog_s=60): wedged {wedged}, tokens changed")
+    log(f"engine bf16 run(watchdog_s=60): the watchdog never fired, tokens unchanged")
     for k, e in engines.items():
         e.pool.check_leaks()
         for r in reqs[k]:
@@ -2620,7 +2702,9 @@ def phase_engine_cp(torch, card, model):
     path = None
     for kind in ("bf16", "int8", "fp8"):
         res = {}
-        for cp in (1, *CP_DEGREES):
+        # the chunked baseline at full depth for bf16 pages only (the
+        # script's time); every kind's ring is gated against it at 2 layers
+        for cp in ((1, *CP_DEGREES) if kind == "bf16" else CP_DEGREES):
             e = ServingEngine(model, cp=cp, kv_dtype=kind, **CP_ENGINE_KW)
             rec = cp_instrument(torch, e)
             rid = e.submit(prompt, max_new_tokens=CP_NEW)
@@ -2645,9 +2729,14 @@ def phase_engine_cp(torch, card, model):
             res[cp] = (toks, rec[0][1], min(ms for _, _, ms in rec[:2]))
             del e
             torch.cuda.empty_cache()
-        toks1, logits1, ms1 = res[1]
         for cp in CP_DEGREES:
             toks, logits, ms = res[cp]
+            if 1 not in res:
+                log(f"engine CP {L}-layer {kind} cp {cp} on {card}: prefill of a "
+                    f"{CP_PROMPT_LEN}-token prompt {ms:.1f} ms (best of 2); tokens "
+                    f"{toks.tolist()}")
+                continue
+            toks1, logits1, ms1 = res[1]
             log(f"engine CP {L}-layer {kind} cp {cp} on {card}: prefill of a "
                 f"{CP_PROMPT_LEN}-token prompt {ms:.1f} ms (best of 2), chunked {ms1:.1f} ms "
                 f"({n_chunks} chunks of {P}), {ms1 / ms:.1f}x; first-token logits vs chunked "
@@ -2766,7 +2855,8 @@ def a1_offload(torch, model, kind, prompts, want, kw, full):
     """The offload tier: 8 rows of 512-token prompts in A1_OFFLOAD_PAGES
     pages grow to A1_OFFLOAD_NEW tokens, so preemption swaps pages to the
     host tier and back; token-exact against ``want`` (an engine with room
-    for all), the first victim's pages bit-equal after its recall; then a
+    for all), the first victim's pages bit-equal after its recall; then,
+    unless ``full`` (the full-depth model: cut for the script's time), a
     tier too small for one victim: offload stalls, still token-exact.
     Returns the bytes of one swap-out, and the ms of each swap-out and each
     recall of the first run, in order."""
@@ -2822,6 +2912,8 @@ def a1_offload(torch, model, kind, prompts, want, kw, full):
         f"the first victim's {n_pages} pages bit-equal after its recall; "
         f"{per / 2**20:.1f} MiB a swap-out; recall {s['kv_recall_bytes_per_token']:.0f} B a "
         f"new token; launches {counts}")
+    if full:        # the stall at full depth: the 2-layer runs cover it (the script's time)
+        return per, times
     e = ServingEngine(model, offload=OffloadPool(max_pages=A1_SMALL_TIER), kv_dtype=kind, **okw)
     got, _, counts, n_fwd = a1_serve(torch, e, [prompts], A1_OFFLOAD_NEW)
     a1_check_launches(f"A1 offload stall {kind}", L, counts, n_fwd)
@@ -5670,7 +5762,7 @@ DIST_MEMBERS = 4                # (b): single-controller members sharing cuda:0
 # --log_dir <dir> payload.py args.json``.  It writes its results to
 # ``args["out"]``.
 DIST_PAYLOAD = '''
-import gc, json, sys, time
+import gc, json, os, sys, time
 import numpy as np
 import torch
 import torch.distributed as tdist
@@ -5823,7 +5915,18 @@ with ptt.flag_guard(**args["flags"]), watchdog.watch("zero"):
 watchdog.stop()
 if not unchanged:
     raise AssertionError("an AVG over one rank changed the gradients")
-json.dump(dict(backend=backend, world_size=env.world_size, rank=env.rank,
+# the fleet fault domain the launcher's default arms: joined in
+# init_parallel_env, its lease beating, the train steps noted in it
+from paddle_tpu_torch.distributed.fleet import fault_domain as _fd
+domain = _fd.current()
+fault = dict(store=os.environ.get("PADDLE_TPU_FLEET_STORE"),
+             joined=domain is not None,
+             beats=domain.lease.beats if domain is not None else 0,
+             last_step=(domain.lease._payload.get("step") if domain is not None else None),
+             poisoned=domain.check_poison() if domain is not None else None)
+if domain is not None:
+    domain.stop()
+json.dump(dict(backend=backend, world_size=env.world_size, rank=env.rank, fault=fault,
                losses=losses, step_ms=step_ms, launches=launches,
                buckets=n_buckets, tensors=n_grads, bucket_bytes=nbytes,
                dtypes=grad_dtypes, sync_ms=sync_ms, lone_bytes=lone_bytes, lone_ms=lone_ms,
@@ -5965,6 +6068,12 @@ def phase_dist(torch, card, train):
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     losses = res["losses"]
+    fault = res["fault"]
+    log(f"dist fault domain (the launcher's default, on): fleet store {fault['store']}, joined "
+        f"in init_parallel_env {fault['joined']}, lease heartbeats {fault['beats']}, last step "
+        f"noted {fault['last_step']}, poison {fault['poisoned']}")
+    if not (fault["store"] and fault["joined"] and fault["beats"] > 0) or fault["poisoned"]:
+        raise AssertionError(f"dist fault domain: {fault}")
     log(f"dist launch --nproc_per_node 1 on {card}: {took:.1f} s, backend {res['backend']}, "
         f"world {res['world_size']}, rank {res['rank']}; DataParallel losses "
         f"{' '.join(f'{x:.4f}' for x in losses)} (phase_train's first "
@@ -6005,7 +6114,8 @@ def phase_dist(torch, card, train):
 
 TP = 2                              # phase_tp: the model-axis members, all on cuda:0
 TP_KINDS = ("bf16", "int8", "fp8")
-TP_QUANT_F32_LAYERS = 8             # (a): f32 weights on int8/fp8 pages (time: PERF.md §4)
+TP_QUANT_F32_LAYERS = 8             # (a): f32 weights' depth on every page kind (time: PERF.md §4)
+TP_TIME_LAYERS = 8                  # (a): the bf16 tp=1 / tp=2 timing's depth (time: PERF.md §4)
 TP_LAYER_SEQ = 2048                 # (b): the decoder layer's [1, 2048] tokens
 TP_WRAP_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 32, 128)   # (c): Llama-2-7B's training attention
 
@@ -6345,15 +6455,16 @@ def tp_engine(torch, card, cfg, make):
     dtype)`` builds it),
     both members on the card, phase_engine's 8 ragged prompts, MAX_NEW new
     tokens, bf16, int8 and fp8 pages.  Gates (``tp_streams``): f32 weights
-    at full depth, every stream on f32 pages equal to ``tp=1``'s; f32
-    weights at TP_QUANT_F32_LAYERS on int8 and fp8 pages, and bf16 at 2
+    at TP_QUANT_F32_LAYERS (the depth cut for the script's time), every
+    stream on bf16 pages equal to ``tp=1``'s; on int8 and fp8 pages, and bf16 at 2
     layers on every page type, every logit that chose a
     token both engines emit within LOGITS_REL_TOL of ``tp=1``'s and the
     streams equal or parted at a certified near-tie (on int8 and fp8 pages
     a k or v that differs from ``tp=1``'s by f32 rounding can round to
     another code, so exactness is not promised there); exact launches
-    (``tp_want``) on every run; no leaked page.  Then, at full depth in
-    bf16, ``tp=1`` and ``tp=2`` side by side: the prefill of a 512-token
+    (``tp_want``) on every run; no leaked page.  Then, at TP_TIME_LAYERS in
+    bf16 (the depth cut for the script's time), ``tp=1`` and ``tp=2`` side
+    by side: the prefill of a 512-token
     prompt, the decode step, pool bytes a token in all and a member, and
     peak memory."""
     import numpy as np
@@ -6371,13 +6482,9 @@ def tp_engine(torch, card, cfg, make):
         if n != want:
             raise AssertionError(f"{label}: launches {n}, want {want}")
 
+    depth = min(L, TP_QUANT_F32_LAYERS)
+    model = make(depth, torch.float32)
     for kind in TP_KINDS:
-        depth = L if kind == "bf16" else min(L, TP_QUANT_F32_LAYERS)
-        if kind in TP_KINDS[:2]:   # full depth for bf16 pages, then the quantized depth
-            model = None
-            gc.collect()
-            torch.cuda.empty_cache()
-            model = make(depth, torch.float32)
         (s1, n1, lg1, t1), (s2, n2, lg2, t2) = (
             tp_serve(torch, model, tp, kind, prompts, T, record=True) for tp in (1, TP))
         check(f"tp 1 f32 {kind}", n1, 1, depth)
@@ -6407,6 +6514,7 @@ def tp_engine(torch, card, cfg, make):
     gc.collect()
     torch.cuda.empty_cache()
 
+    L = min(L, TP_TIME_LAYERS)
     model = make(L, torch.bfloat16)
     p512 = rng.integers(1, cfg.vocab_size, ENGINE_PREFILL_LEN).astype(np.int32)
     for tp in (1, TP):
@@ -8818,6 +8926,286 @@ def ckpt_runs(torch, card, dev, make, batch, workdir, t0):
     del model, opt, step, model2, opt2, step2, snap, target
 
 
+HEALTH_WARMUP, HEALTH_STEPS = 3, 6     # phase_health (a): row 2's steps each way
+HEALTH_SDC_STEPS = 4                 # (c): steps timed a configuration
+HEALTH_GATE_LAYERS = 2               # (b), (c): depth (cut for the script's time)
+
+
+def health_trainer(torch, dev, guard=None, scale=None, layers=12):
+    """Ladder row 2's trainer (``ckpt_trainer``'s: bf16 O2, AdamW + clip,
+    dropout 0.1) whose loss is times ``scale`` (a card scalar, 1.0 unless a
+    step is poisoned), guarded by ``guard``: (model, optimizer, TrainStep)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = ernie_ft_model(torch, layers, dev)
+    opt = AdamW(ERNIE_FT_LR, parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = ptt.amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    if scale is None:
+        step = TrainStep(model, lambda m, x, y: m(x, labels=y)[0], opt, health_guard=guard)
+    else:
+        step = TrainStep(model, lambda m, x, y: m(x, labels=y)[0] * scale, opt,
+                         health_guard=guard)
+    return model, opt, step
+
+
+def health_state(torch, model, opt):
+    """Every parameter, master, moment and ``@t`` (as an integer), cloned."""
+    out = {f"param {k}": v.detach().clone() for k, v in model.named_parameters()}
+    for k, v in opt.state_dict().items():
+        if k != "@step":
+            out[k] = v.detach().clone() if hasattr(v, "detach") else v
+    return out
+
+
+def health_same(torch, a, b) -> list:
+    """The keys whose values differ between two ``health_state``s, bitwise."""
+    if sorted(a) != sorted(b):
+        return sorted(set(a) ^ set(b))
+    return [k for k in a if (not torch.equal(_bits(torch, a[k]), _bits(torch, b[k]))
+                             if hasattr(a[k], "view") and a[k].is_floating_point()
+                             else not (torch.equal(a[k], b[k]) if hasattr(a[k], "view")
+                                       else a[k] == b[k]))]
+
+
+def phase_health(torch, card, dev="cuda"):
+    """The health guard and the SDC monitor (ROADMAP A7b) on ladder row 2's
+    model.  (a) 12 layers at ERNIE_FT_BATCH x ERNIE_FT_SEQ with
+    ``use_fused_adamw``: HEALTH_WARMUP then HEALTH_STEPS steps without the
+    guard, then as many with ``TrainStep(health_guard=HealthGuard(
+    HealthPolicy(max_lag=2), on_escalate="raise"))`` on the same model: ms
+    a step both ways, the idle share, B5's launches (every one the guarded
+    form), the waits on a probe's event, and gate (d): no synchronising CUDA
+    call in a guarded step but the named probe-event wait.  (b) At
+    HEALTH_GATE_LAYERS, CKPT_BATCH x ERNIE_FT_SEQ: a loss made NaN on the card (a scalar the
+    loss is multiplied by, set with ``fill_``) in step 3 of 5: every
+    parameter, master, moment and ``@t`` bit-equal across it,
+    ``steps_skipped`` 1, and steps 4-5 and the final state bit-equal to an
+    unguarded control run that never took that batch (its card generator
+    set to the guarded run's after the poisoned step); then ``escalate_after``
+    NaN steps in the window raise ``HealthError`` with a ledger entry.  (c)
+    ``attach_sdc_monitor`` (solo) at HEALTH_GATE_LAYERS: ms a step at every = 1
+    and 16 against no
+    monitor; two runs from the same state over the same batches give
+    bitwise-equal digests; one flipped bit (the ``faults`` bitflip injector)
+    in one parameter changes the parameter lane's digest.  Returns (a)'s
+    guarded launches."""
+    import shutil
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed.checkpoint import faults
+    from paddle_tpu_torch.distributed.health import (HealthError, HealthGuard,
+                                                     HealthPolicy, RewindLedger, SDCMonitor,
+                                                     SDCPolicy)
+    from paddle_tpu_torch.distributed.health import guard as guard_mod
+    from paddle_tpu_torch.distributed.health.sdc import pack_digest
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from paddle_tpu_torch.ops import fused_ln_swiglu as b5
+
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="ptt_health_")
+    try:
+        with ptt.flag_guard(use_fused_adamw=True):
+            # (a) row 2 at full depth and width, unguarded then guarded
+            gc.collect()
+            torch.cuda.empty_cache()
+            model, opt, plain = health_trainer(torch, dev)
+            guard = HealthGuard(HealthPolicy(max_lag=2), on_escalate="raise")
+            guarded = ptt.jit.TrainStep(model, lambda m, x, y: m(x, labels=y)[0], opt,
+                                        health_guard=guard)
+            ids, labels = ernie_ft_batch(torch, ERNIE_FT_BATCH, dev,
+                                         model.ernie.config.vocab_size)
+            times = {}
+            for label, step in (("unguarded", plain), ("guarded", guarded)):
+                for _ in range(HEALTH_WARMUP):
+                    step(ids, labels)
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                forms = dict(b5.FORMS)
+                waits = guard_mod.probe_event_waits()
+                t = time.perf_counter()
+                for _ in range(HEALTH_STEPS):
+                    step(ids, labels)
+                torch.cuda.synchronize()
+                times[label] = (time.perf_counter() - t) * 1e3 / HEALTH_STEPS
+                if label == "guarded":
+                    launches = dict(LAUNCHES)
+                    guarded_forms = {k: b5.FORMS[k] - forms[k] for k in forms}
+                    counted_waits = guard_mod.probe_event_waits() - waits
+            waits = guard_mod.probe_event_waits()
+            _, sites = device_syncs(torch, lambda: guarded(ids, labels), dev)
+            sync_waits = guard_mod.probe_event_waits() - waits
+            p_wall, p_busy, _, p_launches, _ = ops_profile(
+                torch, lambda: plain(ids, labels), 1, transformer_kind)
+            wall, busy, groups, n_launches, _ = ops_profile(
+                torch, lambda: guarded(ids, labels), 1, transformer_kind)
+            guard.flush()
+            updated = sum(p.grad is not None for p in model.parameters())
+            n_buffers = len(list(model.buffers()))
+            probe_sites = [w for w, _ in sites if "health/guard.py" in w]
+            other_sites = [w for w, _ in sites if "health/guard.py" not in w]
+            log(f"health (a) row 2 ERNIE 3.0 base 12 layers {ERNIE_FT_BATCH}x{ERNIE_FT_SEQ} on "
+                f"{card}, bf16 O2 AdamW + clip + B5, dropout {ERNIE_FT_DROPOUT}: "
+                f"{times['unguarded']:.2f} ms a step unguarded, {times['guarded']:.2f} ms "
+                f"guarded (HealthGuard(HealthPolicy(max_lag=2)); {times['guarded'] / times['unguarded']:.4f}"
+                f" of it), over {HEALTH_STEPS} counted steps each after {HEALTH_WARMUP} warm-up; "
+                f"guarded profile: wall {wall:.2f} ms, device busy {busy:.2f} ms, idle share "
+                f"{1 - busy / wall:.3f} ({n_launches:.0f} CUDA launches; by operation "
+                + "; ".join(f"{k} {v:.3f}" for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
+                + f"); unguarded profile: wall {p_wall:.2f} ms, device busy {p_busy:.2f} ms, idle "
+                f"share {1 - p_busy / p_wall:.3f} ({p_launches:.0f} CUDA launches); B5 launches "
+                f"{launches['adamw']} in the counted guarded steps "
+                f"({launches['adamw'] / HEALTH_STEPS:.0f} a step; guarded form "
+                f"{guarded_forms['guarded']}, host-scalar form {guarded_forms['host']}); "
+                f"probe-event waits {counted_waits} in the counted steps, {sync_waits} in the "
+                f"sync-checked step; synchronising CUDA calls in a guarded step "
+                f"{len(sites)} (the probe's event {len(probe_sites)}, other {other_sites}); "
+                f"the guard saw {guard.steps_seen} steps, skipped {guard.steps_skipped}; "
+                f"{n_buffers} buffers selected back a step")
+            want = dict.fromkeys(LAUNCHES, 0)
+            want["adamw"] = updated * HEALTH_STEPS
+            if launches != want or guarded_forms != {"host": 0, "guarded": want["adamw"]}:
+                raise AssertionError(f"health (a): launches {launches}, forms {guarded_forms}, "
+                                     f"want {want}")
+            if other_sites or len(probe_sites) > sync_waits:
+                raise AssertionError(f"health (a) gate (d): synchronising calls {sites}, "
+                                     f"probe waits {sync_waits}")
+            if guard.steps_skipped or guard.anomalies:
+                raise AssertionError(f"health (a): {guard.steps_skipped} skipped, "
+                                     f"{guard.anomalies} anomalies in healthy steps")
+            del model, opt, plain, guarded, ids, labels, guard
+
+            # (b) the skip on the card, at CKPT_BATCH rows
+            gc.collect()
+            torch.cuda.empty_cache()
+            scale = torch.ones((), device=dev)
+            guard = HealthGuard(HealthPolicy(max_lag=2, escalate_after=3, window=50),
+                                root=workdir, on_escalate="raise")
+            model, opt, step = health_trainer(torch, dev, guard, scale, HEALTH_GATE_LAYERS)
+            vocab = model.ernie.config.vocab_size
+            batches = [ernie_ft_batch(torch, CKPT_BATCH, dev, vocab, seed=40 + i)
+                       for i in range(5)]
+            ckpt_seed(torch, dev)
+            losses = []
+            for i, batch in enumerate(batches):
+                if i == 2:
+                    before = health_state(torch, model, opt)
+                    scale.fill_(float("nan"))
+                losses.append(float(step(*batch)))
+                if i == 2:
+                    scale.fill_(1.0)
+                    rng_after = torch.cuda.get_rng_state()
+                    moved = health_same(torch, before, health_state(torch, model, opt))
+                    del before
+            guard.flush()
+            final = health_state(torch, model, opt)
+            skipped = guard.steps_skipped
+            del model, opt, step
+            gc.collect()
+            torch.cuda.empty_cache()
+            model, opt, control = health_trainer(torch, dev, None, torch.ones((), device=dev),
+                                                 HEALTH_GATE_LAYERS)
+            ckpt_seed(torch, dev)
+            c_losses = [float(control(*b)) for b in batches[:2]]
+            torch.cuda.set_rng_state(rng_after)
+            c_losses += [float(control(*b)) for b in batches[3:]]
+            differs = health_same(torch, final, health_state(torch, model, opt))
+            ts = sorted({v for k, v in final.items() if k.endswith("@t")})
+            log(f"health (b) {HEALTH_GATE_LAYERS} layers {CKPT_BATCH}x{ERNIE_FT_SEQ}: a NaN loss "
+                f"in step 3 of 5 "
+                f"(losses {' '.join(f'{v:.6f}' for v in losses)}); state bit-equal across the "
+                f"skipped step (moved: {moved or 'nothing'}); steps_skipped {skipped}; steps "
+                f"4-5 against the control that never took batch 3: "
+                f"{' '.join(f'{v:.6f}' for v in c_losses[2:])}, final state differs in "
+                f"{differs or 'nothing'} ({len(final)} tensors and counts; @t {ts}: 4 updates "
+                f"of 5 steps, 0 where no gradient came)")
+            if moved or skipped != 1 or losses[:2] != c_losses[:2] or \
+                    losses[3:] != c_losses[2:] or differs or not math.isnan(losses[2]) or \
+                    max(ts) != 4:
+                raise AssertionError(f"health (b): moved {moved}, skipped {skipped}, losses "
+                                     f"{losses} against {c_losses}, differs {differs}, @t {ts}")
+            del model, opt, control, final
+            # escalation: two more NaN steps make three anomalies in the window
+            model, opt, step = health_trainer(torch, dev, guard, scale, HEALTH_GATE_LAYERS)
+            scale.fill_(float("nan"))
+            raised = None
+            try:
+                for _ in range(2):
+                    step(*batches[0])
+                guard.flush()
+            except HealthError as e:
+                raised = str(e)
+            scale.fill_(1.0)
+            entries = RewindLedger(workdir).entries()
+            log(f"health (b) escalation: HealthError {raised!r}; ledger entries {entries}")
+            if raised is None or len(entries) != 1 or entries[0]["reason"] != "non_finite":
+                raise AssertionError(f"health (b) escalation: {raised}, ledger {entries}")
+            del model, opt, step
+
+            # (c) the SDC lanes
+            def sdc_run(every, flip=False, n=HEALTH_SDC_STEPS):
+                gc.collect()
+                torch.cuda.empty_cache()
+                model, opt, step = health_trainer(torch, dev, layers=HEALTH_GATE_LAYERS)
+                digests = []
+                if every:
+                    mon = SDCMonitor(SDCPolicy(every=every, max_lag=2))
+                    orig = mon.observe
+
+                    def observe(s, lanes):
+                        digests.append(pack_digest(lanes[-4:]))
+                        return orig(s, lanes)
+
+                    mon.observe = observe
+                    step.attach_sdc_monitor(mon)
+                if flip:        # one bit of the bf16 weight's raw bytes
+                    p = dict(model.named_parameters())["classifier.weight"]
+                    raw = p.detach().cpu().contiguous().view(torch.int16).numpy()
+                    with faults.inject(op="sdc", mode="bitflip", seed=5):
+                        host = faults.fire("sdc", "param", data=raw)
+                    flipped = int((host != raw).sum())
+                    with torch.no_grad():
+                        p.copy_(torch.from_numpy(host).view(p.dtype).to(dev))
+                ckpt_seed(torch, dev)
+                step(*batches[0])           # warm
+                times = []
+                for b in batches[1:1 + n]:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    step(*b)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t) * 1e3)
+                ms = sorted(times)[n // 2]  # the median step
+                if every:
+                    mon.flush()
+                if flip and flipped != 1:
+                    raise AssertionError(f"health (c): the injector changed {flipped} elements")
+                del model, opt, step
+                return ms, digests
+
+            none_ms, _ = sdc_run(0)
+            every1_ms, d1 = sdc_run(1)
+            _, d2 = sdc_run(1)
+            every16_ms, _ = sdc_run(16)
+            _, d3 = sdc_run(1, flip=True)
+            log(f"health (c) SDC lanes on {card}, {HEALTH_GATE_LAYERS} layers "
+                f"{CKPT_BATCH}x{ERNIE_FT_SEQ}: "
+                f"{none_ms:.2f} ms a step without a monitor, {every1_ms:.2f} at every = 1 "
+                f"(a voting step: +{every1_ms - none_ms:.2f} ms), {every16_ms:.2f} at every = 16; "
+                f"two runs' digests bitwise equal: {d1 == d2} ({len(d1)} steps); one flipped "
+                f"bit in classifier.weight: the first digest differs {d3[0] != d1[0]}")
+            if not d1 or d1 != d2 or d3[0] == d1[0] or len(d1) != HEALTH_SDC_STEPS + 1:
+                raise AssertionError(f"health (c): digests {d1} / {d2} / {d3}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"health: phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is counted on)
     "rms_norm": ("paddle_tpu_torch/ops/csrc/rms_norm.cu",
                  "paddle_tpu/ops/pallas/fused_norm.py:88", "serve"),
@@ -8865,8 +9253,9 @@ COUNTED_AS = {"ring_flash_attention": "flash_attention", "adamw_host": "adamw"}
 # inference (also under O1 autocast, phase_resnet_train), of the f32 Llama
 # step, of the head_dim 256 step, of the eager idiom's loop (phase_core), of
 # the ERNIE fine-tune (B5), of phase_a9's fused layers and residual norms and
-# of phase_moe's MoE Llama (generate_batch and training) and of phase_export's
-# saved programs (B1, B2, B3 run from inside a loaded program): their launches
+# of phase_moe's MoE Llama (generate_batch and training), of phase_export's
+# saved programs (B1, B2, B3 run from inside a loaded program) and of
+# phase_health's guarded fine-tune (B5 in its guarded form): their launches
 # add those paths
 EXTRA_PATHS = {"hybrid": frozenset(hybrid_want(1, 1)), "auto": frozenset(hybrid_want(1, 1)),
                "ernie": frozenset({"flash_attention"}),
@@ -8879,7 +9268,18 @@ EXTRA_PATHS = {"hybrid": frozenset(hybrid_want(1, 1)), "auto": frozenset(hybrid_
                "a9": frozenset({"flash_attention", "flash_attention_bwd_dq",
                                 "flash_attention_bwd_dkv", "rms_norm", "rms_norm_bwd",
                                 "add_layer_norm", "add_layer_norm_bwd"}),
-               "moe": MOE_KERNELS, "export": EXPORT_KERNELS}
+               "moe": MOE_KERNELS, "export": EXPORT_KERNELS,
+               "health": frozenset({"adamw"})}
+
+
+def clocked(fn, *args):
+    """``fn(*args)``, its wall seconds and the script's so far logged (the
+    script must end within its 1200 s limit)."""
+    t = time.perf_counter()
+    out = fn(*args)
+    now = time.perf_counter()
+    log(f"clock {fn.__name__}: {now - t:.1f} s (script {now - _START[0]:.1f} s)")
+    return out
 
 
 def main() -> int:
@@ -8891,78 +9291,82 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = phase_device(torch)
-    phase_build()
-    rows = phase_parity(torch)
-    quant_rows, quant_launches = phase_quant_parity(torch)
+    _START[0] = time.perf_counter()
+    card = clocked(phase_device, torch)
+    clocked(phase_build)
+    rows = clocked(phase_parity, torch)
+    quant_rows, quant_launches = clocked(phase_quant_parity, torch)
     rows.update(quant_rows)
     torch.cuda.empty_cache()
-    rows.update(phase_bwd_parity(torch))
+    rows.update(clocked(phase_bwd_parity, torch))
     torch.cuda.empty_cache()
-    rows.update(phase_ring_parity(torch))
+    rows.update(clocked(phase_ring_parity, torch))
     torch.cuda.empty_cache()
-    rows.update(phase_fused_parity(torch))
-    norm_bwd_times(torch)
+    rows.update(clocked(phase_fused_parity, torch))
+    clocked(norm_bwd_times, torch)
     torch.cuda.empty_cache()
-    serve, cp = phase_e2e(torch, card)
+    serve, cp = clocked(phase_e2e, torch, card)
     launches = {"serve": serve, "quant": quant_launches, "cp": cp}
     gc.collect()         # the serving phases' engines and models, before training
     torch.cuda.empty_cache()
     log(f"after the serving phases: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
         f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
-    train = phase_train(torch, card)
+    train = clocked(phase_train, torch, card)
     launches["train"] = train[0]
     torch.cuda.empty_cache()
-    launches["core"] = phase_core(torch, card)
+    launches["core"] = clocked(phase_core, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    launches["train_f32"] = phase_train_f32(torch, card)
+    launches["train_f32"] = clocked(phase_train_f32, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    launches["train_d256"] = phase_train_d256(torch, card)
+    launches["train_d256"] = clocked(phase_train_d256, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_fused_ce(torch, card)
+    clocked(phase_fused_ce, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    launches["gpt_train"] = phase_gpt_train(torch, card)
+    launches["gpt_train"] = clocked(phase_gpt_train, torch, card)
     torch.cuda.empty_cache()
-    phase_gpt_generate(torch, card)
+    clocked(phase_gpt_generate, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    launches["ernie"] = phase_ernie(torch, card)
+    launches["ernie"] = clocked(phase_ernie, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_resnet(torch, card)
+    clocked(phase_resnet, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    launches["ernie_o1"] = phase_resnet_train(torch, card)
+    launches["ernie_o1"] = clocked(phase_resnet_train, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    launches["ernie_ft"] = phase_ernie_ft(torch, card)
+    launches["ernie_ft"] = clocked(phase_ernie_ft, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    launches["a9"] = phase_a9(torch, card)
+    launches["a9"] = clocked(phase_a9, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    launches["moe"] = phase_moe(torch, card)
+    launches["moe"] = clocked(phase_moe, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    launches["export"] = phase_export(torch, card)
-    phase_ckpt(torch, card)
+    launches["export"] = clocked(phase_export, torch, card)
+    clocked(phase_ckpt, torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["health"] = clocked(phase_health, torch, card)
     gc.collect()         # the launcher's worker needs the memory this process cached
     torch.cuda.empty_cache()
-    phase_dist(torch, card, train)
+    clocked(phase_dist, torch, card, train)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_tp(torch, card)
+    clocked(phase_tp, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    launches["hybrid"] = phase_hybrid(torch, card, train)
+    launches["hybrid"] = clocked(phase_hybrid, torch, card, train)
     gc.collect()
     torch.cuda.empty_cache()
-    rows["adamw_host"], launches["offload"] = phase_offload(torch, card, train)
-    launches["auto"] = phase_auto(torch, card, train)
+    rows["adamw_host"], launches["offload"] = clocked(phase_offload, torch, card, train)
+    launches["auto"] = clocked(phase_auto, torch, card, train)
     kernels = []
     for name, (src, replaces, path) in SOURCES.items():
         paths = {path: launches[path].get(COUNTED_AS.get(name, name), 0)}

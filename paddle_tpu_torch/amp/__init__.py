@@ -20,8 +20,9 @@ multiplies the loss, the unscale multiplies every gradient by 1/scale in
 f32 (back to its dtype) and folds their finiteness into one flag on the
 device, read once: one host synchronisation for the whole parameter list.
 ``step`` skips the update on a non-finite gradient and, as the
-reference's, also runs ``update()``.  ``attach_health_guard`` waits for
-the health layer (ROADMAP A7b) and raises.
+reference's, also runs ``update()``.  ``attach_health_guard`` routes each
+found-inf skip into a ``distributed.health.HealthGuard``'s skip counter and
+anomaly window (``note_scaler_skip``).
 
 O2 (``decorate``) is pure half precision: every floating-point parameter
 is cast to the half dtype in place (the Parameter objects stay, so
@@ -162,11 +163,12 @@ class AmpScaler:
         self._bad_steps = 0
         self._found_inf = False
         self._already_unscaled = False
+        self._health_guard = None
 
     def attach_health_guard(self, guard) -> None:
-        raise NotImplementedError(
-            "AmpScaler.attach_health_guard routes skips into a HealthGuard, which is "
-            "not ported yet (ROADMAP A7b)")
+        """Route found-inf skips into a ``distributed.health.HealthGuard``'s
+        skip counter and anomaly window (``None`` detaches it)."""
+        self._health_guard = guard
 
     def is_enable(self) -> bool:
         return self._enable
@@ -206,6 +208,8 @@ class AmpScaler:
             p.grad = f.to(p.grad.dtype)
         found = not bool(torch.stack(finite).all())    # the one host sync
         self._found_inf = self._maybe_allreduce_found_inf(found)
+        if self._found_inf and self._health_guard is not None:
+            self._health_guard.note_scaler_skip(scale=self._scale)
 
     def _maybe_allreduce_found_inf(self, found: bool) -> bool:
         """Hook for hybrid-parallel scalers to reduce the flag across groups."""

@@ -189,8 +189,11 @@ class DistributedTrainStep(TrainStep):
     ``data`` x ``sharding``, dim 1 over ``sep``).  ``offload`` (default
     from the optimizer's ``_sharding_offload`` tag): masters and moments in
     pinned host memory where the members are cards, else a warning and
-    resident states (``self.offload`` says which).  The reference's
-    ``health_guard``, ``persistent_cache`` and ``snapshotter`` wait for A5."""
+    resident states (``self.offload`` says which).  ``health_guard`` and
+    ``snapshotter`` work as in ``TrainStep`` (the guarded update selects
+    each member's block); an SDC monitor's rank-local pre-reduce lanes tap
+    the gradient buckets (``_sdc_pre_reduce_groups``).  ``persistent_cache``
+    raises as ``TrainStep``'s does."""
 
     def __init__(self, model: nn.Module, loss_fn: Callable, optimizer, hcg,
                  sharding_stage: Optional[int] = None,
@@ -232,6 +235,18 @@ class DistributedTrainStep(TrainStep):
                     f"only, got {type(clip).__name__}")
         self._place_state()
         self._grad_bucketer = self._build_bucketer()
+
+    def _sdc_pre_reduce_groups(self, grads):
+        """Per-bucket pre-reduce fingerprint taps (``grads`` aligned with
+        the parameters, None where a parameter has no gradient): one
+        rank-local lane pair per comm bucket, plus one per unbucketed
+        gradient, so a confirmed suspect's post-mortem names WHICH
+        reduction diverged.  Diagnostic only — pre-reduce gradients come
+        from different data shards, so the vote never compares them."""
+        b = self._grad_bucketer
+        if b is None:
+            return [], []
+        return b.fingerprint_groups(grads)
 
     def _offload_supported(self) -> bool:
         """Pinned host memory needs the members on a card (the reference's
@@ -413,6 +428,7 @@ class DistributedTrainStep(TrainStep):
                         torch.empty_like(view, memory_format=torch.contiguous_format)
                 new_w, new_st = opt._update_rule(work, gb.contiguous(), {**slots, "@t": st["@t"]},
                                                  lr, p, out=out)
+                new_w, new_st = opt._kept(new_w, work), opt._kept_state(new_st, slots)
                 for s, v in slots.items():
                     if new_st[s] is not v:
                         v.copy_(new_st[s])
@@ -434,6 +450,7 @@ class DistributedTrainStep(TrainStep):
         slots = {s: st[s] for s in opt._slot_names}
         new_w, new_st = opt._update_rule(work, torch.stack(grad_blocks), {**slots, "@t": st["@t"]},
                                          lr, p)
+        new_w, new_st = opt._kept(new_w, work), opt._kept_state(new_st, slots)
         for s, v in slots.items():
             v.copy_(new_st[s])
         if master is not None:

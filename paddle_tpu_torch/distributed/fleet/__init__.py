@@ -22,19 +22,18 @@ not honor raises when set away from its default, an unknown knob or config
 key raises.  ``strategy.asp`` (2:4 sparsity) wraps the optimizer in
 ``incubate.asp.decorate``; ``sharding_configs["offload"]`` tags
 the optimizer, whose ``DistributedTrainStep`` then holds masters and
-moments in pinned host memory.  ``elastic`` holds the preemption guard;
-the fault domain and the rest of elastic training (``fault_domain``,
-``FaultDomain``, ``HeartbeatLease``, ``LeaseMonitor``) import and raise
-naming ROADMAP A7b.
+moments in pinned host memory.  ``elastic`` holds elastic training (the
+manager, the supervisors, the gang and the preemption guard) and
+``fault_domain`` the job's heartbeat leases, coordinated abort and gang
+epoch (``FaultDomain``, ``HeartbeatLease``, ``LeaseMonitor``).
 """
 
 from __future__ import annotations
 
 import logging
 import os
-import types
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch.distributed as dist
@@ -262,56 +261,6 @@ worker_index = fleet.worker_index
 worker_num = fleet.worker_num
 
 
-def _waits_a7(what: str) -> NotImplementedError:
-    return NotImplementedError(f"fleet {what}: the fleet fault domain and elastic training "
-                               "are not ported yet (ROADMAP A7b: the fault domain)")
-
-
-class _WaitingModule(types.ModuleType):
-    """A submodule of the reference that waits for A7b: it imports, and any
-    name taken from it raises."""
-
-    def __getattr__(self, name):
-        if name.startswith("__"):
-            raise AttributeError(name)
-        raise _waits_a7(f"{self.__name__}.{name}")
-
-
-fault_domain = _WaitingModule("fault_domain")
-from . import elastic  # noqa: E402,F401  (the preemption guard; the rest waits for A7b)
-
-
-class HeartbeatLease:
-    """A rank's heartbeat lease: waits for ROADMAP A7b."""
-
-    def __init__(self, kv, key: str, ttl: Optional[float] = None,
-                 interval: Optional[float] = None, payload: Optional[Dict[str, Any]] = None,
-                 min_interval: float = 0.05,
-                 on_store_lost: Optional[Callable[[Exception], None]] = None):
-        raise _waits_a7("HeartbeatLease")
-
-
-class LeaseMonitor:
-    """The leases' watcher: waits for ROADMAP A7b."""
-
-    def __init__(self, kv, world_size: int, *, ttl: Optional[float] = None,
-                 interval: Optional[float] = None, straggler_after: Optional[float] = None,
-                 slow_factor: Optional[float] = None, slow_scans: Optional[int] = None,
-                 poison_fn: Optional[Callable[..., Any]] = None,
-                 slow_fn: Optional[Callable[..., Any]] = None):
-        raise _waits_a7("LeaseMonitor")
-
-
-class FaultDomain:
-    """The job's fault domain (leases, coordinated abort, gang epoch):
-    waits for ROADMAP A7b."""
-
-    def __init__(self, store, rank: Optional[int], world_size: int, *,
-                 job_id: str = "default", epoch: int = 0,
-                 hb_interval: Optional[float] = None, hb_ttl: Optional[float] = None,
-                 poison_poll: Optional[float] = None, abort_deadline: Optional[float] = None,
-                 straggler_after: Optional[float] = None, monitor: Any = "auto",
-                 on_abort: Optional[Callable[[dict], None]] = None,
-                 state_provider: Optional[Callable[[], dict]] = None,
-                 ckpt_root: Optional[str] = None, exit_code: int = 101):
-        raise _waits_a7("FaultDomain")
+from . import elastic  # noqa: E402,F401
+from . import fault_domain  # noqa: E402,F401
+from .fault_domain import FaultDomain, HeartbeatLease, LeaseMonitor  # noqa: E402,F401

@@ -31,19 +31,35 @@ replica holder lost together) fall back to the disk checkpoint.  With
 several nodes the master's pod hosts the one depot and publishes its
 address through the job's store.
 
-Left for later queue items, each refusing to start rather than running
-without it: the fleet fault domain with its heartbeat leases, lease
-monitor and poison-aware watch loop (``--fault_domain on``, ROADMAP A7b;
-the port's default is ``off``, a departure from the reference's ``on``)
-and serving mode (``--mode serve``, A8).  The reference's observability
-epilogue (the flight-recorder dump, metrics roll-up and black-box merge,
-A8) has no switch: it is left out, as is the ring remap its fleet
-supervisor exports (``PADDLE_TPU_DEVICE_ORDER``, A7b).
+Fleet fault domain (``--fault_domain on|off``, default on unless
+``PADDLE_TPU_FAULT_DOMAIN`` is ``0``/``false``, as in the reference): the
+launcher hosts (one node) or joins (several: the rendezvous store doubles
+as it) the job's TCP store and exports ``PADDLE_TPU_FLEET_STORE``, so every
+rank that calls ``init_parallel_env`` publishes a heartbeat lease and polls
+the poison key.  The launcher that hosts the store runs the lease monitor
+(a rank whose lease expires is poisoned, ``lease_expired``), and the watch
+loop is poison-aware both ways: the first dead child writes the poison pill
+(``rank_exit``) so siblings wedged in a collective exit 101 in bounded
+time, and a pill written by anyone else (a rank's ``CommWatchdog``, a
+``HealthGuard`` escalation, the SDC or straggler ladder) tears this pod
+down too.  Teardown gives the ranks ``PADDLE_TPU_TEARDOWN_GRACE`` seconds
+to leave on their own, then TERM, the same grace, then KILL.  The final
+poison doc is written to ``<log_dir>/poison.json``, so a quarantine
+decision survives the epoch's store.  ``PADDLE_TPU_DEVICE_ORDER`` (the
+straggler ladder's link remap, exported by the ``FleetSupervisor``) gives
+each rank its ring position (``PADDLE_TPU_RING_POS``); a permutation that
+does not fit this epoch's world is dropped.
+
+Left for a later queue item, refusing to start rather than running without
+it: serving mode (``--mode serve``, ROADMAP A8).  The reference's
+observability epilogue (the flight-recorder dump, metrics roll-up and
+black-box merge, A8) has no switch: it is left out.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import signal
 import socket
@@ -90,11 +106,10 @@ def _parse(argv):
                    default=int(os.environ.get("PADDLE_TPU_SERVE_MAX_RESTARTS", "5")),
                    help="serve mode: per-replica relaunch budget")
     p.add_argument("--fault_domain", choices=("on", "off"),
-                   default=("on" if os.environ.get("PADDLE_TPU_FAULT_DOMAIN", "0")
-                            in ("1", "true", "on") else "off"),
+                   default=("off" if os.environ.get("PADDLE_TPU_FAULT_DOMAIN", "1")
+                            in ("0", "false") else "on"),
                    help="heartbeat-lease/poison fault domain over the job store "
-                        "(default off: not ported yet, ROADMAP A7b; env "
-                        "PADDLE_TPU_FAULT_DOMAIN)")
+                        "(default on; env PADDLE_TPU_FAULT_DOMAIN)")
     p.add_argument("script", type=str, help="training script")
     p.add_argument("script_args", nargs=argparse.REMAINDER)
     return p.parse_args(argv)
@@ -104,10 +119,15 @@ def _refuse_unported(args) -> None:
     if args.mode == "serve":
         raise NotImplementedError("launch --mode serve (the serving replica pool) is "
                                   "not ported yet (ROADMAP A8)")
-    if args.fault_domain == "on":
-        raise NotImplementedError("launch --fault_domain on (heartbeat leases, the "
-                                  "lease monitor and the poison-aware watch loop) is "
-                                  "not ported yet (ROADMAP A7b); use --fault_domain off")
+
+
+def _record_event(name: str, **data) -> None:
+    try:  # flight recorder: the pod's watch-loop story
+        from ... import telemetry
+
+        telemetry.record_event("gang", name, **data)
+    except Exception:
+        pass
 
 
 class _SnapWatch:
@@ -156,6 +176,41 @@ class _SnapWatch:
             pass
 
 
+class _PodWatch:
+    """The launcher's membership in the fault domain: store hosting/joining,
+    lease monitor, poison pill plumbing. All methods are best-effort — a
+    fault-domain hiccup must never take down a healthy pod."""
+
+    def __init__(self, store, world: int, job_id: str, own_store: bool):
+        from ..fleet.fault_domain import FaultDomain
+
+        self.own_store = own_store
+        self.poisoned: Optional[dict] = None
+        self.domain = FaultDomain(
+            store, rank=None, world_size=world, job_id=job_id,
+            epoch=int(os.environ.get("PADDLE_TPU_GANG_EPOCH", "0")),
+            # only the store-hosting launcher monitors leases (one poisoner
+            # per gang is enough; the pill is first-writer-wins anyway)
+            monitor=own_store,
+            on_abort=self._on_poison)
+        self.domain.start()
+
+    def _on_poison(self, doc: dict) -> None:
+        self.poisoned = doc
+
+    def poison(self, reason: str, culprit: Optional[int], detail: str) -> None:
+        try:
+            self.domain.poison(reason, culprit=culprit, detail=detail)
+        except Exception:
+            pass
+
+    def stop(self) -> None:
+        try:
+            self.domain.stop()
+        except Exception:
+            pass
+
+
 def _slots(nnodes: int, nproc: int):
     """(the excluded physical slots, the live ones in rank order)."""
     excluded = set()
@@ -178,6 +233,7 @@ def launch(argv=None) -> int:
     nproc = args.nproc_per_node
     excluded_slots, live_slots = _slots(args.nnodes, nproc)
     world = len(live_slots)
+    device_order = _device_order(world)
     master = args.master
     node_rank = args.node_rank
     store = None
@@ -201,6 +257,27 @@ def launch(argv=None) -> int:
         coordinator = f"{mhost}:{int(mport) + 1}"
     elif node_rank < 0:
         node_rank = 0
+
+    # fleet fault domain: one node hosts a store of its own (the master
+    # port stays free for the process group); several nodes reuse the
+    # rendezvous store, whose server lives on the master host
+    fleet_store_addr = None
+    watch: Optional[_PodWatch] = None
+    fleet_store = store
+    if args.fault_domain == "on":
+        try:
+            from ..store import TCPStore
+
+            if fleet_store is None:
+                fleet_store = TCPStore("127.0.0.1", 0, is_master=True, world_size=world)
+                fleet_store_addr = f"127.0.0.1:{fleet_store.port}"
+            else:
+                fleet_store_addr = master
+            watch = _PodWatch(fleet_store, world, args.job_id,
+                              own_store=fleet_store.is_master)
+        except Exception as e:
+            sys.stderr.write(f"[launch] fault domain unavailable: {e!r}\n")
+            fleet_store_addr, watch = None, None
     snap: Optional[_SnapWatch] = None
     if os.environ.get("PADDLE_TPU_SNAP", "1") not in ("0", "false"):
         try:
@@ -224,6 +301,7 @@ def launch(argv=None) -> int:
         for local in range(nproc):
             slot = node_rank * nproc + local
             if slot in excluded_slots:
+                _record_event("slot_excluded", slot=slot, local=local, node_rank=node_rank)
                 continue
             rank = live_slots.index(slot)
             env = os.environ.copy()
@@ -237,7 +315,12 @@ def launch(argv=None) -> int:
                 "PADDLE_NNODES": str(args.nnodes),
                 "PADDLE_NODE_RANK": str(node_rank),
                 **({"PADDLE_COORDINATOR": coordinator} if coordinator else {}),
+                **({"PADDLE_TPU_FLEET_STORE": fleet_store_addr,
+                    "PADDLE_TPU_FLEET_MONITOR": "launcher"} if fleet_store_addr else {}),
                 **({"PADDLE_TPU_SNAP_STORE": snap.addr} if snap else {}),
+                # ring position under the (possibly remapped) device order
+                **({"PADDLE_TPU_RING_POS": str(device_order.index(rank))}
+                   if device_order else {}),
                 "PADDLE_NPROC_PER_NODE": str(nproc),
             })
             log_f = open(os.path.join(args.log_dir, f"workerlog.{rank}"), "w")
@@ -246,6 +329,10 @@ def launch(argv=None) -> int:
                 [sys.executable, "-u", args.script, *args.script_args],
                 env=env, stdout=log_f, stderr=subprocess.STDOUT))
             ranks[procs[-1].pid] = rank
+        _record_event("gang_start", world=world, node_rank=node_rank, nproc=nproc,
+                      epoch=int(os.environ.get("PADDLE_TPU_GANG_EPOCH", "0")),
+                      fault_domain=args.fault_domain,
+                      **({"device_order": device_order} if device_order else {}))
     except BaseException:
         # a failed spawn must not leave earlier workers blocked on a
         # rendezvous that will never complete
@@ -253,15 +340,24 @@ def launch(argv=None) -> int:
             pr.kill()
         for f in logs:
             f.close()
+        if watch is not None:
+            watch.stop()
         if snap is not None:
             snap.stop()
-        if store is not None:
-            store.close()
+        if fleet_store is not None:
+            fleet_store.close()
         raise
 
-    def _teardown(remaining: List[subprocess.Popen]) -> None:
-        """TERM, then KILL after ``grace`` (a rank wedged in an
+    def _teardown(remaining: List[subprocess.Popen], self_exit_window: float) -> None:
+        """Poisoned ranks exit on their own within the poison deadline:
+        give them ``self_exit_window`` to finish emergency checkpoints,
+        then TERM, then KILL after ``grace`` (a rank wedged in an
         uninterruptible wait ignores TERM)."""
+        deadline = time.time() + self_exit_window
+        while remaining and time.time() < deadline:
+            remaining = [pr for pr in remaining if pr.poll() is None]
+            if remaining:
+                time.sleep(0.1)
         for pr in remaining:
             if pr.poll() is None:
                 pr.terminate()
@@ -271,6 +367,7 @@ def launch(argv=None) -> int:
             except subprocess.TimeoutExpired:
                 pr.kill()
                 pr.wait()
+        _record_event("gang_teardown", world=world, killed=len(remaining))
 
     rc = 0
     try:
@@ -280,10 +377,15 @@ def launch(argv=None) -> int:
                 if code is None or pr not in procs:
                     continue
                 procs.remove(pr)
+                _record_event("gang_child_exit", rank=ranks.get(pr.pid), exit_code=code)
                 if snap is not None:
                     # spontaneous deaths only: the teardowns below are
                     # the launcher's own, and the host RAM stays
                     snap.note_child_exit(ranks.get(pr.pid), code)
+                if code == 0 and watch is not None and ranks.get(pr.pid) is not None:
+                    # a clean exit that never stopped its domain must not
+                    # leave a lease behind to expire and poison survivors
+                    watch.domain.release_rank(ranks[pr.pid])
                 if code != 0:
                     if snap is not None:
                         # siblings that died in the same window lose their
@@ -293,10 +395,31 @@ def launch(argv=None) -> int:
                             if oc is not None:
                                 snap.note_child_exit(ranks.get(other.pid), oc)
                     # the first failure tears down the pod (reference
-                    # CollectiveController watch loop)
+                    # CollectiveController watch loop) — poison FIRST so
+                    # ranks wedged in a collective turn the hang into
+                    # their own bounded exit and emergency checkpoint
                     rc = code
-                    _teardown(procs)
+                    if watch is not None and procs:
+                        watch.poison("rank_exit", ranks.get(pr.pid), f"exit code {code}")
+                        _teardown(procs, self_exit_window=grace)
+                    else:
+                        _teardown(procs, self_exit_window=0.0)
                     procs.clear()
+            if procs and watch is not None and watch.poisoned is not None:
+                # someone ELSE poisoned the gang (a rank's watchdog, a
+                # health escalation, a dead lease on another pod): every
+                # local child leaves too, the healthy ones included
+                doc = watch.poisoned
+                _record_event("gang_poisoned", reason=doc.get("reason"),
+                              culprit=doc.get("culprit"), by=doc.get("by"))
+                _teardown(procs, self_exit_window=grace)
+                for pr in procs:
+                    code = pr.poll()
+                    if code and not rc:
+                        rc = code
+                procs.clear()
+                if not rc:
+                    rc = 101        # a poisoned gang is not a clean completion
             time.sleep(0.2)
     except KeyboardInterrupt:
         for pr in procs:
@@ -305,11 +428,70 @@ def launch(argv=None) -> int:
     finally:
         for f in logs:
             f.close()
+        if watch is not None:
+            _dump_poison(watch, args.log_dir)
+            watch.stop()
         if snap is not None:
             snap.stop()
         if store is not None:
-            store.close()
+            _leave_rendezvous(store, args.nnodes, args.job_id, grace)
+        if fleet_store is not None:
+            fleet_store.close()
     return rc
+
+
+def _leave_rendezvous(store, nnodes: int, job_id: str, grace: float) -> None:
+    """Several nodes: the store's host (the master's pod) outlives its
+    clients.  Each pod says it is done; the host waits for every pod (at
+    most ``grace`` seconds past a slow one) before its store closes, so a
+    pod still releasing a lease or reading the pill never finds the store
+    gone and waits out a reconnect."""
+    try:
+        store.add(f"{job_id}/pods_done", 1)
+        if not store.is_master:
+            return
+        deadline = time.time() + max(grace, 5.0)
+        while time.time() < deadline and \
+                store.add(f"{job_id}/pods_done", 0) < nnodes:
+            time.sleep(0.05)
+    except (OSError, RuntimeError):
+        pass
+
+
+def _device_order(world: int) -> Optional[List[int]]:
+    """The straggler ladder's link remap (``PADDLE_TPU_DEVICE_ORDER``, a
+    permutation of the dense ranks exported by the ``FleetSupervisor``),
+    or None; one that does not fit this epoch's world (stale after a later
+    exclusion) is dropped loudly, never obeyed."""
+    raw = os.environ.get("PADDLE_TPU_DEVICE_ORDER", "").strip()
+    if not raw:
+        return None
+    try:
+        order = [int(t) for t in raw.split(",") if t.strip()]
+    except ValueError:
+        order = None
+    if order is None or sorted(order) != list(range(world)):
+        _record_event("device_order_dropped", order=raw, world=world)
+        return None
+    return order
+
+
+def _dump_poison(watch: "_PodWatch", log_dir: str) -> None:
+    """Persist the poison doc for the ``FleetSupervisor``: the pill dies
+    with the epoch's store, but a quarantine decision must survive
+    teardown (the dump names the rank the exclude-list relaunch removes)."""
+    doc = watch.poisoned
+    if doc is None:
+        try:
+            doc = watch.domain.check_poison()
+        except Exception:
+            doc = None
+    if doc is not None:
+        try:
+            with open(os.path.join(log_dir, "poison.json"), "w") as f:
+                json.dump(doc, f, indent=1)
+        except (OSError, TypeError, ValueError):
+            pass
 
 
 def main() -> None:

@@ -128,6 +128,21 @@ class GradientBucketer:
                 off += n
         return out
 
+    def fingerprint_groups(self, arrays: Sequence[Any]):
+        """SDC fingerprint tap: ``(labels, groups)`` mirroring the comm
+        plan — one member group per bucket (firing order) plus one
+        singleton group per skipped tensor, so each pre-reduce fingerprint
+        lane corresponds 1:1 to a reduction the step makes (a diverging
+        lane names the bucket)."""
+        self._check(arrays)
+        labels = [f"bucket{bi}" for bi in range(len(self.buckets))]
+        groups = [[arrays[i] for i in b] for b in self.buckets]
+        for i, skipped in enumerate(self.skip):
+            if skipped:
+                labels.append(f"unbucketed{i}")
+                groups.append([arrays[i]])
+        return labels, groups
+
     def constrain(self, grads: Sequence[torch.Tensor], mesh,
                   axes=("data", "sharding")) -> List[torch.Tensor]:
         """Route ``grads`` through the buckets over ``axes`` of ``mesh``: a

@@ -12,8 +12,11 @@ NCCL takes one rank per card, so more processes on a node than visible
 cards raise; nothing falls back to gloo or to the CPU.  Then it sets the
 default ``HybridCommunicateGroup(dp=world)``, one member a process.
 
-Joining the fleet fault domain (``PADDLE_TPU_FLEET_STORE``) waits for
-ROADMAP A7b and raises.
+When the launcher exported a fleet store (``PADDLE_TPU_FLEET_STORE``),
+the process first joins the job's fault domain
+(``fleet.fault_domain.init_from_env``: heartbeat lease, poison poll, and
+the gang barrier when a ``FleetSupervisor`` armed one); a domain that is
+armed and fails to start raises.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from torch import nn
 from ..device import devices as _visible_devices
 from ..device import resolve_device
 from ..framework.flags import get_flags
+from ..nn.layer.layers import Layer
 from .communication import ReduceOp, _mp_all_reduce, _multi, _resolve_group
 from .topology import (_HYBRID_AXES, HybridCommunicateGroup, Mesh,
                        get_hybrid_communicate_group, process_rank,
@@ -64,10 +68,6 @@ def init_parallel_env(strategy=None) -> "ParallelEnv":
     global _initialized
     if _initialized:
         return ParallelEnv()
-    if os.environ.get("PADDLE_TPU_FLEET_STORE"):
-        raise NotImplementedError(
-            "init_parallel_env: joining the fleet fault domain (PADDLE_TPU_FLEET_STORE) "
-            "is not ported yet (ROADMAP A7b)")
     rank = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
     nprocs = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
     # PADDLE_COORDINATOR: on several nodes the launcher's rendezvous store
@@ -80,6 +80,19 @@ def init_parallel_env(strategy=None) -> "ParallelEnv":
     if master is None and nprocs > 1:
         raise RuntimeError("multi-process init requires PADDLE_MASTER or "
                            "PADDLE_COORDINATOR")
+    # the fleet fault domain first (heartbeat lease + poison poll, + the
+    # gang barrier when a FleetSupervisor armed one), so that a join that
+    # fails leaves no process group behind
+    try:
+        from .fleet import fault_domain as _fd
+
+        _fd.init_from_env()
+    except Exception:
+        # an ARMED fault domain failing to start must be loud: a partial
+        # gang or an unreachable fleet store would let this rank train
+        # unprotected, and wedge the way the fault domain exists to prevent
+        if os.environ.get("PADDLE_TPU_FLEET_STORE"):
+            raise
     device = resolve_device()
     if device.type == "cuda":
         device = _card_of_this_process()
@@ -156,12 +169,15 @@ class ParallelEnv:
         return int(os.environ.get("PADDLE_LOCAL_RANK", self.rank))
 
 
-class DataParallel(nn.Module):
-    """paddle.DataParallel (reference parallel.py:202 → EagerReducer).
+class DataParallel(Layer):
+    """paddle.DataParallel (reference parallel.py:202 → EagerReducer), an
+    ``nn.Layer`` as in the reference, so it answers the ``Layer`` methods
+    (``sublayers``, ``clear_gradients``, ``named_parameters(
+    include_sublayers=False)``, ...).
 
-    The forward passes through, and ``state_dict``/``set_state_dict``/
-    ``load_state_dict`` use the inner model's keys (no ``_layers.``
-    prefix), as the reference's do.  With several processes each holds its
+    The forward passes through; ``parameters`` and ``state_dict``/
+    ``set_state_dict``/``load_state_dict`` are the inner model's (keys with
+    no ``_layers.`` prefix), as the reference's are.  With several processes each holds its
     local gradients after ``backward``; ``apply_collective_grads``
     averages them over the data-parallel group (``jit.TrainStep`` calls it
     after the backward).  With one process the gradients of the batch are
@@ -184,7 +200,16 @@ class DataParallel(nn.Module):
     def load_state_dict(self, state_dict, *args, **kwargs):
         return self._layers.load_state_dict(state_dict, *args, **kwargs)
 
-    set_state_dict = load_state_dict
+    def set_state_dict(self, state_dict, use_structured_name: bool = True):
+        if isinstance(self._layers, Layer):
+            return self._layers.set_state_dict(state_dict, use_structured_name)
+        return self._layers.load_state_dict(state_dict)
+
+    set_dict = load_dict = set_state_dict
+
+    def parameters(self, include_sublayers: bool = True, *, recurse=None) -> List[nn.Parameter]:
+        recurse = include_sublayers if recurse is None else recurse
+        return list(self._layers.parameters(recurse=recurse))
 
     @property
     def parameters_(self) -> List[nn.Parameter]:

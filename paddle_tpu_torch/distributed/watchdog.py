@@ -11,9 +11,9 @@ logs; pass e.g. ``lambda info: os._exit(101)`` to end the rank.
 
 Left for later queue items: the flight-recorder events and dump of the
 reference's telemetry (ROADMAP A8; ``flight_recorder_dump`` is ``''``, as
-the reference's is with telemetry off), and resolving the process-global
-fault domain with ``fault_domain="current"`` (ROADMAP A7b; it raises).  A
-fault domain object passed in (``poll_once``, ``poison``, ``rank``) is
+the reference's is with telemetry off).  A fault domain (``poll_once``,
+``poison``, ``rank``), or ``"current"`` for the process-global one that
+``fleet.fault_domain.init_from_env`` sets, resolved at every tick, is
 polled and poisoned as in the reference.
 """
 
@@ -37,13 +37,6 @@ class _Watch:
         self.deadline = self.started + timeout
 
 
-def _check_domain(domain) -> None:
-    if domain == "current":
-        raise NotImplementedError(
-            "CommWatchdog(fault_domain='current'): the process-global fault "
-            "domain is not ported yet (ROADMAP A7b); pass a domain object")
-
-
 class CommWatchdog:
     """Arm/disarm a timeout around communication waits.
 
@@ -61,7 +54,6 @@ class CommWatchdog:
     def __init__(self, timeout: float = 120.0,
                  on_timeout: Optional[Callable[[dict], None]] = None,
                  poll_interval: float = 0.5, fault_domain=None):
-        _check_domain(fault_domain)
         self.timeout = timeout
         self.on_timeout = on_timeout or self._default_handler
         self.poll_interval = poll_interval
@@ -121,13 +113,20 @@ class CommWatchdog:
     def attach_fault_domain(self, domain) -> None:
         """Join a fault domain after construction (the ``fault_domain=``
         ctor arg is equivalent)."""
-        _check_domain(domain)
         self.fault_domain = domain
+
+    def _resolve_domain(self):
+        fd = self.fault_domain
+        if fd == "current":
+            from .fleet import fault_domain as _fd_mod
+
+            return _fd_mod.current()
+        return fd
 
     # -- monitor -----------------------------------------------------------
     def _loop(self) -> None:
         while not self._stop.wait(self.poll_interval):
-            fd = self.fault_domain
+            fd = self._resolve_domain()
             if fd is not None:
                 try:  # coordinated abort: a poisoned gang must not keep
                     # waiting out local timeouts — poll_once aborts the rank

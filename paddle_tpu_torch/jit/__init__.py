@@ -50,19 +50,37 @@ gets from XLA's gradient all-reduce over a batch sharded on ``data``.
 ``snapshotter=`` (a ``distributed.checkpoint.Snapshotter``) copies the
 state into host memory at its cadence after the update.
 
-The reference's ``health_guard`` and SDC monitor wait for ROADMAP A7b and
-raise.  ``persistent_cache`` keeps compiled XLA programs across processes;
-an eager step compiles no program, so it raises too, naming the compile
-service (ROADMAP A10).
+``health_guard=`` (a ``distributed.health.HealthGuard``) makes the step a
+guarded one, as the reference's: the probe ``[loss, ok, grad_norm]`` in f32
+(``ok`` the finiteness of the loss and of every raw, pre-clip gradient,
+``grad_norm`` their global f32 norm) is computed on the device, and a
+non-finite step is skipped there — the optimizer's guarded update
+(B5's guarded form, a select for the plain rules) leaves every parameter,
+master, slot and ``@t`` as it was, and buffers the forward updated in
+place are selected back.  ``optimizer._step_count`` (and so the LR
+schedule's step) advances on every step, skipped or not.  The probe goes
+to the host without a sync (``health.guard.stage_probe``) and the guard
+resolves it ``max_lag`` steps late.  The guarded step subsumes
+``check_nan_inf``: it detects the same values and skips instead of
+raising.  ``attach_sdc_monitor`` adds the SDC fingerprint lanes to the
+probe on the monitor's vote steps (the host knows the cadence; other steps
+add zeros and do no lane work).  After every step the first-step stamp
+(``PADDLE_TPU_FIRST_STEP_STAMP``, for the restart supervisor) and the
+fleet fault domain's step note run; without an active domain they cost one
+global read.  ``persistent_cache`` keeps compiled XLA programs across
+processes; an eager step compiles no program, so it raises, naming the
+compile service (ROADMAP A10).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dis
 import functools
 import json
 import os
+import time
 import zipfile
 from typing import Any, Callable, Dict, List, Optional
 
@@ -70,6 +88,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from ..framework.flags import get_flags, set_flags
 from ..nn.clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue  # noqa: F401
 
 __all__ = ["to_static", "TrainStep", "not_to_static", "ignore_module", "save",
@@ -233,6 +252,65 @@ def ignore_module(modules):
     pass
 
 
+_stamped_paths: set = set()
+_fleet_fd_mod = None
+_last_fleet_step_t: Optional[float] = None
+
+
+def _note_fleet_step(step: int) -> None:
+    """Fleet fault domain probe: stamp per-step progress and inter-step
+    wall time into this rank's heartbeat lease, so the lease monitor can
+    tell alive-but-stuck-in-step (straggler) from dead and a chronically
+    slow rank from the gang median.  Without an active domain, one global
+    read; the wall-time delta is two ``perf_counter`` reads, no device
+    sync."""
+    global _fleet_fd_mod, _last_fleet_step_t
+    if _fleet_fd_mod is None:
+        try:
+            from ..distributed.fleet import fault_domain as _fleet_fd_mod
+        except Exception:
+            _fleet_fd_mod = False
+    if _fleet_fd_mod and _fleet_fd_mod.current() is not None:
+        now = time.perf_counter()
+        dt = None if _last_fleet_step_t is None else now - _last_fleet_step_t
+        _last_fleet_step_t = now
+        try:
+            _fleet_fd_mod.note_step_current(step, dt=dt)
+        except Exception:
+            pass
+
+
+def _stamp_first_step() -> None:
+    """Goodput probe for the restart supervisor: the first completed train
+    step of this process writes a wall-clock stamp to the path named by
+    ``PADDLE_TPU_FIRST_STEP_STAMP`` (the Supervisor sets a fresh path per
+    launch and reads it back as ``time_to_first_step_s``).  One write per
+    stamp path, nothing without the variable."""
+    path = os.environ.get("PADDLE_TPU_FIRST_STEP_STAMP")
+    if not path or path in _stamped_paths:
+        return
+    _stamped_paths.add(path)
+    try:
+        with open(path, "w") as f:
+            f.write(repr(time.time()))
+    except OSError:
+        pass
+
+
+@contextlib.contextmanager
+def _no_nan_check():
+    """``check_nan_inf`` off for the guarded step, which skips what the
+    check would raise for."""
+    on = get_flags("check_nan_inf")["check_nan_inf"]
+    if on:
+        set_flags({"check_nan_inf": False})
+    try:
+        yield
+    finally:
+        if on:
+            set_flags({"check_nan_inf": True})
+
+
 class TrainStep:
     """``step = TrainStep(model, lambda m, x, y: m(x, labels=y)[0], opt)``;
     ``loss = step(x, y)`` updates the model and optimizer in place and
@@ -243,9 +321,6 @@ class TrainStep:
     def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer,
                  donate: bool = True, gradient_merge: Optional[int] = None,
                  health_guard=None, persistent_cache=None, snapshotter=None):
-        if health_guard is not None:
-            raise NotImplementedError(
-                "TrainStep health_guard= is not ported yet (ROADMAP A7b: the health guard)")
         if persistent_cache is not None:
             raise NotImplementedError(
                 "TrainStep persistent_cache= caches compiled XLA programs across "
@@ -261,10 +336,13 @@ class TrainStep:
         self._merge_avg = bool(getattr(optimizer, "_gradient_merge_avg", True))
         self._params = [p for p in model.parameters() if p.requires_grad]
         self._snapshotter = snapshotter
+        self._health_guard = health_guard
+        self._sdc_monitor = None
 
     def attach_health_guard(self, guard) -> None:
-        raise NotImplementedError(
-            "TrainStep health guard is not ported yet (ROADMAP A7b: the health guard)")
+        """Arm a ``distributed.health.HealthGuard`` on a built step (as
+        ``health_guard=`` does); ``None`` detaches it."""
+        self._health_guard = guard
 
     def attach_snapshotter(self, snapshotter) -> None:
         """Arm a ``distributed.checkpoint.Snapshotter`` (as ``snapshotter=``
@@ -273,8 +351,12 @@ class TrainStep:
         self._snapshotter = snapshotter
 
     def attach_sdc_monitor(self, monitor) -> None:
-        raise NotImplementedError(
-            "TrainStep SDC monitor is not ported yet (ROADMAP A7b: the SDC monitor)")
+        """Arm a ``distributed.health.SDCMonitor``: the guarded step's probe
+        grows the deterministic step-fingerprint lanes (per-bucket
+        pre-reduce, the gradient after its reduction, the parameter tree
+        after the update), which the monitor resolves ``max_lag`` late and
+        votes across replicas; ``None`` detaches it."""
+        self._sdc_monitor = monitor
 
     def _batch(self, batch) -> List[torch.Tensor]:
         device = next(iter(self.model.parameters())).device
@@ -288,18 +370,130 @@ class TrainStep:
         return arrays
 
     def __call__(self, *batch) -> torch.Tensor:
-        loss, grads = self._loss_and_grads(self._batch(batch))
-        self._update(grads)
+        guard, mon = self._health_guard, self._sdc_monitor
+        guard_on = guard is not None and guard.active
+        mon_on = mon is not None and mon.active
+        if guard_on or mon_on:
+            from ..distributed.health.guard import stage_probe
+
+            loss, probe = self._guarded(self._batch(batch), mon if mon_on else None)
+            # the state is updated (a skip selected on the device); the
+            # guard resolves the probe max_lag steps late and may raise
+            # SystemExit(101) here to hand control to the Supervisor
+            probe = stage_probe(probe)
+            if guard_on:
+                guard.on_step(probe, step=self.optimizer._step_count)
+            if mon_on:
+                mon.on_step(probe, step=self.optimizer._step_count)
+        else:
+            loss, grads = self._loss_and_grads(self._batch(batch))
+            if get_flags("check_nan_inf")["check_nan_inf"]:
+                self._check_numerics(loss, grads)
+            self._update(grads)
         if self._snapshotter is not None:
             # the capture copies the state the update just wrote, before the
             # next step changes it in place; a failed snapshot degrades
             # what a restart can recover and never stops the step (the
             # snapshotter counts and records it), as in the reference
             try:
-                self._snapshotter.on_step(self.optimizer._step_count)
+                if self._snapshotter.on_step(self.optimizer._step_count) and mon_on:
+                    # the SDC rewind anchor advances only to generations
+                    # that exist
+                    mon.note_checkpoint(self.optimizer._step_count)
             except Exception:
                 pass
+        _stamp_first_step()
+        _note_fleet_step(self.optimizer._step_count)
         return loss
+
+    def _guarded(self, arrays: List[torch.Tensor], mon):
+        """The guarded step: (loss, probe).  The probe is ``[loss, ok,
+        grad_norm]`` in f32, then the SDC lanes when ``mon`` is given."""
+        from ..distributed.health.sdc import LANES_PER_FP, fingerprint_lanes, fingerprint_pair
+
+        buffers = list(self.model.buffers())
+        with torch.no_grad():
+            saved = [b.clone() for b in buffers]
+        with _no_nan_check():
+            loss, grads = self._loss_and_grads(arrays)
+        with torch.no_grad():
+            ok, gnorm = self._probe_stats(loss, [g for _, g in grads])
+            lanes = None
+            if mon is not None:
+                by_id = {id(p): g for p, g in grads}
+                labels, groups = self._sdc_pre_reduce_groups(
+                    [by_id.get(id(p)) for p in self._params])
+                labels = list(labels) + ["grad", "params"]
+                mon.set_lane_labels(labels)
+                # the host knows the vote cadence: a step off it does no lane work
+                if (self.optimizer._step_count + 1) % max(1, mon.policy.every) == 0:
+                    seed = mon.policy.seed
+                    lanes = fingerprint_lanes(list(groups) + [[g for _, g in grads]], seed)
+                else:
+                    lanes = torch.zeros(LANES_PER_FP * len(labels), dtype=torch.float32,
+                                        device=loss.device)
+        self.optimizer._guard_begin(ok)
+        try:
+            self._update(grads)
+        finally:
+            self.optimizer._guard_end()
+        with torch.no_grad():
+            for b, old in zip(buffers, saved):
+                b.copy_(torch.where(ok, b, old))
+            probe = torch.stack([loss.float(), ok.float(), gnorm])
+            if lanes is not None:
+                if isinstance(lanes, list):
+                    # the parameter tree after the update and the skip: the
+                    # second voted pair, the last group of fingerprint_lanes
+                    lanes = torch.stack(lanes + list(fingerprint_pair(
+                        list(self.model.parameters()),
+                        mon.policy.seed + 0x85EBCA6B * len(labels))))
+                probe = torch.cat([probe, lanes.to(probe.device)])
+        return loss, probe
+
+    def _check_numerics(self, loss: torch.Tensor, grads) -> None:
+        """``check_nan_inf`` without a guard: raise, before the update,
+        naming the loss and the parameters whose gradient is not finite
+        (one host read of each; a debugging path)."""
+        by_id = {id(p): g for p, g in grads}
+        bad = (["loss"] if not bool(torch.isfinite(loss).all()) else []) + [
+            name for name, p in self.model.named_parameters()
+            if id(p) in by_id and not bool(torch.isfinite(by_id[id(p)]).all())]
+        if bad:
+            raise RuntimeError("check_nan_inf: non-finite values in the train step "
+                               f"(gradients of: {', '.join(bad)})")
+
+    @staticmethod
+    def _probe_stats(loss: torch.Tensor, grads: List[torch.Tensor]):
+        """(ok, grad_norm) on the device: ``ok`` (bool 0-dim) the
+        finiteness of the loss and of every gradient, ``grad_norm`` the
+        global f32 norm.  No host sync; the gradients go through the
+        multi-tensor kernels a (device, dtype) group at a time, a few
+        launches a group (a mixed list would take one launch a tensor)."""
+        ok = torch.isfinite(loss)
+        gnorm = torch.zeros((), dtype=torch.float32, device=loss.device)
+        if grads:
+            groups: Dict[Any, List[torch.Tensor]] = {}
+            for g in grads:
+                groups.setdefault((g.device, g.dtype), []).append(g)
+            finite, norms = [], []
+            for group in groups.values():
+                # inf and NaN times 0 are NaN and finite values 0: each
+                # gradient's finiteness, exact (a sum of squares of finite
+                # values could overflow where the gradient is finite)
+                flags = torch.stack(torch._foreach_norm(torch._foreach_mul(group, 0.0)))
+                finite.append(torch.isfinite(flags).all().to(loss.device))
+                norms.append(torch.stack(torch._foreach_norm(group, 2, dtype=torch.float32))
+                             .to(loss.device))
+            ok = ok & torch.stack(finite).all()
+            gnorm = torch.cat(norms).square().sum().sqrt()
+        return ok, gnorm
+
+    def _sdc_pre_reduce_groups(self, grads):
+        """Hook: ``(labels, groups)`` of pre-reduce gradient groups for the
+        SDC fingerprint's rank-local lanes.  The base step has no comm
+        buckets — no lanes; ``DistributedTrainStep`` taps each bucket."""
+        return [], []
 
     def _loss_and_grads(self, arrays: List[torch.Tensor]):
         """The loss (an f32 scalar) and the ``[(param, grad)]`` the update

@@ -185,6 +185,16 @@ struct AdamArgs {
   int decay;
 };
 
+// The guarded form's device inputs: ok (int32, 0 skips the step: every
+// block returns before it loads anything), t (int32, the parameter's
+// update count before this step) and bc ([rows, 2] f32: row t holds
+// 1 - beta1^(t+1) and 1 - beta2^(t+1), as the host rounds them).
+struct AdamGate {
+  const int* ok;
+  const int* t;
+  const float* bc;
+};
+
 __device__ __forceinline__ void adamw_val(float& p, float g, float& m, float& v,
                                           const AdamArgs& a) {
   m = a.b1 * m + a.omb1 * g;
@@ -195,10 +205,17 @@ __device__ __forceinline__ void adamw_val(float& p, float g, float& m, float& v,
   if (a.decay) p = p - a.lr_wd * old;
 }
 
-template <typename T, typename O, int N>
+template <typename T, typename O, int N, bool Guarded>
 __global__ void __launch_bounds__(kThreads)
 adamw_kernel(T* __restrict__ p, const T* __restrict__ g, float* __restrict__ m,
-             float* __restrict__ v, O* __restrict__ out, long long n, AdamArgs a) {
+             float* __restrict__ v, O* __restrict__ out, long long n, AdamArgs a,
+             AdamGate gate) {
+  if (Guarded) {
+    if (*gate.ok == 0) return;
+    const int t = *gate.t;
+    a.bc1 = gate.bc[2 * t];
+    a.bc2 = gate.bc[2 * t + 1];
+  }
   const long long nvec = n / N;
   const long long first = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
@@ -228,24 +245,26 @@ adamw_kernel(T* __restrict__ p, const T* __restrict__ g, float* __restrict__ m,
 
 template <typename T, typename O>
 int launch_adamw_to(void* p, const void* g, void* m, void* v, void* out, long long n,
-                 const AdamArgs& a, cudaStream_t s) {
+                 const AdamArgs& a, const AdamGate& gate, cudaStream_t s) {
   constexpr int N = 4;  // 16 bytes of m and v; 8 or 16 bytes of p, g and out
   const bool vec = aligned16(p) && aligned16(g) && aligned16(m) && aligned16(v) &&
                    (out == nullptr || aligned16(out));
-  auto k = vec ? &adamw_kernel<T, O, N> : &adamw_kernel<T, O, 1>;
+  const bool guarded = gate.ok != nullptr;
+  auto k = vec ? (guarded ? &adamw_kernel<T, O, N, true> : &adamw_kernel<T, O, N, false>)
+               : (guarded ? &adamw_kernel<T, O, 1, true> : &adamw_kernel<T, O, 1, false>);
   k<<<grid_for(vec ? (n + N - 1) / N : n), kThreads, 0, s>>>(
       static_cast<T*>(p), static_cast<const T*>(g), static_cast<float*>(m),
-      static_cast<float*>(v), static_cast<O*>(out), n, a);
+      static_cast<float*>(v), static_cast<O*>(out), n, a, gate);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_adamw(void* p, const void* g, void* m, void* v, void* out, int out_dtype,
-                 long long n, const AdamArgs& a, cudaStream_t s) {
+                 long long n, const AdamArgs& a, const AdamGate& gate, cudaStream_t s) {
   if (out != nullptr && out_dtype == ptt::kBF16)
-    return launch_adamw_to<T, __nv_bfloat16>(p, g, m, v, out, n, a, s);
-  if (out != nullptr) return launch_adamw_to<T, float>(p, g, m, v, out, n, a, s);
-  return launch_adamw_to<T, T>(p, g, m, v, nullptr, n, a, s);
+    return launch_adamw_to<T, __nv_bfloat16>(p, g, m, v, out, n, a, gate, s);
+  if (out != nullptr) return launch_adamw_to<T, float>(p, g, m, v, out, n, a, gate, s);
+  return launch_adamw_to<T, T>(p, g, m, v, nullptr, n, a, gate, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -535,9 +554,28 @@ extern "C" int ptt_adamw(void* p, const void* g, void* m, void* v, void* out, lo
   if (n == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const AdamArgs a{lr, bc1, bc2, b1, omb1, b2, omb2, eps, lr_wd, decay};
+  const AdamGate gate{nullptr, nullptr, nullptr};
   if (dtype == ptt::kBF16)
-    return launch_adamw<__nv_bfloat16>(p, g, m, v, out, out_dtype, n, a, s);
-  return launch_adamw<float>(p, g, m, v, out, out_dtype, n, a, s);
+    return launch_adamw<__nv_bfloat16>(p, g, m, v, out, out_dtype, n, a, gate, s);
+  return launch_adamw<float>(p, g, m, v, out, out_dtype, n, a, gate, s);
+}
+
+// ptt_adamw's guarded form: the same update with the bias corrections read
+// from bc at row *t and nothing done where *ok is 0 (see AdamGate); ok, t
+// and bc lie on the card.
+extern "C" int ptt_adamw_guarded(void* p, const void* g, void* m, void* v, void* out,
+                                 long long n, float lr, float b1, float omb1, float b2,
+                                 float omb2, float eps, float lr_wd, int decay, int dtype,
+                                 int out_dtype, const void* ok, const void* t,
+                                 const void* bc, void* stream) {
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const AdamArgs a{lr, 0.f, 0.f, b1, omb1, b2, omb2, eps, lr_wd, decay};
+  const AdamGate gate{static_cast<const int*>(ok), static_cast<const int*>(t),
+                      static_cast<const float*>(bc)};
+  if (dtype == ptt::kBF16)
+    return launch_adamw<__nv_bfloat16>(p, g, m, v, out, out_dtype, n, a, gate, s);
+  return launch_adamw<float>(p, g, m, v, out, out_dtype, n, a, gate, s);
 }
 
 // The address under which the current card reaches host memory at host:

@@ -25,16 +25,22 @@ import torch
 from . import LAUNCHES, _build
 
 __all__ = ["swiglu_plain", "swiglu_bwd_plain", "fused_swiglu", "fused_swiglu_bwd",
-           "SwiGLUFunction", "adamw_scalars", "adamw_plain", "fused_adamw",
+           "SwiGLUFunction", "adamw_scalars", "adamw_bc_table", "adamw_plain", "fused_adamw",
+           "fused_adamw_guarded",
            "add_layer_norm_plain", "add_layer_norm_bwd_plain", "fused_add_layer_norm",
            "fused_add_layer_norm_bwd", "AddLayerNormFunction"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# B5's launches by form (each also counted in LAUNCHES["adamw"]): the
+# host-scalar form and the guarded form (scalars and predicate on the card)
+FORMS = {"host": 0, "guarded": 0}
 _P = ctypes.c_void_p
 _SWIGLU_ARGTYPES = (_P, _P, _P, ctypes.c_longlong, ctypes.c_int)
 _SWIGLU_BWD_ARGTYPES = (_P,) * 5 + (ctypes.c_longlong, ctypes.c_int)
 _ADAMW_ARGTYPES = (_P,) * 5 + (ctypes.c_longlong,) + (ctypes.c_float,) * 9 + \
     (ctypes.c_int,) * 3
+_ADAMW_GUARDED_ARGTYPES = (_P,) * 5 + (ctypes.c_longlong,) + (ctypes.c_float,) * 7 + \
+    (ctypes.c_int,) * 3 + (_P,) * 3
 _LN_ARGTYPES = (_P,) * 8 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
                             ctypes.c_int, ctypes.c_int)
 _LN_BWD_ARGTYPES = (_P,) * 10 + (ctypes.c_longlong,) + (ctypes.c_int,) * 4
@@ -138,14 +144,27 @@ def adamw_scalars(lr: float, t: int, beta1: float, beta2: float
             float(one - np.float32(beta2) ** tf))
 
 
+def adamw_bc_table(beta1: float, beta2: float, rows: int,
+                   device=None) -> torch.Tensor:
+    """``[rows, 2]`` f32: row k holds 1 − β1^(k+1) and 1 − β2^(k+1), each
+    the very f32 value :func:`adamw_scalars` gives for t = k + 1 (the
+    guarded B5 reads row t − 1 by the parameter's count on the device, so
+    a guarded step and a host-scalar step agree to the bit)."""
+    vals = [adamw_scalars(0.0, k + 1, beta1, beta2)[1:] for k in range(rows)]
+    return torch.tensor(vals, dtype=torch.float32, device=device)
+
+
 def adamw_plain(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
-                lr: float, bc1: float, bc2: float, beta1: float, beta2: float,
-                eps: float, weight_decay: float, decay: bool
+                lr: float, bc1, bc2, beta1: float, beta2: float,
+                eps: float, weight_decay: float, decay: bool, ok=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(new p in p's dtype, new m, new v in f32), step by step as
     ``_adamw_kernel``: ``lr``, ``bc1`` = 1 − β1^t and ``bc2`` = 1 − β2^t are
-    f32 values (:func:`adamw_scalars`); with ``decay`` the old p decays by
-    lr·weight_decay (their f32 product)."""
+    f32 values (:func:`adamw_scalars`; floats, or 0-dim f32 tensors as the
+    guarded form reads them from its table); with ``decay`` the old p
+    decays by lr·weight_decay (their f32 product).  ``ok`` (the guarded
+    form's predicate, a bool tensor) keeps the old p, m and v where it is
+    false, as the reference selects after its kernel."""
     pf, gf = p.float(), g.float()
     m_new = beta1 * m.float() + (1.0 - beta1) * gf
     v_new = beta2 * v.float() + (1.0 - beta2) * gf.square()
@@ -153,7 +172,11 @@ def adamw_plain(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tens
     new_p = pf - lr * update
     if decay:
         new_p = new_p - float(np.float32(lr) * np.float32(weight_decay)) * pf
-    return new_p.to(p.dtype), m_new, v_new
+    new_p = new_p.to(p.dtype)
+    if ok is not None:
+        new_p, m_new, v_new = (torch.where(ok, a, b) for a, b in
+                               ((new_p, p), (m_new, m.float()), (v_new, v.float())))
+    return new_p, m_new, v_new
 
 
 def _card_address(t: torch.Tensor, device: torch.device) -> int:
@@ -222,6 +245,66 @@ def fused_adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tens
                   float(np.float32(lr32) * np.float32(weight_decay)), int(decay),
                   _DTYPES[p.dtype], _DTYPES[out.dtype] if out is not None else 0)
     LAUNCHES["adamw"] += 1
+    FORMS["host"] += 1
+    return p, m, v
+
+
+def fused_adamw_guarded(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                        lr: float, t: torch.Tensor, bc: torch.Tensor, ok: torch.Tensor,
+                        beta1: float, beta2: float, eps: float, weight_decay: float,
+                        decay: bool, out: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B5's guarded form (the reference's kernel reads its scalars from
+    ``sc_ref`` in device memory): :func:`fused_adamw` with the bias
+    corrections read from ``bc`` (:func:`adamw_bc_table`) at row ``t``
+    (int32, 0-dim: the parameter's update count before this step) and
+    nothing written where ``ok`` (int32, 0-dim) is 0 — every block of the
+    kernel returns before it loads anything, so p, m, v and ``out`` stay
+    bit for bit.  ``t``, ``bc`` and ``ok`` lie where the gradient lies,
+    and the host reads none of them; it does not advance ``t``.  The caller
+    keeps ``t`` below ``bc``'s rows."""
+    _refuse_grad("adamw", p, g, m, v)
+    lr32 = float(np.float32(lr))
+    if not g.is_cuda:
+        if any(x is not None and x.is_cuda for x in (p, m, v, out, t, bc, ok)):
+            raise ValueError("adamw: a CPU gradient with state on a card")
+        row = bc.index_select(0, t.reshape(1).long()).reshape(2)
+        new = adamw_plain(p, g, m, v, lr32, row[0], row[1], beta1, beta2, eps,
+                          weight_decay, decay, ok=ok.bool())
+        for dst, src in zip((p, m, v), new):
+            dst.copy_(src)
+        if out is not None:
+            out.copy_(torch.where(ok.bool(), new[0].to(out.dtype), out))
+        return p, m, v
+    if p.dtype not in _DTYPES or g.dtype != p.dtype:
+        raise TypeError(f"adamw kernel: p and g of one dtype, f32 or bf16; got {p.dtype}, "
+                        f"{g.dtype}")
+    for name, x, dtype in (("p", p, p.dtype), ("g", g, p.dtype), ("m", m, torch.float32),
+                           ("v", v, torch.float32)):
+        if x.shape != p.shape or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"adamw kernel: {name} must be a contiguous {dtype} tensor of "
+                             f"shape {tuple(p.shape)}, got {x.dtype} {tuple(x.shape)}")
+    if out is not None and (out.shape != p.shape or out.dtype not in _DTYPES
+                            or out.device != g.device or not out.is_contiguous()):
+        raise ValueError(f"adamw kernel: out must be a contiguous f32 or bf16 tensor of shape "
+                         f"{tuple(p.shape)} on {g.device}")
+    dev = g.device
+    for name, x, dtype, shape in (("ok", ok, torch.int32, ()), ("t", t, torch.int32, ()),
+                                  ("bc", bc, torch.float32, (bc.shape[0], 2))):
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape \
+                or not x.is_contiguous():
+            raise ValueError(f"adamw guarded kernel: {name} must be a contiguous {dtype} "
+                             f"tensor of shape {shape} on {dev}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    addrs = [_card_address(x, dev) for x in (p, m, v)]
+    _build.launch("fused_ln_swiglu", "ptt_adamw_guarded", _ADAMW_GUARDED_ARGTYPES, dev,
+                  addrs[0], _build.ptr(g), addrs[1], addrs[2], _build.ptr(out), p.numel(),
+                  lr32, beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
+                  float(np.float32(lr32) * np.float32(weight_decay)), int(decay),
+                  _DTYPES[p.dtype], _DTYPES[out.dtype] if out is not None else 0,
+                  ok.data_ptr(), t.data_ptr(), bc.data_ptr())
+    LAUNCHES["adamw"] += 1
+    FORMS["guarded"] += 1
     return p, m, v
 
 

@@ -43,6 +43,20 @@ parameter; ``set_state_dict`` copies into the pinned tensors.  Any other
 rule given offloaded states raises.  Lamb's trust ratio is taken over the
 whole parameter: under a ZeRO layout on one controller over all its
 blocks; a ZeRO split across processes refuses Lamb.
+
+The guarded update (``jit.TrainStep(health_guard=)``, between
+:meth:`Optimizer._guard_begin` and :meth:`Optimizer._guard_end`) skips a
+step on the device: the predicate ``ok`` (an int32 0-dim tensor the host
+never reads) decides.  B5 takes its guarded form, which returns before it
+loads anything where ``ok`` is 0; a plain rule selects ``torch.where(ok,
+new, old)`` for the parameter, its master and every slot before the
+in-place copy.  Each updated parameter's ``@t`` lives on the device (an
+int32 0-dim tensor) and advances by ``ok`` in one ``_foreach_add_`` a
+step, so the bias corrections come from device tables indexed by it: f32
+rows of :func:`~..ops.fused_ln_swiglu.adamw_scalars`' values for B5, f64
+values of ``1 − β^t`` for the plain rules, which round them as the
+unguarded rules round the same Python floats.  ``state_dict`` writes
+``@t`` as the integer it is.
 """
 
 from __future__ import annotations
@@ -53,7 +67,7 @@ import torch
 
 from ..framework.flags import get_flags
 from ..nn.clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue  # noqa: F401
-from ..ops.fused_ln_swiglu import fused_adamw
+from ..ops.fused_ln_swiglu import adamw_bc_table, fused_adamw, fused_adamw_guarded
 from . import lr as lr_module
 from .lr import LRScheduler
 
@@ -63,6 +77,7 @@ __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax", "Adagrad",
 lr = lr_module
 
 _HALF = (torch.bfloat16, torch.float16)
+_TABLE_ROWS = 1024      # the guarded bias-correction tables' first length (they double)
 
 
 class L2Decay:
@@ -112,6 +127,13 @@ class Optimizer:
         # ZeRO offload: the pinned host block holding the masters and slots
         self._host_arena = None
         self._step_count = 0
+        # the guarded update: ok as int32 and bool, the device counts this
+        # step advances, and a bound on every device count
+        self._ok: Optional[torch.Tensor] = None
+        self._ok_b: Optional[torch.Tensor] = None
+        self._t_live: Dict[int, torch.Tensor] = {}
+        self._t_bound = 0
+        self._tables: Dict[Any, torch.Tensor] = {}
 
     # -- lr ------------------------------------------------------------
     def get_lr(self) -> float:
@@ -162,6 +184,75 @@ class Optimizer:
         if st is None:
             st = self._accumulators[id(p)] = self._init_state(p)
         return st
+
+    # -- the guarded update ----------------------------------------------
+    def _guard_begin(self, ok: torch.Tensor) -> None:
+        """Make the next update a guarded one: ``ok`` (a bool 0-dim tensor
+        on the gradients' device) keeps every state as it was where false."""
+        self._ok_b = ok.reshape(())
+        self._ok = self._ok_b.to(torch.int32)
+        self._t_live = {}
+
+    def _guard_end(self) -> None:
+        """Advance the device counts the update read by ``ok``."""
+        if self._t_live:
+            # a list of the one ``ok`` tensor: the tensor-scalar overload
+            # reads its scalar on the host, which would synchronise
+            ts = list(self._t_live.values())
+            torch._foreach_add_(ts, [self._ok] * len(ts))
+        self._t_bound += 1
+        self._ok = self._ok_b = None
+        self._t_live = {}
+
+    def _next_t(self, state: Dict[str, Any], device: torch.device):
+        """This update's ``t``: the host count plus one, or under the guard
+        the parameter's device count before this step (an int32 0-dim
+        tensor, advanced by ``ok`` in :meth:`_guard_end`)."""
+        t = state["@t"]
+        if self._ok is None:
+            return (int(t) if isinstance(t, torch.Tensor) else t) + 1
+        if not isinstance(t, torch.Tensor) or t.device != device:
+            host = int(t)
+            self._t_bound = max(self._t_bound, host)
+            t = state["@t"] = torch.full((), host, dtype=torch.int32, device=device)
+        self._t_live[id(t)] = t
+        return t
+
+    def _table(self, key, rows_fn, device: torch.device) -> torch.Tensor:
+        """A device table of at least ``_t_bound + 1`` rows, made by
+        ``rows_fn(rows)`` on the host and moved without a sync."""
+        table = self._tables.get((key, device))
+        need = self._t_bound + 1
+        if table is None or table.shape[0] < need:
+            rows = max(_TABLE_ROWS, need, 2 * (0 if table is None else table.shape[0]))
+            host = rows_fn(rows)
+            if device.type == "cuda":
+                host = host.pin_memory()
+            table = self._tables[(key, device)] = host.to(device, non_blocking=True)
+        return table
+
+    def _bias_correction(self, t, beta: float):
+        """``1 − beta^t``: a Python float, or under the guard (``t`` the
+        device count before this step) the f64 0-dim value of the same
+        Python expression, read from a device table."""
+        if not isinstance(t, torch.Tensor):
+            return 1 - beta ** t
+        table = self._table(("pow", beta), lambda rows: torch.tensor(
+            [1 - beta ** (k + 1) for k in range(rows)], dtype=torch.float64), t.device)
+        return table.index_select(0, t.reshape(1).long()).reshape(())
+
+    def _kept(self, new: Any, old: Any) -> Any:
+        """``new``, or under the guard ``where(ok, new, old)`` (nothing to
+        select where the rule updated ``old`` in place)."""
+        if self._ok_b is None or new is old or not isinstance(new, torch.Tensor) \
+                or not isinstance(old, torch.Tensor):
+            return new
+        return torch.where(self._ok_b, new, old)
+
+    def _kept_state(self, new: Dict[str, Any], old: Dict[str, Any]) -> Dict[str, Any]:
+        if self._ok_b is None:
+            return new
+        return {k: v if k == "@t" else self._kept(v, old.get(k)) for k, v in new.items()}
 
     # -- core step --------------------------------------------------------
     def _update_rule(self, p: torch.Tensor, g: torch.Tensor, state: Dict[str, Any],
@@ -233,6 +324,7 @@ class Optimizer:
         work = self._master(p)
         out = p if work.device != p.device else None
         new_p, new_state = self._update_rule(work, g, st, lr, p, out=out)
+        new_p, new_state = self._kept(new_p, work), self._kept_state(new_state, st)
         held = self._host_arena is not None     # offloaded states keep their place
         for k, v in new_state.items():
             if held and isinstance(v, torch.Tensor) and st[k] is not v:
@@ -293,6 +385,8 @@ class Optimizer:
             if st is None and p.requires_grad:
                 st = self._init_state(p)
             for slot, v in (st or {}).items():
+                if slot == "@t" and isinstance(v, torch.Tensor):
+                    v = int(v)          # a guarded update's count on the device
                 out[f"{key}.{slot}"] = self._global(p, v)
             mw = self._master_weights.get(id(p))
             if mw is not None:
@@ -391,7 +485,7 @@ class Adam(Optimizer):
                 "Adam's coupled decay would read the master on the host")
         if not self._decoupled():
             g = self._coupled_decay(p, g, param)
-        t = state["@t"] + 1
+        t = self._next_t(state, g.device)
         b1, b2 = self._beta1, self._beta2
         if get_flags("use_fused_adamw")["use_fused_adamw"] and not self._amsgrad:
             # one sweep, p, m and v in place (the reference returns new
@@ -399,8 +493,14 @@ class Adam(Optimizer):
             # lr and the bias corrections in f32, as the reference's kernel
             decay = self._decoupled() and self._should_decay(param)
             m, v = state["moment1"].float(), state["moment2"].float()
-            fused_adamw(p, g, m, v, lr, t, b1, b2, self._epsilon,
-                        self._weight_decay, decay, out=out)
+            if self._ok is not None:     # the guarded form: scalars and ok on the device
+                bc = self._table(("adamw", b1, b2), lambda rows: adamw_bc_table(b1, b2, rows),
+                                 g.device)
+                fused_adamw_guarded(p, g, m, v, lr, t, bc, self._ok, b1, b2, self._epsilon,
+                                    self._weight_decay, decay, out=out)
+            else:
+                fused_adamw(p, g, m, v, lr, t, b1, b2, self._epsilon,
+                            self._weight_decay, decay, out=out)
             return p, {"moment1": m, "moment2": v, "@t": t}
         if offloaded:
             raise RuntimeError(
@@ -409,13 +509,13 @@ class Adam(Optimizer):
                 "offload off")
         m = b1 * state["moment1"] + (1 - b1) * g
         v = b2 * state["moment2"] + (1 - b2) * g.square()
-        mhat = m / (1 - b1 ** t)
+        mhat = m / self._bias_correction(t, b1)
         if self._amsgrad:
             prev = state.get("moment2_max")
             vmax = v if prev is None else torch.maximum(prev, v)
-            vhat = vmax / (1 - b2 ** t)
+            vhat = vmax / self._bias_correction(t, b2)
         else:
-            vhat = v / (1 - b2 ** t)
+            vhat = v / self._bias_correction(t, b2)
         new_p = p - lr * mhat / (vhat.sqrt() + self._epsilon)
         if self._decoupled() and self._should_decay(param):
             new_p = new_p - lr * self._weight_decay * p
@@ -469,10 +569,10 @@ class Adamax(Optimizer):
     def _update_rule(self, p, g, state, lr, param, out=None):
         self._resident(p, g, state, out)
         g = self._coupled_decay(p, g, param)
-        t = state["@t"] + 1
+        t = self._next_t(state, g.device)
         m = self._beta1 * state["moment"] + (1 - self._beta1) * g
         u = torch.maximum(self._beta2 * state["inf_norm"], g.abs())
-        new_p = p - (lr / (1 - self._beta1 ** t)) * m / (u + self._epsilon)
+        new_p = p - (lr / self._bias_correction(t, self._beta1)) * m / (u + self._epsilon)
         return new_p, {"moment": m, "inf_norm": u, "@t": t}
 
 
@@ -565,11 +665,11 @@ class Lamb(Optimizer):
 
     def _update_rule(self, p, g, state, lr, param, out=None):
         self._resident(p, g, state, out)
-        t = state["@t"] + 1
+        t = self._next_t(state, g.device)
         m = self._beta1 * state["moment1"] + (1 - self._beta1) * g
         v = self._beta2 * state["moment2"] + (1 - self._beta2) * g.square()
-        mhat = m / (1 - self._beta1 ** t)
-        vhat = v / (1 - self._beta2 ** t)
+        mhat = m / self._bias_correction(t, self._beta1)
+        vhat = v / self._bias_correction(t, self._beta2)
         r = mhat / (vhat.sqrt() + self._epsilon)
         decay = self._weight_decay
         if self._exclude_fn is not None and param is not None and self._exclude_fn(param):

@@ -72,10 +72,15 @@
   before the sink sees a token, and :meth:`ServingEngine.recover` replays
   it into a fresh engine with every token delivered exactly once.
 
+- **Decode-loop watchdog** (``run(watchdog_s=...)``): a
+  ``distributed.CommWatchdog`` around every step; a wedged step calls
+  ``on_wedge`` (default: exit 101, so a Supervisor relaunches into
+  :meth:`ServingEngine.recover`).
+
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: disaggregated prefill (``submit_prefilled``, ``prefill_export``, A8) and
-the decode-loop watchdog (A7b).  The reference's chaos seams
-(``_faults.fire``) and telemetry events wait for A7b and A8.
+item: disaggregated prefill (``submit_prefilled``, ``prefill_export``, A8).
+The reference's chaos seams (``_faults.fire``) and telemetry events wait
+for A8.
 
 Env knobs: ``PADDLE_TPU_SERVE_MAX_BATCH`` (rows, default 4),
 ``PADDLE_TPU_PAGE_TOKENS`` (page size, default 16),
@@ -101,6 +106,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -533,33 +539,62 @@ class ServingEngine:
         ``forever=False`` returns once every submitted request finished
         (or was shed) and checks that the pool quiesced with no leaked
         page.  ``forever=True`` keeps serving, idling on an event that
-        ``submit`` sets, until :meth:`stop`.  ``watchdog_s`` > 0 (or
-        ``PADDLE_TPU_SERVE_WATCHDOG_S``) needs the decode-loop watchdog,
-        which is not ported."""
+        ``submit`` sets, until :meth:`stop`.
+
+        ``watchdog_s`` (default env ``PADDLE_TPU_SERVE_WATCHDOG_S``, 0 =
+        off) arms a ``distributed.CommWatchdog`` around every step: a
+        wedged step (or a scheduler livelock) calls ``on_wedge(info)`` —
+        by default ``os._exit(101)`` so a Supervisor relaunches into
+        :meth:`recover`.  The journal is flushed every step, so the exit
+        loses no accepted work and no delivered token."""
         if watchdog_s is None:
             watchdog_s = _env_float("PADDLE_TPU_SERVE_WATCHDOG_S", 0.0)
+        wd = None
         if watchdog_s and watchdog_s > 0:
-            raise _not_ported("the decode-loop watchdog (watchdog_s > 0)", "A7b")
+            from ..distributed.watchdog import CommWatchdog
+
+            wd = CommWatchdog(timeout=watchdog_s, poll_interval=min(0.5, watchdog_s / 4),
+                              on_timeout=on_wedge or self._wedge_handler)
+
+        def step():
+            if wd is None:
+                return self.step()
+            with wd.watch("serve_step", timeout=watchdog_s):
+                return self.step()
+
         steps = 0
         self._stop_flag = False
-        while True:
-            if not self._queue and not self._active:
-                if self._undelivered():
-                    self.step()
+        try:
+            while True:
+                if not self._queue and not self._active:
+                    if self._undelivered():
+                        step()
+                        continue
+                    if not forever or self._stop_flag:
+                        break
+                    self._work.wait()        # event-gated idle: no spin
+                    self._work.clear()
                     continue
-                if not forever or self._stop_flag:
-                    break
-                self._work.wait()        # event-gated idle: no spin
-                self._work.clear()
-                continue
-            self.step()
-            steps += 1
-            if not forever and steps > max_steps:
-                raise RuntimeError(f"serving loop did not quiesce in "
-                                   f"{max_steps} steps")
+                step()
+                steps += 1
+                if not forever and steps > max_steps:
+                    raise RuntimeError(f"serving loop did not quiesce in "
+                                       f"{max_steps} steps")
+        finally:
+            if wd is not None:
+                wd.stop()
         # a live prefix cache legitimately pins pages at quiesce
         self.pool.check_leaks(allow_shared=self.prefix is not None)
         return dict(self._results)
+
+    def _wedge_handler(self, info: dict) -> None:
+        """Watchdog expiry: the journal was flushed at the end of the last
+        completed step, so exiting loses nothing the client saw.  Exit 101
+        hands control to the Supervisor's relaunch → :meth:`recover`."""
+        sys.stderr.write(f"[serving] step {info.get('name')!r} wedged for "
+                         f"{float(info.get('elapsed', 0.0)):.1f} s; exiting 101\n")
+        sys.stderr.flush()
+        os._exit(101)
 
     def serve_forever(self, **kw) -> Dict[int, np.ndarray]:
         """``run(forever=True)``: serve until :meth:`stop`."""

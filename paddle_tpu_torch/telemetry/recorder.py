@@ -10,8 +10,9 @@ JSON on demand (``dump_flight_recorder()``) and on an unhandled exception
 ``PADDLE_TPU_FLIGHT_RECORDER=0`` opts out).  The port's ``StepMeter``
 records a ``step`` event a step, and the checkpoint (saves, loads,
 retries, injected faults, snapshots, resumes, preemption exits) records
-its own; the other producers (collectives, the elastic and health
-layers) arrive with ROADMAP A7b and A8.
+its own, and so do the elastic and health layers (the guard, the SDC and
+straggler ladders, the fault domain, the supervisors, the launcher's
+watch loop); the collectives' events arrive with ROADMAP A8.
 
 Ring size: ``PADDLE_TPU_FLIGHT_RECORDER_SIZE`` (default 512). Dump dir:
 ``PADDLE_TPU_FLIGHT_RECORDER_DIR``, else ``PADDLE_TPU_EPOCH_DIR``, else

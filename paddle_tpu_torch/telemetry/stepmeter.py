@@ -24,8 +24,11 @@ matters passes its own count); MBU uses ``bytes_per_step``.  The peaks
 come from the chip tables by the default device's name (an H100 reads
 its own row; without a card, the nominal CPU row).  The step time is the
 host's clock between two ``step()`` calls: a loop that wants device time
-synchronises before it calls ``step()``.  ``health_guard`` (the spike
-detector of the health layer) waits for ROADMAP A7b and raises.  The
+synchronises before it calls ``step()``.  ``health_guard`` (a
+``distributed.health.HealthGuard``) is fed every ``step(loss=...,
+grad_norm=...)``'s values, driving its host-side spike detector (the
+eager-loop twin of ``TrainStep``'s device probe: attach the guard to one
+of the two, or anomalies count twice).  The
 summary's ``overlap_fraction`` (the measured overlap of the traced
 programs, which ``distributed/overlap/measure.py`` measures) waits for
 the traced programs of ROADMAP A8; until then the summary has none, as
@@ -81,12 +84,8 @@ class StepMeter:
                  peak_tflops: Optional[float] = None,
                  peak_hbm_gbps: Optional[float] = None,
                  health_guard=None):
-        if health_guard is not None:
-            raise NotImplementedError(
-                "StepMeter health_guard= (the health layer's spike detector) is "
-                "not ported yet (ROADMAP A7b)")
         self.name = name
-        self.health_guard = None
+        self.health_guard = health_guard
         self.steps_skipped = 0
         self.tokens_per_step = tokens_per_step
         self.samples_per_step = samples_per_step
@@ -188,6 +187,11 @@ class StepMeter:
             if skipped:
                 self.steps_skipped += 1
                 runtime.bump("steps_skipped_total")
+        if self.health_guard is not None and loss is not None:
+            # not shielded as telemetry is: the guard is training control,
+            # and an escalation raised here (SystemExit(101), HealthError,
+            # a custom on_escalate) must reach the training loop
+            self.health_guard.observe_host(self.step_num, float(loss), grad_norm)
         rec["steps_skipped"] = self.steps_skipped
 
         wm = hbm_watermarks()

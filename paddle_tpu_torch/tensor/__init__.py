@@ -4,9 +4,11 @@
 ``Tensor`` is ``torch.Tensor`` (see :mod:`.tensor`).  Its arithmetic dunders
 are torch's own.  The reference attaches its functions as tensor methods
 through a method table; the port attaches those whose name ``torch.Tensor``
-lacks (``pad``, ``scale``, ``concat``, ``take_along_axis``, ...), and the
-names torch has keep torch's meaning (``METHOD_DEPARTURES`` in
-``tests/test_torch_signatures.py``)."""
+lacks (``pad``, ``scale``, ``concat``, ``take_along_axis``, ...) and those
+torch keeps only as removed stubs (``solve``, ``eig``); the other names
+torch has keep torch's meaning (``METHOD_DEPARTURES`` in
+``tests/test_torch_signatures.py``).  ``backward`` also takes the
+reference's ``grad_tensor=``."""
 
 from __future__ import annotations
 
@@ -78,8 +80,26 @@ METHODS = frozenset({
 
 _MODULES = (math, manipulation, logic, search, linalg, creation, random)
 
+# names torch.Tensor still defines only as stubs that raise "removed" (since
+# torch 1.9): the port's functions take their place, as in the reference
+TORCH_REMOVED = frozenset({"solve", "eig"})
+
 # the table's names torch.Tensor has of its own, which keep torch's meaning
-TORCH_METHODS = frozenset(n for n in METHODS if n in dir(torch.Tensor))
+TORCH_METHODS = frozenset(n for n in METHODS if n in dir(torch.Tensor)
+                          and n not in TORCH_REMOVED)
+
+_torch_backward = torch.Tensor.backward
+
+
+def _backward(self, gradient=None, retain_graph=None, create_graph=False, inputs=None,
+              *, grad_tensor=None):
+    """torch's ``backward``, also under the reference's name of its first
+    parameter (``backward(grad_tensor=None, retain_graph=False)``)."""
+    if grad_tensor is not None:
+        if gradient is not None:
+            raise TypeError("backward() takes gradient or grad_tensor, not both")
+        gradient = grad_tensor
+    return _torch_backward(self, gradient, retain_graph, create_graph, inputs)
 
 
 def _attach_methods() -> None:
@@ -89,6 +109,7 @@ def _attach_methods() -> None:
             if fn is not None:
                 setattr(torch.Tensor, name, fn)
                 break
+    torch.Tensor.backward = _backward
 
 
 _attach_methods()

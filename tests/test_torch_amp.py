@@ -7,7 +7,7 @@ black list, the decorator form, nesting and the fp16 -> bf16 mapping under
 ``use_bf16_default``; ``AmpScaler`` and ``GradScaler`` step for step
 against the reference (scaling, skipping on inf, halving, the floor of 1,
 growth, ``state_dict``), one host synchronisation an unscale, the
-already-unscaled guard, ``attach_health_guard`` (A7), and
+already-unscaled guard, ``attach_health_guard`` (A7b), and
 ``decorate(save_dtype=)``.
 
 Tolerances: ``tests/op_test.py``'s bf16 row for values computed in bf16,
@@ -285,8 +285,11 @@ def test_scaler_defaults_state_dict_and_guards():
     t.load_state_dict(s.state_dict())
     assert t.state_dict()["scale"] == 2.0 and t._good_steps == 2
     assert amp.GradScaler.set_state_dict is amp.GradScaler.load_state_dict
-    with pytest.raises(NotImplementedError, match="A7"):
-        s.attach_health_guard(object())
+    # attach_health_guard (ROADMAP A7b, ported) is taken; its found-inf
+    # feed is held in test_torch_health.py
+    guard = object()
+    s.attach_health_guard(guard)
+    assert s._health_guard is guard
     # scale() of a disabled scaler is the loss itself
     loss = torch.tensor(3.0)
     assert amp.GradScaler(enable=False).scale(loss) is loss

@@ -60,6 +60,28 @@ def assert_same(fn, **tol):
 # tests/test_autograd.py TestBackward
 # ---------------------------------------------------------------------------
 class TestBackward:
+    def test_backward_grad_tensor_keyword(self):
+        """C7: ``backward(grad_tensor=...)``, the reference's keyword, as
+        a positional call does in both packages."""
+        def run(P, **kw):
+            w = leaf(P, np.ones(3, "float32"))
+            g = P.to_tensor(np.array([1.0, 2.0, 3.0], "float32"))
+            (w * 2).backward(**kw, **({"grad_tensor": g} if not kw else {}))
+            return [w.grad]
+
+        assert_same(run)
+        np.testing.assert_allclose(both(run)[0][0], [2.0, 4.0, 6.0])
+
+        def positional(P):
+            w = leaf(P, np.ones(3, "float32"))
+            (w * 2).backward(P.to_tensor(np.array([1.0, 2.0, 3.0], "float32")))
+            return [w.grad]
+
+        assert_same(positional)
+        w = leaf(paddle, np.ones(3, "float32"))
+        with pytest.raises(TypeError, match="not both"):
+            (w * 2).backward(torch.ones(3), grad_tensor=torch.ones(3))
+
     def test_simple_chain(self):
         def run(P):
             x = leaf(P, np.array([2.0, 3.0], "float32"))

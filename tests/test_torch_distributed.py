@@ -435,6 +435,35 @@ class TestDataParallel:
         for k, v in tm.state_dict().items():
             torch.testing.assert_close(fresh.state_dict()[k], v, rtol=0, atol=0)
 
+    def test_is_a_layer_as_in_the_reference(self):
+        """C5: DataParallel is an ``nn.Layer`` in both packages, so the
+        Layer methods answer as the reference's do on
+        ``DataParallel(Sequential(Linear(2, 2), Linear(2, 2)))``."""
+        import paddle_tpu.nn as jnn
+
+        ptt.set_device("cpu")
+        try:
+            got = dist.DataParallel(ptt.nn.Sequential(ptt.nn.Linear(2, 2), ptt.nn.Linear(2, 2)))
+        finally:
+            ptt.set_device(None)
+        want = jdist.DataParallel(jnn.Sequential(jnn.Linear(2, 2), jnn.Linear(2, 2)))
+        assert isinstance(got, ptt.nn.Layer)
+        for dp in (got, want):
+            assert len(dp.parameters(include_sublayers=False)) == 0
+            assert len(list(dp.named_parameters(include_sublayers=False))) == 0
+            assert len(dp.sublayers()) == 3
+            assert len(dp.parameters()) == 4
+            dp.clear_gradients()
+        assert [n for n, _ in got.named_sublayers()] == [n for n, _ in want.named_sublayers()]
+        assert sorted(got.state_dict()) == sorted(want.state_dict())
+        assert got.full_name().startswith("dataparallel")
+        for name in ("add_sublayer", "add_parameter", "create_parameter", "set_dict",
+                     "load_dict", "astype", "register_forward_post_hook"):
+            assert callable(getattr(got, name)), name
+        state = {k: np.full(tuple(v.shape), 0.5, np.float32) for k, v in got.state_dict().items()}
+        got.set_dict(state)
+        assert all(bool((v == 0.5).all()) for v in got.state_dict().values())
+
     def test_forward_passthrough_and_one_process_sync(self):
         inner = ptt.nn.Linear(4, 4, device="cpu")
         dp = dist.DataParallel(inner)
@@ -470,10 +499,14 @@ class TestParallelEnv:
             ptt.set_device(None)
 
     def test_fleet_store_waits_for_a7(self, monkeypatch):
+        """An armed fault domain (ROADMAP A7b, ported) whose store cannot be
+        reached fails loudly, before any process group exists."""
         monkeypatch.setenv("PADDLE_TPU_FLEET_STORE", "127.0.0.1:1")
-        with pytest.raises(NotImplementedError, match="A7"):
+        monkeypatch.setenv("PADDLE_TPU_HB_TTL", "0.3")
+        with pytest.raises((OSError, TimeoutError, RuntimeError)):
             dist.init_parallel_env()
         assert not dist.is_initialized()
+        assert not torch.distributed.is_initialized()
 
     def test_nccl_takes_one_rank_per_card(self, monkeypatch):
         from paddle_tpu_torch.distributed import parallel
@@ -535,10 +568,18 @@ class TestWatchdog:
         assert order == [("poison", "watchdog_hang", 2), ("handler", True)]
 
     def test_current_domain_waits_for_a7(self):
-        with pytest.raises(NotImplementedError, match="A7"):
-            dist.CommWatchdog(fault_domain="current")
-        with pytest.raises(NotImplementedError, match="A7"):
-            dist.CommWatchdog().attach_fault_domain("current")
+        """``fault_domain="current"`` (ROADMAP A7b, ported) resolves the
+        process-global domain at every tick: none set, nothing polled."""
+        from paddle_tpu_torch.distributed.fleet import fault_domain
+
+        assert fault_domain.current() is None
+        wd = dist.CommWatchdog(fault_domain="current", poll_interval=0.01)
+        try:
+            assert wd._resolve_domain() is None
+            wd.attach_fault_domain("current")
+            assert wd.fault_domain == "current" and wd._resolve_domain() is None
+        finally:
+            wd.stop()
 
     def test_many_threads_watch_at_once(self):
         """More watching threads than cores: every watch disarms cleanly

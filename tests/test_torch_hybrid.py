@@ -209,17 +209,16 @@ class TestFleet:
         assert isinstance(dist.fleet.distributed_model(pl), dist.meta_parallel.PipelineParallel)
 
     def test_fault_domain_waits_for_a7(self):
+        """The fault domain and the gang (ROADMAP A7b, ported) are reachable
+        where the reference has them, one class at every path."""
         from paddle_tpu_torch.distributed import fleet
+        from paddle_tpu_torch.distributed.fleet import elastic, fault_domain
 
-        with pytest.raises(NotImplementedError, match="A7"):
-            fleet.fault_domain.FaultDomain
-        with pytest.raises(NotImplementedError, match="A7"):
-            fleet.elastic.FleetSupervisor
-        for make in (lambda: dist.FaultDomain(None, 0, 1),
-                     lambda: dist.HeartbeatLease(None, "k"),
-                     lambda: dist.LeaseMonitor(None, 1)):
-            with pytest.raises(NotImplementedError, match="A7"):
-                make()
+        assert fleet.fault_domain is fault_domain
+        assert fleet.elastic.FleetSupervisor is dist.FleetSupervisor is elastic.FleetSupervisor
+        for name in ("FaultDomain", "HeartbeatLease", "LeaseMonitor"):
+            assert getattr(dist, name) is getattr(fleet, name) is getattr(fault_domain, name)
+        assert elastic.HeartbeatLease is fault_domain.HeartbeatLease
 
 
 # ---------------------------------------------------------------------------

@@ -475,12 +475,21 @@ class TestUnported:
 
     @pytest.mark.parametrize("argv,env,item", [
         (["--mode", "serve", "x.py"], {}, "A8"),
-        (["--fault_domain", "on", "x.py"], {}, "A7"),
-        (["x.py"], {"PADDLE_TPU_FAULT_DOMAIN": "1"}, "A7"),
-    ], ids=["serve", "fault_domain", "fault_domain_env"])
+        (["--fault_domain", "on", "x.py"], {}, "on"),
+        (["x.py"], {"PADDLE_TPU_FAULT_DOMAIN": "1"}, "on"),
+        (["x.py"], {"PADDLE_TPU_FAULT_DOMAIN": "0"}, "off"),
+    ], ids=["serve", "fault_domain", "fault_domain_env", "fault_domain_env_off"])
     def test_refused(self, monkeypatch, tmp_path, argv, env, item):
+        """Serving mode (A8) refuses to start; the fault domain (A7b) is
+        ported, on unless PADDLE_TPU_FAULT_DOMAIN is 0/false, as in the
+        reference."""
+        from paddle_tpu_torch.distributed.launch.main import _parse
+
         for k, v in env.items():
             monkeypatch.setenv(k, v)
+        if item in ("on", "off"):
+            assert _parse(argv).fault_domain == item
+            return
         with pytest.raises(NotImplementedError, match=item):
             launch(["--log_dir", str(tmp_path / "log"), *argv])
         assert not (tmp_path / "log").exists()

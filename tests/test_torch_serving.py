@@ -472,8 +472,8 @@ class TestEngine:
             eng.prefill_export(np.arange(1, 4))
         with pytest.raises(RuntimeError, match="journal-backed"):
             eng.recover()
-        with pytest.raises(NotImplementedError, match="A7"):
-            eng.run(watchdog_s=1.0)
+        # the decode-loop watchdog (A7b) is ported: an idle run returns
+        assert eng.run(watchdog_s=1.0) == {}
         # speculative decoding (A2) and tensor-parallel decode (A6b) are
         # ported: the variables turn them on
         monkeypatch.setenv("PADDLE_TPU_SPEC_K", "2")
@@ -481,6 +481,70 @@ class TestEngine:
         monkeypatch.setenv("PADDLE_TPU_SERVE_TP", "2")
         eng = ServingEngine(copy.deepcopy(pair[1]), **ENGINE)
         assert eng.tp == 2 and eng._spec_width == 3 and len(eng._shards) == 2
+
+
+class TestDecodeLoopWatchdog:
+    """``run(watchdog_s=...)`` (ROADMAP A7b): a watchdog around every
+    scheduler step, as the reference's engine arms it."""
+
+    def test_healthy_run_token_exact_vs_reference(self, pair):
+        jm, tm = pair
+        prompts = _prompts(4, (6, 9, 14))
+        je, jouts = _serve(JaxEngine, jm, prompts, 5, eos=5, **ENGINE)
+        eng = ServingEngine(tm, **ENGINE)
+        rids = [eng.submit(p, max_new_tokens=5, eos_token_id=5) for p in prompts]
+        wedged = []
+        outs = eng.run(watchdog_s=60.0, on_wedge=wedged.append)
+        for r, want in zip(rids, jouts):
+            np.testing.assert_array_equal(outs[r], want)
+        assert not wedged
+
+    def test_wedged_step_fires_on_wedge(self, pair, monkeypatch):
+        """A step that wedges (here: it sleeps past the deadline once)
+        calls ``on_wedge`` with the step's name and elapsed time; the run
+        then completes with the same tokens as an unwatched one."""
+        import time as _time
+
+        _, tm = pair
+        prompts = _prompts(5, (7, 10))
+        _, want = _serve(ServingEngine, tm, prompts, 4, **ENGINE)
+        eng = ServingEngine(tm, **ENGINE)
+        rids = [eng.submit(p, max_new_tokens=4) for p in prompts]
+        step, calls = eng.step, []
+
+        def slow_step():
+            calls.append(1)
+            if len(calls) == 2:
+                _time.sleep(0.8)
+            return step()
+
+        monkeypatch.setattr(eng, "step", slow_step)
+        wedged = []
+        outs = eng.run(watchdog_s=0.3, on_wedge=wedged.append)
+        assert len(wedged) == 1
+        assert wedged[0]["name"] == "serve_step" and wedged[0]["elapsed"] >= 0.3
+        assert "stacks" in wedged[0]
+        for r, w in zip(rids, want):
+            np.testing.assert_array_equal(outs[r], w)
+
+    def test_env_default_arms_the_watchdog(self, pair, monkeypatch):
+        from paddle_tpu_torch.distributed import watchdog
+
+        _, tm = pair
+        armed = []
+        real = watchdog.CommWatchdog
+
+        class Spy(real):
+            def __init__(self, *a, **k):
+                armed.append(k.get("timeout", a[0] if a else None))
+                super().__init__(*a, **k)
+
+        monkeypatch.setattr(watchdog, "CommWatchdog", Spy)
+        monkeypatch.setenv("PADDLE_TPU_SERVE_WATCHDOG_S", "30")
+        eng = ServingEngine(tm, **ENGINE)
+        eng.submit(_prompts(6, (5,))[0], max_new_tokens=2)
+        eng.run()
+        assert armed == [30.0]
 
 
 class TestModelHelpers:

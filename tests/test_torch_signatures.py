@@ -340,8 +340,8 @@ def test_unported_arguments_raise_with_their_queue_item():
                     (Adam, dict(use_multi_tensor=True)), (AdamW, dict(amsgrad=True))):
         cls(parameters=params, **kw)
     amp.decorate(torch.nn.Linear(2, 2), save_dtype="float32")
-    with pytest.raises(NotImplementedError, match="A7"):
-        amp.GradScaler().attach_health_guard(None)
+    # ROADMAP A7b ported this: it is taken now, as in the reference
+    amp.GradScaler().attach_health_guard(None)
     x = torch.zeros(2, 4)
     with pytest.raises(NotImplementedError, match="quantized"):
         fused_layer_norm(x, torch.ones(4), torch.zeros(4), quant_scale=1.0)
@@ -443,7 +443,23 @@ def test_c3_walk_covers_the_core():
                  "paddle_tpu_torch.distributed.checkpoint.resume",
                  "paddle_tpu_torch.distributed.checkpoint.latest_checkpoint",
                  "paddle_tpu_torch.distributed.fleet.elastic.PreemptionGuard",
-                 "paddle_tpu_torch.distributed.health.host_fingerprint"):
+                 "paddle_tpu_torch.distributed.health.host_fingerprint",
+                 # ROADMAP A7b
+                 "paddle_tpu_torch.distributed.health.HealthGuard",
+                 "paddle_tpu_torch.distributed.health.HealthPolicy",
+                 "paddle_tpu_torch.distributed.health.SpikeDetector",
+                 "paddle_tpu_torch.distributed.health.RewindLedger",
+                 "paddle_tpu_torch.distributed.health.SDCMonitor",
+                 "paddle_tpu_torch.distributed.health.StragglerMonitor",
+                 "paddle_tpu_torch.distributed.fleet.FaultDomain",
+                 "paddle_tpu_torch.distributed.fleet.fault_domain",
+                 "paddle_tpu_torch.distributed.fleet.elastic.ElasticManager",
+                 "paddle_tpu_torch.distributed.fleet.elastic.FileStore",
+                 "paddle_tpu_torch.distributed.fleet.elastic.Supervisor",
+                 "paddle_tpu_torch.distributed.fleet.elastic.FleetSupervisor",
+                 "paddle_tpu_torch.distributed.fleet.elastic.emergency_handler",
+                 "paddle_tpu_torch.distributed.rpc",
+                 "paddle_tpu_torch.distributed.FleetSupervisor"):
         assert path in paths, path
 
 
@@ -477,8 +493,8 @@ def test_c3_calls():
     ("paddle_tpu_torch.Model", "A10"), ("paddle_tpu_torch.fft", "A10"),
     ("paddle_tpu_torch.sparse", "A10"), ("paddle_tpu_torch.onnx", "A10"),
     ("paddle_tpu_torch.quantization", "A10"), ("paddle_tpu_torch.static", "A10"),
-    ("paddle_tpu_torch.distributed.health.HealthGuard", "A7b"),
-    ("paddle_tpu_torch.distributed.fleet.elastic.Supervisor", "A7b"),
+    ("paddle_tpu_torch.serving.Autoscaler", "A8"),
+    ("paddle_tpu_torch.telemetry.blackbox", "A8"),
     ("paddle_tpu_torch.vision.ops", "A10"),
     ("paddle_tpu_torch.serving.Router", "A8"), ("paddle_tpu_torch.device.Stream", "A10"),
     ("paddle_tpu_torch.telemetry.prometheus_text", "A8")])
@@ -513,3 +529,195 @@ def test_attached_methods_are_the_port_functions():
     for name in sorted(T.METHODS - T.TORCH_METHODS):
         fn = getattr(torch.Tensor, name)
         assert fn.__module__.startswith("paddle_tpu_torch.tensor"), name
+
+
+# ---------------------------------------------------------------------------
+# The method walk: every public method of every twin class (ROADMAP §C5-C8)
+# ---------------------------------------------------------------------------
+# a twin class that is a torch.nn.Module and not the port's nn.Layer: the
+# reference's Layer methods (sublayers, clear_gradients, include_sublayers=,
+# ...) are torch's there, or missing (ROADMAP §C8, open)
+_C8 = ("a torch.nn.Module, not the port's nn.Layer: the reference's Layer methods are "
+       "torch's or missing here (ROADMAP §C8, open)")
+LAYER_DEPARTURES = {
+    **{f"paddle_tpu_torch.models.{mod}.{name}": _C8 for mod, names in (
+        ("gpt", ("GPTBlock", "GPTModel", "GPTForCausalLM")),
+        ("llama", ("LlamaModel", "LlamaForCausalLM")),
+        ("llama_parallel", ("HybridLlamaAttention", "HybridLlamaMLP",
+                            "HybridLlamaDecoderLayer", "LlamaForCausalLMHybrid")))
+       for name in names},
+    "paddle_tpu_torch.distributed.engine.ScannedLayers": _C8,
+    "paddle_tpu_torch.distributed.engine.GPipeLayers": _C8,
+    "paddle_tpu_torch.distributed.pipeline_1f1b.OneFOneBLayers": _C8,
+    "paddle_tpu_torch.distributed.meta_parallel.pp_layers.PipelineLayer": _C8,
+    "paddle_tpu_torch.jit.TranslatedLayer": _C8,
+}
+
+# one method of a twin class that departs from the reference's, and why
+METHOD_WALK_DEPARTURES = {
+    "paddle_tpu_torch.jit.TrainStep.lower": "lowers the step to an XLA program for the "
+        "analysis linter; the eager step has none (ROADMAP A10: compile/ and analysis/)",
+    "paddle_tpu_torch.distributed.engine.DistributedTrainStep.lower": "as TrainStep.lower "
+        "(ROADMAP A10)",
+    "paddle_tpu_torch.serving.ServingEngine.handback_queued": "the serving fleet's "
+        "hand-back (ROADMAP A8)",
+    "paddle_tpu_torch.serving.ServingEngine.submit": "submit(kv_import=) takes a "
+        "disaggregated prefill's pages (ROADMAP A8)",
+    "paddle_tpu_torch.serving.ServingEngine.submit_prefilled": "disaggregated prefill "
+        "(ROADMAP A8); it raises naming the item",
+    "paddle_tpu_torch.serving.SLOMeter.hist_docs": "the Prometheus histograms (ROADMAP A8)",
+    "paddle_tpu_torch.tensor.Tensor.tpu": "moves an array to a TPU: JAX only",
+    "paddle_tpu_torch.tensor.Tensor.backward": "torch's first parameter is gradient; a "
+        "positional call means the same, and grad_tensor= is taken as a keyword (C7)",
+    "paddle_tpu_torch.tensor.Tensor.unique_consecutive": "torch's unique_consecutive("
+        "return_inverse, return_counts, dim); paddle.unique_consecutive(x, ...) takes the "
+        "reference's",
+    # torch's own methods whose signatures can be read (the others are
+    # builtins, which the walk cannot compare; METHOD_DEPARTURES lists them)
+    **{f"paddle_tpu_torch.tensor.Tensor.{name}": f"METHOD_DEPARTURES: {METHOD_DEPARTURES[name]}"
+       for name in ("norm", "split", "unique")},
+}
+
+
+def _walk_classes():
+    """(port path, port class, reference class) of every public class of
+    the port whose module and name the reference has."""
+    out, seen = [], set()
+    for info in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch."):
+        if info.name.endswith("__main__") or info.name in NO_TWIN:
+            continue
+        mod = importlib.import_module(info.name)
+        ref = importlib.import_module("paddle_tpu" + info.name[len("paddle_tpu_torch"):])
+        names = getattr(mod, "__all__", None) or [
+            n for n, v in vars(mod).items()
+            if not n.startswith("_") and getattr(v, "__module__", None) == info.name]
+        for n in names:
+            mine, theirs = getattr(mod, n, None), getattr(ref, n, None)
+            if inspect.isclass(mine) and inspect.isclass(theirs) and \
+                    (mine, theirs) not in seen:
+                seen.add((mine, theirs))
+                out.append((f"{info.name}.{n}", mine, theirs))
+    return sorted(out, key=lambda t: t[0])
+
+
+def _reference_methods(cls):
+    """{name: (function, whether the reference's nn.Layer defines it)} of
+    the public methods the reference package defines on ``cls`` or its
+    bases."""
+    out = {}
+    for klass in cls.__mro__:
+        if not (klass.__module__ or "").startswith("paddle_tpu"):
+            continue
+        layer = klass.__name__ == "Layer" and klass.__module__.startswith("paddle_tpu.nn")
+        for n, v in vars(klass).items():
+            if n.startswith("_") or n in out:
+                continue
+            if isinstance(v, (staticmethod, classmethod)):
+                v = v.__func__
+            if inspect.isfunction(v):
+                out[n] = (v, layer)
+    return out
+
+
+def _method_faults(port, ref):
+    """{method: (fault, whether the reference's nn.Layer defines it)}: a
+    method the port lacks, or whose parameters break the rule of
+    ``test_signature_matches_reference``."""
+    faults = {}
+    for name, (theirs, layer) in _reference_methods(ref).items():
+        mine = inspect.getattr_static(port, name, None)
+        if isinstance(mine, (staticmethod, classmethod)):
+            mine = mine.__func__
+        if mine is None or isinstance(mine, property) or not callable(mine):
+            faults[name] = ("missing", layer)
+            continue
+        try:
+            mp, tp = _params(mine), _params(theirs)
+        except (TypeError, ValueError):      # a builtin of torch: no signature to read
+            continue
+        missing = [p.name for p in tp if p.name not in {q.name for q in mp}]
+        ref_pos, my_pos = _positional(tp), _positional(mp)
+        if missing or my_pos[:len(ref_pos)] != ref_pos[:len(my_pos)]:
+            faults[name] = (f"missing {missing}, port {my_pos}, reference {ref_pos}", layer)
+    return faults
+
+
+WALK_CLASSES = _walk_classes()
+
+
+def test_method_walk_covers_the_port():
+    paths = {p for p, _, _ in WALK_CLASSES}
+    walked = {c for _, c, _ in WALK_CLASSES}
+    assert len(WALK_CLASSES) > 300
+    for path in ("paddle_tpu_torch.tensor.Tensor", "paddle_tpu_torch.jit.TrainStep",
+                 "paddle_tpu_torch.distributed.parallel.DataParallel",
+                 "paddle_tpu_torch.distributed.health.guard.HealthGuard",
+                 "paddle_tpu_torch.distributed.health.sdc.SDCMonitor",
+                 "paddle_tpu_torch.distributed.health.straggler.StragglerMonitor",
+                 "paddle_tpu_torch.distributed.fleet.fault_domain.FaultDomain",
+                 "paddle_tpu_torch.distributed.fleet.elastic.supervisor.Supervisor",
+                 "paddle_tpu_torch.distributed.fleet.elastic.gang.FleetSupervisor",
+                 "paddle_tpu_torch.distributed.overlap.bucketer.GradientBucketer",
+                 *LAYER_DEPARTURES):
+        mod_name, name = path.rsplit(".", 1)
+        assert getattr(importlib.import_module(mod_name), name) in walked, path
+    for path in LAYER_DEPARTURES:
+        assert path in paths, path
+    for name in METHOD_WALK_DEPARTURES:
+        assert name.rsplit(".", 1)[0] in paths, name
+
+
+@pytest.mark.parametrize("path,port,ref", WALK_CLASSES, ids=[p for p, _, _ in WALK_CLASSES])
+def test_class_methods_match_reference(path, port, ref):
+    """Every public method the reference defines on a twin class is a
+    method of the port's, under the signature rule; the departures are
+    listed, and a listed one that no longer departs fails too."""
+    faults = _method_faults(port, ref)
+    unlisted = {name: fault for name, (fault, layer) in faults.items()
+                if f"{path}.{name}" not in METHOD_WALK_DEPARTURES
+                and not (layer and path in LAYER_DEPARTURES)}
+    assert not unlisted, f"{path}: {unlisted}"
+    stale = [name for name in METHOD_WALK_DEPARTURES
+             if name.rsplit(".", 1)[0] == path and name.rsplit(".", 1)[1] not in faults]
+    assert not stale, f"{path}: listed departures that now match: {stale}"
+    if path in LAYER_DEPARTURES:
+        assert any(layer for _, layer in faults.values()), f"{path} is a Layer now"
+
+
+def _table_names():
+    from paddle_tpu_torch import tensor as T
+
+    return sorted(n for n in T.METHODS if n in dir(torch.Tensor))
+
+
+@pytest.mark.parametrize("name", _table_names())
+def test_method_table_name_is_not_a_removed_stub(name):
+    """C6: every name of the reference's method table that torch.Tensor has
+    runs on a 2 x 2 input, or fails for its arguments; none is one of
+    torch's stubs that raise "removed"."""
+    x = torch.tensor([[3.0, 1.0], [1.0, 2.0]])
+    try:
+        getattr(x.clone(), name)()
+    except Exception as e:      # a missing argument is fine; a removed stub is not
+        assert "removed" not in str(e) and "deprecated" not in str(e), (name, e)
+
+
+def test_solve_and_eig_methods_match_reference():
+    import paddle_tpu as jpaddle
+
+    a = np.array([[3.0, 1.0], [1.0, 2.0]], np.float32)
+    b = np.array([[9.0], [8.0]], np.float32)
+    want = jpaddle.to_tensor(a).solve(jpaddle.to_tensor(b)).numpy()
+    np.testing.assert_allclose(torch.from_numpy(a).solve(torch.from_numpy(b)).numpy(), want,
+                               rtol=1e-6)
+    np.testing.assert_allclose(want, [[2.0], [3.0]], rtol=1e-6)
+    w, v = torch.from_numpy(a).eig()
+    jw, jv = jpaddle.to_tensor(a).eig()
+    order = np.argsort(-w.real.numpy())
+    np.testing.assert_allclose(w.real.numpy()[order], np.sort(np.asarray(jw.numpy()).real)[::-1],
+                               rtol=1e-6)
+    np.testing.assert_allclose(w.real.numpy()[order], [3.618034, 1.381966], rtol=1e-6)
+    # each vector an eigenvector of a for its value
+    for k in range(2):
+        vec = v[:, k].real.numpy()
+        np.testing.assert_allclose(a @ vec, w[k].real.numpy() * vec, rtol=1e-5, atol=1e-6)

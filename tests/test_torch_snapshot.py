@@ -5,9 +5,13 @@ depot and the KV fallback over a ``TCPStore``; the replicator loading
 standalone; the resume ladder (own RAM, depot copy, peer replica, disk);
 and the ``TrainStep(snapshotter=)`` hook, its restored weights held
 against the JAX package's ``TrainStep`` on the same weights and batches.
-The cases that need the elastic supervisor, the gang, the rewind ledger or
-``FileStore`` wait for ROADMAP A7b (listed there).  A depot's socket waits
-carry their own time limits (the clients' ``timeout``).
+With the health and restart layer (ROADMAP A7b): the KV transport over a
+``FileStore``, the rewind ledger's poisoned generations skipped, the
+supervisors' resume reports, one depot shared through the multi-node
+rendezvous, and the gang chaos runs (a SIGKILL'd rank resumed from its
+peer's replica; a double fault falling back to disk).  A depot's socket
+waits carry their own time limits (the clients' ``timeout``), and so does
+every child process.
 """
 
 import os
@@ -17,6 +21,8 @@ import sys
 import textwrap
 import threading
 import time
+
+import json
 
 import numpy as np
 import pytest
@@ -291,6 +297,17 @@ class TestKVFallbackTransport:
         assert sorted(t._copy_gens(0, 0)) == [4, 6]
 
 
+class TestKVFallbackTransportFile(TestKVFallbackTransport):
+    """The KV transport over the elastic ``FileStore`` (the reference's
+    ``TestKVFallbackTransport[file]``)."""
+
+    @pytest.fixture
+    def kv(self, tmp_path):
+        from paddle_tpu_torch.distributed.fleet.elastic import FileStore
+
+        yield FileStore(str(tmp_path))
+
+
 _STANDALONE = textwrap.dedent("""
     import importlib.util, sys
 
@@ -344,6 +361,23 @@ class TestResumeLadder:
             client.put(rank, rank, step, step, payload)
             client.put(rank, (rank + 1) % world, step, step, payload)
 
+
+    def test_poisoned_window_generations_are_skipped(self, depot, tmp_path):
+        """The rewind-ledger consult: a snapshot captured inside a health
+        rewind's poisoned window is never resumed into — resolution walks
+        back to an older clean generation."""
+        from paddle_tpu_torch.distributed.health.ledger import RewindLedger
+
+        c = _client(depot)
+        self._seed_gen(c, 2, 10, lambda r: [1] * 4)
+        self._seed_gen(c, 2, 12, lambda r: [9] * 4)  # poisoned capture
+        ledger = RewindLedger(str(tmp_path))
+        ledger.record(step=13, resume_step=10, reason="loss_spike")
+        assert ledger.poisoned(12) and not ledger.poisoned(10)
+        tgt = _zero_state()
+        info = resume(tgt, str(tmp_path), transport=c, rank=0, world_size=2, ledger=ledger)
+        assert info.source == "memory" and info.step == 10
+        assert (tgt["acc"].numpy() == 1.0).all()
     def test_peer_replica_after_holder_drop(self, depot):
         c = _client(depot)
         self._seed_gen(c, 4, 10, lambda r: [r] * 4)
@@ -449,3 +483,267 @@ class TestTrainStepHook:
                          snapshotter=snap)
         step(torch.ones(2, 4), torch.ones(2, 4))
         assert snap.capture_failures == 1 and opt._step_count == 1
+
+
+class TestSupervisorResumeReport:
+    def test_restart_and_done_events_carry_resume_source(self):
+        from paddle_tpu_torch.distributed.fleet.elastic import (RestartPolicy,
+                                                          Supervisor)
+
+        rec = telemetry.get_flight_recorder()
+        since = time.perf_counter_ns()
+        box = {"v": [2.0, 2.0, 2.0, 2.0]}
+        snap = Snapshotter(lambda: _tensor_state(box["v"], 8), every=1,
+                           transport=None, sync=True)
+        calls = []
+
+        def target():
+            calls.append(1)
+            if len(calls) == 1:
+                snap.snapshot_now(8)      # RAM snapshot, then "crash"
+                raise SystemExit(101)
+            # relaunch (same process): the ladder resolves from own RAM
+            tgt = _zero_state()
+            info = resume(tgt, None, snapshotter=snap, transport=None,
+                          ledger=None)
+            assert info.source == "memory" and info.step == 8
+
+        sup = Supervisor(target, policy=RestartPolicy(
+            max_restarts=2, backoff_base=0.01, backoff_cap=0.02))
+        assert sup.run() == 0
+        assert len(calls) == 2
+        assert sup.last_resume == {"resume_source": "memory",
+                                   "resume_step": 8, "steps_lost": 0}
+        done = [e for e in rec.events(since_mono_ns=since)
+                if e["kind"] == "supervisor" and
+                e["name"] == "supervisor_done"]
+        assert done and done[0]["resume_source"] == "memory"
+
+    def test_report_aggregation_is_worst_rung_not_glob_order(self, tmp_path):
+        """Multi-rank reports aggregate deterministically: the scalar
+        source is the most DEGRADED rung (what actually bounded the
+        restart), not whichever file the glob sorts first — rank 10 sorts
+        lexicographically before rank 2 and must not win by accident."""
+        from paddle_tpu_torch.distributed.fleet.elastic import Supervisor
+
+        sup = Supervisor(lambda: None)
+        base = str(tmp_path / "resume")
+        for rank, src, step, lost in [(0, "memory", 18, 0),
+                                      (2, "peer", 18, 1),
+                                      (10, "disk", 10, 8)]:
+            with open(f"{base}.{rank}", "w") as f:
+                json.dump({"rank": rank, "source": src, "step": step,
+                           "steps_lost": lost}, f)
+        out = sup._read_resume_report(base)
+        assert out["resume_source"] == "disk"
+        assert out["resume_step"] == 10 and out["steps_lost"] == 8
+        assert out["resume_sources"] == {0: "memory", 2: "peer", 10: "disk"}
+
+    def test_gang_collect_resume_carries_worst_rung_scalar(self, depot,
+                                                           monkeypatch):
+        """FleetSupervisor restart events aggregate like the single-process
+        Supervisor's: a scalar ``resume_source`` (worst rung) alongside
+        the per-rank map, so telemetry filters work on either event."""
+        from paddle_tpu_torch.distributed.fleet.elastic.gang import FleetSupervisor
+
+        monkeypatch.setenv("PADDLE_TPU_SNAP_STORE", depot.address)
+        sup = FleetSupervisor("train.py", launch_fn=lambda argv, env: 0)
+        c = _client(depot)
+        c.report_resume(0, 3, "memory", 18, 0)
+        c.report_resume(1, 3, "peer", 18, 1)
+        out = sup._collect_resume(3)
+        assert out["resume_source"] == "peer"
+        assert out["resume_sources"] == {0: "memory", 1: "peer"}
+        assert out["steps_lost"] == 1
+
+
+class TestMultiNodeDepot:
+    def test_snapwatch_shares_one_depot_through_rendezvous(self, monkeypatch):
+        """Multi-node pods must converge on ONE depot (per-node loopback
+        depots could never assemble a complete generation, and a
+        cross-node replica would die with its own node): the master-host
+        pod hosts + publishes, every other pod discovers the address."""
+        from paddle_tpu_torch.distributed.launch.main import _SnapWatch
+
+        monkeypatch.delenv("PADDLE_TPU_SNAP_STORE", raising=False)
+        master = TCPStore("127.0.0.1", 0, is_master=True, world_size=2,
+                          timeout=20.0)
+        node1_kv = TCPStore("127.0.0.1", master.port, timeout=20.0)
+        try:
+            w0 = _SnapWatch(fleet_kv=master, advertise_host="127.0.0.1")
+            w1 = _SnapWatch(fleet_kv=node1_kv)
+            assert w1.addr == w0.addr
+            SnapshotClient.from_address(w1.addr).put(0, 0, 2, 2, b"x")
+            got = SnapshotClient.from_address(w0.addr).fetch(0)
+            assert got is not None and got[1] == b"x"
+        finally:
+            master.close()
+            node1_kv.close()
+
+
+# -- process-isolated chaos e2e ----------------------------------------------
+
+# Training-shaped gang member (modeled on test_fleet_gang's): deterministic
+# acc_{s+1} = acc_s + (s+1); each rank snapshots ITS OWN state to the
+# launcher's depot every PADDLE_TPU_SNAP_EVERY steps; rank 0 commits a disk
+# checkpoint every ckpt_every steps. The ranks named in kill_ranks SIGKILL
+# themselves entering `kill_at` on gang epoch 1. Every run starts through
+# the recovery ladder and logs how it resumed.
+_SNAP_MEMBER = textwrap.dedent("""
+    import os, sys
+    import torch
+    import paddle_tpu_torch.telemetry as telemetry
+    from paddle_tpu_torch.distributed.checkpoint import (Snapshotter,
+        save_state_dict, snapshot)
+    from paddle_tpu_torch.distributed.fleet import fault_domain as fd_mod
+
+    root, total, kill_at, ckpt_every, log_dir, kill_ranks = sys.argv[1:7]
+    total, kill_at, ckpt_every = int(total), int(kill_at), int(ckpt_every)
+    kill_ranks = {int(r) for r in kill_ranks.split(",") if r}
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    world = int(os.environ["PADDLE_TRAINERS_NUM"])
+    epoch = int(os.environ["PADDLE_TPU_GANG_EPOCH"])
+    d = fd_mod.init_from_env()
+    assert d is not None and d.rank == rank
+
+    box = {"acc": torch.zeros(4), "step": 0}
+    snapper = Snapshotter(
+        lambda: {"acc": box["acc"],
+                 "step": torch.tensor(box["step"], dtype=torch.int64)},
+        rank=rank, world_size=world, sync=True)
+    assert snapper.transport is not None   # launcher exported the depot
+
+    state = {"acc": box["acc"], "step": torch.tensor(0, dtype=torch.int64)}
+    info = snapshot.resume(state, root, rank=rank, world_size=world,
+                           step_key="step")
+    start = 0 if info.source == "none" else int(state["step"])
+    acc = state["acc"]
+    kinds = [e["kind"] for e in telemetry.get_flight_recorder().events()]
+    log = open(os.path.join(log_dir, f"losses.{rank}"), "a")
+    log.write(f"R:{epoch}:{info.source}:{start}:{info.steps_lost}:"
+              f"{'U' if 'snapshot_unrecoverable' in kinds else '-'}\\n")
+    log.flush()
+
+    for step in range(start, total):
+        if epoch == 1 and rank in kill_ranks and step == kill_at:
+            os.kill(os.getpid(), 9)          # SIGKILL mid-step
+        acc = acc + float(step + 1)
+        log.write(f"{epoch}:{step}:{float(acc[0]):.1f}\\n")
+        log.flush()
+        d.note_step(step)
+        box["acc"], box["step"] = acc, step + 1
+        snapper.on_step(step + 1)            # ships at the snap cadence
+        # the stand-in collective: the gang completes the step together
+        d._store.barrier(f"step/{epoch}/{step}", d.world_size,
+                         timeout=60.0, rank=rank)
+        if rank == 0 and (step + 1) % ckpt_every == 0:
+            save_state_dict(
+                {"acc": acc, "step": torch.tensor(step + 1, dtype=torch.int64)},
+                os.path.join(root, f"step_{step + 1}"), keep_n=3)
+    d.stop()
+    print("DONE", rank, flush=True)
+""")
+
+
+class TestSnapshotGangRestart:
+    TOTAL, KILL_AT, CKPT_EVERY, SNAP_EVERY, WORLD = 24, 19, 10, 2, 4
+
+    def _run(self, tmp_path, monkeypatch, kill_ranks):
+        from paddle_tpu_torch.distributed.fleet.elastic import (FleetSupervisor,
+                                                          GangPolicy,
+                                                          RestartPolicy)
+
+        depot = SnapshotStore()
+        monkeypatch.setenv("PADDLE_TPU_SNAP_STORE", depot.address)
+        monkeypatch.setenv("PADDLE_TPU_SNAP_EVERY", str(self.SNAP_EVERY))
+        script = tmp_path / "member.py"
+        script.write_text(_SNAP_MEMBER)
+        root = tmp_path / "ckpts"
+        root.mkdir()
+        sup = FleetSupervisor(
+            str(script), [str(root), str(self.TOTAL), str(self.KILL_AT),
+                          str(self.CKPT_EVERY), str(tmp_path), kill_ranks],
+            nproc_per_node=self.WORLD, log_dir=str(tmp_path / "log"),
+            policy=GangPolicy(max_gang_restarts=2, degrade=False,
+                              backoff=RestartPolicy(backoff_base=0.01,
+                                                    backoff_cap=0.02)),
+            ckpt_root=str(root), keep_n=3,
+            env={"PYTHONPATH": REPO + os.pathsep +
+                 os.environ.get("PYTHONPATH", "")})
+        try:
+            assert sup.run() == 0
+        finally:
+            depot.close()
+        return sup
+
+    def _check_trajectories(self, tmp_path, resume_lines):
+        expect, acc = {}, 0.0
+        for s in range(self.TOTAL):
+            acc += s + 1
+            expect[s] = acc
+        for rank in range(self.WORLD):
+            lines = [l for l in
+                     (tmp_path / f"losses.{rank}").read_text().splitlines()
+                     if l]
+            seen = {}
+            for line in lines:
+                if line.startswith("R:"):
+                    resume_lines.setdefault(rank, []).append(
+                        line.split(":")[1:])
+                    continue
+                ep, step, val = line.split(":")
+                step, val = int(step), float(val)
+                # step-for-step identical to the analytic uninterrupted run
+                assert val == expect[step], (rank, step, val)
+                seen.setdefault(step, set()).add(val)
+            assert sorted(seen) == list(range(self.TOTAL)), (rank,
+                                                             sorted(seen))
+            assert all(len(v) == 1 for v in seen.values())
+
+    def test_sigkill_resumes_from_peer_replica(self, tmp_path, monkeypatch):
+        """The headline e2e: SIGKILL rank 2 mid-step → gang restart → the
+        dead rank's shards come back from its ring neighbor's replica, the
+        survivors from their own depot copies — losing <= SNAP_EVERY steps
+        while the newest disk checkpoint is >= 5x older."""
+        sup = self._run(tmp_path, monkeypatch, kill_ranks="2")
+        assert sup.epoch == 2 and sup.world_size == self.WORLD
+        resumes = {}
+        self._check_trajectories(tmp_path, resumes)
+        for rank in range(self.WORLD):
+            (ep1, src1, start1, *_), (ep2, src2, start2, lost2, _u) = \
+                resumes[rank]
+            assert (ep1, src1, start1) == ("1", "none", "0"), resumes[rank]
+            # the killed rank recovers from its PEER's replica; survivors
+            # from their own depot copies — memory either way, never disk
+            assert src2 == ("peer" if rank == 2 else "memory"), resumes
+            # RPO in steps, not checkpoint intervals
+            assert int(lost2) <= self.SNAP_EVERY
+            assert int(start2) >= self.KILL_AT - self.SNAP_EVERY
+            # the disk checkpoint the old path would have rewound to is
+            # >= 5x older than the snapshot generation actually used
+            disk_step = (self.KILL_AT // self.CKPT_EVERY) * self.CKPT_EVERY
+            assert (self.KILL_AT - disk_step) >= \
+                5 * (self.KILL_AT - int(start2))
+        # the supervisor's restart trail names the recovery sources
+        reports = sup.resume_reports.get(2, {})
+        assert {r: d["source"] for r, d in reports.items()} == {
+            0: "memory", 1: "memory", 2: "peer", 3: "memory"}
+
+    def test_double_fault_falls_back_to_disk(self, tmp_path, monkeypatch):
+        """Rank 2 AND its replica holder (rank 3) die in the same window:
+        no complete generation survives for rank 2, so the WHOLE gang
+        falls back to the committed disk checkpoint — with the loud
+        ``snapshot_unrecoverable`` breadcrumb — and trajectories still
+        match the analytic run."""
+        sup = self._run(tmp_path, monkeypatch, kill_ranks="2,3")
+        resumes = {}
+        self._check_trajectories(tmp_path, resumes)
+        disk_step = (self.KILL_AT // self.CKPT_EVERY) * self.CKPT_EVERY
+        for rank in range(self.WORLD):
+            (_, src2, start2, _, unrecov) = resumes[rank][-1]
+            assert src2 == "disk", resumes
+            assert int(start2) == disk_step
+            assert unrecov == "U"  # the breadcrumb fired on every rank
+        reports = sup.resume_reports.get(2, {})
+        assert set(reports) == set(range(self.WORLD))
+        assert all(d["source"] == "disk" for d in reports.values())

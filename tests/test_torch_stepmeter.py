@@ -196,8 +196,15 @@ def test_collective_stats_empty_until_recorded():
 
 
 def test_health_guard_raises_naming_a7():
-    with pytest.raises(NotImplementedError, match="A7"):
-        tel.StepMeter("g", health_guard=object())
+    """``health_guard=`` (ROADMAP A7b, ported) is taken: each step's loss
+    feeds the guard (``tests/test_torch_health.py`` holds the feed)."""
+    from paddle_tpu_torch.distributed.health import HealthGuard, HealthPolicy
+
+    guard = HealthGuard(HealthPolicy(max_lag=0), on_escalate="raise")
+    meter = tel.StepMeter("g", jsonl_path=False, health_guard=guard)
+    assert meter.health_guard is guard
+    meter.step(loss=1.0)
+    assert guard.steps_seen == 1
 
 
 def test_flight_recorder_gets_each_step():

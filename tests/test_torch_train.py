@@ -565,19 +565,23 @@ class TestRefusals:
 
     @pytest.mark.parametrize("arg", ["health_guard", "persistent_cache", "snapshotter"])
     def test_train_step_guards_raise(self, arg):
-        """``health_guard`` (ROADMAP A7b) and ``persistent_cache`` (A10)
-        raise; ``snapshotter`` is taken since the checkpoint (A7a) is
-        ported (``tests/test_torch_snapshot.py`` drives it)."""
-        if arg == "snapshotter":
-            snap = object()
+        """``persistent_cache`` (A10) raises; ``snapshotter`` is taken since
+        the checkpoint (A7a) is ported (``tests/test_torch_snapshot.py``
+        drives it), and ``health_guard`` since the health layer (A7b) is
+        (``tests/test_torch_health.py``)."""
+        if arg in ("snapshotter", "health_guard"):
+            obj = object()
             step = TrainStep(torch.nn.Linear(2, 2), lambda m, x: m(x).sum(), None,
-                             snapshotter=snap)
-            assert step._snapshotter is snap
+                             **{arg: obj})
+            assert getattr(step, f"_{arg}") is obj
             return
         with pytest.raises(NotImplementedError, match=arg):
             TrainStep(torch.nn.Linear(2, 2), lambda m, x: m(x).sum(), None, **{arg: True})
 
     def test_train_step_sdc_monitor_raises(self):
+        """The SDC monitor (ROADMAP A7b) is ported: attaching it is taken
+        (``tests/test_torch_sdc.py`` drives it)."""
         step = TrainStep(torch.nn.Linear(2, 2), lambda m, x: m(x).sum(), None)
-        with pytest.raises(NotImplementedError, match="SDC"):
-            step.attach_sdc_monitor(object())
+        mon = object()
+        step.attach_sdc_monitor(mon)
+        assert step._sdc_monitor is mon
