@@ -38,8 +38,9 @@ exits non-zero without them.  Phases, each raising on failure:
    first-token logits within 2e-2, exact launches and no page outside the
    prompt's table written; at full depth exact launches, the logits'
    distance, both engines' tokens and the two prefill times
-   (``phase_engine_cp``); then the engine's prefix cache, host-RAM offload
-   tier and journal (``phase_engine_a1``): 8 prompts sharing a 496-token
+   (``phase_engine_cp``); then, on a model of the same width at 8 layers
+   (the depth cut for the script's time), the engine's prefix cache,
+   host-RAM offload tier and journal (``phase_engine_a1``): 8 prompts sharing a 496-token
    system prompt (7 hits, token-exact against an engine without a cache,
    TTFT of a miss and of a hit), 8 rows of 512-token prompts outgrowing
    their pages (at least two swap-outs and recalls, no stall or eviction,
@@ -55,7 +56,7 @@ exits non-zero without them.  Phases, each raising on failure:
    B6 launches, its time beside greedy ``generate`` on the same 8 rows and
    one cache reorder's device time; ``speculative_generate`` (prompt 512,
    64 new tokens, k 4) with the n-gram, 4-layer shallow-exit and oracle
-   drafters, token-exact against ``generate`` at full depth in f32
+   drafters, token-exact against ``generate`` at 8 layers in f32
    weights with the oracle accepting everything, and at 2 layers in bf16
    token-exact or parted only at a near-tie (the logits that chose the
    parting token on each path within 2e-2 of each other), exact launches
@@ -66,6 +67,22 @@ exits non-zero without them.  Phases, each raising on failure:
    forward [8, 5], no leaked page; and ``nn.dynamic_decode`` of a
    ``BeamSearchDecoder`` over a ``GRUCell`` on the card against the same
    run on the CPU;
+4c. the serving fleet (``phase_fleet``, on 4's full-depth model, shared by
+   every engine): (a) two ``EngineReplica``s behind a ``ServingFrontend``
+   on 8 ragged prompts of 37-511 tokens, 32 new tokens each, token-exact
+   against one ``ServingEngine``; again with one replica crashing at the
+   first request's third token and ``die()``-ing under a 2 s lease: the
+   frontend fences, folds the depot journal and replays on the survivor,
+   token-exact, every token once (failover seconds, journal bytes,
+   tokens/s beside one engine); (b) the prompts of at least 250 tokens
+   through a ``PrefillWorker`` and the depot (``DisaggCoordinator``), 0
+   fallbacks, token-exact (frame bytes, pack/ship/unpack/scatter ms); (c)
+   the replicas' metrics rolled up, the Prometheus roll-up parsed with
+   monotone histograms, the dashboard, the black box merged, trace
+   coverage 1.0; (d) ``launch --mode serve --nproc_per_node 2`` (2-layer
+   replicas on the card) behind a frontend: 4 requests token-exact, one
+   replica drained, exit 0.  B1 and B2 launches exact over every engine's
+   forwards (the ``fleet`` path);
 3b. quantized decode parity (run after 3): B8 (int8 cache) and B9 (e4m3
    cache) against their plain twins, q in f32 and bf16, at Llama-2-7B's
    4096 context (batch 8, pos 4000), Llama-2-70B's GQA and off sizes, the
@@ -138,8 +155,8 @@ exits non-zero without them.  Phases, each raising on failure:
    the unsharded layer with ``F.cross_entropy``, SP on bit-equal to off,
    exact B1, B1b, B2, B2 bwd, B3, B3b, B3c, B4 launches; (a)
    ``ServingEngine(tp=2)`` on Llama-2-7B with ``phase_engine``'s prompts
-   against ``tp=1``: in f32 weights at 32 layers token-exact on f32 pages
-   and at 8 layers exact or certified near-ties on int8 and fp8 pages, in bf16 at 2
+   against ``tp=1``: in f32 weights at 4 layers token-exact on f32 pages
+   and exact or certified near-ties on int8 and fp8 pages, in bf16 at 2
    layers logits within 2e-2 and exact or certified near-ties, exact B1
    and B2 launches on every run; then at full depth in bf16, beside
    ``tp=1``: the 512-token prefill, the decode step, pool bytes a token in
@@ -150,7 +167,8 @@ exits non-zero without them.  Phases, each raising on failure:
    Llama-2-7B width through ``distributed_model``/``distributed_optimizer``
    and ``DistributedTrainStep`` at stages 1, 2 and 3: at 2 layers its loss
    and every grad within 2e-2 relative L2 of the plain model's with the
-   same weights (through ``convert.py``); at 8 layers on 7's batch the
+   same weights (through ``convert.py``); at 8 layers (stages 1 and 3,
+   the script's time) on 7's batch the
    first 3 losses within 2e-2 of 7's, exact launches a step
    (``hybrid_want``), step ms, tokens/s, MFU and peak memory; (b)
    ``OneFOneBLayers`` at pp 2, v 1 and 2, M 4, on 4 decoder layers at 7B
@@ -170,12 +188,13 @@ exits non-zero without them.  Phases, each raising on failure:
    states and a CPU gradient refused, timed beside the plain version
    across the link and the bound over the link; (a) fleet on the one card
    (stage 1, every degree 1) at 8 layers on 7's batch and
-   ``DistributedTrainStep`` at stages 1-3 on 12's 8 members (2 layers),
+   ``DistributedTrainStep`` at stage 3 on 12's 8 members (2 layers),
    each with offload against resident states: losses, launches and final
    weights bit-equal, step ms, B5's device ms a step, peak, pinned bytes
-   and seconds; (b) Llama-2-7B at full depth and width (32 layers, 4 x
-   2048, 75.3 GiB pinned) with offload: finite, falling losses, 291 B5
-   launches a step, step ms, peak, the host's memory;
+   and seconds; (b) Llama-2-7B at full width and 16 of its 32 layers (4
+   x 2048, the depth cut for the script's time) with offload: finite,
+   falling losses, 147 B5 launches a step, step ms, peak, pinned GiB, the
+   host's memory;
 14. ``auto_parallel`` (``phase_auto``): fleet at mp 2 x sharding 2 (4
    members on the card), ``shard_layer`` placing the projections as
    mp_layers does, ``shard_optimizer`` and ``Engine.fit`` over 7's batch
@@ -336,6 +355,10 @@ import subprocess
 import sys
 import tempfile
 import time
+
+# phase_fleet reads every request's spans back from the flight recorder:
+# a ring that holds the whole run (set before the port is first imported)
+os.environ.setdefault("PADDLE_TPU_FLIGHT_RECORDER_SIZE", "262144")
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
@@ -2308,13 +2331,20 @@ def phase_e2e(torch, card):
     torch.cuda.empty_cache()
     cp_path = phase_engine_cp(torch, card, model)
     torch.cuda.empty_cache()
-    phase_engine_a1(torch, card, model)
+    # A1's and A2's runs at Llama-2-7B width and A12_LAYERS layers (the
+    # depth cut for the script's time, PERF.md §4)
+    mid = LlamaForCausalLM(llama2_7b(num_hidden_layers=A12_LAYERS), device=dev,
+                           dtype=torch.bfloat16, seed=0).eval()
+    phase_engine_a1(torch, card, mid)
     torch.cuda.empty_cache()
-    phase_generation_a2(torch, card, model)
-    del model
-    return launches, cp_path
+    phase_generation_a2(torch, card, mid)
+    del mid
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, cp_path, model
 
 
+A12_LAYERS = 8                  # phase_engine_a1, phase_generation_a2: depth (time: PERF.md §4)
 ENGINE_PROMPT_LENS = (37, 64, 100, 150, 250, 333, 420, 511)
 ENGINE_KW = dict(max_batch=BATCH, page_tokens=16, max_pages_per_seq=64, num_pages=8 * 64 + 1)
 QUANT_LOGITS_TOL = 0.08    # int8 vs bf16 decode logits at 2 layers, of max |logit|
@@ -2390,7 +2420,7 @@ def engine_gate_shallow(torch, model, prompts):
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.serving import ServingEngine
 
-    p0 = next(model.parameters())
+    p0 = next(iter(model.parameters()))
     shallow = LlamaForCausalLM(dataclasses.replace(model.config, num_hidden_layers=2),
                                device=p0.device, dtype=p0.dtype, seed=0).eval()
     eng = ServingEngine(shallow, **ENGINE_KW)
@@ -2628,7 +2658,7 @@ def engine_cp_gate_shallow(torch, model, prompt):
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.serving import TRASH_PAGE, ServingEngine
 
-    p0 = next(model.parameters())
+    p0 = next(iter(model.parameters()))
     shallow = LlamaForCausalLM(dataclasses.replace(model.config, num_hidden_layers=2),
                                device=p0.device, dtype=p0.dtype, seed=0).eval()
     kw = dict(CP_ENGINE_KW, num_pages=CP_GATE_PAGES[1])
@@ -3036,8 +3066,8 @@ def a1_cp_gate(torch, shallow, prompts, kw):
 
 
 def phase_engine_a1(torch, card, model):
-    """The serving engine's remainder on Llama-2-7B (``model``, full width
-    and depth, bf16, 16-token pages, ``max_batch`` 8): the prefix cache
+    """The serving engine's remainder on Llama-2-7B's width (``model``,
+    A12_LAYERS layers in the script, bf16, 16-token pages, ``max_batch`` 8): the prefix cache
     (``a1_prefix``: 7 hits, token-exact, TTFT of a miss and of a hit),
     the host-RAM offload tier (``a1_offload``: at least two swap-outs and
     recalls, no stall or eviction, token-exact, pages bit-equal after a
@@ -3056,7 +3086,7 @@ def phase_engine_a1(torch, card, model):
 
     cfg = model.config
     prefix, long = a1_prompts(cfg.vocab_size)
-    p0 = next(model.parameters())
+    p0 = next(iter(model.parameters()))
     shallow = LlamaForCausalLM(dataclasses.replace(cfg, num_hidden_layers=2),
                                device=p0.device, dtype=p0.dtype, seed=0).eval()
     for kind in ("int8", "fp8"):
@@ -3197,7 +3227,7 @@ def a2_beam(torch, card, model):
 
     cfg = model.config
     L, T, K = cfg.num_hidden_layers, A2_NEW, A2_BEAMS
-    dev = next(model.parameters()).device
+    dev = next(iter(model.parameters())).device
     rng = np.random.default_rng(10)
     for label, lens in zip(("unpadded", "left-padded"), A2_BEAM_ROWS):
         S = max(lens)
@@ -3590,14 +3620,14 @@ def a2_dynamic_decode(torch, card, dev="cuda"):
 
 
 def phase_generation_a2(torch, card, model):
-    """Generation's remainder on Llama-2-7B (``model``, bf16, full width
-    and depth): beam search (``a2_beam``), ``speculative_generate``
+    """Generation's remainder on Llama-2-7B's width (``model``, bf16,
+    A12_LAYERS layers in the script): beam search (``a2_beam``), ``speculative_generate``
     (``a2_speculative``), ``ServingEngine(speculative=4)``
     (``a2_engine``) and ``nn.dynamic_decode`` (``a2_dynamic_decode``).
-    The token-exact gates run at full depth in an f32 copy of the weights;
+    The token-exact gates run at the model's depth in an f32 copy of the weights;
     in bf16, a verify window and a serial step (different attention code)
     may part at a near-tie even at 2 layers, so there a parting is
-    certified (``certify_divergence``) and at full depth reported."""
+    certified (``certify_divergence``) and at the model's depth reported."""
     import dataclasses
 
     from paddle_tpu_torch.models import LlamaForCausalLM
@@ -3605,7 +3635,7 @@ def phase_generation_a2(torch, card, model):
     t0 = time.perf_counter()
     a2_beam(torch, card, model)
     torch.cuda.empty_cache()
-    p0 = next(model.parameters())
+    p0 = next(iter(model.parameters()))
     shallow = LlamaForCausalLM(dataclasses.replace(model.config, num_hidden_layers=2),
                                device=p0.device, dtype=p0.dtype, seed=0).eval()
     ref32 = copy.deepcopy(model).float()
@@ -6114,7 +6144,7 @@ def phase_dist(torch, card, train):
 
 TP = 2                              # phase_tp: the model-axis members, all on cuda:0
 TP_KINDS = ("bf16", "int8", "fp8")
-TP_QUANT_F32_LAYERS = 8             # (a): f32 weights' depth on every page kind (time: PERF.md §4)
+TP_QUANT_F32_LAYERS = 4             # (a): f32 weights' depth on every page kind (time: PERF.md §4)
 TP_TIME_LAYERS = 8                  # (a): the bf16 tp=1 / tp=2 timing's depth (time: PERF.md §4)
 TP_LAYER_SEQ = 2048                 # (b): the decoder layer's [1, 2048] tokens
 TP_WRAP_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 32, 128)   # (c): Llama-2-7B's training attention
@@ -6584,6 +6614,7 @@ def phase_tp(torch, card):
 
 HYBRID = dict(dp_degree=1, mp_degree=2, pp_degree=2, sharding_degree=2)   # 8 members
 HYBRID_STEPS, HYBRID_GATED = 5, 3   # steps a stage; the first 3 gated on phase_train's
+HYBRID_TIMED_STAGES = (1, 3)        # (a): the ZeRO stages stepped at TRAIN_LAYERS (time: PERF.md §4)
 PIPE_LAYERS, PIPE_M = 4, 4          # (b): 7B-width decoder layers, micro-batches
 RING_DEGREES = (2, 4)               # (c): the model degrees of the ring
 
@@ -6688,11 +6719,11 @@ def hybrid_gate_shallow(torch, cfg, dev, ids, labels):
 
 
 def hybrid_steps(torch, card, cfg, weights, dev, ids, labels, train_losses):
-    """(a) at TRAIN_LAYERS: HYBRID_STEPS DistributedTrainSteps a stage; the
-    first HYBRID_GATED losses within LOGITS_REL_TOL of phase_train's; the
-    steps after the first counted: exact launches (hybrid_want), step ms
-    (median), tokens/s, MFU, peak memory.  Returns the counted launches of
-    all three stages."""
+    """(a) at TRAIN_LAYERS: HYBRID_STEPS DistributedTrainSteps at each of
+    HYBRID_TIMED_STAGES; the first HYBRID_GATED losses within
+    LOGITS_REL_TOL of phase_train's; the steps after the first counted:
+    exact launches (hybrid_want), step ms (median), tokens/s, MFU, peak
+    memory.  Returns the counted launches of those stages."""
     import statistics
 
     import paddle_tpu_torch as ptt
@@ -6700,7 +6731,7 @@ def hybrid_steps(torch, card, cfg, weights, dev, ids, labels, train_losses):
 
     total = {}
     L = cfg.num_hidden_layers
-    for stage in (1, 2, 3):
+    for stage in HYBRID_TIMED_STAGES:
         gc.collect()
         torch.cuda.empty_cache()
         model, opt, step = hybrid_step(torch, cfg, weights, dev, stage)
@@ -7002,7 +7033,8 @@ def phase_hybrid(torch, card, train=None, cfg=None, dev="cuda", batch=None):
 
 OFFLOAD_STEPS = 3                   # (a), (b): steps a run; the last one profiled
 OFFLOAD_HYBRID_LAYERS = 2           # (a): the hybrid stages' depth (time: PERF.md §4)
-FULL_LAYERS = 32                    # (b): Llama-2-7B at full depth
+OFFLOAD_HYBRID_STAGES = (3,)        # (a): the ZeRO stages run with offload (time: PERF.md §4)
+FULL_LAYERS = 16                    # (b): Llama-2-7B width, half its depth (time: PERF.md §4)
 FULL_ROWS = 4                       # (b): 2048-token rows a step (PERF.md §4)
 LINK_BYTES = 1 << 30                # the host link's yardstick copies
 ONE_CARD = dict(dp_degree=1, mp_degree=1, pp_degree=1, sharding_degree=1)
@@ -7235,9 +7267,10 @@ def median(xs):
 
 def offload_compare(torch, card, train=None, cfg=None, dev="cuda", batch=None):
     """(a): at 8 layers on phase_train's batch, fleet on the one card with
-    offload against resident states, then DistributedTrainStep at stages
-    1-3 on HYBRID's 8 members (OFFLOAD_HYBRID_LAYERS deep) with offload
-    against resident: losses, launches and final parameters bit-equal.
+    offload against resident states, then DistributedTrainStep at
+    OFFLOAD_HYBRID_STAGES on HYBRID's 8 members (OFFLOAD_HYBRID_LAYERS
+    deep) with offload against resident: losses, launches and final
+    parameters bit-equal.
     Returns the offload runs' launches."""
     import dataclasses
 
@@ -7267,7 +7300,7 @@ def offload_compare(torch, card, train=None, cfg=None, dev="cuda", batch=None):
         del res, off
         shallow = dataclasses.replace(cfg, num_hidden_layers=OFFLOAD_HYBRID_LAYERS)
         weights = host_weights(torch, shallow.num_hidden_layers)
-        for stage in (1, 2, 3):
+        for stage in OFFLOAD_HYBRID_STAGES:
             runs = [offload_run(torch, f"hybrid stage {stage} offload {o}",
                                 lambda o=o: hybrid_step(torch, shallow, weights, dev, stage, o),
                                 ids, labels) for o in (False, True)]
@@ -7286,10 +7319,10 @@ def offload_compare(torch, card, train=None, cfg=None, dev="cuda", batch=None):
 
 
 def offload_full(torch, card, rows=FULL_ROWS):
-    """(b): Llama-2-7B at full depth and width, amp O2, AdamW + clip,
-    through fleet on the one card with offload, ``rows`` rows of 2048
-    tokens: OFFLOAD_STEPS steps with finite, falling losses and exactly one
-    B5 launch a parameter tensor a step (2 + 9·32 + 1 = 291); the host's
+    """(b): Llama-2-7B at full width and FULL_LAYERS layers, amp O2, AdamW
+    + clip, through fleet on the one card with offload, ``rows`` rows of
+    2048 tokens: OFFLOAD_STEPS steps with finite, falling losses and
+    exactly one B5 launch a parameter tensor a step (2 + 9·L + 1); the host's
     memory before and after, the pinned bytes and seconds, the device
     peak.  Returns the launches."""
     from paddle_tpu_torch.distributed import topology
@@ -9206,6 +9239,530 @@ def phase_health(torch, card, dev="cuda"):
     return launches
 
 
+FLEET_TTL = 2.0                 # phase_fleet (a): the replicas' lease ttl, seconds
+FLEET_STATUS_S = 0.1            # (a): their load republished on the lease this often
+FLEET_MIN_PROMPT = 250          # (b): prompts of at least this many tokens take the prefill tier
+FLEET_POD_LAYERS = 2            # (d): the pod's replicas, Llama-2-7B width (depth cut for time)
+FLEET_POD_NEW = 8               # (d): new tokens a request
+FLEET_KERNELS = frozenset({"rms_norm", "rope"})
+FLEET_POD_KW = dict(max_batch=4, page_tokens=16, max_pages_per_seq=64, num_pages=257)
+FLEET_REPLICA = '''
+import json, os, sys
+import torch
+from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b, llama_tiny
+from paddle_tpu_torch.serving.fleet import run_replica
+
+work, collector, spec = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+# the frontend outside the pod finds the launcher's fleet store here
+with open(os.path.join(work, "fleet_store.addr"), "w") as f:
+    f.write(os.environ["PADDLE_TPU_FLEET_STORE"])
+cfg = {"llama2_7b": llama2_7b, "llama_tiny": llama_tiny}[spec["config"]](**spec["kw"])
+model = LlamaForCausalLM(cfg, device=spec["device"], dtype=getattr(torch, spec["dtype"]),
+                         seed=0).eval()
+run_replica(model, collector_addr=collector, journal_root=os.path.join(work, "journals"),
+            engine_kw=spec["engine"])
+'''
+
+
+class FleetForwards:
+    """Counts the forwards of each engine it is given (each engine's own
+    counter: its serve thread is the only one that moves it), so the
+    kernels' launches over a run can be held to (2L + 1) B1 and L B2 a
+    forward, whichever thread launched them."""
+
+    def __init__(self):
+        self.n, self._spied = {}, []
+
+    def spy(self, name, e):
+        fwd = e._forward
+        self.n.setdefault(name, 0)
+
+        def counting(*a, **k):
+            self.n[name] += 1
+            return fwd(*a, **k)
+
+        e._forward = counting
+        self._spied.append(e)
+
+    def close(self):
+        for e in self._spied:      # the spy closes over the engine: break the cycle
+            del e._forward
+        self._spied = []
+
+    def check(self, label, L, counts):
+        n = sum(self.n.values())
+        want = {k: 0 for k in counts}
+        want.update(rms_norm=(2 * L + 1) * n, rope=L * n)
+        if counts != want:
+            raise AssertionError(f"fleet {label}: launches {counts} over {self.n} forwards, "
+                                 f"want {want}")
+
+
+@contextlib.contextmanager
+def fleet_env(**env):
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def fleet_wait(cond, timeout, what):
+    t = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t > timeout:
+            raise AssertionError(f"fleet: {what} within {timeout} s")
+        time.sleep(0.02)
+    return time.perf_counter()
+
+
+def fleet_run(torch, model, prompts, store, depot, workdir, names, die=False):
+    """Two ``EngineReplica``s sharing ``model`` behind a ``ServingFrontend``
+    (its scan thread on); each prompt submitted with MAX_NEW tokens.  With
+    ``die``, the replica streaming the first request crashes at that
+    request's third token (its serve thread ends) and ``die()``s: its
+    heartbeats stop and its lease is left to expire, so the frontend must
+    fence, fold its depot journal and replay its open work.  Returns the
+    streams (exactly once: ``TokenSink.collect`` raises on a duplicate or a
+    gap), the rids, the timing, the launches and forwards (read once every
+    engine has stopped), the replicas and the frontend."""
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from paddle_tpu_torch.serving import ServingFrontend, TokenSink
+    from paddle_tpu_torch.serving.fleet import EngineReplica
+
+    sink_path = os.path.join(workdir, f"{names[0]}_tokens.jsonl")
+    sink = TokenSink(sink_path)
+    fe = ServingFrontend(store, depot, sink=sink, ttl=FLEET_TTL, auto_attach=False)
+    first, crashed = [None], []
+
+    def emitter(name):
+        def emit(rid, idx, tok):
+            fe.emit(rid, idx, tok)
+            if die and not crashed and rid == first[0] and idx >= 2:
+                crashed.append(name)
+                raise RuntimeError(f"replica {name} crashes mid-stream")
+        return emit
+
+    reps = [EngineReplica(n, model, store=store, depot=depot, ttl=FLEET_TTL,
+                          journal_root=os.path.join(workdir, "journals"), on_token=emitter(n),
+                          engine_kw=ENGINE_KW) for n in names]
+    fwd = FleetForwards()
+    for r in reps:
+        fwd.spy(r.name, r.engine)
+        fe.attach(r)
+    timing, stopped = {}, False
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        for r in reps:
+            r.start()
+        fe.start()
+        rids = [fe.submit(prompts[0], max_new_tokens=MAX_NEW)]
+        first[0] = rids[0]
+        for p in prompts[1:]:
+            # arrivals a status beat apart: the router reads each replica's
+            # load from its lease, republished every FLEET_STATUS_S
+            time.sleep(2 * FLEET_STATUS_S)
+            rids.append(fe.submit(p, max_new_tokens=MAX_NEW))
+        if die:
+            fleet_wait(lambda: bool(crashed), 600, "the crash")
+            victim = next(r for r in reps if r.name == crashed[0])
+            fleet_wait(lambda: victim.error is not None, 60, "the victim's serve thread to end")
+            victim.die()
+            timing["victim"], timing["die"] = victim.name, time.perf_counter()
+            timing["fenced"] = fleet_wait(lambda: fe.failovers >= 1, 60, "the fence")
+        if not fe.wait_all(rids, timeout=600):
+            raise AssertionError(f"fleet: not every request finished: {fe.summary()}")
+        timing["done"] = time.perf_counter()
+        timing["wall"] = timing["done"] - t0
+        for r in reps:
+            r.stop(timeout=120)
+        stopped = True
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+    finally:
+        if not stopped:
+            for r in reps:
+                r.stop(timeout=120)
+        fe.stop()
+        fwd.close()
+        sink.close()
+    streams = TokenSink.collect(sink_path)
+    return dict(streams=streams, rids=rids, timing=timing, counts=counts, forwards=fwd,
+                replicas=reps, frontend=fe)
+
+
+def fleet_journal_bytes(depot, reps) -> int:
+    return sum(len(data) for r in reps for _, data in depot.journal_fetch(r.name, r.epoch))
+
+
+def fleet_same(label, streams, rids, want):
+    for i, rid in enumerate(rids):
+        if [int(t) for t in streams.get(rid, [])] != want[i]:
+            raise AssertionError(f"fleet {label}: request {i} {streams.get(rid)} != {want[i]}")
+
+
+def fleet_disagg(torch, card, model, prompts, want, depot):
+    """(b): long prompts through a ``PrefillWorker`` (its frames through
+    the depot: ``pack_kv_frame`` -> ``kv_put`` / ``kv_commit`` ->
+    ``take_prefilled`` -> ``submit_prefilled``), the rest straight to the
+    decode engine; token-exact against one engine, 0 fallbacks, exact
+    launches over both engines' forwards.  Returns the launches."""
+    from paddle_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from paddle_tpu_torch.serving import DisaggCoordinator, PrefillWorker, ServingEngine
+    from paddle_tpu_torch.serving import disagg
+
+    L = model.config.num_hidden_layers
+    pre = ServingEngine(model, max_batch=1, page_tokens=16, max_pages_per_seq=64,
+                        num_pages=65)
+    dec = ServingEngine(model, **ENGINE_KW)
+    worker = PrefillWorker(pre, depot, name="prefill0")
+    coord = DisaggCoordinator(dec, [worker], depot, min_prompt=FLEET_MIN_PROMPT)
+    ms = {k: 0.0 for k in ("export", "pack", "ship", "take", "unpack", "scatter")}
+    nbytes = []
+
+    def timed(key, fn, on_out=None):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            ms[key] += (time.perf_counter() - t) * 1e3
+            if on_out is not None:
+                on_out(out)
+            return out
+        return run
+
+    spies = [(disagg, "pack_kv_frame"), (disagg, "unpack_kv_frame")]
+    real = {name: getattr(mod, name) for mod, name in spies}
+    disagg.pack_kv_frame = timed("pack", real["pack_kv_frame"], lambda b: nbytes.append(len(b)))
+    disagg.unpack_kv_frame = timed("unpack", real["unpack_kv_frame"])
+    pre.prefill_export = timed("export", pre.prefill_export)
+    depot.kv_put = timed("ship", depot.kv_put)
+    depot.kv_get = timed("take", depot.kv_get)
+    dec._import_kv = timed("scatter", dec._import_kv)
+    fwd = FleetForwards()
+    fwd.spy("prefill0", pre)
+    fwd.spy("decode", dec)
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        rids = [coord.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+        outs = dec.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = dict(LAUNCHES)
+    finally:
+        for mod, name in spies:
+            setattr(mod, name, real[name])
+        for obj, name in ((pre, "prefill_export"), (depot, "kv_put"), (depot, "kv_get"),
+                          (dec, "_import_kv")):
+            delattr(obj, name)
+        fwd.close()
+    fwd.check("(b) disaggregated", L, counts)
+    routed = sum(1 for p in prompts if len(p) >= FLEET_MIN_PROMPT)
+    if coord.fallbacks != 0 or coord.prefill_routed != routed:
+        raise AssertionError(f"fleet (b): {coord.summary()}, want {routed} routed, 0 fallbacks")
+    for i, rid in enumerate(rids):
+        if [int(t) for t in outs[rid]] != want[i]:
+            raise AssertionError(f"fleet (b): request {i} {list(outs[rid])} != {want[i]}")
+    dec.pool.check_leaks()
+    pre.pool.check_leaks()
+    mib = sum(nbytes) / routed / 2**20
+    per = {k: v / routed for k, v in ms.items()}
+    log(f"fleet (b) disaggregated prefill {L}-layer bf16 on {card}: {routed} of "
+        f"{len(prompts)} prompts (>= {FLEET_MIN_PROMPT} tokens) through the prefill worker, "
+        f"0 fallbacks, token-exact against one engine; {mib:.1f} MiB of frames a routed "
+        f"request ({len(nbytes)} frames); a request: prefill and export {per['export']:.1f} "
+        f"ms, pack {per['pack']:.1f} ms, ship (kv_put) {per['ship']:.1f} ms, take "
+        f"(kv_get) {per['take']:.1f} ms, unpack {per['unpack']:.1f} ms, scatter "
+        f"{per['scatter']:.1f} ms; the whole run {wall:.2f} s; forwards {fwd.n}")
+    return counts
+
+
+def fleet_telemetry(card, run, depot, workdir, t0_ns):
+    """(c): both replicas' metrics snapshots through the depot, rolled up;
+    the Prometheus roll-up text parses and every histogram's buckets rise
+    to its count; the dashboard; the run's flight-recorder dumps merged
+    into one timeline (a ship before every fold that read it); every
+    request's spans complete under one trace id."""
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.telemetry import blackbox, report
+
+    pushers = [telemetry.MetricsPusher(depot, slo_source=r.engine.meter.summary,
+                                       hists_source=r.engine.meter.hist_docs, src=r.name,
+                                       epoch_dir=workdir, interval_s=3600.0)
+               for r in run["replicas"]]
+    for p in pushers:
+        if not p.push_once() or not p.spill_blackbox():
+            raise AssertionError(f"fleet (c): {p.src} push or spill failed")
+    snaps = depot.metrics_pull()
+    agg = telemetry.rollup(snaps)
+    text = telemetry.prometheus_rollup_text(snaps)
+    sample = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$")
+    buckets = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = sample.match(line)
+        if m is None:
+            raise AssertionError(f"fleet (c): unparsable Prometheus line {line!r}")
+        value = float(m.group(3))
+        if m.group(1).endswith("_bucket"):
+            buckets.setdefault(m.group(1), []).append(value)
+        elif m.group(1).endswith("_count") and m.group(1)[:-6] + "_bucket" in buckets:
+            if buckets[m.group(1)[:-6] + "_bucket"][-1] != value:
+                raise AssertionError(f"fleet (c): {m.group(1)} {value} is not its +Inf bucket")
+    if not buckets or any(b != sorted(b) for b in buckets.values()):
+        raise AssertionError(f"fleet (c): histogram buckets not monotone: {buckets}")
+    dash = report.dashboard_text(snaps)
+    log("fleet (c) dashboard:\n" + dash)
+    telemetry.dump_flight_recorder(os.path.join(workdir, "flight_frontend.json"), reason="fleet")
+    merged = blackbox.merge(workdir)
+    events = merged["events"]
+    ships = [(e["name"], e.get("epoch"), e.get("seq"), i) for i, e in enumerate(events)
+             if e.get("kind") == "fleet_ship"]
+    for i, e in enumerate(events):
+        if e.get("kind") == "fleet_fold":
+            late = [s for s in ships if s[:2] == (e["name"], e.get("epoch"))
+                    and s[2] <= e.get("high_seq", -1) and s[3] > i]
+            if late:
+                raise AssertionError(f"fleet (c): a fold ordered before its ships: {late[:3]}")
+    recorded = [e for e in telemetry.get_flight_recorder().events()
+                if e.get("mono_ns", 0) >= t0_ns]
+    cov = telemetry.trace_coverage(recorded, finished_rids=run["rids"])
+    if cov != 1.0:
+        raise AssertionError(f"fleet (c): trace coverage {cov}")
+    log(f"fleet (c) telemetry on {card}: {len(snaps)} snapshots rolled up (fleet req/s "
+        f"{agg['fleet_agg_req_s']}, finished {agg['requests_finished_total']}, TTFT p99 "
+        f"{agg['ttft_p99_agg_ms']} ms, TPOT p99 {agg['tpot_p99_agg_ms']} ms from merged "
+        f"histograms); Prometheus roll-up {len(text.splitlines())} lines parsed, "
+        f"{len(buckets)} histograms monotone; black box {len(merged['processes'])} dumps, "
+        f"{len(events)} events merged, {len(ships)} ships before their folds; trace "
+        f"coverage {cov} over {len(run['rids'])} requests")
+
+
+def fleet_pod(torch, card, prompts, workdir, spec=None):
+    """(d): ``launch --mode serve --nproc_per_node 2``: two replica
+    processes, each a Llama-2-7B-width model at FLEET_POD_LAYERS layers on
+    cuda:0, behind a frontend here (the pod's fleet store, an in-process
+    depot, a token collector); 4 requests token-exact against one engine
+    here, replica0 drained (``handback_queued`` re-homes its queue), both
+    stopped; the pod exits 0 with its merged black box.  ``spec``: the
+    replicas' model (config function and keywords, device, dtype) and
+    engine sizes."""
+    import signal
+
+    from paddle_tpu_torch.distributed.checkpoint.replicator import SnapshotClient, SnapshotStore
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.serving import ServingEngine, ServingFrontend, TokenSink
+    from paddle_tpu_torch.serving.fleet import RemoteReplica, TokenCollector
+
+    spec = spec or dict(config="llama2_7b", kw=dict(num_hidden_layers=FLEET_POD_LAYERS),
+                        device="cuda:0", dtype="bfloat16", engine=FLEET_POD_KW)
+
+    class Late:        # the collector's target before the frontend exists
+        fe = None
+
+        def emit(self, rid, idx, tok):
+            self.fe.emit(rid, idx, tok)
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(workdir, "replica.py")
+    with open(script, "w") as f:
+        f.write(FLEET_REPLICA)
+    snap = SnapshotStore(host="127.0.0.1")
+    depot = SnapshotClient("127.0.0.1", snap.port)
+    late = Late()
+    coll = TokenCollector(late)
+    sink_path = os.path.join(workdir, "pod_tokens.jsonl")
+    sink = TokenSink(sink_path)
+    log_dir = os.path.join(workdir, "podlog")
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               PADDLE_TPU_SNAP_STORE=f"127.0.0.1:{snap.port}")
+    for k in ("PADDLE_TRAINER_ID", "PADDLE_TRAINERS_NUM", "PADDLE_MASTER",
+              "PADDLE_LOCAL_RANK", "PADDLE_NPROC_PER_NODE"):
+        env.pop(k, None)
+    pod = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch", "--mode", "serve",
+         "--nproc_per_node", "2", "--log_dir", log_dir, script, workdir, coll.address,
+         json.dumps(spec)],
+        cwd=root, env=env, start_new_session=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    fe = kv = None
+    try:
+        addr = os.path.join(workdir, "fleet_store.addr")
+        fleet_wait(lambda: pod.poll() is not None or (
+            os.path.exists(addr) and open(addr).read().strip()), 300, "the pod's fleet store")
+        if pod.poll() is not None:
+            raise AssertionError(f"fleet (d): the pod exited {pod.returncode}")
+        h, p = open(addr).read().strip().rsplit(":", 1)
+        kv = TCPStore(h, int(p), is_master=False)
+        fe = late.fe = ServingFrontend(kv, depot, sink=sink)
+
+        def live():
+            fe.scan_once()
+            return sorted(fe.live_replicas()) == ["replica0", "replica1"]
+
+        t_up = fleet_wait(live, 300, "two live replicas")
+        if not all(isinstance(h_, RemoteReplica) for h_ in fe.handles.values()):
+            raise AssertionError(f"fleet (d): handles {fe.handles}")
+        rids = [fe.submit(q, max_new_tokens=FLEET_POD_NEW) for q in prompts]
+        moved = fe.drain("replica0")
+        if not fe.wait_all(rids, timeout=300):
+            raise AssertionError(f"fleet (d): not every request finished: {fe.summary()}")
+        streams = TokenSink.collect(sink_path)
+        for h_ in list(fe.handles.values()):
+            h_.stop_replica()
+        out = pod.communicate(timeout=120)[0]
+        if pod.returncode != 0:
+            raise AssertionError(f"fleet (d): the pod exited {pod.returncode}:\n{out[-3000:]}")
+    except BaseException:
+        if pod.poll() is None:
+            os.killpg(pod.pid, signal.SIGKILL)
+            pod.communicate()
+        for name in ("replica0.log", "replica1.log"):
+            path = os.path.join(log_dir, name)
+            if os.path.exists(path):
+                print(f"{name} tail:\n{open(path).read()[-4000:]}", file=sys.stderr, flush=True)
+        raise
+    finally:
+        if fe is not None:
+            fe.stop()
+        if kv is not None:
+            kv.close()
+        coll.close()
+        sink.close()
+        depot.close()
+        snap.close()
+    model = models.LlamaForCausalLM(getattr(models, spec["config"])(**spec["kw"]),
+                                    device=spec["device"], dtype=getattr(torch, spec["dtype"]),
+                                    seed=0).eval()
+    e = ServingEngine(model, **spec["engine"])
+    local = [e.submit(q, max_new_tokens=FLEET_POD_NEW) for q in prompts]
+    outs = e.run()
+    for i, (rid, lrid) in enumerate(zip(rids, local)):
+        if streams.get(rid) != [int(t) for t in outs[lrid]]:
+            raise AssertionError(f"fleet (d): request {i} {streams.get(rid)} != "
+                                 f"{list(outs[lrid])}")
+    if not os.path.exists(os.path.join(log_dir, "blackbox_merged.json")):
+        raise AssertionError("fleet (d): the pod left no merged black box")
+    log(f"fleet (d) launch --mode serve on {card}: 2 replica processes of "
+        f"{model.config.num_hidden_layers} layers up in {t_up - t0:.1f} s; {len(prompts)} requests "
+        f"token-exact against one engine, every token once; replica0 drained ({moved} "
+        f"queued re-homed); both stopped, the pod exit 0, its black box merged; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_fleet(torch, card, model, pod_spec=None):
+    """The serving fleet (ROADMAP A8) on ``model`` (Llama-2-7B, bf16, full
+    width and depth, shared by every engine on the card): (a) two
+    ``EngineReplica``s behind a ``ServingFrontend`` (a ``TCPStore`` fleet
+    store, an in-process depot) on ENGINE_PROMPT_LENS' 8 prompts, token-
+    exact against one ``ServingEngine``; again with a replica's death
+    mid-stream under a FLEET_TTL s lease: fenced, folded, replayed on the
+    survivor, token-exact, every token once (failover seconds, journal
+    bytes, tokens/s beside one engine); (b) disaggregated prefill
+    (``fleet_disagg``); (c) telemetry (``fleet_telemetry``); (d) ``launch
+    --mode serve`` (``fleet_pod``).  B1 and B2 launches are exact over
+    every engine's forwards.  Returns the fleet path's launches."""
+    import numpy as np
+
+    import shutil
+
+    from paddle_tpu_torch.distributed.checkpoint.replicator import SnapshotClient, SnapshotStore
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    L = model.config.num_hidden_layers
+    rng = np.random.default_rng(27)
+    prompts = [rng.integers(1, model.config.vocab_size, n).astype(np.int32)
+               for n in ENGINE_PROMPT_LENS]
+    ref = ServingEngine(model, **ENGINE_KW)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rids = [ref.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+    outs = ref.run()
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t
+    want = [[int(x) for x in outs[r]] for r in rids]
+    del ref
+    torch.cuda.empty_cache()
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    store = TCPStore("127.0.0.1", 0, is_master=True)
+    snap = SnapshotStore(host="127.0.0.1")
+    depot = SnapshotClient("127.0.0.1", snap.port)
+    workdir = tempfile.mkdtemp(prefix="fleet_")
+    try:
+        with fleet_env(PADDLE_TPU_SERVE_FLEET_SCAN=0.2,
+                       PADDLE_TPU_SERVE_FLEET_STATUS=FLEET_STATUS_S):
+            t1 = time.perf_counter()
+            run = fleet_run(torch, model, prompts, store, depot, workdir, ("r0", "r1"))
+            fleet_same("(a)", run["streams"], run["rids"], want)
+            run["forwards"].check("(a)", L, run["counts"])
+            add(run["counts"])
+            log(f"fleet (a) {L}-layer bf16 on {card}: 2 replicas, {len(prompts)} requests "
+                f"token-exact against one engine, every token once; "
+                f"{len(prompts) * MAX_NEW / run['timing']['wall']:.1f} tokens/s through the "
+                f"fleet against {len(prompts) * MAX_NEW / one_s:.1f} of one engine "
+                f"({run['timing']['wall']:.2f} s, {one_s:.2f} s); forwards {run['forwards'].n}")
+            log(f"clock fleet (a): {time.perf_counter() - t1:.1f} s")
+            t1 = time.perf_counter()
+            t0_ns = time.perf_counter_ns()
+            dead = fleet_run(torch, model, prompts, store, depot, workdir, ("r2", "r3"),
+                             die=True)
+            fleet_same("(a) failover", dead["streams"], dead["rids"], want)
+            dead["forwards"].check("(a) failover", L, dead["counts"])
+            add(dead["counts"])
+            tm, fe = dead["timing"], dead["frontend"]
+            if fe.failovers != 1 or fe.replayed_requests < 1:
+                raise AssertionError(f"fleet (a) failover: {fe.summary()}")
+            log(f"fleet (a) failover {L}-layer bf16 on {card}: {tm['victim']} crashed at the "
+                f"first request's third token; fenced {tm['fenced'] - tm['die']:.2f} s after "
+                f"its die() (ttl {FLEET_TTL} s), {fe.replayed_requests} requests replayed "
+                f"on the survivor, token-exact, every token once; failover (lease expiry to "
+                f"the last replayed token) {tm['done'] - tm['die'] - FLEET_TTL:.2f} s; journal "
+                f"bytes shipped {fleet_journal_bytes(depot, dead['replicas'])}; the run "
+                f"{tm['wall']:.2f} s; forwards {dead['forwards'].n}")
+            log(f"clock fleet (a) failover: {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        add(fleet_disagg(torch, card, model, prompts, want, depot))
+        log(f"clock fleet (b): {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        fleet_telemetry(card, dead, depot, workdir, t0_ns)
+        log(f"clock fleet (c): {time.perf_counter() - t1:.1f} s")
+        del run, dead
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        fleet_pod(torch, card, prompts[::2], workdir, pod_spec)
+        log(f"clock fleet (d): {time.perf_counter() - t1:.1f} s")
+    finally:
+        depot.close()
+        snap.close()
+        store.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"fleet: phase {time.perf_counter() - t0:.1f} s, launches {launches}")
+    return launches
+
+
 SOURCES = {  # kernel: (source, the TPU kernel it replaces, the path it is counted on)
     "rms_norm": ("paddle_tpu_torch/ops/csrc/rms_norm.cu",
                  "paddle_tpu/ops/pallas/fused_norm.py:88", "serve"),
@@ -9255,8 +9812,9 @@ COUNTED_AS = {"ring_flash_attention": "flash_attention", "adamw_host": "adamw"}
 # the ERNIE fine-tune (B5), of phase_a9's fused layers and residual norms and
 # of phase_moe's MoE Llama (generate_batch and training), of phase_export's
 # saved programs (B1, B2, B3 run from inside a loaded program) and of
-# phase_health's guarded fine-tune (B5 in its guarded form): their launches
-# add those paths
+# phase_health's guarded fine-tune (B5 in its guarded form) and of
+# phase_fleet's replicas and prefill worker (B1, B2): their launches add
+# those paths
 EXTRA_PATHS = {"hybrid": frozenset(hybrid_want(1, 1)), "auto": frozenset(hybrid_want(1, 1)),
                "ernie": frozenset({"flash_attention"}),
                "train_f32": frozenset({"flash_attention", "flash_attention_bwd_dq",
@@ -9269,7 +9827,7 @@ EXTRA_PATHS = {"hybrid": frozenset(hybrid_want(1, 1)), "auto": frozenset(hybrid_
                                 "flash_attention_bwd_dkv", "rms_norm", "rms_norm_bwd",
                                 "add_layer_norm", "add_layer_norm_bwd"}),
                "moe": MOE_KERNELS, "export": EXPORT_KERNELS,
-               "health": frozenset({"adamw"})}
+               "health": frozenset({"adamw"}), "fleet": FLEET_KERNELS}
 
 
 def clocked(fn, *args):
@@ -9305,8 +9863,10 @@ def main() -> int:
     rows.update(clocked(phase_fused_parity, torch))
     clocked(norm_bwd_times, torch)
     torch.cuda.empty_cache()
-    serve, cp = clocked(phase_e2e, torch, card)
+    serve, cp, model = clocked(phase_e2e, torch, card)
     launches = {"serve": serve, "quant": quant_launches, "cp": cp}
+    launches["fleet"] = clocked(phase_fleet, torch, card, model)
+    del model
     gc.collect()         # the serving phases' engines and models, before training
     torch.cuda.empty_cache()
     log(f"after the serving phases: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "

@@ -35,8 +35,10 @@ value for a ring offset, and the matching ``recv`` moves it (one ring
 Departures: ``ReduceOp.PROD`` is the product (the reference's
 exp(Σ log x) is NaN for x ≤ 0); ``AVG`` of an integer tensor raises, since
 its mean cannot be written back in place; ``reduce_scatter`` honours ``op``
-(the reference always sums).  Collectives are not differentiable, and
-their telemetry waits for ROADMAP A8.
+(the reference always sums).  Collectives are not differentiable.  Each
+executed collective is recorded in the telemetry layer
+(``telemetry.record_collective``: kind, payload bytes, group, the analytic
+link cost), as in the reference.
 """
 
 from __future__ import annotations
@@ -257,6 +259,19 @@ def _mp_ppermute(x: torch.Tensor, perm, g: CommGroup) -> torch.Tensor:
 # collectives
 # ---------------------------------------------------------------------------
 
+def _telemetry_record(kind: str, tensor: torch.Tensor, g: CommGroup) -> None:
+    """Report one executed collective to the telemetry layer (payload
+    bytes, the group's axes and size), after it ran: a collective that
+    raises does not count.  Never allowed to break the collective."""
+    try:
+        from .. import telemetry
+
+        telemetry.record_collective(kind, nbytes=tensor.numel() * tensor.element_size(),
+                                    axes=g.axes, group_size=g.nranks)
+    except Exception:
+        pass
+
+
 @torch.no_grad()
 def all_reduce(tensor: torch.Tensor, op: str = ReduceOp.SUM,
                group: Optional[CommGroup] = None, sync_op: bool = True) -> torch.Tensor:
@@ -266,9 +281,10 @@ def all_reduce(tensor: torch.Tensor, op: str = ReduceOp.SUM,
     _check_avg(tensor, op)
     if _multi(g):
         _mp_all_reduce(tensor, op, g)
-        return tensor
-    blocks = _blocks(tensor, g.nranks)
-    blocks.copy_(_reduce(blocks, op).unsqueeze(0))
+    else:
+        blocks = _blocks(tensor, g.nranks)
+        blocks.copy_(_reduce(blocks, op).unsqueeze(0))
+    _telemetry_record("all_reduce", tensor, g)
     return tensor
 
 
@@ -300,6 +316,7 @@ def all_gather(tensor_or_list, tensor: Optional[torch.Tensor] = None,
         _blocks(x, n)
         gathered = x.repeat(n, *([1] * (x.dim() - 1)))
         parts = [x.clone() for _ in range(n)]    # the reference's n views of the stack
+    _telemetry_record("all_gather", x, g)
     if out_list is not None:
         out_list.clear()
         out_list.extend(parts)
@@ -324,6 +341,7 @@ def reduce_scatter(tensor: torch.Tensor, tensor_list=None, op: str = ReduceOp.SU
         out = _mp_reduce_scatter(x, op, g)
     else:
         out = _reduce(_blocks(x, g.nranks), op)
+    _telemetry_record("reduce_scatter", x, g)
     if tensor_list is not None:
         tensor.copy_(out.reshape(tensor.shape))
     return out
@@ -423,9 +441,13 @@ def all_to_all(out_tensor_list, in_tensor_list=None, group: Optional[CommGroup] 
     """Functional form: ``y = all_to_all(x, group=g)``, x's rows on each
     member split into one block per destination; member j receives every
     member's block j, in member order."""
+    g = _resolve_group(group)
+    x = out_tensor_list if isinstance(out_tensor_list, torch.Tensor) \
+        else torch.cat(list(in_tensor_list))
+    y = _all_to_all(x, g)
+    _telemetry_record("all_to_all", x, g)
     if isinstance(out_tensor_list, torch.Tensor):
-        return _all_to_all(out_tensor_list, _resolve_group(group))
-    y = _all_to_all(torch.cat(list(in_tensor_list)), _resolve_group(group))
+        return y
     out_tensor_list.clear()
     out_tensor_list.extend(y.chunk(len(in_tensor_list)))
     return out_tensor_list
@@ -441,9 +463,10 @@ def broadcast(tensor: torch.Tensor, src: int = 0, group: Optional[CommGroup] = N
         _check_local(tensor)
         pg, ranks = _process_group(g)
         dist.broadcast(tensor, src=ranks[src], group=pg)
-        return tensor
-    blocks = _blocks(tensor, g.nranks)
-    blocks.copy_(blocks[src].clone().unsqueeze(0))
+    else:
+        blocks = _blocks(tensor, g.nranks)
+        blocks.copy_(blocks[src].clone().unsqueeze(0))
+    _telemetry_record("broadcast", tensor, g)
     return tensor
 
 
@@ -490,12 +513,15 @@ def ppermute(tensor: torch.Tensor, perm, group: Optional[CommGroup] = None) -> t
     g = _resolve_group(group)
     perm = tuple((int(s), int(d)) for s, d in perm)
     if _multi(g):
-        return _mp_ppermute(tensor, perm, g)
-    blocks = _blocks(tensor, g.nranks)
-    out = torch.zeros_like(blocks)
-    for s, d in perm:
-        out[d] = blocks[s]
-    return out.reshape(tensor.shape)
+        out = _mp_ppermute(tensor, perm, g)
+    else:
+        blocks = _blocks(tensor, g.nranks)
+        out = torch.zeros_like(blocks)
+        for s, d in perm:
+            out[d] = blocks[s]
+        out = out.reshape(tensor.shape)
+    _telemetry_record("ppermute", tensor, g)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -66,6 +66,7 @@ from torch import nn
 from ..device import HostArena
 from ..jit import TrainStep
 from ..nn.clip import ClipGradByGlobalNorm
+from ..nn.layer.layers import Layer
 from .topology import CommGroup, process_mesh_coords
 
 __all__ = ["DistributedTrainStep", "ScannedLayers", "GPipeLayers",
@@ -235,6 +236,42 @@ class DistributedTrainStep(TrainStep):
                     f"only, got {type(clip).__name__}")
         self._place_state()
         self._grad_bucketer = self._build_bucketer()
+        self._telemetry_program = self._register_telemetry()
+
+    def _register_telemetry(self):
+        """The step's analytic collective profile, registered once: the
+        gradient reduction over ``data`` x ``sharding`` (a reduce-scatter
+        when optimizer states are sharded, one a bucket when bucketed),
+        whose execution counter each call bumps."""
+        try:
+            from .. import telemetry
+
+            n_red = self.mesh.shape.get("data", 1) * self.mesh.shape.get("sharding", 1)
+            if n_red <= 1:
+                return None
+            grad_bytes = sum(p.numel() * p.element_size() for p in self._params
+                             if p.requires_grad)
+            kind = "reduce_scatter" if (self.sharding_stage >= 1
+                                        and self.mesh.shape.get("sharding", 1) > 1) \
+                else "all_reduce"
+            axes = list(grad_comm_axes(self.mesh))
+            if self._grad_bucketer is not None:
+                collectives = [{"kind": kind, "nbytes": int(nb), "group_size": n_red,
+                                "count": 1, "axes": axes}
+                               for nb in self._grad_bucketer.bucket_nbytes()]
+            else:
+                collectives = [{"kind": kind, "nbytes": int(grad_bytes), "group_size": n_red,
+                                "count": 1, "axes": axes}]
+            return telemetry.register_traced_program(
+                f"DistributedTrainStep_stage{self.sharding_stage}", collectives)
+        except Exception:
+            return None
+
+    def __call__(self, *batch) -> torch.Tensor:
+        loss = super().__call__(*batch)
+        if self._telemetry_program is not None:
+            self._telemetry_program.record_execution()
+        return loss
 
     def _sdc_pre_reduce_groups(self, grads):
         """Per-bucket pre-reduce fingerprint taps (``grads`` aligned with
@@ -556,7 +593,7 @@ class DistributedTrainStep(TrainStep):
 
 # -- the layer stack ---------------------------------------------------------
 
-class ScannedLayers(nn.Module):
+class ScannedLayers(Layer):
     """N homogeneous layers held as stacked ``[L, ...]`` parameters (named
     as the template's with ``.`` as ``__``: ``self_attn__q_proj__weight``),
     the leading dim over ``pipe`` when its degree is above 1.  The first

@@ -50,10 +50,18 @@ straggler ladder's link remap, exported by the ``FleetSupervisor``) gives
 each rank its ring position (``PADDLE_TPU_RING_POS``); a permutation that
 does not fit this epoch's world is dropped.
 
-Left for a later queue item, refusing to start rather than running without
-it: serving mode (``--mode serve``, ROADMAP A8).  The reference's
-observability epilogue (the flight-recorder dump, metrics roll-up and
-black-box merge, A8) has no switch: it is left out.
+``--mode serve`` runs a serving pod instead: ``nproc_per_node`` replica
+children under a ``ReplicaPool`` (each relaunched alone with backoff when
+it dies, retired by exit 0), each given the fleet env contract
+(``PADDLE_TPU_FLEET_STORE``, ``PADDLE_TPU_SNAP_STORE``,
+``PADDLE_TPU_SERVE_REPLICA``, ``PADDLE_TPU_SERVE_TIER``) and expected to
+call ``serving.fleet.run_replica``; ``PADDLE_TPU_DISAGG_PREFILL=K`` makes
+the first K children the prefill tier, and ``PADDLE_TPU_AS_ENABLE=1``
+hosts the ``serving.autoscaler.Autoscaler`` beside the loop.  Every
+process's flight recorder dumps into the job's epoch dir (``log_dir``,
+exported as ``PADDLE_TPU_EPOCH_DIR``); at the end the launcher dumps its
+own, rolls the metrics depot up into ``metrics_rollup.json`` and merges
+every dump into one causally ordered timeline (``telemetry.blackbox``).
 """
 
 from __future__ import annotations
@@ -101,7 +109,7 @@ def _parse(argv):
     p.add_argument("--mode", choices=("train", "serve"),
                    default=os.environ.get("PADDLE_TPU_LAUNCH_MODE", "train"),
                    help="train: SPMD gang (first failure tears the pod down); "
-                        "serve: not ported yet (ROADMAP A8)")
+                        "serve: independent replicas, relaunched one at a time")
     p.add_argument("--max_replica_restarts", type=int,
                    default=int(os.environ.get("PADDLE_TPU_SERVE_MAX_RESTARTS", "5")),
                    help="serve mode: per-replica relaunch budget")
@@ -113,12 +121,6 @@ def _parse(argv):
     p.add_argument("script", type=str, help="training script")
     p.add_argument("script_args", nargs=argparse.REMAINDER)
     return p.parse_args(argv)
-
-
-def _refuse_unported(args) -> None:
-    if args.mode == "serve":
-        raise NotImplementedError("launch --mode serve (the serving replica pool) is "
-                                  "not ported yet (ROADMAP A8)")
 
 
 def _record_event(name: str, **data) -> None:
@@ -229,7 +231,6 @@ def _slots(nnodes: int, nproc: int):
 
 def launch(argv=None) -> int:
     args = _parse(argv if argv is not None else sys.argv[1:])
-    _refuse_unported(args)
     nproc = args.nproc_per_node
     excluded_slots, live_slots = _slots(args.nnodes, nproc)
     world = len(live_slots)
@@ -287,6 +288,25 @@ def launch(argv=None) -> int:
         except OSError as e:  # snapshots degrade; the job still runs
             sys.stderr.write(f"[launch] snapshot store unavailable: {e!r}\n")
     os.makedirs(args.log_dir, exist_ok=True)
+    # the job's epoch dir: every process (the launcher too) dumps its flight
+    # recorder and spills its metrics here, so blackbox.merge folds one
+    # causally ordered timeline
+    os.environ["PADDLE_TPU_EPOCH_DIR"] = os.path.abspath(args.log_dir)
+
+    if args.mode == "serve":
+        # a serving pod: the same store and depot as a training pod (the
+        # depot is also the fleet's journal depot), but supervised per
+        # replica: no gang poisoning, no first-failure teardown
+        try:
+            return _serve_pod(args, node_rank, fleet_store_addr, snap)
+        finally:
+            _observability_teardown(args.log_dir, snap)
+            if watch is not None:
+                watch.stop()
+            if snap is not None:
+                snap.stop()
+            if fleet_store is not None:
+                fleet_store.close()
 
     grace = 10.0
     try:
@@ -431,6 +451,7 @@ def launch(argv=None) -> int:
         if watch is not None:
             _dump_poison(watch, args.log_dir)
             watch.stop()
+        _observability_teardown(args.log_dir, snap)
         if snap is not None:
             snap.stop()
         if store is not None:
@@ -492,6 +513,136 @@ def _dump_poison(watch: "_PodWatch", log_dir: str) -> None:
                 json.dump(doc, f, indent=1)
         except (OSError, TypeError, ValueError):
             pass
+
+
+def _observability_teardown(log_dir: str, snap) -> None:
+    """Job-level observability epilogue (best-effort, never raises):
+    dump the launcher's own flight recorder next to the workers' dumps,
+    pull the metrics depot into one ``metrics_rollup.json``, and fold
+    every per-process dump into the merged black-box timeline."""
+    try:
+        from ... import telemetry
+        telemetry.dump_flight_recorder(
+            os.path.join(log_dir, f"flight_launcher_pid{os.getpid()}.json"),
+            reason="launch_teardown")
+    except Exception:
+        pass
+    if snap is not None and getattr(snap, "addr", None):
+        try:
+            import json
+
+            from ...telemetry.aggregator import rollup
+            from ..checkpoint.replicator import SnapshotClient
+            cli = SnapshotClient.from_address(snap.addr)
+            try:
+                snaps = cli.metrics_pull()
+            finally:
+                cli.close()
+            if snaps:
+                with open(os.path.join(log_dir, "metrics_rollup.json"),
+                          "w") as f:
+                    json.dump(rollup(snaps), f, indent=1, default=repr)
+        except Exception:
+            pass
+    try:
+        from ...telemetry import blackbox
+        blackbox.merge(log_dir)
+    except Exception:
+        pass
+
+
+def _serve_pod(args, node_rank: int, fleet_store_addr: Optional[str],
+               snap) -> int:
+    """Serve-mode watch loop: ``nproc_per_node`` replica children under a
+    :class:`~..fleet.elastic.supervisor.ReplicaPool`.  Each child gets the
+    fleet env contract (``PADDLE_TPU_FLEET_STORE`` for its heartbeat
+    lease, ``PADDLE_TPU_SNAP_STORE`` for journal shipping,
+    ``PADDLE_TPU_SERVE_REPLICA`` for its stable name) and is expected to
+    call :func:`paddle_tpu_torch.serving.fleet.run_replica`.  A SIGKILL'd or
+    101-exiting replica relaunches alone with backoff and adopts a fresh
+    fencing epoch; exit 0 (frontend said stop) retires it.
+
+    With ``PADDLE_TPU_AS_ENABLE=1`` (and a fleet store to scan) the pod
+    also hosts the :class:`~paddle_tpu_torch.serving.autoscaler.Autoscaler`
+    next to this loop: fleet occupancy / shed pressure grows the pool
+    through ``scale_to`` (fresh names, fresh fencing epochs) and shrinks it through the lossless
+    retire → re-home → stop drain protocol — drained stops exit 0 and
+    burn no restart budget."""
+    from ..fleet.elastic.supervisor import ReplicaPool, RestartPolicy
+
+    pool = ReplicaPool(
+        policy=RestartPolicy(max_restarts=args.max_replica_restarts),
+        restart_codes=(101, -signal.SIGKILL, -signal.SIGTERM))
+    argv = [sys.executable, "-u", args.script, *args.script_args]
+    base_env = {
+        "PADDLE_JOB_ID": args.job_id,
+        **({"PADDLE_TPU_FLEET_STORE": fleet_store_addr}
+           if fleet_store_addr else {}),
+        **({"PADDLE_TPU_SNAP_STORE": snap.addr} if snap else {}),
+    }
+    # the disaggregated tier topology: with
+    # PADDLE_TPU_DISAGG_PREFILL=K the pod's FIRST K children form a
+    # dedicated prefill tier (named prefill{N}, tier=prefill on their
+    # lease) and the rest stay decode replicas.  The router prefers
+    # prefill capacity for TTFT-bound work and falls back to the whole
+    # fleet when the tier is empty — K >= nproc_per_node degrades to a
+    # homogeneous (all-prefill-tagged) pod rather than refusing.
+    n_prefill = max(0, int(os.environ.get("PADDLE_TPU_DISAGG_PREFILL",
+                                          "0") or 0))
+    for local in range(args.nproc_per_node):
+        idx = node_rank * args.nproc_per_node + local
+        tier = "prefill" if local < n_prefill else "decode"
+        name = (f"prefill{idx}" if tier == "prefill" else f"replica{idx}")
+        pool.add(name, argv,
+                 env={**base_env, "PADDLE_LOCAL_RANK": str(local),
+                      "PADDLE_TPU_SERVE_TIER": tier},
+                 log_path=os.path.join(args.log_dir, f"{name}.log"))
+    # scale-outs reuse the same child contract; their names continue the
+    # pod's replica index sequence so they can never collide with (or
+    # inherit budget from) an existing or retired replica.  Autoscaled
+    # capacity is always DECODE tier: the prefill tier is a fixed split.
+    pool.set_template(argv, env={**base_env, "PADDLE_LOCAL_RANK": "0",
+                                 "PADDLE_TPU_SERVE_TIER": "decode"},
+                      log_dir=args.log_dir, name_prefix="replica")
+    scaler = None
+    if os.environ.get("PADDLE_TPU_AS_ENABLE", "0") == "1" \
+            and fleet_store_addr and node_rank == 0:
+        try:
+            from ...serving.autoscaler import Autoscaler
+            from ..checkpoint.replicator import SnapshotClient
+            from ..store import TCPStore
+
+            h, p = fleet_store_addr.rsplit(":", 1)
+            as_store = TCPStore(h, int(p), is_master=False)
+            as_depot = SnapshotClient.from_address(snap.addr) \
+                if snap is not None and getattr(snap, "addr", None) else None
+            scaler = Autoscaler(as_store, as_depot, pool=pool)
+            scaler.start()
+        except Exception:
+            scaler = None   # autoscaling is additive: never block serving
+    _record_event("serve_pod_start", replicas=args.nproc_per_node,
+                  node_rank=node_rank, prefill_tier=n_prefill,
+                  autoscale=scaler is not None)
+    rc = 0
+    try:
+        pool.start()
+        while not pool.all_exited():
+            pool.poll_once()
+            time.sleep(0.2)
+        if pool.given_up:
+            rc = 101   # at least one replica burned its relaunch budget
+    except KeyboardInterrupt:
+        rc = 130
+    finally:
+        if scaler is not None:
+            scaler.stop()
+        pool.stop()
+        _record_event("serve_pod_done", given_up=sorted(pool.given_up),
+                      restarts=dict(pool.restarts),
+                      scale_outs=0 if scaler is None else scaler.scale_outs,
+                      scale_ins=0 if scaler is None else scaler.scale_ins,
+                      rc=rc)
+    return rc
 
 
 def main() -> None:

@@ -17,6 +17,9 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 from torch import nn
 
+from ...nn.layer.container import LayerList
+from ...nn.layer.layers import Layer
+
 __all__ = ["LayerDesc", "SharedLayerDesc", "PipelineLayer"]
 
 
@@ -78,7 +81,7 @@ def _call(layer, x):
     return layer(*x) if isinstance(x, tuple) else layer(x)
 
 
-class PipelineLayer(nn.Module):
+class PipelineLayer(Layer):
     """``layers`` cut into stages.  ``num_stages`` defaults to the hybrid
     group's pipe degree; ``seg_method`` is ``"uniform"`` (equal layer
     counts, the remainder to the first segments) or ``"layer:<regex>"``
@@ -122,7 +125,7 @@ class PipelineLayer(nn.Module):
                 self._desc_names.append(getattr(item, "__name__", "fn"))
             else:
                 raise TypeError(f"unsupported pipeline item: {item!r}")
-        self.run_function = nn.ModuleList(built)
+        self.run_function = LayerList(built)
         self._segment()
 
     def _segment(self) -> None:

@@ -382,12 +382,31 @@ def _leg(mesh, axis, leg, a, b, dim):
     return run(mesh, axis, leg, a, b, dim)
 
 
+def _record(kind: str, nbytes: int, p: int, axis: str) -> None:
+    """Telemetry, as the reference's: the ring moves (p-1)/p of the
+    payload as permutes, recorded as a trace-time record so that the
+    executed bytes stay with the traced programs."""
+    try:
+        from ... import telemetry
+
+        telemetry.record_collective(
+            "ppermute", nbytes=int(nbytes * (p - 1) / p), axes=(axis,),
+            group_size=p, trace_time=True, source="collective_matmul")
+    except Exception:
+        pass
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def all_gather_matmul(x: torch.Tensor, w: torch.Tensor, mesh, axis: str = MODEL_AXIS):
     """``gather(X over axis) @ W`` as a ring of partial matmuls.  Single
     controller: ``x`` global [rows, K] (rows divisible by the batch axes x
     p), ``w`` global [K, N] (N over ``axis``); returns ``x @ w``.  On a
     process mesh: this process's [rows / p, K] chunk and [K, N / p] columns
     give its [rows, N / p]."""
+    _record("all_gather_matmul", _nbytes(x), mesh.shape[axis], axis)
     return _RingMatmul.apply(x, w, "ag", mesh, axis)
 
 
@@ -397,6 +416,8 @@ def matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor, mesh, axis: str = MO
     ``w`` global [K, N]; returns ``x @ w`` (the members' partials summed
     along the ring).  On a process mesh: this process's [rows, K / p] and
     [K / p, N] give its summed [rows / p, N] row block."""
+    p = mesh.shape[axis]
+    _record("matmul_reduce_scatter", _nbytes(x) // max(1, p), p, axis)
     return _RingMatmul.apply(x, w, "rs", mesh, axis)
 
 
@@ -411,6 +432,7 @@ def all_gather_matmul_seq(x: torch.Tensor, w: torch.Tensor, mesh, axis: str = MO
     """Sequence-parallel ``gather(X over seq) @ W``: ``x`` [..., s, K] with
     s over ``axis`` (a process's [..., s / p, K] on a process mesh), ``w``
     [K, N] with N over ``axis``; returns [..., s, N], N over ``axis``."""
+    _record("all_gather_matmul_seq", _nbytes(x), mesh.shape[axis], axis)
     return _seq_call("ag_seq", x, w, mesh, axis)
 
 
@@ -419,4 +441,6 @@ def matmul_reduce_scatter_seq(x: torch.Tensor, w: torch.Tensor, mesh,
     """Sequence-parallel ``reduce_scatter(X @ W over seq)``: ``x`` [..., s,
     K] with K over ``axis``, ``w`` [K, N] with K over ``axis``; returns
     [..., s, N] with s over ``axis`` (a process's [..., s / p, N])."""
+    p = mesh.shape[axis]
+    _record("matmul_reduce_scatter_seq", _nbytes(x) // max(1, p), p, axis)
     return _seq_call("rs_seq", x, w, mesh, axis)

@@ -309,6 +309,31 @@ class OneFOneBLayers(GPipeLayers):
         self.stash_by_key: Dict = {}      # input shape -> True: the stash policy
         self._sched_cache: Optional[Dict] = None
         self.segments_recomputed = 0
+        self._telemetry_programs: Dict = {}   # input shape -> its TracedProgram
+
+    def _register_telemetry(self, key, x) -> None:
+        """The analytic collective profile of one 1F1B step: every tick
+        sends a forward and a backward activation hop (a permute), and the
+        loss is summed once; registered per input shape, its execution
+        counter bumped each ``loss_and_grads``."""
+        p = self._mesh.shape[self._pipe_axis]
+        if p <= 1:
+            return
+        try:
+            from .. import telemetry
+
+            T = self._sched()["T"]
+            mb = x.shape[0] // self.num_microbatches
+            act_bytes = int(np.prod((mb,) + tuple(x.shape[1:]))) * x.element_size()
+            self._telemetry_programs[key] = telemetry.register_traced_program(
+                f"OneFOneB_p{p}m{self.num_microbatches}v{self._v}_"
+                f"{'x'.join(map(str, x.shape))}",
+                [{"kind": "ppermute", "nbytes": act_bytes, "group_size": p,
+                  "count": 2 * T, "axes": [self._pipe_axis]},
+                 {"kind": "psum", "nbytes": 4, "group_size": p, "count": 1,
+                  "axes": [self._pipe_axis]}])
+        except Exception:
+            pass
 
     def _sched(self) -> Dict:
         if self._sched_cache is None:
@@ -396,7 +421,12 @@ class OneFOneBLayers(GPipeLayers):
         key = (tuple(x.shape), str(x.dtype), tuple(y.shape), str(y.dtype))
         if key not in self.stash_by_key:
             self.stash_by_key[key] = self._decide_stash(x)
-        return self._run_schedule(x, y, self.stash_by_key[key])
+            self._register_telemetry(key, x)
+        out = self._run_schedule(x, y, self.stash_by_key[key])
+        prog = self._telemetry_programs.get(key)
+        if prog is not None:
+            prog.record_execution()
+        return out
 
     def _run_schedule(self, x, y, stash: bool):
         P, m = self._mesh.shape[self._pipe_axis], self.num_microbatches

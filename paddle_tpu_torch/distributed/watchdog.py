@@ -9,9 +9,10 @@ A hung collective shows up on the host as a wait that never returns (a
 every Python thread's stack and calls ``on_timeout``, which by default
 logs; pass e.g. ``lambda info: os._exit(101)`` to end the rank.
 
-Left for later queue items: the flight-recorder events and dump of the
-reference's telemetry (ROADMAP A8; ``flight_recorder_dump`` is ``''``, as
-the reference's is with telemetry off).  A fault domain (``poll_once``,
+Each armed wait is a ``watch_armed`` event in the flight recorder; on
+expiry the watchdog records ``watchdog_timeout``, dumps the recorder and
+hands the dump's path to ``on_timeout`` as ``flight_recorder_dump`` (``''``
+with telemetry off), as the reference does.  A fault domain (``poll_once``,
 ``poison``, ``rank``), or ``"current"`` for the process-global one that
 ``fleet.fault_domain.init_from_env`` sets, resolved at every tick, is
 polled and poisoned as in the reference.
@@ -103,6 +104,12 @@ class CommWatchdog:
         wid = id(w)
         with self._lock:
             self._watches[wid] = w
+        try:  # flight recorder: a hang dump must show what was in flight
+            from .. import telemetry
+
+            telemetry.record_event("watch_armed", name, timeout_s=w.deadline - w.started)
+        except Exception:
+            pass
         return wid
 
     def _disarm(self, wid: int) -> None:
@@ -158,11 +165,25 @@ class CommWatchdog:
                         info["poisoned"] = True
                     except Exception:
                         traceback.print_exc()
-                info["flight_recorder_dump"] = ""   # telemetry: ROADMAP A8
+                info["flight_recorder_dump"] = self._dump_flight_recorder(w, now)
                 try:
                     self.on_timeout(info)
                 except Exception:
                     traceback.print_exc()
+
+    @staticmethod
+    def _dump_flight_recorder(w, now: float) -> str:
+        """Record the timeout as the ring's last event, so that the dump's
+        tail names the hung wait, then write the dump.  Returns its path
+        ('' when telemetry is off or the write fails)."""
+        try:
+            from .. import telemetry
+
+            telemetry.bump("watchdog_timeouts_total")
+            telemetry.record_event("watchdog_timeout", w.name, elapsed_s=now - w.started)
+            return telemetry.dump_flight_recorder(reason="watchdog_hang")
+        except Exception:
+            return ""
 
     @staticmethod
     def _all_stacks() -> str:

@@ -90,6 +90,7 @@ from torch.utils import _pytree as pytree
 
 from ..framework.flags import get_flags, set_flags
 from ..nn.clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue  # noqa: F401
+from ..nn.layer.layers import Layer
 
 __all__ = ["to_static", "TrainStep", "not_to_static", "ignore_module", "save",
            "load", "InputSpec", "TranslatedLayer"]
@@ -695,7 +696,7 @@ def _load_program(file: str):
     return program, meta
 
 
-class TranslatedLayer(torch.nn.Module):
+class TranslatedLayer(Layer):
     """A loaded ``.pdmodel`` program, callable like the layer it was saved
     from, on the device it was traced on.  Parameters are frozen inside the
     program; ``state_dict`` gives the sidecar parameters."""
@@ -707,7 +708,10 @@ class TranslatedLayer(torch.nn.Module):
         self._params_dict = params or {}
         self._meta = meta or {}
         self.device = torch.device(self._meta.get("device", "cpu"))
-        self._run = exported.module()
+        # the program's module stays out of the sublayer registry: its
+        # parameters are frozen inside the program, as in the reference
+        # (no sublayers, no parameters)
+        self.__dict__["_run"] = exported.module()
         self.training = False
 
     def forward(self, *args):

@@ -17,13 +17,12 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import torch
-from torch import nn
 
 from ..device import resolve_device
 from ..distributed.fleet_utils import recompute
 from ..generation import GenerationMixin, cached_attention
 from ..incubate.nn.functional import fused_layer_norm
-from ..nn import Dropout, Embedding, LayerNorm, Linear
+from ..nn import Dropout, Embedding, Layer, LayerList, LayerNorm, Linear
 from ..nn import functional as F
 
 __all__ = ["GPTConfig", "GPTBlock", "GPTModel", "GPTForCausalLM", "gpt_tiny",
@@ -76,7 +75,7 @@ def gpt3_1p3b(**kw) -> GPTConfig:
     return GPTConfig(**base)
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(Layer):
     def __init__(self, config: GPTConfig, **init):
         super().__init__()
         place = dict(device=init["device"], dtype=init["dtype"])
@@ -117,14 +116,14 @@ class GPTBlock(nn.Module):
         return x + self.dropout(self.fc_out(F.gelu(self.fc_in(self.ln_2(x)))))
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     def __init__(self, config: GPTConfig, **init):
         super().__init__()
         self.config = config
         self.wte = Embedding(config.vocab_size, config.hidden_size, **init)
         self.wpe = Embedding(config.max_position_embeddings, config.hidden_size, **init)
         self.drop = Dropout(config.dropout)
-        self.h = nn.ModuleList([GPTBlock(config, **init)
+        self.h = LayerList([GPTBlock(config, **init)
                                 for _ in range(config.num_hidden_layers)])
         self.ln_f = LayerNorm(config.hidden_size, config.layer_norm_eps,
                               device=init["device"], dtype=init["dtype"])
@@ -155,7 +154,7 @@ class GPTModel(nn.Module):
         return self.ln_f(x)
 
 
-class GPTForCausalLM(nn.Module, GenerationMixin):
+class GPTForCausalLM(Layer, GenerationMixin):
     """GPT with the LM head tied to ``wte``.  Weights are drawn from N(0,
     ``initializer_range``) by a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (the card unless the caller asks for the CPU)."""

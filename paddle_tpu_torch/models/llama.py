@@ -17,13 +17,12 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..device import resolve_device
 from ..distributed.fleet_utils import recompute
 from ..generation import GenerationMixin, cached_attention
 from ..incubate.distributed.models.moe import ExpertParallelMLP
-from ..nn import Embedding, Linear, RMSNorm
+from ..nn import Embedding, Layer, LayerList, Linear, RMSNorm
 from ..nn import functional as F
 from ..ops.rope import rotate
 from ..ops.sharded import mesh_route, mesh_rope, mesh_rope_supported
@@ -168,7 +167,7 @@ def apply_rotary_at_positions(q: torch.Tensor, k: torch.Tensor, cos: torch.Tenso
     return rotate(q, k, cos, sin, pos_ids)
 
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(Layer):
     def __init__(self, config: LlamaConfig, **init):
         super().__init__()
         self.config = config
@@ -204,7 +203,7 @@ class LlamaAttention(nn.Module):
         return self.o_proj(out.reshape(b, s, h * d))
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(Layer):
     def __init__(self, config: LlamaConfig, **init):
         super().__init__()
         hs, inter = config.hidden_size, config.intermediate_size
@@ -216,7 +215,7 @@ class LlamaMLP(nn.Module):
         return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(Layer):
     def __init__(self, config: LlamaConfig, use_moe: bool = False, **init):
         super().__init__()
         place = dict(device=init["device"], dtype=init["dtype"])
@@ -248,12 +247,12 @@ class LlamaDecoderLayer(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(Layer):
     def __init__(self, config: LlamaConfig, **init):
         super().__init__()
         self.config = config
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size, **init)
-        self.layers = nn.ModuleList([
+        self.layers = LayerList([
             LlamaDecoderLayer(config, use_moe=config.moe_num_experts > 0
                               and i % config.moe_every == 0, **init)
             for i in range(config.num_hidden_layers)])
@@ -296,7 +295,7 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
 
-class LlamaForCausalLM(nn.Module, GenerationMixin):
+class LlamaForCausalLM(Layer, GenerationMixin):
     """Llama with its LM head.  Weights are drawn from N(0,
     ``initializer_range``) (an MoE layer's XavierUniform, as the
     reference's), directly in ``dtype``, by a ``torch.Generator`` seeded

@@ -28,7 +28,6 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..device import resolve_device
 from ..distributed.engine import ScannedLayers
@@ -39,7 +38,7 @@ from ..distributed.meta_parallel.mp_layers import (ColumnParallelLinear,
 from ..distributed.meta_parallel.sequence_parallel import (
     ColumnSequenceParallelLinear, RowSequenceParallelLinear, ScatterOp,
     register_sequence_parallel_allreduce_hooks, sequence_parallel_enabled)
-from ..nn import RMSNorm
+from ..nn import Layer, RMSNorm
 from ..nn import functional as F
 from .llama import LlamaConfig, _normalize_mask, _rope_tables, apply_rotary_pos_emb
 
@@ -60,7 +59,7 @@ def _local_heads(n: int, linear) -> int:
     return n // m.n if m.multi else n
 
 
-class HybridLlamaAttention(nn.Module):
+class HybridLlamaAttention(Layer):
     """Attention with its heads over ``model`` (q/k/v column-parallel, the
     output row-parallel)."""
 
@@ -102,7 +101,7 @@ class HybridLlamaAttention(nn.Module):
         return self.o_proj(out.reshape(b, s, -1))
 
 
-class HybridLlamaMLP(nn.Module):
+class HybridLlamaMLP(Layer):
     def __init__(self, config: LlamaConfig, sequence_parallel: bool = False, **init):
         super().__init__()
         Column, Row = _linear_types(sequence_parallel)
@@ -115,7 +114,7 @@ class HybridLlamaMLP(nn.Module):
         return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
 
 
-class HybridLlamaDecoderLayer(nn.Module):
+class HybridLlamaDecoderLayer(Layer):
     def __init__(self, config: LlamaConfig, context_parallel: str = "none",
                  sequence_parallel: bool = False, **init):
         super().__init__()
@@ -146,7 +145,7 @@ class _Built:
         return (self._make() for _ in range(self._n))
 
 
-class LlamaForCausalLMHybrid(nn.Module):
+class LlamaForCausalLMHybrid(Layer):
     """``context_parallel``: "auto" (ring when sep > 1, else none), "none",
     "ring" or "ulysses".  ``sequence_parallel``: None defers to
     ``sequence_parallel_enabled``; forced off when sep > 1."""

@@ -223,7 +223,9 @@ class Layer(nn.Module):
 
     def named_sublayers(self, prefix: str = "", include_self: bool = False
                         ) -> Iterator[Tuple[str, nn.Module]]:
-        for name, layer in self.named_modules(prefix=prefix):
+        # every path to a sublayer, a shared one under each of its names, as
+        # in the reference (torch's named_modules would yield it once)
+        for name, layer in self.named_modules(prefix=prefix, remove_duplicate=False):
             if layer is not self or include_self:
                 yield name, layer
 

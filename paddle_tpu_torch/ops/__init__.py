@@ -24,6 +24,7 @@ went through the kernels (``chip_smoke.py`` resets and reads it).
 
 from __future__ import annotations
 
+import threading
 from typing import Dict
 
 import torch
@@ -31,7 +32,7 @@ import torch
 from ..framework.flags import get_flags
 
 __all__ = ["use_kernel", "use_function", "export_route", "exported_op", "exporting",
-           "LAUNCHES", "reset_launch_counts"]
+           "LAUNCHES", "count_launch", "reset_launch_counts"]
 
 LAUNCHES: Dict[str, int] = {"rms_norm": 0, "rope": 0, "flash_attention": 0,
                             "decode_attention": 0, "rms_norm_bwd": 0,
@@ -43,9 +44,21 @@ LAUNCHES: Dict[str, int] = {"rms_norm": 0, "rope": 0, "flash_attention": 0,
                             "ring_merge": 0}
 
 
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name``.  Under a lock: the engines of an
+    in-process fleet launch from their own serve threads, and ``+= 1`` on
+    a dict entry is not atomic across threads."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+
+
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 _EXPORTING = [0]

@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import LAUNCHES, _build
+from . import _build, count_launch
 
 __all__ = ["decode_attention_plain", "decode_attention",
            "decode_attention_int8_plain", "decode_attention_int8",
@@ -129,7 +129,7 @@ def decode_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                   _build.ptr(cache_k), _build.ptr(cache_v), _build.ptr(pad_lens),
                   _build.ptr(out), b, C, h, kv, d, pos, 1.0 / math.sqrt(d),
                   _DTYPES[q.dtype])
-    LAUNCHES["decode_attention"] += 1
+    count_launch("decode_attention")
     return out, cache_k, cache_v
 
 
@@ -233,7 +233,7 @@ def decode_attention_int8(q, k_new, v_new, cache_k, cache_v, k_scale, v_scale,
                   _build.ptr(cache_k), _build.ptr(cache_v), _build.ptr(k_scale),
                   _build.ptr(v_scale), _build.ptr(pad_lens), _build.ptr(out),
                   b, C, h, kv, d, pos, sc, _DTYPES[q.dtype])
-    LAUNCHES["decode_attention_int8"] += 1
+    count_launch("decode_attention_int8")
     return out, cache_k, cache_v, k_scale, v_scale
 
 
@@ -266,7 +266,7 @@ def decode_attention_fp8(q, k_new, v_new, cache_k, cache_v, pos: int,
                   _build.ptr(cache_k), _build.ptr(cache_v), _build.ptr(pad_lens),
                   _build.ptr(out), b, C, h, kv, d, pos, sc, float(kv_scale),
                   _DTYPES[q.dtype])
-    LAUNCHES["decode_attention_fp8"] += 1
+    count_launch("decode_attention_fp8")
     return out, cache_k, cache_v
 
 
@@ -282,19 +282,29 @@ def decode_attention_sharded_supported(q_shape, cache_shape, *, tp: int = 1,
     kv heads dividing q heads, and head_dim a multiple of 8 (16 for int8
     and fp8) and at most 256.  The reference's TPU rules on the cache
     length (``C >= block_k``, ``C % block_k == 0``) do not apply: the H100
-    kernels take any length, so ``block_k`` is not read.  The reference's
-    ``kernel_fallback`` events (``emit_fallback=True``) wait for the
-    telemetry of ROADMAP A8 and raise."""
-    if emit_fallback:
-        raise NotImplementedError("decode_attention_sharded_supported(emit_fallback="
-                                  "True): kernel_fallback telemetry is not ported "
-                                  "yet (ROADMAP A8)")
-    if tp < 1 or (int8 and fp8) or len(q_shape) != 4 or len(cache_shape) != 4:
+    kernels take any length, so ``block_k`` is not read.  With
+    ``emit_fallback``, a refusal records the reference's ``kernel_fallback``
+    event (kernel ``decode_attention_sharded``, with its reason); the gate
+    adds no route: the seam still launches or raises."""
+    def _reject(reason: str, **detail) -> bool:
+        if emit_fallback:
+            from ..telemetry import kernel_fallback
+
+            kernel_fallback("decode_attention_sharded", reason, tp=tp, **detail)
         return False
+
+    if tp < 1:
+        return _reject("bad_tp")
+    if len(q_shape) != 4 or len(cache_shape) != 4:
+        return _reject("rank", q_rank=len(q_shape))
     b, s, h, d = q_shape
-    _, _, kv, dc = cache_shape
+    _, C, kv, dc = cache_shape
     if h % tp or kv % tp:
-        return False
+        return _reject("ragged_heads", h=h, kv=kv)
+    if int8 and fp8:
+        return _reject("conflicting_cache_dtypes")
     h, kv = h // tp, kv // tp
-    return (s == 1 and d == dc and kv >= 1 and h % kv == 0
-            and d % (16 if int8 or fp8 else 8) == 0 and d <= 256)
+    if not (s == 1 and d == dc and kv >= 1 and h % kv == 0
+            and d % (16 if int8 or fp8 else 8) == 0 and d <= 256):
+        return _reject("shard_shape", q_shard=[b, s, h, d], cache_len=C, block_k=block_k)
+    return True

@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import LAUNCHES, _build
+from . import _build, count_launch
 
 __all__ = ["flash_attention_plain", "flash_attention_fwd",
            "flash_attention_bwd_plain", "flash_attention_bwd",
@@ -86,7 +86,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   _build.ptr(pad_lens), _build.ptr(out), _build.ptr(lse),
                   b, sq, sk, hq, hkv, d, 1.0 / math.sqrt(d), int(causal),
                   _DTYPES[q.dtype])
-    LAUNCHES["flash_attention"] += 1
+    count_launch("flash_attention")
     return out, lse
 
 
@@ -185,7 +185,7 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, causal: bool = False
                   q.device, _build.ptr(q), _build.ptr(k), _build.ptr(v),
                   _build.ptr(out), _build.ptr(dout), _build.ptr(lse),
                   _build.ptr(dq), _build.ptr(delta), *_bwd_dims(q, k, causal))
-    LAUNCHES["flash_attention_bwd_dq"] += 1
+    count_launch("flash_attention_bwd_dq")
     return dq, delta
 
 
@@ -203,7 +203,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False
                   q.device, _build.ptr(q), _build.ptr(k), _build.ptr(v),
                   _build.ptr(dout), _build.ptr(lse), _build.ptr(delta),
                   _build.ptr(dk), _build.ptr(dv), *_bwd_dims(q, k, causal))
-    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    count_launch("flash_attention_bwd_dkv")
     return dk, dv
 
 

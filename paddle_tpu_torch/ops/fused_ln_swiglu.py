@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import LAUNCHES, _build
+from . import _build, count_launch
 
 __all__ = ["swiglu_plain", "swiglu_bwd_plain", "fused_swiglu", "fused_swiglu_bwd",
            "SwiGLUFunction", "adamw_scalars", "adamw_bc_table", "adamw_plain", "fused_adamw",
@@ -96,7 +96,7 @@ def fused_swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     _build.launch("fused_ln_swiglu", "ptt_swiglu_fwd", _SWIGLU_ARGTYPES, gate.device,
                   _build.ptr(gate), _build.ptr(up), _build.ptr(out), gate.numel(),
                   _DTYPES[gate.dtype])
-    LAUNCHES["swiglu"] += 1
+    count_launch("swiglu")
     return out
 
 
@@ -112,7 +112,7 @@ def fused_swiglu_bwd(gate: torch.Tensor, up: torch.Tensor, dy: torch.Tensor
     _build.launch("fused_ln_swiglu", "ptt_swiglu_bwd", _SWIGLU_BWD_ARGTYPES, gate.device,
                   _build.ptr(gate), _build.ptr(up), _build.ptr(dy), _build.ptr(dg),
                   _build.ptr(du), gate.numel(), _DTYPES[gate.dtype])
-    LAUNCHES["swiglu_bwd"] += 1
+    count_launch("swiglu_bwd")
     return dg, du
 
 
@@ -244,7 +244,7 @@ def fused_adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tens
                   lr32, bc1, bc2, beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
                   float(np.float32(lr32) * np.float32(weight_decay)), int(decay),
                   _DTYPES[p.dtype], _DTYPES[out.dtype] if out is not None else 0)
-    LAUNCHES["adamw"] += 1
+    count_launch("adamw")
     FORMS["host"] += 1
     return p, m, v
 
@@ -303,7 +303,7 @@ def fused_adamw_guarded(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: to
                   float(np.float32(lr32) * np.float32(weight_decay)), int(decay),
                   _DTYPES[p.dtype], _DTYPES[out.dtype] if out is not None else 0,
                   ok.data_ptr(), t.data_ptr(), bc.data_ptr())
-    LAUNCHES["adamw"] += 1
+    count_launch("adamw")
     FORMS["guarded"] += 1
     return p, m, v
 
@@ -380,7 +380,7 @@ def fused_add_layer_norm(x: torch.Tensor, residual: torch.Tensor, weight: torch.
                   _build.ptr(x), _build.ptr(residual), _build.ptr(weight), _build.ptr(bias),
                   _build.ptr(out), _build.ptr(s), _build.ptr(mu), _build.ptr(rstd),
                   x.numel() // h, h, float(eps), _DTYPES[x.dtype], _DTYPES[weight.dtype])
-    LAUNCHES["add_layer_norm"] += 1
+    count_launch("add_layer_norm")
     return out, s, mu, rstd
 
 
@@ -416,7 +416,7 @@ def fused_add_layer_norm_bwd(s: torch.Tensor, weight: torch.Tensor, mu: torch.Te
                   _build.ptr(dy), _build.ptr(dpre), _build.ptr(dx), _build.ptr(dw),
                   _build.ptr(db), _build.ptr(scratch), n, h, blocks, _DTYPES[s.dtype],
                   _DTYPES[weight.dtype])
-    LAUNCHES["add_layer_norm_bwd"] += 1
+    count_launch("add_layer_norm_bwd")
     return dx, dw, db
 
 

@@ -16,7 +16,7 @@ from typing import Tuple
 
 import torch
 
-from . import LAUNCHES, _build
+from . import _build, count_launch
 
 __all__ = ["rms_norm_plain", "rms_norm_bwd_plain", "fused_rms_norm",
            "fused_rms_norm_bwd", "RMSNormFunction"]
@@ -88,7 +88,7 @@ def fused_rms_norm(x: torch.Tensor, weight: torch.Tensor,
                   _build.ptr(x), _build.ptr(weight), _build.ptr(out),
                   _build.ptr(rstd), x.numel() // h, h, float(eps),
                   _DTYPES[x.dtype])
-    LAUNCHES["rms_norm"] += 1
+    count_launch("rms_norm")
     return out, rstd
 
 
@@ -122,7 +122,7 @@ def fused_rms_norm_bwd(x: torch.Tensor, weight: torch.Tensor, rstd: torch.Tensor
                   _build.ptr(x), _build.ptr(weight), _build.ptr(rstd),
                   _build.ptr(dy), _build.ptr(dx), _build.ptr(dw),
                   _build.ptr(scratch), n, h, blocks, _DTYPES[x.dtype])
-    LAUNCHES["rms_norm_bwd"] += 1
+    count_launch("rms_norm_bwd")
     return dx, dw
 
 

@@ -54,7 +54,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from . import LAUNCHES, _build, use_kernel
+from . import _build, count_launch, use_kernel
 from .flash_attention import (_DTYPES, flash_attention_bwd_dkv, flash_attention_bwd_dq,
                               flash_attention_bwd_plain, flash_attention_fwd,
                               flash_attention_plain)
@@ -106,7 +106,7 @@ def ring_merge(o: torch.Tensor, lse: torch.Tensor, o_i: torch.Tensor,
     _build.launch("ring_flash", "ptt_ring_merge", _MERGE_ARGTYPES, o.device,
                   _build.ptr(o), _build.ptr(lse), _build.ptr(o_i), _build.ptr(lse_i),
                   b * c * hq, c, hq, d, _DTYPES[o_i.dtype])
-    LAUNCHES["ring_merge"] += 1
+    count_launch("ring_merge")
     return o, lse
 
 

@@ -19,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from . import LAUNCHES, _build, export_route, exported_op, use_function, use_kernel
+from . import _build, count_launch, export_route, exported_op, use_function, use_kernel
 
 __all__ = ["rope_plain", "fused_rope", "fused_rope_bwd", "RopeFunction", "rotate"]
 
@@ -87,7 +87,7 @@ def fused_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
     if not q.is_cuda:
         return rope_plain(q, k, cos, sin, pos_ids)
     out = _launch(q, k, cos, sin, pos_ids, 1.0)
-    LAUNCHES["rope"] += 1
+    count_launch("rope")
     return out
 
 
@@ -99,7 +99,7 @@ def fused_rope_bwd(dq: torch.Tensor, dk: torch.Tensor, cos: torch.Tensor,
     if not dq.is_cuda:
         return rope_plain(dq, dk, cos, sin, pos_ids, sin_sign=-1.0)
     out = _launch(dq, dk, cos, sin, pos_ids, -1.0)
-    LAUNCHES["rope_bwd"] += 1
+    count_launch("rope_bwd")
     return out
 
 

@@ -30,12 +30,27 @@ environment variable:
 The engine runs where the model lies: the card, or the CPU for a model
 made with ``device="cpu"``.  Tensor-parallel decode is
 ``ServingEngine(model, tp=2)`` over ``decode_mesh``, ``shard_arenas`` and
-``shard_llama_params`` (``disagg.py``).  The fleet, the router, the
-autoscaler and the rest of disaggregated prefill are not ported yet
-(ROADMAP A8) and raise on use.
+``shard_llama_params`` (``disagg.py``).
+
+The fleet: :class:`ServingFrontend` routes across N replicas
+(:class:`Router`: least-loaded, deadline-aware spill), membership rides
+heartbeat leases, every replica ships its journal to the launcher's depot
+at the flush that gates emission, and a dead replica's work is fenced,
+folded and replayed on the survivors with the delivered high-water marks
+primed: every token reaches its client exactly once across a replica's
+death (``fleet.py``).  :class:`Autoscaler` scales a ``ReplicaPool`` on
+the same signals.  Disaggregated prefill: :class:`PrefillWorker` streams
+a prompt's pages through the depot and :class:`DisaggCoordinator` routes
+long prompts through it (``disagg.py``).
+
+``check_decode_donation`` lints a compiled XLA program; whether the eager
+port has a counterpart is ROADMAP A10's decision, and it raises naming it.
 """
 
-from .disagg import decode_mesh, shard_arenas, shard_llama_params  # noqa: F401
+from .disagg import (DisaggCoordinator, PrefillWorker,  # noqa: F401
+                     decode_mesh, default_min_prompt, pack_kv_frame,
+                     shard_arenas, shard_llama_params, take_prefilled,
+                     unpack_kv_frame)
 from .admission import (AdmissionController, CircuitBreaker, Deadline,  # noqa: F401
                         Overloaded, warming_retry_hint)
 from .engine import Request, ServingEngine  # noqa: F401
@@ -46,8 +61,13 @@ from .kv_quant import (DTYPE_BYTES, FP8_MAX, KV_DTYPES,  # noqa: F401
                        default_fp8_scale, dequantize_kv, dequantize_kv_fp8,
                        kv_cache_dtype, kv_page_bytes, kv_scale_page_bytes,
                        observe_kv_absmax, quantize_kv, quantize_kv_fp8)
-from .metrics import RequestClock, SLOMeter  # noqa: F401
+from .metrics import FleetMeter, RequestClock, SLOMeter  # noqa: F401
 from .prefix_cache import PrefixCache, default_prefix_pages  # noqa: F401
+from .router import ReplicaStatus, Router  # noqa: F401
+from .fleet import (EngineReplica, LocalKV, RemoteReplica,  # noqa: F401
+                    ReplicaFlags, ReplicaServer, ServingFrontend,
+                    TokenCollector, fold_depot_journal, run_replica)
+from .autoscaler import Autoscaler, AutoscalePolicy, FleetSignals  # noqa: F401
 
 __all__ = [
     "PagedKVPool", "OffloadPool", "PoolExhausted", "TRASH_PAGE",
@@ -55,25 +75,27 @@ __all__ = [
     "KV_DTYPES", "kv_cache_dtype", "quantize_kv", "dequantize_kv",
     "quantize_kv_fp8", "dequantize_kv_fp8", "default_fp8_scale", "FP8_MAX",
     "DTYPE_BYTES", "observe_kv_absmax", "kv_page_bytes", "kv_scale_page_bytes",
-    "RequestClock", "SLOMeter", "PrefixCache", "default_prefix_pages",
+    "RequestClock", "SLOMeter", "FleetMeter", "PrefixCache", "default_prefix_pages",
     "ServingJournal", "JournalState", "TokenSink",
     "AdmissionController", "CircuitBreaker", "Deadline", "Overloaded",
     "warming_retry_hint", "Request", "ServingEngine", "decode_mesh", "shard_arenas",
-    "shard_llama_params",
+    "shard_llama_params", "ReplicaStatus", "Router",
+    "EngineReplica", "LocalKV", "RemoteReplica", "ReplicaFlags",
+    "ReplicaServer", "ServingFrontend", "TokenCollector",
+    "fold_depot_journal", "run_replica",
+    "Autoscaler", "AutoscalePolicy", "FleetSignals",
+    "DisaggCoordinator", "PrefillWorker", "default_min_prompt",
+    "pack_kv_frame", "unpack_kv_frame", "take_prefilled",
 ]
 
-# the reference's exports that wait for the serving fleet (ROADMAP A8)
-_UNPORTED = frozenset({
-    "FleetMeter", "check_decode_donation", "ReplicaStatus", "Router", "EngineReplica",
-    "LocalKV", "RemoteReplica", "ReplicaFlags", "ReplicaServer", "ServingFrontend",
-    "TokenCollector", "fold_depot_journal", "run_replica", "Autoscaler", "AutoscalePolicy",
-    "FleetSignals", "DisaggCoordinator", "PrefillWorker", "default_min_prompt",
-    "pack_kv_frame", "take_prefilled", "unpack_kv_frame"})
+# the reference's export that lints a compiled XLA program (ROADMAP A10)
+_UNPORTED = frozenset({"check_decode_donation"})
 
 
 def __getattr__(name):
     if name in _UNPORTED:
         raise NotImplementedError(
-            f"serving.{name} is not ported yet (ROADMAP A8: the serving fleet, the router, "
-            "the autoscaler and disaggregated prefill)")
+            f"serving.{name} lints a compiled XLA decode program for donation; whether "
+            "the eager port has a counterpart is decided with ROADMAP A10 (compile/ and "
+            "analysis/)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -26,8 +26,8 @@ Three mechanisms, all consulted by :meth:`ServingEngine.submit` /
   Already-admitted requests keep being served — the breaker sheds *new*
   load, it never drops accepted work.
 
-The breaker's telemetry events (``serve_breaker_open``/``_close``) wait
-for the port of the telemetry layer (ROADMAP A8).
+The breaker's transitions are flight-recorder events
+(``serve_breaker_open`` / ``serve_breaker_close``), as in the reference.
 
 Env knobs: ``PADDLE_TPU_SERVE_MAX_QUEUE`` (default 64),
 ``PADDLE_TPU_SERVE_BREAKER_THRESHOLD`` (consecutive step failures before
@@ -42,6 +42,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 import os
+
+from ..telemetry import record_event
 
 __all__ = ["Overloaded", "Deadline", "CircuitBreaker", "AdmissionController",
            "warming_retry_hint"]
@@ -156,12 +158,14 @@ class CircuitBreaker:
             self.state = OPEN
             self.opened_at = self._now()
             self.open_count += 1
+            self._event("serve_breaker_open")
 
     def note_success(self) -> None:
         self.consecutive_failures = 0
         if self.state != CLOSED:
             self.state = CLOSED
             self.opened_at = None
+            self._event("serve_breaker_close")
 
     def allow(self) -> bool:
         """May a new request be admitted right now?  Flips open →
@@ -173,6 +177,10 @@ class CircuitBreaker:
             self.state = HALF_OPEN
             return True
         return False
+
+    def _event(self, name: str) -> None:
+        record_event(name, self.state, consecutive_failures=self.consecutive_failures,
+                     open_count=self.open_count)
 
     def retry_after_s(self) -> float:
         """Remaining cooldown (0 when not open)."""

@@ -77,10 +77,16 @@
   ``on_wedge`` (default: exit 101, so a Supervisor relaunches into
   :meth:`ServingEngine.recover`).
 
-Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: disaggregated prefill (``submit_prefilled``, ``prefill_export``, A8).
-The reference's chaos seams (``_faults.fire``) and telemetry events wait
-for A8.
+- **Disaggregated prefill** (:meth:`ServingEngine.prefill_export`,
+  :meth:`ServingEngine.submit_prefilled`): a prefill-tier engine fills a
+  prompt's pages and exports them as host frames (one dict a page, the
+  reference's format); a decode engine scatters them into its own pages
+  instead of running the prefill (``disagg.py``).
+- **Fleet hooks**: :meth:`ServingEngine.handback_queued` hands a draining
+  replica's queued requests back to the frontend (``fleet.py``); the
+  reference's chaos seams (``distributed.checkpoint.faults``: ``serve_pool``,
+  ``serve_prefill``, ``serve_decode``, ``slow_serve`` under
+  ``fault_scope``) and telemetry events are in place.
 
 Env knobs: ``PADDLE_TPU_SERVE_MAX_BATCH`` (rows, default 4),
 ``PADDLE_TPU_PAGE_TOKENS`` (page size, default 16),
@@ -121,7 +127,10 @@ from ..distributed.meta_parallel.mp_layers import member_sum
 from ..distributed.topology import build_mesh
 from ..generation.speculative import AdaptiveK, SpecConfig
 from ..models.llama import apply_rotary_at_positions
+from ..distributed.checkpoint import faults as _faults
 from ..nn import functional as F
+from ..telemetry import kernel_fallback, record_event as _event, tracing
+from ..telemetry.runtime import bump as _bump
 from .disagg import decode_mesh, shard_arenas, shard_llama_params
 from .admission import AdmissionController, Deadline, Overloaded, _env_float, _env_int
 from .journal import ServingJournal
@@ -136,12 +145,6 @@ __all__ = ["Request", "ServingEngine"]
 
 QUEUED, RUNNING, FINISHED, SHED = "queued", "running", "finished", "shed"
 _F32_MIN = torch.finfo(torch.float32).min
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"ServingEngine: {what} is not ported to paddle_tpu_torch yet "
-        f"(ROADMAP {item})")
 
 
 class Request:
@@ -180,6 +183,9 @@ class Request:
         # prefix cache at the LAST admission (reset on eviction)
         self.offloads = 0                     # host-RAM swap-outs suffered
         self.drafter = None                   # speculative proposer (or None)
+        self.kv_import = None                 # (first_token, frames) from a
+        # prefill-tier worker, or None: set at submit, consumed instead of
+        # the local prefill (disagg.py)
 
     @property
     def pos(self) -> int:
@@ -392,6 +398,7 @@ class ServingEngine:
         self._defer_lookahead = _env_int(
             "PADDLE_TPU_SERVE_DEFER_LOOKAHEAD", 4)
         self._defer_max = _env_int("PADDLE_TPU_SERVE_DEFER_MAX", 8)
+        self.fault_scope = ""        # this replica's chaos scope (fleet.py)
 
     # -- public API --------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 64,
@@ -400,7 +407,8 @@ class ServingEngine:
                rid: Optional[int] = None,
                delivered_tokens: Optional[List[int]] = None,
                age_s: float = 0.0,
-               trace_id: Optional[str] = None) -> int:
+               trace_id: Optional[str] = None,
+               kv_import=None) -> int:
         """Admit a request or refuse it.  Raises ``ValueError`` for a
         request the engine could NEVER serve (malformed, a known rid, or a
         worst-case page demand beyond the per-request budget or the whole
@@ -410,10 +418,15 @@ class ServingEngine:
         ``delivered_tokens`` / ``age_s``: a request replayed from elsewhere
         arrives with the tokens its client already saw (regenerated, not
         re-emitted) and the age its deadlines keep counting from.
-        ``trace_id``: its trace id (a fresh one is minted when absent)."""
-        trace_id = trace_id or os.urandom(8).hex()
+        ``trace_id``: its trace id (a fresh one is minted when absent).
+        ``kv_import``: ``(first_token, frames)`` of a prefill another engine
+        ran (:meth:`submit_prefilled`)."""
+        trace_id = tracing.mint(trace_id)
         r = Request(prompt, max_new_tokens, eos_token_id, rid=rid,
                     trace_id=trace_id)
+        # set before the request is visible to the scheduler: an imported
+        # request takes a full private allocation and skips prefix matching
+        r.kv_import = kv_import
         if rid is not None and (
                 rid in self._results or rid in self.shed or
                 any(q.rid == rid for q in list(self._queue)) or
@@ -458,13 +471,96 @@ class ServingEngine:
         self._work.set()
         return r.rid
 
-    def submit_prefilled(self, *args, **kwargs) -> int:
-        """Admit a request prefilled on a prefill-tier worker: not ported."""
-        raise _not_ported("disaggregated prefill (submit_prefilled)", "A8")
+    def submit_prefilled(self, prompt, first_token: int, kv_frames, *,
+                         max_new_tokens: int = 64,
+                         eos_token_id: Optional[int] = None,
+                         deadline: Optional[Deadline] = None,
+                         rid: Optional[int] = None,
+                         age_s: float = 0.0,
+                         trace_id: Optional[str] = None) -> int:
+        """Admit a request whose prefill ran on a prefill-tier worker:
+        ``kv_frames`` holds one host dict a prompt page (the
+        :meth:`prefill_export` format: torch tensors or numpy arrays, so a
+        frame the reference's engine exported imports here too) and
+        ``first_token`` the token that prefill chose.  Admission scatters
+        the frames into the pages instead of running the prefill, and
+        delivery starts at ``first_token``.  The journal records the whole
+        prompt, as a local submit would: a crash replay re-prefills
+        locally, token-exact."""
+        frames = list(kv_frames)
+        p = np.asarray(prompt, np.int32).reshape(-1)
+        need = self.pool.pages_for(len(p))
+        if len(frames) != need:
+            raise ValueError(
+                f"kv_frames covers {len(frames)} pages but the prompt "
+                f"needs {need} (page_tokens={self.page_tokens})")
+        return self.submit(prompt, max_new_tokens, eos_token_id,
+                           deadline=deadline, rid=rid, age_s=age_s,
+                           trace_id=trace_id,
+                           kv_import=(int(first_token), frames))
 
     def prefill_export(self, prompt):
-        """Prefill and export the pages for another engine: not ported."""
-        raise _not_ported("disaggregated prefill (prefill_export)", "A8")
+        """Run a standalone prefill and export its pages instead of
+        scheduling decode: ``(first_token, frames)``, one host dict a
+        prompt page (``k``/``v``, and ``ks``/``vs`` for int8 pages, each
+        ``[layers, page_tokens, ...]``).  The pages are allocated, filled
+        by the same prefill a local admission runs, copied out and freed:
+        nothing stays scheduled here."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError("empty prompt")
+        cap = min(self.pool.capacity, self.max_pages_per_seq)
+        need = self.pool.pages_for(len(prompt))
+        if need > cap:
+            raise ValueError(f"prompt needs {need} pages; this prefill engine takes "
+                             f"at most {cap}")
+        self._export_seq = getattr(self, "_export_seq", 0) + 1
+        key = ("__prefill_export__", self._export_seq)
+        self.pool.alloc(key, need)
+        try:
+            pages = self.pool.table(key)
+            if self._cp_accepts(len(prompt)):
+                logits = self._cp_prefill_run(prompt, pages)
+            else:
+                t = np.full((self.max_pages_per_seq,), TRASH_PAGE, np.int32)
+                t[:len(pages)] = pages
+                logits = self._prefill_chunks(prompt, t[None])
+            return int(np.argmax(logits)), self._export_pages(pages)
+        finally:
+            self.pool.free(key)
+
+    def handback_queued(self) -> List[dict]:
+        """Drain hook: remove every queued request that has not started
+        (nothing delivered, no pages held) and return its descriptor, so
+        a fleet frontend can submit it on another replica.  Each one is
+        journaled as shed (``drained``), so that a later death of this
+        replica does not resurrect work that moved.  Active requests stay:
+        a draining replica finishes what it started."""
+        out: List[dict] = []
+        for r in list(self._queue):
+            if r.delivered > 0:
+                continue   # an evictee mid-replay: let the drain finish it here
+            try:
+                self._queue.remove(r)
+            except ValueError:
+                continue   # the serve thread admitted it meanwhile
+            # read the clock before shedding: meter.shed retires it
+            age_s = max(0.0, self._now() - self.meter.clock(r.rid).submit_t)
+            self._shed(r, "drained")
+            out.append({"rid": r.rid,
+                        "prompt": [int(x) for x in r.prompt],
+                        "max_new_tokens": r.max_new_tokens,
+                        "eos_token_id": r.eos_token_id,
+                        "deadline": None if r.deadline is None else r.deadline.to_doc(),
+                        "age_s": age_s,
+                        "trace_id": r.trace_id})
+        if out and self.journal is not None:
+            try:
+                self.journal.flush()
+            except OSError:
+                pass   # the shed records stay pending; the next step retries
+        self.meter.set_queue_depth(len(self._queue))
+        return out
 
     def recover(self) -> dict:
         """Replay the journal into this (fresh) engine after a crash:
@@ -511,6 +607,8 @@ class ServingEngine:
                 "shed": len(st.shed), "truncated": st.truncated,
                 "known_rids": sorted(st.requests)}
         if st.requests:
+            _event("serve_replay", str(self.journal.root), **info)
+            _bump("serving.requests_replayed_total", replayed)
             self._write_resume_report(info)
         if self._queue:
             self.meter.set_queue_depth(len(self._queue))
@@ -591,6 +689,8 @@ class ServingEngine:
         """Watchdog expiry: the journal was flushed at the end of the last
         completed step, so exiting loses nothing the client saw.  Exit 101
         hands control to the Supervisor's relaunch → :meth:`recover`."""
+        _event("serve_wedged", str(info.get("name")),
+               elapsed_s=round(float(info.get("elapsed", 0.0)), 3))
         sys.stderr.write(f"[serving] step {info.get('name')!r} wedged for "
                          f"{float(info.get('elapsed', 0.0)):.1f} s; exiting 101\n")
         sys.stderr.flush()
@@ -619,9 +719,12 @@ class ServingEngine:
         self.steps_total += 1
         try:
             did_work = self._step_inner()
-        except OSError:
+        except OSError as e:
             self._step_failures += 1
             self.admission.breaker.note_failure()
+            _event("serve_step_error", type(e).__name__, error=repr(e)[:200],
+                   consecutive=self._step_failures)
+            _bump("serving.step_failures_total")
             if self._step_failures >= self._max_step_failures:
                 raise
             return
@@ -683,7 +786,8 @@ class ServingEngine:
         less the prefix cache's longest match (which never covers the last
         prompt token, so at least one page is always fresh)."""
         total = self.pool.pages_for(len(r.prompt) + 1)
-        if self.prefix is None:
+        if self.prefix is None or r.kv_import is not None:
+            # an imported request carries frames for every prompt page
             return total, []
         pages, _ = self.prefix.match(r.prompt)
         return total - len(pages), pages
@@ -710,6 +814,7 @@ class ServingEngine:
 
     def _admit_one(self, r: Request, need: int, rows: List[int],
                    *, from_head: bool, cached=()) -> None:
+        _faults.fire("serve_pool", f"admit_rid{r.rid}")
         if from_head:
             self._queue.popleft()
         else:
@@ -719,7 +824,7 @@ class ServingEngine:
         if cached:
             self.pool.adopt(r.rid, cached)
         r.cached_tokens = len(cached) * self.page_tokens
-        if self.prefix is not None:
+        if self.prefix is not None and r.kv_import is None:
             self.prefix.note(bool(cached), n_tokens=r.cached_tokens)
         self.pool.alloc(r.rid, need)
         r.row = rows.pop(0)
@@ -919,6 +1024,7 @@ class ServingEngine:
         need = (r.pos + max(int(n_tok), 1) - 1) // self.page_tokens + 1
         while len(self.pool.table(r.rid)) < need:
             if self.pool.can_alloc(1):
+                _faults.fire("serve_pool", f"page_rid{r.rid}")
                 self.pool.alloc(r.rid, 1)
                 continue
             live = [x for x in self._active.values() if x.state == RUNNING]
@@ -977,6 +1083,12 @@ class ServingEngine:
         return logits[0, 0].float().cpu().numpy()
 
     def _prefill(self, r: Request) -> None:
+        if r.kv_import is not None:
+            if self.cp > 1:
+                self._cp_refused("kv_import", rid=str(r.rid))
+            self._import_kv(r)
+            return
+        _faults.fire("serve_prefill", f"rid{r.rid}")
         n_chunks = -(-len(r.prompt) // self.page_tokens)
         # a prefix hit adopted chunks [0, c0) already filled; the match cap
         # keeps c0 < n_chunks, so the last token's logits are computed
@@ -1000,24 +1112,54 @@ class ServingEngine:
             r.drafter.begin([int(t) for t in r.prompt])
             r.drafter.observe([tok])
 
+    def _import_kv(self, r: Request) -> None:
+        """Disaggregated admission: scatter the page frames a prefill-tier
+        worker exported into this engine's pages, then deliver the first
+        token its prefill chose.  The same prefill fills the same pages,
+        so an eviction replay (the request keeps ``kv_import`` and
+        re-imports) and a crash replay (a local prefill from the journaled
+        prompt) are both token-exact."""
+        _faults.fire("serve_prefill", f"rid{r.rid}")
+        first_tok, frames = r.kv_import
+        dtypes = {key: arrs[0].dtype for key, arrs in self._arenas.items()}
+        self._import_pages(self.pool.table(r.rid)[:len(frames)],
+                           [{key: _frame_plane(f[key], dtypes[key]) for key in dtypes}
+                            for f in frames])
+        tok = int(first_tok)
+        r.generated.append(tok)
+        self.meter.first_token(r.rid)
+        self._deliver(r, tok)
+        if self.spec is not None:
+            r.drafter = self.spec.make_drafter()
+            r.drafter.begin([int(t) for t in r.prompt])
+            r.drafter.observe([tok])
+        _event("serve_kv_import", str(r.rid), pages=len(frames), trace=r.trace_id)
+
     # -- context-parallel prefill ---------------------------------------------
+    def _cp_refused(self, reason: str, **detail) -> None:
+        """Count a refusal of the CP prefill in ``cp_fallbacks`` and record
+        the reference's ``kernel_fallback("serving_cp_prefill", reason)``
+        event."""
+        self.cp_fallbacks[reason] = self.cp_fallbacks.get(reason, 0) + 1
+        kernel_fallback("serving_cp_prefill", reason, **detail)
+
     def _cp_accepts(self, n_prompt: int, *, cached_tokens: int = 0) -> bool:
         """Gate of the CP prefill; each refusal is counted by reason in
         ``cp_fallbacks``.  ``prefix_cached``: the ring rewrites every page
         of the prompt, which would overwrite pages other requests share and
         recompute the cached prefix.  ``short_prompt``: fewer page-chunks
-        than ring members, so some members would hold only padding.  The
-        reference's ``kv_import`` reason waits for disaggregated prefill
-        (A8)."""
+        than ring members, so some members would hold only padding.  (An
+        imported request's refusal, ``kv_import``, is counted where it is
+        admitted: its pages come filled.)"""
         if self.cp <= 1:
             return False
+        n_chunks = -(-n_prompt // self.page_tokens)
         if cached_tokens > 0:
-            reason = "prefix_cached"
-        elif -(-n_prompt // self.page_tokens) < self.cp:
-            reason = "short_prompt"
+            self._cp_refused("prefix_cached", cached_tokens=cached_tokens)
+        elif n_chunks < self.cp:
+            self._cp_refused("short_prompt", n_chunks=n_chunks, cp=self.cp)
         else:
             return True
-        self.cp_fallbacks[reason] = self.cp_fallbacks.get(reason, 0) + 1
         return False
 
     def _cp_prefill_run(self, prompt, pages) -> np.ndarray:
@@ -1116,6 +1258,8 @@ class ServingEngine:
             for r in list(self._active.values()):
                 self._retire_if_done(r)
             return
+        _faults.fire("serve_decode", f"step{self.steps_total}")
+        _faults.fire("slow_serve", f"{self.fault_scope}/decode")
         logits = self._forward(self._tensor(tokens), self._tensor(positions),
                                self._tensor(tables), self._tensor(n_tok))
         logits = logits.float().cpu().numpy()               # [R, S, V]
@@ -1188,6 +1332,14 @@ class ServingEngine:
         if self._on_token is not None:
             for rid, idx, tok in self._pending_delivery:
                 self._on_token(rid, idx, tok)
+        if self._pending_delivery:
+            # one deliver span a request a flush: the trace shows when its
+            # tokens became visible, the journal holds each token
+            per_rid: Dict[int, int] = {}
+            for rid, _idx, _tok in self._pending_delivery:
+                per_rid[rid] = per_rid.get(rid, 0) + 1
+            for rid, n in per_rid.items():
+                _event("serve_deliver", str(rid), tokens=n, trace=self.meter.trace_of(rid))
         self._pending_delivery.clear()
 
     # -- the forward -------------------------------------------------------
@@ -1318,6 +1470,19 @@ class ServingEngine:
 def _raw(t: torch.Tensor) -> torch.Tensor:
     """``t`` as bytes where torch indexes no e4m3 (fp8 pages)."""
     return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def _frame_plane(x, dtype: torch.dtype) -> torch.Tensor:
+    """One plane of an imported page frame as a host tensor of the arena's
+    dtype: a torch tensor as it is, or a numpy array (the reference's
+    frames, bf16 and e4m3 as ``ml_dtypes``), whose values cross through
+    f32, which holds every bf16, e4m3 and int8 value exactly."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype)
+    x = np.asarray(x)
+    if x.dtype.kind in "iu":
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dtype)
 
 
 def _host_run(ts: List[torch.Tensor]) -> torch.Tensor:

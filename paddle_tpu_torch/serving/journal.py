@@ -28,8 +28,9 @@ same stream, and the journal says where the client's high-water mark was).
 append-only JSONL of ``(rid, idx, token)`` that reloads its own high-water
 marks on restart and drops re-emissions at or below them.
 
-The reference also counts corrupt segments in its telemetry layer (ROADMAP
-A8): here ``JournalState.truncated`` says that the fold stopped early.
+A corrupt segment is counted in the telemetry layer
+(``serving.journal_corrupt_segments``, a ``journal_corrupt_segment``
+event), and ``JournalState.truncated`` says that the fold stopped early.
 """
 
 from __future__ import annotations
@@ -41,6 +42,8 @@ import time
 from typing import Dict, List, Optional, Set
 
 from ..distributed.checkpoint.storage import read_bytes, write_bytes
+from ..telemetry import record_event
+from ..telemetry.runtime import bump
 
 __all__ = ["ServingJournal", "JournalState", "TokenSink"]
 
@@ -237,6 +240,8 @@ class ServingJournal:
                 # next, and the SECOND crash would lose all work accepted
                 # after the first recovery.
                 st.truncated = True
+                record_event("journal_corrupt_segment", os.path.basename(path))
+                bump("serving.journal_corrupt_segments")
                 for later in segs[i:]:
                     try:
                         os.replace(later, later + ".quarantined")

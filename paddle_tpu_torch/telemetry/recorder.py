@@ -12,7 +12,8 @@ records a ``step`` event a step, and the checkpoint (saves, loads,
 retries, injected faults, snapshots, resumes, preemption exits) records
 its own, and so do the elastic and health layers (the guard, the SDC and
 straggler ladders, the fault domain, the supervisors, the launcher's
-watch loop); the collectives' events arrive with ROADMAP A8.
+watch loop), the collectives, the watchdog, and the serving engine, fleet
+and autoscaler (each request's spans carry its trace id, ``tracing.py``).
 
 Ring size: ``PADDLE_TPU_FLIGHT_RECORDER_SIZE`` (default 512). Dump dir:
 ``PADDLE_TPU_FLIGHT_RECORDER_DIR``, else ``PADDLE_TPU_EPOCH_DIR``, else

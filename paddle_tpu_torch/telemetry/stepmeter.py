@@ -29,10 +29,10 @@ synchronises before it calls ``step()``.  ``health_guard`` (a
 grad_norm=...)``'s values, driving its host-side spike detector (the
 eager-loop twin of ``TrainStep``'s device probe: attach the guard to one
 of the two, or anomalies count twice).  The
-summary's ``overlap_fraction`` (the measured overlap of the traced
-programs, which ``distributed/overlap/measure.py`` measures) waits for
-the traced programs of ROADMAP A8; until then the summary has none, as
-the reference's has none without a traced program.
+summary's ``overlap_fraction`` is the wire-byte-weighted mean of the
+overlap fractions measured for the registered traced programs
+(``distributed/overlap/measure.py`` measures them); it is absent while
+none is measured, as in the reference.
 """
 
 from __future__ import annotations
@@ -128,6 +128,22 @@ class StepMeter:
     @staticmethod
     def _coll_totals() -> Dict[str, float]:
         return {k: v["bytes"] for k, v in collective_stats().items()}
+
+    @staticmethod
+    def _overlap_fraction():
+        """Wire-byte-weighted mean of the MEASURED overlap fractions
+        attached to registered TracedPrograms (None when nothing measured
+        one — the meter never guesses)."""
+        from .collectives import traced_programs
+
+        num = den = 0.0
+        for prog in traced_programs().values():
+            if prog.overlap_fraction is None:
+                continue
+            w = max(prog.wire_bytes_per_execution(), 1.0)
+            num += prog.overlap_fraction * w
+            den += w
+        return (num / den) if den else None
 
     def begin(self) -> None:
         """Re-arm the step timer (e.g. after a pause); optional — the
@@ -274,6 +290,9 @@ class StepMeter:
         out["hbm_live_max_gb"] = self._hbm_live_max_gb
         out["collective_bytes"] = dict(self._coll_agg)
         out["steps_skipped"] = self.steps_skipped
+        frac = self._overlap_fraction()
+        if frac is not None:
+            out["overlap_fraction"] = round(frac, 4)
         if self._first_loss is not None:
             out["first_loss"] = self._first_loss
             out["final_loss"] = self._last_loss

@@ -13,6 +13,7 @@ compared (f32: rtol 1e-6; results of exact arithmetic exactly).  The
 multi-process mode runs in ``test_torch_launch.py``.
 """
 
+import json
 import threading
 import time
 
@@ -529,7 +530,10 @@ class TestWatchdog:
             wd.stop()
         assert [i["name"] for i in fired] == ["wedged"] and wd.timeout_count == 1
         assert fired[0]["elapsed"] >= 0.2 and "--- thread" in fired[0]["stacks"]
-        assert fired[0]["flight_recorder_dump"] == ""
+        # the flight recorder's dump (A8), its last event the hung watch
+        with open(fired[0]["flight_recorder_dump"]) as f:
+            last = json.load(f)["events"][-1]
+        assert (last["kind"], last["name"]) == ("watchdog_timeout", "wedged")
 
     def test_silent_on_a_released_watch(self):
         fired = []

@@ -285,8 +285,10 @@ class TestDetectorWiring:
         wd.start()
         try:
             fd.poison("rank_exit", culprit=0)
-            assert _wait_for(lambda: fd.aborted, timeout=5)
-            assert aborts and aborts[0]["culprit"] == 0
+            # ``aborted`` flips before the recorder dump and the handler run
+            # on the watchdog's thread: wait for the handler itself
+            assert _wait_for(lambda: aborts, timeout=5)
+            assert fd.aborted and aborts[0]["culprit"] == 0
         finally:
             wd.stop()
             fd.stop()

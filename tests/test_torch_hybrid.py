@@ -199,7 +199,7 @@ class TestFleet:
         s.gradient_merge, s.gradient_merge_configs = True, {"k_steps": 2, "avg": False}
         dist.fleet.init(is_collective=True, strategy=s, devices=["cpu"])
         model = dist.fleet.distributed_model(LlamaForCausalLM(llama_tiny(), device="cpu"))
-        assert model.config.recompute and next(model.parameters()).dtype == torch.bfloat16
+        assert model.config.recompute and next(iter(model.parameters())).dtype == torch.bfloat16
         opt = dist.fleet.distributed_optimizer(AdamW(1e-3, parameters=model.parameters()))
         assert (opt._sharding_stage, opt._multi_precision, opt._gradient_merge_k,
                 opt._gradient_merge_avg) == (2, True, 2, False)

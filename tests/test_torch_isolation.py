@@ -76,7 +76,7 @@ def test_cpu_only_when_asked(no_cuda):
         .lm_head.weight.device.type == "cpu"
     assert ptt.set_device("cpu") == torch.device("cpu")
     m = LlamaForCausalLM(llama_tiny(num_hidden_layers=1))
-    assert next(m.parameters()).device.type == "cpu"
+    assert next(iter(m.parameters())).device.type == "cpu"
     ptt.set_device(None)
     with pytest.raises(RuntimeError):
         ptt.get_device()

@@ -16,9 +16,10 @@ package, on the CPU (the counterparts of ``test_serving_resilience.py``'s
 - The reference injects storage and step failures through its chaos seam
   (``faults.inject``), which waits for ROADMAP A7; here the same failures
   come through ``monkeypatch``: a storage open that fails N times, or an
-  engine method that raises.  The reference's telemetry events and
-  Prometheus gauges wait for A8; the counters they narrate are read from
-  the meter instead.
+  engine method that raises.  The counters the reference's telemetry
+  events and Prometheus gauges narrate are read from the meter here (the
+  telemetry itself is held by ``test_torch_tracing.py`` and
+  ``test_torch_telemetry.py``).
 
 Engine sizes are explicit: ``tests/conftest.py`` pins the serving
 environment variables for the whole suite.

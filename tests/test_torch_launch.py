@@ -13,6 +13,7 @@ process holding its shard, against one process on the whole weights; and
 stages 0-2 and the collective-matmul ring across them.
 Every launch has its own timeout of at most 120 s."""
 
+import importlib
 import os
 import subprocess
 import sys
@@ -480,19 +481,21 @@ class TestUnported:
         (["x.py"], {"PADDLE_TPU_FAULT_DOMAIN": "0"}, "off"),
     ], ids=["serve", "fault_domain", "fault_domain_env", "fault_domain_env_off"])
     def test_refused(self, monkeypatch, tmp_path, argv, env, item):
-        """Serving mode (A8) refuses to start; the fault domain (A7b) is
-        ported, on unless PADDLE_TPU_FAULT_DOMAIN is 0/false, as in the
-        reference."""
+        """Serving mode (A8) and the fault domain (A7b) are ported: ``--mode
+        serve`` parses and nothing refuses it any more; the fault domain is
+        on unless PADDLE_TPU_FAULT_DOMAIN is 0/false, as in the reference."""
         from paddle_tpu_torch.distributed.launch.main import _parse
 
         for k, v in env.items():
             monkeypatch.setenv(k, v)
+        launch_main = importlib.import_module("paddle_tpu_torch.distributed.launch.main")
+
         if item in ("on", "off"):
             assert _parse(argv).fault_domain == item
             return
-        with pytest.raises(NotImplementedError, match=item):
-            launch(["--log_dir", str(tmp_path / "log"), *argv])
-        assert not (tmp_path / "log").exists()
+        assert _parse(argv).mode == "serve"
+        assert not hasattr(launch_main, "_refuse_unported")
+        assert callable(launch_main._serve_pod)
 
 
 _SNAP_PAYLOAD = textwrap.dedent("""

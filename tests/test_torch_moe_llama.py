@@ -56,6 +56,7 @@ from paddle_tpu_torch.serving import ServingEngine
 from paddle_tpu_torch.serving.engine import Request
 
 torch.set_num_threads(1)
+_DEFAULT_FLAGS = dict(ptt.get_flags())   # at import, before any test sets one
 
 LOGITS = dict(rtol=1e-4, atol=1e-5)
 LOSS = dict(rtol=1e-4, atol=0)
@@ -82,6 +83,27 @@ def pair(request):
     jm, tm = _pair(0, **CONFIGS[request.param])
     jm.eval(), tm.eval()
     return jm, tm
+
+
+@pytest.fixture(autouse=True)
+def _numerics_pinned():
+    """The process state a bit-exact comparison reads, pinned for each test
+    and restored after it: one intra-op thread, grad mode on, f32 default
+    dtype, no CPU autocast, the port's flags at their defaults.  An earlier
+    test file of the same worker may leave any of them changed."""
+    saved = (torch.get_num_threads(), torch.is_grad_enabled(), torch.get_default_dtype(),
+             torch.is_autocast_enabled("cpu"), dict(ptt.get_flags()))
+    torch.set_num_threads(1)
+    torch.set_grad_enabled(True)
+    torch.set_default_dtype(torch.float32)
+    torch.set_autocast_enabled("cpu", False)
+    ptt.set_flags(_DEFAULT_FLAGS)
+    yield
+    torch.set_num_threads(saved[0])
+    torch.set_grad_enabled(saved[1])
+    torch.set_default_dtype(saved[2])
+    torch.set_autocast_enabled("cpu", saved[3])
+    ptt.set_flags(saved[4])
 
 
 @pytest.fixture(autouse=True)

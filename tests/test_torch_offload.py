@@ -185,7 +185,7 @@ class TestForcedRoute:
         tm_r, opt_r, _, res = _port_run(hcg, stage, False, batches, amp=True, flags=flags)
         tm_o, opt_o, _, off = _port_run(hcg, stage, True, batches, amp=True, flags=flags)
         assert off == res
-        assert next(tm_o.parameters()).dtype == torch.bfloat16
+        assert next(iter(tm_o.parameters())).dtype == torch.bfloat16
         for (name, a), b in zip(tm_o.state_dict().items(), tm_r.state_dict().values()):
             assert torch.equal(a, b), name
         sd_o, sd_r = opt_o.state_dict(), opt_r.state_dict()

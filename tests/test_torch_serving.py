@@ -466,10 +466,12 @@ class TestEngine:
         eng = ServingEngine(pair[1], **ENGINE)
         with pytest.raises(ValueError, match="donation lint"):
             ServingEngine(pair[1], lint=True, **ENGINE)
-        with pytest.raises(NotImplementedError, match="A8"):
+        # disaggregated prefill (A8) is ported: a frame list that does not
+        # cover the prompt is refused, and an export gives one frame a page
+        with pytest.raises(ValueError, match="covers 0 pages"):
             eng.submit_prefilled(np.arange(1, 4), 1, [])
-        with pytest.raises(NotImplementedError, match="A8"):
-            eng.prefill_export(np.arange(1, 4))
+        first, frames = eng.prefill_export(np.arange(1, 4))
+        assert len(frames) == 1 and set(frames[0]) == set(eng._arenas)
         with pytest.raises(RuntimeError, match="journal-backed"):
             eng.recover()
         # the decode-loop watchdog (A7b) is ported: an idle run returns

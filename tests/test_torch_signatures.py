@@ -497,12 +497,20 @@ def test_c3_calls():
     ("paddle_tpu_torch.telemetry.blackbox", "A8"),
     ("paddle_tpu_torch.vision.ops", "A10"),
     ("paddle_tpu_torch.serving.Router", "A8"), ("paddle_tpu_torch.device.Stream", "A10"),
+    ("paddle_tpu_torch.serving.check_decode_donation", "A10"),
     ("paddle_tpu_torch.telemetry.prometheus_text", "A8")])
 def test_unported_name_raises_with_its_item(path, item):
+    """A name whose item is still open raises naming it; the A8 names
+    (ported) resolve to their reference twins' kinds."""
     mod_name, name = path.rsplit(".", 1)
     mod = importlib.import_module(mod_name)
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(mod, name)
+    if item == "A8":
+        ref = importlib.import_module("paddle_tpu" + mod_name[len("paddle_tpu_torch"):])
+        mine, theirs = getattr(mod, name), getattr(ref, name)
+        assert type(mine) is type(theirs) or (callable(mine) and callable(theirs)), path
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            getattr(mod, name)
     with pytest.raises(AttributeError):
         getattr(mod, "no_such_name_anywhere")
 
@@ -535,23 +543,9 @@ def test_attached_methods_are_the_port_functions():
 # The method walk: every public method of every twin class (ROADMAP §C5-C8)
 # ---------------------------------------------------------------------------
 # a twin class that is a torch.nn.Module and not the port's nn.Layer: the
-# reference's Layer methods (sublayers, clear_gradients, include_sublayers=,
-# ...) are torch's there, or missing (ROADMAP §C8, open)
-_C8 = ("a torch.nn.Module, not the port's nn.Layer: the reference's Layer methods are "
-       "torch's or missing here (ROADMAP §C8, open)")
-LAYER_DEPARTURES = {
-    **{f"paddle_tpu_torch.models.{mod}.{name}": _C8 for mod, names in (
-        ("gpt", ("GPTBlock", "GPTModel", "GPTForCausalLM")),
-        ("llama", ("LlamaModel", "LlamaForCausalLM")),
-        ("llama_parallel", ("HybridLlamaAttention", "HybridLlamaMLP",
-                            "HybridLlamaDecoderLayer", "LlamaForCausalLMHybrid")))
-       for name in names},
-    "paddle_tpu_torch.distributed.engine.ScannedLayers": _C8,
-    "paddle_tpu_torch.distributed.engine.GPipeLayers": _C8,
-    "paddle_tpu_torch.distributed.pipeline_1f1b.OneFOneBLayers": _C8,
-    "paddle_tpu_torch.distributed.meta_parallel.pp_layers.PipelineLayer": _C8,
-    "paddle_tpu_torch.jit.TranslatedLayer": _C8,
-}
+# reference's Layer methods are torch's or missing there (ROADMAP §C8, closed:
+# none is left)
+LAYER_DEPARTURES = {}
 
 # one method of a twin class that departs from the reference's, and why
 METHOD_WALK_DEPARTURES = {
@@ -559,13 +553,6 @@ METHOD_WALK_DEPARTURES = {
         "analysis linter; the eager step has none (ROADMAP A10: compile/ and analysis/)",
     "paddle_tpu_torch.distributed.engine.DistributedTrainStep.lower": "as TrainStep.lower "
         "(ROADMAP A10)",
-    "paddle_tpu_torch.serving.ServingEngine.handback_queued": "the serving fleet's "
-        "hand-back (ROADMAP A8)",
-    "paddle_tpu_torch.serving.ServingEngine.submit": "submit(kv_import=) takes a "
-        "disaggregated prefill's pages (ROADMAP A8)",
-    "paddle_tpu_torch.serving.ServingEngine.submit_prefilled": "disaggregated prefill "
-        "(ROADMAP A8); it raises naming the item",
-    "paddle_tpu_torch.serving.SLOMeter.hist_docs": "the Prometheus histograms (ROADMAP A8)",
     "paddle_tpu_torch.tensor.Tensor.tpu": "moves an array to a TPU: JAX only",
     "paddle_tpu_torch.tensor.Tensor.backward": "torch's first parameter is gradient; a "
         "positional call means the same, and grad_tensor= is taken as a keyword (C7)",

@@ -86,7 +86,9 @@ def test_records_jsonl_and_summary_match_reference(scenario, tmp_path, monkeypat
     assert got[3].steps_skipped == want[3].steps_skipped
     assert got[3].flops_per_step == want[3].flops_per_step
     delta = {k: tc1[k] - tc0.get(k, 0.0) for k in tc1 if "last" not in k}
-    jdelta = {k: jc1[k] - jc0.get(k, 0.0) for k in tc1 if "last" not in k}
+    # a gauge an earlier test of the worker left in one package only (the
+    # port's fault domain, say) reads as no change on the other side
+    jdelta = {k: jc1.get(k, 0.0) - jc0.get(k, 0.0) for k in tc1 if "last" not in k}
     assert delta == jdelta
     assert tc1["mfu_last"] == jc1["mfu_last"]
 
@@ -214,16 +216,25 @@ def test_flight_recorder_gets_each_step():
     assert (ev["kind"], ev["name"], ev["step"], ev["loss"]) == ("step", "fr", 1, 1.5)
 
 
-UNPORTED = sorted(tel._UNPORTED)
+# the names that raised naming A8 until the rest of telemetry was ported
+UNPORTED = sorted({
+    "record_collective", "total_collective_bytes", "ici_cost_estimate",
+    "ring_wire_bytes", "TracedProgram", "register_traced_program",
+    "traced_programs", "ICI_GBPS_ONEWAY", "prometheus_text", "render_histogram",
+    "TRACE_KEY", "mint", "trace_spans", "trace_ids", "trace_coverage",
+    "chrome_trace_events", "Histogram", "MemoryDepot", "MetricsPusher",
+    "local_snapshot", "rollup", "prometheus_rollup_text", "start_metrics_pusher",
+    "blackbox"})
 
 
 @pytest.mark.parametrize("name", UNPORTED)
 def test_unported_exports_raise_naming_a8(name):
-    assert name in jtel.__all__
-    with pytest.raises(NotImplementedError, match="A8"):
-        getattr(tel, name)
+    """A8 is ported: each name the reference exports resolves in the port
+    (none raises any more), with its reference counterpart's kind."""
+    assert name in jtel.__all__ and name in tel.__all__
+    mine, theirs = getattr(tel, name), getattr(jtel, name)
+    assert type(mine) is type(theirs) or (callable(mine) and callable(theirs)), name
 
 
 def test_ported_exports_are_the_reference_names():
-    assert set(tel.__all__) <= set(jtel.__all__)
-    assert set(tel.__all__) | set(tel._UNPORTED) == set(jtel.__all__)
+    assert set(tel.__all__) == set(jtel.__all__)

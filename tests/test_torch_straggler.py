@@ -19,8 +19,9 @@ the framework-free modules (``distributed/retry``, ``fleet/fault_domain``,
   probe-confirmed sticky chip-slow and quarantined, and the relaunched
   3-rank gang's trajectory is step for step the analytic fault-free run.
   The reference's transient and link chaos runs are left out (their
-  units above cover the verdicts); serving's latency-outlier ejection
-  waits for the serving fleet (ROADMAP A8).
+  units above cover the verdicts); serving's latency-outlier ejection is
+  held by ``test_torch_autoscale.py`` (the reference's
+  ``test_straggler_serving.py``).
 """
 
 import json

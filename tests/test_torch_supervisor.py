@@ -672,8 +672,11 @@ class TestMultiNodeLaunchRendezvous:
         ranks = set()
         for i in range(2):
             log = tmp_path / f"log{i}"
-            files = os.listdir(log)
+            # the worker's log; beside it the launcher's own flight-recorder
+            # dump and the merged black box (the observability epilogue)
+            files = [f for f in os.listdir(log) if f.startswith("workerlog")]
             assert len(files) == 1
+            assert "blackbox_merged.json" in os.listdir(log)
             content = (log / files[0]).read_text()
             assert "WORKER_OK" in content, content
             ranks.add(content.split()[1])

@@ -275,5 +275,5 @@ def test_sharded_decode_gate():
     assert ok((4, 1, 8, 64), (4, 128, 4, 64), tp=2)              # C < block_k: the departure
     assert not jax_ok((4, 1, 8, 64), (4, 128, 4, 64), tp=2)
     assert not ok((4, 1, 8, 72), (4, 256, 4, 72), tp=2, int8=True)   # int8 d % 16
-    with pytest.raises(NotImplementedError, match="A8"):
-        ok((4, 1, 8, 64), (4, 256, 4, 64), tp=2, emit_fallback=True)
+    # the kernel_fallback events (A8) are ported: an accepted shape records none
+    assert ok((4, 1, 8, 64), (4, 256, 4, 64), tp=2, emit_fallback=True)
